@@ -1,0 +1,166 @@
+#!/usr/bin/env python3
+"""Where the time goes on the port's main path, on one NVIDIA card.
+
+    python3 scripts/profile_port.py [--out build/profile_port.json]
+
+Serves the ``chip_smoke.py`` phase-4 request set (qwen3-0.6b at full
+width, 28 layers, bf16, random weights from seed 0; n_slots=4,
+max_len=2048; 8 requests with 16-512 token prompts, max_new=32) three
+ways through the Router — two containers polled in threads (the main
+path), two polled one after the other, and one container — and reports
+wall time, generated tok/s and ttfc p50 for each. Then it times one
+4-slot decode step (host wall with a synchronize, and the device time
+of its kernels from ``torch.profiler``) and profiles one engine serving
+four of the requests: device-busy share of the wall time, kernel
+launches per decode step, and the operations with the most host time.
+Needs a CUDA device; prints a JSON summary and writes it to ``--out``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PLENS = [16, 512, 37, 200, 96, 333, 64, 480]
+MAX_NEW = 32
+
+
+def _device_us(evt) -> float:
+    """Device time of a device-side entry (a kernel, memcpy or memset);
+    0 for a host operation, whose own device column repeats the time of
+    the kernels it launched."""
+    from torch.autograd import DeviceType
+    if getattr(evt, "device_type", None) != DeviceType.CUDA:
+        return 0.0
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def serve(model, params, config, n, concurrent, reqs_fn):
+    from repro_torch.serving.backend import ThreadBackend
+    from repro_torch.serving.router import Router
+    with Router(ThreadBackend(model, params, n, config=config,
+                              concurrent=concurrent)) as router:
+        for h in [router.submit(r) for r in reqs_fn(1000)[:2]]:
+            h.result()                                  # warm-up
+        torch.cuda.synchronize()
+        reqs = reqs_fn(0)
+        t0 = time.perf_counter()
+        handles = [router.submit(r) for r in reqs]
+        comps = [h.result() for h in handles]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n_tok = sum(len(c.tokens) for c in comps)
+    return {"containers": n, "concurrent": concurrent, "wall_s": wall,
+            "tok_per_s": n_tok / wall,
+            "ttfc_p50_s": float(np.percentile([h.ttfc_s for h in handles],
+                                              50))}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=str(ROOT / "build" /
+                                         "profile_port.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_port: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import (EngineConfig, Request,
+                                            ServingEngine)
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    cfg = get_config("qwen3-0.6b")
+    model = Model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    config = EngineConfig(n_slots=4, max_len=2048, dtype=torch.bfloat16,
+                          chunk_tokens=32)
+
+    def reqs_fn(base):
+        rng = np.random.default_rng(1 + base)
+        return [Request(base + i, rng.integers(0, cfg.vocab_size, (n,),
+                                               dtype=np.int32), MAX_NEW)
+                for i, n in enumerate(PLENS)]
+
+    out = {"card": card, "runs": [serve(model, params, config, n, c, reqs_fn)
+                                  for n, c in ((2, True), (2, False),
+                                               (1, False))]}
+
+    # one 4-slot decode step at main-path depths
+    B, W = 4, 2048
+    cache = model.init_cache(B, W, torch.bfloat16)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    pos = torch.tensor([48, 160, 300, 544], dtype=torch.int32,
+                       device="cuda")
+    for _ in range(3):
+        model.decode_step(params, tok, cache, pos)
+    torch.cuda.synchronize()
+    reps = 10
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        model.decode_step(params, tok, cache, pos)
+    torch.cuda.synchronize()
+    step_wall = (time.perf_counter() - t0) / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.decode_step(params, tok, cache, pos)
+        torch.cuda.synchronize()
+    evts = prof.key_averages()
+    launches = sum(e.count for e in evts if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+        "cuLaunchKernelEx"))
+    step_device_us = sum(_device_us(e) for e in evts)
+    out["decode_step"] = {"wall_ms": step_wall * 1e3,
+                          "device_ms": step_device_us / 1e3,
+                          "kernel_launches": launches}
+
+    # one engine serving four requests, profiled
+    eng = ServingEngine(model, params, config)
+    eng.submit_many(reqs_fn(2000)[:4])
+    eng.run()                                           # warm-up
+    eng.submit_many(reqs_fn(3000)[:4])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    evts = prof.key_averages()
+    device_us = sum(_device_us(e) for e in evts)
+    top_host = sorted(evts, key=lambda e: e.self_cpu_time_total,
+                      reverse=True)[:12]
+    top_dev = sorted(evts, key=_device_us, reverse=True)[:10]
+    out["engine_run"] = {
+        "wall_s": wall, "device_busy_s": device_us / 1e6,
+        "device_busy_share": device_us / 1e6 / wall,
+        "top_host_ops": [{"op": e.key, "calls": e.count,
+                          "self_cpu_ms": e.self_cpu_time_total / 1e3}
+                         for e in top_host],
+        "top_kernels": [{"kernel": e.key[:120], "calls": e.count,
+                         "device_ms": _device_us(e) / 1e3}
+                        for e in top_dev]}
+    text = json.dumps(out, indent=1)
+    pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    pathlib.Path(args.out).write_text(text)
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

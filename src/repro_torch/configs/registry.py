@@ -1,0 +1,21 @@
+"""Registry of the ported architectures (the dense family so far)."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ArchConfig, reduce_config
+
+_MODULES = {
+    "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
+    "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+}
+
+ARCH_NAMES = tuple(_MODULES)
+
+
+def get_config(name: str) -> ArchConfig:
+    if name.endswith("-reduced"):
+        return reduce_config(get_config(name[: -len("-reduced")]))
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
+    return importlib.import_module(_MODULES[name]).CONFIG

@@ -1,0 +1,54 @@
+// Python binding of the attention kernels for torch.utils.cpp_extension.
+// The Python wrappers (kernels/flash_attention.py,
+// kernels/decode_attention.py) check devices, types, shapes and layout,
+// allocate the outputs and pass raw device pointers, sizes and the CUDA
+// stream as integers; these functions only forward them and return the
+// launch's CUDA error code. Nothing here needs the PyTorch headers, only
+// pybind11, so the host compile stays short; the .cu sources include no
+// PyTorch header either.
+#include <pybind11/pybind11.h>
+
+#include <cstdint>
+#include <string>
+
+int flash_attention_launch(const void* q, const void* k, const void* v,
+                           void* out, int B, int Sq, int Skv, int H, int Hkv,
+                           int K, int Kv, int causal, int window, float scale,
+                           float softcap, int is_bf16, void* stream);
+int decode_attention_launch(const void* q, const void* k, const void* v,
+                            const void* valid, void* out, int B, int W, int H,
+                            int Hkv, int K, float scale, float softcap,
+                            int is_bf16, void* stream);
+const char* kernel_error_string(int err);
+
+namespace {
+
+void* ptr(std::uintptr_t p) { return reinterpret_cast<void*>(p); }
+
+int flash_attention(std::uintptr_t q, std::uintptr_t k, std::uintptr_t v,
+                    std::uintptr_t out, int B, int Sq, int Skv, int H,
+                    int Hkv, int K, int Kv, bool causal, int window,
+                    float scale, float softcap, bool is_bf16,
+                    std::uintptr_t stream) {
+  return flash_attention_launch(ptr(q), ptr(k), ptr(v), ptr(out), B, Sq, Skv,
+                                H, Hkv, K, Kv, causal ? 1 : 0, window, scale,
+                                softcap, is_bf16 ? 1 : 0, ptr(stream));
+}
+
+int decode_attention(std::uintptr_t q, std::uintptr_t k, std::uintptr_t v,
+                     std::uintptr_t valid, std::uintptr_t out, int B, int W,
+                     int H, int Hkv, int K, float scale, float softcap,
+                     bool is_bf16, std::uintptr_t stream) {
+  return decode_attention_launch(ptr(q), ptr(k), ptr(v), ptr(valid),
+                                 ptr(out), B, W, H, Hkv, K, scale, softcap,
+                                 is_bf16 ? 1 : 0, ptr(stream));
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("flash_attention", &flash_attention);
+  m.def("decode_attention", &decode_attention);
+  m.def("error_string",
+        [](int err) { return std::string(kernel_error_string(err)); });
+}

@@ -1,0 +1,55 @@
+"""Device dispatch for the attention kernels, and their launch counts.
+
+The models call these, never a kernel or a plain version directly. The
+tensor's device decides: a CPU tensor takes the plain PyTorch version in
+``kernels.ref``; a CUDA tensor launches the hand-written kernel, whose
+wrapper raises on anything the kernel does not take. There is no other
+switch and no fallback.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ref
+
+COUNTERS = {"flash_attention": _fa.launches,
+            "decode_attention": _da.launches}
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cpu"
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
+    """Prefill attention; see ``kernels.ref.flash_attention``."""
+    if _on_cpu(q, k, v):
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
+
+
+def decode_attention(q, k, v, valid, *, softcap: float = 0.0):
+    """Single-token decode attention; see ``kernels.ref.decode_attention``."""
+    if _on_cpu(q, k, v, valid):
+        return ref.decode_attention(q, k, v, valid, softcap=softcap)
+    return _da.decode_attention(q, k, v, valid, softcap=softcap)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches so far, by kernel name."""
+    return {name: c.value for name, c in COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for c in COUNTERS.values():
+        c.reset()

@@ -1,0 +1,85 @@
+"""Plain PyTorch versions of the ported kernels.
+
+Each is the numerical contract its CUDA kernel is held to (``chip_smoke.py``
+compares them on the card) and the path a CPU tensor takes through
+``kernels.ops``. They follow ``repro.kernels.ref``: scores in float32,
+``NEG_INF`` fill for masked scores, an optional tanh softcap, queries
+right-aligned against the keys (offset ``Skv - Sq``) and the normaliser
+clamped at 1e-30. One deliberate difference: masked positions get an
+exact 0.0 weight, so a row with no visible key yields 0 — the JAX oracle
+spreads such a row uniformly over the masked keys instead.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _softcap(scores: torch.Tensor, softcap: float) -> torch.Tensor:
+    if softcap and softcap > 0.0:
+        return torch.tanh(scores / softcap) * softcap
+    return scores
+
+
+def attention_mask(Sq: int, Skv: int, *, causal: bool, window: int,
+                   device: torch.device) -> torch.Tensor:
+    """(Sq, Skv) bool: which keys each query row sees. Queries are
+    right-aligned: row i sits at key position ``i + Skv - Sq``."""
+    q_pos = torch.arange(Sq, device=device)[:, None] + (Skv - Sq)
+    k_pos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window and window > 0:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def _masked_softmax_weights(scores: torch.Tensor, mask: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unnormalised weights with masked entries exactly 0.0, and their
+    row sums clamped at 1e-30 (so an all-masked row gives 0, not NaN)."""
+    scores = scores.masked_fill(~mask, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m).masked_fill(~mask, 0.0)
+    return p, p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """q: (B, Sq, H, K); k: (B, Skv, Hkv, K); v: (B, Skv, Hkv, Kv) with
+    H % Hkv == 0 (GQA: query head h reads kv head h // (H // Hkv)).
+    ``window > 0`` keeps keys less than ``window`` positions behind the
+    query. Returns (B, Sq, H, Kv) in q's dtype."""
+    B, Sq, H, K = q.shape
+    Skv, Hkv, Kv = k.shape[1], k.shape[2], v.shape[3]
+    g = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, g, K).float()
+    scores = torch.einsum("bqhgk,bshk->bhgqs", qg, k.float()) * (K ** -0.5)
+    scores = _softcap(scores, softcap)
+    mask = attention_mask(Sq, Skv, causal=causal, window=window,
+                          device=q.device)
+    p, l = _masked_softmax_weights(scores, mask)
+    out = torch.einsum("bhgqs,bshk->bhgqk", p, v.float()) / l
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Kv).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: torch.Tensor, *, softcap: float = 0.0
+                     ) -> torch.Tensor:
+    """One query token per sequence against a dense ring cache.
+
+    q: (B, H, K); k/v: (B, W, Hkv, K); valid: (B, W) bool — which ring
+    slots hold live entries. Returns (B, H, K) in q's dtype; a row with
+    no valid slot gives 0."""
+    B, H, K = q.shape
+    Hkv, Kv = k.shape[2], v.shape[3]
+    g = H // Hkv
+    qg = q.reshape(B, Hkv, g, K).float()
+    scores = torch.einsum("bhgk,bshk->bhgs", qg, k.float()) * (K ** -0.5)
+    scores = _softcap(scores, softcap)
+    p, l = _masked_softmax_weights(scores, valid[:, None, None, :])
+    out = torch.einsum("bhgs,bshk->bhgk", p, v.float()) / l
+    return out.reshape(B, H, Kv).to(q.dtype)

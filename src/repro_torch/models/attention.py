@@ -1,0 +1,117 @@
+"""GQA attention (+qk_norm) over the dense ring KV cache.
+
+The dense branch of ``repro.models.attention``: ``attn_prefill_into_cache``
+for prefill and the dense-ring ``attn_decode`` for one new token. Both
+reach the hand-written kernels through ``kernels.ops``.
+
+Cache layout (per layer): ``{"k": (B, W, Hkv, hd), "v": (B, W, Hkv, hd)}``
+with ``W`` the cache window (= max_len here). Keys are stored post-RoPE;
+slot ``s`` holds absolute position ``p_s = pos - ((pos - s) mod W)``,
+which the decode mask reconstructs. Where JAX donated the cache to a
+jitted step and got a new tree back, the port writes the new keys and
+values into the cache tensors in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import apply_rope, rmsnorm_fwd, truncated_normal
+
+
+def init_attn(cfg: ArchConfig, dtype: torch.dtype,
+              generator: torch.Generator) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s = d ** -0.5
+    p = {"wq": truncated_normal((d, h, hd), dtype, s, generator),
+         "wk": truncated_normal((d, kv, hd), dtype, s, generator),
+         "wv": truncated_normal((d, kv, hd), dtype, s, generator),
+         "wo": truncated_normal((h, hd, d), dtype, (h * hd) ** -0.5,
+                                generator)}
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": torch.ones((hd,), dtype=dtype,
+                                           device=generator.device)}
+        p["k_norm"] = {"scale": torch.ones((hd,), dtype=dtype,
+                                           device=generator.device)}
+    return p
+
+
+def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int,
+                    dtype: torch.dtype, device: torch.device) -> dict:
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum('bsd,dhk->bshk') as one matmul."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).view(*x.shape[:-1], h, k)
+
+
+def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum('bshk,hkd->bsd') as one matmul."""
+    h, k, d = wo.shape
+    return o.reshape(*o.shape[:-2], h * k) @ wo.reshape(h * k, d)
+
+
+def _qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm_fwd(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm_fwd(p["k_norm"], k, cfg.norm_eps)
+    if cfg.pos_embed == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary_factor)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary_factor)
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def ring_positions(W: int, pos: torch.Tensor) -> torch.Tensor:
+    """Absolute position stored in each ring slot after writing at ``pos``.
+    pos: (B,) -> (B, W); negative entries were never written."""
+    slots = torch.arange(W, device=pos.device)[None, :]
+    p = pos[:, None]
+    return p - torch.remainder(p - slots, W)
+
+
+def attn_prefill_into_cache(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                            cache: dict) -> torch.Tensor:
+    """Causal prefill of x (B, S, d) from position 0; leaves the last W
+    keys/values in the ring (written in place). Returns (B, S, d)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _qkv(p, cfg, x, positions)
+    out = kops.flash_attention(q, k, v, causal=True, window=0,
+                               softcap=cfg.attn_logit_softcap)
+    y = _out(out, p["wo"])
+    ck, cv = cache["k"], cache["v"]
+    W = ck.shape[1]
+    if S <= W:
+        ck[:, :S] = k
+        cv[:, :S] = v
+    else:
+        # positions [S-W, S) land in slots p % W
+        slots = torch.remainder(torch.arange(S - W, S, device=x.device), W)
+        ck[:, slots] = k[:, S - W:].to(ck.dtype)
+        cv[:, slots] = v[:, S - W:].to(cv.dtype)
+    return y
+
+
+def attn_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
+                pos: torch.Tensor) -> torch.Tensor:
+    """x: (B, 1, d); pos: (B,) — each sequence's position of the new
+    token. Writes the token's key/value into its ring slot in place and
+    attends over the live slots. Returns (B, 1, d)."""
+    B = x.shape[0]
+    q, k, v = _qkv(p, cfg, x, pos[:, None])
+    ck, cv = cache["k"], cache["v"]
+    W = ck.shape[1]
+    bidx = torch.arange(B, device=x.device)
+    slot = torch.remainder(pos, W)
+    ck[bidx, slot] = k[:, 0].to(ck.dtype)
+    cv[bidx, slot] = v[:, 0].to(cv.dtype)
+    valid = ring_positions(W, pos) >= 0
+    out = kops.decode_attention(q[:, 0], ck, cv, valid,
+                                softcap=cfg.attn_logit_softcap)
+    return _out(out, p["wo"])[:, None]

@@ -1,0 +1,32 @@
+"""The dense residual block (pre-norm attention + SwiGLU MLP): prefill into
+the cache and one-token decode, as ``repro.models.blocks.attn_mlp_*``."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import init_mlp, init_norm, mlp_fwd, norm_fwd
+
+
+def init_attn_mlp(cfg: ArchConfig, dtype: torch.dtype,
+                  generator: torch.Generator) -> dict:
+    dev = generator.device
+    return {"ln1": init_norm(cfg, cfg.d_model, dtype, dev),
+            "attn": attn.init_attn(cfg, dtype, generator),
+            "ln2": init_norm(cfg, cfg.d_model, dtype, dev),
+            "mlp": init_mlp(cfg.d_model, cfg.d_ff, dtype, generator)}
+
+
+def attn_mlp_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                     cache: dict) -> torch.Tensor:
+    x = x + attn.attn_prefill_into_cache(p["attn"], cfg,
+                                         norm_fwd(cfg, p["ln1"], x), cache)
+    return x + mlp_fwd(p["mlp"], norm_fwd(cfg, p["ln2"], x))
+
+
+def attn_mlp_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
+                    pos: torch.Tensor) -> torch.Tensor:
+    x = x + attn.attn_decode(p["attn"], cfg, norm_fwd(cfg, p["ln1"], x),
+                             cache, pos)
+    return x + mlp_fwd(p["mlp"], norm_fwd(cfg, p["ln2"], x))

@@ -1,0 +1,155 @@
+"""Model assembly for the dense family: init, caches, prefill, decode.
+
+A port of the dense path of ``repro.models.model.Model``. JAX scans one
+stacked parameter tree over the layers; the port keeps one parameter dict
+per layer (``params["layers"]``) and loops over them. The fused greedy
+``decode_chunk`` is a Python loop over ``decode_step`` whose per-slot
+bookkeeping (tokens, positions, remaining budgets, active flags) stays on
+the device, so a chunk costs no host synchronisation until its caller
+reads the result.
+
+Parameters::
+
+    {"embed": {"table": (V, d)}, "final_norm": {...},
+     "lm_head": {"w": (d, V)}  (untied configs only),
+     "layers": [{"ln1", "attn", "ln2", "mlp"} per layer]}
+
+Cache: one ``{"k", "v"}`` dict of (B, max_len, Hkv, hd) tensors per layer,
+updated in place by ``prefill`` and ``decode_step``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import blocks
+from repro_torch.models.layers import (embed_fwd, init_norm, linear_fwd,
+                                       norm_fwd, truncated_normal)
+
+Params = dict
+Cache = list
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """The port serves the text-only dense family with a full-horizon
+    cache; other families and options are later slices."""
+    unsupported = {
+        "arch_type": cfg.arch_type != "dense",
+        "n_experts": cfg.is_moe,
+        "mla": cfg.mla,
+        "sliding_window": cfg.sliding_window > 0,
+        "local_global_pattern": cfg.local_global_pattern > 0,
+        "kv_cache_dtype": cfg.kv_cache_dtype != "model",
+        "pos_embed": cfg.pos_embed != "rope",
+        "n_vision_tokens": cfg.n_vision_tokens > 0,
+        "act": cfg.act != "silu",
+        "mlp_gated": not cfg.mlp_gated,
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: not ported yet ({', '.join(bad)})")
+
+
+class Model:
+    """The dense decoder on one device (``"cuda"`` unless told ``"cpu"``)."""
+
+    def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda"):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    # ------------------------------------------------------------------
+    def init(self, seed: int = 0, dtype: torch.dtype = torch.float32
+             ) -> Params:
+        """Seeded random parameters (the port's own init: same shapes and
+        distributions as ``repro.models.Model.init``, other numbers)."""
+        cfg = self.cfg
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        p: Params = {
+            # 0.02 scale keeps tied-head logits O(1) at init
+            "embed": {"table": truncated_normal(
+                (cfg.vocab_size, cfg.d_model), dtype, 0.02, g)},
+            "final_norm": init_norm(cfg, cfg.d_model, dtype, self.device)}
+        if not cfg.tie_embeddings:
+            p["lm_head"] = {"w": truncated_normal(
+                (cfg.d_model, cfg.vocab_size), dtype, cfg.d_model ** -0.5,
+                g)}
+        p["layers"] = [blocks.init_attn_mlp(cfg, dtype, g)
+                       for _ in range(cfg.n_layers)]
+        return p
+
+    def init_cache(self, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.float32) -> Cache:
+        return [attn.init_attn_cache(self.cfg, batch, max_len, dtype,
+                                     self.device)
+                for _ in range(self.cfg.n_layers)]
+
+    # ------------------------------------------------------------------
+    def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        x = norm_fwd(self.cfg, params["final_norm"], x)
+        if self.cfg.tie_embeddings:
+            return x @ params["embed"]["table"].T
+        return linear_fwd(params["lm_head"], x)
+
+    @staticmethod
+    def _sel(x: torch.Tensor, logits_at) -> torch.Tensor:
+        """Hidden state the head runs on: one shared position (int) or one
+        per sequence ((B,) tensor — bucket-batched ragged prompts)."""
+        if isinstance(logits_at, int):
+            return x[:, logits_at]
+        idx = torch.as_tensor(logits_at, dtype=torch.long, device=x.device)
+        return x[torch.arange(x.shape[0], device=x.device), idx]
+
+    def prefill(self, params: Params, tokens: torch.Tensor, cache: Cache,
+                logits_at: int | torch.Tensor = -1) -> torch.Tensor:
+        """tokens: (B, S) from position 0. Fills ``cache`` in place and
+        returns the logits (B, V) at ``logits_at``."""
+        x = embed_fwd(params["embed"], tokens)
+        for p, c in zip(params["layers"], cache):
+            x = blocks.attn_mlp_prefill(p, self.cfg, x, c)
+        return self._head(params, self._sel(x, logits_at))
+
+    def decode_step(self, params: Params, tokens: torch.Tensor,
+                    cache: Cache, pos: torch.Tensor) -> torch.Tensor:
+        """tokens: (B, 1); pos: (B,) positions of those tokens. Writes
+        their keys/values into ``cache`` in place; returns logits (B, V)."""
+        x = embed_fwd(params["embed"], tokens)
+        for p, c in zip(params["layers"], cache):
+            x = blocks.attn_mlp_decode(p, self.cfg, x, c, pos)
+        return self._head(params, x[:, -1])
+
+    def decode_chunk(self, params: Params, cache: Cache, state: dict,
+                     n_tokens: int, *, max_len: int
+                     ) -> tuple[torch.Tensor, torch.Tensor, dict]:
+        """Greedy decode of ``n_tokens`` steps for every slot in lockstep.
+
+        ``state`` holds device tensors, one entry per slot: ``tokens``
+        (last token, int32), ``pos`` (its position), ``remaining``
+        (tokens still to emit) and ``active`` (bool). An active slot emits
+        one token per step and deactivates once ``remaining`` reaches 0
+        or ``pos`` reaches ``max_len - 1``; after that its state is frozen
+        and its steps only write ignorable keys into its own cache row.
+
+        Returns ``(tokens (B, n_tokens), emitted (B,), new_state)``; per
+        slot only the first ``emitted`` tokens of its row are real.
+        """
+        tok, pos = state["tokens"], state["pos"]
+        rem, act = state["remaining"], state["active"]
+        toks, emits = [], []
+        for _ in range(n_tokens):
+            logits = self.decode_step(params, tok[:, None], cache, pos)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            nxt = torch.where(act, nxt, tok)
+            pos = torch.where(act, pos + 1, pos)
+            rem = torch.where(act, rem - 1, rem)
+            toks.append(nxt)
+            emits.append(act)
+            act = act & (rem > 0) & (pos < max_len - 1)
+            tok = nxt
+        emitted = torch.stack(emits, dim=1).sum(dim=1, dtype=torch.int32)
+        new_state = {"tokens": tok, "pos": pos, "remaining": rem,
+                     "active": act}
+        return torch.stack(toks, dim=1), emitted, new_state

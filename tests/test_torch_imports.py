@@ -1,0 +1,129 @@
+"""The port stands alone: every module of ``repro_torch`` imports with
+``jax``, ``jaxlib`` and the ``repro`` package blocked, and its entry
+points refuse to run on a host without a card unless told ``"cpu"``."""
+from __future__ import annotations
+
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.serving.backend import ThreadBackend  # noqa: E402
+from repro_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
+from repro_torch.serving.router import Router  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "src" / "repro_torch"
+ARCH = "qwen3-0.6b-reduced"
+
+
+def _modules() -> list[str]:
+    names = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts.pop()
+        names.append(".".join(parts))
+    return names
+
+
+def test_every_port_module_imports_with_jax_and_repro_blocked():
+    assert len(_modules()) >= 20
+    script = textwrap.dedent(f"""
+        import importlib, importlib.abc, sys
+        class Blk(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                top = name.split(".")[0]
+                if top in ("jax", "jaxlib", "repro"):
+                    raise ImportError(f"blocked import of {{name}}")
+        sys.meta_path.insert(0, Blk())
+        for mod in {_modules()!r}:
+            importlib.import_module(mod)
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+        print("port imports ok")
+    """)
+    out = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"},
+        timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "port imports ok" in out.stdout
+
+
+def test_chip_smoke_imports_nothing_of_jax_or_repro():
+    src = (REPO / "chip_smoke.py").read_text()
+    for line in src.splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]):
+            top = words[1].split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), line
+
+
+@pytest.fixture
+def cpu_only(monkeypatch):
+    """This host's view — no card — made explicit, so the test means the
+    same on a host that has one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda_and_refuse_without_a_card(cpu_only):
+    cfg = get_config(ARCH)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(cfg)
+    model = Model(cfg, device="cpu")
+    params = model.init(seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(model, params, EngineConfig(n_slots=1, max_len=32))
+    config = EngineConfig(n_slots=1, max_len=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ThreadBackend(model, params, 1, config)
+    backend = ThreadBackend(model, params, 1, config, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Router(backend)
+    Router(backend, device="cpu").close()
+
+
+def test_engine_refuses_params_on_another_device():
+    cfg = get_config(ARCH)
+    model = Model(cfg, device="cpu")
+    params = model.init(seed=0)
+    params["embed"]["table"] = params["embed"]["table"].to("meta")
+    with pytest.raises(ValueError, match="params live on"):
+        ServingEngine(model, params, device="cpu")
+
+
+def test_unported_configurations_raise():
+    import dataclasses
+    cfg = get_config(ARCH)
+    for change in ({"sliding_window": 8}, {"kv_cache_dtype": "int8"},
+                   {"n_experts": 4}, {"arch_type": "ssm"}, {"act": "gelu"}):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            Model(dataclasses.replace(cfg, **change), device="cpu")
+
+
+def test_port_init_is_seeded_and_shaped_like_the_reference():
+    cfg = get_config(ARCH)
+    model = Model(cfg, device="cpu")
+    a, b = model.init(seed=7), model.init(seed=7)
+    c = model.init(seed=8)
+    wq = a["layers"][0]["attn"]["wq"]
+    assert wq.shape == (cfg.d_model, cfg.n_heads, cfg.head_dim)
+    assert torch.equal(wq, b["layers"][0]["attn"]["wq"])
+    assert not torch.equal(wq, c["layers"][0]["attn"]["wq"])
+    s = cfg.d_model ** -0.5
+    assert float(wq.abs().max()) <= 2 * s
+    assert abs(float(wq.std()) / s - 0.88) < 0.05   # truncated at 2 sigma
+    assert len(a["layers"]) == cfg.n_layers and "lm_head" not in a
+    logits = model.prefill(a, torch.zeros((1, 4), dtype=torch.int32),
+                           model.init_cache(1, 8), logits_at=3)
+    assert logits.shape == (1, cfg.vocab_size)
+    assert np.isfinite(logits.numpy()).all()
