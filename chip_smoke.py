@@ -11,17 +11,33 @@ Phases, each raising on failure (any failure exits nonzero):
    same CUDA tensors, at qwen3-0.6b's attention widths (H=16, Hkv=8,
    K=128), float32 and bfloat16, at the tolerances of
    tests/test_kernels.py: |kernel - plain| <= tol + tol*|plain| with
-   tol 2e-5 (float32) and 2e-2 (bfloat16). Times each (CUDA events) beside
-   the plain version and ``scaled_dot_product_attention`` (a yardstick the
-   port never calls).
+   tol 2e-5 (float32) and 2e-2 (bfloat16). The paged kernel is also held
+   bitwise to the dense one over the gathered view, and must ignore NaN in
+   every page no row owns. Times each (CUDA events) beside the plain
+   version and ``scaled_dot_product_attention`` (a yardstick the port
+   never calls).
 3. Model: qwen3-0.6b at full width cut to 2 layers, float32, the port's
    seeded init: prefill + 8 greedy decode steps on the card against the
    same parameters on the CPU plain path.
-4. Main path: ``Router(ThreadBackend(n_containers=2))`` over full-width
-   qwen3-0.6b (28 layers, bfloat16, random weights from a seed),
-   n_slots=4, max_len=2048, 8 requests with ragged 16-512 token prompts
-   and max_new=32; both kernels' launch counts must be above zero.
-5. A JSON line with each kernel's launches, error and times, then the
+4. Main path of the dense cache: ``Router(ThreadBackend(n_containers=2))``
+   over full-width qwen3-0.6b (28 layers, bfloat16, random weights from a
+   seed), n_slots=4, max_len=2048, 8 requests with ragged 16-512 token
+   prompts and max_new=32; the prefill and dense decode kernels must
+   launch.
+5. Dense vs paged: one dense and one paged ``ServingEngine`` (block_size
+   16, max_seqs = n_slots = 4, so both decode the same rows) serve the
+   same same-bucket request groups; their greedy streams must be
+   identical.
+6. Main path of the paged cache with prefix sharing:
+   ``Router(ThreadBackend(2))`` over paged engines (block_size 16,
+   max_seqs 8, the dense footprint of 512 blocks, prefix_cache=True);
+   16 requests of a 256-token shared prompt + 16-256-token tail,
+   max_new=32, in two waves (2, then 14). Every request completes; wave 2
+   hits the prefix; some container has more than n_slots requests in
+   flight; the paged and prefill kernels launch, the dense decode kernel
+   does not. Wave 2 is also served without sharing on one engine and its
+   token agreement printed (reported, not checked: other batch shapes).
+7. A JSON line with each kernel's launches, error and times, then the
    result line ``{"ok": true, "device": {...}}``.
 
 It needs the checkout's ``src/`` and a CUDA device; without either it
@@ -47,6 +63,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 outside tensor cores
 PEAK_BYTES_S = 3.35e12
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 H, HKV, K = 16, 8, 128
+# live depths of the 8 decode rows at the paged main-path shape
+PAGED_MAIN_LENGTHS = [280, 300, 330, 360, 400, 440, 480, 520]
 
 
 def fail(msg: str) -> None:
@@ -107,11 +125,113 @@ def decode_bound(B, W, valid, dtype_name, itemsize):
                                        else "bytes")
 
 
+def paged_bound(B, nblk, lengths, dtype_name, itemsize):
+    """Each live key and value row once, the table and q/out once."""
+    live = int(lengths.sum())
+    nbytes = ((2 * live * HKV * K + 2 * B * H * K) * itemsize
+              + B * nblk * 4)
+    flops = 2 * 2 * live * H * K
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def paged_case(gen, lengths, *, h, hkv, k, bs, nblk, dtype, share=0):
+    """q, a page pool and a block table for rows of ``lengths``: each row
+    owns ceil(len / bs) pages drawn at random from a pool twice the
+    needed size (so its pages sit between other rows' and unowned ones),
+    the rest of its table points at the scratch page (the pool's last),
+    and with ``share`` row 1 maps its first ``share`` blocks onto row 0's
+    pages, as a prefix hit does. Returns the tensors and the bool mask of
+    pages no row owns (scratch included)."""
+    dev = torch.device("cuda")
+    B = len(lengths)
+    n_pages = 2 * B * nblk
+    q = torch.randn(B, h, k, generator=gen, device=dev).to(dtype)
+    kp = torch.randn(n_pages + 1, bs, hkv, k, generator=gen,
+                     device=dev).to(dtype)
+    vp = torch.randn(n_pages + 1, bs, hkv, k, generator=gen,
+                     device=dev).to(dtype)
+    perm = torch.randperm(n_pages, generator=gen, device=dev)
+    table = perm[:B * nblk].reshape(B, nblk).to(torch.int32)
+    owned = torch.arange(nblk, device=dev)[None, :] < (
+        (torch.tensor(lengths, device=dev)[:, None] + bs - 1) // bs)
+    table[~owned] = n_pages
+    if share:
+        table[1, :share] = table[0, :share]
+    unowned = torch.ones(n_pages + 1, dtype=torch.bool, device=dev)
+    unowned[table[owned].long()] = False
+    return (q, kp, vp, table.contiguous(),
+            torch.tensor(lengths, dtype=torch.int32, device=dev), unowned)
+
+
+def gathered(kp, vp, table, lengths):
+    """The dense (B, nblk*bs, Hkv, K) view of a paged cache, and its
+    valid mask ``arange < lengths``."""
+    B, nblk = table.shape
+    W = nblk * kp.shape[1]
+    k = kp[table.long()].reshape(B, W, *kp.shape[2:]).contiguous()
+    v = vp[table.long()].reshape(B, W, *vp.shape[2:]).contiguous()
+    valid = torch.arange(W, device=kp.device)[None, :] < lengths[:, None]
+    return k, v, valid
+
+
+def paged_checks(gen):
+    """The paged kernel against its plain version; bitwise against the
+    dense kernel over the gathered view; unchanged (and finite) with every
+    unowned page and the scratch page filled with NaN."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    # (lengths, H, Hkv, K, bs, nblk, softcap, share)
+    cases = [([48, 160, 300, 544], H, HKV, K, 16, 128, 0.0, 0),
+             ([700, 33, 0, 2048, 17, 1, 1024, 255], H, HKV, K, 16, 128,
+              0.0, 2),
+             ([48, 160, 300, 544], H, HKV, K, 16, 128, 30.0, 0),
+             ([90, 7, 500], 8, 8, 64, 16, 32, 0.0, 0),      # G = 1
+             ([90, 7, 500], 16, 4, 64, 16, 32, 0.0, 0),     # G = 4
+             ([90, 250, 500], 16, 2, 64, 16, 32, 0.0, 2)]   # G = 8
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for lengths, h, hkv, k, bs, nblk, softcap, share in cases:
+            q, kp, vp, table, lens, unowned = paged_case(
+                gen, lengths, h=h, hkv=hkv, k=k, bs=bs, nblk=nblk,
+                dtype=dtype, share=share)
+            what = (f"paged_decode_attention {dn} lengths={lengths} H={h} "
+                    f"Hkv={hkv} K={k} bs={bs} nblk={nblk} softcap={softcap}")
+            got = pa.paged_decode_attention(q, kp, vp, table, lens,
+                                            softcap=softcap)
+            torch.cuda.synchronize()
+            want = ref.paged_decode_attention(q, kp, vp, table, lens,
+                                              softcap=softcap)
+            err = check_close(got, want, dn, what)
+            for b, n in enumerate(lengths):
+                if n == 0 and bool(got[b].ne(0).any()):
+                    fail(f"{what}: length-0 row {b} is not 0")
+            kd, vd, valid = gathered(kp, vp, table, lens)
+            dense = da.decode_attention(q, kd, vd, valid, softcap=softcap)
+            if not torch.equal(got, dense):
+                fail(f"{what}: not bitwise equal to decode_attention over "
+                     f"the gathered view (max diff "
+                     f"{float((got.float() - dense.float()).abs().max()):.3e})")
+            kp[unowned] = float("nan")
+            vp[unowned] = float("nan")
+            poisoned = pa.paged_decode_attention(q, kp, vp, table, lens,
+                                                 softcap=softcap)
+            if not (torch.equal(poisoned, got)
+                    and bool(torch.isfinite(poisoned).all())):
+                fail(f"{what}: output moved with NaN in unowned pages")
+            print(f"{what}: max_abs_err={err:.3e}, bitwise equal to the "
+                  "dense kernel, NaN unowned pages ignored", flush=True)
+
+
 def kernel_phase():
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
 
     dev = torch.device("cuda")
@@ -165,6 +285,8 @@ def kernel_phase():
             print(f"{what}: max_abs_err={err:.3e} kernel_ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f}", flush=True)
 
+    paged_checks(gen)
+
     # the line's numbers: one main-path shape per kernel, bfloat16 —
     # the largest prefill bucket the main path admits (one 512-token
     # prompt) and a 4-slot decode over the 2048-slot ring with each row
@@ -211,6 +333,33 @@ def kernel_phase():
             q4, k4, v4, attn_mask=mask4, enable_gqa=True)),
         "shape": f"B={B} W={W} H={H} Hkv={HKV} K={K} bf16 live="
                  f"{depth.tolist()}"}
+
+    # paged decode at the phase-6 shape: 8 rows (max_seqs) of a 2048-token
+    # horizon in 16-token pages, live to depths in the range its requests
+    # reach (256-token prompt prefix + tail + decoded tokens)
+    lengths, bs, nblk = PAGED_MAIN_LENGTHS, 16, 128
+    q, kp, vp, table, lens, _ = paged_case(gen, lengths, h=H, hkv=HKV, k=K,
+                                           bs=bs, nblk=nblk, dtype=dtype)
+    err = check_close(pa.paged_decode_attention(q, kp, vp, table, lens),
+                      ref.paged_decode_attention(q, kp, vp, table, lens), dn,
+                      "paged main shape")
+    bound, by = paged_bound(len(lengths), nblk, lens, dn, isz)
+    kd, vd, valid = gathered(kp, vp, table, lens)
+    q4, k4, v4 = q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
+    mask4 = valid[:, None, None, :]
+    results["paged_decode_attention"] = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: pa.paged_decode_attention(q, kp, vp, table,
+                                                        lens)),
+        "plain_ms": time_ms(lambda: ref.paged_decode_attention(
+            q, kp, vp, table, lens), reps=5),
+        "bound_ms": bound, "bound_by": by,
+        # a yardstick that leaves out the gather: sdpa over the dense view
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask4, enable_gqa=True)),
+        "shape": f"B={len(lengths)} bs={bs} nblk={nblk} H={H} Hkv={HKV} "
+                 f"K={K} bf16 live={lengths}; library_ms is sdpa over the "
+                 "pre-gathered dense view (gather not counted)"}
     return results
 
 
@@ -314,8 +463,8 @@ def main_path_phase(card: str):
             fail(f"main path: request {r.rid} has out-of-range tokens")
         if h.ttfc_s is None:
             fail(f"main path: request {r.rid} has no first chunk")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("flash_attention", "decode_attention"):
+        if launches[name] <= 0:
             fail(f"main path: kernel {name} was never launched")
     n_tok = sum(len(c.tokens) for c in comps)
     ttfc_p50 = float(np.percentile([h.ttfc_s for h in handles], 50))
@@ -325,6 +474,192 @@ def main_path_phase(card: str):
           f"{n_tok / wall:.2f} ttfc_p50_s={ttfc_p50:.4f} launches="
           f"{launches} [card: {card}]", flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: dense vs paged greedy streams on the card
+# ---------------------------------------------------------------------------
+# same-bucket groups of at most n_slots, in queue order, one budget per
+# group: the dense engine (head + same-bucket requests) and the paged one
+# (run of consecutive heads with one key) then admit the same prefill
+# batches, and max_seqs = n_slots gives both decodes the same rows
+PARITY_GROUPS = [((150, 200, 256, 180), 24), ((40, 50, 64, 33), 32),
+                 ((300, 400, 512), 16)]
+
+
+def parity_phase(model, params, config, card: str, groups=PARITY_GROUPS):
+    """Serve the same requests through one dense and one paged engine
+    (``config`` with cache="paged"); their greedy streams must be
+    identical."""
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    rng = np.random.default_rng(5)
+    reqs = []
+    for plens, max_new in groups:
+        for n in plens:
+            reqs.append(Request(len(reqs), rng.integers(
+                0, model.cfg.vocab_size, (n,), dtype=np.int32), max_new))
+    streams, walls = [], []
+    for cache in ("dense", "paged"):
+        eng = ServingEngine(model, params,
+                            dataclasses.replace(config, cache=cache),
+                            device=model.device)
+        eng.submit_many([dataclasses.replace(r) for r in reqs])
+        t0 = time.perf_counter()
+        comps = eng.run()
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        streams.append({c.rid: list(c.tokens) for c in comps})
+        del eng
+    dense, paged = streams
+    if len(dense) != len(reqs):
+        fail(f"dense vs paged: {len(dense)} of {len(reqs)} completed")
+    for r in reqs:
+        if dense[r.rid] != paged.get(r.rid):
+            fail(f"dense vs paged: request {r.rid} streams differ: "
+                 f"{dense[r.rid][:8]}... vs {paged.get(r.rid, [])[:8]}...")
+    n_tok = sum(len(t) for t in dense.values())
+    print(f"dense vs paged: {model.cfg.name} {model.cfg.n_layers} layers "
+          f"{str(config.dtype).split('.')[1]}, n_slots={config.n_slots} "
+          f"max_seqs={config.max_seqs} block_size={config.block_size} "
+          f"max_len={config.max_len}, {len(reqs)} requests in groups "
+          f"{[list(g) for g, _ in groups]}: {n_tok} greedy tokens "
+          f"identical; wall_s dense={walls[0]:.4f} paged={walls[1]:.4f} "
+          f"[card: {card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: this slice's main path — paged cache with prefix sharing
+# ---------------------------------------------------------------------------
+SYSTEM_PROMPT = 256
+TAILS = (16, 256)
+WAVES = (2, 14)
+
+
+def shared_prefix_requests(cfg, seed=3):
+    """Two waves of requests that share one SYSTEM_PROMPT-token prefix
+    (16 full blocks) followed by a 16-256-token private tail."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, cfg.vocab_size, (SYSTEM_PROMPT,), dtype=np.int32)
+    waves, rid = [], 0
+    for n in WAVES:
+        wave = []
+        for _ in range(n):
+            tail = rng.integers(0, cfg.vocab_size,
+                                (int(rng.integers(TAILS[0], TAILS[1] + 1)),),
+                                dtype=np.int32)
+            wave.append((rid, np.concatenate([prefix, tail])))
+            rid += 1
+        waves.append(wave)
+    return waves
+
+
+def prefix_phase(model, params, config, card: str, n_containers: int = 2,
+                 max_new: int = 32):
+    """Router(ThreadBackend) over paged, prefix-sharing engines: wave 1
+    seeds the prefix index, wave 2 must hit it; more sequences than
+    n_slots must be in flight at once in the dense footprint; the paged
+    kernel and the prefill kernel must launch, the dense decode kernel
+    must not. Returns the launch counts of this phase."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.backend import ThreadBackend
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.router import Router
+
+    cfg, dev = model.cfg, model.device
+    waves = shared_prefix_requests(cfg)
+    results, per_wave = {}, []
+    backend = ThreadBackend(model, params, n_containers, config=config,
+                            device=dev)
+    with Router(backend, device=dev) as router:
+        ops.reset_launch_counts()
+        for wave in waves:
+            engines = backend.engines
+            pre0 = sum(e.prefill_tokens_executed for e in engines)
+            t0 = time.perf_counter()
+            handles = [router.submit(Request(rid, prompt, max_new))
+                       for rid, prompt in wave]
+            comps = [h.result() for h in handles]
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            per_wave.append({
+                "wall": wall,
+                "tokens": sum(len(c.tokens) for c in comps),
+                "ttfc_p50": float(np.percentile([h.ttfc_s for h in handles],
+                                                50)),
+                "hits": sum(c.prefix_hit_tokens for c in comps),
+                "prefill": sum(e.prefill_tokens_executed for e in engines)
+                - pre0})
+            for c in comps:
+                results[c.rid] = c
+        launches = ops.launch_counts()
+        peak = [e.peak_active for e in backend.engines]
+    for wave in waves:
+        for rid, _ in wave:
+            c = results.get(rid)
+            if c is None or len(c.tokens) != max_new:
+                fail(f"prefix path: request {rid} gave "
+                     f"{None if c is None else len(c.tokens)} tokens")
+            if not all(0 <= t < cfg.vocab_size for t in c.tokens):
+                fail(f"prefix path: request {rid} has out-of-range tokens")
+    if per_wave[1]["hits"] <= 0:
+        fail("prefix path: wave 2 had no prefix hits")
+    if max(peak) <= config.n_slots:
+        fail(f"prefix path: peak in-flight {peak} never exceeded "
+             f"n_slots={config.n_slots}")
+    if dev.type == "cuda":
+        for name in ("paged_decode_attention", "flash_attention"):
+            if launches[name] <= 0:
+                fail(f"prefix path: kernel {name} was never launched")
+        if launches["decode_attention"] != 0:
+            fail(f"prefix path: the dense decode kernel launched "
+                 f"{launches['decode_attention']} times")
+    for i, w in enumerate(per_wave, 1):
+        print(f"prefix path wave {i}: {cfg.name} {cfg.n_layers} layers, "
+              f"Router(ThreadBackend({n_containers})) paged block_size="
+              f"{config.block_size} max_seqs={config.max_seqs} "
+              f"max_len={config.max_len} prefix_cache=True, "
+              f"{len(waves[i - 1])} requests ({SYSTEM_PROMPT}-token shared "
+              f"prompt + {TAILS[0]}-{TAILS[1]}-token tails) max_new="
+              f"{max_new}: wall_s={w['wall']:.4f} tok_per_s="
+              f"{w['tokens'] / w['wall']:.2f} ttfc_p50_s={w['ttfc_p50']:.4f} "
+              f"hit_tokens={w['hits']} prefill_tokens_executed="
+              f"{w['prefill']} [card: {card}]", flush=True)
+    print(f"prefix path: peak_active per container {peak} (n_slots="
+          f"{config.n_slots}), launches={launches} [card: {card}]",
+          flush=True)
+
+    # report only: wave 2 again on one engine without sharing (other
+    # batch shapes, so the card need not give the same bits)
+    eng = ServingEngine(model, params,
+                        dataclasses.replace(config, prefix_cache=False),
+                        device=dev)
+    eng.submit_many([Request(rid, prompt, max_new)
+                     for rid, prompt in waves[0]])
+    eng.run()
+    pre0 = eng.prefill_tokens_executed
+    eng.submit_many([Request(rid, prompt, max_new)
+                     for rid, prompt in waves[1]])
+    off = {c.rid: list(c.tokens) for c in eng.run()}
+    agree = sum(int(a == b) for rid, _ in waves[1]
+                for a, b in zip(off[rid], results[rid].tokens))
+    print(f"prefix path, wave 2 with prefix_cache=False on one engine: "
+          f"prefill_tokens_executed={eng.prefill_tokens_executed - pre0} "
+          f"(with sharing {per_wave[1]['prefill']}), token agreement with "
+          f"the sharing run {agree}/{len(waves[1]) * max_new} "
+          f"[card: {card}]", flush=True)
+    del eng
+    return launches
+
+
+def full_width_model(dtype):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+
+    model = Model(get_config("qwen3-0.6b"))
+    return model, model.init(seed=0, dtype=dtype)
 
 
 def main() -> int:
@@ -340,6 +675,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.kernels.build import extension
+    from repro_torch.serving.engine import EngineConfig
 
     name = torch.cuda.get_device_name(0)
     card = card_line()
@@ -352,19 +688,39 @@ def main() -> int:
     model_phase()
     launches = main_path_phase(card)
 
+    model, params = full_width_model(torch.bfloat16)
+    base = dict(n_slots=4, max_len=2048, dtype=torch.bfloat16,
+                chunk_tokens=32, cache="paged", block_size=16)
+    parity_phase(model, params, EngineConfig(max_seqs=4, **base), card)
+    torch.cuda.empty_cache()
+    paged_launches = prefix_phase(
+        model, params, EngineConfig(max_seqs=8, prefix_cache=True, **base),
+        card)
+
+    # each kernel's launches come from the path it serves: phase 4 (dense
+    # cache) for the prefill and dense decode kernels, phase 6 (paged
+    # cache with prefix sharing) for the paged decode kernel
+    by_phase = {"phase4": launches, "phase6": paged_launches}
+    main_phase = {"flash_attention": "phase4", "decode_attention": "phase4",
+                  "paged_decode_attention": "phase6"}
     replaces = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:98"),
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:167"),
+        "paged_decode_attention": (
+            "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "src/repro/kernels/paged_attention.py:156"),
     }
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": replaces[k][0],
-         "replaces": replaces[k][1], "launches": launches[k],
+         "replaces": replaces[k][1],
+         "launches": by_phase[main_phase[k]][k],
+         "launches_by_phase": {ph: c[k] for ph, c in by_phase.items()},
          **{f: kernels[k][f] for f in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms", "shape")}}
-        for k in ("flash_attention", "decode_attention")]}
+        for k in replaces]}
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,8 @@ import threading
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("binding.cpp", "flash_attention.cu", "decode_attention.cu")
+SOURCES = ("binding.cpp", "flash_attention.cu", "decode_attention.cu",
+           "paged_attention.cu")
 
 _lock = threading.Lock()
 _ext = None  # the loaded extension, once built

@@ -1,9 +1,9 @@
 // Python binding of the attention kernels for torch.utils.cpp_extension.
 // The Python wrappers (kernels/flash_attention.py,
-// kernels/decode_attention.py) check devices, types, shapes and layout,
-// allocate the outputs and pass raw device pointers, sizes and the CUDA
-// stream as integers; these functions only forward them and return the
-// launch's CUDA error code. Nothing here needs the PyTorch headers, only
+// kernels/decode_attention.py, kernels/paged_attention.py) check devices,
+// types, shapes and layout, allocate the outputs and pass raw device
+// pointers, sizes and the CUDA stream as integers; these functions only
+// forward them and return the launch's CUDA error code. Nothing here needs the PyTorch headers, only
 // pybind11, so the host compile stays short; the .cu sources include no
 // PyTorch header either.
 #include <pybind11/pybind11.h>
@@ -19,6 +19,12 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* valid, void* out, int B, int W, int H,
                             int Hkv, int K, float scale, float softcap,
                             int is_bf16, void* stream);
+int paged_decode_attention_launch(const void* q, const void* k_pages,
+                                  const void* v_pages, const void* table,
+                                  const void* lengths, void* out, int B,
+                                  int nblk, int bs, int H, int Hkv, int K,
+                                  float scale, float softcap, int is_bf16,
+                                  void* stream);
 const char* kernel_error_string(int err);
 
 namespace {
@@ -44,11 +50,23 @@ int decode_attention(std::uintptr_t q, std::uintptr_t k, std::uintptr_t v,
                                  is_bf16 ? 1 : 0, ptr(stream));
 }
 
+int paged_decode_attention(std::uintptr_t q, std::uintptr_t k_pages,
+                           std::uintptr_t v_pages, std::uintptr_t table,
+                           std::uintptr_t lengths, std::uintptr_t out, int B,
+                           int nblk, int bs, int H, int Hkv, int K,
+                           float scale, float softcap, bool is_bf16,
+                           std::uintptr_t stream) {
+  return paged_decode_attention_launch(
+      ptr(q), ptr(k_pages), ptr(v_pages), ptr(table), ptr(lengths), ptr(out),
+      B, nblk, bs, H, Hkv, K, scale, softcap, is_bf16 ? 1 : 0, ptr(stream));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention", &flash_attention);
   m.def("decode_attention", &decode_attention);
+  m.def("paged_decode_attention", &paged_decode_attention);
   m.def("error_string",
         [](int err) { return std::string(kernel_error_string(err)); });
 }

@@ -11,198 +11,12 @@
 // out (B, H, K), all contiguous, float32 or bfloat16; arithmetic in
 // float32.
 //
-// Design. One block per (kv head, batch row) holds that head's G query
-// heads in registers and streams the W cache rows once. Each warp walks
-// its own runs of U consecutive slots (the TPU kernel's sequential grid
-// axis over W tiles becomes this loop), loading the U rows' keys and
-// values before it computes, so several rows are in flight per warp; a
-// lane holds K/32 elements of a row, so a warp reads each row as
-// contiguous 32-lane transactions. Every warp keeps its own online softmax
-// (max, normaliser, accumulator) and the warps merge through shared
-// memory at the end. A slot whose `valid` flag is false is skipped: it is
-// neither read nor added, so masked slots contribute exactly 0.0, and a
-// row with no valid slot writes 0.
-//
-// Bound. Decode reads every live key and value once and does about
-// 4*G*K operations per row: it is bound by device-memory bytes,
-// 2*(live slots)*Hkv*K*itemsize per sequence. Only B*Hkv blocks run, so
-// at small batch the card is far from full; splitting W across blocks
-// (a second merge pass) is later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-
-namespace {
-
-constexpr int NW = 16;  // warps per block
-constexpr int U = 4;    // slots a warp loads before it computes
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <typename T, int G, int KPL>  // KPL = K / 32 elements per lane
-__global__ void __launch_bounds__(NW * 32)
-    decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const unsigned char* __restrict__ valid,
-                            T* __restrict__ out, int W, int Hkv, float scale,
-                            float softcap) {
-  constexpr int K = KPL * 32;
-  __shared__ float sm_m[NW * G];
-  __shared__ float sm_l[NW * G];
-  __shared__ float sm_acc[NW * G * K];
-
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int H = Hkv * G;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  float qr[G][KPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < KPL; ++e)
-      qr[g][e] = to_float(q[(size_t(b) * H + hk * G + g) * K + lane + 32 * e]);
-
-  float m[G], l[G], acc[G][KPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < KPL; ++e) acc[g][e] = 0.f;
-  }
-
-  const unsigned char* vb = valid + size_t(b) * W;
-  for (int j0 = warp * U; j0 < W; j0 += NW * U) {
-    bool ok[U];
-    float kr[U][KPL], vr[U][KPL];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int j = j0 + u;
-      ok[u] = j < W && vb[j];
-      const size_t row = ((size_t(b) * W + j) * Hkv + hk) * K;
-#pragma unroll
-      for (int e = 0; e < KPL; ++e) {
-        kr[u][e] = ok[u] ? to_float(k[row + lane + 32 * e]) : 0.f;
-        vr[u][e] = ok[u] ? to_float(v[row + lane + 32 * e]) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (!ok[u]) continue;  // same for the whole warp
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float s = 0.f;
-#pragma unroll
-        for (int e = 0; e < KPL; ++e) s = fmaf(qr[g][e], kr[u][e], s);
-        s = warp_sum(s) * scale;
-        if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-        const float m_new = fmaxf(m[g], s);
-        const float alpha = expf(m[g] - m_new);  // 0 while m[g] = -inf
-        const float p = expf(s - m_new);
-        l[g] = l[g] * alpha + p;
-#pragma unroll
-        for (int e = 0; e < KPL; ++e)
-          acc[g][e] = fmaf(p, vr[u][e], acc[g][e] * alpha);
-        m[g] = m_new;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[warp * G + g] = m[g];
-      sm_l[warp * G + g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < KPL; ++e)
-      sm_acc[(warp * G + g) * K + lane + 32 * e] = acc[g][e];
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < G * K; i += NW * 32) {
-    const int g = i / K, d = i % K;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sm_m[w * G + g]);
-    float num = 0.f, den = 0.f;
-    if (mx != -INFINITY) {
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        const float c = expf(sm_m[w * G + g] - mx);  // 0 for an idle warp
-        num = fmaf(sm_acc[(w * G + g) * K + d], c, num);
-        den = fmaf(sm_l[w * G + g], c, den);
-      }
-    }
-    out[(size_t(b) * H + hk * G + g) * K + d] =
-        from_float<T>(num / fmaxf(den, 1e-30f));
-  }
-}
-
-template <typename T, int G, int KPL>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* valid, void* out, int B, int W, int Hkv,
-                   float scale, float softcap, cudaStream_t stream) {
-  const dim3 grid(Hkv, B);
-  decode_attention_kernel<T, G, KPL><<<grid, NW * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const unsigned char*>(valid),
-      static_cast<T*>(out), W, Hkv, scale, softcap);
-  return cudaGetLastError();
-}
-
-// G * K <= 512 keeps the per-thread registers and the merge buffer small
-template <typename T, int G>
-cudaError_t launch_k(int K, const void* q, const void* k, const void* v,
-                     const void* valid, void* out, int B, int W, int Hkv,
-                     float scale, float softcap, cudaStream_t stream) {
-  switch (K) {
-    case 32: return launch<T, G, 1>(q, k, v, valid, out, B, W, Hkv, scale, softcap, stream);
-    case 64: return launch<T, G, 2>(q, k, v, valid, out, B, W, Hkv, scale, softcap, stream);
-    case 128:
-      if constexpr (G <= 4) return launch<T, G, 4>(q, k, v, valid, out, B, W, Hkv, scale, softcap, stream);
-      return cudaErrorInvalidValue;
-    case 256:
-      if constexpr (G <= 2) return launch<T, G, 8>(q, k, v, valid, out, B, W, Hkv, scale, softcap, stream);
-      return cudaErrorInvalidValue;
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t launch_g(int G, int K, const void* q, const void* k,
-                     const void* v, const void* valid, void* out, int B,
-                     int W, int Hkv, float scale, float softcap,
-                     cudaStream_t stream) {
-  switch (G) {
-    case 1: return launch_k<T, 1>(K, q, k, v, valid, out, B, W, Hkv, scale, softcap, stream);
-    case 2: return launch_k<T, 2>(K, q, k, v, valid, out, B, W, Hkv, scale, softcap, stream);
-    case 4: return launch_k<T, 4>(K, q, k, v, valid, out, B, W, Hkv, scale, softcap, stream);
-    case 8: return launch_k<T, 8>(K, q, k, v, valid, out, B, W, Hkv, scale, softcap, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
+// The kernel body, its design and its bound are in decode_attention.cuh,
+// shared with the paged kernel (paged_attention.cu); this file gives it the
+// dense address policy: slot j of row b is row ((b*W + j)*Hkv + hk)*K and
+// is live iff valid[b, j]. A slot whose flag is false is neither read nor
+// added, and a row with no valid slot writes 0.
+#include "decode_attention.cuh"
 
 // Plain C++ entry point for the binding; returns the cudaError_t of the
 // launch (0 on success). The caller has checked shapes, types and layout.
@@ -210,12 +24,8 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* valid, void* out, int B, int W, int H,
                             int Hkv, int K, float scale, float softcap,
                             int is_bf16, void* stream) {
-  if (B == 0) return cudaSuccess;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int G = H / Hkv;
-  if (is_bf16)
-    return launch_g<__nv_bfloat16>(G, K, q, k, v, valid, out, B, W, Hkv,
-                                   scale, softcap, s);
-  return launch_g<float>(G, K, q, k, v, valid, out, B, W, Hkv, scale,
-                         softcap, s);
+  using namespace decode_attention_detail;
+  const DenseRows rows{static_cast<const unsigned char*>(valid), W, Hkv};
+  return launch_dtype(is_bf16, H / Hkv, K, q, k, v, rows, out, B, Hkv, scale,
+                      softcap, stream);
 }

@@ -12,10 +12,12 @@ import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 
 COUNTERS = {"flash_attention": _fa.launches,
-            "decode_attention": _da.launches}
+            "decode_attention": _da.launches,
+            "paged_decode_attention": _pa.launches}
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -43,6 +45,17 @@ def decode_attention(q, k, v, valid, *, softcap: float = 0.0):
     if _on_cpu(q, k, v, valid):
         return ref.decode_attention(q, k, v, valid, softcap=softcap)
     return _da.decode_attention(q, k, v, valid, softcap=softcap)
+
+
+def paged_decode_attention(q, k_pages, v_pages, table, lengths, *,
+                           softcap: float = 0.0):
+    """Single-token decode over the paged cache; see
+    ``kernels.ref.paged_decode_attention``."""
+    if _on_cpu(q, k_pages, v_pages, table, lengths):
+        return ref.paged_decode_attention(q, k_pages, v_pages, table,
+                                          lengths, softcap=softcap)
+    return _pa.paged_decode_attention(q, k_pages, v_pages, table, lengths,
+                                      softcap=softcap)
 
 
 def launch_counts() -> dict[str, int]:

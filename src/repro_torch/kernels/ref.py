@@ -83,3 +83,27 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p, l = _masked_softmax_weights(scores, valid[:, None, None, :])
     out = torch.einsum("bhgs,bshk->bhgk", p, v.float()) / l
     return out.reshape(B, H, Kv).to(q.dtype)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, table: torch.Tensor,
+                           lengths: torch.Tensor, *, softcap: float = 0.0
+                           ) -> torch.Tensor:
+    """One query token per sequence against a pool of pages, through a
+    block table.
+
+    q: (B, H, K); k_pages/v_pages: (P+1, bs, Hkv, K); table: (B, nblk)
+    page indices; lengths: (B,) — positions [0, len) are live. Gathers
+    the (B, nblk*bs, Hkv, K) logical view and runs ``decode_attention``
+    with ``valid = arange < lengths``, so for the same logical cache it
+    gives the dense plain version's bits (dead positions add exactly 0.0
+    to the output, whatever finite values their pages hold)."""
+    B, nblk = table.shape
+    bs = k_pages.shape[1]
+    W = nblk * bs
+    idx = table.long()
+    k = k_pages[idx].reshape(B, W, *k_pages.shape[2:])
+    v = v_pages[idx].reshape(B, W, *v_pages.shape[2:])
+    valid = (torch.arange(W, device=q.device)[None, :]
+             < lengths.to(q.device)[:, None])
+    return decode_attention(q, k, v, valid, softcap=softcap)

@@ -1,15 +1,18 @@
-"""GQA attention (+qk_norm) over the dense ring KV cache.
+"""GQA attention (+qk_norm) over the dense ring or the paged KV cache.
 
-The dense branch of ``repro.models.attention``: ``attn_prefill_into_cache``
-for prefill and the dense-ring ``attn_decode`` for one new token. Both
-reach the hand-written kernels through ``kernels.ops``.
+The non-int8 GQA branches of ``repro.models.attention``:
+``attn_prefill_into_cache`` for prefill, ``attn_suffix_prefill_into_cache``
+for the residual suffix behind a shared prefix, and ``attn_decode`` for
+one new token over the dense ring or the block table. All reach the
+hand-written kernels through ``kernels.ops``.
 
 Cache layout (per layer): ``{"k": (B, W, Hkv, hd), "v": (B, W, Hkv, hd)}``
 with ``W`` the cache window (= max_len here). Keys are stored post-RoPE;
 slot ``s`` holds absolute position ``p_s = pos - ((pos - s) mod W)``,
-which the decode mask reconstructs. Where JAX donated the cache to a
-jitted step and got a new tree back, the port writes the new keys and
-values into the cache tensors in place.
+which the decode mask reconstructs. The paged layout is in
+``models/cache.py``. Where JAX donated the cache to a jitted step and got
+a new tree back, the port writes the new keys and values into the cache
+tensors in place.
 """
 from __future__ import annotations
 
@@ -98,13 +101,50 @@ def attn_prefill_into_cache(p: dict, cfg: ArchConfig, x: torch.Tensor,
     return y
 
 
+def attn_suffix_prefill_into_cache(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                                   cache: dict, ctx_k: torch.Tensor,
+                                   ctx_v: torch.Tensor,
+                                   offset: int) -> torch.Tensor:
+    """Prefill only the residual suffix x (B, S, d) behind ``offset``
+    already-cached positions (prefix sharing). Queries sit at rope
+    positions ``offset + i``; keys/values are [ctx (B, offset, Hkv, hd),
+    suffix], and causal attention right-aligns the queries, so the context
+    width must be ``offset`` exactly. Writes the suffix K/V into ``cache``
+    (width S) in place. Returns (B, S, d)."""
+    B, S, _ = x.shape
+    positions = offset + torch.arange(S, device=x.device)[None, :]
+    q, k, v = _qkv(p, cfg, x, positions)
+    ck = torch.cat([ctx_k.to(k.dtype), k], dim=1)
+    cv = torch.cat([ctx_v.to(v.dtype), v], dim=1)
+    out = kops.flash_attention(q, ck, cv, causal=True, window=0,
+                               softcap=cfg.attn_logit_softcap)
+    cache["k"].copy_(k)
+    cache["v"].copy_(v)
+    return _out(out, p["wo"])
+
+
 def attn_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
                 pos: torch.Tensor) -> torch.Tensor:
     """x: (B, 1, d); pos: (B,) — each sequence's position of the new
-    token. Writes the token's key/value into its ring slot in place and
-    attends over the live slots. Returns (B, 1, d)."""
+    token. Writes the token's key/value into its ring slot, or its page
+    ``(table[b, pos // bs], pos % bs)``, in place and attends over the
+    live positions. Returns (B, 1, d)."""
     B = x.shape[0]
     q, k, v = _qkv(p, cfg, x, pos[:, None])
+    if "k_pages" in cache:
+        # idle rows point at the scratch page; only full-horizon layers
+        # are paged, so the live positions are simply [0, pos]
+        kp, vp, table = cache["k_pages"], cache["v_pages"], cache["table"]
+        bs = kp.shape[1]
+        pos = pos.long()
+        page = table[torch.arange(B, device=x.device), pos // bs].long()
+        off = torch.remainder(pos, bs)
+        kp[page, off] = k[:, 0].to(kp.dtype)
+        vp[page, off] = v[:, 0].to(vp.dtype)
+        lengths = (pos + 1).to(torch.int32)
+        out = kops.paged_decode_attention(q[:, 0], kp, vp, table, lengths,
+                                          softcap=cfg.attn_logit_softcap)
+        return _out(out, p["wo"])[:, None]
     ck, cv = cache["k"], cache["v"]
     W = ck.shape[1]
     bidx = torch.arange(B, device=x.device)

@@ -1,5 +1,6 @@
 """The dense residual block (pre-norm attention + SwiGLU MLP): prefill into
-the cache and one-token decode, as ``repro.models.blocks.attn_mlp_*``."""
+the cache, residual-suffix prefill behind a shared prefix, and one-token
+decode, as ``repro.models.blocks.attn_mlp_*``."""
 from __future__ import annotations
 
 import torch
@@ -22,6 +23,15 @@ def attn_mlp_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor,
                      cache: dict) -> torch.Tensor:
     x = x + attn.attn_prefill_into_cache(p["attn"], cfg,
                                          norm_fwd(cfg, p["ln1"], x), cache)
+    return x + mlp_fwd(p["mlp"], norm_fwd(cfg, p["ln2"], x))
+
+
+def attn_mlp_suffix_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                            cache: dict, ctx_k: torch.Tensor,
+                            ctx_v: torch.Tensor, offset: int) -> torch.Tensor:
+    x = x + attn.attn_suffix_prefill_into_cache(
+        p["attn"], cfg, norm_fwd(cfg, p["ln1"], x), cache, ctx_k, ctx_v,
+        offset)
     return x + mlp_fwd(p["mlp"], norm_fwd(cfg, p["ln2"], x))
 
 

@@ -15,7 +15,9 @@ Parameters::
      "layers": [{"ln1", "attn", "ln2", "mlp"} per layer]}
 
 Cache: one ``{"k", "v"}`` dict of (B, max_len, Hkv, hd) tensors per layer,
-updated in place by ``prefill`` and ``decode_step``.
+or, with a ``PagedLayout``, one paged group per layer over a block table
+that every layer shares (``models/cache.py``); updated in place by
+``prefill``, ``prefill_suffix`` and ``decode_step``.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
+from repro_torch.models import cache as paged
 from repro_torch.models.layers import (embed_fwd, init_norm, linear_fwd,
                                        norm_fwd, truncated_normal)
 
@@ -82,10 +85,21 @@ class Model:
         return p
 
     def init_cache(self, batch: int, max_len: int,
-                   dtype: torch.dtype = torch.float32) -> Cache:
-        return [attn.init_attn_cache(self.cfg, batch, max_len, dtype,
-                                     self.device)
-                for _ in range(self.cfg.n_layers)]
+                   dtype: torch.dtype = torch.float32,
+                   layout: paged.PagedLayout | None = None) -> Cache:
+        """Dense rows, or with ``layout`` the paged cache: every layer's
+        group refers to one shared (batch, nblk) table."""
+        cfg = self.cfg
+        if layout is None:
+            return [attn.init_attn_cache(cfg, batch, max_len, dtype,
+                                         self.device)
+                    for _ in range(cfg.n_layers)]
+        if not paged.pageable(cfg.sliding_window, max_len):
+            raise ValueError(f"{cfg.name}: a {cfg.sliding_window}-token "
+                             f"window does not page over {max_len}")
+        table = paged.new_table(batch, max_len, layout, self.device)
+        return [paged.init_paged_attn_cache(cfg, table, layout, dtype)
+                for _ in range(cfg.n_layers)]
 
     # ------------------------------------------------------------------
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -110,6 +124,21 @@ class Model:
         x = embed_fwd(params["embed"], tokens)
         for p, c in zip(params["layers"], cache):
             x = blocks.attn_mlp_prefill(p, self.cfg, x, c)
+        return self._head(params, self._sel(x, logits_at))
+
+    def prefill_suffix(self, params: Params, tokens: torch.Tensor,
+                       cache: Cache, ctx: list, offset: int,
+                       logits_at: int | torch.Tensor = -1) -> torch.Tensor:
+        """Prefill only the residual suffix of prompts whose first
+        ``offset`` positions are prefix-cache hits. ``tokens``: (B, S)
+        suffix tokens; ``ctx``: one ``{"k", "v"}`` per layer, each
+        (B, offset, Hkv, hd), gathered from the shared pages; ``cache``:
+        a dense mini-cache of width S, filled in place with the suffix
+        K/V. Returns the logits (B, V) at ``logits_at``."""
+        x = embed_fwd(params["embed"], tokens)
+        for p, c, cx in zip(params["layers"], cache, ctx):
+            x = blocks.attn_mlp_suffix_prefill(p, self.cfg, x, c, cx["k"],
+                                               cx["v"], offset)
         return self._head(params, self._sel(x, logits_at))
 
     def decode_step(self, params: Params, tokens: torch.Tensor,

@@ -1,2 +1,2 @@
-"""Serving stack: Router → ThreadBackend → ServingEngine over the dense
-KV cache (ported from ``repro.serving``)."""
+"""Serving stack: Router → ThreadBackend → ServingEngine over the dense or
+the paged KV cache (ported from ``repro.serving``)."""

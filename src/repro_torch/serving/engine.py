@@ -1,15 +1,22 @@
 """Continuous-batching serving engine with fused greedy multi-token decode.
 
-A port of the dense path of ``repro.serving.engine.ServingEngine``. The
-engine owns a dense KV cache of ``n_slots`` rows. Each ``step()`` admits
-queued requests and then runs one fused decode chunk:
+A port of ``repro.serving.engine.ServingEngine`` for the dense family,
+over the dense or the paged KV cache. Each ``step()`` admits queued
+requests and then runs one fused decode chunk:
 
-* **Admission** pops the queue head plus every queued request in the same
-  prompt-length bucket (``PROMPT_BUCKETS``), up to the free slots,
-  right-pads them into one (n, bucket) batch and prefills it in one call;
-  per-row ``logits_at`` picks each prompt's last real position. The
-  prefill rows are copied into their slots, and the greedy prefill sample
-  is each request's first streamed chunk.
+* **Dense admission** pops the queue head plus every queued request in
+  the same prompt-length bucket (``PROMPT_BUCKETS``), up to the free
+  slots, right-pads them into one (n, bucket) batch and prefills it in
+  one call; per-row ``logits_at`` picks each prompt's last real position.
+  The prefill rows are copied into their slots, and the greedy prefill
+  sample is each request's first streamed chunk.
+* **Paged admission** (``EngineConfig(cache="paged")``) is strict FIFO on
+  the block budget: the run of consecutive queue heads that share an
+  admit key prefills as one batch, each reserving
+  ``ceil(tokens / block_size)`` blocks, and a head that does not fit
+  stops admission. With ``prefix_cache`` a request's leading full prompt
+  blocks map onto cached pages (chained blake2b block hashes) and only
+  the residual suffix is prefilled, behind the gathered prefix.
 * **Decode** runs ``Model.decode_chunk`` for every active slot in
   lockstep. The chunk length is ``EngineConfig.chunk_tokens``, clamped by
   the shortest remaining budget and ``max_len`` headroom among active
@@ -32,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import time
 import warnings
 from collections import deque
@@ -41,7 +49,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.serving.cache import DenseCache
+from repro_torch.models.cache import PagedLayout
+from repro_torch.serving.cache import DenseCache, PagedCache
 from repro_torch.serving.events import ChunkEvent, DoneEvent
 
 
@@ -58,6 +67,8 @@ class Completion:
     tokens: list
     prompt_len: int
     latency_s: float = 0.0
+    # prompt positions satisfied by prefix-cache hits (0 without sharing)
+    prefix_hit_tokens: int = 0
 
 
 # THE prompt-length bucket table: the engine's padded batch admission and
@@ -75,17 +86,58 @@ def _bucket(n: int, buckets=PROMPT_BUCKETS) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Configuration of one ServingEngine over the dense cache: ``n_slots``
-    private ``(max_len, ...)`` cache rows in ``dtype``; decode chunks of
-    up to ``chunk_tokens`` steps."""
+    """Configuration of one ServingEngine; decode chunks of up to
+    ``chunk_tokens`` steps, caches in ``dtype``.
+
+    ``cache="dense"``: ``n_slots`` private ``(max_len, ...)`` cache rows.
+    ``cache="paged"``: a pool of ``max_blocks`` shared pages of
+    ``block_size`` tokens, per-sequence block tables and up to
+    ``max_seqs`` resident sequences, so in-flight concurrency is bounded
+    by the block budget, not ``n_slots``. Defaults keep ``max_blocks`` at
+    the dense footprint (``n_slots × max_len / block_size``) and
+    ``max_seqs`` at ``max_blocks``, as in JAX. ``prefix_cache`` (paged
+    only) shares full prompt blocks between requests by content hash."""
     n_slots: int = 4
     max_len: int = 512
+    cache: str = "dense"
+    block_size: int = 16
+    max_blocks: int | None = None
+    max_seqs: int | None = None
+    prefix_cache: bool = False
     dtype: torch.dtype = torch.float32
     chunk_tokens: int = 32
 
     def __post_init__(self):
         if self.n_slots < 1 or self.max_len < 2 or self.chunk_tokens < 1:
             raise ValueError(f"invalid EngineConfig {self}")
+        if self.cache not in ("dense", "paged"):
+            raise ValueError(f"cache must be 'dense' or 'paged', "
+                             f"got {self.cache!r}")
+        if self.cache == "paged" and self.max_len % self.block_size:
+            raise ValueError(
+                f"max_len={self.max_len} must be a multiple of "
+                f"block_size={self.block_size} (a sequence's logical "
+                "blocks must tile the horizon exactly)")
+        if self.prefix_cache and self.cache != "paged":
+            raise ValueError("prefix_cache requires cache='paged' (hits "
+                             "are shared physical pages)")
+
+    @property
+    def resolved_max_blocks(self) -> int:
+        if self.max_blocks is not None:
+            return self.max_blocks
+        return max(1, self.n_slots * self.max_len // self.block_size)
+
+    @property
+    def resolved_max_seqs(self) -> int:
+        return (self.max_seqs if self.max_seqs is not None
+                else self.resolved_max_blocks)
+
+    @property
+    def n_rows(self) -> int:
+        """Resident-sequence capacity = batch dim of the engine cache."""
+        return (self.resolved_max_seqs if self.cache == "paged"
+                else self.n_slots)
 
 
 @dataclasses.dataclass
@@ -97,6 +149,7 @@ class _Slot:
     remaining: int = 0
     generated: list = dataclasses.field(default_factory=list)
     started: float = 0.0          # perf_counter stamp
+    hit_tokens: int = 0           # prefix-cache hit positions
 
 
 class ServingEngine:
@@ -122,23 +175,38 @@ class ServingEngine:
         self.n_slots = config.n_slots
         self.max_len = config.max_len
         self.chunk_tokens = config.chunk_tokens
+        self.paged = config.cache == "paged"
+        self.layout = (PagedLayout(config.block_size,
+                                   config.resolved_max_blocks)
+                       if self.paged else None)
+        # the suffix prefill is exact for every config the port serves
+        # (full-horizon rope GQA; check_supported refuses the rest)
+        self._share = self.paged and config.prefix_cache
+        n_rows = config.n_rows
         self.stream = None
         if self.device.type == "cuda":
             self.stream = torch.cuda.Stream(self.device)
             # params were written on the caller's stream
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with self._on_stream():
-            tree = model.init_cache(config.n_slots, config.max_len,
-                                    config.dtype)
-        self.cache_backend = DenseCache(tree, config.n_slots)
-        self.slots = [_Slot() for _ in range(config.n_slots)]
+            tree = model.init_cache(n_rows, config.max_len, config.dtype,
+                                    layout=self.layout)
+        if self.paged:
+            self.cache_backend = PagedCache(tree, n_rows, self.layout,
+                                            config.max_len,
+                                            prefix_cache=self._share)
+        else:
+            self.cache_backend = DenseCache(tree, n_rows)
+        self.slots = [_Slot() for _ in range(n_rows)]
         self.queue: deque[Request] = deque()
         self.done: list[Completion] = []
         self.steps = 0                # step() calls that found work
         self.chunks = 0               # fused decode chunks run
         self.tokens_generated = 0     # tokens emitted (prefill + decode)
         self.prefill_tokens_executed = 0  # real prompt positions prefilled
+        self.prefix_hit_tokens_total = 0  # positions served from hits
         self.busy_s = 0.0             # wall time spent inside step()
+        self.peak_active = 0          # most rows active at once
 
     def _on_stream(self):
         if self.stream is None:
@@ -188,46 +256,171 @@ class ServingEngine:
         return take
 
     def _admit(self) -> None:
+        if self.paged:
+            self._admit_paged()
+            return
         free = [i for i, s in enumerate(self.slots) if not s.active]
         while free and self.queue:
             reqs = self._take_bucket(len(free))
             self._admit_batch([free.pop(0) for _ in reqs], reqs)
 
-    def _admit_batch(self, slot_ids: list[int], reqs: list[Request]) -> None:
+    # -- paged admission ---------------------------------------------------
+    def _cache_tokens(self, req: Request) -> int:
+        """Cache positions a request can ever touch: prompt + decoded
+        tokens, clamped to the horizon (decode stops at max_len - 1)."""
+        return min(len(req.prompt) + req.max_new_tokens, self.max_len)
+
+    def _block_hashes(self, req: Request) -> list[bytes]:
+        """Content hash per FULL prompt block: a chained blake2b seeded
+        with the vision-token count (an int64 0: the port serves text
+        only, and requests carry no extras), then each block's int32
+        token ids — byte for byte the JAX engine's chain, so a hash
+        commits to everything at and before its block."""
+        bs = self.config.block_size
+        seed = hashlib.blake2b(digest_size=16)
+        seed.update(np.int64(0).tobytes())
+        prev = seed.digest()
+        prompt = np.ascontiguousarray(np.asarray(req.prompt), np.int32)
+        out: list[bytes] = []
+        for i in range(len(prompt) // bs):
+            hh = hashlib.blake2b(prev, digest_size=16)
+            hh.update(prompt[i * bs:(i + 1) * bs].tobytes())
+            prev = hh.digest()
+            out.append(prev)
+        return out
+
+    def _peek_plan(self, req: Request):
+        """Sharing plan ``(H, hit_hashes, full_hashes)``: ``H`` prompt
+        positions are cache hits, capped one block below the prompt end so
+        at least one residual token runs (the prefill sample needs it)."""
+        bs = self.config.block_size
+        full = self._block_hashes(req)
+        hits = self.cache_backend.peek_hit_blocks(full)
+        H = min(len(hits), (len(req.prompt) - 1) // bs) * bs
+        return H, full[:H // bs], full
+
+    def _key_for(self, req: Request, plan) -> tuple:
+        """Paged admit key: requests prefill as one batch only when their
+        padded width matches — for a hit, the SUFFIX bucket, with the hit
+        length folded in so a batch shares one context width and rope
+        offset (hit and miss requests never share a dispatch)."""
+        if plan is None or plan[0] == 0:
+            return (_bucket(len(req.prompt)),)
+        return (_bucket(len(req.prompt) - plan[0]), plan[0])
+
+    def _admit_paged(self) -> None:
+        """Block-budget admission, strict FIFO: pop queue heads while a
+        free row AND enough blocks exist, batching the run of consecutive
+        heads that share an admit key into one prefill. A head that does
+        not fit stops admission (nothing is scanned past it). Rows freed
+        during the round park in the cache's pending list; they are
+        flushed before the free rows are recomputed, so a reservation is
+        refused only once nothing is left to reclaim."""
+        cb = self.cache_backend
+        cb.flush()   # scrub freed rows' tables, reclaim their blocks
+        free = [i for i, s in enumerate(self.slots) if not s.active]
+        while free and self.queue:
+            head_plan = (self._peek_plan(self.queue[0]) if self._share
+                         else None)
+            key = self._key_for(self.queue[0], head_plan)
+            take: list[Request] = []
+            slot_ids: list[int] = []
+            plans: list = []
+            blocked = False
+            while self.queue and free:
+                req = self.queue[0]
+                plan = self._peek_plan(req) if self._share else None
+                if self._key_for(req, plan) != key:
+                    break
+                hashes = plan[1] if plan is not None else ()
+                if not cb.alloc(free[0], self._cache_tokens(req),
+                                block_hashes=hashes):
+                    blocked = True
+                    break
+                slot_ids.append(free.pop(0))
+                take.append(self.queue.popleft())
+                plans.append(plan)
+            if take:
+                self._admit_batch(slot_ids, take, plans)
+            if blocked and not cb._pending:
+                return     # exhausted: FIFO holds the head until a finish
+            if not take and not blocked:
+                return
+            # an instant finish inside _admit_batch parks its row; flush
+            # so the recomputed free rows hold no reservation
+            if cb._pending:
+                cb.flush()
+            free = [i for i, s in enumerate(self.slots) if not s.active]
+
+    # ------------------------------------------------------------------
+    def _admit_batch(self, slot_ids: list[int], reqs: list[Request],
+                     plans: list | None = None) -> None:
         n = len(reqs)
-        bl = _bucket(len(reqs[0].prompt))
+        H = plans[0][0] if plans and plans[0] is not None else 0
+        # prompts (or, for a hit, their suffixes behind H shared
+        # positions) right-padded into one bucket-wide batch
+        bl = _bucket(len(reqs[0].prompt) - H)
         padded = np.zeros((n, bl), np.int32)
         logits_idx = np.zeros((n,), np.int64)
         for j, r in enumerate(reqs):
-            plen = len(r.prompt)
-            padded[j, :plen] = r.prompt   # right-pad into the bucket
-            logits_idx[j] = plen - 1
-        src = self.model.init_cache(n, self.max_len, self.config.dtype)
-        logits = self.model.prefill(
-            self.params, torch.from_numpy(padded).to(self.device), src,
-            logits_at=torch.from_numpy(logits_idx).to(self.device))
-        self.cache_backend.insert(src, slot_ids)
-        self.prefill_tokens_executed += sum(len(r.prompt) for r in reqs)
+            toks = np.asarray(r.prompt)[H:]
+            padded[j, :len(toks)] = toks
+            logits_idx[j] = len(toks) - 1
+        tokens = torch.from_numpy(padded).to(self.device)
+        logits_at = torch.from_numpy(logits_idx).to(self.device)
+        dtype = self.config.dtype
+        if H:
+            # every row shares hit length H (it is in the admit key), so
+            # one gathered context of width exactly H serves the batch;
+            # gather before insert rewrites these rows' tables
+            ctx = self.cache_backend.gather_prefix(slot_ids, H)
+            src = self.model.init_cache(n, bl, dtype)
+            logits = self.model.prefill_suffix(self.params, tokens, src,
+                                               ctx, H, logits_at=logits_at)
+            self.prefix_hit_tokens_total += n * H
+        else:
+            # the paged mini-cache is bucket-wide (JAX builds it max_len
+            # wide): positions at or past a row's length are never read,
+            # so the rest of the horizon need not be zero-filled. It is
+            # capped at max_len, where a bucket past the horizon wraps
+            # its padding into the ring exactly as the dense cache does
+            width = min(bl, self.max_len) if self.paged else self.max_len
+            src = self.model.init_cache(n, width, dtype)
+            logits = self.model.prefill(self.params, tokens, src,
+                                        logits_at=logits_at)
+        self.cache_backend.insert(src, slot_ids, offset=H)
+        self.prefill_tokens_executed += sum(len(r.prompt) - H for r in reqs)
+        if self._share:
+            # index the new rows' full prompt blocks (hit rows extend the
+            # chain past their hit; indexed hashes are skipped)
+            for i, pl in zip(slot_ids, plans):
+                self.cache_backend.register_prefix(i, pl[2])
         first = torch.argmax(logits, dim=-1).cpu().numpy()
         now = time.perf_counter()
         for j, (i, r) in enumerate(zip(slot_ids, reqs)):
             self.slots[i] = _Slot(
                 active=True, rid=r.rid, pos=len(r.prompt),
                 prompt_len=len(r.prompt), remaining=r.max_new_tokens - 1,
-                generated=[int(first[j])], started=now)
+                generated=[int(first[j])], started=now, hit_tokens=H)
             self.tokens_generated += 1
             # the prefill sample is the request's first streamed chunk
             self._emit_chunk(r.rid, (int(first[j]),), now)
+        self.peak_active = max(self.peak_active,
+                               sum(1 for s in self.slots if s.active))
         for i in slot_ids:
-            if self.slots[i].remaining <= 0:
+            if self.slots[i].active and self.slots[i].remaining <= 0:
                 self._finish(i)
 
     def _finish(self, i: int) -> None:
         s = self.slots[i]
         now = time.perf_counter()
-        comp = Completion(s.rid, s.generated, s.prompt_len, now - s.started)
+        comp = Completion(s.rid, s.generated, s.prompt_len, now - s.started,
+                          prefix_hit_tokens=s.hit_tokens)
         self.done.append(comp)
         self._emit_done(comp, now)
+        # paged: the row's blocks return at the next admission flush,
+        # after its table points at scratch again
+        self.cache_backend.free(i)
         self.slots[i] = _Slot()
 
     # ------------------------------------------------------------------
@@ -241,7 +434,7 @@ class ServingEngine:
         # round down to a power of two: never a step past the shortest
         # budget, and the same few chunk lengths recur
         n_tokens = 1 << (exact.bit_length() - 1)
-        state = np.zeros((4, self.n_slots), np.int32)  # tok, pos, rem, act
+        state = np.zeros((4, len(self.slots)), np.int32)  # tok, pos, rem, act
         for i in active:
             s = self.slots[i]
             state[:, i] = (s.generated[-1], s.pos, s.remaining, 1)

@@ -28,6 +28,14 @@ def _randn(gen, *shape, dtype):
     return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
 
+def _to_card(tree):
+    if isinstance(tree, dict):
+        return {k: _to_card(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_card(v) for v in tree]
+    return tree.cuda()
+
+
 def _assert_close(got, want, dtype):
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
@@ -69,6 +77,83 @@ def test_decode_kernel_matches_plain(cuda, dtype, B, W, H, Hkv, K):
     assert bool((got[-1] == 0).all())
 
 
+def _paged_inputs(gen, lengths, H, Hkv, K, bs, nblk, dtype):
+    """q, pages and a table giving each row its own scattered pages (the
+    rest of its table on the scratch page, the pool's last)."""
+    B = len(lengths)
+    n_pages = 2 * B * nblk
+    q = _randn(gen, B, H, K, dtype=dtype)
+    kp = _randn(gen, n_pages + 1, bs, Hkv, K, dtype=dtype)
+    vp = _randn(gen, n_pages + 1, bs, Hkv, K, dtype=dtype)
+    table = torch.randperm(n_pages, generator=gen, device="cuda")[
+        :B * nblk].reshape(B, nblk).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    owned = (torch.arange(nblk, device="cuda")[None, :]
+             < (lens[:, None] + bs - 1) // bs)
+    table[~owned] = n_pages
+    return q, kp, vp, table.contiguous(), lens, owned
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths,H,Hkv,K,bs,nblk,softcap", [
+    ([48, 160, 300, 544], 16, 8, 128, 16, 128, 0.0),
+    ([5, 0, 64, 17], 16, 8, 128, 16, 8, 30.0),
+    ([90, 7, 500], 16, 4, 64, 8, 64, 0.0),
+    ([33, 1], 8, 8, 32, 4, 16, 0.0),
+])
+def test_paged_kernel_matches_plain_and_dense_bits(cuda, dtype, lengths, H,
+                                                   Hkv, K, bs, nblk,
+                                                   softcap):
+    q, kp, vp, table, lens, owned = _paged_inputs(cuda, lengths, H, Hkv, K,
+                                                  bs, nblk, dtype)
+    before = ops.launch_counts()["paged_decode_attention"]
+    got = ops.paged_decode_attention(q, kp, vp, table, lens,
+                                     softcap=softcap)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_decode_attention"] == before + 1
+    _assert_close(got, ref.paged_decode_attention(q, kp, vp, table, lens,
+                                                  softcap=softcap), dtype)
+    # bitwise the dense kernel over the gathered view
+    B, W = len(lengths), nblk * bs
+    k = kp[table.long()].reshape(B, W, Hkv, K).contiguous()
+    v = vp[table.long()].reshape(B, W, Hkv, K).contiguous()
+    valid = torch.arange(W, device="cuda")[None, :] < lens[:, None]
+    assert torch.equal(got, ops.decode_attention(q, k, v, valid,
+                                                 softcap=softcap))
+    # pages no row owns (scratch included) are never read
+    unowned = torch.ones(kp.shape[0], dtype=torch.bool, device="cuda")
+    unowned[table[owned].long()] = False
+    kp[unowned] = float("nan")
+    vp[unowned] = float("nan")
+    assert torch.equal(got, ops.paged_decode_attention(
+        q, kp, vp, table, lens, softcap=softcap))
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert bool((got[b] == 0).all())
+
+
+def test_paged_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, kp, vp, table, lens, _ = _paged_inputs(cuda, [20, 9], 16, 8, 128,
+                                              16, 4, torch.float32)
+    with pytest.raises(TypeError, match="int32"):
+        ops.paged_decode_attention(q, kp, vp, table.long(), lens)
+    with pytest.raises(TypeError, match="int32"):
+        ops.paged_decode_attention(q, kp, vp, table, lens.long())
+    with pytest.raises(TypeError):
+        ops.paged_decode_attention(q, kp.to(torch.bfloat16), vp, table,
+                                   lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.paged_decode_attention(q, kp, vp, table.t().contiguous().t(),
+                                   lens)
+    with pytest.raises(ValueError, match="do not match"):
+        ops.paged_decode_attention(q, kp, vp, table[:1], lens)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.paged_decode_attention(_randn(cuda, 2, 128, 64,
+                                          dtype=torch.float32),
+                                   kp[..., :64].contiguous(),
+                                   vp[..., :64].contiguous(), table, lens)
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = _randn(cuda, 1, 8, 4, 32, dtype=torch.float32)
     with pytest.raises(TypeError):
@@ -102,14 +187,7 @@ def test_router_on_the_card_matches_the_cpu_path(cuda):
                                          (70, 6)])]
     cpu_model = Model(cfg, device="cpu")
     params = cpu_model.init(seed=0)
-
-    def to_card(tree):
-        if isinstance(tree, dict):
-            return {k: to_card(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_card(v) for v in tree]
-        return tree.cuda()
-    gpu_params = to_card(params)
+    gpu_params = _to_card(params)
     out = []
     for model, p, dev in ((cpu_model, params, "cpu"),
                           (Model(cfg, device="cuda"), gpu_params, "cuda")):
@@ -119,5 +197,53 @@ def test_router_on_the_card_matches_the_cpu_path(cuda):
             handles = [router.submit(Request(*s)) for s in specs]
             out.append({h.rid: h.tokens() for h in handles})
         counts = ops.launch_counts()
-        assert (min(counts.values()) > 0) == (dev == "cuda"), counts
+        dense = (counts["flash_attention"], counts["decode_attention"])
+        assert (min(dense) > 0) == (dev == "cuda"), counts
+        assert counts["paged_decode_attention"] == 0, counts
     assert out[1] == out[0]
+
+
+def test_paged_router_on_the_card_matches_the_cpu_path(cuda):
+    """Two paged, prefix-sharing containers on the card (the paged and
+    prefill kernels, no dense decode) give the CPU path's greedy tokens
+    and hit counts on reduced qwen3 in f32."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.backend import ThreadBackend
+    from repro_torch.serving.engine import EngineConfig, Request
+    from repro_torch.serving.router import Router
+
+    cfg = get_config("qwen3-0.6b-reduced")
+    config = EngineConfig(n_slots=2, max_len=128, chunk_tokens=4,
+                          cache="paged", prefix_cache=True)
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab_size, (48,), dtype=np.int32)
+    waves = [[(i, np.concatenate([prefix, rng.integers(
+        0, cfg.vocab_size, (n,), dtype=np.int32)]), m)
+        for i, (n, m) in enumerate(spec, start)]
+        for start, spec in ((0, [(9, 4)]), (10, [(20, 5), (3, 6), (40, 3),
+                                                  (17, 1)]))]
+    cpu_model = Model(cfg, device="cpu")
+    params = cpu_model.init(seed=0)
+    out = []
+    for model, p, dev in ((cpu_model, params, "cpu"),
+                          (Model(cfg, device="cuda"), _to_card(params),
+                           "cuda")):
+        ops.reset_launch_counts()
+        got = {}
+        with Router(ThreadBackend(model, p, 2, config, device=dev),
+                    device=dev) as router:
+            for wave in waves:
+                for h in [router.submit(Request(*s)) for s in wave]:
+                    c = h.result()
+                    got[c.rid] = (list(c.tokens), c.prefix_hit_tokens)
+        counts = ops.launch_counts()
+        if dev == "cuda":
+            assert counts["paged_decode_attention"] > 0, counts
+            assert counts["flash_attention"] > 0, counts
+        assert counts["decode_attention"] == 0, counts
+        out.append(got)
+    assert out[1] == out[0]
+    assert any(h > 0 for _, h in out[1].values())

@@ -83,6 +83,11 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card(cpu_only):
     params = model.init(seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(model, params, EngineConfig(n_slots=1, max_len=32))
+    paged = EngineConfig(n_slots=1, max_len=32, cache="paged",
+                         prefix_cache=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(model, params, paged)
+    assert ServingEngine(model, params, paged, device="cpu").paged
     config = EngineConfig(n_slots=1, max_len=32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ThreadBackend(model, params, 1, config)
