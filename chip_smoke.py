@@ -11,11 +11,13 @@ Phases, each raising on failure (any failure exits nonzero):
    same CUDA tensors, at qwen3-0.6b's attention widths (H=16, Hkv=8,
    K=128), float32 and bfloat16, at the tolerances of
    tests/test_kernels.py: |kernel - plain| <= tol + tol*|plain| with
-   tol 2e-5 (float32) and 2e-2 (bfloat16). The paged kernel is also held
-   bitwise to the dense one over the gathered view, and must ignore NaN in
-   every page no row owns. Times each (CUDA events) beside the plain
+   tol 2e-5 (float32) and 2e-2 (bfloat16). The paged kernels are also
+   held bitwise to their dense siblings over the gathered view, and must
+   ignore NaN in every page (and int8 scale page) no row owns. The int8
+   kernels take int8 K/V quantised by the model's own quantiser, with
+   float32 or bfloat16 queries. Times each (CUDA events) beside the plain
    version and ``scaled_dot_product_attention`` (a yardstick the port
-   never calls).
+   never calls; over the dequantised view for the int8 kernels).
 3. Model: qwen3-0.6b at full width cut to 2 layers, float32, the port's
    seeded init: prefill + 8 greedy decode steps on the card against the
    same parameters on the CPU plain path.
@@ -37,7 +39,16 @@ Phases, each raising on failure (any failure exits nonzero):
    flight; the paged and prefill kernels launch, the dense decode kernel
    does not. Wave 2 is also served without sharing on one engine and its
    token agreement printed (reported, not checked: other batch shapes).
-7. A JSON line with each kernel's launches, error and times, then the
+7. The int8 KV cache (``kv_cache_dtype="int8"``), same weights:
+   a. dense vs paged as in phase 5, on int8 caches: identical greedy
+      streams, through the two int8 decode kernels only;
+   b. ``Router(ThreadBackend(2))`` over paged int8 engines as in phase 6
+      (prefix_cache=True, which an int8 cache ignores) serving phase 6's
+      14 wave-2 requests: each completes with max_new tokens and no hit
+      tokens; the paged int8 kernel launches, no bfloat16 decode kernel
+      does. Reports the KV pool's bytes against phase 6's bfloat16 pool
+      and the greedy tokens that agree with phase 6 (not checked).
+8. A JSON line with each kernel's launches, error and times, then the
    result line ``{"ok": true, "device": {...}}``.
 
 It needs the checkout's ``src/`` and a CUDA device; without either it
@@ -116,21 +127,29 @@ def prefill_bound(B, Sq, Skv, mask, dtype_name, itemsize):
                                        else "bytes")
 
 
-def decode_bound(B, W, valid, dtype_name, itemsize):
+def decode_bound(B, W, valid, dtype_name, itemsize, row_bytes=None):
+    """Each live key and value row once (``row_bytes`` each: K * itemsize,
+    or K + 4 for int8 codes and their scale), q/out and the mask once."""
     live = int(valid.sum())
-    nbytes = (2 * live * HKV * K + 2 * B * H * K) * itemsize + B * W
+    row = K * itemsize if row_bytes is None else row_bytes
+    nbytes = 2 * live * HKV * row + 2 * B * H * K * itemsize + B * W
     flops = 2 * 2 * live * H * K
+    if row_bytes is not None:
+        flops += 2 * live * HKV * K              # the dequantising multiplies
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
-def paged_bound(B, nblk, lengths, dtype_name, itemsize):
+def paged_bound(B, nblk, lengths, dtype_name, itemsize, row_bytes=None):
     """Each live key and value row once, the table and q/out once."""
     live = int(lengths.sum())
-    nbytes = ((2 * live * HKV * K + 2 * B * H * K) * itemsize
+    row = K * itemsize if row_bytes is None else row_bytes
+    nbytes = (2 * live * HKV * row + 2 * B * H * K * itemsize
               + B * nblk * 4)
     flops = 2 * 2 * live * H * K
+    if row_bytes is not None:
+        flops += 2 * live * HKV * K
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -224,6 +243,91 @@ def paged_checks(gen):
                 fail(f"{what}: output moved with NaN in unowned pages")
             print(f"{what}: max_abs_err={err:.3e}, bitwise equal to the "
                   "dense kernel, NaN unowned pages ignored", flush=True)
+
+
+def quant(x):
+    """int8 codes and float32 scales of x, by the model's quantiser."""
+    from repro_torch.models.attention import _quant_kv
+    return _quant_kv(x)
+
+
+def int8_checks(gen):
+    """The int8 kernels against their plain versions (f32 and bf16 q); the
+    paged one bitwise against the dense one over the gathered view, a
+    length-0 row 0, and unchanged with NaN in every unowned page, scale
+    page and the scratch page (and in dense slots no row reads)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for B, W, softcap in ((4, 2048, 0.0), (3, 300, 30.0)):
+            q = torch.randn(B, H, K, generator=gen, device=dev).to(dtype)
+            kq, ks = quant(torch.randn(B, W, HKV, K, generator=gen,
+                                       device=dev))
+            vq, vs = quant(torch.randn(B, W, HKV, K, generator=gen,
+                                       device=dev))
+            valid = torch.rand(B, W, generator=gen, device=dev) < 0.7
+            valid[-1] = False                    # a row with no live slot
+            what = f"decode_attention_int8 {dn} B={B} W={W} softcap={softcap}"
+            got = da.decode_attention_int8(q, kq, vq, valid, ks, vs,
+                                           softcap=softcap)
+            torch.cuda.synchronize()
+            err = check_close(got, ref.decode_attention(
+                q, kq, vq, valid, softcap=softcap, k_scale=ks, v_scale=vs),
+                dn, what)
+            if bool(got[-1].ne(0).any()):
+                fail(f"{what}: all-invalid row is not 0")
+            ks[~valid], vs[~valid] = float("nan"), float("nan")
+            if not torch.equal(got, da.decode_attention_int8(
+                    q, kq, vq, valid, ks, vs, softcap=softcap)):
+                fail(f"{what}: output moved with NaN scales in dead slots")
+            print(f"{what}: max_abs_err={err:.3e}, dead slots' NaN scales "
+                  "ignored", flush=True)
+        # (lengths, softcap, share): the main-path shape, the phase-2
+        # scattered/shared tables with a length-0 row, softcap
+        for lengths, softcap, share in (
+                (PAGED_MAIN_LENGTHS, 0.0, 0),
+                ([700, 33, 0, 2048, 17, 1, 1024, 255], 0.0, 2),
+                ([48, 160, 300, 544], 30.0, 0)):
+            q, kp, vp, table, lens, unowned = paged_case(
+                gen, lengths, h=H, hkv=HKV, k=K, bs=16, nblk=128,
+                dtype=torch.float32, share=share)
+            q = q.to(dtype)
+            kq, ks = quant(kp)
+            vq, vs = quant(vp)
+            what = (f"paged_decode_attention_int8 {dn} lengths={lengths} "
+                    f"softcap={softcap}")
+            got = pa.paged_decode_attention_int8(q, kq, vq, ks, vs, table,
+                                                 lens, softcap=softcap)
+            torch.cuda.synchronize()
+            err = check_close(got, ref.paged_decode_attention(
+                q, kq, vq, table, lens, softcap=softcap, k_scale_pages=ks,
+                v_scale_pages=vs), dn, what)
+            for b, n in enumerate(lengths):
+                if n == 0 and bool(got[b].ne(0).any()):
+                    fail(f"{what}: length-0 row {b} is not 0")
+            kd, vd, valid = gathered(kq, vq, table, lens)
+            ksd, vsd, _ = gathered(ks, vs, table, lens)
+            dense = da.decode_attention_int8(q, kd, vd, valid, ksd, vsd,
+                                             softcap=softcap)
+            if not torch.equal(got, dense):
+                fail(f"{what}: not bitwise equal to decode_attention_int8 "
+                     f"over the gathered view (max diff "
+                     f"{float((got.float() - dense.float()).abs().max()):.3e})")
+            ks[unowned], vs[unowned] = float("nan"), float("nan")
+            kq[unowned], vq[unowned] = 127, -127
+            poisoned = pa.paged_decode_attention_int8(
+                q, kq, vq, ks, vs, table, lens, softcap=softcap)
+            if not (torch.equal(poisoned, got)
+                    and bool(torch.isfinite(poisoned).all())):
+                fail(f"{what}: output moved with NaN in unowned pages or "
+                     "scale pages")
+            print(f"{what}: max_abs_err={err:.3e}, bitwise equal to the "
+                  "dense int8 kernel, NaN unowned pages and scale pages "
+                  "ignored", flush=True)
 
 
 def kernel_phase():
@@ -360,6 +464,71 @@ def kernel_phase():
         "shape": f"B={len(lengths)} bs={bs} nblk={nblk} H={H} Hkv={HKV} "
                  f"K={K} bf16 live={lengths}; library_ms is sdpa over the "
                  "pre-gathered dense view (gather not counted)"}
+
+    # the int8 kernels at the same two decode shapes, bf16 queries over
+    # int8 K/V; the yardstick is sdpa over the dequantised bf16 view
+    # (dequantisation not counted: no PyTorch call attends over int8)
+    int8_checks(gen)
+    B, W = 4, 2048
+    q = randn(B, H, K, dtype=dtype)
+    kq, ks = quant(torch.randn(B, W, HKV, K, generator=gen, device=dev))
+    vq, vs = quant(torch.randn(B, W, HKV, K, generator=gen, device=dev))
+    depth = torch.tensor([48, 160, 300, 544], device=dev)
+    valid = torch.arange(W, device=dev)[None, :] < depth[:, None]
+    err = check_close(
+        da.decode_attention_int8(q, kq, vq, valid, ks, vs),
+        ref.decode_attention(q, kq, vq, valid, k_scale=ks, v_scale=vs), dn,
+        "int8 decode main shape")
+    bound, by = decode_bound(B, W, valid, dn, isz, row_bytes=K + 4)
+    k4 = (kq.float() * ks[..., None]).to(dtype).transpose(1, 2)
+    v4 = (vq.float() * vs[..., None]).to(dtype).transpose(1, 2)
+    mask4 = valid[:, None, None, :]
+    results["decode_attention_int8"] = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: da.decode_attention_int8(q, kq, vq, valid, ks,
+                                                       vs)),
+        "plain_ms": time_ms(lambda: ref.decode_attention(
+            q, kq, vq, valid, k_scale=ks, v_scale=vs), reps=5),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k4, v4, attn_mask=mask4, enable_gqa=True)),
+        "shape": f"B={B} W={W} H={H} Hkv={HKV} K={K} bf16 q, int8 K/V + "
+                 f"f32 scales, live={depth.tolist()}; library_ms is sdpa "
+                 "over the dequantised bf16 view (dequant not counted)"}
+
+    lengths = PAGED_MAIN_LENGTHS
+    q, kp, vp, table, lens, _ = paged_case(gen, lengths, h=H, hkv=HKV, k=K,
+                                           bs=bs, nblk=nblk,
+                                           dtype=torch.float32)
+    q = q.to(dtype)
+    kq, ks = quant(kp)
+    vq, vs = quant(vp)
+    err = check_close(
+        pa.paged_decode_attention_int8(q, kq, vq, ks, vs, table, lens),
+        ref.paged_decode_attention(q, kq, vq, table, lens, k_scale_pages=ks,
+                                   v_scale_pages=vs), dn,
+        "int8 paged main shape")
+    bound, by = paged_bound(len(lengths), nblk, lens, dn, isz,
+                            row_bytes=K + 4)
+    kd, vd, valid = gathered(kq, vq, table, lens)
+    ksd, vsd, _ = gathered(ks, vs, table, lens)
+    k4 = (kd.float() * ksd[..., None]).to(dtype).transpose(1, 2)
+    v4 = (vd.float() * vsd[..., None]).to(dtype).transpose(1, 2)
+    mask4 = valid[:, None, None, :]
+    results["paged_decode_attention_int8"] = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: pa.paged_decode_attention_int8(
+            q, kq, vq, ks, vs, table, lens)),
+        "plain_ms": time_ms(lambda: ref.paged_decode_attention(
+            q, kq, vq, table, lens, k_scale_pages=ks, v_scale_pages=vs),
+            reps=5),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k4, v4, attn_mask=mask4, enable_gqa=True)),
+        "shape": f"B={len(lengths)} bs={bs} nblk={nblk} H={H} Hkv={HKV} "
+                 f"K={K} bf16 q, int8 pages + f32 scale pages, live="
+                 f"{lengths}; library_ms is sdpa over the pre-gathered, "
+                 "dequantised bf16 view (gather and dequant not counted)"}
     return results
 
 
@@ -521,7 +690,8 @@ def parity_phase(model, params, config, card: str, groups=PARITY_GROUPS):
                  f"{dense[r.rid][:8]}... vs {paged.get(r.rid, [])[:8]}...")
     n_tok = sum(len(t) for t in dense.values())
     print(f"dense vs paged: {model.cfg.name} {model.cfg.n_layers} layers "
-          f"{str(config.dtype).split('.')[1]}, n_slots={config.n_slots} "
+          f"{str(config.dtype).split('.')[1]}, kv_cache_dtype="
+          f"{model.cfg.kv_cache_dtype}, n_slots={config.n_slots} "
           f"max_seqs={config.max_seqs} block_size={config.block_size} "
           f"max_len={config.max_len}, {len(reqs)} requests in groups "
           f"{[list(g) for g, _ in groups]}: {n_tok} greedy tokens "
@@ -561,7 +731,8 @@ def prefix_phase(model, params, config, card: str, n_containers: int = 2,
     seeds the prefix index, wave 2 must hit it; more sequences than
     n_slots must be in flight at once in the dense footprint; the paged
     kernel and the prefill kernel must launch, the dense decode kernel
-    must not. Returns the launch counts of this phase."""
+    must not. Returns the launch counts of this phase, the wave-2 tokens
+    by request and one engine's KV pool bytes."""
     from repro_torch.kernels import ops
     from repro_torch.serving.backend import ThreadBackend
     from repro_torch.serving.engine import Request, ServingEngine
@@ -596,6 +767,7 @@ def prefix_phase(model, params, config, card: str, n_containers: int = 2,
                 results[c.rid] = c
         launches = ops.launch_counts()
         peak = [e.peak_active for e in backend.engines]
+        pool = kv_pool_bytes(backend.engines[0])
     for wave in waves:
         for rid, _ in wave:
             c = results.get(rid)
@@ -651,6 +823,78 @@ def prefix_phase(model, params, config, card: str, n_containers: int = 2,
           f"the sharing run {agree}/{len(waves[1]) * max_new} "
           f"[card: {card}]", flush=True)
     del eng
+    return launches, {rid: results[rid].tokens for rid, _ in waves[1]}, pool
+
+
+def kv_pool_bytes(engine) -> int:
+    """Bytes of an engine's KV cache tensors (pages and scale pages, or
+    dense rows and scales; the block table left out)."""
+    return sum(t.nbytes for g in engine.cache_backend.tree
+               for name, t in g.items() if name != "table")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the int8 KV cache
+# ---------------------------------------------------------------------------
+def int8_path_phase(model, params, config, card: str, bf16_tokens: dict,
+                    bf16_pool: int, n_containers: int = 2,
+                    max_new: int = 32):
+    """Router(ThreadBackend) over paged int8 engines serving phase 6's
+    wave 2 (prefix_cache=True, which the int8 cache must ignore): every
+    request completes with ``max_new`` tokens and no hit tokens, the paged
+    int8 kernel launches and no bfloat16 decode kernel does. Returns the
+    launch counts of this phase."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.backend import ThreadBackend
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.router import Router
+
+    cfg, dev = model.cfg, model.device
+    wave = shared_prefix_requests(cfg)[1]
+    backend = ThreadBackend(model, params, n_containers, config=config,
+                            device=dev)
+    with Router(backend, device=dev) as router:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        handles = [router.submit(Request(rid, prompt, max_new))
+                   for rid, prompt in wave]
+        comps = {h.rid: h.result() for h in handles}
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = [e.peak_active for e in backend.engines]
+        hits = sum(e.prefix_hit_tokens_total for e in backend.engines)
+        pool = kv_pool_bytes(backend.engines[0])
+    for rid, _ in wave:
+        c = comps[rid]
+        if len(c.tokens) != max_new:
+            fail(f"int8 path: request {rid} gave {len(c.tokens)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in c.tokens):
+            fail(f"int8 path: request {rid} has out-of-range tokens")
+    if hits != 0:
+        fail(f"int8 path: {hits} prefix hit tokens on an int8 cache")
+    if dev.type == "cuda" and launches["paged_decode_attention_int8"] <= 0:
+        fail("int8 path: paged_decode_attention_int8 was never launched")
+    bf16 = {k: launches[k] for k in ("decode_attention",
+                                     "paged_decode_attention")}
+    if any(bf16.values()):
+        fail(f"int8 path: bfloat16 decode kernels launched {bf16}")
+    n_tok = sum(len(c.tokens) for c in comps.values())
+    ttfc_p50 = float(np.percentile([h.ttfc_s for h in handles], 50))
+    agree = sum(int(a == b) for rid, _ in wave
+                for a, b in zip(comps[rid].tokens, bf16_tokens[rid]))
+    wdt = str(params["embed"]["table"].dtype).split(".")[1]
+    print(f"int8 path: {cfg.name} {cfg.n_layers} layers {wdt} weights, int8 "
+          f"KV, Router(ThreadBackend({n_containers})) paged block_size="
+          f"{config.block_size} max_seqs={config.max_seqs} max_len="
+          f"{config.max_len} prefix_cache=True, phase 6 wave 2 ({len(wave)} "
+          f"requests) max_new={max_new}: wall_s={wall:.4f} tok_per_s="
+          f"{n_tok / wall:.2f} ttfc_p50_s={ttfc_p50:.4f} hit_tokens={hits} "
+          f"peak_active={peak} kv_pool_bytes int8={pool} bf16={bf16_pool} "
+          f"({pool / bf16_pool:.4f}x); greedy tokens agreeing with the "
+          f"bf16 run (phase 6, not checked): {agree}/{n_tok}; launches="
+          f"{launches} [card: {card}]", flush=True)
     return launches
 
 
@@ -674,7 +918,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.kernels import ops
     from repro_torch.kernels.build import extension
+    from repro_torch.models.model import Model
     from repro_torch.serving.engine import EngineConfig
 
     name = torch.cuda.get_device_name(0)
@@ -693,16 +939,35 @@ def main() -> int:
                 chunk_tokens=32, cache="paged", block_size=16)
     parity_phase(model, params, EngineConfig(max_seqs=4, **base), card)
     torch.cuda.empty_cache()
-    paged_launches = prefix_phase(
+    paged_launches, bf16_tokens, bf16_pool = prefix_phase(
         model, params, EngineConfig(max_seqs=8, prefix_cache=True, **base),
         card)
 
+    # the same weights over int8 caches
+    torch.cuda.empty_cache()
+    model8 = Model(dataclasses.replace(model.cfg, kv_cache_dtype="int8"))
+    ops.reset_launch_counts()
+    parity_phase(model8, params, EngineConfig(max_seqs=4, **base), card)
+    parity8 = ops.launch_counts()
+    for k in ("decode_attention", "paged_decode_attention"):
+        if parity8[k] or not parity8[f"{k}_int8"]:
+            fail(f"int8 dense vs paged: launches {parity8}")
+    torch.cuda.empty_cache()
+    int8_launches = int8_path_phase(
+        model8, params, EngineConfig(max_seqs=8, prefix_cache=True, **base),
+        card, bf16_tokens, bf16_pool)
+
     # each kernel's launches come from the path it serves: phase 4 (dense
     # cache) for the prefill and dense decode kernels, phase 6 (paged
-    # cache with prefix sharing) for the paged decode kernel
-    by_phase = {"phase4": launches, "phase6": paged_launches}
+    # cache with prefix sharing) for the paged decode kernel, phase 7a
+    # (dense and paged int8 engines) for the dense int8 kernel and 7b
+    # (the int8 Router path) for the paged int8 kernel
+    by_phase = {"phase4": launches, "phase6": paged_launches,
+                "phase7a": parity8, "phase7b": int8_launches}
     main_phase = {"flash_attention": "phase4", "decode_attention": "phase4",
-                  "paged_decode_attention": "phase6"}
+                  "paged_decode_attention": "phase6",
+                  "decode_attention_int8": "phase7a",
+                  "paged_decode_attention_int8": "phase7b"}
     replaces = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:98"),
@@ -711,6 +976,12 @@ def main() -> int:
         "paged_decode_attention": (
             "src/repro_torch/kernels/csrc/paged_attention.cu",
             "src/repro/kernels/paged_attention.py:156"),
+        "decode_attention_int8": (
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:124"),
+        "paged_decode_attention_int8": (
+            "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "src/repro/kernels/paged_attention.py:211"),
     }
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": replaces[k][0],

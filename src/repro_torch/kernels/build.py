@@ -17,8 +17,22 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("binding.cpp", "flash_attention.cu", "decode_attention.cu",
            "paged_attention.cu")
 
+CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
+
 _lock = threading.Lock()
 _ext = None  # the loaded extension, once built
+
+
+def load_kernels(build_dir: pathlib.Path, extra_cuda_flags=(),
+                 verbose: bool = False):
+    """Compile and load every source under ``csrc/`` into ``build_dir``."""
+    from torch.utils.cpp_extension import load
+    build_dir.mkdir(parents=True, exist_ok=True)
+    return load(name="repro_torch_kernels",
+                sources=[str(_CSRC / s) for s in SOURCES],
+                build_directory=str(build_dir), extra_cflags=["-O2"],
+                extra_cuda_cflags=[*CUDA_FLAGS, *extra_cuda_flags],
+                verbose=verbose)
 
 
 def extension():
@@ -27,16 +41,7 @@ def extension():
     global _ext
     with _lock:
         if _ext is None:
-            from torch.utils.cpp_extension import load
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            _ext = load(
-                name="repro_torch_kernels",
-                sources=[str(_CSRC / s) for s in SOURCES],
-                build_directory=str(BUILD_DIR),
-                extra_cflags=["-O2"],
-                extra_cuda_cflags=["-O3", "-std=c++17",
-                                   "-gencode=arch=compute_90a,code=sm_90a"],
-                verbose=False)
+            _ext = load_kernels(BUILD_DIR)
     return _ext
 
 

@@ -1,6 +1,7 @@
 // Python binding of the attention kernels for torch.utils.cpp_extension.
 // The Python wrappers (kernels/flash_attention.py,
-// kernels/decode_attention.py, kernels/paged_attention.py) check devices,
+// kernels/decode_attention.py, kernels/paged_attention.py, each of the
+// last two with an int8 entry point) check devices,
 // types, shapes and layout, allocate the outputs and pass raw device
 // pointers, sizes and the CUDA stream as integers; these functions only
 // forward them and return the launch's CUDA error code. Nothing here needs the PyTorch headers, only
@@ -25,6 +26,16 @@ int paged_decode_attention_launch(const void* q, const void* k_pages,
                                   int nblk, int bs, int H, int Hkv, int K,
                                   float scale, float softcap, int is_bf16,
                                   void* stream);
+int decode_attention_int8_launch(const void* q, const void* k, const void* v,
+                                 const void* valid, const void* k_scale,
+                                 const void* v_scale, void* out, int B, int W,
+                                 int H, int Hkv, int K, float scale,
+                                 float softcap, int is_bf16, void* stream);
+int paged_decode_attention_int8_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale_pages, const void* v_scale_pages, const void* table,
+    const void* lengths, void* out, int B, int nblk, int bs, int H, int Hkv,
+    int K, float scale, float softcap, int is_bf16, void* stream);
 const char* kernel_error_string(int err);
 
 namespace {
@@ -61,12 +72,38 @@ int paged_decode_attention(std::uintptr_t q, std::uintptr_t k_pages,
       B, nblk, bs, H, Hkv, K, scale, softcap, is_bf16 ? 1 : 0, ptr(stream));
 }
 
+int decode_attention_int8(std::uintptr_t q, std::uintptr_t k,
+                          std::uintptr_t v, std::uintptr_t valid,
+                          std::uintptr_t k_scale, std::uintptr_t v_scale,
+                          std::uintptr_t out, int B, int W, int H, int Hkv,
+                          int K, float scale, float softcap, bool is_bf16,
+                          std::uintptr_t stream) {
+  return decode_attention_int8_launch(
+      ptr(q), ptr(k), ptr(v), ptr(valid), ptr(k_scale), ptr(v_scale),
+      ptr(out), B, W, H, Hkv, K, scale, softcap, is_bf16 ? 1 : 0,
+      ptr(stream));
+}
+
+int paged_decode_attention_int8(
+    std::uintptr_t q, std::uintptr_t k_pages, std::uintptr_t v_pages,
+    std::uintptr_t k_scale_pages, std::uintptr_t v_scale_pages,
+    std::uintptr_t table, std::uintptr_t lengths, std::uintptr_t out, int B,
+    int nblk, int bs, int H, int Hkv, int K, float scale, float softcap,
+    bool is_bf16, std::uintptr_t stream) {
+  return paged_decode_attention_int8_launch(
+      ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scale_pages),
+      ptr(v_scale_pages), ptr(table), ptr(lengths), ptr(out), B, nblk, bs, H,
+      Hkv, K, scale, softcap, is_bf16 ? 1 : 0, ptr(stream));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention", &flash_attention);
   m.def("decode_attention", &decode_attention);
   m.def("paged_decode_attention", &paged_decode_attention);
+  m.def("decode_attention_int8", &decode_attention_int8);
+  m.def("paged_decode_attention_int8", &paged_decode_attention_int8);
   m.def("error_string",
         [](int err) { return std::string(kernel_error_string(err)); });
 }

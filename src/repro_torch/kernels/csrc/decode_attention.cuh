@@ -1,19 +1,28 @@
 // The single-token decode attention kernel body shared by the dense ring
-// (decode_attention.cu) and the paged pool (paged_attention.cu), for
-// Hopper (sm_90a).
+// (decode_attention.cu) and the paged pool (paged_attention.cu), in the
+// query's type or over an int8 cache, for Hopper (sm_90a).
 //
-// One body, two address policies. The dense ring and the page pool differ
-// only in where logical cache position j of row b lives and whether it is
-// live; everything else (warp <-> position assignment, the U-row loads,
-// the skip of dead rows, the online softmax and the shared-memory merge)
-// is this one template. So for the same logical cache both kernels do the
-// same float operations in the same order and give the same bits, which
-// is what keeps dense and paged greedy decode bit-identical on the card.
+// One body, two address policies and two storage policies. The dense ring
+// and the page pool differ only in where logical cache position j of row b
+// lives and whether it is live; a cache in the query's type and an int8
+// cache differ only in how a loaded element becomes a float. Everything
+// else (warp <-> position assignment, the U-row loads, the skip of dead
+// rows, the online softmax and the shared-memory merge) is this one
+// template. So for the same logical cache the dense and the paged kernel
+// do the same float operations in the same order and give the same bits,
+// in either storage, which is what keeps dense and paged greedy decode
+// bit-identical on the card.
 //
 // Layout: q (B, H, K), out (B, H, K), contiguous, float32 or bfloat16;
-// arithmetic in float32. A policy gives, per block, the number of
-// positions to walk (`extent`), whether position j is live (`live`) and
-// the element offset of its (kv head hk) row of K/V (`row`).
+// arithmetic in float32. An address policy gives, per block, the number
+// of positions to walk (`extent`), whether position j is live (`live`)
+// and the element offset of its (kv head hk) row of K/V (`row`). A
+// storage policy gives the type K/V are stored in and each row's scales:
+// `SameType` stores them in q's type (scale 1, a no-op in float32);
+// `Int8Scales` stores int8 codes with one float32 scale per (position,
+// kv head), at index row / K of the (..., Hkv) scale array, and a row is
+// dequantised as it is loaded, before the dot (float(code) * scale), as
+// the Pallas int8 kernels dequantise their tiles in VMEM.
 //
 // Design. One block per (kv head, batch row) holds that head's G query
 // heads in registers and streams the live cache rows once. Each warp walks
@@ -23,14 +32,17 @@
 // a lane holds K/32 elements of a row, so a warp reads each row as
 // contiguous 32-lane transactions. Every warp keeps its own online softmax
 // (max, normaliser, accumulator) and the warps merge through shared memory
-// at the end. A dead position is skipped: it is neither read nor added, so
-// it contributes exactly 0.0, and a row with no live position writes 0.
+// at the end. A dead position is skipped: neither its K/V nor its scales
+// are read and nothing is added, so it contributes exactly 0.0, and a row
+// with no live position writes 0.
 //
 // Bound. Decode reads every live key and value once and does about
 // 4*G*K operations per row: it is bound by device-memory bytes,
-// 2*(live positions)*Hkv*K*itemsize per sequence. Only B*Hkv blocks run,
-// so at small batch the card is far from full; splitting the positions
-// across blocks (a second merge pass) is later work.
+// 2*(live positions)*Hkv*K*itemsize per sequence, or with int8 K/V
+// 2*(live positions)*Hkv*(K + 4) (codes and scales), about half. Only
+// B*Hkv blocks run, so at small batch the card is far from full; splitting
+// the positions across blocks (a second merge pass) is later work, and so
+// are wider int8 loads (a lane reads single bytes here).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,6 +50,7 @@
 #include <math.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace decode_attention_detail {
 
@@ -47,6 +60,9 @@ constexpr int U = 4;    // positions a warp loads before it computes
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
 }
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
@@ -94,10 +110,30 @@ struct PagedRows {
   }
 };
 
-template <typename T, int G, int KPL, typename Rows>  // KPL = K / 32
+// K/V in the query's type: an element is read as it is.
+struct SameType {
+  template <typename T> using Stored = T;
+  __device__ float k_scale(size_t) const { return 1.f; }
+  __device__ float v_scale(size_t) const { return 1.f; }
+};
+
+// int8 K/V codes; the scale of a (position, kv head) row is at index
+// row / K of k_scale / v_scale, laid out like K/V without the last axis:
+// (B, W, Hkv) for the dense ring, (P+1, bs, Hkv) for the page pool.
+struct Int8Scales {
+  template <typename T> using Stored = int8_t;
+  const float* k_scales;
+  const float* v_scales;
+  __device__ float k_scale(size_t i) const { return k_scales[i]; }
+  __device__ float v_scale(size_t i) const { return v_scales[i]; }
+};
+
+template <typename T, typename KV, int G, int KPL, typename Rows,
+          typename Store>  // KPL = K / 32
 __global__ void __launch_bounds__(NW * 32)
-    decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v, Rows rows,
+    decode_attention_kernel(const T* __restrict__ q,
+                            const KV* __restrict__ k,
+                            const KV* __restrict__ v, Rows rows, Store store,
                             T* __restrict__ out, int Hkv, float scale,
                             float softcap) {
   constexpr int K = KPL * 32;
@@ -136,10 +172,13 @@ __global__ void __launch_bounds__(NW * 32)
       const int j = j0 + u;
       ok[u] = rows.live(b, j, n);
       const size_t row = ok[u] ? rows.row(b, j, hk, K) : 0;
+      // a dead row's scale is not read either (it may be anything)
+      const float ks = ok[u] ? store.k_scale(row / K) : 0.f;
+      const float vs = ok[u] ? store.v_scale(row / K) : 0.f;
 #pragma unroll
       for (int e = 0; e < KPL; ++e) {
-        kr[u][e] = ok[u] ? to_float(k[row + lane + 32 * e]) : 0.f;
-        vr[u][e] = ok[u] ? to_float(v[row + lane + 32 * e]) : 0.f;
+        kr[u][e] = ok[u] ? to_float(k[row + lane + 32 * e]) * ks : 0.f;
+        vr[u][e] = ok[u] ? to_float(v[row + lane + 32 * e]) * vs : 0.f;
       }
     }
 #pragma unroll
@@ -195,61 +234,66 @@ __global__ void __launch_bounds__(NW * 32)
   }
 }
 
-template <typename T, int G, int KPL, typename Rows>
+template <typename T, int G, int KPL, typename Rows, typename Store>
 cudaError_t launch(const void* q, const void* k, const void* v, Rows rows,
-                   void* out, int B, int Hkv, float scale, float softcap,
-                   cudaStream_t stream) {
+                   Store store, void* out, int B, int Hkv, float scale,
+                   float softcap, cudaStream_t stream) {
+  using KV = typename Store::template Stored<T>;
   const dim3 grid(Hkv, B);
-  decode_attention_kernel<T, G, KPL, Rows><<<grid, NW * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), rows, static_cast<T*>(out), Hkv, scale,
-      softcap);
+  decode_attention_kernel<T, KV, G, KPL, Rows, Store>
+      <<<grid, NW * 32, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const KV*>(k),
+          static_cast<const KV*>(v), rows, store, static_cast<T*>(out), Hkv,
+          scale, softcap);
   return cudaGetLastError();
 }
 
 // G * K <= 512 keeps the per-thread registers and the merge buffer small
-template <typename T, int G, typename Rows>
+template <typename T, int G, typename Rows, typename Store>
 cudaError_t launch_k(int K, const void* q, const void* k, const void* v,
-                     Rows rows, void* out, int B, int Hkv, float scale,
-                     float softcap, cudaStream_t stream) {
+                     Rows rows, Store st, void* out, int B, int Hkv,
+                     float scale, float softcap, cudaStream_t stream) {
   switch (K) {
-    case 32: return launch<T, G, 1>(q, k, v, rows, out, B, Hkv, scale, softcap, stream);
-    case 64: return launch<T, G, 2>(q, k, v, rows, out, B, Hkv, scale, softcap, stream);
+    case 32: return launch<T, G, 1>(q, k, v, rows, st, out, B, Hkv, scale, softcap, stream);
+    case 64: return launch<T, G, 2>(q, k, v, rows, st, out, B, Hkv, scale, softcap, stream);
     case 128:
-      if constexpr (G <= 4) return launch<T, G, 4>(q, k, v, rows, out, B, Hkv, scale, softcap, stream);
+      if constexpr (G <= 4) return launch<T, G, 4>(q, k, v, rows, st, out, B, Hkv, scale, softcap, stream);
       return cudaErrorInvalidValue;
     case 256:
-      if constexpr (G <= 2) return launch<T, G, 8>(q, k, v, rows, out, B, Hkv, scale, softcap, stream);
+      if constexpr (G <= 2) return launch<T, G, 8>(q, k, v, rows, st, out, B, Hkv, scale, softcap, stream);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T, typename Rows>
+template <typename T, typename Rows, typename Store>
 cudaError_t launch_g(int G, int K, const void* q, const void* k,
-                     const void* v, Rows rows, void* out, int B, int Hkv,
-                     float scale, float softcap, cudaStream_t stream) {
+                     const void* v, Rows rows, Store st, void* out, int B,
+                     int Hkv, float scale, float softcap,
+                     cudaStream_t stream) {
   switch (G) {
-    case 1: return launch_k<T, 1>(K, q, k, v, rows, out, B, Hkv, scale, softcap, stream);
-    case 2: return launch_k<T, 2>(K, q, k, v, rows, out, B, Hkv, scale, softcap, stream);
-    case 4: return launch_k<T, 4>(K, q, k, v, rows, out, B, Hkv, scale, softcap, stream);
-    case 8: return launch_k<T, 8>(K, q, k, v, rows, out, B, Hkv, scale, softcap, stream);
+    case 1: return launch_k<T, 1>(K, q, k, v, rows, st, out, B, Hkv, scale, softcap, stream);
+    case 2: return launch_k<T, 2>(K, q, k, v, rows, st, out, B, Hkv, scale, softcap, stream);
+    case 4: return launch_k<T, 4>(K, q, k, v, rows, st, out, B, Hkv, scale, softcap, stream);
+    case 8: return launch_k<T, 8>(K, q, k, v, rows, st, out, B, Hkv, scale, softcap, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// Both dtypes for one policy; the caller has checked shapes and types.
-template <typename Rows>
+// Both query dtypes for one address and one storage policy; the caller
+// has checked shapes and types.
+template <typename Rows, typename Store>
 cudaError_t launch_dtype(int is_bf16, int G, int K, const void* q,
-                         const void* k, const void* v, Rows rows, void* out,
-                         int B, int Hkv, float scale, float softcap,
-                         void* stream) {
+                         const void* k, const void* v, Rows rows, Store st,
+                         void* out, int B, int Hkv, float scale,
+                         float softcap, void* stream) {
   if (B == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_g<__nv_bfloat16>(G, K, q, k, v, rows, out, B, Hkv, scale,
-                                   softcap, s);
-  return launch_g<float>(G, K, q, k, v, rows, out, B, Hkv, scale, softcap, s);
+    return launch_g<__nv_bfloat16>(G, K, q, k, v, rows, st, out, B, Hkv,
+                                   scale, softcap, s);
+  return launch_g<float>(G, K, q, k, v, rows, st, out, B, Hkv, scale,
+                         softcap, s);
 }
 
 }  // namespace decode_attention_detail

@@ -1,10 +1,11 @@
-"""Decode attention on the card: the wrapper of
-``csrc/decode_attention.cu``, which replaces the Pallas TPU kernel
-``repro/kernels/decode_attention.py::decode_attention``.
+"""Decode attention on the card: the wrappers of
+``csrc/decode_attention.cu``, which replaces the Pallas TPU kernels
+``repro/kernels/decode_attention.py::decode_attention`` and
+``::decode_attention_int8``.
 
-``decode_attention`` takes CUDA tensors only and launches the kernel or
-raises; ``kernels.ops`` sends CPU tensors to the plain version
-(``kernels.ref.decode_attention``) instead.
+``decode_attention`` and ``decode_attention_int8`` take CUDA tensors only
+and launch their kernel or raise; ``kernels.ops`` sends CPU tensors to
+the plain version (``kernels.ref.decode_attention``) instead.
 """
 from __future__ import annotations
 
@@ -13,12 +14,68 @@ import torch
 from repro_torch.kernels.build import LaunchCounter, check_launch, extension
 
 DTYPES = (torch.float32, torch.bfloat16)
-# (G, K) the kernel is instantiated for: G = H / Hkv, G * K <= 512
+# (G, K) the kernels are instantiated for: G = H / Hkv, G * K <= 512
 GROUPS = (1, 2, 4, 8)
 HEAD_DIMS = (32, 64, 128, 256)
 MAX_GROUP_WIDTH = 512
 
 launches = LaunchCounter()
+int8_launches = LaunchCounter()
+
+
+def check_cuda(name: str, q: torch.Tensor, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on q's
+    device (``name`` is the caller's, for the message)."""
+    for arg, t in {"q": q, **tensors}.items():
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name}: {arg} must be a CUDA tensor on "
+                             f"{q.device}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def check_kernel_shape(name: str, H: int, Hkv: int, K: int) -> None:
+    """Raise unless the kernels are instantiated for G = H / Hkv and K."""
+    G = H // Hkv
+    if G not in GROUPS or K not in HEAD_DIMS or G * K > MAX_GROUP_WIDTH:
+        raise ValueError(f"{name}: no kernel for G={G}, K={K} "
+                         f"(G in {GROUPS}, K in {HEAD_DIMS}, "
+                         f"G*K <= {MAX_GROUP_WIDTH})")
+
+
+def check_int8(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               k_scale: torch.Tensor, v_scale: torch.Tensor) -> None:
+    """The int8 kernels' storage: q in float32/bfloat16, int8 K/V, and
+    float32 scales shaped like K/V without the head-dim axis."""
+    if q.dtype not in DTYPES:
+        raise TypeError(f"{name}: q dtype {q.dtype}; need one of {DTYPES}")
+    for arg, t in (("k", k), ("v", v)):
+        if t.dtype != torch.int8:
+            raise TypeError(f"{name}: {arg} must be int8, got {t.dtype}")
+    for arg, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
+        if t.shape != k.shape[:-1]:
+            raise ValueError(f"{name}: {arg} {tuple(t.shape)} does not "
+                             f"match k {tuple(k.shape)} without its last "
+                             "axis")
+
+
+def _check_dense(name: str, q, k, v, valid) -> tuple[int, int, int, int, int]:
+    if valid.dtype != torch.bool:
+        raise TypeError(f"{name}: valid must be bool, got {valid.dtype}")
+    if q.dim() != 3 or k.dim() != 4 or valid.dim() != 2:
+        raise ValueError(f"{name}: need q (B,H,K), k/v (B,W,Hkv,K), "
+                         "valid (B,W)")
+    B, H, K = q.shape
+    W, Hkv = k.shape[1], k.shape[2]
+    if (v.shape != k.shape or k.shape[0] != B or k.shape[3] != K
+            or valid.shape != (B, W) or Hkv == 0 or H % Hkv):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, valid "
+                         f"{tuple(valid.shape)} do not match")
+    check_kernel_shape(name, H, Hkv, K)
+    return B, W, H, Hkv, K
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -27,34 +84,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, H, K); k/v: (B, W, Hkv, K); valid: (B, W) bool, all
     contiguous CUDA tensors on one device, q/k/v of one dtype (float32 or
     bfloat16). Returns (B, H, K) in that dtype."""
-    for name, t in (("q", q), ("k", k), ("v", v), ("valid", valid)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"decode_attention: {name} must be a CUDA "
-                             f"tensor on {q.device}, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"decode_attention: {name} must be contiguous")
+    check_cuda("decode_attention", q, k=k, v=v, valid=valid)
     for name, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype or t.dtype not in DTYPES:
             raise TypeError(f"decode_attention: {name} dtype {t.dtype}; "
                             f"need one of {DTYPES}, equal to q's")
-    if valid.dtype != torch.bool:
-        raise TypeError(f"decode_attention: valid must be bool, "
-                        f"got {valid.dtype}")
-    if q.dim() != 3 or k.dim() != 4 or valid.dim() != 2:
-        raise ValueError("decode_attention: need q (B,H,K), k/v (B,W,Hkv,K)"
-                         ", valid (B,W)")
-    B, H, K = q.shape
-    W, Hkv = k.shape[1], k.shape[2]
-    if (v.shape != k.shape or k.shape[0] != B or k.shape[3] != K
-            or valid.shape != (B, W) or Hkv == 0 or H % Hkv):
-        raise ValueError(f"decode_attention: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, valid "
-                         f"{tuple(valid.shape)} do not match")
-    G = H // Hkv
-    if G not in GROUPS or K not in HEAD_DIMS or G * K > MAX_GROUP_WIDTH:
-        raise ValueError(f"decode_attention: no kernel for G={G}, K={K} "
-                         f"(G in {GROUPS}, K in {HEAD_DIMS}, "
-                         f"G*K <= {MAX_GROUP_WIDTH})")
+    B, W, H, Hkv, K = _check_dense("decode_attention", q, k, v, valid)
     out = torch.empty((B, H, K), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
@@ -65,4 +100,31 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, "decode_attention")
     launches.add()
+    return out
+
+
+def decode_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          valid: torch.Tensor, k_scale: torch.Tensor,
+                          v_scale: torch.Tensor, *,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """q: (B, H, K) float32 or bfloat16; k/v: (B, W, Hkv, K) int8 codes;
+    valid: (B, W) bool; k_scale/v_scale: (B, W, Hkv) float32, one scale
+    per (slot, kv head), so a key is ``k.float() * k_scale[..., None]``.
+    All contiguous CUDA tensors on one device. Returns (B, H, K) in q's
+    dtype."""
+    name = "decode_attention_int8"
+    check_cuda(name, q, k=k, v=v, valid=valid, k_scale=k_scale,
+               v_scale=v_scale)
+    check_int8(name, q, k, v, k_scale, v_scale)
+    B, W, H, Hkv, K = _check_dense(name, q, k, v, valid)
+    out = torch.empty((B, H, K), dtype=q.dtype, device=q.device)
+    if B == 0:
+        return out
+    err = extension().decode_attention_int8(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), B, W, H,
+        Hkv, K, K ** -0.5, float(softcap), q.dtype == torch.bfloat16,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(err, name)
+    int8_launches.add()
     return out

@@ -17,7 +17,9 @@ from repro_torch.kernels import ref
 
 COUNTERS = {"flash_attention": _fa.launches,
             "decode_attention": _da.launches,
-            "paged_decode_attention": _pa.launches}
+            "paged_decode_attention": _pa.launches,
+            "decode_attention_int8": _da.int8_launches,
+            "paged_decode_attention_int8": _pa.int8_launches}
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -30,6 +32,13 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return dev.type == "cpu"
 
 
+def _scales(k_scale, v_scale) -> tuple:
+    """Both scales (an int8 cache) or neither (a cache in q's type)."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("give both K and V scales or neither")
+    return () if k_scale is None else (k_scale, v_scale)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0):
     """Prefill attention; see ``kernels.ref.flash_attention``."""
@@ -40,20 +49,34 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                softcap=softcap)
 
 
-def decode_attention(q, k, v, valid, *, softcap: float = 0.0):
-    """Single-token decode attention; see ``kernels.ref.decode_attention``."""
-    if _on_cpu(q, k, v, valid):
-        return ref.decode_attention(q, k, v, valid, softcap=softcap)
+def decode_attention(q, k, v, valid, *, softcap: float = 0.0,
+                     k_scale=None, v_scale=None):
+    """Single-token decode attention; see ``kernels.ref.decode_attention``.
+    Scales mean an int8 cache, which takes the int8 kernel."""
+    scales = _scales(k_scale, v_scale)
+    if _on_cpu(q, k, v, valid, *scales):
+        return ref.decode_attention(q, k, v, valid, softcap=softcap,
+                                    k_scale=k_scale, v_scale=v_scale)
+    if scales:
+        return _da.decode_attention_int8(q, k, v, valid, *scales,
+                                         softcap=softcap)
     return _da.decode_attention(q, k, v, valid, softcap=softcap)
 
 
 def paged_decode_attention(q, k_pages, v_pages, table, lengths, *,
-                           softcap: float = 0.0):
+                           softcap: float = 0.0, k_scale_pages=None,
+                           v_scale_pages=None):
     """Single-token decode over the paged cache; see
-    ``kernels.ref.paged_decode_attention``."""
-    if _on_cpu(q, k_pages, v_pages, table, lengths):
-        return ref.paged_decode_attention(q, k_pages, v_pages, table,
-                                          lengths, softcap=softcap)
+    ``kernels.ref.paged_decode_attention``. Scale pages mean int8 pages,
+    which take the int8 kernel."""
+    scales = _scales(k_scale_pages, v_scale_pages)
+    if _on_cpu(q, k_pages, v_pages, table, lengths, *scales):
+        return ref.paged_decode_attention(
+            q, k_pages, v_pages, table, lengths, softcap=softcap,
+            k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)
+    if scales:
+        return _pa.paged_decode_attention_int8(
+            q, k_pages, v_pages, *scales, table, lengths, softcap=softcap)
     return _pa.paged_decode_attention(q, k_pages, v_pages, table, lengths,
                                       softcap=softcap)
 

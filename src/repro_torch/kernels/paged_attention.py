@@ -1,21 +1,48 @@
-"""Paged decode attention on the card: the wrapper of
-``csrc/paged_attention.cu``, which replaces the Pallas TPU kernel
-``repro/kernels/paged_attention.py::paged_decode_attention``.
+"""Paged decode attention on the card: the wrappers of
+``csrc/paged_attention.cu``, which replaces the Pallas TPU kernels
+``repro/kernels/paged_attention.py::paged_decode_attention`` and
+``::paged_decode_attention_int8``.
 
-``paged_decode_attention`` takes CUDA tensors only and launches the kernel
-or raises; ``kernels.ops`` sends CPU tensors to the plain version
-(``kernels.ref.paged_decode_attention``) instead. The kernel shares its
-body with the dense decode kernel, so it takes the same (G, K).
+``paged_decode_attention`` and ``paged_decode_attention_int8`` take CUDA
+tensors only and launch their kernel or raise; ``kernels.ops`` sends CPU
+tensors to the plain version (``kernels.ref.paged_decode_attention``)
+instead. The kernels share their body with the dense decode kernels, so
+they take the same (G, K).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.build import LaunchCounter, check_launch, extension
-from repro_torch.kernels.decode_attention import (DTYPES, GROUPS, HEAD_DIMS,
-                                                  MAX_GROUP_WIDTH)
+from repro_torch.kernels.decode_attention import (DTYPES, check_cuda,
+                                                  check_int8,
+                                                  check_kernel_shape)
 
 launches = LaunchCounter()
+int8_launches = LaunchCounter()
+
+
+def _check_paged(name: str, q, k_pages, v_pages, table, lengths
+                 ) -> tuple[int, int, int, int, int, int]:
+    for arg, t in (("table", table), ("lengths", lengths)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {arg} must be int32, got {t.dtype}")
+    if (q.dim() != 3 or k_pages.dim() != 4 or table.dim() != 2
+            or lengths.dim() != 1):
+        raise ValueError(f"{name}: need q (B,H,K), pages (P+1,bs,Hkv,K), "
+                         "table (B,nblk), lengths (B,)")
+    B, H, K = q.shape
+    bs, Hkv = k_pages.shape[1], k_pages.shape[2]
+    nblk = table.shape[1]
+    if (v_pages.shape != k_pages.shape or k_pages.shape[3] != K
+            or table.shape[0] != B or lengths.shape[0] != B or Hkv == 0
+            or H % Hkv or bs == 0):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, pages "
+                         f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, "
+                         f"table {tuple(table.shape)}, lengths "
+                         f"{tuple(lengths.shape)} do not match")
+    check_kernel_shape(name, H, Hkv, K)
+    return B, nblk, bs, H, Hkv, K
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -28,42 +55,15 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     (float32 or bfloat16). Returns (B, H, K) in that dtype. The table's
     values are not checked here (that would cost a host sync per call):
     every entry below a row's length must name a page of the pool."""
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("table", table), ("lengths", lengths)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"paged_decode_attention: {name} must be a "
-                             f"CUDA tensor on {q.device}, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"paged_decode_attention: {name} must be "
-                             "contiguous")
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+    name = "paged_decode_attention"
+    check_cuda(name, q, k_pages=k_pages, v_pages=v_pages, table=table,
+               lengths=lengths)
+    for arg, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         if t.dtype != q.dtype or t.dtype not in DTYPES:
-            raise TypeError(f"paged_decode_attention: {name} dtype "
-                            f"{t.dtype}; need one of {DTYPES}, equal to q's")
-    for name, t in (("table", table), ("lengths", lengths)):
-        if t.dtype != torch.int32:
-            raise TypeError(f"paged_decode_attention: {name} must be int32, "
-                            f"got {t.dtype}")
-    if (q.dim() != 3 or k_pages.dim() != 4 or table.dim() != 2
-            or lengths.dim() != 1):
-        raise ValueError("paged_decode_attention: need q (B,H,K), pages "
-                         "(P+1,bs,Hkv,K), table (B,nblk), lengths (B,)")
-    B, H, K = q.shape
-    bs, Hkv = k_pages.shape[1], k_pages.shape[2]
-    nblk = table.shape[1]
-    if (v_pages.shape != k_pages.shape or k_pages.shape[3] != K
-            or table.shape[0] != B or lengths.shape[0] != B or Hkv == 0
-            or H % Hkv or bs == 0):
-        raise ValueError(f"paged_decode_attention: shapes q "
-                         f"{tuple(q.shape)}, pages {tuple(k_pages.shape)}/"
-                         f"{tuple(v_pages.shape)}, table "
-                         f"{tuple(table.shape)}, lengths "
-                         f"{tuple(lengths.shape)} do not match")
-    G = H // Hkv
-    if G not in GROUPS or K not in HEAD_DIMS or G * K > MAX_GROUP_WIDTH:
-        raise ValueError(f"paged_decode_attention: no kernel for G={G}, "
-                         f"K={K} (G in {GROUPS}, K in {HEAD_DIMS}, "
-                         f"G*K <= {MAX_GROUP_WIDTH})")
+            raise TypeError(f"{name}: {arg} dtype {t.dtype}; need one of "
+                            f"{DTYPES}, equal to q's")
+    B, nblk, bs, H, Hkv, K = _check_paged(name, q, k_pages, v_pages, table,
+                                          lengths)
     out = torch.empty((B, H, K), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
@@ -72,6 +72,39 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, nblk, bs,
         H, Hkv, K, K ** -0.5, float(softcap), q.dtype == torch.bfloat16,
         torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch(err, "paged_decode_attention")
+    check_launch(err, name)
     launches.add()
+    return out
+
+
+def paged_decode_attention_int8(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor,
+                                k_scale_pages: torch.Tensor,
+                                v_scale_pages: torch.Tensor,
+                                table: torch.Tensor, lengths: torch.Tensor,
+                                *, softcap: float = 0.0) -> torch.Tensor:
+    """q: (B, H, K) float32 or bfloat16; k_pages/v_pages: (P+1, bs, Hkv,
+    K) int8 codes; k_scale_pages/v_scale_pages: (P+1, bs, Hkv) float32,
+    one scale per (position, kv head); table: (B, nblk) int32; lengths:
+    (B,) int32. All contiguous CUDA tensors on one device. Returns
+    (B, H, K) in q's dtype. As for ``paged_decode_attention``, the table's
+    values are not checked."""
+    name = "paged_decode_attention_int8"
+    check_cuda(name, q, k_pages=k_pages, v_pages=v_pages,
+               k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages,
+               table=table, lengths=lengths)
+    check_int8(name, q, k_pages, v_pages, k_scale_pages, v_scale_pages)
+    B, nblk, bs, H, Hkv, K = _check_paged(name, q, k_pages, v_pages, table,
+                                          lengths)
+    out = torch.empty((B, H, K), dtype=q.dtype, device=q.device)
+    if B == 0:
+        return out
+    err = extension().paged_decode_attention_int8(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scale_pages.data_ptr(), v_scale_pages.data_ptr(),
+        table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, nblk, bs,
+        H, Hkv, K, K ** -0.5, float(softcap), q.dtype == torch.bfloat16,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(err, name)
+    int8_launches.add()
     return out

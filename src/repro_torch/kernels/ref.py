@@ -8,6 +8,11 @@ right-aligned against the keys (offset ``Skv - Sq``) and the normaliser
 clamped at 1e-30. One deliberate difference: masked positions get an
 exact 0.0 weight, so a row with no visible key yields 0 — the JAX oracle
 spreads such a row uniformly over the masked keys instead.
+
+An int8 cache (``k_scale``/``v_scale`` given) is dequantised first,
+``codes.float() * scale[..., None]``, as the kernels dequantise a row
+when they load it, and then takes the same path; a dead position's scale
+is read as 0, so it adds exactly 0.0 whatever its page holds.
 """
 from __future__ import annotations
 
@@ -66,14 +71,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Kv).to(q.dtype)
 
 
+def _dequant(codes: torch.Tensor, scale: torch.Tensor,
+             valid: torch.Tensor) -> torch.Tensor:
+    """float32 values of int8 ``codes`` (B, W, Hkv, K) with (B, W, Hkv)
+    scales; dead positions (``valid`` false) come out 0."""
+    scale = torch.where(valid[..., None], scale, 0.0)
+    return codes.float() * scale[..., None]
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid: torch.Tensor, *, softcap: float = 0.0
-                     ) -> torch.Tensor:
+                     valid: torch.Tensor, *, softcap: float = 0.0,
+                     k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """One query token per sequence against a dense ring cache.
 
     q: (B, H, K); k/v: (B, W, Hkv, K); valid: (B, W) bool — which ring
-    slots hold live entries. Returns (B, H, K) in q's dtype; a row with
-    no valid slot gives 0."""
+    slots hold live entries. With ``k_scale``/``v_scale`` (B, W, Hkv)
+    float32, k/v are int8 codes. Returns (B, H, K) in q's dtype; a row
+    with no valid slot gives 0."""
+    if k_scale is not None:
+        k, v = _dequant(k, k_scale, valid), _dequant(v, v_scale, valid)
     B, H, K = q.shape
     Hkv, Kv = k.shape[2], v.shape[3]
     g = H // Hkv
@@ -87,23 +104,33 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, table: torch.Tensor,
-                           lengths: torch.Tensor, *, softcap: float = 0.0
+                           lengths: torch.Tensor, *, softcap: float = 0.0,
+                           k_scale_pages: torch.Tensor | None = None,
+                           v_scale_pages: torch.Tensor | None = None
                            ) -> torch.Tensor:
     """One query token per sequence against a pool of pages, through a
     block table.
 
     q: (B, H, K); k_pages/v_pages: (P+1, bs, Hkv, K); table: (B, nblk)
-    page indices; lengths: (B,) — positions [0, len) are live. Gathers
-    the (B, nblk*bs, Hkv, K) logical view and runs ``decode_attention``
-    with ``valid = arange < lengths``, so for the same logical cache it
-    gives the dense plain version's bits (dead positions add exactly 0.0
-    to the output, whatever finite values their pages hold)."""
+    page indices; lengths: (B,) — positions [0, len) are live. With
+    ``k_scale_pages``/``v_scale_pages`` (P+1, bs, Hkv) float32 the pages
+    hold int8 codes. Gathers the (B, nblk*bs, Hkv, K) logical view (and
+    its scales through the same table) and runs ``decode_attention`` with
+    ``valid = arange < lengths``, so for the same logical cache it gives
+    the dense plain version's bits (dead positions add exactly 0.0 to the
+    output, whatever finite values their pages hold, and with int8 pages
+    whatever their scale pages hold)."""
     B, nblk = table.shape
     bs = k_pages.shape[1]
     W = nblk * bs
     idx = table.long()
     k = k_pages[idx].reshape(B, W, *k_pages.shape[2:])
     v = v_pages[idx].reshape(B, W, *v_pages.shape[2:])
+    ks = vs = None
+    if k_scale_pages is not None:
+        ks = k_scale_pages[idx].reshape(B, W, k_scale_pages.shape[2])
+        vs = v_scale_pages[idx].reshape(B, W, v_scale_pages.shape[2])
     valid = (torch.arange(W, device=q.device)[None, :]
              < lengths.to(q.device)[:, None])
-    return decode_attention(q, k, v, valid, softcap=softcap)
+    return decode_attention(q, k, v, valid, softcap=softcap, k_scale=ks,
+                            v_scale=vs)

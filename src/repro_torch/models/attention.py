@@ -1,18 +1,21 @@
 """GQA attention (+qk_norm) over the dense ring or the paged KV cache.
 
-The non-int8 GQA branches of ``repro.models.attention``:
-``attn_prefill_into_cache`` for prefill, ``attn_suffix_prefill_into_cache``
-for the residual suffix behind a shared prefix, and ``attn_decode`` for
-one new token over the dense ring or the block table. All reach the
-hand-written kernels through ``kernels.ops``.
+The GQA branches of ``repro.models.attention``, in the model's dtype or
+over an int8 cache: ``attn_prefill_into_cache`` for prefill,
+``attn_suffix_prefill_into_cache`` for the residual suffix behind a
+shared prefix (model dtype only), and ``attn_decode`` for one new token
+over the dense ring or the block table. All reach the hand-written
+kernels through ``kernels.ops``.
 
 Cache layout (per layer): ``{"k": (B, W, Hkv, hd), "v": (B, W, Hkv, hd)}``
-with ``W`` the cache window (= max_len here). Keys are stored post-RoPE;
-slot ``s`` holds absolute position ``p_s = pos - ((pos - s) mod W)``,
-which the decode mask reconstructs. The paged layout is in
-``models/cache.py``. Where JAX donated the cache to a jitted step and got
-a new tree back, the port writes the new keys and values into the cache
-tensors in place.
+with ``W`` the cache window (= max_len here). With
+``kv_cache_dtype="int8"`` k/v hold int8 codes and the group adds
+``"k_scale"``/``"v_scale"`` (B, W, Hkv) float32, one absmax scale per
+(slot, kv head) (``_quant_kv``). Keys are stored post-RoPE; slot ``s``
+holds absolute position ``p_s = pos - ((pos - s) mod W)``, which the
+decode mask reconstructs. The paged layout is in ``models/cache.py``.
+Where JAX donated the cache to a jitted step and got a new tree back, the
+port writes the new keys and values into the cache tensors in place.
 """
 from __future__ import annotations
 
@@ -43,8 +46,39 @@ def init_attn(cfg: ArchConfig, dtype: torch.dtype,
 def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int,
                     dtype: torch.dtype, device: torch.device) -> dict:
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], device=device),
+                "v_scale": torch.zeros(shape[:-1], device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# float32(1/127): XLA compiles the reference's ``absmax / 127.0`` under
+# jit as a multiply by this reciprocal, which rounds differently from a
+# true division in about one scale in twenty
+_INV_127 = torch.tensor(1 / 127, dtype=torch.float32)
+
+
+def _quant_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) absmax int8 quantisation of x (..., hd): codes
+    ``round(x / scale)`` clipped to +-127 (half to even) and the float32
+    scales ``max(absmax / 127, 1e-8)``, bit for bit as the jitted
+    reference computes them."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1) * _INV_127, 1e-8)
+    codes = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def _leaves(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """What the cache stores for new keys/values: themselves, or with an
+    int8 cache their codes and scales. Keyed like a dense cache group."""
+    if cfg.kv_cache_dtype == "int8":
+        (kq, ks), (vq, vs) = _quant_kv(k), _quant_kv(v)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    return {"k": k, "v": v}
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -88,16 +122,15 @@ def attn_prefill_into_cache(p: dict, cfg: ArchConfig, x: torch.Tensor,
     out = kops.flash_attention(q, k, v, causal=True, window=0,
                                softcap=cfg.attn_logit_softcap)
     y = _out(out, p["wo"])
-    ck, cv = cache["k"], cache["v"]
-    W = ck.shape[1]
+    W = cache["k"].shape[1]
     if S <= W:
-        ck[:, :S] = k
-        cv[:, :S] = v
+        slots = slice(0, S)
     else:
-        # positions [S-W, S) land in slots p % W
+        # positions [S-W, S) land in slots p % W (scales follow them)
         slots = torch.remainder(torch.arange(S - W, S, device=x.device), W)
-        ck[:, slots] = k[:, S - W:].to(ck.dtype)
-        cv[:, slots] = v[:, S - W:].to(cv.dtype)
+        k, v = k[:, S - W:], v[:, S - W:]
+    for name, t in _leaves(cfg, k, v).items():
+        cache[name][:, slots] = t.to(cache[name].dtype)
     return y
 
 
@@ -110,7 +143,10 @@ def attn_suffix_prefill_into_cache(p: dict, cfg: ArchConfig, x: torch.Tensor,
     positions ``offset + i``; keys/values are [ctx (B, offset, Hkv, hd),
     suffix], and causal attention right-aligns the queries, so the context
     width must be ``offset`` exactly. Writes the suffix K/V into ``cache``
-    (width S) in place. Returns (B, S, d)."""
+    (width S) in place. Returns (B, S, d). A cache in the model's dtype
+    only: the engine shares no prefix of an int8 cache, as in JAX."""
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError("suffix prefill over an int8 cache")
     B, S, _ = x.shape
     positions = offset + torch.arange(S, device=x.device)[None, :]
     q, k, v = _qkv(p, cfg, x, positions)
@@ -128,30 +164,38 @@ def attn_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
     """x: (B, 1, d); pos: (B,) — each sequence's position of the new
     token. Writes the token's key/value into its ring slot, or its page
     ``(table[b, pos // bs], pos % bs)``, in place and attends over the
-    live positions. Returns (B, 1, d)."""
+    live positions. With an int8 cache the token is stored as codes and
+    scales, and attention reads the cache through the int8 kernels.
+    Returns (B, 1, d)."""
     B = x.shape[0]
     q, k, v = _qkv(p, cfg, x, pos[:, None])
+    new = _leaves(cfg, k[:, 0], v[:, 0])
+    bidx = torch.arange(B, device=x.device)
     if "k_pages" in cache:
         # idle rows point at the scratch page; only full-horizon layers
         # are paged, so the live positions are simply [0, pos]
-        kp, vp, table = cache["k_pages"], cache["v_pages"], cache["table"]
-        bs = kp.shape[1]
+        table = cache["table"]
+        bs = cache["k_pages"].shape[1]
         pos = pos.long()
-        page = table[torch.arange(B, device=x.device), pos // bs].long()
+        page = table[bidx, pos // bs].long()
         off = torch.remainder(pos, bs)
-        kp[page, off] = k[:, 0].to(kp.dtype)
-        vp[page, off] = v[:, 0].to(vp.dtype)
+        for name, t in new.items():
+            pages = cache[f"{name}_pages"]
+            pages[page, off] = t.to(pages.dtype)
         lengths = (pos + 1).to(torch.int32)
-        out = kops.paged_decode_attention(q[:, 0], kp, vp, table, lengths,
-                                          softcap=cfg.attn_logit_softcap)
+        out = kops.paged_decode_attention(
+            q[:, 0], cache["k_pages"], cache["v_pages"], table, lengths,
+            softcap=cfg.attn_logit_softcap,
+            k_scale_pages=cache.get("k_scale_pages"),
+            v_scale_pages=cache.get("v_scale_pages"))
         return _out(out, p["wo"])[:, None]
-    ck, cv = cache["k"], cache["v"]
-    W = ck.shape[1]
-    bidx = torch.arange(B, device=x.device)
+    W = cache["k"].shape[1]
     slot = torch.remainder(pos, W)
-    ck[bidx, slot] = k[:, 0].to(ck.dtype)
-    cv[bidx, slot] = v[:, 0].to(cv.dtype)
+    for name, t in new.items():
+        cache[name][bidx, slot] = t.to(cache[name].dtype)
     valid = ring_positions(W, pos) >= 0
-    out = kops.decode_attention(q[:, 0], ck, cv, valid,
-                                softcap=cfg.attn_logit_softcap)
+    out = kops.decode_attention(q[:, 0], cache["k"], cache["v"], valid,
+                                softcap=cfg.attn_logit_softcap,
+                                k_scale=cache.get("k_scale"),
+                                v_scale=cache.get("v_scale"))
     return _out(out, p["wo"])[:, None]

@@ -11,6 +11,10 @@ Per-layer group::
     {"table": (B, nblk) int32,
      "k_pages"/"v_pages": (P+1, block_size, Hkv, hd)}
 
+and with ``kv_cache_dtype="int8"`` int8 pages plus
+``"k_scale_pages"``/``"v_scale_pages"``: (P+1, block_size, Hkv) float32,
+one scale per (position, kv head), reached through the same table.
+
 with ``nblk = max_len // block_size`` and ``P = max_blocks``. Page ``P``
 is the SCRATCH page: unreserved table entries point at it, so lockstep
 decode writes for idle or finished rows land there. Attention never reads
@@ -68,10 +72,17 @@ def new_table(batch: int, max_len: int, layout: PagedLayout,
 
 def init_paged_attn_cache(cfg: ArchConfig, table: torch.Tensor,
                           layout: PagedLayout, dtype: torch.dtype) -> dict:
-    """One layer's paged group over the shared ``table`` (full-window,
-    non-int8 caches only)."""
+    """One layer's paged group over the shared ``table`` (full-window
+    caches only), in ``dtype`` or as int8 pages with scale pages."""
     shape = (layout.max_blocks + 1, layout.block_size, cfg.n_kv_heads,
              cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        dev = table.device
+        return {"table": table,
+                "k_pages": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v_pages": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "k_scale_pages": torch.zeros(shape[:-1], device=dev),
+                "v_scale_pages": torch.zeros(shape[:-1], device=dev)}
     return {"table": table,
             "k_pages": torch.zeros(shape, dtype=dtype, device=table.device),
             "v_pages": torch.zeros(shape, dtype=dtype, device=table.device)}

@@ -16,8 +16,10 @@ Parameters::
 
 Cache: one ``{"k", "v"}`` dict of (B, max_len, Hkv, hd) tensors per layer,
 or, with a ``PagedLayout``, one paged group per layer over a block table
-that every layer shares (``models/cache.py``); updated in place by
-``prefill``, ``prefill_suffix`` and ``decode_step``.
+that every layer shares (``models/cache.py``); with
+``kv_cache_dtype="int8"`` either holds int8 codes plus float32 scales
+(``models/attention.py``). Updated in place by ``prefill``,
+``prefill_suffix`` and ``decode_step``.
 """
 from __future__ import annotations
 
@@ -37,14 +39,15 @@ Cache = list
 
 def check_supported(cfg: ArchConfig) -> None:
     """The port serves the text-only dense family with a full-horizon
-    cache; other families and options are later slices."""
+    cache, in the model's dtype or int8; other families and options are
+    later slices."""
     unsupported = {
         "arch_type": cfg.arch_type != "dense",
         "n_experts": cfg.is_moe,
         "mla": cfg.mla,
         "sliding_window": cfg.sliding_window > 0,
         "local_global_pattern": cfg.local_global_pattern > 0,
-        "kv_cache_dtype": cfg.kv_cache_dtype != "model",
+        "kv_cache_dtype": cfg.kv_cache_dtype not in ("model", "int8"),
         "pos_embed": cfg.pos_embed != "rope",
         "n_vision_tokens": cfg.n_vision_tokens > 0,
         "act": cfg.act != "silu",
@@ -88,7 +91,9 @@ class Model:
                    dtype: torch.dtype = torch.float32,
                    layout: paged.PagedLayout | None = None) -> Cache:
         """Dense rows, or with ``layout`` the paged cache: every layer's
-        group refers to one shared (batch, nblk) table."""
+        group refers to one shared (batch, nblk) table. An int8 cache
+        (``cfg.kv_cache_dtype``) ignores ``dtype`` for its codes and
+        scales."""
         cfg = self.cfg
         if layout is None:
             return [attn.init_attn_cache(cfg, batch, max_len, dtype,

@@ -1,7 +1,8 @@
 """The engine's KV caches: dense slot rows or paged blocks.
 
-A port of ``repro.serving.cache`` (the attention page pairs; no int8 scale
-or MLA latent pages, which ``models.model.check_supported`` refuses).
+A port of ``repro.serving.cache`` (the attention page pairs and, for an
+int8 cache, their scale pages; no MLA latent pages, which
+``models.model.check_supported`` refuses).
 
 * ``DenseCache`` — one private ``(max_len, ...)`` row per slot. A row is
   the reservation, so there is nothing to allocate; ``insert`` copies
@@ -104,7 +105,8 @@ class BlockAllocator:
 
 class DenseCache:
     """Row-per-slot cache over a model's per-layer ``{"k", "v"}`` tensors
-    of shape (n_rows, max_len, Hkv, hd)."""
+    of shape (n_rows, max_len, Hkv, hd), plus ``{"k_scale", "v_scale"}``
+    (n_rows, max_len, Hkv) for an int8 cache."""
 
     def __init__(self, tree: list, n_rows: int):
         self.tree = tree
@@ -116,7 +118,8 @@ class DenseCache:
     def insert(self, src_cache: list, rows: list[int],
                offset: int = 0) -> None:
         """Copy whole prefill rows (one per admitted request, same layout)
-        into the engine cache at ``rows``, in place."""
+        into the engine cache at ``rows``, in place: every leaf of a
+        layer's group, so an int8 cache's scales go with its codes."""
         if offset:
             raise ValueError("DenseCache rows always start at position 0")
         idx = torch.as_tensor(rows, dtype=torch.long,
@@ -126,8 +129,15 @@ class DenseCache:
                 t.index_copy_(0, idx, src[name].to(t.dtype))
 
 
-# (pages key, dense prefill-cache key) pairs a paged group holds
-_PAGE_PAIRS = (("k_pages", "k"), ("v_pages", "v"))
+# (pages key, dense prefill-cache key) pairs a paged group may hold: the
+# scale pairs only in an int8 cache
+_PAGE_PAIRS = (("k_pages", "k"), ("v_pages", "v"),
+               ("k_scale_pages", "k_scale"), ("v_scale_pages", "v_scale"))
+
+
+def _pairs(group: dict) -> list[tuple[str, str]]:
+    """The page pairs ``group`` holds."""
+    return [(dk, sk) for dk, sk in _PAGE_PAIRS if dk in group]
 
 
 class PagedCache:
@@ -291,7 +301,7 @@ class PagedCache:
             return False
         new = fresh[0]
         for g in self._groups:
-            for dk, _ in _PAGE_PAIRS:
+            for dk, _ in _pairs(g):
                 g[dk][new].copy_(g[dk][old])
         self._write_table(row, idx, [new])
         self._blocks[row][idx] = new
@@ -351,14 +361,15 @@ class PagedCache:
     def gather_prefix(self, rows: list[int], n_tokens: int) -> list[dict]:
         """The first ``n_tokens`` cached positions of ``rows``, read out of
         the pages as one dense ``{"k", "v"}`` (len(rows), n_tokens, Hkv,
-        hd) per layer: the context a suffix prefill attends over. Call it
-        before ``insert`` writes these rows' tables."""
+        hd) per layer (plus ``"k_scale"``/``"v_scale"`` from int8 pages):
+        the context a suffix prefill attends over. Call it before
+        ``insert`` writes these rows' tables."""
         dev = self._table.device
         table = torch.from_numpy(self._table_rows(rows)).to(dev).long()
         pos = torch.arange(n_tokens, device=dev)
         page = table[:, pos // self.layout.block_size]      # (n, n_tokens)
         off = torch.remainder(pos, self.layout.block_size)
-        return [{sk: g[dk][page, off] for dk, sk in _PAGE_PAIRS}
+        return [{sk: g[dk][page, off] for dk, sk in _pairs(g)}
                 for g in self._groups]
 
     def insert(self, src_cache: list, rows: list[int],
@@ -384,5 +395,5 @@ class PagedCache:
                            scratch)                            # (n, W)
         off = torch.remainder(pos, bs)
         for g, src in zip(self._groups, src_cache):
-            for dk, sk in _PAGE_PAIRS:
+            for dk, sk in _pairs(g):
                 g[dk][page, off] = src[sk].to(g[dk].dtype)

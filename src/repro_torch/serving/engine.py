@@ -179,9 +179,12 @@ class ServingEngine:
         self.layout = (PagedLayout(config.block_size,
                                    config.resolved_max_blocks)
                        if self.paged else None)
-        # the suffix prefill is exact for every config the port serves
-        # (full-horizon rope GQA; check_supported refuses the rest)
-        self._share = self.paged and config.prefix_cache
+        # prefix sharing: the suffix prefill is exact for full-horizon
+        # rope GQA in the model's dtype (check_supported refuses other
+        # families); an int8 cache falls back to the plain paged path
+        # (hit tokens stay 0, outputs identical), as in JAX
+        self._share = (self.paged and config.prefix_cache
+                       and model.cfg.kv_cache_dtype != "int8")
         n_rows = config.n_rows
         self.stream = None
         if self.device.type == "cuda":

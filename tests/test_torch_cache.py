@@ -226,16 +226,21 @@ def _hashes(content) -> list[bytes]:
     return out
 
 
-def _pair(prefix_cache: bool):
-    jtree = {"stack": {
-        "table": jnp.full((L, ROWS, NBLK), P, jnp.int32),
-        "k_pages": jnp.zeros((L, P + 1, BS, KV, HD), jnp.float32),
-        "v_pages": jnp.zeros((L, P + 1, BS, KV, HD), jnp.float32)}}
-    jc = JaxPagedCache(jtree, ROWS, JaxLayout(BS, P), MAX_LEN,
+def _pair(prefix_cache: bool, kv_cache_dtype: str = "model"):
+    int8 = kv_cache_dtype == "int8"
+    dt = jnp.int8 if int8 else jnp.float32
+    stack = {"table": jnp.full((L, ROWS, NBLK), P, jnp.int32),
+             "k_pages": jnp.zeros((L, P + 1, BS, KV, HD), dt),
+             "v_pages": jnp.zeros((L, P + 1, BS, KV, HD), dt)}
+    if int8:
+        stack["k_scale_pages"] = jnp.zeros((L, P + 1, BS, KV), jnp.float32)
+        stack["v_scale_pages"] = jnp.zeros((L, P + 1, BS, KV), jnp.float32)
+    jc = JaxPagedCache({"stack": stack}, ROWS, JaxLayout(BS, P), MAX_LEN,
                        {"stack": None}, _JITS, prefix_cache=prefix_cache)
     layout = PagedLayout(BS, P)
     table = new_table(ROWS, MAX_LEN, layout, torch.device("cpu"))
-    cfg = type("Cfg", (), {"n_kv_heads": KV, "head_dim": HD})
+    cfg = type("Cfg", (), {"n_kv_heads": KV, "head_dim": HD,
+                           "kv_cache_dtype": kv_cache_dtype})
     ttree = [init_paged_attn_cache(cfg, table, layout, torch.float32)
              for _ in range(L)]
     return jc, PagedCache(ttree, ROWS, layout, MAX_LEN,
@@ -254,17 +259,29 @@ def _assert_same(jc, tc):
     for layer in range(L):
         np.testing.assert_array_equal(tc.tree[layer]["table"].numpy(),
                                       np.asarray(g["table"][layer]))
-        for name in ("k_pages", "v_pages"):
+        assert set(tc.tree[layer]) == set(g)
+        for name in set(g) - {"table"}:
             np.testing.assert_array_equal(
                 tc.tree[layer][name][:P].numpy(),
                 np.asarray(g[name][layer, :P]))
 
 
-@pytest.mark.parametrize("seed", range(6))
-@pytest.mark.parametrize("prefix_cache", [True, False])
-def test_paged_cache_matches_jax_op_by_op(seed, prefix_cache):
+def _src(rng, W, int8):
+    """A random dense prefill mini-cache (L, 1, W, ...) per leaf."""
+    if not int8:
+        return {n: rng.standard_normal((L, 1, W, KV, HD)).astype(np.float32)
+                for n in ("k", "v")}
+    src = {n: rng.integers(-127, 128, (L, 1, W, KV, HD)).astype(np.int8)
+           for n in ("k", "v")}
+    src.update({n: rng.random((L, 1, W, KV)).astype(np.float32)
+                for n in ("k_scale", "v_scale")})
+    return src
+
+
+def _differential(seed, prefix_cache, kv_cache_dtype="model"):
     rng = np.random.default_rng(seed)
-    jc, tc = _pair(prefix_cache)
+    int8 = kv_cache_dtype == "int8"
+    jc, tc = _pair(prefix_cache, kv_cache_dtype)
     chains: dict[int, list] = {}
     for _ in range(40):
         op = rng.choice(["alloc", "alloc", "insert", "append", "free",
@@ -282,13 +299,11 @@ def test_paged_cache_matches_jax_op_by_op(seed, prefix_cache):
         elif op == "insert" and live:
             W = int(rng.choice([BS, 2 * BS]))
             offset = jc.hit_tokens(row)
-            k = rng.standard_normal((L, 1, W, KV, HD)).astype(np.float32)
-            v = rng.standard_normal((L, 1, W, KV, HD)).astype(np.float32)
-            jc.insert({"stack": {"k": jnp.asarray(k), "v": jnp.asarray(v)}},
+            src = _src(rng, W, int8)
+            jc.insert({"stack": {n: jnp.asarray(a) for n, a in src.items()}},
                       [row], offset=offset)
-            tc.insert([{"k": torch.from_numpy(k[i]),
-                        "v": torch.from_numpy(v[i])} for i in range(L)],
-                      [row], offset=offset)
+            tc.insert([{n: torch.from_numpy(a[i]) for n, a in src.items()}
+                       for i in range(L)], [row], offset=offset)
         elif op == "append" and live:
             n = int(rng.integers(1, 6))
             assert tc.append(row, n) == jc.append(row, n)
@@ -302,6 +317,20 @@ def test_paged_cache_matches_jax_op_by_op(seed, prefix_cache):
             jc.register_prefix(row, chains[row])
             tc.register_prefix(row, chains[row])
         _assert_same(jc, tc)
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("prefix_cache", [True, False])
+def test_paged_cache_matches_jax_op_by_op(seed, prefix_cache):
+    _differential(seed, prefix_cache)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_int8_paged_cache_matches_jax_op_by_op(seed):
+    """The same op sequence over int8 pages and their scale pages (the
+    engine shares no int8 prefix, but the cache itself still indexes
+    and forks them when asked)."""
+    _differential(seed, True, "int8")
 
 
 def test_gather_prefix_matches_jax():
@@ -368,3 +397,47 @@ def test_cow_fork_copies_k_and_v_pages_of_every_layer():
             pages = tc.tree[i][name]
             assert torch.equal(pages[new], pages[shared])
             assert bool((pages[new] != 0).any())
+
+
+def test_cow_fork_and_gather_reach_int8_scale_pages_on_the_page_axis():
+    """Scale pages are (P+1, bs, Hkv): one trailing axis fewer than the
+    code pages. The fork copies them page for page, and gather_prefix
+    reads them through the table, in every layer."""
+    _, tc = _pair(True, "int8")
+    chain = _hashes([3, 4])
+    assert tc.alloc(0, 2 * BS, block_hashes=chain)
+    for i in range(L):              # distinct contents per layer and page
+        g = tc.tree[i]
+        page_ids = torch.arange(P + 1, dtype=torch.float32)
+        g["k_scale_pages"][:] = page_ids[:, None, None] + 100 * i
+        g["v_scale_pages"][:] = -g["k_scale_pages"]
+        g["k_pages"][:] = (torch.arange(P + 1) % 100).to(torch.int8)[
+            :, None, None, None]
+    tc.insert([{n: tc.tree[i][f"{n}_pages"][tc._blocks[0]].reshape(
+        1, 2 * BS, *tc.tree[i][f"{n}_pages"].shape[2:])
+        for n in ("k", "v", "k_scale", "v_scale")} for i in range(L)], [0])
+    tc.register_prefix(0, chain)
+    assert tc.alloc(1, 2 * BS - 2, block_hashes=chain)   # shares both
+    shared = tc._blocks[1][1]
+    got = tc.gather_prefix([1], 2 * BS - 2)
+    for i in range(L):
+        assert set(got[i]) == {"k", "v", "k_scale", "v_scale"}
+        assert got[i]["k_scale"].shape == (1, 2 * BS - 2, KV)
+        want = (torch.tensor(tc._blocks[1], dtype=torch.float32)
+                .repeat_interleave(BS)[:2 * BS - 2] + 100 * i)
+        assert torch.equal(got[i]["k_scale"][0, :, 0], want)
+        assert torch.equal(got[i]["v_scale"][0, :, 0], -want)
+    tc.insert([{n: torch.zeros(1, 0, *tc.tree[i][f"{n}_pages"].shape[2:],
+                               dtype=tc.tree[i][f"{n}_pages"].dtype)
+                for n in ("k", "v", "k_scale", "v_scale")}
+               for i in range(L)], [1], offset=BS)
+    assert tc.append(1, 1)            # position 2*BS-2 is in the shared block
+    new = tc._blocks[1][1]
+    assert new != shared
+    for i in range(L):
+        for name in ("k_pages", "v_pages", "k_scale_pages",
+                     "v_scale_pages"):
+            pages = tc.tree[i][name]
+            assert torch.equal(pages[new], pages[shared]), (i, name)
+        assert float(tc.tree[i]["k_scale_pages"][new, 0, 0]) \
+            == shared + 100 * i

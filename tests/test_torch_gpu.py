@@ -154,6 +154,116 @@ def test_paged_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                                    vp[..., :64].contiguous(), table, lens)
 
 
+def _quant(x):
+    """Per-(row, head) absmax int8 codes and float32 scales, as the model
+    stores keys and values."""
+    from repro_torch.models.attention import _quant_kv
+    return _quant_kv(x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W,H,Hkv,K,softcap", [(4, 2048, 16, 8, 128, 0.0),
+                                                 (2, 64, 4, 4, 64, 30.0),
+                                                 (2, 100, 8, 1, 32, 0.0)])
+def test_int8_decode_kernel_matches_plain(cuda, dtype, B, W, H, Hkv, K,
+                                          softcap):
+    q = _randn(cuda, B, H, K, dtype=dtype)
+    kq, ks = _quant(_randn(cuda, B, W, Hkv, K, dtype=torch.float32))
+    vq, vs = _quant(_randn(cuda, B, W, Hkv, K, dtype=torch.float32))
+    valid = torch.rand(B, W, generator=cuda, device="cuda") < 0.6
+    valid[-1] = False
+    before = ops.launch_counts()["decode_attention_int8"]
+    got = ops.decode_attention(q, kq, vq, valid, softcap=softcap,
+                               k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention_int8"] == before + 1
+    _assert_close(got, ref.decode_attention(q, kq, vq, valid,
+                                            softcap=softcap, k_scale=ks,
+                                            v_scale=vs), dtype)
+    assert bool((got[-1] == 0).all())
+    # dead slots' scales are never read
+    ks[~valid], vs[~valid] = float("nan"), float("nan")
+    assert torch.equal(got, ops.decode_attention(
+        q, kq, vq, valid, softcap=softcap, k_scale=ks, v_scale=vs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths,H,Hkv,K,bs,nblk,softcap", [
+    ([280, 300, 330, 360, 400, 440, 480, 520], 16, 8, 128, 16, 128, 0.0),
+    ([5, 0, 64, 17], 16, 8, 128, 16, 8, 30.0),
+    ([90, 7, 500], 16, 4, 64, 8, 64, 0.0),
+])
+def test_int8_paged_kernel_matches_plain_and_dense_bits(cuda, dtype, lengths,
+                                                        H, Hkv, K, bs, nblk,
+                                                        softcap):
+    q, kp, vp, table, lens, owned = _paged_inputs(cuda, lengths, H, Hkv, K,
+                                                  bs, nblk, torch.float32)
+    q = q.to(dtype)
+    kq, ks = _quant(kp)
+    vq, vs = _quant(vp)
+    before = ops.launch_counts()["paged_decode_attention_int8"]
+    got = ops.paged_decode_attention(q, kq, vq, table, lens,
+                                     softcap=softcap, k_scale_pages=ks,
+                                     v_scale_pages=vs)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_decode_attention_int8"] == before + 1
+    _assert_close(got, ref.paged_decode_attention(
+        q, kq, vq, table, lens, softcap=softcap, k_scale_pages=ks,
+        v_scale_pages=vs), dtype)
+    # bitwise the dense int8 kernel over the gathered view
+    B, W = len(lengths), nblk * bs
+    idx = table.long()
+    valid = torch.arange(W, device="cuda")[None, :] < lens[:, None]
+    dense = ops.decode_attention(
+        q, kq[idx].reshape(B, W, Hkv, K).contiguous(),
+        vq[idx].reshape(B, W, Hkv, K).contiguous(), valid, softcap=softcap,
+        k_scale=ks[idx].reshape(B, W, Hkv).contiguous(),
+        v_scale=vs[idx].reshape(B, W, Hkv).contiguous())
+    assert torch.equal(got, dense)
+    # pages and scale pages no row owns (scratch included) are never read
+    unowned = torch.ones(kq.shape[0], dtype=torch.bool, device="cuda")
+    unowned[table[owned].long()] = False
+    ks[unowned], vs[unowned] = float("nan"), float("nan")
+    kq[unowned], vq[unowned] = 127, -127
+    assert torch.equal(got, ops.paged_decode_attention(
+        q, kq, vq, table, lens, softcap=softcap, k_scale_pages=ks,
+        v_scale_pages=vs))
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert bool((got[b] == 0).all())
+
+
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q, kp, vp, table, lens, _ = _paged_inputs(cuda, [20, 9], 16, 8, 128,
+                                              16, 4, torch.float32)
+    kq, ks = _quant(kp)
+    vq, vs = _quant(vp)
+    with pytest.raises(TypeError, match="int8"):
+        ops.paged_decode_attention(q, kp, vq, table, lens,
+                                   k_scale_pages=ks, v_scale_pages=vs)
+    with pytest.raises(TypeError, match="float32"):
+        ops.paged_decode_attention(q, kq, vq, table, lens,
+                                   k_scale_pages=ks.half(),
+                                   v_scale_pages=vs)
+    with pytest.raises(ValueError, match="does not match"):
+        ops.paged_decode_attention(q, kq, vq, table, lens,
+                                   k_scale_pages=ks[..., :4].contiguous(),
+                                   v_scale_pages=vs)
+    with pytest.raises(TypeError, match="q dtype"):
+        ops.paged_decode_attention(q.half(), kq, vq, table, lens,
+                                   k_scale_pages=ks, v_scale_pages=vs)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.paged_decode_attention(q, kq, vq, table, lens,
+                                   k_scale_pages=ks.transpose(1, 2)
+                                   .contiguous().transpose(1, 2),
+                                   v_scale_pages=vs)
+    dense_k = kq[:2].contiguous()
+    valid = torch.ones(2, dense_k.shape[1], dtype=torch.bool, device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        ops.decode_attention(q, dense_k, dense_k, valid,
+                             k_scale=ks[:2].double(), v_scale=ks[:2])
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = _randn(cuda, 1, 8, 4, 32, dtype=torch.float32)
     with pytest.raises(TypeError):
@@ -247,3 +357,47 @@ def test_paged_router_on_the_card_matches_the_cpu_path(cuda):
         out.append(got)
     assert out[1] == out[0]
     assert any(h > 0 for _, h in out[1].values())
+
+
+@pytest.mark.parametrize("cache", ["dense", "paged"])
+def test_int8_router_on_the_card_matches_the_cpu_path(cuda, cache):
+    """Two threaded containers over an int8 cache on the card (the int8
+    decode kernel of that cache and nothing else for decode) give the CPU
+    path's greedy tokens on reduced qwen3 in f32."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.backend import ThreadBackend
+    from repro_torch.serving.engine import EngineConfig, Request
+    from repro_torch.serving.router import Router
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b-reduced"),
+                              kv_cache_dtype="int8")
+    config = EngineConfig(n_slots=2, max_len=96, chunk_tokens=4,
+                          cache=cache, prefix_cache=cache == "paged")
+    rng = np.random.default_rng(2)
+    specs = [(i, rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32), m)
+             for i, (n, m) in enumerate([(6, 5), (40, 7), (17, 3), (9, 0),
+                                         (70, 6)])]
+    cpu_model = Model(cfg, device="cpu")
+    params = cpu_model.init(seed=0)
+    kernel = ("paged_decode_attention_int8" if cache == "paged"
+              else "decode_attention_int8")
+    out = []
+    for model, p, dev in ((cpu_model, params, "cpu"),
+                          (Model(cfg, device="cuda"), _to_card(params),
+                           "cuda")):
+        ops.reset_launch_counts()
+        with Router(ThreadBackend(model, p, 2, config, device=dev),
+                    device=dev) as router:
+            handles = [router.submit(Request(*s)) for s in specs]
+            out.append({h.rid: (h.tokens(), h.result().prefix_hit_tokens)
+                        for h in handles})
+        counts = ops.launch_counts()
+        assert (counts[kernel] > 0) == (dev == "cuda"), counts
+        assert sum(v for k, v in counts.items()
+                   if "decode" in k and k != kernel) == 0, counts
+    assert out[1] == out[0]

@@ -47,6 +47,9 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
         sys.meta_path.insert(0, Blk())
         for mod in {_modules()!r}:
             importlib.import_module(mod)
+        ops = sys.modules["repro_torch.kernels.ops"]
+        assert {{"decode_attention_int8", "paged_decode_attention_int8"}} \
+            <= set(ops.COUNTERS)
         assert not [m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         print("port imports ok")
@@ -109,10 +112,25 @@ def test_engine_refuses_params_on_another_device():
 def test_unported_configurations_raise():
     import dataclasses
     cfg = get_config(ARCH)
-    for change in ({"sliding_window": 8}, {"kv_cache_dtype": "int8"},
+    for change in ({"sliding_window": 8}, {"kv_cache_dtype": "fp8"},
                    {"n_experts": 4}, {"arch_type": "ssm"}, {"act": "gelu"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             Model(dataclasses.replace(cfg, **change), device="cpu")
+
+
+def test_int8_kv_cache_is_accepted_on_both_layouts():
+    import dataclasses
+
+    from repro_torch.models.cache import PagedLayout
+    cfg = dataclasses.replace(get_config(ARCH), kv_cache_dtype="int8")
+    model = Model(cfg, device="cpu")
+    dense = model.init_cache(2, 32, torch.bfloat16)
+    paged = model.init_cache(2, 32, torch.bfloat16,
+                             layout=PagedLayout(16, 4))
+    assert dense[0]["k"].dtype == paged[0]["k_pages"].dtype == torch.int8
+    assert dense[0]["k_scale"].shape == (2, 32, cfg.n_kv_heads)
+    assert paged[0]["v_scale_pages"].shape == (5, 16, cfg.n_kv_heads)
+    assert paged[0]["v_scale_pages"].dtype == torch.float32
 
 
 def test_port_init_is_seeded_and_shaped_like_the_reference():

@@ -175,7 +175,9 @@ def test_ops_sends_cpu_tensors_to_the_plain_version():
     # the plain path is not a kernel launch
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "decode_attention": 0,
-                                   "paged_decode_attention": 0}
+                                   "paged_decode_attention": 0,
+                                   "decode_attention_int8": 0,
+                                   "paged_decode_attention_int8": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
