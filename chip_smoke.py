@@ -17,10 +17,17 @@ Phases, each raising on failure (any failure exits nonzero):
    kernels take int8 K/V quantised by the model's own quantiser, with
    float32 or bfloat16 queries. Times each (CUDA events) beside the plain
    version and ``scaled_dot_product_attention`` (a yardstick the port
-   never calls; over the dequantised view for the int8 kernels).
-3. Model: qwen3-0.6b at full width cut to 2 layers, float32, the port's
-   seeded init: prefill + 8 greedy decode steps on the card against the
-   same parameters on the CPU plain path.
+   never calls; over the dequantised view for the int8 kernels). The SSD
+   scan at mamba2-2.7b's widths (nh=80, hd=64, ds=128, chunk 256):
+   S = 512 and 2048, B = 2, a ragged one-chunk prompt, ng = 2, float32
+   and bfloat16, |kernel - plain| <= tol * max|plain| (tol 5e-5 and
+   2e-2: the kernel cuts the sequence into 64-position tiles where the
+   plain version cuts it at ``chunk``), timed beside the plain version
+   (no PyTorch call computes the scan).
+3. Model: qwen3-0.6b at full width cut to 2 layers, and the 2-layer
+   mamba2-2.7b-reduced, float32, the port's seeded init: prefill + 8
+   greedy decode steps on the card against the same parameters on the
+   CPU plain path.
 4. Main path of the dense cache: ``Router(ThreadBackend(n_containers=2))``
    over full-width qwen3-0.6b (28 layers, bfloat16, random weights from a
    seed), n_slots=4, max_len=2048, 8 requests with ragged 16-512 token
@@ -48,8 +55,18 @@ Phases, each raising on failure (any failure exits nonzero):
       tokens; the paged int8 kernel launches, no bfloat16 decode kernel
       does. Reports the KV pool's bytes against phase 6's bfloat16 pool
       and the greedy tokens that agree with phase 6 (not checked).
-8. A JSON line with each kernel's launches, error and times, then the
-   result line ``{"ok": true, "device": {...}}``.
+8. The SSM family: ``Router(ThreadBackend(2))`` over full-width
+   mamba2-2.7b (64 layers, bfloat16, random weights from a seed),
+   n_slots=4, max_len=2048, 8 requests with 64-1024-token prompts,
+   max_new=32, each prompt prefilled unpadded through the CUDA SSD scan.
+   Every request completes; one request's stream equals that request run
+   alone on the model; the scan launches once per layer per prefill; no
+   attention kernel launches. Reports wall, tok/s, ttfc p50, the state
+   cache's bytes, and one decode step's host time and kernel launches.
+
+Then a JSON line with each kernel's launches (from the phase of the path
+it serves), error and times, the card's ``nvidia-smi`` line, and the
+result line ``{"ok": true, "device": {...}}``.
 
 It needs the checkout's ``src/`` and a CUDA device; without either it
 exits nonzero before printing any result.
@@ -330,6 +347,117 @@ def int8_checks(gen):
                   "ignored", flush=True)
 
 
+# the Mamba2 scan: mamba2-2.7b's widths, and the main path's longest
+# distinct prefill that fits in one engine's bucket table
+SSD_MAIN = dict(B=1, S=512, nh=80, hd=64, ng=1, ds=128, chunk=256)
+# |kernel - plain| <= tol * max|plain|: the kernel tiles the sequence by
+# 64 where the plain version cuts it at ``chunk``, and the running sums of
+# dt*A that set the decays round differently with the cut (~1e-5 of the
+# largest output in float32)
+SSD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
+
+
+def ssd_inputs(gen, B, S, nh, hd, ng, ds, dtype, *, model_like=True):
+    """Scan inputs on the card. ``model_like``: as mamba2's init feeds the
+    scan — dt = softplus(N(0, 1) + dt_bias) with the init's dt_bias (dt
+    0.001-0.1 at 0) and A = -exp(U(0, log 16)); otherwise the JAX suite's
+    draw (dt = softplus(N(0, 1)), A = -exp(N(0, 1))). x, B, C ~ N(0, 1),
+    D = 1; A and D float32, the rest in ``dtype``."""
+    import math
+
+    import torch.nn.functional as F
+
+    from repro_torch.models.ssm import softplus
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    if model_like:
+        bias = torch.log(torch.expm1(torch.linspace(1e-3, 1e-1, nh,
+                                                    device=dev)))
+        dt = softplus(randn(B, S, nh) + bias)
+        A = -torch.exp(torch.rand(nh, generator=gen, device=dev)
+                       * math.log(16.0))
+    else:
+        dt, A = F.softplus(randn(B, S, nh)), -torch.exp(randn(nh))
+    return (randn(B, S, nh, hd).to(dtype), dt.to(dtype), A,
+            randn(B, S, ng, ds).to(dtype), randn(B, S, ng, ds).to(dtype),
+            torch.ones(nh, device=dev))
+
+
+def ssd_bound(B, S, nh, hd, ng, ds, chunk, dtype_name, itemsize):
+    """Inputs and outputs once each; operations of the chunked form on its
+    lower triangles (C.B^T once per group, the quadratic term per head),
+    the carried-state term and the state update."""
+    nbytes = ((2 * B * S * nh * hd + B * S * nh + 2 * B * S * ng * ds
+               + B * nh * hd * ds) * itemsize + 2 * nh * 4)
+    pairs = (S // chunk) * chunk * (chunk + 1) // 2
+    flops = 2 * B * pairs * (ng * ds + nh * hd) + 2 * 2 * B * S * nh * hd * ds
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def ssd_checks(gen):
+    """The scan kernel against its plain version: the main-path shape in
+    float32 and bfloat16, 8 chunks (S = 2048), B = 2, a ragged one-chunk
+    prompt, ng = 2 heads-to-groups, and the JAX suite's harsher draw.
+    Returns the largest error relative to max|plain| per dtype."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+
+    worst = {}
+    m = SSD_MAIN
+    cases = [  # (B, S, nh, hd, ng, ds, chunk, model_like)
+        (m["B"], m["S"], m["nh"], m["hd"], m["ng"], m["ds"], m["chunk"],
+         True),
+        (1, 2048, 80, 64, 1, 128, 256, True),
+        (2, 512, 80, 64, 1, 128, 256, True),
+        (1, 200, 80, 64, 1, 128, 200, True),
+        (2, 256, 8, 64, 2, 128, 256, True),
+        (2, 128, 4, 16, 2, 16, 32, False),
+        (1, 512, 80, 64, 1, 128, 256, False)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for B, S, nh, hd, ng, ds, chunk, model_like in cases:
+            args = ssd_inputs(gen, B, S, nh, hd, ng, ds, dtype,
+                              model_like=model_like)
+            what = (f"ssd_scan {dn} B={B} S={S} nh={nh} hd={hd} ng={ng} "
+                    f"ds={ds} chunk={chunk} "
+                    f"{'model-like' if model_like else 'JAX-suite'} inputs")
+            got = ssd.ssd_scan(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            want = ref.ssd_scan(*args, chunk=chunk)
+            rel = max(ssd_close(g, w, dn, f"{what} {name}")
+                      for name, g, w in zip(("y", "state"), got, want))
+            worst[dn] = max(worst.get(dn, 0.0), rel)
+            # reported, not checked: elements outside tol abs + tol rel
+            tol = SSD_TOL[dn]
+            over = sum(int(((g.float() - w.float()).abs()
+                            > tol + tol * w.float().abs()).sum())
+                       for g, w in zip(got, want))
+            n = sum(w.numel() for w in want)
+            ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk), reps=5)
+            print(f"{what}: max |kernel - plain| / max|plain| = {rel:.3e} "
+                  f"(y and state; tolerance {tol}); elements past {tol} "
+                  f"abs + rel: {over} of {n}; kernel_ms={ms:.4f}",
+                  flush=True)
+    return worst
+
+
+def ssd_close(got, want, dtype_name: str, what: str) -> float:
+    """|got - want| <= SSD_TOL * max|want|, finite; returns that ratio."""
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        fail(f"{what}: kernel output is not finite")
+    scale = float(w.abs().max())
+    rel = float((g - w).abs().max()) / max(scale, 1e-30)
+    if rel > SSD_TOL[dtype_name]:
+        fail(f"{what}: max |kernel - plain| is {rel:.3e} of max|plain| "
+             f"{scale:.3e}, over {SSD_TOL[dtype_name]}")
+    return rel
+
+
 def kernel_phase():
     import torch.nn.functional as F
 
@@ -529,6 +657,35 @@ def kernel_phase():
                  f"K={K} bf16 q, int8 pages + f32 scale pages, live="
                  f"{lengths}; library_ms is sdpa over the pre-gathered, "
                  "dequantised bf16 view (gather and dequant not counted)"}
+
+    # the SSD scan at the main path's 512-token prefill, bf16; no PyTorch
+    # call computes the scan, so there is no library yardstick
+    from repro_torch.kernels import ssd_scan as ssd
+    worst = ssd_checks(gen)
+    m = SSD_MAIN
+    args = ssd_inputs(gen, m["B"], m["S"], m["nh"], m["hd"], m["ng"],
+                      m["ds"], dtype)
+    got = ssd.ssd_scan(*args, chunk=m["chunk"])
+    want = ref.ssd_scan(*args, chunk=m["chunk"])
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    rel = max(ssd_close(g, w, dn, "ssd main shape")
+              for g, w in zip(got, want))
+    bound, by = ssd_bound(*(m[k] for k in ("B", "S", "nh", "hd", "ng", "ds",
+                                           "chunk")), dn, isz)
+    results["ssd_scan"] = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ssd.ssd_scan(*args, chunk=m["chunk"])),
+        "plain_ms": time_ms(lambda: ref.ssd_scan(*args, chunk=m["chunk"]),
+                            reps=5),
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "shape": f"B={m['B']} S={m['S']} nh={m['nh']} hd={m['hd']} "
+                 f"ng={m['ng']} ds={m['ds']} chunk={m['chunk']} bf16 "
+                 f"(model-like dt, A); max |err| / max|plain| {rel:.3e}, "
+                 f"worst over the phase-2 cases f32 {worst['float32']:.3e} "
+                 f"bf16 {worst['bfloat16']:.3e}; library_ms null: no "
+                 "PyTorch call computes the SSD scan"}
+    print(f"ssd_scan main shape: {results['ssd_scan']}", flush=True)
     return results
 
 
@@ -538,11 +695,11 @@ def kernel_phase():
 LOGIT_TOL = 1e-3
 
 
-def model_phase():
-    from repro_torch.configs.registry import get_config
+def model_phase(cfg, last: list[int]):
+    """``cfg`` on the card against the CPU plain path: a 2-row, 64-token
+    prefill with logits at ``last`` per row, then 8 greedy decode steps."""
     from repro_torch.models.model import Model
 
-    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2)
     cpu_model = Model(cfg, device="cpu")
     gpu_model = Model(cfg, device="cuda")
     cpu_params = cpu_model.init(seed=0)
@@ -559,7 +716,7 @@ def model_phase():
     B, S, max_len = 2, 64, 128
     toks = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32))
-    last = torch.tensor([S - 1, 40])
+    last = torch.tensor(last)
     cc, gc = cpu_model.init_cache(B, max_len), gpu_model.init_cache(B, max_len)
     worst, agree, steps = 0.0, 0, 0
     cl = cpu_model.prefill(cpu_params, toks, cc, logits_at=last)
@@ -583,7 +740,7 @@ def model_phase():
         pos = pos + 1
     if not np.isfinite(cl.numpy()).all():
         fail("model: CPU logits are not finite")
-    print(f"model qwen3-0.6b (2 layers, full width, f32): prefill + 8 "
+    print(f"model {cfg.name} ({cfg.n_layers} layers, f32): prefill + 8 "
           f"greedy decode steps, max |logit diff| card vs CPU = "
           f"{worst:.3e} (tolerance {LOGIT_TOL} abs + rel), token "
           f"agreement {agree}/{steps}", flush=True)
@@ -898,6 +1055,127 @@ def int8_path_phase(model, params, config, card: str, bf16_tokens: dict,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the SSM family's main path — mamba2-2.7b
+# ---------------------------------------------------------------------------
+SSM_PLENS = [64, 64, 128, 200, 256, 256, 512, 1024]
+ATTENTION_KERNELS = ("flash_attention", "decode_attention",
+                     "paged_decode_attention", "decode_attention_int8",
+                     "paged_decode_attention_int8")
+
+
+def ssm_path_phase(card: str, n_containers: int = 2, max_new: int = 32):
+    """Router(ThreadBackend(2)) over full-width mamba2-2.7b (64 layers,
+    bf16, random weights from seed 0), n_slots=4, max_len=2048: 8
+    requests with 64-1024-token prompts, each a length the scan's chunk
+    (min(256, S)) divides. Every request completes with ``max_new``
+    tokens; the 200-token request's stream equals that request run alone
+    on the model; ``ssd_scan`` launches a multiple of 64 (one per layer per
+    prefill) and at least once per layer per distinct length; no
+    attention kernel launches. Returns the launch counts of the run."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.serving.backend import ThreadBackend
+    from repro_torch.serving.engine import EngineConfig, Request
+    from repro_torch.serving.router import Router
+
+    cfg = get_config("mamba2-2.7b")
+    model = Model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    config = EngineConfig(n_slots=4, max_len=2048, chunk_tokens=32,
+                          dtype=torch.bfloat16)
+    rng = np.random.default_rng(8)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (n,),
+                                    dtype=np.int32), max_new)
+            for i, n in enumerate(SSM_PLENS)]
+    backend = ThreadBackend(model, params, n_containers, config=config)
+    with Router(backend) as router:
+        # warm-up: first cuBLAS handles and allocations, not counted
+        for h in [router.submit(Request(1000 + i, rng.integers(
+                0, cfg.vocab_size, (n,), dtype=np.int32), 4))
+                for i, n in enumerate((32, 256))]:
+            h.result()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        handles = [router.submit(r) for r in reqs]
+        comps = [h.result() for h in handles]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        state_bytes = sum(t.nbytes for g in backend.engines[0].cache_backend
+                          .tree for t in g.values())
+    for r, c, h in zip(reqs, comps, handles):
+        if c.rid != r.rid or len(c.tokens) != max_new:
+            fail(f"ssm path: request {r.rid} gave {len(c.tokens)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in c.tokens):
+            fail(f"ssm path: request {r.rid} has out-of-range tokens")
+        if h.ttfc_s is None:
+            fail(f"ssm path: request {r.rid} has no first chunk")
+    n_ssd = launches["ssd_scan"]
+    if n_ssd % cfg.n_layers or n_ssd < cfg.n_layers * len(set(SSM_PLENS)):
+        fail(f"ssm path: {n_ssd} ssd_scan launches; need a multiple of "
+             f"{cfg.n_layers}, at least {cfg.n_layers * len(set(SSM_PLENS))}")
+    if any(launches[k] for k in ATTENTION_KERNELS):
+        fail(f"ssm path: attention kernels launched: {launches}")
+
+    # the 200-token request alone: a one-row prefill, then decode steps in
+    # a batch as wide as the engine's slots with the other rows empty, so
+    # every product has the engine's shapes (a row's bits do not depend
+    # on the other rows')
+    rid = SSM_PLENS.index(200)
+    prompt = torch.from_numpy(reqs[rid].prompt).cuda()[None]
+    one = model.init_cache(1, config.max_len, config.dtype)
+    logits = model.prefill(params, prompt, one)
+    cache = model.init_cache(config.n_slots, config.max_len, config.dtype)
+    for dst, src in zip(cache, one):
+        for name, t in dst.items():
+            t[:1].copy_(src[name])
+    tok = torch.zeros((config.n_slots, 1), dtype=torch.int32, device="cuda")
+    pos = torch.zeros((config.n_slots,), dtype=torch.int32, device="cuda")
+    alone = [int(torch.argmax(logits[0]))]
+    for _ in range(max_new - 1):
+        tok[0, 0] = alone[-1]
+        logits = model.decode_step(params, tok, cache, pos)
+        alone.append(int(torch.argmax(logits[0])))
+    if alone != list(comps[rid].tokens):
+        fail(f"ssm path: request {rid} served {list(comps[rid].tokens)[:8]}"
+             f"... but alone gives {alone[:8]}...")
+
+    # one 4-slot decode step: host wall with a synchronize, and its launches
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        model.decode_step(params, tok, cache, pos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        model.decode_step(params, tok, cache, pos)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 10 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.decode_step(params, tok, cache, pos)
+        torch.cuda.synchronize()
+    step_launches = sum(e.count for e in prof.key_averages() if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+        "cuLaunchKernelEx"))
+
+    n_tok = sum(len(c.tokens) for c in comps)
+    ttfc_p50 = float(np.percentile([h.ttfc_s for h in handles], 50))
+    print(f"ssm path: {cfg.name} {cfg.n_layers} layers bf16, Router("
+          f"ThreadBackend({n_containers})) n_slots={config.n_slots} max_len="
+          f"{config.max_len} chunk_tokens={config.chunk_tokens}, 8 requests "
+          f"prompts {SSM_PLENS} max_new={max_new}: wall_s={wall:.4f} "
+          f"tok_per_s={n_tok / wall:.2f} ttfc_p50_s={ttfc_p50:.4f} "
+          f"state_cache_bytes={state_bytes} (one engine); request {rid}'s "
+          f"stream equals the model run alone; one {config.n_slots}-slot "
+          f"decode step: host_ms={step_ms:.3f} kernel_launches="
+          f"{step_launches}; launches={launches} [card: {card}]",
+          flush=True)
+    return launches
+
+
 def full_width_model(dtype):
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import Model
@@ -931,7 +1209,10 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = kernel_phase()
-    model_phase()
+    from repro_torch.configs.registry import get_config
+    model_phase(dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2),
+                [63, 40])
+    model_phase(get_config("mamba2-2.7b-reduced"), [63, 63])
     launches = main_path_phase(card)
 
     model, params = full_width_model(torch.bfloat16)
@@ -957,17 +1238,25 @@ def main() -> int:
         model8, params, EngineConfig(max_seqs=8, prefix_cache=True, **base),
         card, bf16_tokens, bf16_pool)
 
+    # the SSM family, once the qwen3 weights and caches are released
+    del model, model8, params
+    torch.cuda.empty_cache()
+    ssm_launches = ssm_path_phase(card)
+
     # each kernel's launches come from the path it serves: phase 4 (dense
     # cache) for the prefill and dense decode kernels, phase 6 (paged
     # cache with prefix sharing) for the paged decode kernel, phase 7a
-    # (dense and paged int8 engines) for the dense int8 kernel and 7b
-    # (the int8 Router path) for the paged int8 kernel
+    # (dense and paged int8 engines) for the dense int8 kernel, 7b
+    # (the int8 Router path) for the paged int8 kernel and 8 (mamba2) for
+    # the SSD scan
     by_phase = {"phase4": launches, "phase6": paged_launches,
-                "phase7a": parity8, "phase7b": int8_launches}
+                "phase7a": parity8, "phase7b": int8_launches,
+                "phase8": ssm_launches}
     main_phase = {"flash_attention": "phase4", "decode_attention": "phase4",
                   "paged_decode_attention": "phase6",
                   "decode_attention_int8": "phase7a",
-                  "paged_decode_attention_int8": "phase7b"}
+                  "paged_decode_attention_int8": "phase7b",
+                  "ssd_scan": "phase8"}
     replaces = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:98"),
@@ -982,6 +1271,8 @@ def main() -> int:
         "paged_decode_attention_int8": (
             "src/repro_torch/kernels/csrc/paged_attention.cu",
             "src/repro/kernels/paged_attention.py:211"),
+        "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:100"),
     }
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": replaces[k][0],

@@ -105,6 +105,15 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def d_inner(self) -> int:
+        """Mamba2 inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_n_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
 
 def reduce_config(cfg: ArchConfig, **overrides) -> ArchConfig:
     """A smoke-testable reduced variant of the same architecture family."""

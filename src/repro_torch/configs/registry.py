@@ -1,4 +1,4 @@
-"""Registry of the ported architectures (the dense family so far)."""
+"""Registry of the ported architectures (the dense and SSM families so far)."""
 from __future__ import annotations
 
 import importlib
@@ -8,6 +8,7 @@ from repro_torch.configs.base import ArchConfig, reduce_config
 _MODULES = {
     "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

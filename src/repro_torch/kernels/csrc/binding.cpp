@@ -1,7 +1,7 @@
-// Python binding of the attention kernels for torch.utils.cpp_extension.
+// Python binding of the kernels for torch.utils.cpp_extension.
 // The Python wrappers (kernels/flash_attention.py,
 // kernels/decode_attention.py, kernels/paged_attention.py, each of the
-// last two with an int8 entry point) check devices,
+// last two with an int8 entry point, and kernels/ssd_scan.py) check devices,
 // types, shapes and layout, allocate the outputs and pass raw device
 // pointers, sizes and the CUDA stream as integers; these functions only
 // forward them and return the launch's CUDA error code. Nothing here needs the PyTorch headers, only
@@ -36,6 +36,10 @@ int paged_decode_attention_int8_launch(
     const void* k_scale_pages, const void* v_scale_pages, const void* table,
     const void* lengths, void* out, int B, int nblk, int bs, int H, int Hkv,
     int K, float scale, float softcap, int is_bf16, void* stream);
+int ssd_scan_launch(const void* x, const void* dt, const void* A,
+                    const void* Bm, const void* Cm, const void* D, void* y,
+                    void* state, int B, int S, int nh, int hd, int ng, int ds,
+                    int is_bf16, void* stream);
 const char* kernel_error_string(int err);
 
 namespace {
@@ -96,6 +100,15 @@ int paged_decode_attention_int8(
       Hkv, K, scale, softcap, is_bf16 ? 1 : 0, ptr(stream));
 }
 
+int ssd_scan(std::uintptr_t x, std::uintptr_t dt, std::uintptr_t A,
+             std::uintptr_t Bm, std::uintptr_t Cm, std::uintptr_t D,
+             std::uintptr_t y, std::uintptr_t state, int B, int S, int nh,
+             int hd, int ng, int ds, bool is_bf16, std::uintptr_t stream) {
+  return ssd_scan_launch(ptr(x), ptr(dt), ptr(A), ptr(Bm), ptr(Cm), ptr(D),
+                         ptr(y), ptr(state), B, S, nh, hd, ng, ds,
+                         is_bf16 ? 1 : 0, ptr(stream));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -104,6 +117,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("paged_decode_attention", &paged_decode_attention);
   m.def("decode_attention_int8", &decode_attention_int8);
   m.def("paged_decode_attention_int8", &paged_decode_attention_int8);
+  m.def("ssd_scan", &ssd_scan);
   m.def("error_string",
         [](int err) { return std::string(kernel_error_string(err)); });
 }

@@ -1,4 +1,4 @@
-"""Device dispatch for the attention kernels, and their launch counts.
+"""Device dispatch for the kernels, and their launch counts.
 
 The models call these, never a kernel or a plain version directly. The
 tensor's device decides: a CPU tensor takes the plain PyTorch version in
@@ -14,12 +14,14 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 COUNTERS = {"flash_attention": _fa.launches,
             "decode_attention": _da.launches,
             "paged_decode_attention": _pa.launches,
             "decode_attention_int8": _da.int8_launches,
-            "paged_decode_attention_int8": _pa.int8_launches}
+            "paged_decode_attention_int8": _pa.int8_launches,
+            "ssd_scan": _ssd.launches}
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -79,6 +81,13 @@ def paged_decode_attention(q, k_pages, v_pages, table, lengths, *,
             q, k_pages, v_pages, *scales, table, lengths, softcap=softcap)
     return _pa.paged_decode_attention(q, k_pages, v_pages, table, lengths,
                                       softcap=softcap)
+
+
+def ssd_scan(x, dt, A, B_, C_, D, *, chunk: int = 64):
+    """Mamba2 SSD chunked scan; see ``kernels.ref.ssd_scan``."""
+    if _on_cpu(x, dt, A, B_, C_, D):
+        return ref.ssd_scan(x, dt, A, B_, C_, D, chunk=chunk)
+    return _ssd.ssd_scan(x, dt, A, B_, C_, D, chunk=chunk)
 
 
 def launch_counts() -> dict[str, int]:

@@ -9,6 +9,9 @@ clamped at 1e-30. One deliberate difference: masked positions get an
 exact 0.0 weight, so a row with no visible key yields 0 — the JAX oracle
 spreads such a row uniformly over the masked keys instead.
 
+``ssd_scan`` follows ``repro.kernels.ref.ssd_scan_seq``: a loop over
+chunks, float32 inside, results in x's dtype.
+
 An int8 cache (``k_scale``/``v_scale`` given) is dequantised first,
 ``codes.float() * scale[..., None]``, as the kernels dequantise a row
 when they load it, and then takes the same path; a dead position's scale
@@ -134,3 +137,50 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
              < lengths.to(q.device)[:, None])
     return decode_attention(q, k, v, valid, softcap=softcap, k_scale=ks,
                             v_scale=vs)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B_: torch.Tensor, C_: torch.Tensor, D: torch.Tensor, *,
+             chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD (state-space duality) chunked scan, one chunk at a time.
+
+    x: (B, S, nh, hd); dt: (B, S, nh) (post-softplus, >= 0); A: (nh,)
+    (< 0); B_/C_: (B, S, ng, ds) with nh % ng == 0 (head h reads group
+    h // (nh / ng)); D: (nh,). Returns (y (B, S, nh, hd), final state
+    (B, nh, hd, ds)), both in x's dtype. Within a chunk the quadratic
+    form ``(C·Bᵀ ∘ L) · (dt·x)`` with ``L = exp(segsum(dt·A))``; across
+    chunks the float32 (nh, hd, ds) state carries, decayed by the chunk's
+    total ``exp(sum dt·A)``. Raises unless ``chunk`` divides S, where the
+    JAX oracle asserts."""
+    Bb, S, nh, hd = x.shape
+    ng, ds = B_.shape[2], B_.shape[3]
+    if chunk < 1 or S % chunk:
+        raise ValueError(f"ssd_scan: S={S} is not a multiple of "
+                         f"chunk={chunk}")
+    rep = nh // ng
+    f32 = torch.float32
+    Af, Df = A.to(f32), D.to(f32)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()
+    state = torch.zeros((Bb, nh, hd, ds), dtype=f32, device=x.device)
+    ys = []
+    for c0 in range(0, S, chunk):
+        xc = x[:, c0:c0 + chunk].to(f32)                     # (B, Q, nh, hd)
+        dtc = dt[:, c0:c0 + chunk].to(f32)                   # (B, Q, nh)
+        Bh = B_[:, c0:c0 + chunk].to(f32).repeat_interleave(rep, dim=2)
+        Ch = C_[:, c0:c0 + chunk].to(f32).repeat_interleave(rep, dim=2)
+        cum = torch.cumsum(dtc * Af, dim=1)                  # (B, Q, nh)
+        cs = cum.transpose(1, 2)                             # (B, nh, Q)
+        seg = (cs[..., :, None] - cs[..., None, :]).masked_fill(
+            ~tri, float("-inf"))
+        G = torch.einsum("bqhd,bkhd->bhqk", Ch, Bh)
+        y_diag = torch.einsum("bhqk,bkhp->bqhp", G * torch.exp(seg),
+                              dtc[..., None] * xc)
+        y_off = torch.einsum("bqhd,bhpd->bqhp", Ch, state) \
+            * torch.exp(cum)[..., None]
+        decay_to_end = torch.exp(cum[:, -1:] - cum)          # (B, Q, nh)
+        new = torch.einsum("bqhd,bqhp->bhpd", Bh,
+                           (dtc * decay_to_end)[..., None] * xc)
+        state = state * torch.exp(cum[:, -1])[..., None, None] + new
+        ys.append((y_diag + y_off + xc * Df[:, None]).to(x.dtype))
+    return torch.cat(ys, dim=1), state.to(x.dtype)

@@ -1,25 +1,28 @@
-"""Model assembly for the dense family: init, caches, prefill, decode.
+"""Model assembly for the dense and SSM families: init, caches, prefill,
+decode.
 
-A port of the dense path of ``repro.models.model.Model``. JAX scans one
-stacked parameter tree over the layers; the port keeps one parameter dict
-per layer (``params["layers"]``) and loops over them. The fused greedy
-``decode_chunk`` is a Python loop over ``decode_step`` whose per-slot
-bookkeeping (tokens, positions, remaining budgets, active flags) stays on
-the device, so a chunk costs no host synchronisation until its caller
-reads the result.
+A port of the dense and ssm paths of ``repro.models.model.Model``. JAX
+scans one stacked parameter tree over the layers; the port keeps one
+parameter dict per layer (``params["layers"]``) and loops over them. The
+fused greedy ``decode_chunk`` is a Python loop over ``decode_step`` whose
+per-slot bookkeeping (tokens, positions, remaining budgets, active flags)
+stays on the device, so a chunk costs no host synchronisation until its
+caller reads the result.
 
 Parameters::
 
     {"embed": {"table": (V, d)}, "final_norm": {...},
      "lm_head": {"w": (d, V)}  (untied configs only),
-     "layers": [{"ln1", "attn", "ln2", "mlp"} per layer]}
+     "layers": [{"ln1", "attn", "ln2", "mlp"} per layer]   (dense)
+               [{"ln", "mamba"} per layer]                 (ssm)}
 
 Cache: one ``{"k", "v"}`` dict of (B, max_len, Hkv, hd) tensors per layer,
 or, with a ``PagedLayout``, one paged group per layer over a block table
 that every layer shares (``models/cache.py``); with
 ``kv_cache_dtype="int8"`` either holds int8 codes plus float32 scales
-(``models/attention.py``). Updated in place by ``prefill``,
-``prefill_suffix`` and ``decode_step``.
+(``models/attention.py``). An SSM layer's cache is one ``{"conv",
+"state"}`` row group (``models/ssm.py``), which has no paged form here.
+Updated in place by ``prefill``, ``prefill_suffix`` and ``decode_step``.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models import cache as paged
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (embed_fwd, init_norm, linear_fwd,
                                        norm_fwd, truncated_normal)
 
@@ -37,12 +41,27 @@ Params = dict
 Cache = list
 
 
+def family(cfg: ArchConfig) -> str:
+    """The family of ``repro.models.model.family``."""
+    if cfg.arch_type == "audio":
+        return "whisper"
+    if cfg.arch_type == "hybrid":
+        return "zamba"
+    if cfg.arch_type == "ssm":
+        return "ssm"
+    if cfg.is_moe:
+        return "moe"
+    if cfg.local_global_pattern:
+        return "gemma"
+    return "dense"  # incl. vlm (vision prefix handled at embed time)
+
+
 def check_supported(cfg: ArchConfig) -> None:
     """The port serves the text-only dense family with a full-horizon
-    cache, in the model's dtype or int8; other families and options are
-    later slices."""
+    cache, in the model's dtype or int8, and the SSM family (mamba2);
+    other families and options are later slices."""
     unsupported = {
-        "arch_type": cfg.arch_type != "dense",
+        "arch_type": cfg.arch_type not in ("dense", "ssm"),
         "n_experts": cfg.is_moe,
         "mla": cfg.mla,
         "sliding_window": cfg.sliding_window > 0,
@@ -60,11 +79,13 @@ def check_supported(cfg: ArchConfig) -> None:
 
 
 class Model:
-    """The dense decoder on one device (``"cuda"`` unless told ``"cpu"``)."""
+    """A dense or SSM decoder on one device (``"cuda"`` unless told
+    ``"cpu"``)."""
 
     def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda"):
         check_supported(cfg)
         self.cfg = cfg
+        self.fam = family(cfg)
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------
@@ -83,8 +104,9 @@ class Model:
             p["lm_head"] = {"w": truncated_normal(
                 (cfg.d_model, cfg.vocab_size), dtype, cfg.d_model ** -0.5,
                 g)}
-        p["layers"] = [blocks.init_attn_mlp(cfg, dtype, g)
-                       for _ in range(cfg.n_layers)]
+        init = (blocks.init_ssm_block if self.fam == "ssm"
+                else blocks.init_attn_mlp)
+        p["layers"] = [init(cfg, dtype, g) for _ in range(cfg.n_layers)]
         return p
 
     def init_cache(self, batch: int, max_len: int,
@@ -93,8 +115,18 @@ class Model:
         """Dense rows, or with ``layout`` the paged cache: every layer's
         group refers to one shared (batch, nblk) table. An int8 cache
         (``cfg.kv_cache_dtype``) ignores ``dtype`` for its codes and
-        scales."""
+        scales. An SSM model's rows are its conv tails and states, which
+        ``max_len`` does not size and no layout pages here."""
         cfg = self.cfg
+        if self.fam == "ssm":
+            if layout is not None:
+                # JAX pages nothing of an SSM model, but its engine still
+                # runs the paged cache's block accounting over it
+                raise NotImplementedError(
+                    f"{cfg.name}: a paged cache over SSM state rows is not "
+                    "ported")
+            return [ssm_lib.init_mamba2_cache(cfg, batch, dtype, self.device)
+                    for _ in range(cfg.n_layers)]
         if layout is None:
             return [attn.init_attn_cache(cfg, batch, max_len, dtype,
                                          self.device)
@@ -126,9 +158,11 @@ class Model:
                 logits_at: int | torch.Tensor = -1) -> torch.Tensor:
         """tokens: (B, S) from position 0. Fills ``cache`` in place and
         returns the logits (B, V) at ``logits_at``."""
+        fwd = (blocks.ssm_prefill if self.fam == "ssm"
+               else blocks.attn_mlp_prefill)
         x = embed_fwd(params["embed"], tokens)
         for p, c in zip(params["layers"], cache):
-            x = blocks.attn_mlp_prefill(p, self.cfg, x, c)
+            x = fwd(p, self.cfg, x, c)
         return self._head(params, self._sel(x, logits_at))
 
     def prefill_suffix(self, params: Params, tokens: torch.Tensor,
@@ -139,7 +173,10 @@ class Model:
         suffix tokens; ``ctx``: one ``{"k", "v"}`` per layer, each
         (B, offset, Hkv, hd), gathered from the shared pages; ``cache``:
         a dense mini-cache of width S, filled in place with the suffix
-        K/V. Returns the logits (B, V) at ``logits_at``."""
+        K/V. Returns the logits (B, V) at ``logits_at``. Dense family
+        only, as in JAX."""
+        if self.fam != "dense":
+            raise ValueError(f"prefix sharing unsupported for {self.fam}")
         x = embed_fwd(params["embed"], tokens)
         for p, c, cx in zip(params["layers"], cache, ctx):
             x = blocks.attn_mlp_suffix_prefill(p, self.cfg, x, c, cx["k"],
@@ -149,10 +186,13 @@ class Model:
     def decode_step(self, params: Params, tokens: torch.Tensor,
                     cache: Cache, pos: torch.Tensor) -> torch.Tensor:
         """tokens: (B, 1); pos: (B,) positions of those tokens. Writes
-        their keys/values into ``cache`` in place; returns logits (B, V)."""
+        their keys/values (SSM: conv tails and states) into ``cache`` in
+        place; returns logits (B, V)."""
+        fwd = (blocks.ssm_decode if self.fam == "ssm"
+               else blocks.attn_mlp_decode)
         x = embed_fwd(params["embed"], tokens)
         for p, c in zip(params["layers"], cache):
-            x = blocks.attn_mlp_decode(p, self.cfg, x, c, pos)
+            x = fwd(p, self.cfg, x, c, pos)
         return self._head(params, x[:, -1])
 
     def decode_chunk(self, params: Params, cache: Cache, state: dict,

@@ -4,9 +4,12 @@
 port. It takes the nested dict of numpy arrays that ``repro`` keeps (the
 layout ``repro.serving.backend.save_params`` writes: ``embed``,
 ``final_norm``, optional ``lm_head`` and a ``stack`` whose leaves carry a
-leading layer axis) and returns the port's parameter dict, with each
-stacked (L, ...) leaf split into per-layer tensors. The bytes are kept
-exactly (bfloat16 included) unless a ``dtype`` cast is asked for.
+leading layer axis: ``{ln1, attn, ln2, mlp}`` for the dense family,
+``{ln, mamba}`` for the SSM family) and returns the port's parameter
+dict, with each stacked (L, ...) leaf split into per-layer tensors. The
+bytes are kept exactly (bfloat16 included) unless a ``dtype`` cast is
+asked for; a Mamba2 block's float32 leaves (``models.ssm.F32_LEAVES``)
+stay float32 under any cast, as the reference keeps them.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import check_supported
+from repro_torch.models.ssm import F32_LEAVES
 
 
 def _tensor(a: Any, device: torch.device,
@@ -34,7 +38,8 @@ def _tensor(a: Any, device: torch.device,
 
 def _convert(tree: Any, device: torch.device, dtype, layer: int | None):
     if isinstance(tree, dict):
-        return {k: _convert(v, device, dtype, layer) for k, v in tree.items()}
+        return {k: _convert(v, device, None if k in F32_LEAVES else dtype,
+                            layer) for k, v in tree.items()}
     return _tensor(tree if layer is None else tree[layer], device, dtype)
 
 

@@ -1,4 +1,4 @@
-"""The engine's KV caches: dense slot rows or paged blocks.
+"""The engine's caches: dense slot rows or paged blocks.
 
 A port of ``repro.serving.cache`` (the attention page pairs and, for an
 int8 cache, their scale pages; no MLA latent pages, which
@@ -106,7 +106,8 @@ class BlockAllocator:
 class DenseCache:
     """Row-per-slot cache over a model's per-layer ``{"k", "v"}`` tensors
     of shape (n_rows, max_len, Hkv, hd), plus ``{"k_scale", "v_scale"}``
-    (n_rows, max_len, Hkv) for an int8 cache."""
+    (n_rows, max_len, Hkv) for an int8 cache, or an SSM model's
+    ``{"conv", "state"}`` rows; the row is axis 0 of every leaf."""
 
     def __init__(self, tree: list, n_rows: int):
         self.tree = tree
@@ -122,8 +123,8 @@ class DenseCache:
         layer's group, so an int8 cache's scales go with its codes."""
         if offset:
             raise ValueError("DenseCache rows always start at position 0")
-        idx = torch.as_tensor(rows, dtype=torch.long,
-                              device=self.tree[0]["k"].device)
+        leaf = next(iter(self.tree[0].values()))
+        idx = torch.as_tensor(rows, dtype=torch.long, device=leaf.device)
         for dst, src in zip(self.tree, src_cache):
             for name, t in dst.items():
                 t.index_copy_(0, idx, src[name].to(t.dtype))

@@ -1,13 +1,17 @@
 """Continuous-batching serving engine with fused greedy multi-token decode.
 
 A port of ``repro.serving.engine.ServingEngine`` for the dense family,
-over the dense or the paged KV cache. Each ``step()`` admits queued
-requests and then runs one fused decode chunk:
+over the dense or the paged KV cache, and for the SSM family over its
+dense state rows. Each ``step()`` admits queued requests and then runs
+one fused decode chunk:
 
-* **Dense admission** pops the queue head plus every queued request in
-  the same prompt-length bucket (``PROMPT_BUCKETS``), up to the free
-  slots, right-pads them into one (n, bucket) batch and prefills it in
-  one call; per-row ``logits_at`` picks each prompt's last real position.
+* **Dense admission** pops the queue head plus every queued request with
+  the same admit key, up to the free slots, and prefills them as one
+  batch in one call; per-row ``logits_at`` picks each prompt's last real
+  position. The key is the prompt-length bucket (``PROMPT_BUCKETS``),
+  into which the batch is right-padded, or, for an SSM model, the exact
+  prompt length: its recurrent state would absorb pad tokens
+  (``_pad_ok``), so its batches are exactly as wide as their prompts.
   The prefill rows are copied into their slots, and the greedy prefill
   sample is each request's first streamed chunk.
 * **Paged admission** (``EngineConfig(cache="paged")``) is strict FIFO on
@@ -180,10 +184,12 @@ class ServingEngine:
                                    config.resolved_max_blocks)
                        if self.paged else None)
         # prefix sharing: the suffix prefill is exact for full-horizon
-        # rope GQA in the model's dtype (check_supported refuses other
-        # families); an int8 cache falls back to the plain paged path
-        # (hit tokens stay 0, outputs identical), as in JAX
+        # rope GQA in the model's dtype (check_supported refuses the
+        # other attention families; SSM state is not shareable); an int8
+        # cache falls back to the plain paged path (hit tokens stay 0,
+        # outputs identical), as in JAX
         self._share = (self.paged and config.prefix_cache
+                       and model.fam == "dense"
                        and model.cfg.kv_cache_dtype != "int8")
         n_rows = config.n_rows
         self.stream = None
@@ -245,15 +251,29 @@ class ServingEngine:
         return bool(self.queue) or any(s.active for s in self.slots)
 
     # ------------------------------------------------------------------
+    @property
+    def _pad_ok(self) -> bool:
+        """Right-padding a prompt is harmless only for non-recurrent,
+        non-windowed caches (pad K/V slots stay masked until overwritten;
+        SSM states and ring windows would absorb the pad tokens)."""
+        cfg = self.model.cfg
+        return not (cfg.is_ssm or cfg.sliding_window > 0)
+
+    def _admit_key(self, n_tokens: int) -> int:
+        """Prefill width of ``n_tokens`` prompt positions: requests with
+        one key prefill as one batch of this width."""
+        return _bucket(n_tokens) if self._pad_ok else n_tokens
+
     def _take_bucket(self, n_free: int) -> list[Request]:
-        """Pop the head request plus every queued request in its bucket
-        (keeping the queue order of the rest), up to ``n_free``."""
-        key = _bucket(len(self.queue[0].prompt))
+        """Pop the head request plus every queued request with its admit
+        key (keeping the queue order of the rest), up to ``n_free``."""
+        key = self._admit_key(len(self.queue[0].prompt))
         take: list[Request] = []
         rest: deque[Request] = deque()
         while self.queue and len(take) < n_free:
             r = self.queue.popleft()
-            (take if _bucket(len(r.prompt)) == key else rest).append(r)
+            (take if self._admit_key(len(r.prompt)) == key
+             else rest).append(r)
         rest.extend(self.queue)
         self.queue = rest
         return take
@@ -361,8 +381,8 @@ class ServingEngine:
         n = len(reqs)
         H = plans[0][0] if plans and plans[0] is not None else 0
         # prompts (or, for a hit, their suffixes behind H shared
-        # positions) right-padded into one bucket-wide batch
-        bl = _bucket(len(reqs[0].prompt) - H)
+        # positions) right-padded into one batch of the admit key's width
+        bl = self._admit_key(len(reqs[0].prompt) - H)
         padded = np.zeros((n, bl), np.int32)
         logits_idx = np.zeros((n,), np.int64)
         for j, r in enumerate(reqs):

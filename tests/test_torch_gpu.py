@@ -401,3 +401,99 @@ def test_int8_router_on_the_card_matches_the_cpu_path(cuda, cache):
         assert sum(v for k, v in counts.items()
                    if "decode" in k and k != kernel) == 0, counts
     assert out[1] == out[0]
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan
+# ---------------------------------------------------------------------------
+def _ssd_args(gen, B, S, nh, hd, ng, ds, dtype):
+    """The JAX suite's draw: x, B, C ~ N(0, 1), dt = softplus(N(0, 1)),
+    A = -exp(N(0, 1)) (float32), D = 1 (float32)."""
+    import torch.nn.functional as F
+    dt = F.softplus(torch.randn(B, S, nh, generator=gen, device="cuda"))
+    A = -torch.exp(torch.randn(nh, generator=gen, device="cuda"))
+    return (_randn(gen, B, S, nh, hd, dtype=dtype), dt.to(dtype), A,
+            _randn(gen, B, S, ng, ds, dtype=dtype),
+            _randn(gen, B, S, ng, ds, dtype=dtype),
+            torch.ones(nh, device="cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,nh,hd,ng,ds,chunk", [
+    (2, 128, 4, 16, 2, 16, 32),       # the shapes of tests/test_kernels.py
+    (1, 64, 8, 8, 1, 32, 16),
+    (2, 256, 2, 32, 1, 8, 64),
+    (1, 512, 80, 64, 1, 128, 256),    # mamba2-2.7b's widths
+    (1, 100, 6, 40, 3, 200, 100),     # ragged tile, hd not a tile multiple
+])
+def test_ssd_kernel_matches_plain(cuda, dtype, B, S, nh, hd, ng, ds, chunk):
+    """|kernel - plain| <= tol * max|plain| (5e-5 f32, 2e-2 bf16): the
+    kernel cuts the sequence into 64-position tiles, the plain version at
+    ``chunk``, and the decays' running sums round with the cut."""
+    args = _ssd_args(cuda, B, S, nh, hd, ng, ds, dtype)
+    before = ops.launch_counts()["ssd_scan"]
+    got = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    tol = 5e-5 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, ref.ssd_scan(*args, chunk=chunk)):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g).all())
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max())
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    args = _ssd_args(cuda, 1, 40, 4, 16, 2, 16, torch.float32)
+    with pytest.raises(ValueError, match="not a multiple of chunk"):
+        ssd_scan(*args, chunk=32)
+    x, dt, A, B_, C_, D = args
+    with pytest.raises(TypeError, match="float32"):
+        ssd_scan(x, dt, A.to(torch.bfloat16), B_, C_, D, chunk=40)
+    with pytest.raises(TypeError, match="share one dtype"):
+        ssd_scan(x, dt.to(torch.bfloat16), A, B_, C_, D, chunk=40)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(2, 3), dt, A, B_, C_, D, chunk=40)
+    with pytest.raises(ValueError, match="shapes"):
+        ssd_scan(x, dt, A, B_[:, :, :1].expand(1, 40, 3, 16).contiguous(),
+                 C_[:, :, :1].expand(1, 40, 3, 16).contiguous(), D,
+                 chunk=40)
+    big = _ssd_args(cuda, 1, 8, 2, 8, 1, 300, torch.float32)
+    with pytest.raises(ValueError, match="out of the kernel's range"):
+        ssd_scan(*big, chunk=8)
+
+
+def test_ssm_router_on_the_card_matches_the_cpu_path(cuda):
+    """Two threaded containers on the card serving reduced mamba2 in f32
+    (the SSD kernel, no attention kernel) give the CPU path's greedy
+    tokens."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.backend import ThreadBackend
+    from repro_torch.serving.engine import EngineConfig, Request
+    from repro_torch.serving.router import Router
+
+    cfg = get_config("mamba2-2.7b-reduced")
+    config = EngineConfig(n_slots=2, max_len=128, chunk_tokens=4)
+    rng = np.random.default_rng(2)
+    specs = [(i, rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32), m)
+             for i, (n, m) in enumerate([(6, 5), (64, 7), (17, 3), (17, 4),
+                                         (32, 6)])]
+    cpu_model = Model(cfg, device="cpu")
+    params = cpu_model.init(seed=0)
+    out = []
+    for model, p, dev in ((cpu_model, params, "cpu"),
+                          (Model(cfg, device="cuda"), _to_card(params),
+                           "cuda")):
+        ops.reset_launch_counts()
+        with Router(ThreadBackend(model, p, 2, config, device=dev),
+                    device=dev) as router:
+            handles = [router.submit(Request(*s)) for s in specs]
+            out.append({h.rid: h.tokens() for h in handles})
+        counts = ops.launch_counts()
+        assert (counts["ssd_scan"] > 0) == (dev == "cuda"), counts
+        assert sum(v for k, v in counts.items() if k != "ssd_scan") == 0
+    assert out[1] == out[0]

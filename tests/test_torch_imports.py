@@ -48,8 +48,8 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
         for mod in {_modules()!r}:
             importlib.import_module(mod)
         ops = sys.modules["repro_torch.kernels.ops"]
-        assert {{"decode_attention_int8", "paged_decode_attention_int8"}} \
-            <= set(ops.COUNTERS)
+        assert {{"decode_attention_int8", "paged_decode_attention_int8",
+                 "ssd_scan"}} <= set(ops.COUNTERS)
         assert not [m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         print("port imports ok")
@@ -113,9 +113,28 @@ def test_unported_configurations_raise():
     import dataclasses
     cfg = get_config(ARCH)
     for change in ({"sliding_window": 8}, {"kv_cache_dtype": "fp8"},
-                   {"n_experts": 4}, {"arch_type": "ssm"}, {"act": "gelu"}):
+                   {"n_experts": 4}, {"arch_type": "hybrid"},
+                   {"act": "gelu"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             Model(dataclasses.replace(cfg, **change), device="cpu")
+
+
+def test_mamba2_is_accepted_and_its_paged_cache_is_not_ported():
+    cfg = get_config("mamba2-2.7b-reduced")
+    model = Model(cfg, device="cpu")
+    assert model.fam == "ssm"
+    params = model.init(seed=0)
+    cache = model.init_cache(2, 32)
+    assert len(cache) == cfg.n_layers and set(cache[0]) == {"conv", "state"}
+    assert cache[0]["state"].shape == (2, cfg.ssm_n_heads, cfg.ssm_head_dim,
+                                       cfg.ssm_state)
+    ServingEngine(model, params, EngineConfig(n_slots=2, max_len=32),
+                  device="cpu")
+    paged = EngineConfig(n_slots=2, max_len=32, cache="paged")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ServingEngine(model, params, paged, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ThreadBackend(model, params, 2, paged, device="cpu")
 
 
 def test_int8_kv_cache_is_accepted_on_both_layouts():

@@ -1,4 +1,6 @@
-"""The port's plain attention kernels against the JAX package's.
+"""The port's plain attention kernels against the JAX package's, and the
+dispatch and wrappers of every kernel (the SSD scan's plain version is
+held to JAX in tests/test_torch_ssd.py).
 
 Inputs come from a seeded numpy generator and go through both sides:
 ``repro_torch.kernels.ref`` against ``repro.kernels.ref`` (any shapes,
@@ -172,12 +174,26 @@ def test_ops_sends_cpu_tensors_to_the_plain_version():
     got = ops.decode_attention(_t(q), _t(k), _t(v), _t(valid))
     assert torch.equal(got, tref.decode_attention(_t(q), _t(k), _t(v),
                                                   _t(valid)))
+    ssd = _ssd_args(8)
+    got = ops.ssd_scan(*ssd, chunk=16)
+    want = tref.ssd_scan(*ssd, chunk=16)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     # the plain path is not a kernel launch
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "decode_attention": 0,
                                    "paged_decode_attention": 0,
                                    "decode_attention_int8": 0,
-                                   "paged_decode_attention_int8": 0}
+                                   "paged_decode_attention_int8": 0,
+                                   "ssd_scan": 0}
+
+
+def _ssd_args(seed, B=1, S=32, nh=4, hd=8, ng=1, ds=8):
+    """Small SSD scan inputs (A < 0 and D float32, as the model passes)."""
+    rng = np.random.default_rng(seed)
+    return (_t(_randn(rng, B, S, nh, hd)),
+            _t(np.log1p(np.exp(_randn(rng, B, S, nh)))),
+            _t(-np.exp(_randn(rng, nh))), _t(_randn(rng, B, S, ng, ds)),
+            _t(_randn(rng, B, S, ng, ds)), _t(np.ones(nh, np.float32)))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -185,6 +201,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     build or launch."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan(*_ssd_args(9), chunk=16)
     q, k, v = _qkv(9, 1, 8, 8, 4, 2, 32)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(_t(q), _t(k), _t(v))
