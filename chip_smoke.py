@@ -22,12 +22,20 @@ Phases, each raising on failure (any failure exits nonzero):
    S = 512 and 2048, B = 2, a ragged one-chunk prompt, ng = 2, float32
    and bfloat16, |kernel - plain| <= tol * max|plain| (tol 5e-5 and
    2e-2: the kernel cuts the sequence into 64-position tiles where the
-   plain version cuts it at ``chunk``), timed beside the plain version
-   (no PyTorch call computes the scan).
-3. Model: qwen3-0.6b at full width cut to 2 layers, and the 2-layer
-   mamba2-2.7b-reduced, float32, the port's seeded init: prefill + 8
-   greedy decode steps on the card against the same parameters on the
-   CPU plain path.
+   plain version cuts it at ``chunk``) and, wherever 64 divides S,
+   element by element within tol abs + tol rel against the plain version
+   cut at 64, timed beside the plain version (no PyTorch call computes
+   the scan). The prefill kernel at MLA's widths (K = 192, Kv = 128,
+   H = Hkv = 16). The MLA decode kernel at deepseek-v2-lite's widths
+   (H = 16, r = 512, dr = 64): the 4-slot main shape, a ragged S = 1000
+   with an all-dead row that must read 0, and the view gathered from
+   16-token latent pages, which must ignore NaN in unowned pages; timed
+   beside the plain version and ``scaled_dot_product_attention`` over
+   [q_lat | q_rope] and [ckv | k_rope].
+3. Model: qwen3-0.6b at full width cut to 2 layers, the 2-layer
+   mamba2-2.7b-reduced and the 2-layer deepseek-v2-lite-16b-reduced,
+   float32, the port's seeded init: prefill + 8 greedy decode steps on
+   the card against the same parameters on the CPU plain path.
 4. Main path of the dense cache: ``Router(ThreadBackend(n_containers=2))``
    over full-width qwen3-0.6b (28 layers, bfloat16, random weights from a
    seed), n_slots=4, max_len=2048, 8 requests with ragged 16-512 token
@@ -63,10 +71,22 @@ Phases, each raising on failure (any failure exits nonzero):
    alone on the model; the scan launches once per layer per prefill; no
    attention kernel launches. Reports wall, tok/s, ttfc p50, the state
    cache's bytes, and one decode step's host time and kernel launches.
+9. The MoE family with latent attention: ``Router(ThreadBackend(2))``
+   over full-width deepseek-v2-lite-16b (27 layers, MLA, 64 routed
+   experts top-6 + 2 shared, bfloat16, random weights from a seed, one
+   copy for both engines), dense latent cache, n_slots=4, max_len=2048,
+   phase 4's 8 requests. Every request completes; the MLA decode and the
+   prefill kernel launch a multiple of 27 times, no other kernel does;
+   the one request alone in its prefill bucket equals that request run
+   alone at the engine's shapes (expert drops depend on the batch).
+   Reports wall, tok/s, ttfc p50, the latent cache's bytes and one
+   decode step's host time and launches.
+   b. Dense vs paged latent caches as in phase 5, same weights: identical
+      greedy streams, the MLA decode kernel launching in both engines.
 
 Then a JSON line with each kernel's launches (from the phase of the path
-it serves), error and times, the card's ``nvidia-smi`` line, and the
-result line ``{"ok": true, "device": {...}}``.
+it serves), error and times (seven kernels), the card's ``nvidia-smi``
+line, and the result line ``{"ok": true, "device": {...}}``.
 
 It needs the checkout's ``src/`` and a CUDA device; without either it
 exits nonzero before printing any result.
@@ -355,6 +375,7 @@ SSD_MAIN = dict(B=1, S=512, nh=80, hd=64, ng=1, ds=128, chunk=256)
 # dt*A that set the decays round differently with the cut (~1e-5 of the
 # largest output in float32)
 SSD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
+SSD_TILE = 64   # where the kernel cuts the sequence
 
 
 def ssd_inputs(gen, B, S, nh, hd, ng, ds, dtype, *, model_like=True):
@@ -402,7 +423,10 @@ def ssd_checks(gen):
     """The scan kernel against its plain version: the main-path shape in
     float32 and bfloat16, 8 chunks (S = 2048), B = 2, a ragged one-chunk
     prompt, ng = 2 heads-to-groups, and the JAX suite's harsher draw.
-    Returns the largest error relative to max|plain| per dtype."""
+    Relative to max|plain| at the caller's chunk, and element by element
+    (tol abs + tol rel) against the plain version cut where the kernel
+    cuts, at 64 positions, wherever 64 divides S. Returns the largest
+    error relative to max|plain| per dtype."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as ssd
 
@@ -431,18 +455,33 @@ def ssd_checks(gen):
             rel = max(ssd_close(g, w, dn, f"{what} {name}")
                       for name, g, w in zip(("y", "state"), got, want))
             worst[dn] = max(worst.get(dn, 0.0), rel)
-            # reported, not checked: elements outside tol abs + tol rel
             tol = SSD_TOL[dn]
-            over = sum(int(((g.float() - w.float()).abs()
-                            > tol + tol * w.float().abs()).sum())
-                       for g, w in zip(got, want))
-            n = sum(w.numel() for w in want)
+            cut = ""
+            if S % SSD_TILE == 0:
+                want = ref.ssd_scan(*args, chunk=SSD_TILE)
+                err = max(ssd_elementwise(g, w, dn, f"{what} {name}")
+                          for name, g, w in zip(("y", "state"), got, want))
+                cut = (f"; element by element at chunk {SSD_TILE}: max "
+                       f"abs error {err:.3e} within {tol} abs + rel")
             ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk), reps=5)
             print(f"{what}: max |kernel - plain| / max|plain| = {rel:.3e} "
-                  f"(y and state; tolerance {tol}); elements past {tol} "
-                  f"abs + rel: {over} of {n}; kernel_ms={ms:.4f}",
-                  flush=True)
+                  f"(y and state; tolerance {tol}){cut}; kernel_ms="
+                  f"{ms:.4f}", flush=True)
     return worst
+
+
+def ssd_elementwise(got, want, dtype_name: str, what: str) -> float:
+    """|got - want| <= SSD_TOL * (1 + |want|) element by element, against
+    the plain version cut at SSD_TILE; returns the max abs error."""
+    tol = SSD_TOL[dtype_name]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    over = int((err > tol + tol * w.abs()).sum())
+    if over:
+        fail(f"{what}: {over} of {w.numel()} elements differ from the plain "
+             f"version at chunk {SSD_TILE} by more than {tol} abs + rel "
+             f"(max {float(err.max()):.3e})")
+    return float(err.max())
 
 
 def ssd_close(got, want, dtype_name: str, what: str) -> float:
@@ -456,6 +495,134 @@ def ssd_close(got, want, dtype_name: str, what: str) -> float:
         fail(f"{what}: max |kernel - plain| is {rel:.3e} of max|plain| "
              f"{scale:.3e}, over {SSD_TOL[dtype_name]}")
     return rel
+
+
+# absorbed-MLA decode at deepseek-v2-lite's widths: a 4-slot decode step
+# over the 2048-position latent cache, rows live to phase 2's depths
+MLA_MAIN = dict(B=4, S=2048, H=16, r=512, dr=64)
+MLA_DEPTHS = [48, 160, 300, 544]
+MLA_SCALE = 192 ** -0.5          # (qk_nope + qk_rope) ** -0.5
+
+
+def mla_inputs(gen, B, S, dtype, H=16, r=512, dr=64):
+    """q_lat, q_rope, ckv, k_rope ~ N(0, 1) on the card, in ``dtype``."""
+    return tuple(torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+                 for shape in ((B, H, r), (B, H, dr), (B, S, r), (B, S, dr)))
+
+
+def mla_bound(valid, H, r, dr, dtype_name, itemsize):
+    """Each live latent and rope row read once, q, the mask and the
+    output once; 2 * H * (2r + dr) operations per live position."""
+    B, S = valid.shape
+    live = int(valid.sum())
+    nbytes = ((live + B * H) * (r + dr) * itemsize + B * S
+              + B * H * r * itemsize)
+    flops = 2 * H * live * (2 * r + dr)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def mla_checks(gen):
+    """The MLA decode kernel against its plain version, float32 and
+    bfloat16, each shape timed beside its plain version and its bound:
+    the main shape; a ragged S = 1000 with one all-dead row, which must
+    read 0; and the logical view gathered from 16-token latent pages (the
+    paged cache's path), which must also ignore NaN in every page no row
+    owns."""
+    from repro_torch.kernels import mla_decode as mla
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    m = MLA_MAIN
+
+    def held(what, dn, args, valid):
+        """The kernel against its plain version on ``args``; prints the
+        error, the kernel's and the plain version's ms and the bound."""
+        got = mla.mla_decode_ctx(*args, valid, scale=MLA_SCALE)
+        torch.cuda.synchronize()
+        err = check_close(got, ref.mla_decode_ctx(*args, valid,
+                                                  scale=MLA_SCALE), dn, what)
+        bound, by = mla_bound(valid, m["H"], m["r"], m["dr"], dn,
+                              args[0].element_size())
+        print(f"{what}: max_abs_err={err:.3e} kernel_ms="
+              f"{time_ms(lambda: mla.mla_decode_ctx(*args, valid, scale=MLA_SCALE)):.4f}"
+              f" plain_ms="
+              f"{time_ms(lambda: ref.mla_decode_ctx(*args, valid, scale=MLA_SCALE), reps=5):.4f}"
+              f" bound_ms={bound:.6f} ({by})", flush=True)
+        return got
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        valid = (torch.arange(m["S"], device=dev)[None, :]
+                 < torch.tensor(MLA_DEPTHS, device=dev)[:, None])
+        held(f"mla_decode_ctx {dn} B={m['B']} S={m['S']} live={MLA_DEPTHS}",
+             dn, mla_inputs(gen, m["B"], m["S"], dtype), valid)
+
+        B, S = 3, 1000
+        valid = torch.rand(B, S, generator=gen, device=dev) < 0.7
+        valid[-1] = False                    # a row with no live position
+        what = f"mla_decode_ctx {dn} B={B} S={S} ragged, row {B - 1} dead"
+        got = held(what, dn, mla_inputs(gen, B, S, dtype), valid)
+        if bool(got[-1].ne(0).any()):
+            fail(f"{what}: the all-dead row is not 0")
+
+        # the paged path: pages drawn at random from a pool twice the
+        # needed size, the rest of each table on the scratch page
+        bs, nblk = 16, m["S"] // 16
+        B, n_pages = m["B"], 2 * m["B"] * nblk
+        ql, qr, _, _ = mla_inputs(gen, B, 1, dtype)
+        ckv_p = torch.randn(n_pages + 1, bs, m["r"], generator=gen,
+                            device=dev).to(dtype)
+        kr_p = torch.randn(n_pages + 1, bs, m["dr"], generator=gen,
+                           device=dev).to(dtype)
+        lengths = torch.tensor(MLA_DEPTHS, device=dev)
+        table = torch.randperm(n_pages, generator=gen, device=dev)[
+            :B * nblk].reshape(B, nblk)
+        owned = torch.arange(nblk, device=dev)[None, :] < (
+            (lengths[:, None] + bs - 1) // bs)
+        table[~owned] = n_pages
+        unowned = torch.ones(n_pages + 1, dtype=torch.bool, device=dev)
+        unowned[table[owned]] = False
+        valid = (torch.arange(m["S"], device=dev)[None, :]
+                 < lengths[:, None])
+
+        def view(pages):
+            return pages[table].reshape(B, m["S"], pages.shape[-1])
+        what = (f"mla_decode_ctx {dn} over 16-token pages, live="
+                f"{MLA_DEPTHS}")
+        got = held(what, dn, (ql, qr, view(ckv_p), view(kr_p)), valid)
+        ckv_p[unowned] = float("nan")
+        kr_p[unowned] = float("nan")
+        poisoned = mla.mla_decode_ctx(ql, qr, view(ckv_p), view(kr_p),
+                                      valid, scale=MLA_SCALE)
+        if not (torch.equal(poisoned, got)
+                and bool(torch.isfinite(poisoned).all())):
+            fail(f"{what}: output moved with NaN in unowned pages")
+        print(f"{what}: NaN in unowned pages ignored", flush=True)
+
+
+def flash_mla_checks(gen):
+    """The prefill kernel at MLA's widths (K = 192, Kv = 128, H = Hkv =
+    16, causal), float32 and bfloat16; returns the bfloat16 ms."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    ms = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        q, k = (torch.randn(1, 512, 16, 192, generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        v = torch.randn(1, 512, 16, 128, generator=gen,
+                        device="cuda").to(dtype)
+        what = f"flash_attention {dn} B=1 Sq=Skv=512 H=Hkv=16 K=192 Kv=128"
+        got = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        err = check_close(got, ref.flash_attention(q, k, v), dn, what)
+        ms[dn] = time_ms(lambda: fa.flash_attention(q, k, v))
+        print(f"{what}: max_abs_err={err:.3e} kernel_ms={ms[dn]:.4f}",
+              flush=True)
+    return ms["bfloat16"]
 
 
 def kernel_phase():
@@ -686,6 +853,43 @@ def kernel_phase():
                  f"bf16 {worst['bfloat16']:.3e}; library_ms null: no "
                  "PyTorch call computes the SSD scan"}
     print(f"ssd_scan main shape: {results['ssd_scan']}", flush=True)
+
+    # MLA prefill's shape of the flash kernel, and the MLA decode kernel
+    # at its main shape (bf16); the yardstick is one sdpa call over
+    # q = [q_lat | q_rope], k = [ckv | k_rope] (one kv head) and v = ckv
+    # (the concatenation not timed)
+    results["flash_attention"]["ms_mla_prefill_shape"] = flash_mla_checks(
+        gen)
+    from repro_torch.kernels import mla_decode as mla
+    mla_checks(gen)
+    m = MLA_MAIN
+    args = mla_inputs(gen, m["B"], m["S"], dtype)
+    valid = (torch.arange(m["S"], device=dev)[None, :]
+             < torch.tensor(MLA_DEPTHS, device=dev)[:, None])
+    err = check_close(mla.mla_decode_ctx(*args, valid, scale=MLA_SCALE),
+                      ref.mla_decode_ctx(*args, valid, scale=MLA_SCALE), dn,
+                      "mla main shape")
+    bound, by = mla_bound(valid, m["H"], m["r"], m["dr"], dn, isz)
+    ql, qr, ckv, kr = args
+    q4 = torch.cat([ql, qr], dim=-1)[:, :, None]
+    k4 = torch.cat([ckv, kr], dim=-1)[:, None]
+    v4 = ckv[:, None]
+    mask4 = valid[:, None, None, :]
+    results["mla_decode_ctx"] = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: mla.mla_decode_ctx(*args, valid,
+                                                 scale=MLA_SCALE)),
+        "plain_ms": time_ms(lambda: ref.mla_decode_ctx(
+            *args, valid, scale=MLA_SCALE), reps=5),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask4, scale=MLA_SCALE, enable_gqa=True)),
+        "shape": f"B={m['B']} S={m['S']} H={m['H']} r={m['r']} "
+                 f"dr={m['dr']} bf16 live={MLA_DEPTHS}; library_ms is sdpa "
+                 "over q=[q_lat|q_rope], k=[ckv|k_rope] (one kv head), "
+                 "v=ckv (concatenation not counted)"}
+    print(f"mla_decode_ctx main shape: {results['mla_decode_ctx']}",
+          flush=True)
     return results
 
 
@@ -816,7 +1020,8 @@ PARITY_GROUPS = [((150, 200, 256, 180), 24), ((40, 50, 64, 33), 32),
 def parity_phase(model, params, config, card: str, groups=PARITY_GROUPS):
     """Serve the same requests through one dense and one paged engine
     (``config`` with cache="paged"); their greedy streams must be
-    identical."""
+    identical. Returns each engine's kernel launches (dense, paged)."""
+    from repro_torch.kernels import ops
     from repro_torch.serving.engine import Request, ServingEngine
 
     rng = np.random.default_rng(5)
@@ -825,17 +1030,20 @@ def parity_phase(model, params, config, card: str, groups=PARITY_GROUPS):
         for n in plens:
             reqs.append(Request(len(reqs), rng.integers(
                 0, model.cfg.vocab_size, (n,), dtype=np.int32), max_new))
-    streams, walls = [], []
+    streams, walls, launches = [], [], []
     for cache in ("dense", "paged"):
         eng = ServingEngine(model, params,
                             dataclasses.replace(config, cache=cache),
                             device=model.device)
         eng.submit_many([dataclasses.replace(r) for r in reqs])
+        before = ops.launch_counts()
         t0 = time.perf_counter()
         comps = eng.run()
         if model.device.type == "cuda":
             torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        launches.append({k: n - before[k]
+                         for k, n in ops.launch_counts().items()})
         streams.append({c.rid: list(c.tokens) for c in comps})
         del eng
     dense, paged = streams
@@ -854,6 +1062,7 @@ def parity_phase(model, params, config, card: str, groups=PARITY_GROUPS):
           f"{[list(g) for g, _ in groups]}: {n_tok} greedy tokens "
           f"identical; wall_s dense={walls[0]:.4f} paged={walls[1]:.4f} "
           f"[card: {card}]", flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1143,7 +1352,30 @@ def ssm_path_phase(card: str, n_containers: int = 2, max_new: int = 32):
         fail(f"ssm path: request {rid} served {list(comps[rid].tokens)[:8]}"
              f"... but alone gives {alone[:8]}...")
 
-    # one 4-slot decode step: host wall with a synchronize, and its launches
+    step_ms, step_launches, step_dev_ms = decode_step_profile(
+        model, params, tok, cache, pos)
+
+    n_tok = sum(len(c.tokens) for c in comps)
+    ttfc_p50 = float(np.percentile([h.ttfc_s for h in handles], 50))
+    print(f"ssm path: {cfg.name} {cfg.n_layers} layers bf16, Router("
+          f"ThreadBackend({n_containers})) n_slots={config.n_slots} max_len="
+          f"{config.max_len} chunk_tokens={config.chunk_tokens}, 8 requests "
+          f"prompts {SSM_PLENS} max_new={max_new}: wall_s={wall:.4f} "
+          f"tok_per_s={n_tok / wall:.2f} ttfc_p50_s={ttfc_p50:.4f} "
+          f"state_cache_bytes={state_bytes} (one engine); request {rid}'s "
+          f"stream equals the model run alone; one {config.n_slots}-slot "
+          f"decode step: host_ms={step_ms:.3f} kernel_launches="
+          f"{step_launches} device_ms={step_dev_ms:.3f}; launches="
+          f"{launches} [card: {card}]",
+          flush=True)
+    return launches
+
+
+def decode_step_profile(model, params, tok, cache, pos):
+    """One decode step's host wall (mean of 10, each ending in a
+    synchronize, after 3 unmeasured), its kernel launches (profiler count
+    of launch calls) and its device ms (the profiler's self device time
+    of every kernel of the step; 0 where the profiler sees no device)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         model.decode_step(params, tok, cache, pos)
@@ -1157,23 +1389,141 @@ def ssm_path_phase(card: str, n_containers: int = 2, max_new: int = 32):
                              ProfilerActivity.CUDA]) as prof:
         model.decode_step(params, tok, cache, pos)
         torch.cuda.synchronize()
-    step_launches = sum(e.count for e in prof.key_averages() if e.key in (
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.key in (
         "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
         "cuLaunchKernelEx"))
+    device_ms = sum(getattr(e, "self_device_time_total", 0)
+                    for e in events) / 1e3
+    return step_ms, launches, device_ms
 
+
+# ---------------------------------------------------------------------------
+# phase 9: the MoE family with latent attention — deepseek-v2-lite-16b
+# ---------------------------------------------------------------------------
+MAIN_PLENS = [16, 512, 37, 200, 96, 333, 64, 480]   # phase 4's prompts
+
+
+def deepseek_path_phase(card: str, n_containers: int = 2,
+                        max_new: int = 32):
+    """Router(ThreadBackend(2)) over full-width deepseek-v2-lite-16b (27
+    layers: MLA + dense MLP, then 26 of MLA + 64 routed experts top-6 and
+    2 shared; bf16, random weights from seed 0, one copy shared by both
+    engines), dense latent cache, n_slots=4, max_len=2048: phase 4's 8
+    requests. Every request completes with ``max_new`` in-range tokens
+    and a first chunk; ``mla_decode_ctx`` and ``flash_attention`` launch
+    a positive multiple of 27 times (once per layer per decode step or
+    prefill), no other kernel launches. The 200-token request, alone in
+    its 256-token bucket, equals that request run alone at the engine's
+    shapes (expert capacity drops depend on the batch). Then phase 9b on
+    the same weights. Returns the launch counts of the Router run and of
+    9b's dense and paged engines."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.serving.backend import ThreadBackend
+    from repro_torch.serving.engine import EngineConfig, Request, _bucket
+    from repro_torch.serving.router import Router
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    model = Model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    config = EngineConfig(n_slots=4, max_len=2048, chunk_tokens=32,
+                          dtype=torch.bfloat16)
+    rng = np.random.default_rng(1)
+    backend = ThreadBackend(model, params, n_containers, config=config)
+    with Router(backend) as router:
+        # warm-up: first cuBLAS handles and allocations, not counted
+        for h in [router.submit(Request(1000 + i, rng.integers(
+                0, cfg.vocab_size, (n,), dtype=np.int32), 4))
+                for i, n in enumerate((20, 300))]:
+            h.result()
+        torch.cuda.synchronize()
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size, (n,),
+                                        dtype=np.int32), max_new)
+                for i, n in enumerate(MAIN_PLENS)]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        handles = [router.submit(r) for r in reqs]
+        comps = [h.result() for h in handles]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        cache_bytes = sum(t.nbytes for g in backend.engines[0].cache_backend
+                          .tree for t in g.values())
+    for r, c, h in zip(reqs, comps, handles):
+        if c.rid != r.rid or len(c.tokens) != max_new:
+            fail(f"deepseek path: request {r.rid} gave {len(c.tokens)} "
+                 "tokens")
+        if not all(0 <= t < cfg.vocab_size for t in c.tokens):
+            fail(f"deepseek path: request {r.rid} has out-of-range tokens")
+        if h.ttfc_s is None:
+            fail(f"deepseek path: request {r.rid} has no first chunk")
+    for name in ("mla_decode_ctx", "flash_attention"):
+        if launches[name] <= 0 or launches[name] % cfg.n_layers:
+            fail(f"deepseek path: {launches[name]} {name} launches; need a "
+                 f"positive multiple of {cfg.n_layers}")
+    others = {k: n for k, n in launches.items()
+              if k not in ("mla_decode_ctx", "flash_attention") and n}
+    if others:
+        fail(f"deepseek path: other kernels launched: {others}")
+
+    # the 200-token request alone: a one-row prefill padded to its
+    # bucket, then decode steps as wide as the engine's slots with the
+    # other rows empty, so every product has the engine's shapes (the
+    # expert groups of a decode step are one token each)
+    rid = MAIN_PLENS.index(200)
+    n = len(reqs[rid].prompt)
+    padded = torch.zeros((1, _bucket(n)), dtype=torch.int32, device="cuda")
+    padded[0, :n] = torch.from_numpy(reqs[rid].prompt).cuda()
+    one = model.init_cache(1, config.max_len, config.dtype)
+    logits = model.prefill(params, padded, one,
+                           logits_at=torch.tensor([n - 1], device="cuda"))
+    cache = model.init_cache(config.n_slots, config.max_len, config.dtype)
+    for dst, src in zip(cache, one):
+        for name, t in dst.items():
+            t[:1].copy_(src[name])
+    tok = torch.zeros((config.n_slots, 1), dtype=torch.int32, device="cuda")
+    pos = torch.zeros((config.n_slots,), dtype=torch.int32, device="cuda")
+    alone = [int(torch.argmax(logits[0]))]
+    for i in range(max_new - 1):
+        tok[0, 0], pos[0] = alone[-1], n + i
+        logits = model.decode_step(params, tok, cache, pos)
+        alone.append(int(torch.argmax(logits[0])))
+    if alone != list(comps[rid].tokens):
+        fail(f"deepseek path: request {rid} served "
+             f"{list(comps[rid].tokens)[:8]}... but alone gives "
+             f"{alone[:8]}...")
+    step_ms, step_launches, step_dev_ms = decode_step_profile(
+        model, params, tok, cache, pos)
     n_tok = sum(len(c.tokens) for c in comps)
     ttfc_p50 = float(np.percentile([h.ttfc_s for h in handles], 50))
-    print(f"ssm path: {cfg.name} {cfg.n_layers} layers bf16, Router("
-          f"ThreadBackend({n_containers})) n_slots={config.n_slots} max_len="
-          f"{config.max_len} chunk_tokens={config.chunk_tokens}, 8 requests "
-          f"prompts {SSM_PLENS} max_new={max_new}: wall_s={wall:.4f} "
-          f"tok_per_s={n_tok / wall:.2f} ttfc_p50_s={ttfc_p50:.4f} "
-          f"state_cache_bytes={state_bytes} (one engine); request {rid}'s "
+    print(f"deepseek path: {cfg.name} {cfg.n_layers} layers bf16, Router("
+          f"ThreadBackend({n_containers})) dense latent cache n_slots="
+          f"{config.n_slots} max_len={config.max_len} chunk_tokens="
+          f"{config.chunk_tokens}, 8 requests prompts {MAIN_PLENS} "
+          f"max_new={max_new}: wall_s={wall:.4f} tok_per_s="
+          f"{n_tok / wall:.2f} ttfc_p50_s={ttfc_p50:.4f} "
+          f"latent_cache_bytes={cache_bytes} (one engine); request {rid}'s "
           f"stream equals the model run alone; one {config.n_slots}-slot "
           f"decode step: host_ms={step_ms:.3f} kernel_launches="
-          f"{step_launches}; launches={launches} [card: {card}]",
+          f"{step_launches} device_ms={step_dev_ms:.3f}; launches="
+          f"{launches} [card: {card}]",
           flush=True)
-    return launches
+    del one, cache, backend
+    torch.cuda.empty_cache()
+
+    # 9b: dense against paged latent caches, phase 5's form
+    paged = dataclasses.replace(config, cache="paged", block_size=16,
+                                max_seqs=4)
+    parity = parity_phase(model, params, paged, card)
+    for which, counts in zip(("dense", "paged"), parity):
+        if counts["mla_decode_ctx"] <= 0:
+            fail(f"deepseek dense vs paged: mla_decode_ctx never launched "
+                 f"on the {which} engine: {counts}")
+    print(f"deepseek dense vs paged: launches dense={parity[0]} "
+          f"paged={parity[1]} [card: {card}]", flush=True)
+    return launches, parity
 
 
 def full_width_model(dtype):
@@ -1213,6 +1563,7 @@ def main() -> int:
     model_phase(dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2),
                 [63, 40])
     model_phase(get_config("mamba2-2.7b-reduced"), [63, 63])
+    model_phase(get_config("deepseek-v2-lite-16b-reduced"), [63, 40])
     launches = main_path_phase(card)
 
     model, params = full_width_model(torch.bfloat16)
@@ -1243,20 +1594,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssm_launches = ssm_path_phase(card)
 
+    # the MoE family with latent attention, once mamba2's weights are
+    # released
+    torch.cuda.empty_cache()
+    mla_launches, mla_parity = deepseek_path_phase(card)
+
     # each kernel's launches come from the path it serves: phase 4 (dense
     # cache) for the prefill and dense decode kernels, phase 6 (paged
     # cache with prefix sharing) for the paged decode kernel, phase 7a
     # (dense and paged int8 engines) for the dense int8 kernel, 7b
-    # (the int8 Router path) for the paged int8 kernel and 8 (mamba2) for
-    # the SSD scan
+    # (the int8 Router path) for the paged int8 kernel, 8 (mamba2) for
+    # the SSD scan and 9 (deepseek) for the MLA decode kernel
     by_phase = {"phase4": launches, "phase6": paged_launches,
                 "phase7a": parity8, "phase7b": int8_launches,
-                "phase8": ssm_launches}
+                "phase8": ssm_launches, "phase9": mla_launches,
+                "phase9b_dense": mla_parity[0],
+                "phase9b_paged": mla_parity[1]}
     main_phase = {"flash_attention": "phase4", "decode_attention": "phase4",
                   "paged_decode_attention": "phase6",
                   "decode_attention_int8": "phase7a",
                   "paged_decode_attention_int8": "phase7b",
-                  "ssd_scan": "phase8"}
+                  "ssd_scan": "phase8", "mla_decode_ctx": "phase9"}
     replaces = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:98"),
@@ -1273,15 +1631,15 @@ def main() -> int:
             "src/repro/kernels/paged_attention.py:211"),
         "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:100"),
+        "mla_decode_ctx": ("src/repro_torch/kernels/csrc/mla_decode.cu",
+                           "src/repro/kernels/mla_decode.py:77"),
     }
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": replaces[k][0],
          "replaces": replaces[k][1],
          "launches": by_phase[main_phase[k]][k],
          "launches_by_phase": {ph: c[k] for ph, c in by_phase.items()},
-         **{f: kernels[k][f] for f in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by",
-                                       "library_ms", "shape")}}
+         **{f: v for f, v in kernels[k].items()}}
         for k in replaces]}
     print(card, flush=True)
     print(json.dumps(line), flush=True)

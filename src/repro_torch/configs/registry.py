@@ -1,4 +1,5 @@
-"""Registry of the ported architectures (the dense and SSM families so far)."""
+"""Registry of the ported architectures (the dense, SSM and MoE families
+so far)."""
 from __future__ import annotations
 
 import importlib
@@ -9,6 +10,7 @@ _MODULES = {
     "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite",
 }
 
 ARCH_NAMES = tuple(_MODULES)

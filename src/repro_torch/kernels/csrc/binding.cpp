@@ -1,7 +1,8 @@
 // Python binding of the kernels for torch.utils.cpp_extension.
 // The Python wrappers (kernels/flash_attention.py,
 // kernels/decode_attention.py, kernels/paged_attention.py, each of the
-// last two with an int8 entry point, and kernels/ssd_scan.py) check devices,
+// last two with an int8 entry point, kernels/ssd_scan.py and
+// kernels/mla_decode.py) check devices,
 // types, shapes and layout, allocate the outputs and pass raw device
 // pointers, sizes and the CUDA stream as integers; these functions only
 // forward them and return the launch's CUDA error code. Nothing here needs the PyTorch headers, only
@@ -40,6 +41,10 @@ int ssd_scan_launch(const void* x, const void* dt, const void* A,
                     const void* Bm, const void* Cm, const void* D, void* y,
                     void* state, int B, int S, int nh, int hd, int ng, int ds,
                     int is_bf16, void* stream);
+int mla_decode_launch(const void* q_lat, const void* q_rope, const void* ckv,
+                      const void* k_rope, const void* valid, void* out,
+                      void* work, int B, int S, int H, int r, int dr,
+                      float scale, int chunk, int is_bf16, void* stream);
 const char* kernel_error_string(int err);
 
 namespace {
@@ -109,6 +114,17 @@ int ssd_scan(std::uintptr_t x, std::uintptr_t dt, std::uintptr_t A,
                          is_bf16 ? 1 : 0, ptr(stream));
 }
 
+int mla_decode_ctx(std::uintptr_t q_lat, std::uintptr_t q_rope,
+                   std::uintptr_t ckv, std::uintptr_t k_rope,
+                   std::uintptr_t valid, std::uintptr_t out,
+                   std::uintptr_t work, int B, int S, int H, int r, int dr,
+                   float scale, int chunk, bool is_bf16,
+                   std::uintptr_t stream) {
+  return mla_decode_launch(ptr(q_lat), ptr(q_rope), ptr(ckv), ptr(k_rope),
+                           ptr(valid), ptr(out), ptr(work), B, S, H, r, dr,
+                           scale, chunk, is_bf16 ? 1 : 0, ptr(stream));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -118,6 +134,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("decode_attention_int8", &decode_attention_int8);
   m.def("paged_decode_attention_int8", &paged_decode_attention_int8);
   m.def("ssd_scan", &ssd_scan);
+  m.def("mla_decode_ctx", &mla_decode_ctx);
   m.def("error_string",
         [](int err) { return std::string(kernel_error_string(err)); });
 }

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mla_decode as _mla
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
@@ -21,7 +22,8 @@ COUNTERS = {"flash_attention": _fa.launches,
             "paged_decode_attention": _pa.launches,
             "decode_attention_int8": _da.int8_launches,
             "paged_decode_attention_int8": _pa.int8_launches,
-            "ssd_scan": _ssd.launches}
+            "ssd_scan": _ssd.launches,
+            "mla_decode_ctx": _mla.launches}
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -88,6 +90,16 @@ def ssd_scan(x, dt, A, B_, C_, D, *, chunk: int = 64):
     if _on_cpu(x, dt, A, B_, C_, D):
         return ref.ssd_scan(x, dt, A, B_, C_, D, chunk=chunk)
     return _ssd.ssd_scan(x, dt, A, B_, C_, D, chunk=chunk)
+
+
+def mla_decode_ctx(q_lat, q_rope, ckv, k_rope, valid, *, scale: float):
+    """Absorbed-MLA decode in the latent space; see
+    ``kernels.ref.mla_decode_ctx``."""
+    if _on_cpu(q_lat, q_rope, ckv, k_rope, valid):
+        return ref.mla_decode_ctx(q_lat, q_rope, ckv, k_rope, valid,
+                                  scale=scale)
+    return _mla.mla_decode_ctx(q_lat, q_rope, ckv, k_rope, valid,
+                               scale=scale)
 
 
 def launch_counts() -> dict[str, int]:

@@ -9,6 +9,10 @@ clamped at 1e-30. One deliberate difference: masked positions get an
 exact 0.0 weight, so a row with no visible key yields 0 — the JAX oracle
 spreads such a row uniformly over the masked keys instead.
 
+``mla_decode_ctx`` follows ``repro.kernels.ref.mla_decode_ctx`` (scores
+in float32, the context in q_lat's dtype), with the same rule for a row
+whose positions are all dead: it gives 0.
+
 ``ssd_scan`` follows ``repro.kernels.ref.ssd_scan_seq``: a loop over
 chunks, float32 inside, results in x's dtype.
 
@@ -137,6 +141,25 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
              < lengths.to(q.device)[:, None])
     return decode_attention(q, k, v, valid, softcap=softcap, k_scale=ks,
                             v_scale=vs)
+
+
+def mla_decode_ctx(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                   ckv: torch.Tensor, k_rope: torch.Tensor,
+                   valid: torch.Tensor, *, scale: float) -> torch.Tensor:
+    """Absorbed-MLA decode: one query token per sequence attends in the
+    latent space.
+
+    q_lat: (B, H, r); q_rope: (B, H, dr); ckv: (B, S, r) latent cache;
+    k_rope: (B, S, dr) shared rope keys; valid: (B, S) bool. Scores are
+    ``scale * (q_lat·ckvᵀ + q_rope·k_ropeᵀ)`` over the valid positions;
+    returns the context ``softmax · ckv`` (B, H, r) in q_lat's dtype (the
+    caller applies W_uv and W_o)."""
+    scores = torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv.float())
+    scores = scores + torch.einsum("bhk,bsk->bhs", q_rope.float(),
+                                   k_rope.float())
+    p, l = _masked_softmax_weights(scores * scale, valid[:, None, :])
+    out = torch.einsum("bhs,bsr->bhr", p, ckv.float()) / l
+    return out.to(q_lat.dtype)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

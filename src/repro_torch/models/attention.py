@@ -1,4 +1,5 @@
-"""GQA attention (+qk_norm) over the dense ring or the paged KV cache.
+"""GQA attention (+qk_norm) over the dense ring or the paged KV cache, and
+DeepSeek's multi-head latent attention (MLA) over the latent cache.
 
 The GQA branches of ``repro.models.attention``, in the model's dtype or
 over an int8 cache: ``attn_prefill_into_cache`` for prefill,
@@ -14,6 +15,14 @@ with ``W`` the cache window (= max_len here). With
 (slot, kv head) (``_quant_kv``). Keys are stored post-RoPE; slot ``s``
 holds absolute position ``p_s = pos - ((pos - s) mod W)``, which the
 decode mask reconstructs. The paged layout is in ``models/cache.py``.
+
+MLA (``init_mla``, ``mla_prefill_into_cache``, ``mla_decode``) caches the
+normalised latent and the shared rope key per position, ``{"ckv": (B, L,
+r), "k_rope": (B, L, dr)}``, not per-head keys and values. A prefill
+wider than L keeps its first L positions (JAX's ``_mla_fill_cache``; the
+GQA ring wraps instead), and decode runs absorbed attention in the
+latent space through ``kernels.ops.mla_decode_ctx``, over the dense rows
+or over the logical view gathered from the latent pages.
 Where JAX donated the cache to a jitted step and got a new tree back, the
 port writes the new keys and values into the cache tensors in place.
 """
@@ -198,4 +207,118 @@ def attn_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
                                 softcap=cfg.attn_logit_softcap,
                                 k_scale=cache.get("k_scale"),
                                 v_scale=cache.get("v_scale"))
+    return _out(out, p["wo"])[:, None]
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): latent cache, absorbed decode
+# ---------------------------------------------------------------------------
+def init_mla(cfg: ArchConfig, dtype: torch.dtype,
+             generator: torch.Generator) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    r, dr, dn, dv = (cfg.kv_lora_rank, cfg.qk_rope_head_dim,
+                     cfg.qk_nope_head_dim, cfg.v_head_dim)
+    s = d ** -0.5
+    return {"wq": truncated_normal((d, h, dn + dr), dtype, s, generator),
+            # latent + shared rope key
+            "w_dkv": truncated_normal((d, r + dr), dtype, s, generator),
+            "w_uk": truncated_normal((r, h, dn), dtype, r ** -0.5,
+                                     generator),
+            "w_uv": truncated_normal((r, h, dv), dtype, r ** -0.5,
+                                     generator),
+            "wo": truncated_normal((h, dv, d), dtype, (h * dv) ** -0.5,
+                                   generator),
+            "kv_norm": {"scale": torch.ones((r,), dtype=dtype,
+                                            device=generator.device)}}
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int,
+                   dtype: torch.dtype, device: torch.device) -> dict:
+    return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+def _mla_q(p: dict, cfg: ArchConfig, x: torch.Tensor,
+           positions: torch.Tensor):
+    """Queries split into their no-rope part and their rotated rope part."""
+    dn = cfg.qk_nope_head_dim
+    q = _proj(x, p["wq"])
+    return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def _mla_latents(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                 positions: torch.Tensor):
+    """The normalised latent (B, S, r) and the rotated shared rope key
+    (B, S, dr) of x (B, S, d): what the cache stores."""
+    r = cfg.kv_lora_rank
+    dkv = x @ p["w_dkv"]
+    ckv = rmsnorm_fwd(p["kv_norm"], dkv[..., :r], cfg.norm_eps)
+    k_rope = apply_rope(dkv[..., None, r:], positions, cfg.rope_theta)
+    return ckv, k_rope[:, :, 0]
+
+
+def mla_prefill_into_cache(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                           cache: dict) -> torch.Tensor:
+    """Causal MLA prefill of x (B, S, d) from position 0: per-head keys
+    [k_nope | k_rope broadcast over the heads] and values expanded from
+    the latent, attention through ``kernels.ops.flash_attention`` (K =
+    dn + dr, Kv = dv). Writes the first ``min(L, S)`` latents and rope
+    keys into the cache rows in place. Returns (B, S, d)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    ckv, k_rope = _mla_latents(p, cfg, x, positions)
+    k_nope = _proj(ckv, p["w_uk"])
+    v = _proj(ckv, p["w_uv"]).contiguous()
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, cfg.n_heads, cfg.qk_rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = kops.flash_attention(q, k, v, causal=True, window=0)
+    take = min(cache["ckv"].shape[1], S)
+    cache["ckv"][:, :take] = ckv[:, :take].to(cache["ckv"].dtype)
+    cache["k_rope"][:, :take] = k_rope[:, :take].to(cache["k_rope"].dtype)
+    return _out(out, p["wo"])
+
+
+def mla_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
+               pos: torch.Tensor) -> torch.Tensor:
+    """Absorbed MLA decode of x (B, 1, d) at positions pos (B,): writes
+    the token's latent and rope key into its cache row, or into its page
+    ``(table[b, pos // bs], pos % bs)``, in place; folds W_uk into the
+    query (``q_lat = q_nope·W_uk``), attends in the latent space over
+    positions [0, pos] (a paged cache is gathered into its logical view
+    first, as JAX does), casts the context to the cache's dtype and
+    applies W_uv and W_o. Returns (B, 1, d)."""
+    B = x.shape[0]
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    positions = pos[:, None]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    ckv_new, kr_new = _mla_latents(p, cfg, x, positions)
+    bidx = torch.arange(B, device=x.device)
+    pos = pos.long()
+    if "ckv_pages" in cache:
+        table = cache["table"]
+        ckv_pages, kr_pages = cache["ckv_pages"], cache["k_rope_pages"]
+        bs = ckv_pages.shape[1]
+        page = table[bidx, pos // bs].long()
+        off = torch.remainder(pos, bs)
+        ckv_pages[page, off] = ckv_new[:, 0].to(ckv_pages.dtype)
+        kr_pages[page, off] = kr_new[:, 0].to(kr_pages.dtype)
+        idx = table.long()
+        S = idx.shape[1] * bs
+        ckv = ckv_pages[idx].reshape(B, S, ckv_pages.shape[2])
+        k_rope = kr_pages[idx].reshape(B, S, kr_pages.shape[2])
+    else:
+        ckv, k_rope = cache["ckv"], cache["k_rope"]
+        ckv[bidx, pos] = ckv_new[:, 0].to(ckv.dtype)
+        k_rope[bidx, pos] = kr_new[:, 0].to(k_rope.dtype)
+        S = ckv.shape[1]
+    valid = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
+    q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["w_uk"])
+    ctx = kops.mla_decode_ctx(q_lat.contiguous(), q_rope[:, 0].contiguous(),
+                              ckv, k_rope, valid,
+                              scale=(dn + dr) ** -0.5).to(ckv.dtype)
+    out = torch.einsum("bhr,rhk->bhk", ctx, p["w_uv"])
     return _out(out, p["wo"])[:, None]

@@ -1,6 +1,6 @@
 """Paged KV-cache layout: fixed-size blocks + per-sequence block tables.
 
-A port of the attention half of ``repro.models.cache``. The dense cache
+A port of the attention and MLA groups of ``repro.models.cache``. The dense cache
 gives every sequence a private ``(max_len, ...)`` row; the paged layout
 breaks the cache into ``block_size``-token physical pages shared by all
 sequences, and each sequence holds a row of page indices (the block
@@ -13,7 +13,11 @@ Per-layer group::
 
 and with ``kv_cache_dtype="int8"`` int8 pages plus
 ``"k_scale_pages"``/``"v_scale_pages"``: (P+1, block_size, Hkv) float32,
-one scale per (position, kv head), reached through the same table.
+one scale per (position, kv head), reached through the same table. An
+MLA layer's group holds latent pages instead::
+
+    {"table": (B, nblk) int32,
+     "ckv_pages": (P+1, block_size, r), "k_rope_pages": (P+1, block_size, dr)}
 
 with ``nblk = max_len // block_size`` and ``P = max_blocks``. Page ``P``
 is the SCRATCH page: unreserved table entries point at it, so lockstep
@@ -88,6 +92,21 @@ def init_paged_attn_cache(cfg: ArchConfig, table: torch.Tensor,
             "v_pages": torch.zeros(shape, dtype=dtype, device=table.device)}
 
 
+def init_paged_mla_cache(cfg: ArchConfig, table: torch.Tensor,
+                         layout: PagedLayout, dtype: torch.dtype) -> dict:
+    """One MLA layer's latent and rope-key pages over the shared
+    ``table``; decode gathers them into the logical view and runs the
+    dense latent kernel (``models.attention.mla_decode``)."""
+    n = layout.max_blocks + 1
+    return {"table": table,
+            "ckv_pages": torch.zeros((n, layout.block_size,
+                                      cfg.kv_lora_rank), dtype=dtype,
+                                     device=table.device),
+            "k_rope_pages": torch.zeros((n, layout.block_size,
+                                         cfg.qk_rope_head_dim), dtype=dtype,
+                                        device=table.device)}
+
+
 def is_paged_group(cache: dict) -> bool:
-    """A per-layer cache dict built by ``init_paged_attn_cache``."""
-    return "k_pages" in cache
+    """A per-layer cache dict built by one of the paged constructors."""
+    return "k_pages" in cache or "ckv_pages" in cache

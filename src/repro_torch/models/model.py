@@ -1,9 +1,11 @@
-"""Model assembly for the dense and SSM families: init, caches, prefill,
-decode.
+"""Model assembly for the dense, MoE and SSM families: init, caches,
+prefill, decode.
 
-A port of the dense and ssm paths of ``repro.models.model.Model``. JAX
-scans one stacked parameter tree over the layers; the port keeps one
-parameter dict per layer (``params["layers"]``) and loops over them. The
+A port of the dense, moe and ssm paths of ``repro.models.model.Model``.
+JAX scans one stacked parameter tree over the layers (for moe, the
+``n_dense_layers`` leading dense layers as ``dense0``, then the MoE
+``stack``); the port keeps one parameter dict per layer
+(``params["layers"]``, in that order) and loops over them. The
 fused greedy ``decode_chunk`` is a Python loop over ``decode_step`` whose
 per-slot bookkeeping (tokens, positions, remaining budgets, active flags)
 stays on the device, so a chunk costs no host synchronisation until its
@@ -14,14 +16,21 @@ Parameters::
     {"embed": {"table": (V, d)}, "final_norm": {...},
      "lm_head": {"w": (d, V)}  (untied configs only),
      "layers": [{"ln1", "attn", "ln2", "mlp"} per layer]   (dense)
+               [{"ln1", "attn", "ln2", "mlp"} x n_dense_layers,
+                {"ln1", "attn", "ln2", "moe"} x the rest]  (moe)
                [{"ln", "mamba"} per layer]                 (ssm)}
+
+where ``attn`` is GQA or, for a config with ``mla``, DeepSeek's latent
+attention (``models/attention.py``).
 
 Cache: one ``{"k", "v"}`` dict of (B, max_len, Hkv, hd) tensors per layer,
 or, with a ``PagedLayout``, one paged group per layer over a block table
 that every layer shares (``models/cache.py``); with
 ``kv_cache_dtype="int8"`` either holds int8 codes plus float32 scales
-(``models/attention.py``). An SSM layer's cache is one ``{"conv",
-"state"}`` row group (``models/ssm.py``), which has no paged form here.
+(``models/attention.py``). An MLA layer's cache holds its latents,
+``{"ckv", "k_rope"}`` rows or ``{"ckv_pages", "k_rope_pages"}`` over the
+table. An SSM layer's cache is one ``{"conv", "state"}`` row group
+(``models/ssm.py``), which has no paged form here.
 Updated in place by ``prefill``, ``prefill_suffix`` and ``decode_step``.
 """
 from __future__ import annotations
@@ -58,12 +67,12 @@ def family(cfg: ArchConfig) -> str:
 
 def check_supported(cfg: ArchConfig) -> None:
     """The port serves the text-only dense family with a full-horizon
-    cache, in the model's dtype or int8, and the SSM family (mamba2);
-    other families and options are later slices."""
-    unsupported = {
-        "arch_type": cfg.arch_type not in ("dense", "ssm"),
-        "n_experts": cfg.is_moe,
-        "mla": cfg.mla,
+    cache, in the model's dtype or int8, the MoE family with GQA or MLA
+    attention (deepseek-v2-lite) and the SSM family (mamba2); other
+    families and options (a sliding window, as mixtral's) are later
+    slices."""
+    unsupported = {  # an MLA cache ignores kv_cache_dtype, as in JAX
+        "arch_type": cfg.arch_type not in ("dense", "moe", "ssm"),
         "sliding_window": cfg.sliding_window > 0,
         "local_global_pattern": cfg.local_global_pattern > 0,
         "kv_cache_dtype": cfg.kv_cache_dtype not in ("model", "int8"),
@@ -78,8 +87,21 @@ def check_supported(cfg: ArchConfig) -> None:
             f"{cfg.name}: not ported yet ({', '.join(bad)})")
 
 
+_PREFILL = {"mlp": blocks.attn_mlp_prefill, "moe": blocks.attn_moe_prefill,
+            "ssm": blocks.ssm_prefill}
+_SUFFIX_PREFILL = {"mlp": blocks.attn_mlp_suffix_prefill,
+                   "moe": blocks.attn_moe_suffix_prefill}
+_DECODE = {"mlp": blocks.attn_mlp_decode, "moe": blocks.attn_moe_decode,
+           "ssm": blocks.ssm_decode}
+
+
+def _kind(p: dict) -> str:
+    """The block a layer's parameters make: ssm, moe or mlp."""
+    return "ssm" if "mamba" in p else "moe" if "moe" in p else "mlp"
+
+
 class Model:
-    """A dense or SSM decoder on one device (``"cuda"`` unless told
+    """A dense, MoE or SSM decoder on one device (``"cuda"`` unless told
     ``"cpu"``)."""
 
     def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda"):
@@ -104,10 +126,23 @@ class Model:
             p["lm_head"] = {"w": truncated_normal(
                 (cfg.d_model, cfg.vocab_size), dtype, cfg.d_model ** -0.5,
                 g)}
-        init = (blocks.init_ssm_block if self.fam == "ssm"
-                else blocks.init_attn_mlp)
-        p["layers"] = [init(cfg, dtype, g) for _ in range(cfg.n_layers)]
+        if self.fam == "ssm":
+            p["layers"] = [blocks.init_ssm_block(cfg, dtype, g)
+                           for _ in range(cfg.n_layers)]
+        else:
+            n_dense = self.n_dense_layers
+            p["layers"] = [
+                (blocks.init_attn_mlp if i < n_dense
+                 else blocks.init_attn_moe)(cfg, dtype, g)
+                for i in range(cfg.n_layers)]
         return p
+
+    @property
+    def n_dense_layers(self) -> int:
+        """Leading layers with a dense MLP: all of a dense model's, the
+        first ``n_dense_layers`` of an MoE model's."""
+        return (self.cfg.n_dense_layers if self.fam == "moe"
+                else self.cfg.n_layers)
 
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.float32,
@@ -128,15 +163,16 @@ class Model:
             return [ssm_lib.init_mamba2_cache(cfg, batch, dtype, self.device)
                     for _ in range(cfg.n_layers)]
         if layout is None:
-            return [attn.init_attn_cache(cfg, batch, max_len, dtype,
-                                         self.device)
+            init = attn.init_mla_cache if cfg.mla else attn.init_attn_cache
+            return [init(cfg, batch, max_len, dtype, self.device)
                     for _ in range(cfg.n_layers)]
         if not paged.pageable(cfg.sliding_window, max_len):
             raise ValueError(f"{cfg.name}: a {cfg.sliding_window}-token "
                              f"window does not page over {max_len}")
         table = paged.new_table(batch, max_len, layout, self.device)
-        return [paged.init_paged_attn_cache(cfg, table, layout, dtype)
-                for _ in range(cfg.n_layers)]
+        init = (paged.init_paged_mla_cache if cfg.mla
+                else paged.init_paged_attn_cache)
+        return [init(cfg, table, layout, dtype) for _ in range(cfg.n_layers)]
 
     # ------------------------------------------------------------------
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -158,11 +194,9 @@ class Model:
                 logits_at: int | torch.Tensor = -1) -> torch.Tensor:
         """tokens: (B, S) from position 0. Fills ``cache`` in place and
         returns the logits (B, V) at ``logits_at``."""
-        fwd = (blocks.ssm_prefill if self.fam == "ssm"
-               else blocks.attn_mlp_prefill)
         x = embed_fwd(params["embed"], tokens)
         for p, c in zip(params["layers"], cache):
-            x = fwd(p, self.cfg, x, c)
+            x = _PREFILL[_kind(p)](p, self.cfg, x, c)
         return self._head(params, self._sel(x, logits_at))
 
     def prefill_suffix(self, params: Params, tokens: torch.Tensor,
@@ -173,14 +207,14 @@ class Model:
         suffix tokens; ``ctx``: one ``{"k", "v"}`` per layer, each
         (B, offset, Hkv, hd), gathered from the shared pages; ``cache``:
         a dense mini-cache of width S, filled in place with the suffix
-        K/V. Returns the logits (B, V) at ``logits_at``. Dense family
-        only, as in JAX."""
-        if self.fam != "dense":
+        K/V. Returns the logits (B, V) at ``logits_at``. The dense and MoE
+        families over GQA only, as in JAX."""
+        if self.fam not in ("dense", "moe") or self.cfg.mla:
             raise ValueError(f"prefix sharing unsupported for {self.fam}")
         x = embed_fwd(params["embed"], tokens)
         for p, c, cx in zip(params["layers"], cache, ctx):
-            x = blocks.attn_mlp_suffix_prefill(p, self.cfg, x, c, cx["k"],
-                                               cx["v"], offset)
+            x = _SUFFIX_PREFILL[_kind(p)](p, self.cfg, x, c, cx["k"],
+                                          cx["v"], offset)
         return self._head(params, self._sel(x, logits_at))
 
     def decode_step(self, params: Params, tokens: torch.Tensor,
@@ -188,11 +222,9 @@ class Model:
         """tokens: (B, 1); pos: (B,) positions of those tokens. Writes
         their keys/values (SSM: conv tails and states) into ``cache`` in
         place; returns logits (B, V)."""
-        fwd = (blocks.ssm_decode if self.fam == "ssm"
-               else blocks.attn_mlp_decode)
         x = embed_fwd(params["embed"], tokens)
         for p, c in zip(params["layers"], cache):
-            x = fwd(p, self.cfg, x, c, pos)
+            x = _DECODE[_kind(p)](p, self.cfg, x, c, pos)
         return self._head(params, x[:, -1])
 
     def decode_chunk(self, params: Params, cache: Cache, state: dict,

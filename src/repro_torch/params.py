@@ -5,11 +5,15 @@ port. It takes the nested dict of numpy arrays that ``repro`` keeps (the
 layout ``repro.serving.backend.save_params`` writes: ``embed``,
 ``final_norm``, optional ``lm_head`` and a ``stack`` whose leaves carry a
 leading layer axis: ``{ln1, attn, ln2, mlp}`` for the dense family,
-``{ln, mamba}`` for the SSM family) and returns the port's parameter
-dict, with each stacked (L, ...) leaf split into per-layer tensors. The
-bytes are kept exactly (bfloat16 included) unless a ``dtype`` cast is
-asked for; a Mamba2 block's float32 leaves (``models.ssm.F32_LEAVES``)
-stay float32 under any cast, as the reference keeps them.
+``{ln, mamba}`` for the SSM family, ``{ln1, attn, ln2, moe}`` for the MoE
+family, whose ``n_dense_layers`` leading dense layers come as a second
+group ``dense0`` of the dense family's layout) and returns the port's
+parameter dict, with each stacked (L, ...) leaf split into per-layer
+tensors, ``dense0``'s first. An expert weight keeps its leading E axis.
+The bytes are kept exactly (bfloat16 included) unless a ``dtype`` cast
+is asked for; a Mamba2 block's float32 leaves (``models.ssm.F32_LEAVES``)
+and the MoE router (``models.moe.F32_LEAVES``) stay float32 under any
+cast, as the reference keeps them.
 """
 from __future__ import annotations
 
@@ -20,8 +24,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.model import check_supported
-from repro_torch.models.ssm import F32_LEAVES
+from repro_torch.models import moe, ssm
+from repro_torch.models.model import check_supported, family
+
+F32_LEAVES = ssm.F32_LEAVES + moe.F32_LEAVES
 
 
 def _tensor(a: Any, device: torch.device,
@@ -57,7 +63,11 @@ def from_numpy(cfg: ArchConfig, tree: dict, *,
     """Port parameters for ``cfg`` from a nested dict of numpy arrays."""
     check_supported(cfg)
     dev = resolve_device(device)
-    need = {"embed", "final_norm", "stack"} | (
+    n_dense = cfg.n_dense_layers if family(cfg) == "moe" else 0
+    # stacked groups in layer order, with their depths
+    groups = {"dense0": n_dense} if n_dense else {}
+    groups["stack"] = cfg.n_layers - n_dense
+    need = {"embed", "final_norm", *groups} | (
         set() if cfg.tie_embeddings else {"lm_head"})
     if set(tree) != need:
         raise ValueError(f"{cfg.name}: parameter groups {sorted(tree)}, "
@@ -66,12 +76,14 @@ def from_numpy(cfg: ArchConfig, tree: dict, *,
     if table != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"{cfg.name}: embed table {table}, expected "
                          f"{(cfg.vocab_size, cfg.d_model)}")
-    depths = {np.shape(a)[0] for a in _leaves(tree["stack"])}
-    if depths != {cfg.n_layers}:
-        raise ValueError(f"{cfg.name}: stacked leaves have leading axes "
-                         f"{sorted(depths)}, expected {cfg.n_layers}")
+    for name, depth in groups.items():
+        depths = {np.shape(a)[0] for a in _leaves(tree[name])}
+        if depths != {depth}:
+            raise ValueError(f"{cfg.name}: {name} leaves have leading axes "
+                             f"{sorted(depths)}, expected {depth}")
     params = {k: _convert(v, dev, dtype, None)
-              for k, v in tree.items() if k != "stack"}
-    params["layers"] = [_convert(tree["stack"], dev, dtype, layer)
-                        for layer in range(cfg.n_layers)]
+              for k, v in tree.items() if k not in groups}
+    params["layers"] = [_convert(tree[name], dev, dtype, layer)
+                        for name, depth in groups.items()
+                        for layer in range(depth)]
     return params

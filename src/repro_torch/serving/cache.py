@@ -1,8 +1,8 @@
 """The engine's caches: dense slot rows or paged blocks.
 
-A port of ``repro.serving.cache`` (the attention page pairs and, for an
-int8 cache, their scale pages; no MLA latent pages, which
-``models.model.check_supported`` refuses).
+A port of ``repro.serving.cache``: the attention page pairs and, for an
+int8 cache, their scale pages, or an MLA layer's latent and rope-key
+pages.
 
 * ``DenseCache`` — one private ``(max_len, ...)`` row per slot. A row is
   the reservation, so there is nothing to allocate; ``insert`` copies
@@ -106,8 +106,9 @@ class BlockAllocator:
 class DenseCache:
     """Row-per-slot cache over a model's per-layer ``{"k", "v"}`` tensors
     of shape (n_rows, max_len, Hkv, hd), plus ``{"k_scale", "v_scale"}``
-    (n_rows, max_len, Hkv) for an int8 cache, or an SSM model's
-    ``{"conv", "state"}`` rows; the row is axis 0 of every leaf."""
+    (n_rows, max_len, Hkv) for an int8 cache, an MLA layer's ``{"ckv",
+    "k_rope"}`` latent rows, or an SSM model's ``{"conv", "state"}``
+    rows; the row is axis 0 of every leaf."""
 
     def __init__(self, tree: list, n_rows: int):
         self.tree = tree
@@ -131,9 +132,10 @@ class DenseCache:
 
 
 # (pages key, dense prefill-cache key) pairs a paged group may hold: the
-# scale pairs only in an int8 cache
+# scale pairs only in an int8 cache, the latent pairs only in an MLA one
 _PAGE_PAIRS = (("k_pages", "k"), ("v_pages", "v"),
-               ("k_scale_pages", "k_scale"), ("v_scale_pages", "v_scale"))
+               ("k_scale_pages", "k_scale"), ("v_scale_pages", "v_scale"),
+               ("ckv_pages", "ckv"), ("k_rope_pages", "k_rope"))
 
 
 def _pairs(group: dict) -> list[tuple[str, str]]:
@@ -362,7 +364,8 @@ class PagedCache:
     def gather_prefix(self, rows: list[int], n_tokens: int) -> list[dict]:
         """The first ``n_tokens`` cached positions of ``rows``, read out of
         the pages as one dense ``{"k", "v"}`` (len(rows), n_tokens, Hkv,
-        hd) per layer (plus ``"k_scale"``/``"v_scale"`` from int8 pages):
+        hd) per layer (plus ``"k_scale"``/``"v_scale"`` from int8 pages;
+        ``{"ckv", "k_rope"}`` from latent pages):
         the context a suffix prefill attends over. Call it before
         ``insert`` writes these rows' tables."""
         dev = self._table.device
@@ -388,7 +391,7 @@ class PagedCache:
         self._table[torch.as_tensor(rows, dtype=torch.long,
                                     device=dev)] = table
         nblk = host.shape[1]
-        W = src_cache[0]["k"].shape[1]
+        W = src_cache[0][_pairs(self._groups[0])[0][1]].shape[1]
         pos = torch.arange(W, device=dev) + offset
         blk = pos // bs
         page = torch.where(blk[None, :] < nblk,

@@ -1,8 +1,8 @@
 """Continuous-batching serving engine with fused greedy multi-token decode.
 
-A port of ``repro.serving.engine.ServingEngine`` for the dense family,
-over the dense or the paged KV cache, and for the SSM family over its
-dense state rows. Each ``step()`` admits queued requests and then runs
+A port of ``repro.serving.engine.ServingEngine`` for the dense and MoE
+families (GQA or MLA), over the dense or the paged cache, and for the
+SSM family over its dense state rows. Each ``step()`` admits queued requests and then runs
 one fused decode chunk:
 
 * **Dense admission** pops the queue head plus every queued request with
@@ -183,14 +183,18 @@ class ServingEngine:
         self.layout = (PagedLayout(config.block_size,
                                    config.resolved_max_blocks)
                        if self.paged else None)
-        # prefix sharing: the suffix prefill is exact for full-horizon
-        # rope GQA in the model's dtype (check_supported refuses the
-        # other attention families; SSM state is not shareable); an int8
-        # cache falls back to the plain paged path (hit tokens stay 0,
-        # outputs identical), as in JAX
+        # prefix sharing: the suffix prefill is exact only for
+        # full-horizon rope GQA over all-paged groups; SSM state, sliding
+        # windows, MLA latents, int8 pages and learned positions fall
+        # back to the plain paged path (hit tokens stay 0, outputs
+        # identical), as in JAX
+        cfg = model.cfg
         self._share = (self.paged and config.prefix_cache
-                       and model.fam == "dense"
-                       and model.cfg.kv_cache_dtype != "int8")
+                       and model.fam in ("dense", "moe")
+                       and not cfg.mla
+                       and cfg.sliding_window == 0
+                       and cfg.kv_cache_dtype != "int8"
+                       and cfg.pos_embed == "rope")
         n_rows = config.n_rows
         self.stream = None
         if self.device.type == "cuda":

@@ -11,7 +11,11 @@ Three parts:
   JAX ``PagedCache`` and the port's, on real page tensors. After every
   op the host state (block lists, refcounts, free list, LRU order, hash
   index), the block table and every page but the scratch page are equal;
-* the copy-on-write fork reaching the k and v pages of every layer.
+* the copy-on-write fork reaching the k and v pages of every layer, the
+  int8 scale pages and an MLA layer's latent and rope-key pages, whose
+  page groups have one trailing axis fewer (tests/test_paged_cache.py's
+  regressions on the page axis), and ``gather_prefix`` and ``insert``
+  reading and writing them through the table.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ from hypothesis import strategies as st  # noqa: E402
 from repro.models.cache import PagedLayout as JaxLayout  # noqa: E402
 from repro.serving.cache import PagedCache as JaxPagedCache  # noqa: E402
 from repro_torch.models.cache import (PagedLayout,  # noqa: E402
-                                      init_paged_attn_cache, new_table)
+                                      init_paged_attn_cache,
+                                      init_paged_mla_cache, new_table)
 from repro_torch.serving.cache import BlockAllocator, PagedCache  # noqa: E402
 
 
@@ -441,3 +446,65 @@ def test_cow_fork_and_gather_reach_int8_scale_pages_on_the_page_axis():
             assert torch.equal(pages[new], pages[shared]), (i, name)
         assert float(tc.tree[i]["k_scale_pages"][new, 0, 0]) \
             == shared + 100 * i
+
+
+R, DR = 8, 4                        # latent rank and rope width
+
+
+def _mla_cache():
+    layout = PagedLayout(BS, P)
+    table = new_table(ROWS, MAX_LEN, layout, torch.device("cpu"))
+    cfg = type("Cfg", (), {"kv_lora_rank": R, "qk_rope_head_dim": DR})
+    tree = [init_paged_mla_cache(cfg, table, layout, torch.float32)
+            for _ in range(L)]
+    return PagedCache(tree, ROWS, layout, MAX_LEN, prefix_cache=True)
+
+
+def test_cow_fork_copies_mla_latent_pages_on_the_page_axis():
+    """Latent pages are (P+1, bs, r) and rope-key pages (P+1, bs, dr): the
+    fork copies every layer's pages of both page for page, and nothing
+    else."""
+    tc = _mla_cache()
+    chain = _hashes([5, 6])
+    assert tc.alloc(0, 2 * BS, block_hashes=chain)
+    for i in range(L):
+        g = tc.tree[i]
+        page_ids = torch.arange(P + 1, dtype=torch.float32)[:, None, None]
+        g["ckv_pages"][:] = page_ids + 100 * i + torch.arange(R)
+        g["k_rope_pages"][:] = -(page_ids + 100 * i + torch.arange(DR))
+    tc.register_prefix(0, chain)
+    assert tc.alloc(1, 2 * BS - 2, block_hashes=chain)   # shares both
+    shared = tc._blocks[1][1]
+    before = [{n: t.clone() for n, t in g.items()} for g in tc.tree]
+    tc.insert([{"ckv": torch.zeros(1, 0, R), "k_rope": torch.zeros(1, 0, DR)}
+               for _ in range(L)], [1], offset=BS)
+    assert tc.append(1, 1)            # position 2*BS-2 is in the shared block
+    new = tc._blocks[1][1]
+    assert new != shared and int(tc._table[1, 1]) == new
+    for i in range(L):
+        for name in ("ckv_pages", "k_rope_pages"):
+            pages, old = tc.tree[i][name], before[i][name]
+            assert torch.equal(pages[new], old[shared]), (i, name)
+            others = [b for b in range(P + 1) if b != new]
+            assert torch.equal(pages[others], old[others]), (i, name)
+
+
+def test_gather_and_insert_reach_mla_pages_through_the_table():
+    """``insert`` scatters a dense latent mini-cache into the row's pages
+    and ``gather_prefix`` reads the same positions back, per layer."""
+    tc = _mla_cache()
+    rng = np.random.default_rng(11)
+    assert tc.alloc(2, 3 * BS - 1)
+    src = [{"ckv": torch.from_numpy(rng.standard_normal(
+                (1, 3 * BS, R)).astype(np.float32)),
+            "k_rope": torch.from_numpy(rng.standard_normal(
+                (1, 3 * BS, DR)).astype(np.float32))} for _ in range(L)]
+    tc.insert(src, [2])
+    got = tc.gather_prefix([2], 2 * BS + 3)
+    for i in range(L):
+        assert set(got[i]) == {"ckv", "k_rope"}
+        for name in ("ckv", "k_rope"):
+            assert torch.equal(got[i][name], src[i][name][:, :2 * BS + 3])
+        blocks = tc._blocks[2]
+        assert torch.equal(tc.tree[i]["ckv_pages"][blocks[1]],
+                           src[i]["ckv"][0, BS:2 * BS])

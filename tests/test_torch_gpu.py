@@ -429,7 +429,9 @@ def _ssd_args(gen, B, S, nh, hd, ng, ds, dtype):
 def test_ssd_kernel_matches_plain(cuda, dtype, B, S, nh, hd, ng, ds, chunk):
     """|kernel - plain| <= tol * max|plain| (5e-5 f32, 2e-2 bf16): the
     kernel cuts the sequence into 64-position tiles, the plain version at
-    ``chunk``, and the decays' running sums round with the cut."""
+    ``chunk``, and the decays' running sums round with the cut. Where 64
+    divides S, also element by element (tol abs + tol rel) against the
+    plain version cut where the kernel cuts."""
     args = _ssd_args(cuda, B, S, nh, hd, ng, ds, dtype)
     before = ops.launch_counts()["ssd_scan"]
     got = ops.ssd_scan(*args, chunk=chunk)
@@ -441,6 +443,10 @@ def test_ssd_kernel_matches_plain(cuda, dtype, B, S, nh, hd, ng, ds, chunk):
         assert bool(torch.isfinite(g).all())
         err = float((g.float() - w.float()).abs().max())
         assert err <= tol * float(w.float().abs().max())
+    if S % 64 == 0:
+        for g, w in zip(got, ref.ssd_scan(*args, chunk=64)):
+            torch.testing.assert_close(g.float(), w.float(), atol=tol,
+                                       rtol=tol)
 
 
 def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -496,4 +502,149 @@ def test_ssm_router_on_the_card_matches_the_cpu_path(cuda):
         counts = ops.launch_counts()
         assert (counts["ssd_scan"] > 0) == (dev == "cuda"), counts
         assert sum(v for k, v in counts.items() if k != "ssd_scan") == 0
+    assert out[1] == out[0]
+
+
+# ---------------------------------------------------------------------------
+# absorbed-MLA decode, and the prefill kernel at MLA's widths
+# ---------------------------------------------------------------------------
+def _mla_args(gen, B, S, H, r, dr, dtype):
+    return tuple(_randn(gen, *shape, dtype=dtype)
+                 for shape in ((B, H, r), (B, H, dr), (B, S, r), (B, S, dr)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,r,dr,depths", [
+    (4, 2048, 16, 512, 64, [48, 160, 300, 544]),   # deepseek's main shape
+    (3, 1000, 16, 512, 64, None),                   # ragged S, a dead row
+    (2, 256, 4, 64, 16, None),                      # the reduced widths
+    (3, 37, 8, 128, 32, None),
+])
+def test_mla_kernel_matches_plain(cuda, dtype, B, S, H, r, dr, depths):
+    args = _mla_args(cuda, B, S, H, r, dr, dtype)
+    if depths is None:
+        valid = torch.rand(B, S, generator=cuda, device="cuda") < 0.7
+        valid[-1] = False
+    else:
+        valid = (torch.arange(S, device="cuda")[None, :]
+                 < torch.tensor(depths, device="cuda")[:, None])
+    scale = 192 ** -0.5
+    before = ops.launch_counts()["mla_decode_ctx"]
+    got = ops.mla_decode_ctx(*args, valid, scale=scale)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mla_decode_ctx"] == before + 1
+    assert got.dtype == dtype and got.shape == (B, H, r)
+    _assert_close(got, ref.mla_decode_ctx(*args, valid, scale=scale), dtype)
+    if depths is None:
+        assert bool((got[-1] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_kernel_over_gathered_pages_ignores_unowned_pages(cuda, dtype):
+    """The paged latent cache's path: the view gathered from 16-token
+    pages through a scattered table, NaN in every page no row owns."""
+    B, H, r, dr, bs, nblk = 3, 16, 512, 64, 16, 32
+    lengths = torch.tensor([5, 300, 512], device="cuda")
+    n_pages = 2 * B * nblk
+    ql, qr, _, _ = _mla_args(cuda, B, 1, H, r, dr, dtype)
+    ckv_p = _randn(cuda, n_pages + 1, bs, r, dtype=dtype)
+    kr_p = _randn(cuda, n_pages + 1, bs, dr, dtype=dtype)
+    table = torch.randperm(n_pages, generator=cuda, device="cuda")[
+        :B * nblk].reshape(B, nblk)
+    owned = torch.arange(nblk, device="cuda")[None, :] < (
+        (lengths[:, None] + bs - 1) // bs)
+    table[~owned] = n_pages
+    valid = torch.arange(nblk * bs, device="cuda")[None, :] < lengths[:, None]
+
+    def run():
+        return ops.mla_decode_ctx(
+            ql, qr, ckv_p[table].reshape(B, nblk * bs, r),
+            kr_p[table].reshape(B, nblk * bs, dr), valid, scale=0.1)
+    got = run()
+    _assert_close(got, ref.mla_decode_ctx(
+        ql, qr, ckv_p[table].reshape(B, nblk * bs, r),
+        kr_p[table].reshape(B, nblk * bs, dr), valid, scale=0.1), dtype)
+    unowned = torch.ones(n_pages + 1, dtype=torch.bool, device="cuda")
+    unowned[table[owned]] = False
+    ckv_p[unowned] = float("nan")
+    kr_p[unowned] = float("nan")
+    assert torch.equal(run(), got)
+
+
+def test_mla_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.mla_decode import mla_decode_ctx
+    ql, qr, ckv, kr = _mla_args(cuda, 2, 40, 4, 64, 16, torch.float32)
+    valid = torch.ones(2, 40, dtype=torch.bool, device="cuda")
+    with pytest.raises(TypeError, match="share one dtype"):
+        mla_decode_ctx(ql, qr, ckv.to(torch.bfloat16), kr, valid, scale=1.0)
+    with pytest.raises(TypeError, match="bool"):
+        mla_decode_ctx(ql, qr, ckv, kr, valid.int(), scale=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        mla_decode_ctx(ql, qr, ckv.transpose(0, 1).contiguous().transpose(
+            0, 1), kr, valid, scale=1.0)
+    with pytest.raises(ValueError, match="no kernel"):
+        a = _mla_args(cuda, 2, 40, 4, 96, 16, torch.float32)
+        mla_decode_ctx(*a, valid, scale=1.0)
+    with pytest.raises(ValueError, match="no kernel"):
+        a = _mla_args(cuda, 2, 40, 32, 64, 16, torch.float32)
+        mla_decode_ctx(*a, valid, scale=1.0)
+    with pytest.raises(ValueError, match="shapes"):
+        mla_decode_ctx(ql, qr, ckv, kr[:, :39].contiguous(), valid,
+                       scale=1.0)
+    shifted = torch.empty(2 * 40 * 64 + 1, device="cuda")[1:].view(2, 40, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        mla_decode_ctx(ql, qr, shifted, kr, valid, scale=1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        mla_decode_ctx(ql.cpu(), qr, ckv, kr, valid, scale=1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [512, 77])
+def test_flash_kernel_at_mla_widths(cuda, dtype, S):
+    """MLA prefill: K = 192 (nope 128 + rope 64), Kv = 128, H = Hkv = 16."""
+    q = _randn(cuda, 1, S, 16, 192, dtype=dtype)
+    k = _randn(cuda, 1, S, 16, 192, dtype=dtype)
+    v = _randn(cuda, 1, S, 16, 128, dtype=dtype)
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == (1, S, 16, 128)
+    _assert_close(got, ref.flash_attention(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("cache", ["dense", "paged"])
+def test_deepseek_router_on_the_card_matches_the_cpu_path(cuda, cache):
+    """Two threaded containers on the card serving reduced deepseek in f32
+    (the prefill kernel at MLA's widths and the MLA decode kernel, no
+    other decode kernel) give the CPU path's greedy tokens."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.backend import ThreadBackend
+    from repro_torch.serving.engine import EngineConfig, Request
+    from repro_torch.serving.router import Router
+
+    cfg = get_config("deepseek-v2-lite-16b-reduced")
+    config = EngineConfig(n_slots=2, max_len=96, chunk_tokens=4,
+                          cache=cache, block_size=16)
+    rng = np.random.default_rng(4)
+    specs = [(i, rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32), m)
+             for i, (n, m) in enumerate([(6, 5), (40, 7), (17, 3), (9, 0),
+                                         (70, 6)])]
+    cpu_model = Model(cfg, device="cpu")
+    params = cpu_model.init(seed=0)
+    out = []
+    for model, p, dev in ((cpu_model, params, "cpu"),
+                          (Model(cfg, device="cuda"), _to_card(params),
+                           "cuda")):
+        ops.reset_launch_counts()
+        with Router(ThreadBackend(model, p, 2, config, device=dev),
+                    device=dev) as router:
+            handles = [router.submit(Request(*s)) for s in specs]
+            out.append({h.rid: h.tokens() for h in handles})
+        counts = ops.launch_counts()
+        mla = (counts["flash_attention"], counts["mla_decode_ctx"])
+        assert (min(mla) > 0) == (dev == "cuda"), counts
+        assert sum(v for k, v in counts.items()
+                   if k not in ("flash_attention", "mla_decode_ctx")) == 0
     assert out[1] == out[0]

@@ -49,7 +49,7 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
             importlib.import_module(mod)
         ops = sys.modules["repro_torch.kernels.ops"]
         assert {{"decode_attention_int8", "paged_decode_attention_int8",
-                 "ssd_scan"}} <= set(ops.COUNTERS)
+                 "ssd_scan", "mla_decode_ctx"}} <= set(ops.COUNTERS)
         assert not [m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         print("port imports ok")
@@ -113,8 +113,8 @@ def test_unported_configurations_raise():
     import dataclasses
     cfg = get_config(ARCH)
     for change in ({"sliding_window": 8}, {"kv_cache_dtype": "fp8"},
-                   {"n_experts": 4}, {"arch_type": "hybrid"},
-                   {"act": "gelu"}):
+                   {"n_experts": 4, "sliding_window": 8},  # mixtral's
+                   {"arch_type": "hybrid"}, {"act": "gelu"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             Model(dataclasses.replace(cfg, **change), device="cpu")
 
@@ -169,3 +169,25 @@ def test_port_init_is_seeded_and_shaped_like_the_reference():
                            model.init_cache(1, 8), logits_at=3)
     assert logits.shape == (1, cfg.vocab_size)
     assert np.isfinite(logits.numpy()).all()
+
+
+def test_deepseek_is_accepted_on_both_layouts():
+    from repro_torch.models.cache import PagedLayout
+    cfg = get_config("deepseek-v2-lite-16b-reduced")
+    model = Model(cfg, device="cpu")
+    assert model.fam == "moe" and model.n_dense_layers == 1
+    params = model.init(seed=0)
+    assert "mlp" in params["layers"][0] and "moe" in params["layers"][1]
+    dense = model.init_cache(2, 32, torch.bfloat16)
+    paged = model.init_cache(2, 32, torch.bfloat16,
+                             layout=PagedLayout(16, 4))
+    assert dense[1]["ckv"].shape == (2, 32, cfg.kv_lora_rank)
+    assert dense[1]["k_rope"].dtype == torch.bfloat16
+    assert paged[0]["ckv_pages"].shape == (5, 16, cfg.kv_lora_rank)
+    assert paged[1]["k_rope_pages"].shape == (5, 16, cfg.qk_rope_head_dim)
+    assert paged[0]["table"] is paged[1]["table"]
+    for conf in (EngineConfig(n_slots=2, max_len=32),
+                 EngineConfig(n_slots=2, max_len=32, cache="paged",
+                              prefix_cache=True)):
+        eng = ServingEngine(model, params, conf, device="cpu")
+        assert not eng._share           # no prefix sharing of latents

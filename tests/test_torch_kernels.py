@@ -178,13 +178,19 @@ def test_ops_sends_cpu_tensors_to_the_plain_version():
     got = ops.ssd_scan(*ssd, chunk=16)
     want = tref.ssd_scan(*ssd, chunk=16)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    mla = [torch.randn(shape, generator=torch.Generator().manual_seed(8))
+           for shape in ((2, 4, 32), (2, 4, 8), (2, 20, 32), (2, 20, 8))]
+    live = torch.arange(20)[None, :] < torch.tensor([[3], [20]])
+    got = ops.mla_decode_ctx(*mla, live, scale=0.2)
+    assert torch.equal(got, tref.mla_decode_ctx(*mla, live, scale=0.2))
     # the plain path is not a kernel launch
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "decode_attention": 0,
                                    "paged_decode_attention": 0,
                                    "decode_attention_int8": 0,
                                    "paged_decode_attention_int8": 0,
-                                   "ssd_scan": 0}
+                                   "ssd_scan": 0,
+                                   "mla_decode_ctx": 0}
 
 
 def _ssd_args(seed, B=1, S=32, nh=4, hd=8, ng=1, ds=8):
