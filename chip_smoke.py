@@ -31,7 +31,12 @@ Phases, each raising on failure (any failure exits nonzero):
    with an all-dead row that must read 0, and the view gathered from
    16-token latent pages, which must ignore NaN in unowned pages; timed
    beside the plain version and ``scaled_dot_product_attention`` over
-   [q_lat | q_rope] and [ckv | k_rope].
+   [q_lat | q_rope] and [ckv | k_rope]. RMSNorm at every width the
+   port's norms see (D = 128, 512, 1024, 2048, 2560, 5120), 1 / 37 /
+   4099 rows, the MLA latent slice dkv[..., :512] of 576-wide rows read
+   in place and a float32 scale under bfloat16 rows; timed at the block
+   norm of a 512-token qwen3 prefill beside the plain version and
+   ``torch.nn.functional.rms_norm`` (a yardstick the port never calls).
 3. Model: qwen3-0.6b at full width cut to 2 layers, the 2-layer
    mamba2-2.7b-reduced and the 2-layer deepseek-v2-lite-16b-reduced,
    float32, the port's seeded init: prefill + 8 greedy decode steps on
@@ -40,7 +45,10 @@ Phases, each raising on failure (any failure exits nonzero):
    over full-width qwen3-0.6b (28 layers, bfloat16, random weights from a
    seed), n_slots=4, max_len=2048, 8 requests with ragged 16-512 token
    prompts and max_new=32; the prefill and dense decode kernels must
-   launch.
+   launch, and rmsnorm a multiple of the 113 norms of a forward (as on
+   every later path, with that model's count). Reports one 4-slot decode
+   step's host time, launches and device time with the norms in plain
+   tensor code and through the rmsnorm kernel.
 5. Dense vs paged: one dense and one paged ``ServingEngine`` (block_size
    16, max_seqs = n_slots = 4, so both decode the same rows) serve the
    same same-bucket request groups; their greedy streams must be
@@ -54,6 +62,16 @@ Phases, each raising on failure (any failure exits nonzero):
    flight; the paged and prefill kernels launch, the dense decode kernel
    does not. Wave 2 is also served without sharing on one engine and its
    token agreement printed (reported, not checked: other batch shapes).
+   c. The sharing gate in the form of JAX's ``_serve_phases``: one paged
+      engine with sharing and one without, same block budget, each
+      through phase 6's two waves in turn, draining between them. The
+      greedy streams and every request's prefill logits must be
+      identical bit for bit, and wave 2 must hit the shared prompt (a
+      difference fails with a bisect: the prefill kernel over [context |
+      suffix] against the whole prompt, one projection at the two modes'
+      row counts). Reports what padding prefill batches to 128 token rows
+      costs the sharing engine (wall, ttfc p50, peak memory), in turns
+      with and without it.
 7. The int8 KV cache (``kv_cache_dtype="int8"``), same weights:
    a. dense vs paged as in phase 5, on int8 caches: identical greedy
       streams, through the two int8 decode kernels only;
@@ -70,7 +88,9 @@ Phases, each raising on failure (any failure exits nonzero):
    Every request completes; one request's stream equals that request run
    alone on the model; the scan launches once per layer per prefill; no
    attention kernel launches. Reports wall, tok/s, ttfc p50, the state
-   cache's bytes, and one decode step's host time and kernel launches.
+   cache's bytes, and one decode step's host time, kernel launches and
+   device time with the norms in plain tensor code and through the
+   rmsnorm kernel, in turns.
 9. The MoE family with latent attention: ``Router(ThreadBackend(2))``
    over full-width deepseek-v2-lite-16b (27 layers, MLA, 64 routed
    experts top-6 + 2 shared, bfloat16, random weights from a seed, one
@@ -84,8 +104,20 @@ Phases, each raising on failure (any failure exits nonzero):
    b. Dense vs paged latent caches as in phase 5, same weights: identical
       greedy streams, the MLA decode kernel launching in both engines.
 
+10. Process containers on phase 4's model and requests: 2 threaded
+    containers, the same 2 polled in turn, ``Router(ProcessBackend(2))``
+    and ``ProcessBackend(1)`` (one pinned process each, the weights
+    shared with the children over CUDA IPC). The 2 process containers'
+    greedy streams must equal the threaded ones; each child must launch
+    the prefill, dense decode and rmsnorm kernels, hold less device
+    memory after taking the weights than their bytes, and have imported
+    torch only after pinning itself; a kill fault in container 1 after 2
+    steps must give a ContainerFailure, RetryEvents, a respawn and the
+    fault-free streams; no child outlives the phase. Reports wall, tok/s
+    and ttfc p50 of the four, and whether an MPS control daemon runs.
+
 Then a JSON line with each kernel's launches (from the phase of the path
-it serves), error and times (seven kernels), the card's ``nvidia-smi``
+it serves), error and times (eight kernels), the card's ``nvidia-smi``
 line, and the result line ``{"ok": true, "device": {...}}``.
 
 It needs the checkout's ``src/`` and a CUDA device; without either it
@@ -95,13 +127,17 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
+import os
 import pathlib
 import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+# numpy and torch are imported in main(): phase 10's children are spawned,
+# and spawn re-imports this script in each child before the child pins
+# itself to its cores, so nothing heavy may load at module scope
+np = torch = None
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -138,6 +174,32 @@ def time_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_graph_ms(fn, reps: int = 100) -> float:
+    """Device time of one call: ``reps`` calls captured in one CUDA graph
+    and replayed, so the host's launch rate does not pace a call that is
+    shorter than its own Python overhead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * reps)
 
 
 def check_close(got, want, dtype_name: str, what: str) -> float:
@@ -625,6 +687,64 @@ def flash_mla_checks(gen):
     return ms["bfloat16"]
 
 
+# RMSNorm at every width the port's norms see: 128 (qwen3 q/k norms, rows
+# B*S*H), 512 (the deepseek latent norm), 1024 / 2048 / 2560 (block norms)
+# and 5120 (the mamba2 gated norm); the main shape is the block norm of a
+# 512-token qwen3 prefill
+RMS_WIDTHS = (128, 512, 1024, 2048, 2560, 5120)
+RMS_ROWS = (1, 37, 4099)      # no multiple of the kernel's 8-row blocks
+RMS_MAIN = dict(rows=512, D=1024)
+RMS_EPS = 1e-6
+
+
+def rmsnorm_bound(rows, D, dtype_name, itemsize, scale_itemsize):
+    """x read once, y written once, scale read once; ~4 flops an element
+    (square, sum, two products)."""
+    nbytes = 2 * rows * D * itemsize + D * scale_itemsize
+    ops = 4 * rows * D
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FLOPS[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def rmsnorm_checks(gen):
+    """rmsnorm against its plain version: every width, float32 and
+    bfloat16, row counts no multiple of a block, the MLA latent slice
+    dkv[..., :512] of 576-wide rows read in place, and a float32 scale
+    under bfloat16 rows. Returns the worst error by dtype."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        cases = [(randn(rows, D).mul_(2).to(dtype),
+                  (1 + 0.1 * randn(D)).to(dtype), f"rows={rows} D={D}")
+                 for D in RMS_WIDTHS for rows in RMS_ROWS]
+        dkv = randn(4, 512, 576).to(dtype)
+        cases.append((dkv[..., :512], (1 + 0.1 * randn(512)).to(dtype),
+                      "strided dkv[..., :512] of (4, 512, 576)"))
+        cases.append((randn(37, 2048).to(dtype), 1 + 0.1 * randn(2048),
+                      "rows=37 D=2048 float32 scale"))
+        errs = []
+        for x, scale, what in cases:
+            got = rn.rmsnorm(x, scale, RMS_EPS)
+            torch.cuda.synchronize()
+            errs.append(check_close(got, ref.rmsnorm(x, scale, RMS_EPS), dn,
+                                    f"rmsnorm {dn} {what}"))
+        worst[dn] = max(errs)
+        print(f"rmsnorm {dn}: {len(cases)} cases (D {list(RMS_WIDTHS)} x "
+              f"rows {list(RMS_ROWS)}, a strided latent slice, a float32 "
+              f"scale) within {TOL[dn]} abs + rel of the plain version, "
+              f"max_abs_err={worst[dn]:.3e}", flush=True)
+    return worst
+
+
 def kernel_phase():
     import torch.nn.functional as F
 
@@ -890,6 +1010,43 @@ def kernel_phase():
                  "v=ckv (concatenation not counted)"}
     print(f"mla_decode_ctx main shape: {results['mla_decode_ctx']}",
           flush=True)
+
+    # RMSNorm at the block norm of a 512-token qwen3 prefill (bf16 rows
+    # and scale); the yardstick is torch.nn.functional.rms_norm, which the
+    # port never calls
+    from repro_torch.kernels import rmsnorm as rn
+    worst = rmsnorm_checks(gen)
+    rows, D = RMS_MAIN["rows"], RMS_MAIN["D"]
+    x = randn(1, rows, D, dtype=dtype)
+    scale = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(dtype)
+    err = check_close(rn.rmsnorm(x, scale, RMS_EPS),
+                      ref.rmsnorm(x, scale, RMS_EPS), dn, "rmsnorm main shape")
+    bound, by = rmsnorm_bound(rows, D, dn, isz, isz)
+
+    def kernel():
+        return rn.rmsnorm(x, scale, RMS_EPS)
+
+    def plain():
+        return ref.rmsnorm(x, scale, RMS_EPS)
+
+    def library():
+        return F.rms_norm(x, (D,), weight=scale, eps=RMS_EPS)
+    results["rmsnorm"] = {
+        "max_abs_err": err,
+        "ms": time_graph_ms(kernel),
+        "plain_ms": time_graph_ms(plain),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_graph_ms(library),
+        "eager_ms": {"kernel": time_ms(kernel, reps=100),
+                     "plain": time_ms(plain, reps=20),
+                     "library": time_ms(library, reps=100)},
+        "shape": f"x=(1, {rows}, {D}) bf16, scale ({D},) bf16; worst over "
+                 f"the phase-2 cases f32 {worst['float32']:.3e} bf16 "
+                 f"{worst['bfloat16']:.3e}; library_ms is "
+                 "torch.nn.functional.rms_norm; ms, plain_ms and "
+                 "library_ms replay 100 calls captured in a CUDA graph "
+                 "(device time), eager_ms times them launched one by one"}
+    print(f"rmsnorm main shape: {results['rmsnorm']}", flush=True)
     return results
 
 
@@ -996,6 +1153,7 @@ def main_path_phase(card: str):
     for name in ("flash_attention", "decode_attention"):
         if launches[name] <= 0:
             fail(f"main path: kernel {name} was never launched")
+    check_norm_launches(cfg, launches, "main path")
     n_tok = sum(len(c.tokens) for c in comps)
     ttfc_p50 = float(np.percentile([h.ttfc_s for h in handles], 50))
     print(f"main path: qwen3-0.6b 28 layers bf16, Router(ThreadBackend(2)) "
@@ -1003,7 +1161,61 @@ def main_path_phase(card: str):
           f"max_new={max_new}: wall_s={wall:.4f} tok_per_s="
           f"{n_tok / wall:.2f} ttfc_p50_s={ttfc_p50:.4f} launches="
           f"{launches} [card: {card}]", flush=True)
+
+    # one 4-slot decode step at main-path depths, its norms through the
+    # plain version (as before the rmsnorm kernel) and through the kernel
+    cache = model.init_cache(4, config.max_len, config.dtype)
+    tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    pos = torch.tensor([48, 160, 300, 544], dtype=torch.int32,
+                       device="cuda")
+    kernel = ops.rmsnorm
+    ops.reset_launch_counts()
+    model.decode_step(params, tok, cache, pos)
+    torch.cuda.synchronize()
+    norms = ops.launch_counts()["rmsnorm"]
+    turns = []
+    for use_kernel in (False, True, True, False):   # in turns
+        ops.rmsnorm = kernel if use_kernel else plain_rmsnorm
+        try:
+            turns.append(decode_step_profile(model, params, tok, cache, pos))
+        finally:
+            ops.rmsnorm = kernel
+    fmt = "host_ms={:.3f} kernel_launches={} device_ms={:.3f}".format
+    print(f"main path, one 4-slot decode step (rows live to 48/160/300/544), "
+          f"in turns plain, kernel, kernel, plain: norms in plain tensor "
+          f"code {fmt(*turns[0])} / {fmt(*turns[3])}; norms through the "
+          f"rmsnorm kernel ({norms} a step) {fmt(*turns[1])} / "
+          f"{fmt(*turns[2])} [card: {card}]", flush=True)
+    del cache
     return launches
+
+
+def plain_rmsnorm(x, scale, eps=1e-6):
+    """The plain RMSNorm on card tensors: what the models ran before the
+    rmsnorm kernel (the decode-step reading above only)."""
+    from repro_torch.kernels import ref
+    return ref.rmsnorm(x, scale, eps)
+
+
+def norms_per_forward(cfg) -> int:
+    """RMSNorm calls in one forward (a prefill batch or a decode step):
+    per layer the block norms (two, one for an SSM block) plus the q/k
+    norms, the MLA latent norm or the mamba2 gated norm; then the final
+    norm."""
+    if cfg.is_ssm:
+        per_layer = 2
+    else:
+        per_layer = 2 + (2 if cfg.qk_norm else 0) + (1 if cfg.mla else 0)
+    return cfg.n_layers * per_layer + 1
+
+
+def check_norm_launches(cfg, launches: dict, what: str) -> None:
+    """Every norm of the model runs the rmsnorm kernel: a positive
+    multiple of the norms of one forward."""
+    n, per = launches["rmsnorm"], norms_per_forward(cfg)
+    if n <= 0 or n % per:
+        fail(f"{what}: {n} rmsnorm launches; need a positive multiple of "
+             f"{per} (the norms of one {cfg.name} forward)")
 
 
 # ---------------------------------------------------------------------------
@@ -1151,6 +1363,7 @@ def prefix_phase(model, params, config, card: str, n_containers: int = 2,
         for name in ("paged_decode_attention", "flash_attention"):
             if launches[name] <= 0:
                 fail(f"prefix path: kernel {name} was never launched")
+        check_norm_launches(cfg, launches, "prefix path")
         if launches["decode_attention"] != 0:
             fail(f"prefix path: the dense decode kernel launched "
                  f"{launches['decode_attention']} times")
@@ -1190,6 +1403,184 @@ def prefix_phase(model, params, config, card: str, n_containers: int = 2,
           f"[card: {card}]", flush=True)
     del eng
     return launches, {rid: results[rid].tokens for rid, _ in waves[1]}, pool
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: prefix sharing on == off at equal phases (JAX's _serve_phases)
+# ---------------------------------------------------------------------------
+class PrefillLogits:
+    """While open, records the prefill logits row (float32, on the host) of
+    every request ``engine`` admits, by request id: a tap on the engine's
+    admission and on its model's two prefill calls, removed on exit."""
+
+    def __init__(self, engine):
+        self.engine, self.rows = engine, {}
+
+    def __enter__(self):
+        eng, model = self.engine, self.engine.model
+        admit, cur = eng._admit_batch, []
+
+        def tapped_admit(slot_ids, reqs, plans=None):
+            cur[:] = [r.rid for r in reqs]
+            return admit(slot_ids, reqs, plans)
+
+        def tap(fn):
+            def call(*args, **kw):
+                logits = fn(*args, **kw)
+                for rid, row in zip(cur, logits.float().cpu()):
+                    self.rows[rid] = row
+                return logits
+            return call
+        eng._admit_batch = tapped_admit
+        model.prefill = tap(model.prefill)
+        model.prefill_suffix = tap(model.prefill_suffix)
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine._admit_batch
+        del self.engine.model.prefill
+        del self.engine.model.prefill_suffix
+
+
+def sharing_bisect(model, params):
+    """Where sharing on and off can part in the last bits: (a) the prefill
+    kernel over [cached context | suffix] against the whole prompt on the
+    same keys and values (bitwise: the kernel walks keys in the same tiles
+    from position 0), and (b) one q projection of the same rows at the two
+    row counts the two modes prefill (a 128-token suffix batch against
+    eight 512-token prompts; cuBLAS picks its algorithm by shape). Returns
+    (flash_bitwise, projection_bitwise)."""
+    from repro_torch.kernels import ops
+
+    dev, dt = model.device, params["embed"]["table"].dtype
+    gen = torch.Generator(device=dev).manual_seed(6)
+    ctx, sb, whole, n = SYSTEM_PROMPT, 128, 512, 100
+    q, k, v = (torch.randn(2, whole, h, K, generator=gen, device=dev).to(dt)
+               for h in (H, HKV, HKV))
+    full = ops.flash_attention(q, k, v)
+    part = ops.flash_attention(q[:, ctx:ctx + sb].contiguous(),
+                               k[:, :ctx + sb].contiguous(),
+                               v[:, :ctx + sb].contiguous())
+    flash_bitwise = torch.equal(part[:, :n], full[:, ctx:ctx + n])
+    w = params["layers"][0]["attn"]["wq"]
+    w = w.reshape(w.shape[0], -1)
+    x = torch.randn(8 * whole, w.shape[0], generator=gen, device=dev).to(dt)
+    proj_bitwise = torch.equal((x[:sb] @ w), (x @ w)[:sb])
+    return flash_bitwise, proj_bitwise
+
+
+def sharing_gate_phase(model, params, config, card: str, max_new: int = 32):
+    """6c: one paged engine with prefix sharing and one without, at the
+    same block budget, each driven through phase 6's two waves in turn,
+    draining between them. Wave 2 must hit the shared prompt, the greedy
+    streams must be identical and each request's prefill logits equal bit
+    for bit between the modes. On a difference the failure carries the
+    bisect: the prefill kernel over [context | suffix] against the whole
+    prompt, and a q projection at the two modes' row counts. Returns the
+    launch counts of the two engines' runs."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    waves = shared_prefix_requests(model.cfg)
+    streams, logits, hits, prefill = [], [], [], []
+    ops.reset_launch_counts()
+    for share in (True, False):
+        eng = ServingEngine(model, params,
+                            dataclasses.replace(config, prefix_cache=share),
+                            device=model.device)
+        got = {}
+        with PrefillLogits(eng) as tap:
+            for wave in waves:
+                eng.submit_many([Request(rid, prompt, max_new)
+                                 for rid, prompt in wave])
+                for c in eng.run():
+                    got[c.rid] = list(c.tokens)
+        streams.append(got)
+        logits.append(tap.rows)
+        hits.append(eng.prefix_hit_tokens_total)
+        prefill.append(eng.prefill_tokens_executed)
+        del eng
+    launches = ops.launch_counts()
+    on, off = streams
+    rids = [rid for wave in waves for rid, _ in wave]
+    if sorted(on) != rids or sorted(off) != rids:
+        fail(f"sharing gate: completed {len(on)} / {len(off)} of {len(rids)}")
+    wave2 = [rid for rid, _ in waves[1]]
+    if hits[0] != SYSTEM_PROMPT * len(wave2) or hits[1] != 0:
+        fail(f"sharing gate: hit tokens {hits}, want "
+             f"{SYSTEM_PROMPT * len(wave2)} with sharing and 0 without")
+    differ = [rid for rid in rids if on[rid] != off[rid]]
+    unequal = [rid for rid in rids
+               if not torch.equal(logits[0][rid], logits[1][rid])]
+    if differ or unequal:
+        worst = max(float((logits[0][r] - logits[1][r]).abs().max())
+                    for r in unequal) if unequal else 0.0
+        flash_bitwise, proj_bitwise = sharing_bisect(model, params)
+        fail(f"sharing gate: greedy streams differ for {differ}, prefill "
+             f"logits of {unequal} (max {worst:.3e}); bisect: prefill "
+             f"kernel over [context | suffix] bitwise={flash_bitwise}, q "
+             f"projection at 128 vs 4096 rows bitwise={proj_bitwise}")
+    print(f"sharing gate (6c): {model.cfg.name} {model.cfg.n_layers} layers "
+          f"{str(config.dtype).split('.')[1]}, paged block_size="
+          f"{config.block_size} max_seqs={config.max_seqs} max_len="
+          f"{config.max_len} max_blocks={config.resolved_max_blocks}, "
+          f"phase 6's waves {[len(w) for w in waves]} through one engine "
+          f"per mode, drained between: "
+          f"{sum(len(t) for t in on.values())} greedy tokens and "
+          f"{len(rids)} prefill logit rows identical bit for bit with "
+          f"sharing on and off; hit_tokens on={hits[0]} off={hits[1]} "
+          f"prefill_tokens_executed on={prefill[0]} off={prefill[1]}; "
+          f"launches={launches} [card: {card}]", flush=True)
+    padding_cost(model, params, dataclasses.replace(config,
+                                                    prefix_cache=True),
+                 waves, max_new, card)
+    return launches
+
+
+def padding_cost(model, params, config, waves, max_new: int, card: str):
+    """What the padding of prefill batches to MIN_PREFILL_ROWS token rows
+    costs a sharing engine: phase 6's two waves through one engine with
+    and without it, in turns padded, unpadded, unpadded, padded. Reports
+    wall, ttfc p50 (submission to first chunk) and the peak device memory
+    above what the engine held before serving (prefill mini-caches and
+    activations)."""
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.events import ChunkEvent
+
+    rows = engine_mod.MIN_PREFILL_ROWS
+    turns = []
+    for pad in (True, False, False, True):
+        engine_mod.MIN_PREFILL_ROWS = rows if pad else 1
+        try:
+            eng = ServingEngine(model, params, config, device=model.device)
+            first: dict = {}
+            eng.on_event = lambda ev: (isinstance(ev, ChunkEvent) and
+                                       first.setdefault(ev.rid, ev.time_s))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            ttfc = []
+            t0 = time.perf_counter()
+            for wave in waves:
+                t_sub = time.perf_counter()
+                eng.submit_many([Request(rid, prompt, max_new)
+                                 for rid, prompt in wave])
+                eng.run()
+                ttfc += [first[rid] - t_sub for rid, _ in wave]
+            torch.cuda.synchronize()
+            turns.append((time.perf_counter() - t0,
+                          float(np.percentile(ttfc, 50)),
+                          torch.cuda.max_memory_allocated() - held))
+            del eng
+        finally:
+            engine_mod.MIN_PREFILL_ROWS = rows
+    fmt = "wall_s={:.4f} ttfc_p50_s={:.4f} peak_bytes_above_engine={}".format
+    print(f"sharing gate (6c), padding cost: phase 6's waves through one "
+          f"sharing engine in turns padded, unpadded, unpadded, padded: "
+          f"padded to {rows} token rows {fmt(*turns[0])} / "
+          f"{fmt(*turns[3])}; unpadded {fmt(*turns[1])} / "
+          f"{fmt(*turns[2])} [card: {card}]", flush=True)
 
 
 def kv_pool_bytes(engine) -> int:
@@ -1242,6 +1633,8 @@ def int8_path_phase(model, params, config, card: str, bf16_tokens: dict,
         fail(f"int8 path: {hits} prefix hit tokens on an int8 cache")
     if dev.type == "cuda" and launches["paged_decode_attention_int8"] <= 0:
         fail("int8 path: paged_decode_attention_int8 was never launched")
+    if dev.type == "cuda":
+        check_norm_launches(cfg, launches, "int8 path")
     bf16 = {k: launches[k] for k in ("decode_attention",
                                      "paged_decode_attention")}
     if any(bf16.values()):
@@ -1328,6 +1721,7 @@ def ssm_path_phase(card: str, n_containers: int = 2, max_new: int = 32):
              f"{cfg.n_layers}, at least {cfg.n_layers * len(set(SSM_PLENS))}")
     if any(launches[k] for k in ATTENTION_KERNELS):
         fail(f"ssm path: attention kernels launched: {launches}")
+    check_norm_launches(cfg, launches, "ssm path")
 
     # the 200-token request alone: a one-row prefill, then decode steps in
     # a batch as wide as the engine's slots with the other rows empty, so
@@ -1352,8 +1746,17 @@ def ssm_path_phase(card: str, n_containers: int = 2, max_new: int = 32):
         fail(f"ssm path: request {rid} served {list(comps[rid].tokens)[:8]}"
              f"... but alone gives {alone[:8]}...")
 
-    step_ms, step_launches, step_dev_ms = decode_step_profile(
-        model, params, tok, cache, pos)
+    # the decode step in turns plain, kernel, kernel, plain norms (as
+    # phase 4's): what the rmsnorm kernel moves on this family's step
+    kernel = ops.rmsnorm
+    turns = []
+    for use_kernel in (False, True, True, False):
+        ops.rmsnorm = kernel if use_kernel else plain_rmsnorm
+        try:
+            turns.append(decode_step_profile(model, params, tok, cache, pos))
+        finally:
+            ops.rmsnorm = kernel
+    fmt = "host_ms={:.3f} kernel_launches={} device_ms={:.3f}".format
 
     n_tok = sum(len(c.tokens) for c in comps)
     ttfc_p50 = float(np.percentile([h.ttfc_s for h in handles], 50))
@@ -1364,9 +1767,10 @@ def ssm_path_phase(card: str, n_containers: int = 2, max_new: int = 32):
           f"tok_per_s={n_tok / wall:.2f} ttfc_p50_s={ttfc_p50:.4f} "
           f"state_cache_bytes={state_bytes} (one engine); request {rid}'s "
           f"stream equals the model run alone; one {config.n_slots}-slot "
-          f"decode step: host_ms={step_ms:.3f} kernel_launches="
-          f"{step_launches} device_ms={step_dev_ms:.3f}; launches="
-          f"{launches} [card: {card}]",
+          f"decode step in turns plain, kernel, kernel, plain: norms in "
+          f"plain tensor code {fmt(*turns[0])} / {fmt(*turns[3])}; norms "
+          f"through the rmsnorm kernel {fmt(*turns[1])} / {fmt(*turns[2])}"
+          f"; launches={launches} [card: {card}]",
           flush=True)
     return launches
 
@@ -1464,9 +1868,11 @@ def deepseek_path_phase(card: str, n_containers: int = 2,
             fail(f"deepseek path: {launches[name]} {name} launches; need a "
                  f"positive multiple of {cfg.n_layers}")
     others = {k: n for k, n in launches.items()
-              if k not in ("mla_decode_ctx", "flash_attention") and n}
+              if k not in ("mla_decode_ctx", "flash_attention", "rmsnorm")
+              and n}
     if others:
         fail(f"deepseek path: other kernels launched: {others}")
+    check_norm_launches(cfg, launches, "deepseek path")
 
     # the 200-token request alone: a one-row prefill padded to its
     # bucket, then decode steps as wide as the engine's slots with the
@@ -1494,8 +1900,17 @@ def deepseek_path_phase(card: str, n_containers: int = 2,
         fail(f"deepseek path: request {rid} served "
              f"{list(comps[rid].tokens)[:8]}... but alone gives "
              f"{alone[:8]}...")
-    step_ms, step_launches, step_dev_ms = decode_step_profile(
-        model, params, tok, cache, pos)
+    # the decode step in turns plain, kernel, kernel, plain norms (as
+    # phase 4's): what the rmsnorm kernel moves on this family's step
+    kernel = ops.rmsnorm
+    turns = []
+    for use_kernel in (False, True, True, False):
+        ops.rmsnorm = kernel if use_kernel else plain_rmsnorm
+        try:
+            turns.append(decode_step_profile(model, params, tok, cache, pos))
+        finally:
+            ops.rmsnorm = kernel
+    fmt = "host_ms={:.3f} kernel_launches={} device_ms={:.3f}".format
     n_tok = sum(len(c.tokens) for c in comps)
     ttfc_p50 = float(np.percentile([h.ttfc_s for h in handles], 50))
     print(f"deepseek path: {cfg.name} {cfg.n_layers} layers bf16, Router("
@@ -1506,9 +1921,10 @@ def deepseek_path_phase(card: str, n_containers: int = 2,
           f"{n_tok / wall:.2f} ttfc_p50_s={ttfc_p50:.4f} "
           f"latent_cache_bytes={cache_bytes} (one engine); request {rid}'s "
           f"stream equals the model run alone; one {config.n_slots}-slot "
-          f"decode step: host_ms={step_ms:.3f} kernel_launches="
-          f"{step_launches} device_ms={step_dev_ms:.3f}; launches="
-          f"{launches} [card: {card}]",
+          f"decode step in turns plain, kernel, kernel, plain: norms in "
+          f"plain tensor code {fmt(*turns[0])} / {fmt(*turns[3])}; norms "
+          f"through the rmsnorm kernel {fmt(*turns[1])} / {fmt(*turns[2])}"
+          f"; launches={launches} [card: {card}]",
           flush=True)
     del one, cache, backend
     torch.cuda.empty_cache()
@@ -1526,6 +1942,210 @@ def deepseek_path_phase(card: str, n_containers: int = 2,
     return launches, parity
 
 
+# ---------------------------------------------------------------------------
+# phase 10: process containers — Router(ProcessBackend) on one card
+# ---------------------------------------------------------------------------
+def mps_running() -> bool:
+    """Whether an MPS control daemon runs on this host (without it, the
+    children's CUDA contexts time-slice the card)."""
+    for pid in os.listdir("/proc"):
+        if pid.isdigit():
+            try:
+                with open(f"/proc/{pid}/comm") as f:
+                    if f.read().startswith("nvidia-cuda-mps"):
+                        return True
+            except OSError:
+                continue
+    return False
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.nbytes
+
+
+def serve_timed(router, reqs):
+    """Submit every request before the first poll, wait for all; (tokens by
+    rid, (wall s, tok/s, ttfc p50 s), events by rid)."""
+    t0 = time.perf_counter()
+    handles = [router.submit(dataclasses.replace(r)) for r in reqs]
+    events = {h.rid: list(h.stream()) for h in handles}
+    if router.backend.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = {h.rid: list(h.completion.tokens) for h in handles}
+    n_tok = sum(len(t) for t in tokens.values())
+    ttfc = float(np.percentile([h.ttfc_s for h in handles], 50))
+    return tokens, (wall, n_tok / wall, ttfc), events
+
+
+def warm_up(router, cfg, rng):
+    """First cuBLAS handles, allocations and kernel loads: two requests,
+    not counted."""
+    from repro_torch.serving.engine import Request
+    for h in [router.submit(Request(1000 + i, rng.integers(
+            0, cfg.vocab_size, (n,), dtype=np.int32), 4))
+            for i, n in enumerate((20, 300))]:
+        h.result()
+    if router.backend.device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def process_phase(model, params, card: str, max_new: int = 32):
+    """Phase 4's 8 requests on full-width qwen3-0.6b (bf16, n_slots=4,
+    max_len=2048, chunk_tokens=32) served four ways: 2 threaded
+    containers, the same 2 polled in turn, 2 process containers and 1
+    process container (Router(ProcessBackend), the weights shared with
+    the children over CUDA IPC). Gates: every request completes; the 2
+    process containers' greedy streams equal the 2 threaded containers'
+    (all requests submitted before the first poll); each child launched
+    flash_attention, decode_attention and rmsnorm; each child's
+    memory_allocated after taking the weights is below their bytes (one
+    copy on the card) and it imported torch only after pinning itself; a
+    kill fault in container 1 after 2 steps gives a ContainerFailure
+    with the kill's exit code, RetryEvents for its requests, a respawn,
+    and streams equal to the fault-free run. Returns the children's
+    summed launch counts of the 2-process run."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.backend import ProcessBackend, ThreadBackend
+    from repro_torch.serving.engine import EngineConfig, Request
+    from repro_torch.serving.events import RetryEvent
+    from repro_torch.serving.faults import EXIT_FAULT_KILL, Fault, FaultPlan
+    from repro_torch.serving.router import Router
+
+    cfg, dev = model.cfg, model.device
+    on_card = dev.type == "cuda"
+    config = EngineConfig(n_slots=4, max_len=2048, chunk_tokens=32,
+                          dtype=params["embed"]["table"].dtype)
+    rng = np.random.default_rng(10)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (n,),
+                                    dtype=np.int32), max_new)
+            for i, n in enumerate(MAIN_PLENS)]
+    weights = tree_bytes(params)
+    readings, streams = {}, {}
+
+    for name, concurrent in (("2 threaded", True), ("2 in turn", False)):
+        with Router(ThreadBackend(model, params, 2, config,
+                                  concurrent=concurrent, device=dev),
+                    device=dev) as router:
+            warm_up(router, cfg, rng)
+            ops.reset_launch_counts()
+            streams[name], readings[name], _ = serve_timed(router, reqs)
+            if on_card:
+                check_norm_launches(cfg, ops.launch_counts(),
+                                    f"phase 10 {name}")
+
+    children = {}
+    for n in (2, 1):
+        name = f"{n} process"
+        backend = ProcessBackend(cfg, n, config, params=params,
+                                 device=dev, allow_shared_cores=True,
+                                 start_timeout_s=300)
+        with Router(backend, device=dev) as router:
+            t0 = time.perf_counter()
+            backend.warm()
+            start_s = time.perf_counter() - t0
+            warm_up(router, cfg, rng)
+            backend.child_stats(reset=True)
+            streams[name], readings[name], _ = serve_timed(router, reqs)
+            stats = backend.child_stats()
+            for cid, (info, (counts, memory)) in enumerate(
+                    zip(backend.child_info, stats)):
+                if info["torch_preloaded"]:
+                    fail(f"phase 10: child {cid} had torch imported "
+                         "before it pinned itself")
+                if info["weight_bytes"] != weights:
+                    fail(f"phase 10: child {cid} took {info['weight_bytes']}"
+                         f" weight bytes of {weights}")
+                if info["memory_allocated"] >= weights:
+                    fail(f"phase 10: child {cid} allocated "
+                         f"{info['memory_allocated']} B after taking the "
+                         f"weights ({weights} B): a copy of its own")
+                if not on_card:
+                    continue
+                for k in ("flash_attention", "decode_attention", "rmsnorm"):
+                    if counts.get(k, 0) <= 0:
+                        fail(f"phase 10: child {cid} never launched {k}: "
+                             f"{counts}")
+                check_norm_launches(cfg, counts, f"phase 10 child {cid}")
+            children[name] = (stats, [i["memory_allocated"]
+                                      for i in backend.child_info],
+                              backend.reported_core_sets, start_s)
+    for name, got in streams.items():
+        if sorted(got) != [r.rid for r in reqs] or any(
+                len(t) != max_new for t in got.values()):
+            fail(f"phase 10 {name}: not every request completed")
+    for name in ("2 in turn", "2 process"):
+        if streams[name] != streams["2 threaded"]:
+            bad = [r for r in streams[name]
+                   if streams[name][r] != streams["2 threaded"][r]]
+            fail(f"phase 10: {name} streams differ from the threaded "
+                 f"containers' for requests {bad}")
+
+    # a kill fault in container 1 after 2 steps, mid-stream
+    plan = FaultPlan((Fault("kill", container_id=1, after_steps=2),))
+    backend = ProcessBackend(cfg, 2, config, params=params, device=dev,
+                             allow_shared_cores=True, start_timeout_s=300,
+                             fault_plan=plan, respawn_backoff_s=0.05)
+    with Router(backend, max_retries=2, device=dev) as router:
+        backend.warm()
+        got, (kill_wall, _, _), events = serve_timed(router, reqs)
+        fails = router.container_failures
+        if len(fails) != 1 or fails[0].container_id != 1 \
+                or fails[0].exitcode != EXIT_FAULT_KILL:
+            fail(f"phase 10 kill: failures {fails}")
+        retried = {rid for rid, evs in events.items()
+                   if any(isinstance(e, RetryEvent) for e in evs)}
+        if not retried or retried != set(fails[0].lost_rids):
+            fail(f"phase 10 kill: retried {sorted(retried)}, lost "
+                 f"{fails[0].lost_rids}")
+        if got != streams["2 process"]:
+            bad = [r for r in got if got[r] != streams["2 process"][r]]
+            fail(f"phase 10 kill: retried streams differ for {bad}")
+        t0 = time.perf_counter()
+        while not backend.alive(1):
+            if time.perf_counter() - t0 > 300:
+                fail("phase 10 kill: the respawn never landed")
+            router.poll()
+            time.sleep(0.02)
+        respawn_s = time.perf_counter() - fails[0].time_s
+        info = backend.child_info[1]
+        if info["torch_preloaded"] or info["memory_allocated"] >= weights:
+            fail(f"phase 10 kill: respawned child {info}")
+
+    dn = str(config.dtype).split(".")[1]
+    for name, (wall, tok_s, ttfc) in readings.items():
+        print(f"process containers (10): {cfg.name} {cfg.n_layers} layers "
+              f"{dn} n_slots={config.n_slots} max_len={config.max_len} "
+              f"chunk_tokens={config.chunk_tokens}, 8 requests prompts "
+              f"{MAIN_PLENS} max_new={max_new}, {name}: wall_s={wall:.4f} "
+              f"tok_per_s={tok_s:.2f} ttfc_p50_s={ttfc:.4f} [card: {card}]",
+              flush=True)
+    for name, (stats, mem, cores, start_s) in children.items():
+        print(f"process containers (10), {name}: spawn + handshake "
+              f"{start_s:.2f} s, cores {[sorted(c) for c in cores]}, "
+              f"memory_allocated after taking the weights {mem} B (weights "
+              f"{weights} B), per child launches "
+              f"{[c for c, _ in stats]}, memory {[m for _, m in stats]} "
+              f"[card: {card}]", flush=True)
+    first_line = fails[0].message.splitlines()[0]
+    print(f"process containers (10): streams of 2 process containers == 2 "
+          f"threaded == 2 in turn, bit for bit; kill fault in container 1 "
+          f"after 2 steps: {fails[0].kind} ({first_line}), "
+          f"{len(retried)} requests retried with a RetryEvent, streams "
+          f"equal to the fault-free run, wall_s={kill_wall:.4f}, respawn landed "
+          f"{respawn_s:.2f} s after the failure; MPS control daemon running: "
+          f"{mps_running()} [card: {card}]", flush=True)
+    total: dict = {}
+    for counts, _ in children["2 process"][0]:
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def full_width_model(dtype):
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import Model
@@ -1535,6 +2155,10 @@ def full_width_model(dtype):
 
 
 def main() -> int:
+    global np, torch
+    import numpy
+    import torch as _torch
+    np, torch = numpy, _torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1574,6 +2198,9 @@ def main() -> int:
     paged_launches, bf16_tokens, bf16_pool = prefix_phase(
         model, params, EngineConfig(max_seqs=8, prefix_cache=True, **base),
         card)
+    torch.cuda.empty_cache()
+    sharing_launches = sharing_gate_phase(
+        model, params, EngineConfig(max_seqs=8, **base), card)
 
     # the same weights over int8 caches
     torch.cuda.empty_cache()
@@ -1588,6 +2215,13 @@ def main() -> int:
     int8_launches = int8_path_phase(
         model8, params, EngineConfig(max_seqs=8, prefix_cache=True, **base),
         card, bf16_tokens, bf16_pool)
+
+    # process containers on the same weights
+    torch.cuda.empty_cache()
+    process_launches = process_phase(model, params, card)
+    if multiprocessing.active_children():
+        fail(f"phase 10 left processes running: "
+             f"{multiprocessing.active_children()}")
 
     # the SSM family, once the qwen3 weights and caches are released
     del model, model8, params
@@ -1604,17 +2238,22 @@ def main() -> int:
     # cache with prefix sharing) for the paged decode kernel, phase 7a
     # (dense and paged int8 engines) for the dense int8 kernel, 7b
     # (the int8 Router path) for the paged int8 kernel, 8 (mamba2) for
-    # the SSD scan and 9 (deepseek) for the MLA decode kernel
+    # the SSD scan and 9 (deepseek) for the MLA decode kernel; rmsnorm
+    # runs on every path, counted from phase 4; phase 10 sums the process
+    # containers' own counts
     by_phase = {"phase4": launches, "phase6": paged_launches,
+                "phase6c": sharing_launches,
                 "phase7a": parity8, "phase7b": int8_launches,
                 "phase8": ssm_launches, "phase9": mla_launches,
                 "phase9b_dense": mla_parity[0],
-                "phase9b_paged": mla_parity[1]}
+                "phase9b_paged": mla_parity[1],
+                "phase10": process_launches}
     main_phase = {"flash_attention": "phase4", "decode_attention": "phase4",
                   "paged_decode_attention": "phase6",
                   "decode_attention_int8": "phase7a",
                   "paged_decode_attention_int8": "phase7b",
-                  "ssd_scan": "phase8", "mla_decode_ctx": "phase9"}
+                  "ssd_scan": "phase8", "mla_decode_ctx": "phase9",
+                  "rmsnorm": "phase4"}
     replaces = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:98"),
@@ -1633,12 +2272,14 @@ def main() -> int:
                      "src/repro/kernels/ssd_scan.py:100"),
         "mla_decode_ctx": ("src/repro_torch/kernels/csrc/mla_decode.cu",
                            "src/repro/kernels/mla_decode.py:77"),
+        "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:33"),
     }
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": replaces[k][0],
          "replaces": replaces[k][1],
          "launches": by_phase[main_phase[k]][k],
-         "launches_by_phase": {ph: c[k] for ph, c in by_phase.items()},
+         "launches_by_phase": {ph: c.get(k, 0) for ph, c in by_phase.items()},
          **{f: v for f, v in kernels[k].items()}}
         for k in replaces]}
     print(card, flush=True)

@@ -1,8 +1,8 @@
 // Python binding of the kernels for torch.utils.cpp_extension.
 // The Python wrappers (kernels/flash_attention.py,
 // kernels/decode_attention.py, kernels/paged_attention.py, each of the
-// last two with an int8 entry point, kernels/ssd_scan.py and
-// kernels/mla_decode.py) check devices,
+// last two with an int8 entry point, kernels/ssd_scan.py,
+// kernels/mla_decode.py and kernels/rmsnorm.py) check devices,
 // types, shapes and layout, allocate the outputs and pass raw device
 // pointers, sizes and the CUDA stream as integers; these functions only
 // forward them and return the launch's CUDA error code. Nothing here needs the PyTorch headers, only
@@ -45,6 +45,9 @@ int mla_decode_launch(const void* q_lat, const void* q_rope, const void* ckv,
                       const void* k_rope, const void* valid, void* out,
                       void* work, int B, int S, int H, int r, int dr,
                       float scale, int chunk, int is_bf16, void* stream);
+int rmsnorm_launch(const void* x, const void* scale, void* out,
+                   long long rows, int D, long long row_stride, float eps,
+                   int x_bf16, int scale_bf16, void* stream);
 const char* kernel_error_string(int err);
 
 namespace {
@@ -125,6 +128,14 @@ int mla_decode_ctx(std::uintptr_t q_lat, std::uintptr_t q_rope,
                            scale, chunk, is_bf16 ? 1 : 0, ptr(stream));
 }
 
+int rmsnorm(std::uintptr_t x, std::uintptr_t scale, std::uintptr_t out,
+            long long rows, int D, long long row_stride, float eps,
+            bool x_bf16, bool scale_bf16, std::uintptr_t stream) {
+  return rmsnorm_launch(ptr(x), ptr(scale), ptr(out), rows, D, row_stride,
+                        eps, x_bf16 ? 1 : 0, scale_bf16 ? 1 : 0,
+                        ptr(stream));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -135,6 +146,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("paged_decode_attention_int8", &paged_decode_attention_int8);
   m.def("ssd_scan", &ssd_scan);
   m.def("mla_decode_ctx", &mla_decode_ctx);
+  m.def("rmsnorm", &rmsnorm);
   m.def("error_string",
         [](int err) { return std::string(kernel_error_string(err)); });
 }

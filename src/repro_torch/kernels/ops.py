@@ -15,6 +15,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mla_decode as _mla
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd_scan as _ssd
 
 COUNTERS = {"flash_attention": _fa.launches,
@@ -23,7 +24,8 @@ COUNTERS = {"flash_attention": _fa.launches,
             "decode_attention_int8": _da.int8_launches,
             "paged_decode_attention_int8": _pa.int8_launches,
             "ssd_scan": _ssd.launches,
-            "mla_decode_ctx": _mla.launches}
+            "mla_decode_ctx": _mla.launches,
+            "rmsnorm": _rn.launches}
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -100,6 +102,13 @@ def mla_decode_ctx(q_lat, q_rope, ckv, k_rope, valid, *, scale: float):
                                   scale=scale)
     return _mla.mla_decode_ctx(q_lat, q_rope, ckv, k_rope, valid,
                                scale=scale)
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    """RMSNorm over the last axis; see ``kernels.ref.rmsnorm``."""
+    if _on_cpu(x, scale):
+        return ref.rmsnorm(x, scale, eps)
+    return _rn.rmsnorm(x, scale, eps)
 
 
 def launch_counts() -> dict[str, int]:

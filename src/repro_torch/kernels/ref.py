@@ -16,6 +16,9 @@ whose positions are all dead: it gives 0.
 ``ssd_scan`` follows ``repro.kernels.ref.ssd_scan_seq``: a loop over
 chunks, float32 inside, results in x's dtype.
 
+``rmsnorm`` is the body of ``repro.models.layers.rmsnorm_fwd`` (and
+``repro.kernels.ref.rmsnorm``): float32 arithmetic, x's dtype out.
+
 An int8 cache (``k_scale``/``v_scale`` given) is dequantised first,
 ``codes.float() * scale[..., None]``, as the kernels dequantise a row
 when they load it, and then takes the same path; a dead position's scale
@@ -207,3 +210,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         state = state * torch.exp(cum[:, -1])[..., None, None] + new
         ys.append((y_diag + y_off + xc * Df[:, None]).to(x.dtype))
     return torch.cat(ys, dim=1), state.to(x.dtype)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x (..., D), scale (D,) → x * rsqrt(mean(x²) + eps) * scale over the
+    last axis, in float32, returned in x's dtype (``repro.kernels.ref
+    .rmsnorm`` and ``repro.models.layers.rmsnorm_fwd``)."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)

@@ -3,7 +3,8 @@
 Plain functions on tensors over nested parameter dicts, mirroring
 ``repro.models.layers`` (the same parameter names and layouts, so weights
 cross over leaf by leaf). Norms and rotary embeddings compute in float32
-and cast back, as the JAX versions do.
+and cast back, as the JAX versions do; RMSNorm goes through
+``kernels.ops`` (the CUDA ``rmsnorm`` kernel on the card).
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 
 
 def truncated_normal(shape, dtype: torch.dtype, scale: float,
@@ -27,9 +29,9 @@ def truncated_normal(shape, dtype: torch.dtype, scale: float,
 # norms
 # ---------------------------------------------------------------------------
 def rmsnorm_fwd(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * p["scale"].float()).to(x.dtype)
+    """Through ``ops``: the plain version on the CPU, the CUDA kernel on
+    the card."""
+    return ops.rmsnorm(x, p["scale"], eps)
 
 
 def layernorm_fwd(p: dict, x: torch.Tensor,

@@ -80,6 +80,20 @@ class Completion:
 PROMPT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 
 
+# On the card a paged engine prefills at least this many token rows a
+# batch, padded with whole zero rows. cuBLAS picks its GEMM algorithm by
+# shape: below 128 rows it computes some widths another way (qwen3's down
+# projection, K = 3072, N = 1024, bf16, on the H100), with reduced-
+# precision reduction on or off, so a prompt's bits would depend on how
+# many rows it was prefilled with, and prefix sharing prefills a few
+# suffix rows where the plain path prefills the whole prompt. From 128
+# rows on, a row of every bf16 projection of the models that share comes
+# out the same whatever the batch (tests/test_torch_gpu.py::
+# test_prefill_gemms_give_a_row_the_same_bits_from_min_prefill_rows_on);
+# float32 rows differ above 128 rows too.
+MIN_PREFILL_ROWS = 128
+
+
 def _bucket(n: int, buckets=PROMPT_BUCKETS) -> int:
     for b in buckets:
         if n <= b:
@@ -158,9 +172,12 @@ class _Slot:
 
 class ServingEngine:
     # streaming hook: a backend sets ``on_event`` to receive the events and
-    # ``container_id`` to stamp them
+    # ``container_id`` to stamp them. ``fault`` is the test-only
+    # FaultInjector hook (serving/faults.py), consulted at the top of every
+    # step and at each paged block allocation; None disarms it.
     on_event: Callable[[Any], None] | None = None
     container_id: int = 0
+    fault: Any = None
 
     def __init__(self, model, params: dict,
                  config: EngineConfig | None = None, *,
@@ -353,11 +370,14 @@ class ServingEngine:
             take: list[Request] = []
             slot_ids: list[int] = []
             plans: list = []
-            blocked = False
+            blocked: bool | str = False
             while self.queue and free:
                 req = self.queue[0]
                 plan = self._peek_plan(req) if self._share else None
                 if self._key_for(req, plan) != key:
+                    break
+                if self.fault is not None and self.fault.refuse_alloc():
+                    blocked = "fault"    # injected pool exhaustion
                     break
                 hashes = plan[1] if plan is not None else ()
                 if not cb.alloc(free[0], self._cache_tokens(req),
@@ -369,6 +389,8 @@ class ServingEngine:
                 plans.append(plan)
             if take:
                 self._admit_batch(slot_ids, take, plans)
+            if blocked == "fault":
+                return
             if blocked and not cb._pending:
                 return     # exhausted: FIFO holds the head until a finish
             if not take and not blocked:
@@ -380,15 +402,31 @@ class ServingEngine:
             free = [i for i, s in enumerate(self.slots) if not s.active]
 
     # ------------------------------------------------------------------
+    def _prefill_rows(self, n: int, width: int) -> int:
+        """Rows of a prefill batch of ``n`` prompts ``width`` tokens wide:
+        a paged engine on the card adds zero rows up to
+        ``MIN_PREFILL_ROWS`` token rows, so sharing on and off give the
+        same bits. Its mini-cache is ``width`` wide, so a batch gains
+        fewer than 128 token rows of cache and prefill. Not on the dense
+        path, which
+        never shares, nor for MoE, where the expert capacity couples a
+        batch's rows, nor on the CPU."""
+        if (self.device.type != "cuda" or not self.paged
+                or self.model.fam == "moe"):
+            return n
+        return max(n, -(-MIN_PREFILL_ROWS // width))
+
     def _admit_batch(self, slot_ids: list[int], reqs: list[Request],
                      plans: list | None = None) -> None:
         n = len(reqs)
         H = plans[0][0] if plans and plans[0] is not None else 0
         # prompts (or, for a hit, their suffixes behind H shared
-        # positions) right-padded into one batch of the admit key's width
+        # positions) right-padded into one batch of the admit key's width,
+        # with zero rows past the n requests (_prefill_rows)
         bl = self._admit_key(len(reqs[0].prompt) - H)
-        padded = np.zeros((n, bl), np.int32)
-        logits_idx = np.zeros((n,), np.int64)
+        rows = self._prefill_rows(n, bl)
+        padded = np.zeros((rows, bl), np.int32)
+        logits_idx = np.zeros((rows,), np.int64)
         for j, r in enumerate(reqs):
             toks = np.asarray(r.prompt)[H:]
             padded[j, :len(toks)] = toks
@@ -401,7 +439,11 @@ class ServingEngine:
             # one gathered context of width exactly H serves the batch;
             # gather before insert rewrites these rows' tables
             ctx = self.cache_backend.gather_prefix(slot_ids, H)
-            src = self.model.init_cache(n, bl, dtype)
+            if rows > n:
+                ctx = [{k: torch.cat([t, t.new_zeros((rows - n,
+                                                      *t.shape[1:]))])
+                        for k, t in g.items()} for g in ctx]
+            src = self.model.init_cache(rows, bl, dtype)
             logits = self.model.prefill_suffix(self.params, tokens, src,
                                                ctx, H, logits_at=logits_at)
             self.prefix_hit_tokens_total += n * H
@@ -412,9 +454,11 @@ class ServingEngine:
             # capped at max_len, where a bucket past the horizon wraps
             # its padding into the ring exactly as the dense cache does
             width = min(bl, self.max_len) if self.paged else self.max_len
-            src = self.model.init_cache(n, width, dtype)
+            src = self.model.init_cache(rows, width, dtype)
             logits = self.model.prefill(self.params, tokens, src,
                                         logits_at=logits_at)
+        if rows > n:
+            src = [{k: t[:n] for k, t in g.items()} for g in src]
         self.cache_backend.insert(src, slot_ids, offset=H)
         self.prefill_tokens_executed += sum(len(r.prompt) - H for r in reqs)
         if self._share:
@@ -437,6 +481,24 @@ class ServingEngine:
         for i in slot_ids:
             if self.slots[i].active and self.slots[i].remaining <= 0:
                 self._finish(i)
+
+    def cancel(self, rid: int) -> bool:
+        """Remove a request from the engine — queued or mid-decode — and
+        free its cache reservation (paged: through the deferred
+        ``free``/``flush`` path, so block conservation stays exact). Emits
+        NO event: the canceller (the Router, or a backend's ``cancel``)
+        owns the request's terminal event. Returns whether the request was
+        found."""
+        for r in self.queue:
+            if r.rid == rid:
+                self.queue = deque(q for q in self.queue if q.rid != rid)
+                return True
+        for i, s in enumerate(self.slots):
+            if s.active and s.rid == rid:
+                self.cache_backend.free(i)
+                self.slots[i] = _Slot()
+                return True
+        return False
 
     def _finish(self, i: int) -> None:
         s = self.slots[i]
@@ -495,6 +557,8 @@ class ServingEngine:
         if not self.has_work:
             return False
         self.steps += 1
+        if self.fault is not None:
+            self.fault.on_step(self.steps)   # may raise InjectedFault
         t0 = time.perf_counter()
         with self._on_stream():
             self._admit()

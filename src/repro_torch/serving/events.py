@@ -1,14 +1,16 @@
 """Typed per-request serving events (a copy of the ``repro.serving.events``
-types this slice emits).
+types the port emits).
 
 Per request the stream is one or more ``ChunkEvent``s — the first carries
 the prefill sample and marks time-to-first-chunk, each later one a fused
 decode chunk's tokens — then exactly one terminal event: ``DoneEvent``
-with the finished ``Completion``, or ``FailedEvent``. ``ContainerFailure``
-is the container-scoped record a supervising backend returns from
-``poll()``; this slice's backend has no supervision yet and raises
-instead, but the type is kept so the event vocabulary matches the JAX
-package's. Events are frozen, picklable dataclasses.
+with the finished ``Completion``, or ``FailedEvent``. A ``RetryEvent``
+marks a re-dispatch after the request was lost with its container: the
+chunks before it belong to the aborted attempt. ``ContainerFailure`` is
+the container-scoped record a supervising backend (``ProcessBackend``)
+returns from ``poll()``; ``ThreadBackend`` has no supervision yet and
+raises instead. Events are frozen, picklable dataclasses, and this
+module imports no torch: process children unpickle it before theirs.
 """
 from __future__ import annotations
 
@@ -38,6 +40,21 @@ class DoneEvent:
 
 
 @dataclasses.dataclass(frozen=True)
+class RetryEvent:
+    """The request was lost to a container failure and re-dispatched to
+    ``container_id`` (its new home) as attempt ``attempt`` (1 = first
+    retry). Chunks streamed before this event belong to the aborted
+    attempt: the retried prefill restarts from the prompt, so consumers
+    reset their accumulation here instead of seeing silently replayed
+    tokens."""
+    rid: int
+    container_id: int
+    attempt: int
+    reason: str
+    time_s: float
+
+
+@dataclasses.dataclass(frozen=True)
 class FailedEvent:
     """Terminal event: the request ended without a completion.
     ``kind`` ∈ {"deadline", "container", "cancelled"}."""
@@ -61,4 +78,5 @@ class ContainerFailure:
     lost_rids: tuple = ()
 
 
-Event = Union[ChunkEvent, DoneEvent, FailedEvent, ContainerFailure]
+Event = Union[ChunkEvent, DoneEvent, RetryEvent, FailedEvent,
+              ContainerFailure]

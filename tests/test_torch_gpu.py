@@ -7,6 +7,8 @@ tests/test_torch_gpu.py``. Tolerances as in tests/test_kernels.py.
 """
 from __future__ import annotations
 
+import contextlib
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -501,7 +503,10 @@ def test_ssm_router_on_the_card_matches_the_cpu_path(cuda):
             out.append({h.rid: h.tokens() for h in handles})
         counts = ops.launch_counts()
         assert (counts["ssd_scan"] > 0) == (dev == "cuda"), counts
-        assert sum(v for k, v in counts.items() if k != "ssd_scan") == 0
+        # every norm of the model runs the rmsnorm kernel on the card
+        assert (counts["rmsnorm"] > 0) == (dev == "cuda"), counts
+        assert sum(v for k, v in counts.items()
+                   if k not in ("ssd_scan", "rmsnorm")) == 0
     assert out[1] == out[0]
 
 
@@ -643,8 +648,337 @@ def test_deepseek_router_on_the_card_matches_the_cpu_path(cuda, cache):
             handles = [router.submit(Request(*s)) for s in specs]
             out.append({h.rid: h.tokens() for h in handles})
         counts = ops.launch_counts()
-        mla = (counts["flash_attention"], counts["mla_decode_ctx"])
+        mla = (counts["flash_attention"], counts["mla_decode_ctx"],
+               counts["rmsnorm"])
         assert (min(mla) > 0) == (dev == "cuda"), counts
         assert sum(v for k, v in counts.items()
-                   if k not in ("flash_attention", "mla_decode_ctx")) == 0
+                   if k not in ("flash_attention", "mla_decode_ctx",
+                                "rmsnorm")) == 0
     assert out[1] == out[0]
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,D", [(7, 128), (4100, 128), (33, 512),
+                                    (5, 1024), (513, 2048), (3, 2560),
+                                    (9, 5120), (1, 5120)])
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, rows, D):
+    """Every width the port's norms see, row counts that are no multiple
+    of the kernel's 8-row blocks; one launch a call."""
+    x = _randn(cuda, rows, D, dtype=dtype) * 2
+    scale = (1 + 0.1 * _randn(cuda, D, dtype=torch.float32)).to(dtype)
+    before = ops.launch_counts()["rmsnorm"]
+    got = ops.rmsnorm(x, scale, 1e-6)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rmsnorm"] == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    _assert_close(got, ref.rmsnorm(x, scale, 1e-6), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_on_strided_rows_and_float32_scale(cuda, dtype):
+    """The MLA latent norm's slice dkv[..., :512] of 576-wide rows is read
+    in place; scale may be float32 under bfloat16 rows."""
+    dkv = _randn(cuda, 2, 37, 576, dtype=dtype)
+    x = dkv[..., :512]
+    for scale in (_randn(cuda, 512, dtype=dtype),
+                  _randn(cuda, 512, dtype=torch.float32)):
+        got = ops.rmsnorm(x, scale, 1e-6)
+        torch.cuda.synchronize()
+        assert got.is_contiguous() and got.shape == x.shape
+        _assert_close(got, ref.rmsnorm(x, scale, 1e-6), dtype)
+        _assert_close(got, ref.rmsnorm(x.contiguous(), scale, 1e-6), dtype)
+
+
+def test_rmsnorm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    x = _randn(cuda, 4, 6, 128, dtype=torch.float32)
+    s = _randn(cuda, 128, dtype=torch.float32)
+    with pytest.raises(ValueError, match="evenly spaced"):
+        rmsnorm(x.transpose(0, 1), s)
+    with pytest.raises(ValueError, match="last axis must be contiguous"):
+        rmsnorm(x[..., ::2], s[:64])
+    with pytest.raises(ValueError, match="scale"):
+        rmsnorm(x, s[:64])
+    with pytest.raises(TypeError, match="dtype"):
+        rmsnorm(x.half(), s)
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm(x, s.cpu())
+
+
+# ---------------------------------------------------------------------------
+# prefix sharing on == off at equal batch shapes (JAX's _serve_phases form)
+# ---------------------------------------------------------------------------
+def _sharing_phases(vocab, prefix_len, specs_by_phase, seed=0):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, (prefix_len,), dtype=np.int32)
+    phases = []
+    for rid0, specs in specs_by_phase:
+        phases.append([(rid0 + i, np.concatenate([prefix, rng.integers(
+            0, vocab, (n - prefix_len,), dtype=np.int32)]), m)
+            for i, (n, m) in enumerate(specs)])
+    return phases
+
+
+def _serve_phases(model, params, phases, config):
+    """One engine, the phases in turn, draining between them."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    eng = ServingEngine(model, params, config, device=model.device)
+    got = {}
+    for reqs in phases:
+        eng.submit_many([Request(r, p.copy(), m) for r, p, m in reqs])
+        for c in eng.run():
+            got[c.rid] = (list(c.tokens), c.prefix_hit_tokens)
+    return got, eng
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefix_sharing_on_equals_off_on_the_card(cuda, dtype):
+    """Reduced qwen3 on the card: the same two phases of shared-prefix
+    requests through one paged engine with sharing and one without, at
+    the same block budget; phase 2 hits the whole 64-token prefix and the
+    greedy streams are identical."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+
+    from repro_torch.serving.engine import EngineConfig
+
+    cfg = get_config("qwen3-0.6b-reduced")
+    model = Model(cfg, device="cuda")
+    params = model.init(seed=0, dtype=dtype)
+    phases = _sharing_phases(cfg.vocab_size, 64, [
+        (0, [(80, 4), (76, 3)]), (10, [(72, 3), (70, 4), (75, 2)])])
+    base = dict(n_slots=4, max_len=128, cache="paged", block_size=16,
+                chunk_tokens=4, dtype=dtype)
+    on, eng_on = _serve_phases(model, params, phases,
+                               EngineConfig(prefix_cache=True, **base))
+    off, eng_off = _serve_phases(model, params, phases,
+                                 EngineConfig(prefix_cache=False, **base))
+    assert {r: t for r, (t, _) in on.items()} \
+        == {r: t for r, (t, _) in off.items()}
+    assert [h for r, (_, h) in sorted(on.items()) if r >= 10] == [64] * 3
+    assert eng_off.prefix_hit_tokens_total == 0
+    assert eng_on.prefill_tokens_executed < eng_off.prefill_tokens_executed
+
+
+@contextlib.contextmanager
+def _bf16_reduced_precision_reduction(allowed: bool):
+    """torch's process-wide cuBLAS setting, set for a block and restored."""
+    matmul = torch.backends.cuda.matmul
+    was = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = allowed
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = was
+
+
+@pytest.mark.parametrize("reduction_allowed", [True, False])
+def test_cublas_rows_depend_on_the_row_count(cuda, reduction_allowed):
+    """Why a paged engine prefills at least ``MIN_PREFILL_ROWS`` token rows
+    on the card: at qwen3's down projection (K = 3072, N = 1024, bf16)
+    cuBLAS gives the same rows other bits in a 16-row product than in a
+    4096-row one, with its reduced-precision reduction allowed (torch's
+    default) or not, so that setting is no way around the padding."""
+    w = (0.03 * _randn(cuda, 3072, 1024, dtype=torch.float32)).bfloat16()
+    x = _randn(cuda, 4096, 3072, dtype=torch.bfloat16)
+    with _bf16_reduced_precision_reduction(reduction_allowed):
+        assert not torch.equal(x[:16] @ w, (x @ w)[:16])
+
+
+PREFILL_ROWS = (128, 129, 200, 256, 384, 512, 1000, 1024, 2048)
+HEAD_ROWS = (1, 2, 3, 4, 8, 16)
+
+
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "stablelm-1.6b"])
+def test_prefill_gemms_give_a_row_the_same_bits_from_min_prefill_rows_on(
+        cuda, name):
+    """The projections of the models that share prefixes, at full width in
+    bf16, give a row the same bits at every row count from
+    ``MIN_PREFILL_ROWS`` on, wherever the row sits among them; the logits
+    head, which a prefill computes at one row a prompt, at every count
+    from 1. With the engine's padding, sharing on and off then agree bit
+    for bit. (In float32 they do not: the same rows differ between 128
+    and 4096 rows at these widths, so full-width float32 sharing is not
+    bitwise on the card.)"""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving.engine import MIN_PREFILL_ROWS
+
+    dtype = torch.bfloat16
+    cfg = get_config(name)
+    d, ff = cfg.d_model, cfg.d_ff
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    bad = []
+
+    def check(x, w, rows, what):
+        full = x @ w
+        for at in (0, 37):
+            bad.extend((what, at, m) for m in rows
+                       if not torch.equal(x[at:at + m] @ w, full[at:at + m]))
+
+    for K, N in sorted({(d, q), (d, kv), (q, d), (d, ff), (ff, d)}):
+        w = (K ** -0.5 * _randn(cuda, K, N, dtype=torch.float32)).to(dtype)
+        check(_randn(cuda, 4096, K, dtype=dtype), w,
+              [m for m in PREFILL_ROWS if m >= MIN_PREFILL_ROWS], (K, N))
+    table = (d ** -0.5 * _randn(cuda, cfg.vocab_size, d,
+                                dtype=torch.float32)).to(dtype)
+    check(_randn(cuda, 256, d, dtype=dtype), table.T, HEAD_ROWS,
+          ("head", d, cfg.vocab_size))
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_over_context_and_suffix_equals_the_whole_prompt_bits(
+        cuda, dtype):
+    """The suffix prefill's attention (queries of the suffix against
+    [cached context | suffix]) gives the whole-prompt prefill's rows bit
+    for bit on the same keys and values: the kernel walks the keys in
+    the same tiles from position 0 in both."""
+    H, Hkv, K, ctx, n, whole, sb = 16, 8, 128, 256, 100, 512, 128
+    q = _randn(cuda, 2, whole, H, K, dtype=dtype)
+    k = _randn(cuda, 2, whole, Hkv, K, dtype=dtype)
+    v = _randn(cuda, 2, whole, Hkv, K, dtype=dtype)
+    full = ops.flash_attention(q, k, v)
+    part = ops.flash_attention(q[:, ctx:ctx + sb].contiguous(),
+                               k[:, :ctx + sb].contiguous(),
+                               v[:, :ctx + sb].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(part[:, :n], full[:, ctx:ctx + n])
+
+
+# ---------------------------------------------------------------------------
+# process containers on the card
+# ---------------------------------------------------------------------------
+def test_process_router_on_the_card_matches_threads(cuda):
+    """Reduced qwen3 in bf16: Router(ProcessBackend(2)) with the weights
+    shared over CUDA IPC gives Router(ThreadBackend(2))'s greedy streams
+    (all requests submitted before the first poll); each child launched
+    the prefill, decode and rmsnorm kernels, holds no weight copy of its
+    own, and imported torch only after it pinned itself."""
+    import time
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.backend import ProcessBackend, ThreadBackend
+    from repro_torch.serving.engine import EngineConfig, Request
+    from repro_torch.serving.router import Router
+
+    cfg = get_config("qwen3-0.6b-reduced")
+    model = Model(cfg, device="cuda")
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    config = EngineConfig(n_slots=2, max_len=128, chunk_tokens=4,
+                          dtype=torch.bfloat16)
+    rng = np.random.default_rng(3)
+    specs = [(i, rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32), m)
+             for i, (n, m) in enumerate([(6, 5), (40, 7), (17, 3), (9, 0),
+                                         (70, 6), (33, 4)])]
+    with Router(ThreadBackend(model, params, 2, config)) as router:
+        want = {h.rid: h.tokens()
+                for h in [router.submit(Request(*s)) for s in specs]}
+    backend = ProcessBackend(cfg, 2, config, params=params,
+                             allow_shared_cores=True, start_timeout_s=300)
+    with Router(backend) as router:
+        backend.warm()
+        backend.child_stats(reset=True)
+        handles = [router.submit(Request(*s)) for s in specs]
+        deadline = time.perf_counter() + 300
+        while not all(h.done for h in handles):
+            assert time.perf_counter() < deadline
+            router._pump(block=True)
+        got = {h.rid: h.tokens() for h in handles}
+        stats = backend.child_stats()
+        weights = sum(t.nbytes for t in _leaves(params))
+        for info, (counts, memory) in zip(backend.child_info, stats):
+            assert info["torch_preloaded"] is False
+            assert info["weight_bytes"] == weights
+            assert info["memory_allocated"] < weights, info
+            for name in ("flash_attention", "decode_attention", "rmsnorm"):
+                assert counts[name] > 0, counts
+    backend.close()
+    assert got == want
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+@pytest.mark.parametrize("kill,release", [(True, True), (False, True),
+                                          (True, False)])
+def test_children_leave_no_weights_parked_in_the_parent(cuda, kill,
+                                                        release):
+    """torch keeps a CUDA weight the parent shared with a child allocated,
+    after the parent frees it, until the child gives back the share's
+    reference counter; a closed child gives it back as it frees the
+    weights, a killed child never does, and the backend gives it back
+    for it (``_SentWeight.release``). In a fresh parent: serve with 2
+    process containers (container 1 killed after a step, or none), close,
+    free the weights and collect torch's parked shares. The parent's
+    ``memory_allocated`` is back where it was before the weights, and
+    torch does not warn at exit that shares were still out. The control,
+    a kill with the backend's release turned off, keeps the weights
+    allocated and warns: the check sees what it measures."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    import textwrap
+
+    script = textwrap.dedent(f"""
+        import gc, numpy as np, torch
+        from repro_torch.configs.registry import get_config
+        from repro_torch.models.model import Model
+        from repro_torch.serving import backend as backend_mod
+        from repro_torch.serving.backend import ProcessBackend
+        from repro_torch.serving.engine import EngineConfig, Request
+        from repro_torch.serving.faults import Fault, FaultPlan
+        from repro_torch.serving.router import Router
+        if not {release}:
+            backend_mod._SentWeight.release = lambda self: None
+        cfg = get_config("qwen3-0.6b-reduced")
+        before = torch.cuda.memory_allocated()
+        params = Model(cfg).init(seed=0, dtype=torch.bfloat16)
+        weights = torch.cuda.memory_allocated() - before
+        plan = (FaultPlan((Fault("kill", container_id=1, after_steps=1),))
+                if {kill} else None)
+        backend = ProcessBackend(
+            cfg, 2, EngineConfig(n_slots=2, max_len=64, chunk_tokens=1,
+                                 dtype=torch.bfloat16),
+            params=params, allow_shared_cores=True, fault_plan=plan,
+            max_respawns=0)
+        with Router(backend, max_retries=1) as router:
+            hs = [router.submit(Request(i, np.arange(5 + i, dtype=np.int32),
+                                        6)) for i in range(4)]
+            print("tokens", [len(h.result().tokens) for h in hs])
+            print("failures", [f.kind for f in router.container_failures])
+        del params, backend, router, hs
+        gc.collect()
+        torch.cuda.ipc_collect()
+        print("memory", before, weights, torch.cuda.memory_allocated())
+    """)
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": str(src)})
+    lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
+                 if line.split(" ", 1)[0] in ("tokens", "failures",
+                                              "memory"))
+    assert "memory" in lines, (out.returncode, out.stdout, out.stderr)
+    assert lines["tokens"] == "[6, 6, 6, 6]", out.stdout
+    assert lines["failures"] == ("['dead']" if kill else "[]"), out.stdout
+    before, weights, after = map(int, lines["memory"].split())
+    parked = "shared CUDA tensors released" in out.stderr
+    if release:
+        assert out.returncode == 0, out.stderr[-3000:]
+        assert after == before and not parked, (out.stdout, out.stderr)
+    else:
+        assert after >= before + weights and parked, (out.stdout,
+                                                      out.stderr)

@@ -37,6 +37,9 @@ def _modules() -> list[str]:
 
 def test_every_port_module_imports_with_jax_and_repro_blocked():
     assert len(_modules()) >= 20
+    assert {"repro_torch.kernels.rmsnorm", "repro_torch.serving.child",
+            "repro_torch.serving.faults",
+            "repro_torch.core.testbed"} <= set(_modules())
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         class Blk(importlib.abc.MetaPathFinder):
@@ -49,7 +52,7 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
             importlib.import_module(mod)
         ops = sys.modules["repro_torch.kernels.ops"]
         assert {{"decode_attention_int8", "paged_decode_attention_int8",
-                 "ssd_scan", "mla_decode_ctx"}} <= set(ops.COUNTERS)
+                 "ssd_scan", "mla_decode_ctx", "rmsnorm"}} <= set(ops.COUNTERS)
         assert not [m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         print("port imports ok")

@@ -183,6 +183,9 @@ def test_ops_sends_cpu_tensors_to_the_plain_version():
     live = torch.arange(20)[None, :] < torch.tensor([[3], [20]])
     got = ops.mla_decode_ctx(*mla, live, scale=0.2)
     assert torch.equal(got, tref.mla_decode_ctx(*mla, live, scale=0.2))
+    x = _t(_randn(np.random.default_rng(9), 3, 5, 16))
+    s = _t(_randn(np.random.default_rng(10), 16))
+    assert torch.equal(ops.rmsnorm(x, s, 1e-6), tref.rmsnorm(x, s, 1e-6))
     # the plain path is not a kernel launch
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "decode_attention": 0,
@@ -190,7 +193,8 @@ def test_ops_sends_cpu_tensors_to_the_plain_version():
                                    "decode_attention_int8": 0,
                                    "paged_decode_attention_int8": 0,
                                    "ssd_scan": 0,
-                                   "mla_decode_ctx": 0}
+                                   "mla_decode_ctx": 0,
+                                   "rmsnorm": 0}
 
 
 def _ssd_args(seed, B=1, S=32, nh=4, hd=8, ng=1, ds=8):
