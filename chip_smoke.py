@@ -17,7 +17,9 @@ Phases, each raising on failure (any failure exits nonzero):
    kernels take int8 K/V quantised by the model's own quantiser, with
    float32 or bfloat16 queries. Times each (CUDA events) beside the plain
    version and ``scaled_dot_product_attention`` (a yardstick the port
-   never calls; over the dequantised view for the int8 kernels). The SSD
+   never calls; over the dequantised view for the int8 kernels); the
+   prefill kernel and sdpa, and the SSD scan, also as device time (calls
+   replayed from a CUDA graph). The SSD
    scan at mamba2-2.7b's widths (nh=80, hd=64, ds=128, chunk 256):
    S = 512 and 2048, B = 2, a ragged one-chunk prompt, ng = 2, float32
    and bfloat16, |kernel - plain| <= tol * max|plain| (tol 5e-5 and
@@ -25,8 +27,14 @@ Phases, each raising on failure (any failure exits nonzero):
    plain version cuts it at ``chunk``) and, wherever 64 divides S,
    element by element within tol abs + tol rel against the plain version
    cut at 64, timed beside the plain version (no PyTorch call computes
-   the scan). The prefill kernel at MLA's widths (K = 192, Kv = 128,
-   H = Hkv = 16). The MLA decode kernel at deepseek-v2-lite's widths
+   the scan; one ng = 2 case at nh = 80, and S = 2048 timed beside the
+   plain version too). The prefill kernel at the other shapes it takes (K
+   = 5, 72, 192, 256, Kv = 16 to 256, Hkv = 1, Sq = 1, queries against
+   longer and shorter key runs, whose rows that see no key must read 0),
+   and bit for bit the suffix's rows over [context | suffix] against the
+   whole prompt's at contexts 256 and 272; at MLA's widths (K = 192, Kv
+   = 128, H = Hkv = 16), timed beside the plain version and
+   ``scaled_dot_product_attention``. The MLA decode kernel at deepseek-v2-lite's widths
    (H = 16, r = 512, dr = 64): the 4-slot main shape, a ragged S = 1000
    with an all-dead row that must read 0, and the view gathered from
    16-token latent pages, which must ignore NaN in unowned pages; timed
@@ -71,7 +79,10 @@ Phases, each raising on failure (any failure exits nonzero):
       suffix] against the whole prompt, one projection at the two modes'
       row counts). Reports what padding prefill batches to 128 token rows
       costs the sharing engine (wall, ttfc p50, peak memory), in turns
-      with and without it.
+      with and without it. Then the same gate in float32 at full width
+      (the same seed's weights in float32, phase 6's whole two waves, 16
+      requests): float32 projections run in fixed 128-row slices on the
+      card, so streams and prefill logits must agree bit for bit too.
 7. The int8 KV cache (``kv_cache_dtype="int8"``), same weights:
    a. dense vs paged as in phase 5, on int8 caches: identical greedy
       streams, through the two int8 decode kernels only;
@@ -501,6 +512,7 @@ def ssd_checks(gen):
         (2, 512, 80, 64, 1, 128, 256, True),
         (1, 200, 80, 64, 1, 128, 200, True),
         (2, 256, 8, 64, 2, 128, 256, True),
+        (1, 512, 80, 64, 2, 128, 256, True),
         (2, 128, 4, 16, 2, 16, 32, False),
         (1, 512, 80, 64, 1, 128, 256, False)]
     for dtype in (torch.float32, torch.bfloat16):
@@ -526,9 +538,13 @@ def ssd_checks(gen):
                 cut = (f"; element by element at chunk {SSD_TILE}: max "
                        f"abs error {err:.3e} within {tol} abs + rel")
             ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk), reps=5)
+            plain = ""
+            if S >= 512:
+                plain = " plain_ms={:.4f}".format(time_ms(
+                    lambda: ref.ssd_scan(*args, chunk=chunk), reps=3))
             print(f"{what}: max |kernel - plain| / max|plain| = {rel:.3e} "
                   f"(y and state; tolerance {tol}){cut}; kernel_ms="
-                  f"{ms:.4f}", flush=True)
+                  f"{ms:.4f}{plain}", flush=True)
     return worst
 
 
@@ -557,6 +573,35 @@ def ssd_close(got, want, dtype_name: str, what: str) -> float:
         fail(f"{what}: max |kernel - plain| is {rel:.3e} of max|plain| "
              f"{scale:.3e}, over {SSD_TOL[dtype_name]}")
     return rel
+
+
+# the bf16 scan's CUDA kernels a call: chunk states, the pass over them,
+# the outputs
+SSD_KERNELS_PER_CALL = 3
+
+
+def ssd_call_footprint(call) -> tuple[list, int]:
+    """What one ``ssd_scan`` call does on the card, read in this run: the
+    CUDA kernels it launches (name, count), from ``torch.profiler``, and
+    the scratch it allocates beyond its outputs, the peak of
+    ``memory_allocated`` during the call less what stays after it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    torch.cuda.reset_peak_memory_stats()
+    out = call()
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+    del out
+    return kernels, scratch
 
 
 # absorbed-MLA decode at deepseek-v2-lite's widths: a 4-slot decode step
@@ -666,11 +711,14 @@ def mla_checks(gen):
 
 def flash_mla_checks(gen):
     """The prefill kernel at MLA's widths (K = 192, Kv = 128, H = Hkv =
-    16, causal), float32 and bfloat16; returns the bfloat16 ms."""
+    16, causal), float32 and bfloat16; returns the bfloat16 numbers: ms,
+    the plain version's, one sdpa call's (never called by the port) and
+    the bound."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    ms = {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         q, k = (torch.randn(1, 512, 16, 192, generator=gen,
@@ -681,10 +729,88 @@ def flash_mla_checks(gen):
         got = fa.flash_attention(q, k, v)
         torch.cuda.synchronize()
         err = check_close(got, ref.flash_attention(q, k, v), dn, what)
-        ms[dn] = time_ms(lambda: fa.flash_attention(q, k, v))
-        print(f"{what}: max_abs_err={err:.3e} kernel_ms={ms[dn]:.4f}",
+        ms = time_ms(lambda: fa.flash_attention(q, k, v))
+        print(f"{what}: max_abs_err={err:.3e} kernel_ms={ms:.4f}",
               flush=True)
-    return ms["bfloat16"]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = ref.attention_mask(512, 512, causal=True, window=0,
+                              device=q.device)
+    pairs = int(mask.sum())
+    flops = 2 * 16 * pairs * (192 + 128)
+    nbytes = 512 * 16 * (2 * 192 + 2 * 128) * 2    # q, k, v, out once
+    t_ops, t_bytes = flops / PEAK_FLOPS[dn], nbytes / PEAK_BYTES_S
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    return {"ms": ms, "max_abs_err": err,
+            "plain_ms": time_ms(lambda: ref.flash_attention(q, k, v),
+                                reps=5),
+            "library_ms": time_ms(library),
+            "graph_ms": time_graph_ms(lambda: fa.flash_attention(q, k, v)),
+            "library_graph_ms": time_graph_ms(library),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "shape": "B=1 Sq=Skv=512 H=Hkv=16 K=192 Kv=128 bf16 causal"}
+
+
+# the prefill kernel at the other shapes it takes: K padded to the MMA
+# depth (72, 5 with rows off 16 bytes), K = 192 / 256, Kv from 16 to 256,
+# one KV head, Sq = 1, queries right-aligned against longer and shorter
+# key runs (rows that see no key give 0), a window and a softcap
+FLASH_SHAPES = [  # (B, Sq, Skv, H, Hkv, K, Kv, window, softcap)
+    (1, 100, 100, 4, 2, 72, 64, 0, 0.0),
+    (1, 130, 130, 4, 2, 192, 128, 0, 0.0),
+    (1, 77, 77, 4, 2, 5, 32, 0, 0.0),
+    (2, 70, 70, 4, 2, 64, 16, 0, 0.0),
+    (1, 90, 90, 4, 1, 128, 256, 0, 0.0),
+    (1, 40, 40, 4, 2, 256, 256, 0, 0.0),
+    (1, 96, 96, 8, 1, 128, 128, 0, 0.0),
+    (2, 1, 50, 4, 2, 128, 128, 0, 0.0),
+    (1, 40, 150, 4, 2, 64, 64, 0, 0.0),
+    (1, 80, 50, 4, 2, 64, 64, 0, 0.0),
+    (1, 200, 200, 4, 2, 64, 64, 100, 0.0),
+    (1, 300, 300, 2, 2, 32, 32, 0, 30.0)]
+
+
+def flash_shape_checks(gen):
+    """The prefill kernel against its plain version at FLASH_SHAPES in
+    float32 and bfloat16, and the prefix-sharing property bit for bit: the
+    suffix's rows over [context | suffix] equal the whole prompt's, at a
+    context of 256 and of 272 (a row at another place in its query
+    tile)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for B, Sq, Skv, h, hkv, k_, kv, window, softcap in FLASH_SHAPES:
+            q = randn(B, Sq, h, k_, dtype=dtype)
+            k = randn(B, Skv, hkv, k_, dtype=dtype)
+            v = randn(B, Skv, hkv, kv, dtype=dtype)
+            kw = dict(causal=True, window=window, softcap=softcap)
+            got = fa.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            what = (f"flash_attention {dn} B={B} Sq={Sq} Skv={Skv} H={h} "
+                    f"Hkv={hkv} K={k_} Kv={kv} window={window} "
+                    f"softcap={softcap}")
+            err = check_close(got, ref.flash_attention(q, k, v, **kw), dn,
+                              what)
+            if bool(got[:, :max(Sq - Skv, 0)].ne(0).any()):
+                fail(f"{what}: a row that sees no key is not 0")
+            print(f"{what}: max_abs_err={err:.3e}", flush=True)
+        for ctx in (256, 272):
+            q, k, v = (randn(2, 512, n, K, dtype=dtype) for n in (H, HKV, HKV))
+            full = fa.flash_attention(q, k, v)
+            part = fa.flash_attention(q[:, ctx:ctx + 128].contiguous(),
+                                      k[:, :ctx + 128].contiguous(),
+                                      v[:, :ctx + 128].contiguous())
+            if not torch.equal(part[:, :100], full[:, ctx:ctx + 100]):
+                fail(f"flash_attention {dn}: the suffix over [context {ctx} "
+                     "| suffix] is not the whole prompt's rows bit for bit")
+        print(f"flash_attention {dn}: suffix rows over [context | suffix] "
+              "equal the whole prompt's bit for bit at contexts 256 and 272",
+              flush=True)
 
 
 # RMSNorm at every width the port's norms see: 128 (qwen3 q/k norms, rows
@@ -804,6 +930,7 @@ def kernel_phase():
             print(f"{what}: max_abs_err={err:.3e} kernel_ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f}", flush=True)
 
+    flash_shape_checks(gen)
     paged_checks(gen)
 
     # the line's numbers: one main-path shape per kernel, bfloat16 —
@@ -821,14 +948,25 @@ def kernel_phase():
     bound, by = prefill_bound(
         B, S, S, ref.attention_mask(S, S, causal=True, window=0,
                                     device=dev), dn, isz)
+    def kernel():
+        return fa.flash_attention(q, k, v)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
     results["flash_attention"] = {
         "max_abs_err": err,
-        "ms": time_ms(lambda: fa.flash_attention(q, k, v)),
+        "ms": time_ms(kernel),
         "plain_ms": time_ms(lambda: ref.flash_attention(q, k, v), reps=5),
         "bound_ms": bound, "bound_by": by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
-        "shape": f"B={B} Sq=Skv={S} H={H} Hkv={HKV} K={K} bf16 causal"}
+        "library_ms": time_ms(library),
+        # device time: 100 calls replayed from a CUDA graph, so the host's
+        # launch rate does not pace them
+        "graph_ms": time_graph_ms(kernel),
+        "library_graph_ms": time_graph_ms(library),
+        "shape": f"B={B} Sq=Skv={S} H={H} Hkv={HKV} K={K} bf16 causal; ms "
+                 "and library_ms launched one by one (CUDA events), "
+                 "graph_ms and library_graph_ms replayed from a CUDA graph"}
 
     B, W = 4, 2048
     q = randn(B, H, K, dtype=dtype)
@@ -960,26 +1098,48 @@ def kernel_phase():
               for g, w in zip(got, want))
     bound, by = ssd_bound(*(m[k] for k in ("B", "S", "nh", "hd", "ng", "ds",
                                            "chunk")), dn, isz)
+    launched, scratch = ssd_call_footprint(
+        lambda: ssd.ssd_scan(*args, chunk=m["chunk"]))
+    n_launched = sum(c for _, c in launched)
+    if n_launched != SSD_KERNELS_PER_CALL:
+        fail(f"ssd_scan: one bf16 call launched {n_launched} CUDA kernels "
+             f"({launched}), not {SSD_KERNELS_PER_CALL}")
     results["ssd_scan"] = {
         "max_abs_err": err,
         "ms": time_ms(lambda: ssd.ssd_scan(*args, chunk=m["chunk"])),
+        "graph_ms": time_graph_ms(lambda: ssd.ssd_scan(*args,
+                                                       chunk=m["chunk"])),
         "plain_ms": time_ms(lambda: ref.ssd_scan(*args, chunk=m["chunk"]),
                             reps=5),
         "bound_ms": bound, "bound_by": by, "library_ms": None,
+        # one bf16 call's CUDA kernels and float32 scratch, read on the card
+        "cuda_kernels_per_call": n_launched,
+        "cuda_kernels": launched,
+        "scratch_bytes": scratch,
         "shape": f"B={m['B']} S={m['S']} nh={m['nh']} hd={m['hd']} "
                  f"ng={m['ng']} ds={m['ds']} chunk={m['chunk']} bf16 "
                  f"(model-like dt, A); max |err| / max|plain| {rel:.3e}, "
                  f"worst over the phase-2 cases f32 {worst['float32']:.3e} "
                  f"bf16 {worst['bfloat16']:.3e}; library_ms null: no "
                  "PyTorch call computes the SSD scan"}
+    args = ssd_inputs(gen, 1, 2048, m["nh"], m["hd"], m["ng"], m["ds"],
+                      dtype)
+    bound, by = ssd_bound(1, 2048, *(m[k] for k in ("nh", "hd", "ng", "ds",
+                                                   "chunk")), dn, isz)
+    results["ssd_scan"]["s2048"] = {
+        "ms": time_ms(lambda: ssd.ssd_scan(*args, chunk=m["chunk"])),
+        "graph_ms": time_graph_ms(lambda: ssd.ssd_scan(*args,
+                                                       chunk=m["chunk"])),
+        "plain_ms": time_ms(lambda: ref.ssd_scan(*args, chunk=m["chunk"]),
+                            reps=3),
+        "bound_ms": bound, "bound_by": by}
     print(f"ssd_scan main shape: {results['ssd_scan']}", flush=True)
 
     # MLA prefill's shape of the flash kernel, and the MLA decode kernel
     # at its main shape (bf16); the yardstick is one sdpa call over
     # q = [q_lat | q_rope], k = [ckv | k_rope] (one kv head) and v = ckv
     # (the concatenation not timed)
-    results["flash_attention"]["ms_mla_prefill_shape"] = flash_mla_checks(
-        gen)
+    results["flash_attention"]["mla_prefill_shape"] = flash_mla_checks(gen)
     from repro_torch.kernels import mla_decode as mla
     mla_checks(gen)
     m = MLA_MAIN
@@ -1451,6 +1611,7 @@ def sharing_bisect(model, params):
     eight 512-token prompts; cuBLAS picks its algorithm by shape). Returns
     (flash_bitwise, projection_bitwise)."""
     from repro_torch.kernels import ops
+    from repro_torch.models.layers import project
 
     dev, dt = model.device, params["embed"]["table"].dtype
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -1465,18 +1626,20 @@ def sharing_bisect(model, params):
     w = params["layers"][0]["attn"]["wq"]
     w = w.reshape(w.shape[0], -1)
     x = torch.randn(8 * whole, w.shape[0], generator=gen, device=dev).to(dt)
-    proj_bitwise = torch.equal((x[:sb] @ w), (x @ w)[:sb])
+    proj_bitwise = torch.equal(project(x[:sb], w), project(x, w)[:sb])
     return flash_bitwise, proj_bitwise
 
 
-def sharing_gate_phase(model, params, config, card: str, max_new: int = 32):
+def sharing_gate_phase(model, params, config, card: str, max_new: int = 32,
+                       padding: bool = True):
     """6c: one paged engine with prefix sharing and one without, at the
     same block budget, each driven through phase 6's two waves in turn,
     draining between them. Wave 2 must hit the shared prompt, the greedy
     streams must be identical and each request's prefill logits equal bit
     for bit between the modes. On a difference the failure carries the
     bisect: the prefill kernel over [context | suffix] against the whole
-    prompt, and a q projection at the two modes' row counts. Returns the
+    prompt, and a q projection at the two modes' row counts. Then, with
+    ``padding``, what the engine's prefill padding costs. Returns the
     launch counts of the two engines' runs."""
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import Request, ServingEngine
@@ -1531,9 +1694,10 @@ def sharing_gate_phase(model, params, config, card: str, max_new: int = 32):
           f"sharing on and off; hit_tokens on={hits[0]} off={hits[1]} "
           f"prefill_tokens_executed on={prefill[0]} off={prefill[1]}; "
           f"launches={launches} [card: {card}]", flush=True)
-    padding_cost(model, params, dataclasses.replace(config,
-                                                    prefix_cache=True),
-                 waves, max_new, card)
+    if padding:
+        padding_cost(model, params, dataclasses.replace(config,
+                                                        prefix_cache=True),
+                     waves, max_new, card)
     return launches
 
 
@@ -2201,6 +2365,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharing_launches = sharing_gate_phase(
         model, params, EngineConfig(max_seqs=8, **base), card)
+    # 6c again in float32 at full width (its own weights from the same
+    # seed), phase 6's whole two waves: the float32 projections run in
+    # fixed 128-row slices on the card, so sharing on == off bit for bit
+    torch.cuda.empty_cache()
+    model32, params32 = full_width_model(torch.float32)
+    sharing_launches_f32 = sharing_gate_phase(
+        model32, params32,
+        EngineConfig(max_seqs=8, **{**base, "dtype": torch.float32}), card,
+        padding=False)
+    del model32, params32
 
     # the same weights over int8 caches
     torch.cuda.empty_cache()
@@ -2243,6 +2417,7 @@ def main() -> int:
     # containers' own counts
     by_phase = {"phase4": launches, "phase6": paged_launches,
                 "phase6c": sharing_launches,
+                "phase6c_f32": sharing_launches_f32,
                 "phase7a": parity8, "phase7b": int8_launches,
                 "phase8": ssm_launches, "phase9": mla_launches,
                 "phase9b_dense": mla_parity[0],

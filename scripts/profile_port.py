@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's main path, on one NVIDIA card.
 
-    python3 scripts/profile_port.py [--out build/profile_port.json]
+    python3 scripts/profile_port.py [--src DIR] [--out FILE]
+    python3 scripts/profile_port.py --prefill [--src DIR] [--out FILE]
 
 Serves the ``chip_smoke.py`` phase-4 request set (qwen3-0.6b at full
 width, 28 layers, bf16, random weights from seed 0; n_slots=4,
@@ -13,13 +14,26 @@ wall time, generated tok/s and ttfc p50 for each. Then it times one
 of its kernels from ``torch.profiler``) and profiles one engine serving
 four of the requests: device-busy share of the wall time, kernel
 launches per decode step, and the operations with the most host time.
-Needs a CUDA device; prints a JSON summary and writes it to ``--out``.
+
+``--prefill`` profiles one 512-token prefill of qwen3-0.6b and of
+mamba2-2.7b instead (full width, bf16, seed 0, one dense engine each):
+the device time of all its kernels and of the prefill kernel
+(``flash_attention``; ``ssd_scan``'s kernels for mamba2) with their
+launches, by kernel name, and the median time from submission to the
+first streamed chunk of five fresh 512-token prompts (max_new=32).
+
+``--src`` imports the port from another checkout's ``src`` (for example
+a parent commit unpacked beside this one), so two versions can be read
+in turns on one card; each builds its kernels into its own checkout.
+Needs a CUDA device; prints a JSON summary and writes it to ``--out``
+(default ``build/profile_port.json``, or ``build/profile_prefill.json``).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -30,6 +44,10 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PLENS = [16, 512, 37, 200, 96, 333, 64, 480]
 MAX_NEW = 32
+PROMPT = 512
+TTFC_REPS = 5
+PREFILL_KERNELS = {"qwen3-0.6b": ("flash_attention",),
+                   "mamba2-2.7b": ("ssd_",)}
 
 
 def _device_us(evt) -> float:
@@ -66,18 +84,76 @@ def serve(model, params, config, n, concurrent, reqs_fn):
                                               50))}
 
 
+def profile_prefill(name: str) -> dict:
+    """One 512-token prefill of ``name`` under ``torch.profiler``, then
+    the time to first chunk of fresh prompts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import (EngineConfig, Request,
+                                            ServingEngine)
+    from repro_torch.serving.events import ChunkEvent
+
+    cfg = get_config(name)
+    model = Model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    eng = ServingEngine(model, params, EngineConfig(
+        n_slots=4, max_len=2048, dtype=torch.bfloat16, chunk_tokens=32))
+    rng = np.random.default_rng(7)
+
+    def prompt():
+        return rng.integers(0, cfg.vocab_size, (PROMPT,), dtype=np.int32)
+
+    for rid in range(2):                                  # warm-up
+        eng.submit_many([Request(rid, prompt(), 1)])
+        eng.run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.submit_many([Request(10, prompt(), 1)])
+        eng.run()
+        torch.cuda.synchronize()
+    evts = prof.key_averages()
+    kernel = [e for e in evts if _device_us(e) > 0 and any(
+        k in e.key for k in PREFILL_KERNELS[name])]
+    first: dict = {}
+    eng.on_event = lambda ev: (isinstance(ev, ChunkEvent)
+                               and first.setdefault(ev.rid, ev.time_s))
+    ttfc = []
+    for rid in range(100, 100 + TTFC_REPS):
+        torch.cuda.synchronize()
+        t_sub = time.perf_counter()
+        eng.submit_many([Request(rid, prompt(), 32)])
+        eng.run()
+        ttfc.append(first[rid] - t_sub)
+    out = {"model": name, "prompt_tokens": PROMPT,
+           "prefill_device_ms": sum(_device_us(e) for e in evts) / 1e3,
+           "prefill_kernel_device_ms": sum(_device_us(e)
+                                           for e in kernel) / 1e3,
+           "prefill_kernel_launches": sum(e.count for e in kernel),
+           "prefill_kernels": {e.key[:80]: [e.count, _device_us(e) / 1e3]
+                               for e in kernel},
+           "ttfc_s": ttfc, "ttfc_median_s": statistics.median(ttfc)}
+    del eng, params, model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=str(ROOT / "build" /
-                                         "profile_port.json"))
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--prefill", action="store_true")
+    ap.add_argument("--out", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.build import extension
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import (EngineConfig, Request,
                                             ServingEngine)
@@ -85,6 +161,12 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
+    extension()
+    if args.prefill:
+        return _report({"src": args.src, "card": card,
+                        "models": [profile_prefill(n)
+                                   for n in PREFILL_KERNELS]},
+                       args.out or ROOT / "build" / "profile_prefill.json")
     cfg = get_config("qwen3-0.6b")
     model = Model(cfg)
     params = model.init(seed=0, dtype=torch.bfloat16)
@@ -97,7 +179,7 @@ def main() -> int:
                                                dtype=np.int32), MAX_NEW)
                 for i, n in enumerate(PLENS)]
 
-    out = {"card": card, "runs": [serve(model, params, config, n, c, reqs_fn)
+    out = {"src": args.src, "card": card, "runs": [serve(model, params, config, n, c, reqs_fn)
                                   for n, c in ((2, True), (2, False),
                                                (1, False))]}
 
@@ -155,9 +237,13 @@ def main() -> int:
         "top_kernels": [{"kernel": e.key[:120], "calls": e.count,
                          "device_ms": _device_us(e) / 1e3}
                         for e in top_dev]}
+    return _report(out, args.out or ROOT / "build" / "profile_port.json")
+
+
+def _report(out: dict, path) -> int:
     text = json.dumps(out, indent=1)
-    pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    pathlib.Path(args.out).write_text(text)
+    pathlib.Path(path).parent.mkdir(parents=True, exist_ok=True)
+    pathlib.Path(path).write_text(text)
     print(text)
     return 0
 

@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Registers, shared memory and spills of every compiled kernel of the
-port, as ``ptxas -v`` reports them, on a machine with ``nvcc``.
+"""Registers, spills and tensor-core instructions of every compiled kernel
+of the port, on a machine with ``nvcc``.
 
     python3 scripts/ptxas_report.py
 
 Builds ``src/repro_torch/kernels/csrc`` with the port's own flags plus
 ``-Xptxas=-v`` into ``build/kernels_ptxas`` (the port's ``build/kernels``
-is left alone), then prints one line per kernel instantiation that
-spills, and a count of instantiations and spilling ones. The ptxas
-output itself goes to this process's standard output as the build runs.
+is left alone); the ptxas output goes to this process's standard output
+as the build runs. Then it reads the built library's SASS with
+``cuobjdump -sass`` and prints one line per kernel instantiation: its
+registers, spill stores and loads (bytes, from ptxas) and its count of
+tensor-core instructions (``HMMA``, or ``HGMMA`` for ``wgmma``), so a
+reader can see which bodies run their products on the tensor cores. Ends
+with a count of instantiations, spilling ones and ones with tensor-core
+instructions.
 """
 from __future__ import annotations
 
@@ -17,10 +22,58 @@ import io
 import os
 import pathlib
 import re
+import shutil
+import subprocess
 import sys
 import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+BUILD = ROOT / "build" / "kernels_ptxas"
+
+
+def ptxas_table(text: str) -> dict:
+    """{mangled name: [registers, spill stores, spill loads]} from ptxas -v."""
+    table, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            table[name] = [0, 0, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            table[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            table[name][0] = int(m.group(1))
+    return table
+
+
+def tensor_ops(library: pathlib.Path) -> dict:
+    """{mangled name: HMMA + HGMMA instructions} from cuobjdump -sass."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.search(r"\bH(G)?MMA\b", line):
+            counts[name] += 1
+    return counts
+
+
+def demangle(names) -> dict:
+    tool = shutil.which("c++filt")
+    if not tool:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True).stdout.splitlines()
+    return dict(zip(names, out)) if len(out) == len(names) else {
+        n: n for n in names}
 
 
 def main() -> int:
@@ -33,29 +86,27 @@ def main() -> int:
         os.dup2(log.fileno(), 1)
         try:
             with contextlib.redirect_stdout(io.StringIO()):
-                load_kernels(ROOT / "build" / "kernels_ptxas",
-                             extra_cuda_flags=("-Xptxas=-v",), verbose=True)
+                ext = load_kernels(BUILD, extra_cuda_flags=("-Xptxas=-v",),
+                                   verbose=True)
         finally:
             os.dup2(saved, 1)
             os.close(saved)
             log.seek(0)
             text = log.read()
             print(text, flush=True)
-    name, n_kernels, spilling = None, 0, []
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-            n_kernels += 1
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and name and (int(m.group(1)) or int(m.group(2))):
-            spilling.append((name, int(m.group(1)), int(m.group(2))))
-    for name, st, ld in spilling:
-        print(f"spill: {name}: {st} bytes stores, {ld} bytes loads")
-    print(f"ptxas: {n_kernels} kernel instantiations, {len(spilling)} "
-          "spill")
+    table = ptxas_table(text)
+    ops = tensor_ops(pathlib.Path(ext.__file__))
+    names = demangle(sorted(table))
+    spilling = tensor = 0
+    for name in sorted(table):
+        regs, st, ld = table[name]
+        n_ops = ops.get(name, 0)
+        spilling += bool(st or ld)
+        tensor += bool(n_ops)
+        print(f"kernel: regs={regs} spill_stores={st} spill_loads={ld} "
+              f"tensor_core_instructions={n_ops} {names[name]}")
+    print(f"ptxas: {len(table)} kernel instantiations, {spilling} spill, "
+          f"{tensor} with tensor-core instructions")
     return 0
 
 

@@ -39,8 +39,10 @@ int paged_decode_attention_int8_launch(
     int K, float scale, float softcap, int is_bf16, void* stream);
 int ssd_scan_launch(const void* x, const void* dt, const void* A,
                     const void* Bm, const void* Cm, const void* D, void* y,
-                    void* state, int B, int S, int nh, int hd, int ng, int ds,
-                    int is_bf16, void* stream);
+                    void* state, void* work, int B, int S, int nh, int hd,
+                    int ng, int ds, int is_bf16, void* stream);
+long long ssd_scan_work_floats(int B, int S, int nh, int hd, int ng, int ds,
+                               int is_bf16);
 int mla_decode_launch(const void* q_lat, const void* q_rope, const void* ckv,
                       const void* k_rope, const void* valid, void* out,
                       void* work, int B, int S, int H, int r, int dr,
@@ -110,10 +112,11 @@ int paged_decode_attention_int8(
 
 int ssd_scan(std::uintptr_t x, std::uintptr_t dt, std::uintptr_t A,
              std::uintptr_t Bm, std::uintptr_t Cm, std::uintptr_t D,
-             std::uintptr_t y, std::uintptr_t state, int B, int S, int nh,
-             int hd, int ng, int ds, bool is_bf16, std::uintptr_t stream) {
+             std::uintptr_t y, std::uintptr_t state, std::uintptr_t work,
+             int B, int S, int nh, int hd, int ng, int ds, bool is_bf16,
+             std::uintptr_t stream) {
   return ssd_scan_launch(ptr(x), ptr(dt), ptr(A), ptr(Bm), ptr(Cm), ptr(D),
-                         ptr(y), ptr(state), B, S, nh, hd, ng, ds,
+                         ptr(y), ptr(state), ptr(work), B, S, nh, hd, ng, ds,
                          is_bf16 ? 1 : 0, ptr(stream));
 }
 
@@ -145,6 +148,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("decode_attention_int8", &decode_attention_int8);
   m.def("paged_decode_attention_int8", &paged_decode_attention_int8);
   m.def("ssd_scan", &ssd_scan);
+  m.def("ssd_scan_work_floats",
+        [](int B, int S, int nh, int hd, int ng, int ds, bool is_bf16) {
+          return ssd_scan_work_floats(B, S, nh, hd, ng, ds, is_bf16 ? 1 : 0);
+        });
   m.def("mla_decode_ctx", &mla_decode_ctx);
   m.def("rmsnorm", &rmsnorm);
   m.def("error_string",

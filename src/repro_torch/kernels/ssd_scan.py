@@ -26,7 +26,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (nh,) contiguous float32 on the same device. Returns (y (B, S, nh,
     hd), final state (B, nh, hd, ds)) in x's dtype. ``chunk`` is clamped
     to S and must divide it, as the Pallas kernel asserts; the kernel's
-    own tiling does not depend on it."""
+    own tiling does not depend on it. In bfloat16 one call runs three CUDA
+    kernels (chunk states, the pass over them, the outputs) and counts as
+    one launch; float32 runs one."""
     tensors = {"x": x, "dt": dt, "A": A, "B_": B_, "C_": C_, "D": D}
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != x.device:
@@ -63,12 +65,18 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if chunk < 1 or S % chunk:
         raise ValueError(f"ssd_scan: S={S} is not a multiple of "
                          f"chunk={chunk}")
+    ext, bf16 = extension(), x.dtype == torch.bfloat16
     y = torch.empty_like(x)
     state = torch.empty((Bb, nh, hd, ds), dtype=x.dtype, device=x.device)
-    err = extension().ssd_scan(
+    # the bfloat16 body's float32 scratch: C.B^T per chunk and group; a
+    # decay, the running sums and an (hd, ds) state per chunk and head
+    work = torch.empty((ext.ssd_scan_work_floats(Bb, S, nh, hd, ng, ds,
+                                                 bf16),),
+                       dtype=torch.float32, device=x.device)
+    err = ext.ssd_scan(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
-        C_.data_ptr(), D.data_ptr(), y.data_ptr(), state.data_ptr(), Bb, S,
-        nh, hd, ng, ds, x.dtype == torch.bfloat16,
+        C_.data_ptr(), D.data_ptr(), y.data_ptr(), state.data_ptr(),
+        work.data_ptr(), Bb, S, nh, hd, ng, ds, bf16,
         torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(err, "ssd_scan")
     launches.add()

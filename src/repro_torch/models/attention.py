@@ -32,7 +32,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import apply_rope, rmsnorm_fwd, truncated_normal
+from repro_torch.models.layers import (apply_rope, project, rmsnorm_fwd,
+                                      truncated_normal)
 
 
 def init_attn(cfg: ArchConfig, dtype: torch.dtype,
@@ -93,13 +94,13 @@ def _leaves(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor) -> dict:
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum('bsd,dhk->bshk') as one matmul."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).view(*x.shape[:-1], h, k)
+    return project(x, w.reshape(d, h * k)).view(*x.shape[:-1], h, k)
 
 
 def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum('bshk,hkd->bsd') as one matmul."""
     h, k, d = wo.shape
-    return o.reshape(*o.shape[:-2], h * k) @ wo.reshape(h * k, d)
+    return project(o.reshape(*o.shape[:-2], h * k), wo.reshape(h * k, d))
 
 
 def _qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
@@ -253,7 +254,7 @@ def _mla_latents(p: dict, cfg: ArchConfig, x: torch.Tensor,
     """The normalised latent (B, S, r) and the rotated shared rope key
     (B, S, dr) of x (B, S, d): what the cache stores."""
     r = cfg.kv_lora_rank
-    dkv = x @ p["w_dkv"]
+    dkv = project(x, p["w_dkv"])
     ckv = rmsnorm_fwd(p["kv_norm"], dkv[..., :r], cfg.norm_eps)
     k_rope = apply_rope(dkv[..., None, r:], positions, cfg.rope_theta)
     return ckv, k_rope[:, :, 0]

@@ -8,6 +8,9 @@ and cast back, as the JAX versions do; RMSNorm goes through
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
 
@@ -83,6 +86,57 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 # ---------------------------------------------------------------------------
+# projections
+# ---------------------------------------------------------------------------
+# Inside a prefill (``prefill_products``) a float32 product on the card
+# runs in fixed slices of this many rows, so a row's bits do not depend on
+# the batch's row count (serving.engine's MIN_PREFILL_ROWS note says which
+# module keeps that for which dtype). A decode step keeps one product: its
+# rows are the engine's slots, a fixed count.
+ROW_SLICE = 128
+
+_prefill = threading.local()
+
+
+@contextlib.contextmanager
+def prefill_products():
+    """Within it, ``project`` slices float32 products on the card (per
+    thread: a ThreadBackend runs one engine a thread)."""
+    was = getattr(_prefill, "on", False)
+    _prefill.on = True
+    try:
+        yield
+    finally:
+        _prefill.on = was
+
+
+def sliced_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x (..., K) @ w (K, N)`` as products of exactly ``ROW_SLICE`` rows
+    each, the last slice zero-padded: every row goes through a GEMM of one
+    shape."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K)
+    n = x2.shape[0]
+    padded = -(-n // ROW_SLICE) * ROW_SLICE
+    if padded != n:
+        x2 = torch.cat([x2, x2.new_zeros((padded - n, K))])
+    out = x2.new_empty((padded, w.shape[1]))
+    for i in range(0, padded, ROW_SLICE):
+        torch.mm(x2[i:i + ROW_SLICE], w, out=out[i:i + ROW_SLICE])
+    return out[:n].reshape(*lead, w.shape[1])
+
+
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for every projection of a forward: float32 on the card
+    inside ``prefill_products`` through ``sliced_matmul``; otherwise (a
+    decode step, bfloat16, the CPU) as one product."""
+    if (x.device.type == "cuda" and x.dtype == torch.float32
+            and getattr(_prefill, "on", False)):
+        return sliced_matmul(x, w)
+    return x @ w
+
+
+# ---------------------------------------------------------------------------
 # MLP (SwiGLU), embedding, linear
 # ---------------------------------------------------------------------------
 def init_mlp(d_model: int, d_ff: int, dtype: torch.dtype,
@@ -96,7 +150,8 @@ def init_mlp(d_model: int, d_ff: int, dtype: torch.dtype,
 
 
 def mlp_fwd(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    return project(F.silu(project(x, p["w_gate"])) * project(x, p["w_up"]),
+                   p["w_down"])
 
 
 def embed_fwd(p: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -104,5 +159,5 @@ def embed_fwd(p: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def linear_fwd(p: dict, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+    y = project(x, p["w"])
     return y + p["b"] if "b" in p else y

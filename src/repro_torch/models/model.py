@@ -44,7 +44,8 @@ from repro_torch.models import blocks
 from repro_torch.models import cache as paged
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (embed_fwd, init_norm, linear_fwd,
-                                       norm_fwd, truncated_normal)
+                                       norm_fwd, prefill_products, project,
+                                       truncated_normal)
 
 Params = dict
 Cache = list
@@ -178,7 +179,7 @@ class Model:
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x = norm_fwd(self.cfg, params["final_norm"], x)
         if self.cfg.tie_embeddings:
-            return x @ params["embed"]["table"].T
+            return project(x, params["embed"]["table"].T)
         return linear_fwd(params["lm_head"], x)
 
     @staticmethod
@@ -194,10 +195,11 @@ class Model:
                 logits_at: int | torch.Tensor = -1) -> torch.Tensor:
         """tokens: (B, S) from position 0. Fills ``cache`` in place and
         returns the logits (B, V) at ``logits_at``."""
-        x = embed_fwd(params["embed"], tokens)
-        for p, c in zip(params["layers"], cache):
-            x = _PREFILL[_kind(p)](p, self.cfg, x, c)
-        return self._head(params, self._sel(x, logits_at))
+        with prefill_products():
+            x = embed_fwd(params["embed"], tokens)
+            for p, c in zip(params["layers"], cache):
+                x = _PREFILL[_kind(p)](p, self.cfg, x, c)
+            return self._head(params, self._sel(x, logits_at))
 
     def prefill_suffix(self, params: Params, tokens: torch.Tensor,
                        cache: Cache, ctx: list, offset: int,
@@ -211,11 +213,12 @@ class Model:
         families over GQA only, as in JAX."""
         if self.fam not in ("dense", "moe") or self.cfg.mla:
             raise ValueError(f"prefix sharing unsupported for {self.fam}")
-        x = embed_fwd(params["embed"], tokens)
-        for p, c, cx in zip(params["layers"], cache, ctx):
-            x = _SUFFIX_PREFILL[_kind(p)](p, self.cfg, x, c, cx["k"],
-                                          cx["v"], offset)
-        return self._head(params, self._sel(x, logits_at))
+        with prefill_products():
+            x = embed_fwd(params["embed"], tokens)
+            for p, c, cx in zip(params["layers"], cache, ctx):
+                x = _SUFFIX_PREFILL[_kind(p)](p, self.cfg, x, c, cx["k"],
+                                              cx["v"], offset)
+            return self._head(params, self._sel(x, logits_at))
 
     def decode_step(self, params: Params, tokens: torch.Tensor,
                     cache: Cache, pos: torch.Tensor) -> torch.Tensor:

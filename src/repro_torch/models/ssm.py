@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import rmsnorm_fwd, truncated_normal
+from repro_torch.models.layers import project, rmsnorm_fwd, truncated_normal
 
 # leaves kept in float32 whatever the model's dtype
 F32_LEAVES = ("A_log", "D", "dt_bias")
@@ -93,7 +93,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def _gate_out(p: dict, cfg: ArchConfig, y: torch.Tensor,
               z: torch.Tensor) -> torch.Tensor:
     y = rmsnorm_fwd(p["norm"], y * F.silu(z), cfg.norm_eps)
-    return y @ p["out_proj"]
+    return project(y, p["out_proj"])
 
 
 def mamba2_fwd(p: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -103,7 +103,7 @@ def mamba2_fwd(p: dict, cfg: ArchConfig, x: torch.Tensor,
     place with this prefill's, for the decode that follows."""
     B, S, _ = x.shape
     di, nh, ng, ds, _ = _dims(cfg)
-    z, xbc, dt_raw = _split_proj(cfg, x @ p["in_proj"])
+    z, xbc, dt_raw = _split_proj(cfg, project(x, p["in_proj"]))
     xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"])
     xs, B_, C_ = torch.split(xbc, [di, ng * ds, ng * ds], dim=-1)
     dt = softplus(dt_raw.float() + p["dt_bias"])
@@ -146,7 +146,7 @@ def mamba2_decode(p: dict, cfg: ArchConfig, x: torch.Tensor,
     ds)}, both updated in place."""
     B = x.shape[0]
     di, nh, ng, ds, _ = _dims(cfg)
-    z, xbc, dt_raw = _split_proj(cfg, x @ p["in_proj"])
+    z, xbc, dt_raw = _split_proj(cfg, project(x, p["in_proj"]))
     xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"],
                                    cache["conv"])
     xs, B_, C_ = torch.split(xbc[:, 0], [di, ng * ds, ng * ds], dim=-1)

@@ -56,6 +56,11 @@ from repro_torch.serving.faults import (EXIT_FAULT_KILL, FaultPlan,
 
 _READY_POLL_S = 0.05
 _IDLE_POLL_S = 0.05
+# how long the parent waits for a child that reported a step error to exit
+# with its classified code before terminating it; the join returns at the
+# exit, so only a child that hangs on its way out costs the whole bound
+# (a loaded host can take over a second to tear a torch process down)
+_ERROR_EXIT_WAIT_S = 10.0
 
 
 class ThreadBackend:
@@ -484,7 +489,7 @@ class ProcessBackend:
             if kind == "error":
                 # the child reported and is exiting by itself: let its
                 # classified exit code land before reaping
-                proc.join(timeout=1.0)
+                proc.join(timeout=_ERROR_EXIT_WAIT_S)
             if proc.is_alive():
                 proc.terminate()
             proc.join(timeout=5)

@@ -54,6 +54,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.cache import PagedLayout
+from repro_torch.models.layers import ROW_SLICE
 from repro_torch.serving.cache import DenseCache, PagedCache
 from repro_torch.serving.events import ChunkEvent, DoneEvent
 
@@ -80,18 +81,23 @@ class Completion:
 PROMPT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 
 
-# On the card a paged engine prefills at least this many token rows a
-# batch, padded with whole zero rows. cuBLAS picks its GEMM algorithm by
-# shape: below 128 rows it computes some widths another way (qwen3's down
-# projection, K = 3072, N = 1024, bf16, on the H100), with reduced-
-# precision reduction on or off, so a prompt's bits would depend on how
-# many rows it was prefilled with, and prefix sharing prefills a few
-# suffix rows where the plain path prefills the whole prompt. From 128
-# rows on, a row of every bf16 projection of the models that share comes
-# out the same whatever the batch (tests/test_torch_gpu.py::
-# test_prefill_gemms_give_a_row_the_same_bits_from_min_prefill_rows_on);
-# float32 rows differ above 128 rows too.
-MIN_PREFILL_ROWS = 128
+# Prefix sharing prefills a few suffix rows where the plain path
+# prefills the whole prompt, so on the card a prefill row's bits must not
+# depend on how many rows its batch holds. cuBLAS picks its GEMM algorithm
+# by shape, and two modules keep the rows invariant, one for each dtype:
+# - bfloat16: this engine. A paged engine prefills at least this many
+#   token rows a batch, padded with whole zero rows (_prefill_rows). Below
+#   128 rows cuBLAS computes some widths another way (qwen3's down
+#   projection, K = 3072, N = 1024, on the H100), with reduced-precision
+#   reduction on or off; from 128 rows on a row of every bf16 projection
+#   of the models that share comes out the same whatever the batch
+#   (tests/test_torch_gpu.py::
+#   test_prefill_gemms_give_a_row_the_same_bits_from_min_prefill_rows_on).
+# - float32: models.layers.project. float32 rows move with the row count
+#   above 128 rows too, so a prefill's float32 projections run in fixed
+#   ROW_SLICE-row slices, which gives a row the same bits at any count;
+#   the engine does not pad them.
+MIN_PREFILL_ROWS = ROW_SLICE
 
 
 def _bucket(n: int, buckets=PROMPT_BUCKETS) -> int:
@@ -404,14 +410,15 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def _prefill_rows(self, n: int, width: int) -> int:
         """Rows of a prefill batch of ``n`` prompts ``width`` tokens wide:
-        a paged engine on the card adds zero rows up to
+        a bfloat16 paged engine on the card adds zero rows up to
         ``MIN_PREFILL_ROWS`` token rows, so sharing on and off give the
         same bits. Its mini-cache is ``width`` wide, so a batch gains
-        fewer than 128 token rows of cache and prefill. Not on the dense
-        path, which
+        fewer than 128 token rows of cache and prefill. Not in float32,
+        whose projections are sliced instead, nor on the dense path, which
         never shares, nor for MoE, where the expert capacity couples a
         batch's rows, nor on the CPU."""
         if (self.device.type != "cuda" or not self.paged
+                or self.config.dtype != torch.bfloat16
                 or self.model.fam == "moe"):
             return n
         return max(n, -(-MIN_PREFILL_ROWS // width))

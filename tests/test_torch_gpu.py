@@ -44,23 +44,35 @@ def _assert_close(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,K,window,softcap", [
-    (1, 77, 77, 16, 8, 128, 0, 0.0),
-    (2, 30, 95, 4, 2, 64, 0, 0.0),
-    (1, 130, 130, 4, 4, 32, 17, 0.0),
-    (1, 64, 64, 8, 2, 128, 0, 20.0),
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,K,Kv,window,softcap", [
+    (1, 77, 77, 16, 8, 128, 128, 0, 0.0),
+    (2, 30, 95, 4, 2, 64, 64, 0, 0.0),
+    (1, 130, 130, 4, 4, 32, 32, 17, 0.0),
+    (1, 64, 64, 8, 2, 128, 128, 0, 20.0),
+    (1, 100, 100, 4, 2, 72, 64, 0, 0.0),      # K padded to the MMA depth
+    (1, 130, 130, 4, 2, 192, 128, 0, 0.0),
+    (1, 77, 77, 4, 2, 5, 32, 0, 0.0),         # rows not on 16 bytes
+    (2, 70, 70, 4, 2, 64, 16, 0, 0.0),        # the narrowest Kv
+    (1, 90, 90, 4, 1, 128, 256, 0, 0.0),      # the widest Kv, Hkv = 1
+    (1, 40, 40, 4, 2, 256, 256, 0, 0.0),
+    (1, 96, 96, 8, 1, 128, 128, 0, 0.0),
+    (2, 1, 50, 4, 2, 128, 128, 0, 0.0),       # Sq = 1
+    (1, 40, 150, 4, 2, 64, 64, 0, 0.0),       # Sq < Skv, Skv ragged
+    (1, 80, 50, 4, 2, 64, 64, 0, 0.0),        # rows that see no key
 ])
-def test_flash_kernel_matches_plain(cuda, dtype, B, Sq, Skv, H, Hkv, K,
+def test_flash_kernel_matches_plain(cuda, dtype, B, Sq, Skv, H, Hkv, K, Kv,
                                     window, softcap):
     q = _randn(cuda, B, Sq, H, K, dtype=dtype)
     k = _randn(cuda, B, Skv, Hkv, K, dtype=dtype)
-    v = _randn(cuda, B, Skv, Hkv, K, dtype=dtype)
+    v = _randn(cuda, B, Skv, Hkv, Kv, dtype=dtype)
     before = ops.launch_counts()["flash_attention"]
     got = ops.flash_attention(q, k, v, window=window, softcap=softcap)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == before + 1
     _assert_close(got, ref.flash_attention(q, k, v, window=window,
                                            softcap=softcap), dtype)
+    # right-aligned queries: the first Sq - Skv rows see no key and give 0
+    assert bool((got[:, :max(Sq - Skv, 0)] == 0).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -427,6 +439,8 @@ def _ssd_args(gen, B, S, nh, hd, ng, ds, dtype):
     (2, 256, 2, 32, 1, 8, 64),
     (1, 512, 80, 64, 1, 128, 256),    # mamba2-2.7b's widths
     (1, 100, 6, 40, 3, 200, 100),     # ragged tile, hd not a tile multiple
+    (1, 2048, 80, 64, 1, 128, 256),   # 32 chunks of the kernel's cut
+    (1, 512, 80, 64, 2, 128, 256),    # two groups of 40 heads
 ])
 def test_ssd_kernel_matches_plain(cuda, dtype, B, S, nh, hd, ng, ds, chunk):
     """|kernel - plain| <= tol * max|plain| (5e-5 f32, 2e-2 bf16): the
@@ -604,16 +618,19 @@ def test_mla_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S", [512, 77])
-def test_flash_kernel_at_mla_widths(cuda, dtype, S):
-    """MLA prefill: K = 192 (nope 128 + rope 64), Kv = 128, H = Hkv = 16."""
-    q = _randn(cuda, 1, S, 16, 192, dtype=dtype)
-    k = _randn(cuda, 1, S, 16, 192, dtype=dtype)
-    v = _randn(cuda, 1, S, 16, 128, dtype=dtype)
+@pytest.mark.parametrize("Sq,Skv", [(512, 512), (77, 77), (1, 1), (1, 130),
+                                    (60, 200), (100, 40)])
+def test_flash_kernel_at_mla_widths(cuda, dtype, Sq, Skv):
+    """MLA prefill: K = 192 (nope 128 + rope 64), Kv = 128, H = Hkv = 16;
+    queries right-aligned, rows that see no key give 0."""
+    q = _randn(cuda, 1, Sq, 16, 192, dtype=dtype)
+    k = _randn(cuda, 1, Skv, 16, 192, dtype=dtype)
+    v = _randn(cuda, 1, Skv, 16, 128, dtype=dtype)
     got = ops.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert got.shape == (1, S, 16, 128)
+    assert got.shape == (1, Sq, 16, 128)
     _assert_close(got, ref.flash_attention(q, k, v), dtype)
+    assert bool((got[:, :max(Sq - Skv, 0)] == 0).all())
 
 
 @pytest.mark.parametrize("cache", ["dense", "paged"])
@@ -793,36 +810,42 @@ PREFILL_ROWS = (128, 129, 200, 256, 384, 512, 1000, 1024, 2048)
 HEAD_ROWS = (1, 2, 3, 4, 8, 16)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("name", ["qwen3-0.6b", "stablelm-1.6b"])
 def test_prefill_gemms_give_a_row_the_same_bits_from_min_prefill_rows_on(
-        cuda, name):
-    """The projections of the models that share prefixes, at full width in
-    bf16, give a row the same bits at every row count from
-    ``MIN_PREFILL_ROWS`` on, wherever the row sits among them; the logits
-    head, which a prefill computes at one row a prompt, at every count
-    from 1. With the engine's padding, sharing on and off then agree bit
-    for bit. (In float32 they do not: the same rows differ between 128
-    and 4096 rows at these widths, so full-width float32 sharing is not
-    bitwise on the card.)"""
+        cuda, name, dtype):
+    """The projections of the models that share prefixes, at full width,
+    as a prefill computes them (``layers.project`` inside
+    ``layers.prefill_products``), give a row the same
+    bits whatever the row count, wherever the row sits among them. In
+    bf16 (one cuBLAS product) at every count from ``MIN_PREFILL_ROWS`` on,
+    and the logits head, which a prefill computes at one row a prompt,
+    from 1; with the engine's padding, sharing on and off then agree bit
+    for bit. In float32 cuBLAS gives the same rows other bits between 128
+    and 4096 rows at these widths, so the card runs float32 projections
+    in fixed slices of ``layers.ROW_SLICE`` rows: at every count from 1."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.models.layers import prefill_products, project
     from repro_torch.serving.engine import MIN_PREFILL_ROWS
 
-    dtype = torch.bfloat16
     cfg = get_config(name)
     d, ff = cfg.d_model, cfg.d_ff
     q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     bad = []
 
     def check(x, w, rows, what):
-        full = x @ w
-        for at in (0, 37):
-            bad.extend((what, at, m) for m in rows
-                       if not torch.equal(x[at:at + m] @ w, full[at:at + m]))
+        with prefill_products():
+            full = project(x, w)
+            for at in (0, 37):
+                bad.extend((what, at, m) for m in rows
+                           if not torch.equal(project(x[at:at + m], w),
+                                              full[at:at + m]))
 
+    rows = ([m for m in PREFILL_ROWS if m >= MIN_PREFILL_ROWS]
+            if dtype == torch.bfloat16 else (1, 16, 100) + PREFILL_ROWS)
     for K, N in sorted({(d, q), (d, kv), (q, d), (d, ff), (ff, d)}):
         w = (K ** -0.5 * _randn(cuda, K, N, dtype=torch.float32)).to(dtype)
-        check(_randn(cuda, 4096, K, dtype=dtype), w,
-              [m for m in PREFILL_ROWS if m >= MIN_PREFILL_ROWS], (K, N))
+        check(_randn(cuda, 4096, K, dtype=dtype), w, rows, (K, N))
     table = (d ** -0.5 * _randn(cuda, cfg.vocab_size, d,
                                 dtype=torch.float32)).to(dtype)
     check(_randn(cuda, 256, d, dtype=dtype), table.T, HEAD_ROWS,
@@ -830,14 +853,32 @@ def test_prefill_gemms_give_a_row_the_same_bits_from_min_prefill_rows_on(
     assert not bad, bad
 
 
+def test_decode_projections_stay_one_product(cuda):
+    """Outside a prefill (a decode step, whose rows are the engine's
+    slots) a float32 projection on the card is the one product ``x @ w``;
+    inside ``prefill_products`` it is ``sliced_matmul``'s."""
+    from repro_torch.models.layers import (prefill_products, project,
+                                           sliced_matmul)
+
+    x = _randn(cuda, 8, 1024, dtype=torch.float32)
+    w = 0.03 * _randn(cuda, 1024, 3072, dtype=torch.float32)
+    assert torch.equal(project(x, w), x @ w)
+    with prefill_products():
+        assert torch.equal(project(x, w), sliced_matmul(x, w))
+    assert torch.equal(project(x, w), x @ w)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ctx", [256, 272])
 def test_flash_over_context_and_suffix_equals_the_whole_prompt_bits(
-        cuda, dtype):
+        cuda, dtype, ctx):
     """The suffix prefill's attention (queries of the suffix against
     [cached context | suffix]) gives the whole-prompt prefill's rows bit
     for bit on the same keys and values: the kernel walks the keys in
-    the same tiles from position 0 in both."""
-    H, Hkv, K, ctx, n, whole, sb = 16, 8, 128, 256, 100, 512, 128
+    the same tiles from position 0 in both. A context of 272 (17 blocks of
+    16, not a multiple of the 64-row query tile) puts each row at another
+    place in its query tile and MMA tile than the whole prompt does."""
+    H, Hkv, K, n, whole, sb = 16, 8, 128, 100, 512, 128
     q = _randn(cuda, 2, whole, H, K, dtype=dtype)
     k = _randn(cuda, 2, whole, Hkv, K, dtype=dtype)
     v = _randn(cuda, 2, whole, Hkv, K, dtype=dtype)

@@ -157,3 +157,69 @@ def test_greedy_decode_chunk_tokens_identical(pair):
         assert tblock[i, :n].tolist() == np.asarray(jblock)[i, :n].tolist()
     for k in ("tokens", "pos", "remaining", "active"):
         assert tstate[k].tolist() == np.asarray(jstate[k]).tolist(), k
+
+
+@pytest.mark.parametrize("shape", [(3, 77, 64), (5, 64), (2, 128, 64),
+                                   (0, 64)])
+def test_sliced_matmul_is_the_products_of_its_slices(shape):
+    """``layers.sliced_matmul``, the card's float32 projection: every row
+    comes from one ``ROW_SLICE``-row product of the zero-padded slice that
+    holds it, and the whole agrees with JAX's ``x @ w``."""
+    from repro_torch.models import layers
+
+    rows = layers.ROW_SLICE
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = rng.standard_normal((64, 40)).astype(np.float32)
+    got = layers.sliced_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.shape == (*shape[:-1], 40)
+    flat = torch.from_numpy(x.reshape(-1, 64))
+    n = flat.shape[0]
+    padded = torch.cat([flat, flat.new_zeros((-n % rows, 64))])
+    want = [padded[i:i + rows] @ torch.from_numpy(w)
+            for i in range(0, padded.shape[0], rows)]
+    assert torch.equal(got.reshape(-1, 40),
+                       torch.cat(want)[:n] if want else flat[:, :40])
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jnp.asarray(x) @ jnp.asarray(w)),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_project_is_one_product_off_the_card(dtype):
+    """On the CPU (and in bfloat16 anywhere) ``layers.project`` is the one
+    product ``x @ w``, so the CPU path keeps its bits."""
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 9, 32)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((32, 24)).astype(np.float32))
+    x, w = x.to(dtype), w.to(dtype)
+    assert torch.equal(layers.project(x, w), x @ w)
+
+
+def test_prefill_products_is_scoped_to_its_thread():
+    """``layers.prefill_products`` turns float32 slicing on for its own
+    thread only (a ThreadBackend runs one engine a thread), nests, and is
+    off again after it, an exception included."""
+    import threading
+
+    from repro_torch.models import layers
+
+    def on():
+        return getattr(layers._prefill, "on", False)
+
+    seen = []
+    with layers.prefill_products():
+        worker = threading.Thread(target=lambda: seen.append(on()))
+        worker.start()
+        worker.join()
+        with layers.prefill_products():
+            assert on()
+        assert on()
+    assert seen == [False] and not on()
+    with pytest.raises(RuntimeError):
+        with layers.prefill_products():
+            raise RuntimeError
+    assert not on()
+
