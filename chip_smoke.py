@@ -13,13 +13,17 @@ Phases, each raising on failure (any failure exits nonzero):
    tests/test_kernels.py: |kernel - plain| <= tol + tol*|plain| with
    tol 2e-5 (float32) and 2e-2 (bfloat16). The paged kernels are also
    held bitwise to their dense siblings over the gathered view, and must
-   ignore NaN in every page (and int8 scale page) no row owns. The int8
+   ignore NaN in every page (and int8 scale page) no row owns; rows end
+   on both sides of the split body's 64-position edges, and the same live
+   prefix must give the same bits at horizons 512 and 2048 (dense W,
+   paged nblk * bs). The int8
    kernels take int8 K/V quantised by the model's own quantiser, with
    float32 or bfloat16 queries. Times each (CUDA events) beside the plain
    version and ``scaled_dot_product_attention`` (a yardstick the port
    never calls; over the dequantised view for the int8 kernels); the
-   prefill kernel and sdpa, and the SSD scan, also as device time (calls
-   replayed from a CUDA graph). The SSD
+   prefill kernel, the four decode kernels, MLA decode and sdpa beside
+   each, and the SSD scan, also as device time (calls replayed from a
+   CUDA graph). The SSD
    scan at mamba2-2.7b's widths (nh=80, hd=64, ds=128, chunk 256):
    S = 512 and 2048, B = 2, a ragged one-chunk prompt, ng = 2, float32
    and bfloat16, |kernel - plain| <= tol * max|plain| (tol 5e-5 and
@@ -55,8 +59,9 @@ Phases, each raising on failure (any failure exits nonzero):
    prompts and max_new=32; the prefill and dense decode kernels must
    launch, and rmsnorm a multiple of the 113 norms of a forward (as on
    every later path, with that model's count). Reports one 4-slot decode
-   step's host time, launches and device time with the norms in plain
-   tensor code and through the rmsnorm kernel.
+   step's host time, launches, device time and the decode attention
+   kernels' part of it, with the norms in plain tensor code and through
+   the rmsnorm kernel.
 5. Dense vs paged: one dense and one paged ``ServingEngine`` (block_size
    16, max_seqs = n_slots = 4, so both decode the same rows) serve the
    same same-bucket request groups; their greedy streams must be
@@ -308,7 +313,9 @@ def gathered(kp, vp, table, lengths):
 def paged_checks(gen):
     """The paged kernel against its plain version; bitwise against the
     dense kernel over the gathered view; unchanged (and finite) with every
-    unowned page and the scratch page filled with NaN."""
+    unowned page and the scratch page filled with NaN. Rows end around
+    the split body's split edges too. Then the same live prefix at
+    horizons 512 and 2048 (dense W, paged nblk * bs) gives the same bits."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
@@ -320,7 +327,12 @@ def paged_checks(gen):
              ([48, 160, 300, 544], H, HKV, K, 16, 128, 30.0, 0),
              ([90, 7, 500], 8, 8, 64, 16, 32, 0.0, 0),      # G = 1
              ([90, 7, 500], 16, 4, 64, 16, 32, 0.0, 0),     # G = 4
-             ([90, 250, 500], 16, 2, 64, 16, 32, 0.0, 2)]   # G = 8
+             ([90, 250, 500], 16, 2, 64, 16, 32, 0.0, 2),   # G = 8
+             # rows ending at a 64-position split's edges, both sides
+             ([63, 64, 65, 0, 2048, 127, 128, 129], H, HKV, K, 16, 128,
+              0.0, 0),
+             ([300, 64, 129], 8, 8, 256, 16, 32, 30.0, 0),  # G = 1, K = 256
+             ([300, 64, 129], 16, 2, 32, 16, 32, 30.0, 0)]  # G = 8, K = 32
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for lengths, h, hkv, k, bs, nblk, softcap, share in cases:
@@ -353,6 +365,22 @@ def paged_checks(gen):
                 fail(f"{what}: output moved with NaN in unowned pages")
             print(f"{what}: max_abs_err={err:.3e}, bitwise equal to the "
                   "dense kernel, NaN unowned pages ignored", flush=True)
+        lengths = [48, 160, 300, 512, 0]
+        q, kp, vp, table, lens, _ = paged_case(
+            gen, lengths, h=H, hkv=HKV, k=K, bs=16, nblk=128, dtype=dtype)
+        kd, vd, valid = gathered(kp, vp, table, lens)
+        outs = [pa.paged_decode_attention(q, kp, vp, table, lens),
+                pa.paged_decode_attention(q, kp, vp,
+                                          table[:, :32].contiguous(), lens),
+                da.decode_attention(q, kd, vd, valid),
+                da.decode_attention(q, kd[:, :512].contiguous(),
+                                    vd[:, :512].contiguous(),
+                                    valid[:, :512].contiguous())]
+        if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+            fail(f"decode {dn}: the live prefix {lengths} gives other bits "
+                 "at horizon 512 than at 2048")
+        print(f"decode {dn} live {lengths}: paged nblk 128 / 32 and dense W "
+              "2048 / 512 bit for bit", flush=True)
 
 
 def quant(x):
@@ -871,12 +899,130 @@ def rmsnorm_checks(gen):
     return worst
 
 
+def decode_main_calls(gen) -> dict:
+    """The four decode kernels and MLA decode at their main-path shapes,
+    bfloat16: {name: {"kernel", "plain", "library": zero-argument calls,
+    "bound": (ms, by), "shape": text}}. Dense decode: a 4-slot step over
+    the 2048-slot ring with rows live to phase 4's depths; paged: phase
+    6's 8 rows of 16-token pages
+    live to 280-520; int8 at those shapes (int8 K/V from the model's
+    quantiser, bf16 queries); MLA at deepseek-v2-lite's widths. The
+    library call is one ``scaled_dot_product_attention`` the port never
+    makes: masked, over the pre-gathered dense view (paged), over the
+    dequantised bf16 view (int8), and over [q_lat | q_rope] against
+    [ckv | k_rope] (MLA); gathers, dequantisation and concatenation are
+    not timed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import mla_decode as mla
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    dtype, dn, isz = torch.bfloat16, "bfloat16", 2
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def sdpa(q, k, v, valid, **kw):
+        """(B, H, K) queries against (B, W, Hkv, K) keys/values."""
+        q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        mask4 = valid[:, None, None, :]
+        return lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask4, enable_gqa=True, **kw)
+
+    def dequant(codes, scale):
+        return (codes.float() * scale[..., None]).to(dtype)
+
+    calls = {}
+    B, W = 4, 2048
+    depth = torch.tensor([48, 160, 300, 544], device=dev)
+    valid = torch.arange(W, device=dev)[None, :] < depth[:, None]
+    q, k, v = randn(B, H, K), randn(B, W, HKV, K), randn(B, W, HKV, K)
+    calls["decode_attention"] = {
+        "kernel": lambda: da.decode_attention(q, k, v, valid),
+        "plain": lambda: ref.decode_attention(q, k, v, valid),
+        "library": sdpa(q, k, v, valid),
+        "bound": decode_bound(B, W, valid, dn, isz),
+        "shape": f"B={B} W={W} H={H} Hkv={HKV} K={K} bf16 live="
+                 f"{depth.tolist()}"}
+
+    lengths, bs, nblk = PAGED_MAIN_LENGTHS, 16, 128
+    pq, kp, vp, table, lens, _ = paged_case(gen, lengths, h=H, hkv=HKV, k=K,
+                                            bs=bs, nblk=nblk, dtype=dtype)
+    kd, vd, pvalid = gathered(kp, vp, table, lens)
+    calls["paged_decode_attention"] = {
+        "kernel": lambda: pa.paged_decode_attention(pq, kp, vp, table, lens),
+        "plain": lambda: ref.paged_decode_attention(pq, kp, vp, table, lens),
+        "library": sdpa(pq, kd, vd, pvalid),
+        "bound": paged_bound(len(lengths), nblk, lens, dn, isz),
+        "shape": f"B={len(lengths)} bs={bs} nblk={nblk} H={H} Hkv={HKV} "
+                 f"K={K} bf16 live={lengths}; library_ms is sdpa over the "
+                 "pre-gathered dense view (gather not counted)"}
+
+    qi = randn(B, H, K)
+    kq, ks = quant(torch.randn(B, W, HKV, K, generator=gen, device=dev))
+    vq, vs = quant(torch.randn(B, W, HKV, K, generator=gen, device=dev))
+    calls["decode_attention_int8"] = {
+        "kernel": lambda: da.decode_attention_int8(qi, kq, vq, valid, ks, vs),
+        "plain": lambda: ref.decode_attention(qi, kq, vq, valid, k_scale=ks,
+                                              v_scale=vs),
+        "library": sdpa(qi, dequant(kq, ks), dequant(vq, vs), valid),
+        "bound": decode_bound(B, W, valid, dn, isz, row_bytes=K + 4),
+        "shape": f"B={B} W={W} H={H} Hkv={HKV} K={K} bf16 q, int8 K/V + "
+                 f"f32 scales, live={depth.tolist()}; library_ms is sdpa "
+                 "over the dequantised bf16 view (dequant not counted)"}
+
+    iq, ikp, ivp, itable, ilens, _ = paged_case(
+        gen, lengths, h=H, hkv=HKV, k=K, bs=bs, nblk=nblk,
+        dtype=torch.float32)
+    iq = iq.to(dtype)
+    ikq, iks = quant(ikp)
+    ivq, ivs = quant(ivp)
+    ikd, ivd, ivalid = gathered(ikq, ivq, itable, ilens)
+    iksd, ivsd, _ = gathered(iks, ivs, itable, ilens)
+    calls["paged_decode_attention_int8"] = {
+        "kernel": lambda: pa.paged_decode_attention_int8(
+            iq, ikq, ivq, iks, ivs, itable, ilens),
+        "plain": lambda: ref.paged_decode_attention(
+            iq, ikq, ivq, itable, ilens, k_scale_pages=iks,
+            v_scale_pages=ivs),
+        "library": sdpa(iq, dequant(ikd, iksd), dequant(ivd, ivsd), ivalid),
+        "bound": paged_bound(len(lengths), nblk, ilens, dn, isz,
+                             row_bytes=K + 4),
+        "shape": f"B={len(lengths)} bs={bs} nblk={nblk} H={H} Hkv={HKV} "
+                 f"K={K} bf16 q, int8 pages + f32 scale pages, live="
+                 f"{lengths}; library_ms is sdpa over the pre-gathered, "
+                 "dequantised bf16 view (gather and dequant not counted)"}
+
+    m = MLA_MAIN
+    args = mla_inputs(gen, m["B"], m["S"], dtype)
+    mvalid = (torch.arange(m["S"], device=dev)[None, :]
+              < torch.tensor(MLA_DEPTHS, device=dev)[:, None])
+    ql, qr, ckv, kr = args
+    q4 = torch.cat([ql, qr], dim=-1)[:, :, None]
+    k4 = torch.cat([ckv, kr], dim=-1)[:, None]
+    mask4 = mvalid[:, None, None, :]
+    calls["mla_decode_ctx"] = {
+        "kernel": lambda: mla.mla_decode_ctx(*args, mvalid, scale=MLA_SCALE),
+        "plain": lambda: ref.mla_decode_ctx(*args, mvalid, scale=MLA_SCALE),
+        "library": lambda: F.scaled_dot_product_attention(
+            q4, k4, ckv[:, None], attn_mask=mask4, scale=MLA_SCALE,
+            enable_gqa=True),
+        "bound": mla_bound(mvalid, m["H"], m["r"], m["dr"], dn, isz),
+        "shape": f"B={m['B']} S={m['S']} H={m['H']} r={m['r']} "
+                 f"dr={m['dr']} bf16 live={MLA_DEPTHS}; library_ms is sdpa "
+                 "over q=[q_lat|q_rope], k=[ckv|k_rope] (one kv head), "
+                 "v=ckv (concatenation not counted)"}
+    return calls
+
+
 def kernel_phase():
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
 
     dev = torch.device("cuda")
@@ -968,120 +1114,25 @@ def kernel_phase():
                  "and library_ms launched one by one (CUDA events), "
                  "graph_ms and library_graph_ms replayed from a CUDA graph"}
 
-    B, W = 4, 2048
-    q = randn(B, H, K, dtype=dtype)
-    k = randn(B, W, HKV, K, dtype=dtype)
-    v = randn(B, W, HKV, K, dtype=dtype)
-    depth = torch.tensor([48, 160, 300, 544], device=dev)
-    valid = torch.arange(W, device=dev)[None, :] < depth[:, None]
-    err = check_close(da.decode_attention(q, k, v, valid),
-                      ref.decode_attention(q, k, v, valid), dn,
-                      "decode main shape")
-    bound, by = decode_bound(B, W, valid, dn, isz)
-    q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    mask4 = valid[:, None, None, :]
-    results["decode_attention"] = {
-        "max_abs_err": err,
-        "ms": time_ms(lambda: da.decode_attention(q, k, v, valid)),
-        "plain_ms": time_ms(lambda: ref.decode_attention(q, k, v, valid),
-                            reps=5),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=mask4, enable_gqa=True)),
-        "shape": f"B={B} W={W} H={H} Hkv={HKV} K={K} bf16 live="
-                 f"{depth.tolist()}"}
-
-    # paged decode at the phase-6 shape: 8 rows (max_seqs) of a 2048-token
-    # horizon in 16-token pages, live to depths in the range its requests
-    # reach (256-token prompt prefix + tail + decoded tokens)
-    lengths, bs, nblk = PAGED_MAIN_LENGTHS, 16, 128
-    q, kp, vp, table, lens, _ = paged_case(gen, lengths, h=H, hkv=HKV, k=K,
-                                           bs=bs, nblk=nblk, dtype=dtype)
-    err = check_close(pa.paged_decode_attention(q, kp, vp, table, lens),
-                      ref.paged_decode_attention(q, kp, vp, table, lens), dn,
-                      "paged main shape")
-    bound, by = paged_bound(len(lengths), nblk, lens, dn, isz)
-    kd, vd, valid = gathered(kp, vp, table, lens)
-    q4, k4, v4 = q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
-    mask4 = valid[:, None, None, :]
-    results["paged_decode_attention"] = {
-        "max_abs_err": err,
-        "ms": time_ms(lambda: pa.paged_decode_attention(q, kp, vp, table,
-                                                        lens)),
-        "plain_ms": time_ms(lambda: ref.paged_decode_attention(
-            q, kp, vp, table, lens), reps=5),
-        "bound_ms": bound, "bound_by": by,
-        # a yardstick that leaves out the gather: sdpa over the dense view
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=mask4, enable_gqa=True)),
-        "shape": f"B={len(lengths)} bs={bs} nblk={nblk} H={H} Hkv={HKV} "
-                 f"K={K} bf16 live={lengths}; library_ms is sdpa over the "
-                 "pre-gathered dense view (gather not counted)"}
-
-    # the int8 kernels at the same two decode shapes, bf16 queries over
-    # int8 K/V; the yardstick is sdpa over the dequantised bf16 view
-    # (dequantisation not counted: no PyTorch call attends over int8)
+    # the decode kernels and MLA decode at their main-path shapes: checked
+    # against their plain versions first, then one row each
     int8_checks(gen)
-    B, W = 4, 2048
-    q = randn(B, H, K, dtype=dtype)
-    kq, ks = quant(torch.randn(B, W, HKV, K, generator=gen, device=dev))
-    vq, vs = quant(torch.randn(B, W, HKV, K, generator=gen, device=dev))
-    depth = torch.tensor([48, 160, 300, 544], device=dev)
-    valid = torch.arange(W, device=dev)[None, :] < depth[:, None]
-    err = check_close(
-        da.decode_attention_int8(q, kq, vq, valid, ks, vs),
-        ref.decode_attention(q, kq, vq, valid, k_scale=ks, v_scale=vs), dn,
-        "int8 decode main shape")
-    bound, by = decode_bound(B, W, valid, dn, isz, row_bytes=K + 4)
-    k4 = (kq.float() * ks[..., None]).to(dtype).transpose(1, 2)
-    v4 = (vq.float() * vs[..., None]).to(dtype).transpose(1, 2)
-    mask4 = valid[:, None, None, :]
-    results["decode_attention_int8"] = {
-        "max_abs_err": err,
-        "ms": time_ms(lambda: da.decode_attention_int8(q, kq, vq, valid, ks,
-                                                       vs)),
-        "plain_ms": time_ms(lambda: ref.decode_attention(
-            q, kq, vq, valid, k_scale=ks, v_scale=vs), reps=5),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], k4, v4, attn_mask=mask4, enable_gqa=True)),
-        "shape": f"B={B} W={W} H={H} Hkv={HKV} K={K} bf16 q, int8 K/V + "
-                 f"f32 scales, live={depth.tolist()}; library_ms is sdpa "
-                 "over the dequantised bf16 view (dequant not counted)"}
-
-    lengths = PAGED_MAIN_LENGTHS
-    q, kp, vp, table, lens, _ = paged_case(gen, lengths, h=H, hkv=HKV, k=K,
-                                           bs=bs, nblk=nblk,
-                                           dtype=torch.float32)
-    q = q.to(dtype)
-    kq, ks = quant(kp)
-    vq, vs = quant(vp)
-    err = check_close(
-        pa.paged_decode_attention_int8(q, kq, vq, ks, vs, table, lens),
-        ref.paged_decode_attention(q, kq, vq, table, lens, k_scale_pages=ks,
-                                   v_scale_pages=vs), dn,
-        "int8 paged main shape")
-    bound, by = paged_bound(len(lengths), nblk, lens, dn, isz,
-                            row_bytes=K + 4)
-    kd, vd, valid = gathered(kq, vq, table, lens)
-    ksd, vsd, _ = gathered(ks, vs, table, lens)
-    k4 = (kd.float() * ksd[..., None]).to(dtype).transpose(1, 2)
-    v4 = (vd.float() * vsd[..., None]).to(dtype).transpose(1, 2)
-    mask4 = valid[:, None, None, :]
-    results["paged_decode_attention_int8"] = {
-        "max_abs_err": err,
-        "ms": time_ms(lambda: pa.paged_decode_attention_int8(
-            q, kq, vq, ks, vs, table, lens)),
-        "plain_ms": time_ms(lambda: ref.paged_decode_attention(
-            q, kq, vq, table, lens, k_scale_pages=ks, v_scale_pages=vs),
-            reps=5),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], k4, v4, attn_mask=mask4, enable_gqa=True)),
-        "shape": f"B={len(lengths)} bs={bs} nblk={nblk} H={H} Hkv={HKV} "
-                 f"K={K} bf16 q, int8 pages + f32 scale pages, live="
-                 f"{lengths}; library_ms is sdpa over the pre-gathered, "
-                 "dequantised bf16 view (gather and dequant not counted)"}
+    mla_checks(gen)
+    for name, row in decode_main_calls(gen).items():
+        results[name] = {
+            "max_abs_err": check_close(row["kernel"](), row["plain"](), dn,
+                                       f"{name} main shape"),
+            "ms": time_ms(row["kernel"]),
+            "plain_ms": time_ms(row["plain"], reps=5),
+            "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+            "library_ms": time_ms(row["library"]),
+            # device time, as for the prefill kernel
+            "graph_ms": time_graph_ms(row["kernel"]),
+            "library_graph_ms": time_graph_ms(row["library"]),
+            "shape": row["shape"] + "; ms and library_ms launched one by "
+                     "one (CUDA events), graph_ms and library_graph_ms "
+                     "replayed from a CUDA graph"}
+        print(f"{name} main shape: {results[name]}", flush=True)
 
     # the SSD scan at the main path's 512-token prefill, bf16; no PyTorch
     # call computes the scan, so there is no library yardstick
@@ -1135,41 +1186,8 @@ def kernel_phase():
         "bound_ms": bound, "bound_by": by}
     print(f"ssd_scan main shape: {results['ssd_scan']}", flush=True)
 
-    # MLA prefill's shape of the flash kernel, and the MLA decode kernel
-    # at its main shape (bf16); the yardstick is one sdpa call over
-    # q = [q_lat | q_rope], k = [ckv | k_rope] (one kv head) and v = ckv
-    # (the concatenation not timed)
+    # MLA prefill's shape of the flash kernel
     results["flash_attention"]["mla_prefill_shape"] = flash_mla_checks(gen)
-    from repro_torch.kernels import mla_decode as mla
-    mla_checks(gen)
-    m = MLA_MAIN
-    args = mla_inputs(gen, m["B"], m["S"], dtype)
-    valid = (torch.arange(m["S"], device=dev)[None, :]
-             < torch.tensor(MLA_DEPTHS, device=dev)[:, None])
-    err = check_close(mla.mla_decode_ctx(*args, valid, scale=MLA_SCALE),
-                      ref.mla_decode_ctx(*args, valid, scale=MLA_SCALE), dn,
-                      "mla main shape")
-    bound, by = mla_bound(valid, m["H"], m["r"], m["dr"], dn, isz)
-    ql, qr, ckv, kr = args
-    q4 = torch.cat([ql, qr], dim=-1)[:, :, None]
-    k4 = torch.cat([ckv, kr], dim=-1)[:, None]
-    v4 = ckv[:, None]
-    mask4 = valid[:, None, None, :]
-    results["mla_decode_ctx"] = {
-        "max_abs_err": err,
-        "ms": time_ms(lambda: mla.mla_decode_ctx(*args, valid,
-                                                 scale=MLA_SCALE)),
-        "plain_ms": time_ms(lambda: ref.mla_decode_ctx(
-            *args, valid, scale=MLA_SCALE), reps=5),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=mask4, scale=MLA_SCALE, enable_gqa=True)),
-        "shape": f"B={m['B']} S={m['S']} H={m['H']} r={m['r']} "
-                 f"dr={m['dr']} bf16 live={MLA_DEPTHS}; library_ms is sdpa "
-                 "over q=[q_lat|q_rope], k=[ckv|k_rope] (one kv head), "
-                 "v=ckv (concatenation not counted)"}
-    print(f"mla_decode_ctx main shape: {results['mla_decode_ctx']}",
-          flush=True)
 
     # RMSNorm at the block norm of a 512-token qwen3 prefill (bf16 rows
     # and scale); the yardstick is torch.nn.functional.rms_norm, which the
@@ -1340,7 +1358,8 @@ def main_path_phase(card: str):
             turns.append(decode_step_profile(model, params, tok, cache, pos))
         finally:
             ops.rmsnorm = kernel
-    fmt = "host_ms={:.3f} kernel_launches={} device_ms={:.3f}".format
+    fmt = ("host_ms={:.3f} kernel_launches={} device_ms={:.3f} "
+           "attention_device_ms={:.4f}").format
     print(f"main path, one 4-slot decode step (rows live to 48/160/300/544), "
           f"in turns plain, kernel, kernel, plain: norms in plain tensor "
           f"code {fmt(*turns[0])} / {fmt(*turns[3])}; norms through the "
@@ -1920,7 +1939,8 @@ def ssm_path_phase(card: str, n_containers: int = 2, max_new: int = 32):
             turns.append(decode_step_profile(model, params, tok, cache, pos))
         finally:
             ops.rmsnorm = kernel
-    fmt = "host_ms={:.3f} kernel_launches={} device_ms={:.3f}".format
+    fmt = ("host_ms={:.3f} kernel_launches={} device_ms={:.3f} "
+           "attention_device_ms={:.4f}").format
 
     n_tok = sum(len(c.tokens) for c in comps)
     ttfc_p50 = float(np.percentile([h.ttfc_s for h in handles], 50))
@@ -1939,11 +1959,18 @@ def ssm_path_phase(card: str, n_containers: int = 2, max_new: int = 32):
     return launches
 
 
+# the device-side kernels of the decode attention bodies (dense, paged,
+# int8) and of MLA decode, by the profiler's kernel names
+DECODE_KERNEL_NAMES = ("decode_split_detail::", "decode_attention_detail::",
+                       "mla_partial_kernel", "mla_merge_kernel")
+
+
 def decode_step_profile(model, params, tok, cache, pos):
     """One decode step's host wall (mean of 10, each ending in a
     synchronize, after 3 unmeasured), its kernel launches (profiler count
-    of launch calls) and its device ms (the profiler's self device time
-    of every kernel of the step; 0 where the profiler sees no device)."""
+    of launch calls), its device ms (the profiler's self device time of
+    every kernel of the step; 0 where the profiler sees no device) and the
+    part of it in the decode attention kernels (``DECODE_KERNEL_NAMES``)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         model.decode_step(params, tok, cache, pos)
@@ -1963,7 +1990,10 @@ def decode_step_profile(model, params, tok, cache, pos):
         "cuLaunchKernelEx"))
     device_ms = sum(getattr(e, "self_device_time_total", 0)
                     for e in events) / 1e3
-    return step_ms, launches, device_ms
+    attention_ms = sum(getattr(e, "self_device_time_total", 0)
+                       for e in events
+                       if any(n in e.key for n in DECODE_KERNEL_NAMES)) / 1e3
+    return step_ms, launches, device_ms, attention_ms
 
 
 # ---------------------------------------------------------------------------
@@ -2074,7 +2104,8 @@ def deepseek_path_phase(card: str, n_containers: int = 2,
             turns.append(decode_step_profile(model, params, tok, cache, pos))
         finally:
             ops.rmsnorm = kernel
-    fmt = "host_ms={:.3f} kernel_launches={} device_ms={:.3f}".format
+    fmt = ("host_ms={:.3f} kernel_launches={} device_ms={:.3f} "
+           "attention_device_ms={:.4f}").format
     n_tok = sum(len(c.tokens) for c in comps)
     ttfc_p50 = float(np.percentile([h.ttfc_s for h in handles], 50))
     print(f"deepseek path: {cfg.name} {cfg.n_layers} layers bf16, Router("

@@ -3,6 +3,7 @@
 
     python3 scripts/profile_port.py [--src DIR] [--out FILE]
     python3 scripts/profile_port.py --prefill [--src DIR] [--out FILE]
+    python3 scripts/profile_port.py --decode [--src DIR] [--out FILE]
 
 Serves the ``chip_smoke.py`` phase-4 request set (qwen3-0.6b at full
 width, 28 layers, bf16, random weights from seed 0; n_slots=4,
@@ -21,6 +22,17 @@ the device time of all its kernels and of the prefill kernel
 (``flash_attention``; ``ssd_scan``'s kernels for mamba2) with their
 launches, by kernel name, and the median time from submission to the
 first streamed chunk of five fresh 512-token prompts (max_new=32).
+
+``--decode`` reads the decode kernels' device time: each of the four
+decode kernels and ``mla_decode_ctx`` at ``chip_smoke.py`` phase 2's
+main shapes (bf16; its ``decode_main_calls``), 100 calls replayed from a
+CUDA graph, beside one ``scaled_dot_product_attention`` call's; the
+dense and paged kernels' device time against the live depth (4 rows all
+live to 1, 64, 256, 544, 1024 or 2048 of the 2048 positions), which
+separates a call's fixed cost from its cost a position; then
+one 4-slot qwen3 decode step (rows live to 48/160/300/544): its kernel
+launches, device ms, and the device ms and launches of the decode
+attention kernels by name.
 
 ``--src`` imports the port from another checkout's ``src`` (for example
 a parent commit unpacked beside this one), so two versions can be read
@@ -46,6 +58,7 @@ PLENS = [16, 512, 37, 200, 96, 333, 64, 480]
 MAX_NEW = 32
 PROMPT = 512
 TTFC_REPS = 5
+DEPTHS = (1, 64, 256, 544, 1024, 2048)   # live positions of every row
 PREFILL_KERNELS = {"qwen3-0.6b": ("flash_attention",),
                    "mamba2-2.7b": ("ssd_",)}
 
@@ -140,10 +153,71 @@ def profile_prefill(name: str) -> dict:
     return out
 
 
+def profile_decode() -> dict:
+    """The decode kernels' graph-replayed device time at phase 2's main
+    shapes, and one qwen3 decode step's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    cs.np, cs.torch = np, torch      # its main() binds these
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kernels = {}
+    for name, row in cs.decode_main_calls(gen).items():
+        kernels[name] = {"graph_ms": cs.time_graph_ms(row["kernel"]),
+                         "library_graph_ms": cs.time_graph_ms(
+                             row["library"]),
+                         "bound_ms": row["bound"][0]}
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_attention as pa
+    depths = {}
+    for depth in DEPTHS:
+        lengths = [depth] * 4
+        q, kp, vp, table, lens, _ = cs.paged_case(
+            gen, lengths, h=cs.H, hkv=cs.HKV, k=cs.K, bs=16, nblk=128,
+            dtype=torch.bfloat16)
+        kd, vd, valid = cs.gathered(kp, vp, table, lens)
+        depths[depth] = {
+            "decode_attention": cs.time_graph_ms(
+                lambda: da.decode_attention(q, kd, vd, valid)),
+            "paged_decode_attention": cs.time_graph_ms(
+                lambda: pa.paged_decode_attention(q, kp, vp, table, lens))}
+        del q, kp, vp, kd, vd
+
+    model = Model(get_config("qwen3-0.6b"))
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    cache = model.init_cache(4, 2048, torch.bfloat16)
+    tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    pos = torch.tensor([48, 160, 300, 544], dtype=torch.int32,
+                       device="cuda")
+    step_ms, launches, device_ms, _ = cs.decode_step_profile(
+        model, params, tok, cache, pos)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.decode_step(params, tok, cache, pos)
+        torch.cuda.synchronize()
+    attention = {e.key[:100]: [e.count, _device_us(e) / 1e3]
+                 for e in prof.key_averages() if _device_us(e) > 0 and any(
+                     n in e.key for n in cs.DECODE_KERNEL_NAMES)}
+    del cache, params, model
+    torch.cuda.empty_cache()
+    return {"kernels": kernels, "depth_graph_ms": depths,
+            "decode_step": {"host_ms": step_ms, "kernel_launches": launches,
+                            "device_ms": device_ms,
+                            "attention_device_ms": sum(
+                                ms for _, ms in attention.values()),
+                            "attention_kernels": attention}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--prefill", action="store_true")
+    ap.add_argument("--decode", action="store_true")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -167,6 +241,9 @@ def main() -> int:
                         "models": [profile_prefill(n)
                                    for n in PREFILL_KERNELS]},
                        args.out or ROOT / "build" / "profile_prefill.json")
+    if args.decode:
+        return _report({"src": args.src, "card": card, **profile_decode()},
+                       args.out or ROOT / "build" / "profile_decode.json")
     cfg = get_config("qwen3-0.6b")
     model = Model(cfg)
     params = model.init(seed=0, dtype=torch.bfloat16)

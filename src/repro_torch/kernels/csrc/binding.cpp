@@ -18,15 +18,16 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            int K, int Kv, int causal, int window, float scale,
                            float softcap, int is_bf16, void* stream);
 int decode_attention_launch(const void* q, const void* k, const void* v,
-                            const void* valid, void* out, int B, int W, int H,
-                            int Hkv, int K, float scale, float softcap,
-                            int is_bf16, void* stream);
+                            const void* valid, void* out, void* work, int B,
+                            int W, int H, int Hkv, int K, int split,
+                            float scale, float softcap, int is_bf16,
+                            void* stream);
 int paged_decode_attention_launch(const void* q, const void* k_pages,
                                   const void* v_pages, const void* table,
-                                  const void* lengths, void* out, int B,
-                                  int nblk, int bs, int H, int Hkv, int K,
-                                  float scale, float softcap, int is_bf16,
-                                  void* stream);
+                                  const void* lengths, void* out, void* work,
+                                  int B, int nblk, int bs, int H, int Hkv,
+                                  int K, int split, float scale,
+                                  float softcap, int is_bf16, void* stream);
 int decode_attention_int8_launch(const void* q, const void* k, const void* v,
                                  const void* valid, const void* k_scale,
                                  const void* v_scale, void* out, int B, int W,
@@ -67,23 +68,27 @@ int flash_attention(std::uintptr_t q, std::uintptr_t k, std::uintptr_t v,
 }
 
 int decode_attention(std::uintptr_t q, std::uintptr_t k, std::uintptr_t v,
-                     std::uintptr_t valid, std::uintptr_t out, int B, int W,
-                     int H, int Hkv, int K, float scale, float softcap,
+                     std::uintptr_t valid, std::uintptr_t out,
+                     std::uintptr_t work, int B, int W, int H, int Hkv,
+                     int K, int split, float scale, float softcap,
                      bool is_bf16, std::uintptr_t stream) {
   return decode_attention_launch(ptr(q), ptr(k), ptr(v), ptr(valid),
-                                 ptr(out), B, W, H, Hkv, K, scale, softcap,
-                                 is_bf16 ? 1 : 0, ptr(stream));
+                                 ptr(out), ptr(work), B, W, H, Hkv, K, split,
+                                 scale, softcap, is_bf16 ? 1 : 0,
+                                 ptr(stream));
 }
 
 int paged_decode_attention(std::uintptr_t q, std::uintptr_t k_pages,
                            std::uintptr_t v_pages, std::uintptr_t table,
-                           std::uintptr_t lengths, std::uintptr_t out, int B,
-                           int nblk, int bs, int H, int Hkv, int K,
-                           float scale, float softcap, bool is_bf16,
+                           std::uintptr_t lengths, std::uintptr_t out,
+                           std::uintptr_t work, int B, int nblk, int bs,
+                           int H, int Hkv, int K, int split, float scale,
+                           float softcap, bool is_bf16,
                            std::uintptr_t stream) {
   return paged_decode_attention_launch(
       ptr(q), ptr(k_pages), ptr(v_pages), ptr(table), ptr(lengths), ptr(out),
-      B, nblk, bs, H, Hkv, K, scale, softcap, is_bf16 ? 1 : 0, ptr(stream));
+      ptr(work), B, nblk, bs, H, Hkv, K, split, scale, softcap,
+      is_bf16 ? 1 : 0, ptr(stream));
 }
 
 int decode_attention_int8(std::uintptr_t q, std::uintptr_t k,

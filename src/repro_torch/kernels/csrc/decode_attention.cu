@@ -15,24 +15,34 @@
 // out (B, H, K), all contiguous; q, out (and K/V unless int8) float32 or
 // bfloat16; arithmetic in float32.
 //
-// The kernel body, its design and its bound are in decode_attention.cuh,
-// shared with the paged kernels (paged_attention.cu); this file gives it
-// the dense address policy: slot j of row b is row ((b*W + j)*Hkv + hk)*K
-// and is live iff valid[b, j]. A slot whose flag is false is neither read
-// nor added, and a row with no valid slot writes 0.
+// Which body. decode_attention runs the split body of decode_split.cuh
+// (blocks over P-position splits of the ring, 16-byte row loads, a merge
+// pass over the splits in order), with the dense address policy: slot j
+// of row b is cache row b*W + j and is live iff valid[b, j]; a split whose
+// P flags are all false reads no K/V. decode_attention_int8 runs the
+// one-block-per-row body of decode_attention.cuh. Both share their body
+// with the paged kernel of the same storage (paged_attention.cu), so a
+// paged kernel gives its dense sibling's bits over the same logical
+// cache. The design and the bound of each body are in its header. A slot
+// whose flag is false is neither read nor added, and a row with no valid
+// slot writes 0.
 #include "decode_attention.cuh"
+#include "decode_split.cuh"
 
 // Plain C++ entry points for the binding; each returns the cudaError_t of
 // the launch (0 on success). The caller has checked shapes, types and
-// layout.
+// layout; for decode_attention also 16-byte aligned K/V, and a float32
+// workspace of B*Hkv*ceil(W/split)*G*(K + 2) floats for split = 64, the
+// body's P (another split is refused).
 int decode_attention_launch(const void* q, const void* k, const void* v,
-                            const void* valid, void* out, int B, int W, int H,
-                            int Hkv, int K, float scale, float softcap,
-                            int is_bf16, void* stream) {
-  using namespace decode_attention_detail;
-  const DenseRows rows{static_cast<const unsigned char*>(valid), W, Hkv};
-  return launch_dtype(is_bf16, H / Hkv, K, q, k, v, rows, SameType{}, out,
-                      B, Hkv, scale, softcap, stream);
+                            const void* valid, void* out, void* work, int B,
+                            int W, int H, int Hkv, int K, int split,
+                            float scale, float softcap, int is_bf16,
+                            void* stream) {
+  using namespace decode_split_detail;
+  const DenseSplit rows{static_cast<const unsigned char*>(valid), W};
+  return launch_dtype(is_bf16, H / Hkv, K, split, q, k, v, rows, out, work,
+                      B, Hkv, W, scale, softcap, stream);
 }
 
 int decode_attention_int8_launch(const void* q, const void* k, const void* v,

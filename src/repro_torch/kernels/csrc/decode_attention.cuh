@@ -1,28 +1,26 @@
-// The single-token decode attention kernel body shared by the dense ring
-// (decode_attention.cu) and the paged pool (paged_attention.cu), in the
-// query's type or over an int8 cache, for Hopper (sm_90a).
+// The single-token decode attention body of the int8 kernels,
+// decode_attention_int8 (dense ring, decode_attention.cu) and
+// paged_decode_attention_int8 (page pool, paged_attention.cu), for Hopper
+// (sm_90a). The kernels with K/V in the query's type run the split body
+// of decode_split.cuh, which takes this file's type conversions.
 //
-// One body, two address policies and two storage policies. The dense ring
-// and the page pool differ only in where logical cache position j of row b
-// lives and whether it is live; a cache in the query's type and an int8
-// cache differ only in how a loaded element becomes a float. Everything
-// else (warp <-> position assignment, the U-row loads, the skip of dead
-// rows, the online softmax and the shared-memory merge) is this one
-// template. So for the same logical cache the dense and the paged kernel
-// do the same float operations in the same order and give the same bits,
-// in either storage, which is what keeps dense and paged greedy decode
-// bit-identical on the card.
+// One body, two address policies. The dense ring and the page pool differ
+// only in where logical cache position j of row b lives and whether it is
+// live. Everything else (warp <-> position assignment, the U-row loads,
+// the dequantisation, the skip of dead rows, the online softmax and the
+// shared-memory merge) is this one template. So for the same logical
+// cache the dense and the paged int8 kernel do the same float operations
+// in the same order and give the same bits, which is what keeps dense and
+// paged int8 greedy decode bit-identical on the card.
 //
 // Layout: q (B, H, K), out (B, H, K), contiguous, float32 or bfloat16;
 // arithmetic in float32. An address policy gives, per block, the number
 // of positions to walk (`extent`), whether position j is live (`live`)
-// and the element offset of its (kv head hk) row of K/V (`row`). A
-// storage policy gives the type K/V are stored in and each row's scales:
-// `SameType` stores them in q's type (scale 1, a no-op in float32);
-// `Int8Scales` stores int8 codes with one float32 scale per (position,
-// kv head), at index row / K of the (..., Hkv) scale array, and a row is
-// dequantised as it is loaded, before the dot (float(code) * scale), as
-// the Pallas int8 kernels dequantise their tiles in VMEM.
+// and the element offset of its (kv head hk) row of K/V (`row`). The
+// storage policy `Int8Scales` stores int8 codes with one float32 scale per
+// (position, kv head), at index row / K of the (..., Hkv) scale array, and
+// a row is dequantised as it is loaded, before the dot (float(code) *
+// scale), as the Pallas int8 kernels dequantise their tiles in VMEM.
 //
 // Design. One block per (kv head, batch row) holds that head's G query
 // heads in registers and streams the live cache rows once. Each warp walks
@@ -36,13 +34,12 @@
 // are read and nothing is added, so it contributes exactly 0.0, and a row
 // with no live position writes 0.
 //
-// Bound. Decode reads every live key and value once and does about
-// 4*G*K operations per row: it is bound by device-memory bytes,
-// 2*(live positions)*Hkv*K*itemsize per sequence, or with int8 K/V
-// 2*(live positions)*Hkv*(K + 4) (codes and scales), about half. Only
-// B*Hkv blocks run, so at small batch the card is far from full; splitting
-// the positions across blocks (a second merge pass) is later work, and so
-// are wider int8 loads (a lane reads single bytes here).
+// Bound. int8 decode reads every live code row and its scale once and
+// does about 4*G*K operations per row: it is bound by device-memory
+// bytes, 2*(live positions)*Hkv*(K + 4) per sequence. Only B*Hkv blocks
+// run, so at small batch the card is far from full, and a lane reads
+// single bytes: position splits (as decode_split.cuh) and 16-code loads
+// are later work.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -108,13 +105,6 @@ struct PagedRows {
     const int page = table[size_t(b) * nblk + j / bs];
     return ((size_t(page) * bs + j % bs) * Hkv + hk) * K;
   }
-};
-
-// K/V in the query's type: an element is read as it is.
-struct SameType {
-  template <typename T> using Stored = T;
-  __device__ float k_scale(size_t) const { return 1.f; }
-  __device__ float v_scale(size_t) const { return 1.f; }
 };
 
 // int8 K/V codes; the scale of a (position, kv head) row is at index

@@ -17,40 +17,42 @@
 // q, out (and the pages unless int8) float32 or bfloat16; arithmetic in
 // float32.
 //
-// Design. The TPU kernels gathered pages in their BlockSpec index maps,
-// with the table and lengths as scalar-prefetch operands and one grid step
-// per logical block. Here each block (one per kv head and batch row) reads
-// its own table row and computes page addresses as it walks: position j is
-// the row ((table[b, j/bs]*bs + j%bs)*Hkv + hk)*K, and its scale sits at
-// that row / K of the scale pages. The walk stops at lengths[b], so the
-// scratch page and unowned pages (and their scale pages) are never read,
-// and a row of length 0 writes 0.
+// The TPU kernels gathered pages in their BlockSpec index maps, with the
+// table and lengths as scalar-prefetch operands and one grid step per
+// logical block. Here a block computes page addresses itself: position j
+// is row table[b, j/bs]*bs + j%bs of the pool, and an int8 row's scale sits
+// at that row (times Hkv, plus the kv head) of the scale pages. Positions
+// from lengths[b] on are never read, so neither the scratch page nor an
+// unowned page (nor its scale page) is, and a row of length 0 writes 0.
 //
-// The kernel body is decode_attention.cuh, the same template as the dense
-// ring's kernels with this address policy: same warp <-> position
-// assignment, same U-row loads and dequantisation, same skip of dead rows,
-// same merge. For the same logical cache each paged kernel therefore gives
-// its dense sibling's bits, which keeps dense and paged greedy decode
-// bit-identical on the card, in either storage.
+// Which body. paged_decode_attention runs the split body of
+// decode_split.cuh with the paged address policy: a split whose first
+// position is at or past lengths[b] returns before it reads the table,
+// and a live split reads the table entry of each page it touches once.
+// paged_decode_attention_int8 runs the one-block-per-row body of
+// decode_attention.cuh, walking its row to lengths[b]. Each paged kernel
+// shares its body with its dense sibling (decode_attention.cu) and gives
+// its bits for the same logical cache, which keeps dense and paged
+// greedy decode bit-identical on the card, in either storage.
 //
 // Bound. Like dense decode it is bound by device-memory bytes: each live
 // key and value row once, 2*(live positions)*Hkv*K*itemsize (int8:
-// 2*(live positions)*Hkv*(K + 4)), plus the table; about 4*G*K operations
-// per row. Only B*Hkv blocks run; splitting positions across blocks and
-// cp.async/TMA page loads are later work.
+// 2*(live positions)*Hkv*(K + 4)), plus the table's live entries; about
+// 4*G*K operations per row. Each body's design is in its header.
 #include "decode_attention.cuh"
+#include "decode_split.cuh"
 
 int paged_decode_attention_launch(const void* q, const void* k_pages,
                                   const void* v_pages, const void* table,
-                                  const void* lengths, void* out, int B,
-                                  int nblk, int bs, int H, int Hkv, int K,
-                                  float scale, float softcap, int is_bf16,
-                                  void* stream) {
-  using namespace decode_attention_detail;
-  const PagedRows rows{static_cast<const int*>(table),
-                       static_cast<const int*>(lengths), nblk, bs, Hkv};
-  return launch_dtype(is_bf16, H / Hkv, K, q, k_pages, v_pages, rows,
-                      SameType{}, out, B, Hkv, scale, softcap, stream);
+                                  const void* lengths, void* out, void* work,
+                                  int B, int nblk, int bs, int H, int Hkv,
+                                  int K, int split, float scale,
+                                  float softcap, int is_bf16, void* stream) {
+  using namespace decode_split_detail;
+  const PagedSplit rows{static_cast<const int*>(table),
+                        static_cast<const int*>(lengths), nblk, bs};
+  return launch_dtype(is_bf16, H / Hkv, K, split, q, k_pages, v_pages, rows,
+                      out, work, B, Hkv, nblk * bs, scale, softcap, stream);
 }
 
 int paged_decode_attention_int8_launch(

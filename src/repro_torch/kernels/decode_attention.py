@@ -6,6 +6,11 @@
 ``decode_attention`` and ``decode_attention_int8`` take CUDA tensors only
 and launch their kernel or raise; ``kernels.ops`` sends CPU tensors to
 the plain version (``kernels.ref.decode_attention``) instead.
+
+``decode_attention`` (and ``paged_decode_attention``) run the split body
+(``csrc/decode_split.cuh``): blocks over ``SPLIT`` logical positions of a
+row, then a merge pass over the splits in order, through a float32
+workspace this wrapper allocates; ``split_layout`` gives its size.
 """
 from __future__ import annotations
 
@@ -18,6 +23,9 @@ DTYPES = (torch.float32, torch.bfloat16)
 GROUPS = (1, 2, 4, 8)
 HEAD_DIMS = (32, 64, 128, 256)
 MAX_GROUP_WIDTH = 512
+# positions a block of the split body covers (the kernel's P, which it
+# checks against the value passed)
+SPLIT = 64
 
 launches = LaunchCounter()
 int8_launches = LaunchCounter()
@@ -41,6 +49,24 @@ def check_kernel_shape(name: str, H: int, Hkv: int, K: int) -> None:
         raise ValueError(f"{name}: no kernel for G={G}, K={K} "
                          f"(G in {GROUPS}, K in {HEAD_DIMS}, "
                          f"G*K <= {MAX_GROUP_WIDTH})")
+
+
+def split_layout(extent: int, B: int, Hkv: int, G: int,
+                 K: int) -> tuple[int, tuple[int, ...]]:
+    """The split body's splits a row and its workspace shape for rows of
+    ``extent`` logical positions (W for the dense ring, nblk * bs for the
+    pages): each (row, kv head, split) leaves G*K context floats, then
+    each (row, kv head, split, query head) a max and a normaliser."""
+    nsplit = -(-extent // SPLIT)
+    return nsplit, (B * Hkv * nsplit * G * (K + 2),)
+
+
+def check_aligned(name: str, **tensors: torch.Tensor) -> None:
+    """Raise unless each tensor starts on 16 bytes (the split body reads
+    K/V rows in 16-byte loads)."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
 
 
 def check_int8(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -81,22 +107,25 @@ def _check_dense(name: str, q, k, v, valid) -> tuple[int, int, int, int, int]:
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor, *,
                      softcap: float = 0.0) -> torch.Tensor:
-    """q: (B, H, K); k/v: (B, W, Hkv, K); valid: (B, W) bool, all
-    contiguous CUDA tensors on one device, q/k/v of one dtype (float32 or
-    bfloat16). Returns (B, H, K) in that dtype."""
+    """q: (B, H, K); k/v: (B, W, Hkv, K), 16-byte aligned; valid: (B, W)
+    bool, all contiguous CUDA tensors on one device, q/k/v of one dtype
+    (float32 or bfloat16). Returns (B, H, K) in that dtype."""
     check_cuda("decode_attention", q, k=k, v=v, valid=valid)
     for name, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype or t.dtype not in DTYPES:
             raise TypeError(f"decode_attention: {name} dtype {t.dtype}; "
                             f"need one of {DTYPES}, equal to q's")
     B, W, H, Hkv, K = _check_dense("decode_attention", q, k, v, valid)
+    check_aligned("decode_attention", k=k, v=v)
+    _, shape = split_layout(W, B, Hkv, H // Hkv, K)
     out = torch.empty((B, H, K), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
+    work = torch.empty(shape, dtype=torch.float32, device=q.device)
     err = extension().decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-        out.data_ptr(), B, W, H, Hkv, K, K ** -0.5, float(softcap),
-        q.dtype == torch.bfloat16,
+        out.data_ptr(), work.data_ptr(), B, W, H, Hkv, K, SPLIT, K ** -0.5,
+        float(softcap), q.dtype == torch.bfloat16,
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, "decode_attention")
     launches.add()

@@ -6,17 +6,20 @@
 ``paged_decode_attention`` and ``paged_decode_attention_int8`` take CUDA
 tensors only and launch their kernel or raise; ``kernels.ops`` sends CPU
 tensors to the plain version (``kernels.ref.paged_decode_attention``)
-instead. The kernels share their body with the dense decode kernels, so
-they take the same (G, K).
+instead. Each shares its body with its dense sibling (the split body
+for ``paged_decode_attention``, with the same ``SPLIT`` and workspace),
+so they take the same (G, K).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.build import LaunchCounter, check_launch, extension
-from repro_torch.kernels.decode_attention import (DTYPES, check_cuda,
+from repro_torch.kernels.decode_attention import (DTYPES, SPLIT,
+                                                  check_aligned, check_cuda,
                                                   check_int8,
-                                                  check_kernel_shape)
+                                                  check_kernel_shape,
+                                                  split_layout)
 
 launches = LaunchCounter()
 int8_launches = LaunchCounter()
@@ -49,12 +52,13 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, table: torch.Tensor,
                            lengths: torch.Tensor, *,
                            softcap: float = 0.0) -> torch.Tensor:
-    """q: (B, H, K); k_pages/v_pages: (P+1, bs, Hkv, K); table: (B, nblk)
-    int32 page indices; lengths: (B,) int32 live positions per row. All
-    contiguous CUDA tensors on one device, q and the pages of one dtype
-    (float32 or bfloat16). Returns (B, H, K) in that dtype. The table's
-    values are not checked here (that would cost a host sync per call):
-    every entry below a row's length must name a page of the pool."""
+    """q: (B, H, K); k_pages/v_pages: (P+1, bs, Hkv, K), 16-byte aligned;
+    table: (B, nblk) int32 page indices; lengths: (B,) int32 live
+    positions per row. All contiguous CUDA tensors on one device, q and
+    the pages of one dtype (float32 or bfloat16). Returns (B, H, K) in
+    that dtype. The table's values are not checked here (that would cost
+    a host sync per call): every entry below a row's length must name a
+    page of the pool."""
     name = "paged_decode_attention"
     check_cuda(name, q, k_pages=k_pages, v_pages=v_pages, table=table,
                lengths=lengths)
@@ -64,13 +68,17 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                             f"{DTYPES}, equal to q's")
     B, nblk, bs, H, Hkv, K = _check_paged(name, q, k_pages, v_pages, table,
                                           lengths)
+    check_aligned(name, k_pages=k_pages, v_pages=v_pages)
+    _, shape = split_layout(nblk * bs, B, Hkv, H // Hkv, K)
     out = torch.empty((B, H, K), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
+    work = torch.empty(shape, dtype=torch.float32, device=q.device)
     err = extension().paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, nblk, bs,
-        H, Hkv, K, K ** -0.5, float(softcap), q.dtype == torch.bfloat16,
+        table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        work.data_ptr(), B, nblk, bs, H, Hkv, K, SPLIT, K ** -0.5,
+        float(softcap), q.dtype == torch.bfloat16,
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, name)
     launches.add()

@@ -146,6 +146,128 @@ def test_paged_kernel_matches_plain_and_dense_bits(cuda, dtype, lengths, H,
             assert bool((got[b] == 0).all())
 
 
+def _split_case(gen, dtype, lengths, H, Hkv, K, bs, nblk, softcap):
+    """The split body on one paged case: the paged kernel against the
+    plain version, bitwise against the dense kernel over the gathered
+    view, unchanged with NaN in every page no row owns, length-0 rows 0;
+    one launch counted per call. Returns the paged output."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_attention as pa
+    q, kp, vp, table, lens, owned = _paged_inputs(gen, lengths, H, Hkv, K,
+                                                  bs, nblk, dtype)
+    before = ops.launch_counts()
+    got = pa.paged_decode_attention(q, kp, vp, table, lens, softcap=softcap)
+    torch.cuda.synchronize()
+    _assert_close(got, ref.paged_decode_attention(q, kp, vp, table, lens,
+                                                  softcap=softcap), dtype)
+    B, W = len(lengths), nblk * bs
+    k = kp[table.long()].reshape(B, W, Hkv, K).contiguous()
+    v = vp[table.long()].reshape(B, W, Hkv, K).contiguous()
+    valid = torch.arange(W, device="cuda")[None, :] < lens[:, None]
+    dense = da.decode_attention(q, k, v, valid, softcap=softcap)
+    assert torch.equal(got, dense)
+    after = ops.launch_counts()
+    for name in ("decode_attention", "paged_decode_attention"):
+        assert after[name] == before[name] + 1
+    unowned = torch.ones(kp.shape[0], dtype=torch.bool, device="cuda")
+    unowned[table[owned].long()] = False
+    kp[unowned] = float("nan")
+    vp[unowned] = float("nan")
+    assert torch.equal(got, pa.paged_decode_attention(
+        q, kp, vp, table, lens, softcap=softcap))
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert bool((got[b] == 0).all())
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edges", ["first", "second"])
+def test_split_body_at_split_edges(cuda, dtype, edges):
+    """Rows ending on a split's last position, its edge and the next
+    split's first, an empty row, and the full 2048 horizon."""
+    from repro_torch.kernels.decode_attention import SPLIT as P
+    lengths = ([P - 1, P, P + 1, 0, 2048] if edges == "first"
+               else [2 * P - 1, 2 * P, 2 * P + 1, 1, 2047])
+    _split_case(cuda, dtype, lengths, 16, 8, 128, 16, 128, 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_body_over_a_scattered_ring(cuda, dtype):
+    """Live slots scattered over the ring so that live and dead splits
+    alternate (every other split has no live slot), and a row with no
+    live slot at all."""
+    from repro_torch.kernels import decode_attention as da
+    B, W, H, Hkv, K = 3, 1000, 16, 8, 128
+    q = _randn(cuda, B, H, K, dtype=dtype)
+    k = _randn(cuda, B, W, Hkv, K, dtype=dtype)
+    v = _randn(cuda, B, W, Hkv, K, dtype=dtype)
+    valid = torch.rand(B, W, generator=cuda, device="cuda") < 0.3
+    pos = torch.arange(W, device="cuda")
+    valid &= (pos // da.SPLIT % 2 == 0)[None, :]
+    valid[-1] = False
+    got = da.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    _assert_close(got, ref.decode_attention(q, k, v, valid), dtype)
+    assert bool((got[-1] == 0).all())
+    # dead slots are never read
+    k[~valid], v[~valid] = float("nan"), float("nan")
+    assert torch.equal(got, da.decode_attention(q, k, v, valid))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,K", [
+    (8, 8, 256),      # G = 1, K = 256
+    (16, 16, 32),     # G = 1, K = 32
+    (16, 4, 64),      # G = 4
+    (16, 4, 128),     # G = 4, K = 128
+    (16, 2, 32),      # G = 8
+    (16, 2, 64),      # G = 8, G*K = 512
+    (16, 8, 256),     # G = 2, K = 256
+])
+def test_split_body_groups_and_head_dims(cuda, dtype, H, Hkv, K):
+    _split_case(cuda, dtype, [300, 64, 0, 129], H, Hkv, K, 16, 32, 30.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_body_bits_do_not_depend_on_the_horizon(cuda, dtype):
+    """The same live prefix gives the same bits at W = 512 and W = 2048
+    (dense), and at nblk = 32 and 128 (paged)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_attention as pa
+    lengths = [48, 160, 300, 512, 0]
+    q, kp, vp, table, lens, _ = _paged_inputs(cuda, lengths, 16, 8, 128, 16,
+                                              128, dtype)
+    long_ = pa.paged_decode_attention(q, kp, vp, table, lens)
+    short = pa.paged_decode_attention(q, kp, vp, table[:, :32].contiguous(),
+                                      lens)
+    assert torch.equal(long_, short)
+    B = len(lengths)
+    k = kp[table.long()].reshape(B, 2048, 8, 128).contiguous()
+    v = vp[table.long()].reshape(B, 2048, 8, 128).contiguous()
+    valid = torch.arange(2048, device="cuda")[None, :] < lens[:, None]
+    wide = da.decode_attention(q, k, v, valid)
+    narrow = da.decode_attention(q, k[:, :512].contiguous(),
+                                 v[:, :512].contiguous(),
+                                 valid[:, :512].contiguous())
+    assert torch.equal(wide, narrow)
+    assert torch.equal(wide, long_)
+
+
+def test_split_wrappers_reject_unaligned_kv(cuda):
+    q = _randn(cuda, 2, 16, 128, dtype=torch.bfloat16)
+    k = _randn(cuda, 2 * 64 * 8 * 128 + 1, dtype=torch.bfloat16)[1:]
+    k = k.reshape(2, 64, 8, 128)
+    valid = torch.ones(2, 64, dtype=torch.bool, device="cuda")
+    lens = torch.full((2,), 64, dtype=torch.int32, device="cuda")
+    table = torch.arange(8, dtype=torch.int32, device="cuda").reshape(2, 4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.decode_attention(q, k, k, valid)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.paged_decode_attention(q, k.reshape(8, 16, 8, 128), k.clone()
+                                   .reshape(8, 16, 8, 128), table, lens)
+
+
 def test_paged_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q, kp, vp, table, lens, _ = _paged_inputs(cuda, [20, 9], 16, 8, 128,
                                               16, 4, torch.float32)
