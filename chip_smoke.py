@@ -40,7 +40,9 @@ Phases, each raising on failure (any failure exits nonzero):
    = 128, H = Hkv = 16), timed beside the plain version and
    ``scaled_dot_product_attention``. The MLA decode kernel at deepseek-v2-lite's widths
    (H = 16, r = 512, dr = 64): the 4-slot main shape, a ragged S = 1000
-   with an all-dead row that must read 0, and the view gathered from
+   with an all-dead row that must read 0 and whose bits must not move
+   with NaN in every dead position, rows live to the 64-position splits'
+   edges (1, 63, 64, 65, 127, 128, 129, 2048), and the view gathered from
    16-token latent pages, which must ignore NaN in unowned pages; timed
    beside the plain version and ``scaled_dot_product_attention`` over
    [q_lat | q_rope] and [ckv | k_rope]. RMSNorm at every width the
@@ -662,9 +664,10 @@ def mla_checks(gen):
     """The MLA decode kernel against its plain version, float32 and
     bfloat16, each shape timed beside its plain version and its bound:
     the main shape; a ragged S = 1000 with one all-dead row, which must
-    read 0; and the logical view gathered from 16-token latent pages (the
-    paged cache's path), which must also ignore NaN in every page no row
-    owns."""
+    read 0 and keep its bits with NaN in every dead position; rows live
+    to the split edges; and the logical view gathered from 16-token
+    latent pages (the paged cache's path), which must also ignore NaN in
+    every page no row owns."""
     from repro_torch.kernels import mla_decode as mla
     from repro_torch.kernels import ref
 
@@ -698,9 +701,25 @@ def mla_checks(gen):
         valid = torch.rand(B, S, generator=gen, device=dev) < 0.7
         valid[-1] = False                    # a row with no live position
         what = f"mla_decode_ctx {dn} B={B} S={S} ragged, row {B - 1} dead"
-        got = held(what, dn, mla_inputs(gen, B, S, dtype), valid)
+        args = mla_inputs(gen, B, S, dtype)
+        got = held(what, dn, args, valid)
         if bool(got[-1].ne(0).any()):
             fail(f"{what}: the all-dead row is not 0")
+        # dead positions inside live splits are never read
+        args[2][~valid] = float("nan")
+        args[3][~valid] = float("nan")
+        if not torch.equal(mla.mla_decode_ctx(*args, valid,
+                                              scale=MLA_SCALE), got):
+            fail(f"{what}: output moved with NaN in dead positions")
+        print(f"{what}: NaN in dead positions of live splits ignored",
+              flush=True)
+
+        # rows live to the 64-position splits' edges and the whole horizon
+        edges = [1, 63, 64, 65, 127, 128, 129, m["S"]]
+        valid = (torch.arange(m["S"], device=dev)[None, :]
+                 < torch.tensor(edges, device=dev)[:, None])
+        held(f"mla_decode_ctx {dn} S={m['S']} live={edges}", dn,
+             mla_inputs(gen, len(edges), m["S"], dtype), valid)
 
         # the paged path: pages drawn at random from a pool twice the
         # needed size, the rest of each table on the scratch page

@@ -27,10 +27,13 @@ first streamed chunk of five fresh 512-token prompts (max_new=32).
 decode kernels and ``mla_decode_ctx`` at ``chip_smoke.py`` phase 2's
 main shapes (bf16; its ``decode_main_calls``), 100 calls replayed from a
 CUDA graph, beside one ``scaled_dot_product_attention`` call's; the
-dense and paged kernels' device time against the live depth (4 rows all
-live to 1, 64, 256, 544, 1024 or 2048 of the 2048 positions), which
-separates a call's fixed cost from its cost a position; then
-one 4-slot qwen3 decode step (rows live to 48/160/300/544): its kernel
+dense and paged kernels' and ``mla_decode_ctx``'s (deepseek-v2-lite's
+widths) device time against the live depth (4 rows all live to 1, 64,
+256, 544, 1024 or 2048 of the 2048 positions), which separates a call's
+fixed cost from its cost a position; the device time of each of
+``mla_decode_ctx``'s CUDA kernels (``torch.profiler``) and digests of
+its float32 and bfloat16 outputs on fixed inputs; then one 4-slot qwen3
+decode step (rows live to 48/160/300/544): its kernel
 launches, device ms, and the device ms and launches of the decode
 attention kernels by name.
 
@@ -43,6 +46,7 @@ Needs a CUDA device; prints a JSON summary and writes it to ``--out``
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import pathlib
 import statistics
@@ -166,15 +170,37 @@ def profile_decode() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = {}
-    for name, row in cs.decode_main_calls(gen).items():
+    calls = cs.decode_main_calls(gen)
+    for name, row in calls.items():
         kernels[name] = {"graph_ms": cs.time_graph_ms(row["kernel"]),
                          "library_graph_ms": cs.time_graph_ms(
                              row["library"]),
                          "bound_ms": row["bound"][0]}
+    # MLA decode's CUDA kernels at the main shape, device ms a launch
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            calls["mla_decode_ctx"]["kernel"]()
+        torch.cuda.synchronize()
+    kernels["mla_decode_ctx"]["kernel_ms"] = {
+        e.key[:100]: _device_us(e) / e.count / 1e3
+        for e in prof.key_averages() if _device_us(e) > 0 and "mla_" in e.key}
+    # digests of MLA decode's output on fixed inputs (rows with holes), so
+    # two checkouts read in turns show whether a dtype's bits moved
+    from repro_torch.kernels import mla_decode as mla
+    kernels["mla_decode_ctx"]["digests"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        args = cs.mla_inputs(g, 4, 2048, dtype)
+        valid = torch.rand(4, 2048, generator=g, device="cuda") < 0.3
+        out = mla.mla_decode_ctx(*args, valid, scale=cs.MLA_SCALE).cpu()
+        kernels["mla_decode_ctx"]["digests"][str(dtype)] = hashlib.sha256(
+            out.view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
 
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paged_attention as pa
     depths = {}
+    mla_args = cs.mla_inputs(gen, 4, 2048, torch.bfloat16)
     for depth in DEPTHS:
         lengths = [depth] * 4
         q, kp, vp, table, lens, _ = cs.paged_case(
@@ -185,7 +211,10 @@ def profile_decode() -> dict:
             "decode_attention": cs.time_graph_ms(
                 lambda: da.decode_attention(q, kd, vd, valid)),
             "paged_decode_attention": cs.time_graph_ms(
-                lambda: pa.paged_decode_attention(q, kp, vp, table, lens))}
+                lambda: pa.paged_decode_attention(q, kp, vp, table, lens)),
+            "mla_decode_ctx": cs.time_graph_ms(
+                lambda: mla.mla_decode_ctx(*mla_args, valid,
+                                           scale=cs.MLA_SCALE))}
         del q, kp, vp, kd, vd
 
     model = Model(get_config("qwen3-0.6b"))

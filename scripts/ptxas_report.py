@@ -13,7 +13,9 @@ registers, spill stores and loads (bytes, from ptxas) and its count of
 tensor-core instructions (``HMMA``, or ``HGMMA`` for ``wgmma``), so a
 reader can see which bodies run their products on the tensor cores. Ends
 with a count of instantiations, spilling ones and ones with tensor-core
-instructions.
+instructions, then the MLA decode kernels' own count; it exits 1 unless
+every bf16 MLA split body has tensor-core instructions and no MLA
+instantiation spills.
 """
 from __future__ import annotations
 
@@ -107,7 +109,17 @@ def main() -> int:
               f"tensor_core_instructions={n_ops} {names[name]}")
     print(f"ptxas: {len(table)} kernel instantiations, {spilling} spill, "
           f"{tensor} with tensor-core instructions")
-    return 0
+    # the MLA decode kernels: every bf16 split body on the tensor cores,
+    # and no instantiation spills
+    mla = [n for n in table if "mla_" in names[n]]
+    tc_partial = [n for n in mla
+                  if re.search(r"tc(::|\d+)mla_partial_kernel", names[n])]
+    bare = [n for n in tc_partial if not ops.get(n, 0)]
+    spill = [n for n in mla if table[n][1] or table[n][2]]
+    print(f"mla: {len(mla)} instantiations, {len(tc_partial)} bf16 split "
+          f"bodies of which {len(tc_partial) - len(bare)} with tensor-core "
+          f"instructions, {len(spill)} spill")
+    return 1 if bare or spill or not tc_partial else 0
 
 
 if __name__ == "__main__":

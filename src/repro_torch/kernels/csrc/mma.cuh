@@ -1,7 +1,7 @@
 // Tensor-core building blocks shared by the bfloat16 bodies of
-// flash_attention.cu and ssd_scan.cu (sm_90a): asynchronous 16-byte
-// copies into shared memory (cp.async), ldmatrix loads of 8 x 8 bf16
-// tiles into mma fragments, and the warp-level
+// flash_attention.cu, ssd_scan.cu and mla_decode.cu (sm_90a):
+// asynchronous 16-byte copies into shared memory (cp.async), ldmatrix
+// loads of 8 x 8 bf16 tiles into mma fragments, and the warp-level
 // mma.sync.m16n8k16 bf16 x bf16 -> f32 product.
 //
 // Fragment layout of m16n8k16 (lane = 4 * gr + tq, gr = lane / 4,

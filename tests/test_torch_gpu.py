@@ -712,6 +712,110 @@ def test_mla_kernel_over_gathered_pages_ignores_unowned_pages(cuda, dtype):
     assert torch.equal(run(), got)
 
 
+def _mla_prefix(lengths, S):
+    return (torch.arange(S, device="cuda")[None, :]
+            < torch.tensor(lengths, device="cuda")[:, None])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_body_at_split_edges(cuda, dtype):
+    """Rows live to one position, a split's last, its edge, the next
+    split's first, the second edge and the whole 2048 horizon: against the
+    plain version, and each row alone gives its bits in the batch."""
+    from repro_torch.kernels.mla_decode import SPLIT as P
+    lengths = [1, P - 1, P, P + 1, 2 * P - 1, 2 * P, 2 * P + 1, 2048]
+    S = 2048
+    args = _mla_args(cuda, len(lengths), S, 16, 512, 64, dtype)
+    valid = _mla_prefix(lengths, S)
+    got = ops.mla_decode_ctx(*args, valid, scale=0.1)
+    torch.cuda.synchronize()
+    _assert_close(got, ref.mla_decode_ctx(*args, valid, scale=0.1), dtype)
+    for b in range(len(lengths)):
+        alone = ops.mla_decode_ctx(*(a[b:b + 1].contiguous() for a in args),
+                                   valid[b:b + 1].contiguous(), scale=0.1)
+        assert torch.equal(alone[0], got[b])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_body_never_reads_dead_positions_of_live_tiles(cuda, dtype):
+    """Ragged valid flags with holes in every live split, and a row with
+    no live position: NaN written into every dead position leaves the
+    output's bits as they were, and the dead row is 0."""
+    B, S, H, r, dr = 4, 700, 16, 512, 64
+    args = _mla_args(cuda, B, S, H, r, dr, dtype)
+    valid = torch.rand(B, S, generator=cuda, device="cuda") < 0.5
+    valid[-1] = False
+    got = ops.mla_decode_ctx(*args, valid, scale=0.1)
+    torch.cuda.synchronize()
+    _assert_close(got, ref.mla_decode_ctx(*args, valid, scale=0.1), dtype)
+    assert bool((got[-1] == 0).all())
+    ql, qr, ckv, kr = args
+    ckv[~valid] = float("nan")
+    kr[~valid] = float("nan")
+    assert torch.equal(ops.mla_decode_ctx(ql, qr, ckv, kr, valid,
+                                          scale=0.1), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("dr", [4, 16, 20, 64])
+@pytest.mark.parametrize("H", [1, 4, 8, 16])
+def test_mla_body_every_width(cuda, dtype, r, dr, H):
+    """Every instantiated latent width, rope widths that are and are not a
+    multiple of 16, and H < 16 (the bf16 body's padded MMA rows)."""
+    lengths = [300, 64, 0, 129]
+    args = _mla_args(cuda, len(lengths), 300, H, r, dr, dtype)
+    valid = _mla_prefix(lengths, 300)
+    got = ops.mla_decode_ctx(*args, valid, scale=(r + dr) ** -0.5)
+    torch.cuda.synchronize()
+    _assert_close(got, ref.mla_decode_ctx(*args, valid,
+                                          scale=(r + dr) ** -0.5), dtype)
+    assert bool((got[2] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_body_bits_do_not_depend_on_the_horizon(cuda, dtype):
+    """The same live prefix gives the same bits over S = 512 and 2048."""
+    lengths = [48, 160, 300, 512, 0]
+    args = _mla_args(cuda, len(lengths), 2048, 16, 512, 64, dtype)
+    valid = _mla_prefix(lengths, 2048)
+    wide = ops.mla_decode_ctx(*args, valid, scale=0.1)
+    ql, qr, ckv, kr = args
+    narrow = ops.mla_decode_ctx(ql, qr, ckv[:, :512].contiguous(),
+                                kr[:, :512].contiguous(),
+                                valid[:, :512].contiguous(), scale=0.1)
+    assert torch.equal(wide, narrow)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_body_dense_rows_give_the_gathered_pages_bits(cuda, dtype):
+    """One logical latent cache held as dense rows (other garbage in the
+    dead positions) and as scattered 16-token pages (NaN in every page no
+    row owns), read through the gathered view: the same bits."""
+    B, H, r, dr, bs, nblk = 4, 16, 512, 64, 16, 128
+    lengths = torch.tensor([48, 160, 300, 544], device="cuda")
+    n_pages = 2 * B * nblk
+    ql, qr, ckv, kr = _mla_args(cuda, B, nblk * bs, H, r, dr, dtype)
+    valid = _mla_prefix(lengths.tolist(), nblk * bs)
+    table = torch.randperm(n_pages, generator=cuda, device="cuda")[
+        :B * nblk].reshape(B, nblk)
+    owned = torch.arange(nblk, device="cuda")[None, :] < (
+        (lengths[:, None] + bs - 1) // bs)
+    table[~owned] = n_pages
+    ckv_p = torch.full((n_pages + 1, bs, r), float("nan"), device="cuda",
+                       dtype=dtype)
+    kr_p = torch.full((n_pages + 1, bs, dr), float("nan"), device="cuda",
+                      dtype=dtype)
+    ckv_p[table[owned]] = ckv.reshape(B, nblk, bs, r)[owned]
+    kr_p[table[owned]] = kr.reshape(B, nblk, bs, dr)[owned]
+    dense = ops.mla_decode_ctx(ql, qr, ckv, kr, valid, scale=0.1)
+    paged = ops.mla_decode_ctx(
+        ql, qr, ckv_p[table].reshape(B, nblk * bs, r),
+        kr_p[table].reshape(B, nblk * bs, dr), valid, scale=0.1)
+    assert torch.equal(dense, paged)
+    assert bool(torch.isfinite(dense).all())
+
+
 def test_mla_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     from repro_torch.kernels.mla_decode import mla_decode_ctx
     ql, qr, ckv, kr = _mla_args(cuda, 2, 40, 4, 64, 16, torch.float32)

@@ -102,6 +102,40 @@ def test_plain_mla_decode_takes_any_S_and_ignores_dead_positions():
     assert torch.equal(got, want)
 
 
+# rows live to the card body's split edges (64-position splits): one
+# position, a split's last, its edge and the next split's first, the
+# second edge, the whole horizon, and one row with no live position
+EDGE_DEPTHS = [1, 63, 64, 65, 127, 128, 129, 192, 0]
+
+
+@pytest.mark.parametrize("H,r,dr", [
+    (16, 64, 20),     # deepseek's 16 heads, dr not a multiple of 16
+    (3, 32, 4),       # H < 16: the card body pads the MMA rows
+    (5, 128, 64),
+])
+def test_plain_mla_decode_at_the_split_edges_matches_jax(H, r, dr):
+    """The plain version, the card's yardstick, at exactly the lengths the
+    card body cuts at: against the JAX oracle and the Pallas kernel in
+    interpret mode (float32, 2e-5); the all-dead row against 0, the
+    port's stated difference."""
+    B, S = len(EDGE_DEPTHS), 192
+    arrays, _ = _case(H + r + dr, B, H, r, dr, S, False)
+    valid = np.arange(S)[None, :] < np.array(EDGE_DEPTHS)[:, None]
+    scale = (r + dr) ** -0.5
+    got = ops.mla_decode_ctx(*(torch.from_numpy(a) for a in arrays),
+                             torch.from_numpy(valid), scale=scale)
+    jargs = [jnp.asarray(a) for a in arrays]
+    live = valid.any(axis=1)
+    for want in (jref.mla_decode_ctx(*jargs, jnp.asarray(valid),
+                                     scale=scale),
+                 pallas_mla(*jargs, jnp.asarray(valid), scale=scale,
+                            block_s=64, interpret=True)):
+        np.testing.assert_allclose(got.numpy()[live],
+                                   np.asarray(want)[live], atol=2e-5,
+                                   rtol=2e-5)
+    assert not live[-1] and bool((got[-1] == 0).all())
+
+
 @pytest.fixture(scope="module")
 def layer():
     """Layer 0 (MLA + dense MLP) of reduced deepseek on both sides."""
