@@ -18,7 +18,10 @@ Phases, each raising on failure (any failure exits nonzero):
    prefix must give the same bits at horizons 512 and 2048 (dense W,
    paged nblk * bs). The int8
    kernels take int8 K/V quantised by the model's own quantiser, with
-   float32 or bfloat16 queries. Times each (CUDA events) beside the plain
+   float32 or bfloat16 queries, at the same split edges and horizons,
+   over a ring whose live and dead splits alternate, with NaN scales and
+   codes of +-127 in every dead slot (of live splits too). Times each
+   (CUDA events) beside the plain
    version and ``scaled_dot_product_attention`` (a yardstick the port
    never calls; over the dequantised view for the int8 kernels); the
    prefill kernel, the four decode kernels, MLA decode and sdpa beside
@@ -395,7 +398,10 @@ def int8_checks(gen):
     """The int8 kernels against their plain versions (f32 and bf16 q); the
     paged one bitwise against the dense one over the gathered view, a
     length-0 row 0, and unchanged with NaN in every unowned page, scale
-    page and the scratch page (and in dense slots no row reads)."""
+    page and the scratch page (and NaN scales with codes of +-127 in dense
+    slots no row reads, the dead slots of live splits included); rows end
+    on both sides of the 64-position split edges, and the same live
+    prefix gives the same bits at horizons 512 and 2048."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
@@ -403,15 +409,23 @@ def int8_checks(gen):
     dev = torch.device("cuda")
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        for B, W, softcap in ((4, 2048, 0.0), (3, 300, 30.0)):
+        # (B, W, softcap, scattered): scattered rings leave every other
+        # 64-position split without a live slot
+        for B, W, softcap, scattered in ((4, 2048, 0.0, False),
+                                         (3, 300, 30.0, False),
+                                         (3, 1000, 0.0, True)):
             q = torch.randn(B, H, K, generator=gen, device=dev).to(dtype)
             kq, ks = quant(torch.randn(B, W, HKV, K, generator=gen,
                                        device=dev))
             vq, vs = quant(torch.randn(B, W, HKV, K, generator=gen,
                                        device=dev))
-            valid = torch.rand(B, W, generator=gen, device=dev) < 0.7
+            valid = torch.rand(B, W, generator=gen, device=dev) < (
+                0.3 if scattered else 0.7)
+            if scattered:
+                valid &= (torch.arange(W, device=dev) // 64 % 2 == 0)[None]
             valid[-1] = False                    # a row with no live slot
-            what = f"decode_attention_int8 {dn} B={B} W={W} softcap={softcap}"
+            what = (f"decode_attention_int8 {dn} B={B} W={W} "
+                    f"softcap={softcap} scattered={scattered}")
             got = da.decode_attention_int8(q, kq, vq, valid, ks, vs,
                                            softcap=softcap)
             torch.cuda.synchronize()
@@ -421,17 +435,23 @@ def int8_checks(gen):
             if bool(got[-1].ne(0).any()):
                 fail(f"{what}: all-invalid row is not 0")
             ks[~valid], vs[~valid] = float("nan"), float("nan")
-            if not torch.equal(got, da.decode_attention_int8(
-                    q, kq, vq, valid, ks, vs, softcap=softcap)):
+            kq[~valid], vq[~valid] = 127, -127
+            poisoned = da.decode_attention_int8(q, kq, vq, valid, ks, vs,
+                                                softcap=softcap)
+            if not (torch.equal(got, poisoned)
+                    and bool(torch.isfinite(poisoned).all())):
                 fail(f"{what}: output moved with NaN scales in dead slots")
             print(f"{what}: max_abs_err={err:.3e}, dead slots' NaN scales "
                   "ignored", flush=True)
         # (lengths, softcap, share): the main-path shape, the phase-2
-        # scattered/shared tables with a length-0 row, softcap
+        # scattered/shared tables with a length-0 row, softcap, and rows
+        # ending at a 64-position split's edges, both sides
         for lengths, softcap, share in (
                 (PAGED_MAIN_LENGTHS, 0.0, 0),
                 ([700, 33, 0, 2048, 17, 1, 1024, 255], 0.0, 2),
-                ([48, 160, 300, 544], 30.0, 0)):
+                ([48, 160, 300, 544], 30.0, 0),
+                ([63, 64, 65, 0, 2048, 127, 128, 129], 0.0, 0),
+                ([1, 2047, 191, 192, 193], 30.0, 0)):
             q, kp, vp, table, lens, unowned = paged_case(
                 gen, lengths, h=H, hkv=HKV, k=K, bs=16, nblk=128,
                 dtype=torch.float32, share=share)
@@ -468,6 +488,29 @@ def int8_checks(gen):
             print(f"{what}: max_abs_err={err:.3e}, bitwise equal to the "
                   "dense int8 kernel, NaN unowned pages and scale pages "
                   "ignored", flush=True)
+        lengths = [48, 160, 300, 512, 0]
+        q, kp, vp, table, lens, _ = paged_case(
+            gen, lengths, h=H, hkv=HKV, k=K, bs=16, nblk=128,
+            dtype=torch.float32)
+        q = q.to(dtype)
+        kq, ks = quant(kp)
+        vq, vs = quant(vp)
+        kd, vd, valid = gathered(kq, vq, table, lens)
+        ksd, vsd, _ = gathered(ks, vs, table, lens)
+        short = table[:, :32].contiguous()
+        outs = [pa.paged_decode_attention_int8(q, kq, vq, ks, vs, table,
+                                               lens),
+                pa.paged_decode_attention_int8(q, kq, vq, ks, vs, short,
+                                               lens),
+                da.decode_attention_int8(q, kd, vd, valid, ksd, vsd),
+                da.decode_attention_int8(
+                    q, *(t[:, :512].contiguous()
+                         for t in (kd, vd, valid, ksd, vsd)))]
+        if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+            fail(f"int8 decode {dn}: the live prefix {lengths} gives other "
+                 "bits at horizon 512 than at 2048")
+        print(f"int8 decode {dn} live {lengths}: paged nblk 128 / 32 and "
+              "dense W 2048 / 512 bit for bit", flush=True)
 
 
 # the Mamba2 scan: mamba2-2.7b's widths, and the main path's longest
@@ -1978,9 +2021,10 @@ def ssm_path_phase(card: str, n_containers: int = 2, max_new: int = 32):
     return launches
 
 
-# the device-side kernels of the decode attention bodies (dense, paged,
-# int8) and of MLA decode, by the profiler's kernel names
-DECODE_KERNEL_NAMES = ("decode_split_detail::", "decode_attention_detail::",
+# the device-side kernels of the decode attention bodies (the bf16/f32
+# split pass and the merge both split bodies share; the int8 split pass)
+# and of MLA decode, by the profiler's kernel names
+DECODE_KERNEL_NAMES = ("decode_split_detail::", "decode_int8_detail::",
                        "mla_partial_kernel", "mla_merge_kernel")
 
 

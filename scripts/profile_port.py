@@ -27,15 +27,17 @@ first streamed chunk of five fresh 512-token prompts (max_new=32).
 decode kernels and ``mla_decode_ctx`` at ``chip_smoke.py`` phase 2's
 main shapes (bf16; its ``decode_main_calls``), 100 calls replayed from a
 CUDA graph, beside one ``scaled_dot_product_attention`` call's; the
-dense and paged kernels' and ``mla_decode_ctx``'s (deepseek-v2-lite's
-widths) device time against the live depth (4 rows all live to 1, 64,
-256, 544, 1024 or 2048 of the 2048 positions), which separates a call's
-fixed cost from its cost a position; the device time of each of
-``mla_decode_ctx``'s CUDA kernels (``torch.profiler``) and digests of
-its float32 and bfloat16 outputs on fixed inputs; then one 4-slot qwen3
-decode step (rows live to 48/160/300/544): its kernel
-launches, device ms, and the device ms and launches of the decode
-attention kernels by name.
+dense and paged kernels' (bf16 and int8) and ``mla_decode_ctx``'s
+(deepseek-v2-lite's widths) device time against the live depth (4 rows
+all live to 1, 64, 256, 544, 1024 or 2048 of the 2048 positions), which
+separates a call's fixed cost from its cost a position; the device time
+of each CUDA kernel of each of the five at the main shape
+(``torch.profiler``) and digests of their float32- and bfloat16-query
+outputs on fixed inputs, so that two checkouts read in turns show
+whether a kernel's bits moved; then one 4-slot qwen3 decode step (rows
+live to 48/160/300/544) over a bfloat16 and over an int8 KV cache: its
+host ms, kernel launches, device ms, and the device ms and launches of
+the decode attention kernels by name.
 
 ``--src`` imports the port from another checkout's ``src`` (for example
 a parent commit unpacked beside this one), so two versions can be read
@@ -46,6 +48,7 @@ Needs a CUDA device; prints a JSON summary and writes it to ``--out``
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import pathlib
@@ -176,28 +179,20 @@ def profile_decode() -> dict:
                          "library_graph_ms": cs.time_graph_ms(
                              row["library"]),
                          "bound_ms": row["bound"][0]}
-    # MLA decode's CUDA kernels at the main shape, device ms a launch
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            calls["mla_decode_ctx"]["kernel"]()
-        torch.cuda.synchronize()
-    kernels["mla_decode_ctx"]["kernel_ms"] = {
-        e.key[:100]: _device_us(e) / e.count / 1e3
-        for e in prof.key_averages() if _device_us(e) > 0 and "mla_" in e.key}
-    # digests of MLA decode's output on fixed inputs (rows with holes), so
-    # two checkouts read in turns show whether a dtype's bits moved
-    from repro_torch.kernels import mla_decode as mla
-    kernels["mla_decode_ctx"]["digests"] = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        g = torch.Generator(device="cuda").manual_seed(1)
-        args = cs.mla_inputs(g, 4, 2048, dtype)
-        valid = torch.rand(4, 2048, generator=g, device="cuda") < 0.3
-        out = mla.mla_decode_ctx(*args, valid, scale=cs.MLA_SCALE).cpu()
-        kernels["mla_decode_ctx"]["digests"][str(dtype)] = hashlib.sha256(
-            out.view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+        # its CUDA kernels at the main shape, device ms a launch
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                row["kernel"]()
+            torch.cuda.synchronize()
+        kernels[name]["kernel_ms"] = {
+            e.key[:100]: _device_us(e) / e.count / 1e3
+            for e in prof.key_averages() if _device_us(e) > 0}
+    for name, digests in output_digests().items():
+        kernels[name]["digests"] = digests
 
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import mla_decode as mla
     from repro_torch.kernels import paged_attention as pa
     depths = {}
     mla_args = cs.mla_inputs(gen, 4, 2048, torch.bfloat16)
@@ -207,39 +202,105 @@ def profile_decode() -> dict:
             gen, lengths, h=cs.H, hkv=cs.HKV, k=cs.K, bs=16, nblk=128,
             dtype=torch.bfloat16)
         kd, vd, valid = cs.gathered(kp, vp, table, lens)
+        kq, ks = cs.quant(kp.float())
+        vq, vs = cs.quant(vp.float())
+        kqd, vqd, _ = cs.gathered(kq, vq, table, lens)
+        ksd, vsd, _ = cs.gathered(ks, vs, table, lens)
         depths[depth] = {
             "decode_attention": cs.time_graph_ms(
                 lambda: da.decode_attention(q, kd, vd, valid)),
             "paged_decode_attention": cs.time_graph_ms(
                 lambda: pa.paged_decode_attention(q, kp, vp, table, lens)),
+            "decode_attention_int8": cs.time_graph_ms(
+                lambda: da.decode_attention_int8(q, kqd, vqd, valid, ksd,
+                                                 vsd)),
+            "paged_decode_attention_int8": cs.time_graph_ms(
+                lambda: pa.paged_decode_attention_int8(q, kq, vq, ks, vs,
+                                                       table, lens)),
             "mla_decode_ctx": cs.time_graph_ms(
                 lambda: mla.mla_decode_ctx(*mla_args, valid,
                                            scale=cs.MLA_SCALE))}
-        del q, kp, vp, kd, vd
+        del q, kp, vp, kd, vd, kq, vq, kqd, vqd
 
-    model = Model(get_config("qwen3-0.6b"))
-    params = model.init(seed=0, dtype=torch.bfloat16)
-    cache = model.init_cache(4, 2048, torch.bfloat16)
-    tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
-    pos = torch.tensor([48, 160, 300, 544], dtype=torch.int32,
-                       device="cuda")
-    step_ms, launches, device_ms, _ = cs.decode_step_profile(
-        model, params, tok, cache, pos)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        model.decode_step(params, tok, cache, pos)
-        torch.cuda.synchronize()
-    attention = {e.key[:100]: [e.count, _device_us(e) / 1e3]
-                 for e in prof.key_averages() if _device_us(e) > 0 and any(
-                     n in e.key for n in cs.DECODE_KERNEL_NAMES)}
-    del cache, params, model
+    base = get_config("qwen3-0.6b")
+    steps = {}
+    for kv in ("model", "int8"):
+        model = Model(dataclasses.replace(base, kv_cache_dtype=kv))
+        if kv == "model":
+            params = model.init(seed=0, dtype=torch.bfloat16)
+        cache = model.init_cache(4, 2048, torch.bfloat16)
+        tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+        pos = torch.tensor([48, 160, 300, 544], dtype=torch.int32,
+                           device="cuda")
+        step_ms, launches, device_ms, _ = cs.decode_step_profile(
+            model, params, tok, cache, pos)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.decode_step(params, tok, cache, pos)
+            torch.cuda.synchronize()
+        attention = {e.key[:100]: [e.count, _device_us(e) / 1e3]
+                     for e in prof.key_averages()
+                     if _device_us(e) > 0 and any(
+                         n in e.key for n in cs.DECODE_KERNEL_NAMES)}
+        steps["decode_step" if kv == "model" else "decode_step_int8"] = {
+            "host_ms": step_ms, "kernel_launches": launches,
+            "device_ms": device_ms,
+            "attention_device_ms": sum(ms for _, ms in attention.values()),
+            "attention_kernels": attention}
+        del cache, model
+    del params
     torch.cuda.empty_cache()
-    return {"kernels": kernels, "depth_graph_ms": depths,
-            "decode_step": {"host_ms": step_ms, "kernel_launches": launches,
-                            "device_ms": device_ms,
-                            "attention_device_ms": sum(
-                                ms for _, ms in attention.values()),
-                            "attention_kernels": attention}}
+    return {"kernels": kernels, "depth_graph_ms": depths, **steps}
+
+
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().cpu().view(torch.uint8).numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def output_digests() -> dict:
+    """Digests of each decode kernel's output on fixed inputs (rows with
+    holes, ragged page tables), float32 and bfloat16 queries: {kernel:
+    {dtype: digest}}. The inputs come from seeded generators only, so two
+    checkouts read in turns get the same inputs."""
+    import chip_smoke as cs
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import mla_decode as mla
+    from repro_torch.kernels import paged_attention as pa
+    out: dict = {}
+
+    def put(name, dtype, t):
+        out.setdefault(name, {})[str(dtype)] = _digest(t)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        args = cs.mla_inputs(g, 4, 2048, dtype)
+        valid = torch.rand(4, 2048, generator=g, device="cuda") < 0.3
+        put("mla_decode_ctx", dtype,
+            mla.mla_decode_ctx(*args, valid, scale=cs.MLA_SCALE))
+
+        g = torch.Generator(device="cuda").manual_seed(2)
+        q = torch.randn(4, cs.H, cs.K, generator=g, device="cuda")
+        k, v = (torch.randn(4, 2048, cs.HKV, cs.K, generator=g,
+                            device="cuda") for _ in range(2))
+        valid = torch.rand(4, 2048, generator=g, device="cuda") < 0.3
+        put("decode_attention", dtype, da.decode_attention(
+            q.to(dtype), k.to(dtype), v.to(dtype), valid))
+        (kq, ks), (vq, vs) = cs.quant(k), cs.quant(v)
+        put("decode_attention_int8", dtype, da.decode_attention_int8(
+            q.to(dtype), kq, vq, valid, ks, vs))
+
+        g = torch.Generator(device="cuda").manual_seed(3)
+        q, kp, vp, table, lens, _ = cs.paged_case(
+            g, [700, 33, 0, 2048, 17, 1, 1024, 255], h=cs.H, hkv=cs.HKV,
+            k=cs.K, bs=16, nblk=128, dtype=torch.float32, share=2)
+        put("paged_decode_attention", dtype, pa.paged_decode_attention(
+            q.to(dtype), kp.to(dtype), vp.to(dtype), table, lens))
+        (kq, ks), (vq, vs) = cs.quant(kp), cs.quant(vp)
+        put("paged_decode_attention_int8", dtype,
+            pa.paged_decode_attention_int8(q.to(dtype), kq, vq, ks, vs,
+                                           table, lens))
+    return out
 
 
 def main() -> int:

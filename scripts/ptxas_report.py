@@ -13,9 +13,10 @@ registers, spill stores and loads (bytes, from ptxas) and its count of
 tensor-core instructions (``HMMA``, or ``HGMMA`` for ``wgmma``), so a
 reader can see which bodies run their products on the tensor cores. Ends
 with a count of instantiations, spilling ones and ones with tensor-core
-instructions, then the MLA decode kernels' own count; it exits 1 unless
-every bf16 MLA split body has tensor-core instructions and no MLA
-instantiation spills.
+instructions, then the MLA decode kernels' and the int8 decode split
+passes' own counts; it exits 1 unless every bf16 MLA split body has
+tensor-core instructions, no MLA instantiation spills, and the int8
+split passes are there and none of them spills.
 """
 from __future__ import annotations
 
@@ -119,7 +120,14 @@ def main() -> int:
     print(f"mla: {len(mla)} instantiations, {len(tc_partial)} bf16 split "
           f"bodies of which {len(tc_partial) - len(bare)} with tensor-core "
           f"instructions, {len(spill)} spill")
-    return 1 if bare or spill or not tc_partial else 0
+    # the int8 decode split passes (4 G x their K x 2 query dtypes x 2
+    # address policies): none may spill
+    int8 = [n for n in table if "decode_int8_detail" in names[n]]
+    int8_spill = [n for n in int8 if table[n][1] or table[n][2]]
+    print(f"int8 decode: {len(int8)} split-pass instantiations, "
+          f"{len(int8_spill)} spill")
+    return 1 if (bare or spill or not tc_partial or not int8
+                 or int8_spill) else 0
 
 
 if __name__ == "__main__":

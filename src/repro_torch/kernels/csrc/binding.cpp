@@ -30,14 +30,16 @@ int paged_decode_attention_launch(const void* q, const void* k_pages,
                                   float softcap, int is_bf16, void* stream);
 int decode_attention_int8_launch(const void* q, const void* k, const void* v,
                                  const void* valid, const void* k_scale,
-                                 const void* v_scale, void* out, int B, int W,
-                                 int H, int Hkv, int K, float scale,
-                                 float softcap, int is_bf16, void* stream);
+                                 const void* v_scale, void* out, void* work,
+                                 int B, int W, int H, int Hkv, int K,
+                                 int split, float scale, float softcap,
+                                 int is_bf16, void* stream);
 int paged_decode_attention_int8_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale_pages, const void* v_scale_pages, const void* table,
-    const void* lengths, void* out, int B, int nblk, int bs, int H, int Hkv,
-    int K, float scale, float softcap, int is_bf16, void* stream);
+    const void* lengths, void* out, void* work, int B, int nblk, int bs,
+    int H, int Hkv, int K, int split, float scale, float softcap,
+    int is_bf16, void* stream);
 int ssd_scan_launch(const void* x, const void* dt, const void* A,
                     const void* Bm, const void* Cm, const void* D, void* y,
                     void* state, void* work, int B, int S, int nh, int hd,
@@ -94,25 +96,28 @@ int paged_decode_attention(std::uintptr_t q, std::uintptr_t k_pages,
 int decode_attention_int8(std::uintptr_t q, std::uintptr_t k,
                           std::uintptr_t v, std::uintptr_t valid,
                           std::uintptr_t k_scale, std::uintptr_t v_scale,
-                          std::uintptr_t out, int B, int W, int H, int Hkv,
-                          int K, float scale, float softcap, bool is_bf16,
+                          std::uintptr_t out, std::uintptr_t work, int B,
+                          int W, int H, int Hkv, int K, int split,
+                          float scale, float softcap, bool is_bf16,
                           std::uintptr_t stream) {
   return decode_attention_int8_launch(
       ptr(q), ptr(k), ptr(v), ptr(valid), ptr(k_scale), ptr(v_scale),
-      ptr(out), B, W, H, Hkv, K, scale, softcap, is_bf16 ? 1 : 0,
-      ptr(stream));
+      ptr(out), ptr(work), B, W, H, Hkv, K, split, scale, softcap,
+      is_bf16 ? 1 : 0, ptr(stream));
 }
 
 int paged_decode_attention_int8(
     std::uintptr_t q, std::uintptr_t k_pages, std::uintptr_t v_pages,
     std::uintptr_t k_scale_pages, std::uintptr_t v_scale_pages,
-    std::uintptr_t table, std::uintptr_t lengths, std::uintptr_t out, int B,
-    int nblk, int bs, int H, int Hkv, int K, float scale, float softcap,
-    bool is_bf16, std::uintptr_t stream) {
+    std::uintptr_t table, std::uintptr_t lengths, std::uintptr_t out,
+    std::uintptr_t work, int B, int nblk, int bs, int H, int Hkv, int K,
+    int split, float scale, float softcap, bool is_bf16,
+    std::uintptr_t stream) {
   return paged_decode_attention_int8_launch(
       ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scale_pages),
-      ptr(v_scale_pages), ptr(table), ptr(lengths), ptr(out), B, nblk, bs, H,
-      Hkv, K, scale, softcap, is_bf16 ? 1 : 0, ptr(stream));
+      ptr(v_scale_pages), ptr(table), ptr(lengths), ptr(out), ptr(work), B,
+      nblk, bs, H, Hkv, K, split, scale, softcap, is_bf16 ? 1 : 0,
+      ptr(stream));
 }
 
 int ssd_scan(std::uintptr_t x, std::uintptr_t dt, std::uintptr_t A,

@@ -1,8 +1,8 @@
 // The single-token decode attention body of decode_attention (dense ring,
 // decode_attention.cu) and paged_decode_attention (page pool,
 // paged_attention.cu) for K/V in the query's type (float32 or bfloat16),
-// for Hopper (sm_90a). The int8 kernels keep the body of
-// decode_attention.cuh.
+// for Hopper (sm_90a). The int8 kernels run their own split body,
+// decode_int8_split.cuh, which reuses this file's policies and merge.
 //
 // Layout: q (B, H, K), out (B, H, K), contiguous, float32 or bfloat16, K/V
 // in q's type, 16-byte aligned; arithmetic in float32. G = H / Hkv query

@@ -26,20 +26,21 @@
 // unowned page (nor its scale page) is, and a row of length 0 writes 0.
 //
 // Which body. paged_decode_attention runs the split body of
-// decode_split.cuh with the paged address policy: a split whose first
-// position is at or past lengths[b] returns before it reads the table,
-// and a live split reads the table entry of each page it touches once.
-// paged_decode_attention_int8 runs the one-block-per-row body of
-// decode_attention.cuh, walking its row to lengths[b]. Each paged kernel
-// shares its body with its dense sibling (decode_attention.cu) and gives
-// its bits for the same logical cache, which keeps dense and paged
-// greedy decode bit-identical on the card, in either storage.
+// decode_split.cuh and paged_decode_attention_int8 the int8 split body of
+// decode_int8_split.cuh, both with the paged address policy: a split
+// whose first position is at or past lengths[b] returns before it reads
+// the table, and a live split reads the table entry of each page it
+// touches once (an int8 split then the two scales of each live
+// position). Each paged kernel shares its body with its dense sibling
+// (decode_attention.cu) and gives its bits for the same logical cache,
+// which keeps dense and paged greedy decode bit-identical on the card,
+// in either storage.
 //
 // Bound. Like dense decode it is bound by device-memory bytes: each live
 // key and value row once, 2*(live positions)*Hkv*K*itemsize (int8:
 // 2*(live positions)*Hkv*(K + 4)), plus the table's live entries; about
 // 4*G*K operations per row. Each body's design is in its header.
-#include "decode_attention.cuh"
+#include "decode_int8_split.cuh"
 #include "decode_split.cuh"
 
 int paged_decode_attention_launch(const void* q, const void* k_pages,
@@ -58,13 +59,13 @@ int paged_decode_attention_launch(const void* q, const void* k_pages,
 int paged_decode_attention_int8_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale_pages, const void* v_scale_pages, const void* table,
-    const void* lengths, void* out, int B, int nblk, int bs, int H, int Hkv,
-    int K, float scale, float softcap, int is_bf16, void* stream) {
-  using namespace decode_attention_detail;
-  const PagedRows rows{static_cast<const int*>(table),
-                       static_cast<const int*>(lengths), nblk, bs, Hkv};
-  const Int8Scales store{static_cast<const float*>(k_scale_pages),
-                         static_cast<const float*>(v_scale_pages)};
-  return launch_dtype(is_bf16, H / Hkv, K, q, k_pages, v_pages, rows, store,
-                      out, B, Hkv, scale, softcap, stream);
+    const void* lengths, void* out, void* work, int B, int nblk, int bs,
+    int H, int Hkv, int K, int split, float scale, float softcap,
+    int is_bf16, void* stream) {
+  using namespace decode_int8_detail;
+  const PagedSplit rows{static_cast<const int*>(table),
+                        static_cast<const int*>(lengths), nblk, bs};
+  return launch_dtype(is_bf16, H / Hkv, K, split, q, k_pages, v_pages,
+                      k_scale_pages, v_scale_pages, rows, out, work, B, Hkv,
+                      nblk * bs, scale, softcap, stream);
 }

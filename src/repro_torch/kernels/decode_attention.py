@@ -8,9 +8,12 @@ and launch their kernel or raise; ``kernels.ops`` sends CPU tensors to
 the plain version (``kernels.ref.decode_attention``) instead.
 
 ``decode_attention`` (and ``paged_decode_attention``) run the split body
-(``csrc/decode_split.cuh``): blocks over ``SPLIT`` logical positions of a
-row, then a merge pass over the splits in order, through a float32
-workspace this wrapper allocates; ``split_layout`` gives its size.
+(``csrc/decode_split.cuh``), ``decode_attention_int8`` (and
+``paged_decode_attention_int8``) the int8 split body
+(``csrc/decode_int8_split.cuh``): blocks over ``SPLIT`` logical
+positions of a row, then a merge pass over the splits in order, through
+a float32 workspace this wrapper allocates; ``split_layout`` gives its
+size, the same for both storages.
 """
 from __future__ import annotations
 
@@ -62,8 +65,8 @@ def split_layout(extent: int, B: int, Hkv: int, G: int,
 
 
 def check_aligned(name: str, **tensors: torch.Tensor) -> None:
-    """Raise unless each tensor starts on 16 bytes (the split body reads
-    K/V rows in 16-byte loads)."""
+    """Raise unless each tensor starts on 16 bytes (the split bodies read
+    K/V rows in loads of up to 16 bytes)."""
     for arg, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
@@ -139,20 +142,24 @@ def decode_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, H, K) float32 or bfloat16; k/v: (B, W, Hkv, K) int8 codes;
     valid: (B, W) bool; k_scale/v_scale: (B, W, Hkv) float32, one scale
     per (slot, kv head), so a key is ``k.float() * k_scale[..., None]``.
-    All contiguous CUDA tensors on one device. Returns (B, H, K) in q's
-    dtype."""
+    All contiguous CUDA tensors on one device, k/v 16-byte aligned.
+    Returns (B, H, K) in q's dtype."""
     name = "decode_attention_int8"
     check_cuda(name, q, k=k, v=v, valid=valid, k_scale=k_scale,
                v_scale=v_scale)
     check_int8(name, q, k, v, k_scale, v_scale)
     B, W, H, Hkv, K = _check_dense(name, q, k, v, valid)
+    check_aligned(name, k=k, v=v)
+    _, shape = split_layout(W, B, Hkv, H // Hkv, K)
     out = torch.empty((B, H, K), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
+    work = torch.empty(shape, dtype=torch.float32, device=q.device)
     err = extension().decode_attention_int8(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), B, W, H,
-        Hkv, K, K ** -0.5, float(softcap), q.dtype == torch.bfloat16,
+        k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
+        work.data_ptr(), B, W, H, Hkv, K, SPLIT, K ** -0.5, float(softcap),
+        q.dtype == torch.bfloat16,
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, name)
     int8_launches.add()

@@ -7,8 +7,9 @@
 tensors only and launch their kernel or raise; ``kernels.ops`` sends CPU
 tensors to the plain version (``kernels.ref.paged_decode_attention``)
 instead. Each shares its body with its dense sibling (the split body
-for ``paged_decode_attention``, with the same ``SPLIT`` and workspace),
-so they take the same (G, K).
+for ``paged_decode_attention``, the int8 split body for
+``paged_decode_attention_int8``, each with the same ``SPLIT`` and
+workspace), so they take the same (G, K).
 """
 from __future__ import annotations
 
@@ -94,9 +95,9 @@ def paged_decode_attention_int8(q: torch.Tensor, k_pages: torch.Tensor,
     """q: (B, H, K) float32 or bfloat16; k_pages/v_pages: (P+1, bs, Hkv,
     K) int8 codes; k_scale_pages/v_scale_pages: (P+1, bs, Hkv) float32,
     one scale per (position, kv head); table: (B, nblk) int32; lengths:
-    (B,) int32. All contiguous CUDA tensors on one device. Returns
-    (B, H, K) in q's dtype. As for ``paged_decode_attention``, the table's
-    values are not checked."""
+    (B,) int32. All contiguous CUDA tensors on one device, the code
+    pages 16-byte aligned. Returns (B, H, K) in q's dtype. As for
+    ``paged_decode_attention``, the table's values are not checked."""
     name = "paged_decode_attention_int8"
     check_cuda(name, q, k_pages=k_pages, v_pages=v_pages,
                k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages,
@@ -104,14 +105,18 @@ def paged_decode_attention_int8(q: torch.Tensor, k_pages: torch.Tensor,
     check_int8(name, q, k_pages, v_pages, k_scale_pages, v_scale_pages)
     B, nblk, bs, H, Hkv, K = _check_paged(name, q, k_pages, v_pages, table,
                                           lengths)
+    check_aligned(name, k_pages=k_pages, v_pages=v_pages)
+    _, shape = split_layout(nblk * bs, B, Hkv, H // Hkv, K)
     out = torch.empty((B, H, K), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
+    work = torch.empty(shape, dtype=torch.float32, device=q.device)
     err = extension().paged_decode_attention_int8(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale_pages.data_ptr(), v_scale_pages.data_ptr(),
-        table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, nblk, bs,
-        H, Hkv, K, K ** -0.5, float(softcap), q.dtype == torch.bfloat16,
+        table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        work.data_ptr(), B, nblk, bs, H, Hkv, K, SPLIT, K ** -0.5,
+        float(softcap), q.dtype == torch.bfloat16,
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, name)
     int8_launches.add()

@@ -400,6 +400,154 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda):
                              k_scale=ks[:2].double(), v_scale=ks[:2])
 
 
+def _int8_split_case(gen, dtype, lengths, H, Hkv, K, bs, nblk, softcap):
+    """The int8 split body on one paged case: the paged int8 kernel against
+    the plain version, bitwise against the dense int8 kernel over the
+    gathered view, unchanged with NaN scales and codes of +-127 in every
+    page no row owns, length-0 rows 0; one launch counted per call.
+    Returns the paged output."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_attention as pa
+    q, kp, vp, table, lens, owned = _paged_inputs(gen, lengths, H, Hkv, K,
+                                                  bs, nblk, torch.float32)
+    q = q.to(dtype)
+    kq, ks = _quant(kp)
+    vq, vs = _quant(vp)
+    before = ops.launch_counts()
+    got = pa.paged_decode_attention_int8(q, kq, vq, ks, vs, table, lens,
+                                         softcap=softcap)
+    torch.cuda.synchronize()
+    _assert_close(got, ref.paged_decode_attention(
+        q, kq, vq, table, lens, softcap=softcap, k_scale_pages=ks,
+        v_scale_pages=vs), dtype)
+    B, W = len(lengths), nblk * bs
+    idx = table.long()
+    valid = torch.arange(W, device="cuda")[None, :] < lens[:, None]
+    dense = da.decode_attention_int8(
+        q, kq[idx].reshape(B, W, Hkv, K).contiguous(),
+        vq[idx].reshape(B, W, Hkv, K).contiguous(), valid,
+        ks[idx].reshape(B, W, Hkv).contiguous(),
+        vs[idx].reshape(B, W, Hkv).contiguous(), softcap=softcap)
+    assert torch.equal(got, dense)
+    after = ops.launch_counts()
+    for name in ("decode_attention_int8", "paged_decode_attention_int8"):
+        assert after[name] == before[name] + 1
+    unowned = torch.ones(kq.shape[0], dtype=torch.bool, device="cuda")
+    unowned[table[owned].long()] = False
+    ks[unowned], vs[unowned] = float("nan"), float("nan")
+    kq[unowned], vq[unowned] = 127, -127
+    assert torch.equal(got, pa.paged_decode_attention_int8(
+        q, kq, vq, ks, vs, table, lens, softcap=softcap))
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert bool((got[b] == 0).all())
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edges", ["first", "second"])
+def test_int8_split_body_at_split_edges(cuda, dtype, edges):
+    """Rows ending on a split's last position, its edge and the next
+    split's first, an empty (or one-position) row, and the full horizon."""
+    from repro_torch.kernels.decode_attention import SPLIT as P
+    lengths = ([P - 1, P, P + 1, 0, 2048] if edges == "first"
+               else [2 * P - 1, 2 * P, 2 * P + 1, 1, 2047])
+    _int8_split_case(cuda, dtype, lengths, 16, 8, 128, 16, 128, 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_split_body_over_a_scattered_ring(cuda, dtype):
+    """Live slots scattered over the ring so that live and dead splits
+    alternate, a row with no live slot, and NaN scales with codes of
+    +-127 in every dead slot, the dead slots of live splits included."""
+    from repro_torch.kernels import decode_attention as da
+    B, W, H, Hkv, K = 3, 1000, 16, 8, 128
+    q = _randn(cuda, B, H, K, dtype=dtype)
+    kq, ks = _quant(_randn(cuda, B, W, Hkv, K, dtype=torch.float32))
+    vq, vs = _quant(_randn(cuda, B, W, Hkv, K, dtype=torch.float32))
+    valid = torch.rand(B, W, generator=cuda, device="cuda") < 0.3
+    pos = torch.arange(W, device="cuda")
+    valid &= (pos // da.SPLIT % 2 == 0)[None, :]
+    valid[-1] = False
+    got = da.decode_attention_int8(q, kq, vq, valid, ks, vs)
+    torch.cuda.synchronize()
+    _assert_close(got, ref.decode_attention(q, kq, vq, valid, k_scale=ks,
+                                            v_scale=vs), dtype)
+    assert bool((got[-1] == 0).all())
+    # the even splits of the first two rows are live and hold dead slots
+    assert bool(((pos // da.SPLIT % 2 == 0)[None, :] & ~valid[:2]).any())
+    dead = ~valid
+    ks[dead], vs[dead] = float("nan"), float("nan")
+    kq[dead], vq[dead] = 127, -127
+    poisoned = da.decode_attention_int8(q, kq, vq, valid, ks, vs)
+    assert torch.equal(got, poisoned)
+    assert bool(torch.isfinite(poisoned.float()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,K", [(g, k) for g in (1, 2, 4, 8)
+                                 for k in (32, 64, 128, 256) if g * k <= 512])
+def test_int8_split_body_groups_and_head_dims(cuda, dtype, G, K):
+    """Every (G, K) the int8 body is instantiated for, with softcap."""
+    Hkv = 2
+    _int8_split_case(cuda, dtype, [300, 64, 0, 129], G * Hkv, Hkv, K, 16,
+                     32, 30.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_split_body_bits_do_not_depend_on_the_horizon(cuda, dtype):
+    """The same live prefix gives the same bits at W = 512 and W = 2048
+    (dense), at nblk = 32 and 128 (paged), and dense and paged agree."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_attention as pa
+    lengths = [48, 160, 300, 512, 0]
+    q, kp, vp, table, lens, _ = _paged_inputs(cuda, lengths, 16, 8, 128, 16,
+                                              128, torch.float32)
+    q = q.to(dtype)
+    kq, ks = _quant(kp)
+    vq, vs = _quant(vp)
+    long_ = pa.paged_decode_attention_int8(q, kq, vq, ks, vs, table, lens)
+    short = pa.paged_decode_attention_int8(q, kq, vq, ks, vs,
+                                           table[:, :32].contiguous(), lens)
+    assert torch.equal(long_, short)
+    B, idx = len(lengths), table.long()
+    kd = kq[idx].reshape(B, 2048, 8, 128).contiguous()
+    vd = vq[idx].reshape(B, 2048, 8, 128).contiguous()
+    ksd = ks[idx].reshape(B, 2048, 8).contiguous()
+    vsd = vs[idx].reshape(B, 2048, 8).contiguous()
+    valid = torch.arange(2048, device="cuda")[None, :] < lens[:, None]
+    wide = da.decode_attention_int8(q, kd, vd, valid, ksd, vsd)
+    narrow = da.decode_attention_int8(
+        q, kd[:, :512].contiguous(), vd[:, :512].contiguous(),
+        valid[:, :512].contiguous(), ksd[:, :512].contiguous(),
+        vsd[:, :512].contiguous())
+    assert torch.equal(wide, narrow)
+    assert torch.equal(wide, long_)
+
+
+def test_int8_split_wrappers_reject_unaligned_codes(cuda):
+    """int8 K/V that do not start on 16 bytes are refused, even where
+    they start on 8."""
+    q = _randn(cuda, 2, 16, 128, dtype=torch.bfloat16)
+    n = 2 * 64 * 8 * 128
+    k = torch.zeros(n + 8, dtype=torch.int8, device="cuda")[8:]
+    k = k.reshape(2, 64, 8, 128)
+    good = torch.zeros(2, 64, 8, 128, dtype=torch.int8, device="cuda")
+    s = torch.ones(2, 64, 8, dtype=torch.float32, device="cuda")
+    valid = torch.ones(2, 64, dtype=torch.bool, device="cuda")
+    lens = torch.full((2,), 64, dtype=torch.int32, device="cuda")
+    table = torch.arange(8, dtype=torch.int32, device="cuda").reshape(2, 4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.decode_attention(q, k, good, valid, k_scale=s, v_scale=s)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.decode_attention(q, good, k, valid, k_scale=s, v_scale=s)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.paged_decode_attention(
+            q, k.reshape(8, 16, 8, 128), good.reshape(8, 16, 8, 128), table,
+            lens, k_scale_pages=s.reshape(8, 16, 8),
+            v_scale_pages=s.reshape(8, 16, 8))
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = _randn(cuda, 1, 8, 4, 32, dtype=torch.float32)
     with pytest.raises(TypeError):
