@@ -49,11 +49,18 @@ Phases, each raising on failure (any failure exits nonzero):
    16-token latent pages, which must ignore NaN in unowned pages; timed
    beside the plain version and ``scaled_dot_product_attention`` over
    [q_lat | q_rope] and [ckv | k_rope]. RMSNorm at every width the
-   port's norms see (D = 128, 512, 1024, 2048, 2560, 5120), 1 / 37 /
-   4099 rows, the MLA latent slice dkv[..., :512] of 576-wide rows read
-   in place and a float32 scale under bfloat16 rows; timed at the block
-   norm of a 512-token qwen3 prefill beside the plain version and
-   ``torch.nn.functional.rms_norm`` (a yardstick the port never calls).
+   port's norms see (D = 128, 512, 1024, 2048, 2560, 5120) and those of
+   the families still to come (4096 to 7168), 1 / 37 / 4099 rows, the
+   MLA latent slice dkv[..., :512] of 576-wide rows read in place, a
+   float32 scale under bfloat16 rows, and widths the 16-byte path does
+   not take (1020 / 1022, 20000); bit for bit, a row alone, inside 4099
+   rows and in a pair launch, the one-element path (a base or scale off
+   16 bytes, a row stride of D + 1) against the 16-byte one, and the q/k
+   pair (one launch) against two launches; timed at the block norm of a
+   512-token qwen3 prefill beside the plain version and
+   ``torch.nn.functional.rms_norm`` (a yardstick the port never calls),
+   and at a 4-slot decode step's norms beside ``rms_norm`` and the
+   launch floor (an empty kernel), all as device time.
 3. Model: qwen3-0.6b at full width cut to 2 layers, the 2-layer
    mamba2-2.7b-reduced and the 2-layer deepseek-v2-lite-16b-reduced,
    float32, the port's seeded init: prefill + 8 greedy decode steps on
@@ -62,8 +69,9 @@ Phases, each raising on failure (any failure exits nonzero):
    over full-width qwen3-0.6b (28 layers, bfloat16, random weights from a
    seed), n_slots=4, max_len=2048, 8 requests with ragged 16-512 token
    prompts and max_new=32; the prefill and dense decode kernels must
-   launch, and rmsnorm a multiple of the 113 norms of a forward (as on
-   every later path, with that model's count). Reports one 4-slot decode
+   launch, and rmsnorm a multiple of the 85 launches of a forward (113
+   norms, a layer's q and k norms one pair launch; as on every later
+   path, with that model's count). Reports one 4-slot decode
    step's host time, launches, device time and the decode attention
    kernels' part of it, with the norms in plain tensor code and through
    the rmsnorm kernel.
@@ -905,29 +913,58 @@ def flash_shape_checks(gen):
 
 # RMSNorm at every width the port's norms see: 128 (qwen3 q/k norms, rows
 # B*S*H), 512 (the deepseek latent norm), 1024 / 2048 / 2560 (block norms)
-# and 5120 (the mamba2 gated norm); the main shape is the block norm of a
-# 512-token qwen3 prefill
+# and 5120 (the mamba2 gated norm), and those of the families still to
+# come (4096 to 7168); the main shape is the block norm of a 512-token
+# qwen3 prefill
 RMS_WIDTHS = (128, 512, 1024, 2048, 2560, 5120)
-RMS_ROWS = (1, 37, 4099)      # no multiple of the kernel's 8-row blocks
+RMS_LATER = (4096, 5376, 6144, 7168)
+RMS_ROWS = (1, 37, 4099)      # no multiple of the kernel's rows a block
 RMS_MAIN = dict(rows=512, D=1024)
 RMS_EPS = 1e-6
+# widths the 16-byte path does not take (V = 8 bf16 / 4 f32 elements does
+# not divide them), and one wider than the registers hold
+RMS_ODD = {"float32": (1022, 20000), "bfloat16": (1020, 20000)}
+# a 4-slot decode step's norms, bf16: (shape, width read of it)
+RMS_DECODE = {"qwen3 block": ((4, 1, 1024), None),
+              "mamba2 block": ((4, 1, 2560), None),
+              "mamba2 gated": ((4, 1, 5120), None),
+              "deepseek block": ((4, 1, 2048), None),
+              "deepseek latent": ((4, 1, 576), 512)}
+QK_DECODE = ((4, 1, 16, 128), (4, 1, 8, 128))    # qwen3's q and k
 
 
-def rmsnorm_bound(rows, D, dtype_name, itemsize, scale_itemsize):
-    """x read once, y written once, scale read once; ~4 flops an element
+def rmsnorm_bound(shapes, dtype_name, itemsize, scale_itemsize):
+    """x read once, y written once, scale read once, for each (rows, D) of
+    ``shapes`` (one launch may normalise two tensors); ~4 flops an element
     (square, sum, two products)."""
-    nbytes = 2 * rows * D * itemsize + D * scale_itemsize
-    ops = 4 * rows * D
+    nbytes = sum(2 * rows * D * itemsize + D * scale_itemsize
+                 for rows, D in shapes)
+    ops = sum(4 * rows * D for rows, D in shapes)
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FLOPS[dtype_name]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _copy_at(t, offset=0, pad=0):
+    """t (rows, D)'s values in a fresh buffer: ``offset`` elements past its
+    16-byte aligned base, and with rows ``pad`` elements wider than t's."""
+    rows, D = t.shape
+    buf = torch.empty(offset + rows * (D + pad), dtype=t.dtype,
+                      device=t.device)
+    view = buf[offset:].view(rows, D + pad)[:, :D]
+    view.copy_(t)
+    return view
+
+
 def rmsnorm_checks(gen):
     """rmsnorm against its plain version: every width, float32 and
-    bfloat16, row counts no multiple of a block, the MLA latent slice
-    dkv[..., :512] of 576-wide rows read in place, and a float32 scale
-    under bfloat16 rows. Returns the worst error by dtype."""
+    bfloat16, 1 / 37 / 4099 rows, the MLA latent slice dkv[..., :512] of
+    576-wide rows read in place, a float32 scale under bfloat16 rows, and
+    widths the 16-byte path does not take. Then bit for bit: a row alone,
+    inside 4099 rows and in a pair launch; the same rows with a base one
+    element off 16 bytes, a row stride of D + 1 and a scale off 16 bytes
+    (the one-element path) as the aligned ones; and a pair launch as two
+    single ones, counted once. Returns the worst error by dtype."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
 
@@ -939,9 +976,10 @@ def rmsnorm_checks(gen):
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
+        widths = RMS_WIDTHS + RMS_LATER + RMS_ODD[dn]
         cases = [(randn(rows, D).mul_(2).to(dtype),
                   (1 + 0.1 * randn(D)).to(dtype), f"rows={rows} D={D}")
-                 for D in RMS_WIDTHS for rows in RMS_ROWS]
+                 for D in widths for rows in RMS_ROWS]
         dkv = randn(4, 512, 576).to(dtype)
         cases.append((dkv[..., :512], (1 + 0.1 * randn(512)).to(dtype),
                       "strided dkv[..., :512] of (4, 512, 576)"))
@@ -953,12 +991,112 @@ def rmsnorm_checks(gen):
             torch.cuda.synchronize()
             errs.append(check_close(got, ref.rmsnorm(x, scale, RMS_EPS), dn,
                                     f"rmsnorm {dn} {what}"))
+            if x.shape[0] != RMS_ROWS[-1]:
+                continue
+            # bits: a row alone, inside the rows, in a pair (either side);
+            # the one-element path on the same rows
+            D = x.shape[-1]
+            y, y_scale = randn(37, D).to(dtype), scale.flip(0)
+            for r in (0, 5, 2048, x.shape[0] - 1):
+                if not torch.equal(rn.rmsnorm(x[r:r + 1], scale,
+                                              RMS_EPS)[0], got[r]):
+                    fail(f"rmsnorm {dn} D={D}: row {r} alone has other "
+                         "bits than inside 4099 rows")
+            a, b = rn.rmsnorm_pair(x, scale, y, y_scale, RMS_EPS)
+            c, d = rn.rmsnorm_pair(y, y_scale, x[5:6], scale, RMS_EPS)
+            if not (torch.equal(a, got) and torch.equal(d[0], got[5])
+                    and torch.equal(b, c)
+                    and torch.equal(b, rn.rmsnorm(y, y_scale, RMS_EPS))):
+                fail(f"rmsnorm {dn} D={D}: rows in a pair launch have "
+                     "other bits than alone")
+            head = x[:37]
+            off_scale = _copy_at(scale[None], offset=1)[0]
+            for other, how in ((rn.rmsnorm(_copy_at(head, offset=1), scale,
+                                           RMS_EPS), "a base off 16 bytes"),
+                               (rn.rmsnorm(_copy_at(head, pad=1), scale,
+                                           RMS_EPS), f"row stride {D + 1}"),
+                               (rn.rmsnorm(head, off_scale, RMS_EPS),
+                                "a scale off 16 bytes")):
+                if not torch.equal(other, got[:37]):
+                    fail(f"rmsnorm {dn} D={D}: {how} (one element at a "
+                         "time) gives other bits than the aligned rows")
         worst[dn] = max(errs)
-        print(f"rmsnorm {dn}: {len(cases)} cases (D {list(RMS_WIDTHS)} x "
-              f"rows {list(RMS_ROWS)}, a strided latent slice, a float32 "
-              f"scale) within {TOL[dn]} abs + rel of the plain version, "
-              f"max_abs_err={worst[dn]:.3e}", flush=True)
+        # a layer's q and k norms: one launch, the bits of two
+        q, k = (randn(*shape).to(dtype) for shape in QK_DECODE)
+        qs, ks = ((1 + 0.1 * randn(128)).to(dtype) for _ in range(2))
+        before = rn.launches.value
+        gq, gk = rn.rmsnorm_pair(q, qs, k, ks, RMS_EPS)
+        torch.cuda.synchronize()
+        if rn.launches.value != before + 1:
+            fail(f"rmsnorm {dn}: a pair took {rn.launches.value - before} "
+                 "launches")
+        if not (torch.equal(gq, rn.rmsnorm(q, qs, RMS_EPS))
+                and torch.equal(gk, rn.rmsnorm(k, ks, RMS_EPS))):
+            fail(f"rmsnorm {dn}: the q/k pair is not two single launches "
+                 "bit for bit")
+        print(f"rmsnorm {dn}: {len(cases)} cases (D {list(widths)} x rows "
+              f"{list(RMS_ROWS)}, a strided latent slice, a float32 scale) "
+              f"within {TOL[dn]} abs + rel of the plain version, "
+              f"max_abs_err={worst[dn]:.3e}; bit for bit: a row alone = "
+              "inside 4099 rows = in a pair, one element at a time (base "
+              "or scale off 16 bytes, row stride D + 1) = 16-byte loads, "
+              "the q/k pair (one launch) = two launches", flush=True)
     return worst
+
+
+def rmsnorm_decode_calls(gen) -> dict:
+    """The norms of a 4-slot decode step at their shapes, bf16: {name:
+    {"kernel", "library": zero-argument calls, "bound": (ms, by)}}. The
+    q/k norms as two single launches and, where the port has it, as one
+    pair launch. The library call is ``torch.nn.functional.rms_norm``
+    (one a tensor), which the port never makes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm as rn
+
+    dev = torch.device("cuda")
+    dtype = torch.bfloat16
+
+    def case(shape, width=None):
+        x = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+        x = x if width is None else x[..., :width]
+        D = x.shape[-1]
+        return x, (1 + 0.1 * torch.randn(D, generator=gen,
+                                          device=dev)).to(dtype)
+
+    def rows_d(x):
+        return x.numel() // x.shape[-1], x.shape[-1]
+
+    calls = {}
+    for name, (shape, width) in RMS_DECODE.items():
+        x, s = case(shape, width)
+        calls[f"{name} {shape}" + (f"[..., :{width}]" if width else "")] = {
+            "kernel": lambda x=x, s=s: rn.rmsnorm(x, s, RMS_EPS),
+            "library": lambda x=x, s=s: F.rms_norm(x, (x.shape[-1],),
+                                                   weight=s, eps=RMS_EPS),
+            "bound": rmsnorm_bound([rows_d(x)], "bfloat16", 2, 2)}
+    (q, qs), (k, ks) = (case(shape) for shape in QK_DECODE)
+
+    def library():
+        return (F.rms_norm(q, (128,), weight=qs, eps=RMS_EPS),
+                F.rms_norm(k, (128,), weight=ks, eps=RMS_EPS))
+    bound = rmsnorm_bound([rows_d(q), rows_d(k)], "bfloat16", 2, 2)
+    qk = f"qwen3 q/k {QK_DECODE[0]} + {QK_DECODE[1]}"
+    calls[f"{qk} as two launches"] = {
+        "kernel": lambda: (rn.rmsnorm(q, qs, RMS_EPS),
+                           rn.rmsnorm(k, ks, RMS_EPS)),
+        "library": library, "bound": bound}
+    if hasattr(rn, "rmsnorm_pair"):
+        calls[f"{qk} as one pair launch"] = {
+            "kernel": lambda: rn.rmsnorm_pair(q, qs, k, ks, RMS_EPS),
+            "library": library, "bound": bound}
+    return calls
+
+
+def launch_floor_ms() -> float:
+    """Device time of an empty kernel (``torch.cuda._sleep(0)``) replayed
+    from a CUDA graph: the least any launch takes on this card."""
+    return time_graph_ms(lambda: torch.cuda._sleep(0))
 
 
 def decode_main_calls(gen) -> dict:
@@ -1261,7 +1399,7 @@ def kernel_phase():
     scale = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(dtype)
     err = check_close(rn.rmsnorm(x, scale, RMS_EPS),
                       ref.rmsnorm(x, scale, RMS_EPS), dn, "rmsnorm main shape")
-    bound, by = rmsnorm_bound(rows, D, dn, isz, isz)
+    bound, by = rmsnorm_bound([(rows, D)], dn, isz, isz)
 
     def kernel():
         return rn.rmsnorm(x, scale, RMS_EPS)
@@ -1280,12 +1418,20 @@ def kernel_phase():
         "eager_ms": {"kernel": time_ms(kernel, reps=100),
                      "plain": time_ms(plain, reps=20),
                      "library": time_ms(library, reps=100)},
+        "decode_shapes": {
+            name: {"ms": time_graph_ms(c["kernel"]),
+                   "library_ms": time_graph_ms(c["library"]),
+                   "bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
+            for name, c in rmsnorm_decode_calls(gen).items()},
+        "launch_floor_ms": launch_floor_ms(),
         "shape": f"x=(1, {rows}, {D}) bf16, scale ({D},) bf16; worst over "
                  f"the phase-2 cases f32 {worst['float32']:.3e} bf16 "
                  f"{worst['bfloat16']:.3e}; library_ms is "
                  "torch.nn.functional.rms_norm; ms, plain_ms and "
                  "library_ms replay 100 calls captured in a CUDA graph "
-                 "(device time), eager_ms times them launched one by one"}
+                 "(device time), eager_ms times them launched one by one; "
+                 "decode_shapes are a 4-slot decode step's norms (graph); "
+                 "launch_floor_ms is torch.cuda._sleep(0) (graph)"}
     print(f"rmsnorm main shape: {results['rmsnorm']}", flush=True)
     return results
 
@@ -1408,18 +1554,12 @@ def main_path_phase(card: str):
     tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
     pos = torch.tensor([48, 160, 300, 544], dtype=torch.int32,
                        device="cuda")
-    kernel = ops.rmsnorm
     ops.reset_launch_counts()
     model.decode_step(params, tok, cache, pos)
     torch.cuda.synchronize()
     norms = ops.launch_counts()["rmsnorm"]
-    turns = []
-    for use_kernel in (False, True, True, False):   # in turns
-        ops.rmsnorm = kernel if use_kernel else plain_rmsnorm
-        try:
-            turns.append(decode_step_profile(model, params, tok, cache, pos))
-        finally:
-            ops.rmsnorm = kernel
+    turns = norms_in_turns(
+        lambda: decode_step_profile(model, params, tok, cache, pos))
     fmt = ("host_ms={:.3f} kernel_launches={} device_ms={:.3f} "
            "attention_device_ms={:.4f}").format
     print(f"main path, one 4-slot decode step (rows live to 48/160/300/544), "
@@ -1431,22 +1571,35 @@ def main_path_phase(card: str):
     return launches
 
 
-def plain_rmsnorm(x, scale, eps=1e-6):
-    """The plain RMSNorm on card tensors: what the models ran before the
-    rmsnorm kernel (the decode-step reading above only)."""
-    from repro_torch.kernels import ref
-    return ref.rmsnorm(x, scale, eps)
+def norms_in_turns(step) -> list:
+    """``step()`` four times, in turns with the models' norms in plain
+    tensor code on the card tensors (what they ran before the rmsnorm
+    kernel: ``ops.rmsnorm`` and ``ops.rmsnorm_pair`` patched) and through
+    the kernel: plain, kernel, kernel, plain (the decode-step readings of
+    phases 4, 8 and 9 only)."""
+    from repro_torch.kernels import ops, ref
+    kernel = ops.rmsnorm, ops.rmsnorm_pair
+    plain = ref.rmsnorm, lambda x, xs, y, ys, eps=1e-6: (
+        ref.rmsnorm(x, xs, eps), ref.rmsnorm(y, ys, eps))
+    turns = []
+    for use_kernel in (False, True, True, False):
+        ops.rmsnorm, ops.rmsnorm_pair = kernel if use_kernel else plain
+        try:
+            turns.append(step())
+        finally:
+            ops.rmsnorm, ops.rmsnorm_pair = kernel
+    return turns
 
 
 def norms_per_forward(cfg) -> int:
-    """RMSNorm calls in one forward (a prefill batch or a decode step):
+    """rmsnorm launches in one forward (a prefill batch or a decode step):
     per layer the block norms (two, one for an SSM block) plus the q/k
-    norms, the MLA latent norm or the mamba2 gated norm; then the final
-    norm."""
+    norms (one pair launch), the MLA latent norm or the mamba2 gated norm;
+    then the final norm."""
     if cfg.is_ssm:
         per_layer = 2
     else:
-        per_layer = 2 + (2 if cfg.qk_norm else 0) + (1 if cfg.mla else 0)
+        per_layer = 2 + (1 if cfg.qk_norm else 0) + (1 if cfg.mla else 0)
     return cfg.n_layers * per_layer + 1
 
 
@@ -1993,14 +2146,8 @@ def ssm_path_phase(card: str, n_containers: int = 2, max_new: int = 32):
 
     # the decode step in turns plain, kernel, kernel, plain norms (as
     # phase 4's): what the rmsnorm kernel moves on this family's step
-    kernel = ops.rmsnorm
-    turns = []
-    for use_kernel in (False, True, True, False):
-        ops.rmsnorm = kernel if use_kernel else plain_rmsnorm
-        try:
-            turns.append(decode_step_profile(model, params, tok, cache, pos))
-        finally:
-            ops.rmsnorm = kernel
+    turns = norms_in_turns(
+        lambda: decode_step_profile(model, params, tok, cache, pos))
     fmt = ("host_ms={:.3f} kernel_launches={} device_ms={:.3f} "
            "attention_device_ms={:.4f}").format
 
@@ -2159,14 +2306,8 @@ def deepseek_path_phase(card: str, n_containers: int = 2,
              f"{alone[:8]}...")
     # the decode step in turns plain, kernel, kernel, plain norms (as
     # phase 4's): what the rmsnorm kernel moves on this family's step
-    kernel = ops.rmsnorm
-    turns = []
-    for use_kernel in (False, True, True, False):
-        ops.rmsnorm = kernel if use_kernel else plain_rmsnorm
-        try:
-            turns.append(decode_step_profile(model, params, tok, cache, pos))
-        finally:
-            ops.rmsnorm = kernel
+    turns = norms_in_turns(
+        lambda: decode_step_profile(model, params, tok, cache, pos))
     fmt = ("host_ms={:.3f} kernel_launches={} device_ms={:.3f} "
            "attention_device_ms={:.4f}").format
     n_tok = sum(len(c.tokens) for c in comps)

@@ -34,10 +34,18 @@ separates a call's fixed cost from its cost a position; the device time
 of each CUDA kernel of each of the five at the main shape
 (``torch.profiler``) and digests of their float32- and bfloat16-query
 outputs on fixed inputs, so that two checkouts read in turns show
-whether a kernel's bits moved; then one 4-slot qwen3 decode step (rows
-live to 48/160/300/544) over a bfloat16 and over an int8 KV cache: its
-host ms, kernel launches, device ms, and the device ms and launches of
-the decode attention kernels by name.
+whether a kernel's bits moved; ``rmsnorm`` at its main shape (the block
+norm of a 512-token qwen3 prefill) and at a 4-slot decode step's norms
+(``chip_smoke.py``'s ``rmsnorm_decode_calls``: qwen3's q/k norms as two
+launches and, where the checkout has it, as one pair launch) from a
+graph beside ``torch.nn.functional.rms_norm``, digests of its float32
+and bfloat16 outputs, the launch floor (``torch.cuda._sleep(0)`` from a
+graph) and the wrapper's host µs a call, launched one by one; then one
+4-slot qwen3 decode step (rows live to 48/160/300/544) over a bfloat16
+and over an int8 KV cache: its host ms, kernel launches, device ms, and
+the device ms and launches of the decode attention kernels by name; and
+the same step of mamba2-2.7b and deepseek-v2-lite-16b (bf16): host ms,
+launches, device ms and the rmsnorm kernels' device ms.
 
 ``--src`` imports the port from another checkout's ``src`` (for example
 a parent commit unpacked beside this one), so two versions can be read
@@ -222,6 +230,8 @@ def profile_decode() -> dict:
                                            scale=cs.MLA_SCALE))}
         del q, kp, vp, kd, vd, kq, vq, kqd, vqd
 
+    norms = profile_norms(gen)
+
     base = get_config("qwen3-0.6b")
     steps = {}
     for kv in ("model", "int8"):
@@ -250,7 +260,98 @@ def profile_decode() -> dict:
         del cache, model
     del params
     torch.cuda.empty_cache()
-    return {"kernels": kernels, "depth_graph_ms": depths, **steps}
+    for name in ("mamba2-2.7b", "deepseek-v2-lite-16b"):
+        model = Model(get_config(name))
+        params = model.init(seed=0, dtype=torch.bfloat16)
+        cache = model.init_cache(4, 2048, torch.bfloat16)
+        tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+        pos = torch.tensor([48, 160, 300, 544], dtype=torch.int32,
+                           device="cuda")
+        step_ms, launches, device_ms, _ = cs.decode_step_profile(
+            model, params, tok, cache, pos)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.decode_step(params, tok, cache, pos)
+            torch.cuda.synchronize()
+        norm = [e for e in prof.key_averages()
+                if _device_us(e) > 0 and "rmsnorm" in e.key]
+        steps[f"decode_step {name}"] = {
+            "host_ms": step_ms, "kernel_launches": launches,
+            "device_ms": device_ms,
+            "rmsnorm_launches": sum(e.count for e in norm),
+            "rmsnorm_device_ms": sum(_device_us(e) for e in norm) / 1e3}
+        del cache, params, model
+        torch.cuda.empty_cache()
+    return {"kernels": kernels, "depth_graph_ms": depths, "rmsnorm": norms,
+            **steps}
+
+
+HOST_REPS = 2000
+
+
+def host_us(fn) -> float:
+    """Host µs a call launched one by one: ``HOST_REPS`` calls on the host
+    clock, after a warm-up, ending in a synchronize (the host, not the
+    card, paces calls this short)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_REPS):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / HOST_REPS * 1e6
+
+
+def profile_norms(gen) -> dict:
+    """``rmsnorm``'s device time (graph) at the main shape and at a decode
+    step's norms beside ``F.rms_norm``'s, its bound, the launch floor, the
+    wrapper's host µs a call, and digests of its outputs."""
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from repro_torch.kernels import rmsnorm as rn
+    rows, D = cs.RMS_MAIN["rows"], cs.RMS_MAIN["D"]
+    x = torch.randn(1, rows, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    s = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    out = {"main (1, 512, 1024)": {
+        "graph_ms": cs.time_graph_ms(lambda: rn.rmsnorm(x, s, cs.RMS_EPS)),
+        "library_graph_ms": cs.time_graph_ms(
+            lambda: F.rms_norm(x, (D,), weight=s, eps=cs.RMS_EPS)),
+        "bound_ms": cs.rmsnorm_bound([(rows, D)], "bfloat16", 2, 2)[0]}}
+    for name, c in cs.rmsnorm_decode_calls(gen).items():
+        out[name] = {"graph_ms": cs.time_graph_ms(c["kernel"]),
+                     "library_graph_ms": cs.time_graph_ms(c["library"]),
+                     "bound_ms": c["bound"][0],
+                     "host_us": host_us(c["kernel"])}
+    out["launch_floor_graph_ms"] = cs.launch_floor_ms()
+    out["digests"] = norm_digests()
+    return out
+
+
+def norm_digests() -> dict:
+    """Digests of ``rmsnorm``'s output on fixed inputs at every width of
+    the port's norms (and the latent slice), float32 and bfloat16, so that
+    two checkouts read in turns show whether its bits moved."""
+    import chip_smoke as cs
+    from repro_torch.kernels import rmsnorm as rn
+    out: dict = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device="cuda").manual_seed(4)
+        ys = []
+        for D in cs.RMS_WIDTHS:
+            x = torch.randn(37, D, generator=g, device="cuda").to(dtype)
+            s = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(
+                dtype)
+            ys.append(rn.rmsnorm(x, s, cs.RMS_EPS))
+        dkv = torch.randn(4, 9, 576, generator=g, device="cuda").to(dtype)
+        s = (1 + 0.1 * torch.randn(512, generator=g, device="cuda")).to(
+            dtype)
+        ys.append(rn.rmsnorm(dkv[..., :512], s, cs.RMS_EPS))
+        out[str(dtype)] = _digest(torch.cat([y.flatten() for y in ys]))
+    return out
 
 
 def _digest(t: torch.Tensor) -> str:

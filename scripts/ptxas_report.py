@@ -14,9 +14,11 @@ tensor-core instructions (``HMMA``, or ``HGMMA`` for ``wgmma``), so a
 reader can see which bodies run their products on the tensor cores. Ends
 with a count of instantiations, spilling ones and ones with tensor-core
 instructions, then the MLA decode kernels' and the int8 decode split
-passes' own counts; it exits 1 unless every bf16 MLA split body has
-tensor-core instructions, no MLA instantiation spills, and the int8
-split passes are there and none of them spills.
+passes' own counts, and the rmsnorm instantiations' registers and spills
+one by one; it exits 1 unless every bf16 MLA split body has tensor-core
+instructions, no MLA instantiation spills, the int8 split passes are
+there and none of them spills, and the rmsnorm instantiations are there
+and none of them spills.
 """
 from __future__ import annotations
 
@@ -126,8 +128,20 @@ def main() -> int:
     int8_spill = [n for n in int8 if table[n][1] or table[n][2]]
     print(f"int8 decode: {len(int8)} split-pass instantiations, "
           f"{len(int8_spill)} spill")
+    # the rmsnorm instantiations (4 type pairs x 7 16-byte layouts and 4
+    # one-element ones): none may spill
+    norm = sorted((n for n in table if "rmsnorm_kernel" in names[n]),
+                  key=lambda n: names[n])
+    norm_spill = [n for n in norm if table[n][1] or table[n][2]]
+    for n in norm:
+        regs, st, ld = table[n]
+        print(f"rmsnorm: regs={regs} spill_stores={st} spill_loads={ld} "
+              f"{names[n]}")
+    print(f"rmsnorm: {len(norm)} instantiations, most registers "
+          f"{max((table[n][0] for n in norm), default=0)}, "
+          f"{len(norm_spill)} spill")
     return 1 if (bare or spill or not tc_partial or not int8
-                 or int8_spill) else 0
+                 or int8_spill or not norm or norm_spill) else 0
 
 
 if __name__ == "__main__":

@@ -50,9 +50,12 @@ int mla_decode_launch(const void* q_lat, const void* q_rope, const void* ckv,
                       const void* k_rope, const void* valid, void* out,
                       void* work, int B, int S, int H, int r, int dr,
                       float scale, int chunk, int is_bf16, void* stream);
-int rmsnorm_launch(const void* x, const void* scale, void* out,
-                   long long rows, int D, long long row_stride, float eps,
-                   int x_bf16, int scale_bf16, void* stream);
+int rmsnorm_launch(const void* x0, const void* scale0, void* out0,
+                   long long rows0, long long row_stride0, const void* x1,
+                   const void* scale1, void* out1, long long rows1,
+                   long long row_stride1, int D, float eps, int x_bf16,
+                   int scale_bf16, int warps, int slots, int vec,
+                   void* stream);
 const char* kernel_error_string(int err);
 
 namespace {
@@ -141,12 +144,17 @@ int mla_decode_ctx(std::uintptr_t q_lat, std::uintptr_t q_rope,
                            scale, chunk, is_bf16 ? 1 : 0, ptr(stream));
 }
 
-int rmsnorm(std::uintptr_t x, std::uintptr_t scale, std::uintptr_t out,
-            long long rows, int D, long long row_stride, float eps,
-            bool x_bf16, bool scale_bf16, std::uintptr_t stream) {
-  return rmsnorm_launch(ptr(x), ptr(scale), ptr(out), rows, D, row_stride,
-                        eps, x_bf16 ? 1 : 0, scale_bf16 ? 1 : 0,
-                        ptr(stream));
+// rows1 = 0 normalises one tensor; otherwise both in one launch
+int rmsnorm(std::uintptr_t x0, std::uintptr_t scale0, std::uintptr_t out0,
+            long long rows0, long long row_stride0, std::uintptr_t x1,
+            std::uintptr_t scale1, std::uintptr_t out1, long long rows1,
+            long long row_stride1, int D, float eps, bool x_bf16,
+            bool scale_bf16, int warps, int slots, bool vec,
+            std::uintptr_t stream) {
+  return rmsnorm_launch(ptr(x0), ptr(scale0), ptr(out0), rows0, row_stride0,
+                        ptr(x1), ptr(scale1), ptr(out1), rows1, row_stride1,
+                        D, eps, x_bf16 ? 1 : 0, scale_bf16 ? 1 : 0, warps,
+                        slots, vec ? 1 : 0, ptr(stream));
 }
 
 }  // namespace

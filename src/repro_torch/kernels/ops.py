@@ -111,6 +111,15 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return _rn.rmsnorm(x, scale, eps)
 
 
+def rmsnorm_pair(x, x_scale, y, y_scale, eps: float = 1e-6):
+    """``(rmsnorm(x, x_scale, eps), rmsnorm(y, y_scale, eps))``: on the card
+    one launch over both (one width and dtype), each row with the bits a
+    single ``rmsnorm`` gives it; on the CPU the plain version twice."""
+    if _on_cpu(x, x_scale, y, y_scale):
+        return ref.rmsnorm(x, x_scale, eps), ref.rmsnorm(y, y_scale, eps)
+    return _rn.rmsnorm_pair(x, x_scale, y, y_scale, eps)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel name."""
     return {name: c.value for name, c in COUNTERS.items()}

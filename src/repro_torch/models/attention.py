@@ -106,8 +106,9 @@ def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 def _qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.qk_norm:
-        q = rmsnorm_fwd(p["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm_fwd(p["k_norm"], k, cfg.norm_eps)
+        # both norms in one launch on the card
+        q, k = kops.rmsnorm_pair(q, p["q_norm"]["scale"], k,
+                                 p["k_norm"]["scale"], cfg.norm_eps)
     if cfg.pos_embed == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary_factor)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary_factor)

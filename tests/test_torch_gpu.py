@@ -1057,7 +1057,7 @@ def test_deepseek_router_on_the_card_matches_the_cpu_path(cuda, cache):
                                     (9, 5120), (1, 5120)])
 def test_rmsnorm_kernel_matches_plain(cuda, dtype, rows, D):
     """Every width the port's norms see, row counts that are no multiple
-    of the kernel's 8-row blocks; one launch a call."""
+    of the kernel's rows a block; one launch a call."""
     x = _randn(cuda, rows, D, dtype=dtype) * 2
     scale = (1 + 0.1 * _randn(cuda, D, dtype=torch.float32)).to(dtype)
     before = ops.launch_counts()["rmsnorm"]
@@ -1081,6 +1081,119 @@ def test_rmsnorm_kernel_on_strided_rows_and_float32_scale(cuda, dtype):
         assert got.is_contiguous() and got.shape == x.shape
         _assert_close(got, ref.rmsnorm(x, scale, 1e-6), dtype)
         _assert_close(got, ref.rmsnorm(x.contiguous(), scale, 1e-6), dtype)
+
+
+# the widths of the port's norms, and those of the families still to come
+RMS_WIDTHS = (128, 512, 1024, 2048, 2560, 5120)
+RMS_LATER = (4096, 5376, 6144, 7168)
+# widths the 16-byte path does not take: V (8 bf16, 4 f32) does not divide
+# them, or (20000) a row is wider than 8 vectors a lane of 8 warps
+RMS_ODD = (1, 5, 127, 1020, 1022, 2562, 20000)
+
+
+def _rms_case(gen, rows, D, dtype):
+    x = _randn(gen, rows, D, dtype=dtype) * 2
+    return x, (1 + 0.1 * _randn(gen, D, dtype=torch.float32)).to(dtype)
+
+
+def _copy_at(t, offset=0, pad=0):
+    """t's values in a fresh buffer: ``offset`` elements past its 16-byte
+    aligned base, and with rows ``pad`` elements wider than t's."""
+    rows, D = t.shape[0], t.shape[-1]
+    buf = torch.empty(offset + rows * (D + pad), dtype=t.dtype,
+                      device=t.device)
+    view = buf[offset:].view(rows, D + pad)[:, :D]
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", RMS_WIDTHS + RMS_LATER + RMS_ODD)
+@pytest.mark.parametrize("rows", [1, 37, 4099])
+def test_rmsnorm_kernel_at_every_width_and_row_count(cuda, dtype, D, rows):
+    x, scale = _rms_case(cuda, rows, D, dtype)
+    got = ops.rmsnorm(x, scale, 1e-6)
+    torch.cuda.synchronize()
+    _assert_close(got, ref.rmsnorm(x, scale, 1e-6), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", RMS_WIDTHS + RMS_LATER + RMS_ODD)
+def test_rmsnorm_row_bits_do_not_depend_on_rows_or_pair(cuda, dtype, D):
+    """A row alone, inside 4099 rows, and in a pair launch (as either
+    tensor) gets the same bits."""
+    x, scale = _rms_case(cuda, 4099, D, dtype)
+    y, y_scale = _rms_case(cuda, 37, D, dtype)
+    many = ops.rmsnorm(x, scale, 1e-6)
+    for r in (0, 1, 5, 2048, 4098):
+        assert torch.equal(ops.rmsnorm(x[r:r + 1], scale, 1e-6)[0], many[r])
+    a, b = ops.rmsnorm_pair(x, scale, y, y_scale, 1e-6)
+    assert torch.equal(a, many)
+    assert torch.equal(b, ops.rmsnorm(y, y_scale, 1e-6))
+    c, d = ops.rmsnorm_pair(y, y_scale, x[2048:2049], scale, 1e-6)
+    assert torch.equal(d[0], many[2048]) and torch.equal(c, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", RMS_WIDTHS + RMS_LATER + RMS_ODD)
+def test_rmsnorm_vector_and_one_element_paths_give_equal_bits(cuda, dtype,
+                                                              D):
+    """The same rows with a base one element off 16 bytes, with a row
+    stride of D + 1 and with a scale off 16 bytes (the one-element path)
+    give the bits of the aligned rows; where V divides D the aligned rows
+    take the 16-byte path, and the binding's one-element instantiation on
+    those very tensors gives their bits too."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rmsnorm as rn
+    rows = 37
+    x, scale = _rms_case(cuda, rows, D, dtype)
+    want = ops.rmsnorm(x, scale, 1e-6)
+    assert torch.equal(ops.rmsnorm(_copy_at(x, offset=1), scale, 1e-6), want)
+    assert torch.equal(ops.rmsnorm(_copy_at(x, pad=1), scale, 1e-6), want)
+    off_scale = _copy_at(scale[None], offset=1)[0]
+    assert torch.equal(ops.rmsnorm(x, off_scale, 1e-6), want)
+    W, N = rn.layout(D, x.element_size())
+    out = torch.empty_like(x)
+    bf16 = dtype == torch.bfloat16
+    err = build.extension().rmsnorm(
+        x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, D, 0, 0, 0, 0,
+        0, D, 1e-6, bf16, bf16, W, N, False,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0 and torch.equal(out, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_shape,k_shape", [
+    ((4, 1, 16, 128), (4, 1, 8, 128)),      # qwen3's decode step
+    ((1, 512, 16, 128), (1, 512, 8, 128)),  # a 512-token prefill
+    ((3, 5, 4, 512), (3, 5, 2, 512)),
+    ((2, 3, 2, 1020), (2, 3, 1, 1020)),     # one-element path
+])
+def test_rmsnorm_pair_is_two_singles_bitwise_in_one_launch(cuda, dtype,
+                                                           q_shape, k_shape):
+    _, q_scale = _rms_case(cuda, 1, q_shape[-1], dtype)
+    q = _randn(cuda, *q_shape, dtype=dtype)
+    k, k_scale = _randn(cuda, *k_shape, dtype=dtype), q_scale.flip(0)
+    before = ops.launch_counts()["rmsnorm"]
+    gq, gk = ops.rmsnorm_pair(q, q_scale, k, k_scale, 1e-6)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rmsnorm"] == before + 1
+    assert gq.shape == q.shape and gk.shape == k.shape
+    assert torch.equal(gq, ops.rmsnorm(q, q_scale, 1e-6))
+    assert torch.equal(gk, ops.rmsnorm(k, k_scale, 1e-6))
+    _assert_close(gk, ref.rmsnorm(k, k_scale, 1e-6), dtype)
+
+
+def test_rmsnorm_pair_of_unlike_tensors_raises(cuda):
+    from repro_torch.kernels.rmsnorm import rmsnorm_pair
+    x, s = _rms_case(cuda, 4, 128, torch.float32)
+    with pytest.raises(ValueError, match="one width"):
+        rmsnorm_pair(x, s, x[:, :64], s[:64])
+    with pytest.raises(ValueError, match="one width"):
+        rmsnorm_pair(x, s, x.bfloat16(), s)
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_pair(x, s, x.cpu(), s.cpu())
 
 
 def test_rmsnorm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
