@@ -71,14 +71,25 @@ Phases, each raising on failure (any failure exits nonzero):
    prompts and max_new=32; the prefill and dense decode kernels must
    launch, and rmsnorm a multiple of the 85 launches of a forward (113
    norms, a layer's q and k norms one pair launch; as on every later
-   path, with that model's count). Reports one 4-slot decode
-   step's host time, launches, device time and the decode attention
-   kernels' part of it, with the norms in plain tensor code and through
-   the rmsnorm kernel.
+   path, with that model's count). Every engine of every phase serves
+   its chunks by replaying a CUDA graph of one chunk step captured on its
+   first chunk: the warm-up must leave both engines captured, so the
+   timed window only replays; reports each engine's capture seconds and
+   pool bytes. Then one engine alone: ``graph_vs_eager`` (a replayed
+   chunk against ``Model.decode_chunk`` run eagerly on a clone of the
+   cache: tokens, emitted counts, every cache leaf's bytes and the launch
+   counts equal), and one steady-state chunk under the profiler, which
+   must show no kernel launch, one graph launch a step and two copies.
+   Reports one 4-slot decode step's host time, launches, device time and
+   the decode attention kernels' part of it, with the norms in plain
+   tensor code and through the rmsnorm kernel, and the same step
+   replayed from a graph: its wall, the launch calls the profiler sees,
+   the host µs to enqueue it and the graph's node count.
 5. Dense vs paged: one dense and one paged ``ServingEngine`` (block_size
    16, max_seqs = n_slots = 4, so both decode the same rows) serve the
    same same-bucket request groups; their greedy streams must be
-   identical.
+   identical. Each engine then passes ``graph_vs_eager`` on one more
+   group (as in 7a and 9b).
 6. Main path of the paged cache with prefix sharing:
    ``Router(ThreadBackend(2))`` over paged engines (block_size 16,
    max_seqs 8, the dense footprint of 512 blocks, prefix_cache=True);
@@ -86,8 +97,10 @@ Phases, each raising on failure (any failure exits nonzero):
    max_new=32, in two waves (2, then 14). Every request completes; wave 2
    hits the prefix; some container has more than n_slots requests in
    flight; the paged and prefill kernels launch, the dense decode kernel
-   does not. Wave 2 is also served without sharing on one engine and its
-   token agreement printed (reported, not checked: other batch shapes).
+   does not. One engine passes ``graph_vs_eager`` on wave 2's prompts
+   again (admissions that hit the shared pages). Wave 2 is also served
+   without sharing on one engine and its token agreement printed
+   (reported, not checked: other batch shapes).
    c. The sharing gate in the form of JAX's ``_serve_phases``: one paged
       engine with sharing and one without, same block budget, each
       through phase 6's two waves in turn, draining between them. The
@@ -116,7 +129,8 @@ Phases, each raising on failure (any failure exits nonzero):
    max_new=32, each prompt prefilled unpadded through the CUDA SSD scan.
    Every request completes; one request's stream equals that request run
    alone on the model; the scan launches once per layer per prefill; no
-   attention kernel launches. Reports wall, tok/s, ttfc p50, the state
+   attention kernel launches; one engine passes ``graph_vs_eager`` over
+   its state rows. Reports wall, tok/s, ttfc p50, the state
    cache's bytes, and one decode step's host time, kernel launches and
    device time with the norms in plain tensor code and through the
    rmsnorm kernel, in turns.
@@ -143,7 +157,9 @@ Phases, each raising on failure (any failure exits nonzero):
     torch only after pinning itself; a kill fault in container 1 after 2
     steps must give a ContainerFailure, RetryEvents, a respawn and the
     fault-free streams; no child outlives the phase. Reports wall, tok/s
-    and ttfc p50 of the four, and whether an MPS control daemon runs.
+    and ttfc p50 of the four, each child's step-graph capture seconds and
+    pool bytes (the respawned child's once it has served), and whether
+    an MPS control daemon runs.
 
 Then a JSON line with each kernel's launches (from the phase of the path
 it serves), error and times (eight kernels), the card's ``nvidia-smi``
@@ -1512,23 +1528,32 @@ def main_path_phase(card: str):
     rng = np.random.default_rng(1)
     plens = [16, 512, 37, 200, 96, 333, 64, 480]
     max_new = 32
-    with Router(ThreadBackend(model, params, 2, config=config)) as router:
-        # warm-up: first cuBLAS handles and allocations, not counted
+    backend = ThreadBackend(model, params, 2, config=config)
+    engines = list(backend.engines)
+    with Router(backend) as router:
+        # warm-up: first cuBLAS handles and allocations, not counted; it
+        # leaves both engines' step graphs captured
         for h in [router.submit(Request(1000 + i, rng.integers(
                 0, cfg.vocab_size, (n,), dtype=np.int32), 4))
                 for i, n in enumerate((20, 300))]:
             h.result()
         torch.cuda.synchronize()
+        if any(e.graph_capture_s is None for e in engines):
+            fail("main path: the warm-up left an engine without its step "
+                 "graph")
         reqs = [Request(i, rng.integers(0, cfg.vocab_size, (n,),
                                         dtype=np.int32), max_new)
                 for i, n in enumerate(plens)]
         ops.reset_launch_counts()
+        replays = [(e.graph_replays, e.chunks) for e in engines]
         t0 = time.perf_counter()
         handles = [router.submit(r) for r in reqs]
         comps = [h.result() for h in handles]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ops.launch_counts()
+        replays = [(e.graph_replays - r, e.chunks - c)
+                   for e, (r, c) in zip(engines, replays)]
     for r, c, h in zip(reqs, comps, handles):
         if c.rid != r.rid or len(c.tokens) != max_new:
             fail(f"main path: request {r.rid} gave {len(c.tokens)} tokens")
@@ -1547,6 +1572,34 @@ def main_path_phase(card: str):
           f"max_new={max_new}: wall_s={wall:.4f} tok_per_s="
           f"{n_tok / wall:.2f} ttfc_p50_s={ttfc_p50:.4f} launches="
           f"{launches} [card: {card}]", flush=True)
+    print(f"main path, the engines' step graphs (captured in the warm-up's "
+          f"first chunks, not timed): capture_s="
+          f"{[round(e.graph_capture_s, 4) for e in engines]} pool_bytes="
+          f"{[e.graph_pool_bytes for e in engines]}; in the timed window "
+          f"(replays, chunks) per engine {replays} [card: {card}]",
+          flush=True)
+
+    # one engine alone: a replayed chunk against the eager chunk, then
+    # one chunk's host calls (no kernel launched from Python)
+    eng = engines[0]
+    eng.on_event = None
+    eng.submit_many([Request(2000 + i, rng.integers(
+        0, cfg.vocab_size, (n,), dtype=np.int32), 80)
+        for i, n in enumerate((48, 160, 300, 544))])
+    eng.step()
+    graph_vs_eager(eng, "phase 4, dense bf16 cache", card)
+    prof = chunk_launch_profile(eng)
+    if (prof["kernel_launches"] or prof["memcpy_calls"] != 2
+            or prof["graph_launches"] != prof["n_tokens"]):
+        fail(f"main path: a steady-state chunk made {prof}; want no "
+             "kernel launch, one graph launch a step and two copies")
+    eng.run()
+    print(f"main path, one steady-state chunk of a 4-row engine under the "
+          f"profiler: {prof['n_tokens']} steps, {prof['graph_launches']} "
+          f"graph launches, {prof['kernel_launches']} kernel launches, "
+          f"{prof['memcpy_calls']} copies, wall_ms={prof['wall_ms']:.3f} "
+          f"(profiled) [card: {card}]", flush=True)
+    del eng, engines, backend
 
     # one 4-slot decode step at main-path depths, its norms through the
     # plain version (as before the rmsnorm kernel) and through the kernel
@@ -1560,8 +1613,7 @@ def main_path_phase(card: str):
     norms = ops.launch_counts()["rmsnorm"]
     turns = norms_in_turns(
         lambda: decode_step_profile(model, params, tok, cache, pos))
-    fmt = ("host_ms={:.3f} kernel_launches={} device_ms={:.3f} "
-           "attention_device_ms={:.4f}").format
+    fmt = STEP_FMT
     print(f"main path, one 4-slot decode step (rows live to 48/160/300/544), "
           f"in turns plain, kernel, kernel, plain: norms in plain tensor "
           f"code {fmt(*turns[0])} / {fmt(*turns[3])}; norms through the "
@@ -1613,6 +1665,206 @@ def check_norm_launches(cfg, launches: dict, what: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the decode chunk as a captured CUDA graph, on every engine
+# ---------------------------------------------------------------------------
+def graph_vs_eager(engine, what: str, card: str) -> int:
+    """The engine's next chunk, replayed from its captured step graph,
+    against ``Model.decode_chunk`` run eagerly from the same slot state on
+    a clone of its cache taken just before: the token block, the emitted
+    counts, every cache leaf's bytes and the kernel launch counts must be
+    equal. Needs requests admitted and the graph captured; the engine's
+    own bookkeeping runs as in any chunk, so it serves on afterwards.
+    Returns the chunk's steps."""
+    from repro_torch.kernels import ops
+
+    active = [i for i, s in enumerate(engine.slots) if s.active]
+    if not active or engine.graph_capture_s is None:
+        fail(f"graph vs eager ({what}): {len(active)} active rows, capture "
+             f"{engine.graph_capture_s}")
+    torch.cuda.synchronize()
+    clone = [{k: t.clone() for k, t in g.items()}
+             for g in engine.cache_backend.tree]
+    seen = {}
+    run = engine._run_chunk
+
+    def spy(state, n):
+        seen["state"], seen["n"] = state.copy(), n
+        seen["out"] = run(state, n)
+        return seen["out"]
+    engine._run_chunk = spy
+    replays = engine.graph_replays
+    before = ops.launch_counts()
+    try:
+        with engine._on_stream():
+            engine._decode_chunk(active)
+    finally:
+        del engine._run_chunk
+    torch.cuda.synchronize()
+    mid = ops.launch_counts()
+    n = seen["n"]
+    if engine.graph_replays != replays + n:
+        fail(f"graph vs eager ({what}): {engine.graph_replays - replays} "
+             f"replays for a {n}-step chunk")
+    st = torch.from_numpy(seen["state"]).cuda()
+    block, emitted, _ = engine.model.decode_chunk(
+        engine.params, clone, {"tokens": st[0], "pos": st[1],
+                               "remaining": st[2], "active": st[3].bool()},
+        n, max_len=engine.max_len)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    if not (np.array_equal(block.cpu().numpy(), seen["out"][0])
+            and np.array_equal(emitted.cpu().numpy(), seen["out"][1])):
+        fail(f"graph vs eager ({what}): tokens or emitted counts differ")
+    leaves = 0
+    for j, (g, c) in enumerate(zip(engine.cache_backend.tree, clone)):
+        for k, t in g.items():
+            leaves += 1
+            if not torch.equal(t.view(torch.uint8), c[k].view(torch.uint8)):
+                fail(f"graph vs eager ({what}): layer {j} {k} differs")
+    replayed = {k: mid[k] - before[k] for k in mid}
+    eager = {k: after[k] - mid[k] for k in mid}
+    if replayed != eager or not sum(replayed.values()):
+        fail(f"graph vs eager ({what}): launches replayed {replayed}, eager "
+             f"{eager}")
+    print(f"graph vs eager ({what}): a {n}-step chunk over {len(active)} "
+          f"active rows replayed from the engine's step graph equals "
+          f"Model.decode_chunk run eagerly on a clone of its cache: tokens, "
+          f"emitted counts, {leaves} cache leaves bit for bit, launches "
+          f"{ {k: v for k, v in replayed.items() if v} }; the engine's "
+          f"capture {engine.graph_capture_s:.4f} s, pool "
+          f"{engine.graph_pool_bytes} B, replays {engine.graph_replays} "
+          f"[card: {card}]", flush=True)
+    return n
+
+
+def engine_graph_check(engine, reqs, what: str, card: str) -> None:
+    """Serve ``reqs`` on ``engine`` alone (its stream events dropped):
+    admission and a chunk, then ``graph_vs_eager``, then to completion."""
+    engine.on_event = None
+    engine.submit_many(reqs)
+    engine.step()
+    graph_vs_eager(engine, what, card)
+    engine.run()
+
+
+KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel",
+                       "cudaLaunchKernelExC", "cuLaunchKernelEx")
+
+
+def chunk_launch_profile(engine) -> dict:
+    """One chunk of ``engine`` (requests admitted, its graph captured, the
+    queue empty) under ``torch.profiler``: the host calls it makes, by
+    kind. In steady state a chunk launches no kernel from Python: one
+    state copy in, ``n_tokens`` graph launches, one copy out."""
+    from torch.profiler import ProfilerActivity, profile
+    if engine.queue or engine.graph_capture_s is None:
+        fail("chunk profile: needs an empty queue and a captured graph")
+    replays = engine.graph_replays
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.step()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = prof.key_averages()
+
+    def calls(*keys):
+        return sum(e.count for e in events if e.key in keys)
+    return {"n_tokens": engine.graph_replays - replays,
+            "kernel_launches": calls(*KERNEL_LAUNCH_CALLS),
+            "graph_launches": calls("cudaGraphLaunch", "cuGraphLaunch"),
+            "memcpy_calls": calls("cudaMemcpyAsync", "cudaMemcpy",
+                                  "cuMemcpyAsync", "cuMemcpyHtoDAsync_v2",
+                                  "cuMemcpyDtoHAsync_v2"),
+            "wall_ms": wall * 1e3}
+
+
+def graph_nodes(graph):
+    """Nodes of a captured graph kept with ``keep_graph=True``, from
+    ``libcuda``'s ``cuGraphGetNodes``; None where ``libcuda`` cannot be
+    loaded or refuses."""
+    import ctypes
+    try:
+        libcuda = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return None
+    n = ctypes.c_size_t(0)
+    err = libcuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                  None, ctypes.byref(n))
+    return n.value if err == 0 else None
+
+
+STEP_FMT = ("host_ms={:.3f} kernel_launches={} device_ms={:.3f} "
+            "attention_device_ms={:.4f}; replayed from a graph: wall_ms={:.3f} "
+            "profiler_launches={} enqueue_us={:.1f} graph_nodes={}").format
+
+
+def replayed_step_profile(model, params, tok, cache, pos) -> tuple:
+    """The decode step as a serving engine replays it: one
+    ``decode_chunk_step`` over the rows of ``tok`` / ``pos`` (inactive, so
+    their positions hold) captured on a side stream after one eager step
+    there, then: the wall of one replay ending in a synchronize (mean of
+    10), the launch calls the profiler sees in one replay, the host µs
+    that enqueuing one replay onto an idle card takes (mean of 10; replays
+    enqueued back to back wait for room in the card's launch queue), and
+    the graph's node count (None where it cannot be read). A checkout
+    whose model has no chunk step gives Nones."""
+    from torch.profiler import ProfilerActivity, profile
+    if not hasattr(model, "decode_chunk_step"):
+        return None, None, None, None
+    from repro_torch.kernels.build import capture_tally
+    buf = model.chunk_buffers(tok.shape[0], 16)
+    buf["tokens"].copy_(tok[:, 0])
+    buf["pos"].copy_(pos)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+
+    def step():   # no row is active, so the horizon gates nothing
+        model.decode_chunk_step(params, cache, buf, max_len=2048)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.stream(side):
+        step()
+        with capture_tally():
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                step()
+    nodes = graph_nodes(graph)
+    graph.instantiate()
+    torch.cuda.current_stream().wait_stream(side)
+
+    def replays(n):
+        buf["col"].zero_()
+        for _ in range(n):
+            graph.replay()
+    replays(3)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        replays(1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    buf["col"].zero_()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages() if e.key in (
+        *KERNEL_LAUNCH_CALLS, "cudaGraphLaunch", "cuGraphLaunch"))
+    enqueue = []
+    buf["col"].zero_()
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.replay()
+        enqueue.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return (sum(walls) / len(walls) * 1e3, launches,
+            sum(enqueue) / len(enqueue) * 1e6, nodes)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: dense vs paged greedy streams on the card
 # ---------------------------------------------------------------------------
 # same-bucket groups of at most n_slots, in queue order, one budget per
@@ -1626,7 +1878,9 @@ PARITY_GROUPS = [((150, 200, 256, 180), 24), ((40, 50, 64, 33), 32),
 def parity_phase(model, params, config, card: str, groups=PARITY_GROUPS):
     """Serve the same requests through one dense and one paged engine
     (``config`` with cache="paged"); their greedy streams must be
-    identical. Returns each engine's kernel launches (dense, paged)."""
+    identical. Then each engine serves one more group with a chunk held to
+    the eager chunk (``engine_graph_check``). Returns each engine's kernel
+    launches of the compared streams (dense, paged)."""
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import Request, ServingEngine
 
@@ -1651,6 +1905,13 @@ def parity_phase(model, params, config, card: str, groups=PARITY_GROUPS):
         launches.append({k: n - before[k]
                          for k, n in ops.launch_counts().items()})
         streams.append({c.rid: list(c.tokens) for c in comps})
+        if model.device.type == "cuda":
+            engine_graph_check(eng, [
+                Request(1000 + j, rng.integers(0, model.cfg.vocab_size, (n,),
+                                               dtype=np.int32), 40)
+                for j, n in enumerate(groups[0][0])],
+                f"{model.cfg.name} kv_cache_dtype={model.cfg.kv_cache_dtype}"
+                f" {cache} cache", card)
         del eng
     dense, paged = streams
     if len(dense) != len(reqs):
@@ -1715,6 +1976,7 @@ def prefix_phase(model, params, config, card: str, n_containers: int = 2,
     results, per_wave = {}, []
     backend = ThreadBackend(model, params, n_containers, config=config,
                             device=dev)
+    engines = list(backend.engines)
     with Router(backend, device=dev) as router:
         ops.reset_launch_counts()
         for wave in waves:
@@ -1775,6 +2037,17 @@ def prefix_phase(model, params, config, card: str, n_containers: int = 2,
     print(f"prefix path: peak_active per container {peak} (n_slots="
           f"{config.n_slots}), launches={launches} [card: {card}]",
           flush=True)
+    if dev.type == "cuda":
+        # wave 2's first prompts again on one engine: admissions that hit
+        # the shared prompt's pages and rewrite the block table
+        hits = engines[0].prefix_hit_tokens_total
+        engine_graph_check(engines[0], [
+            Request(3000 + rid, prompt, max_new)
+            for rid, prompt in waves[1][:4]],
+            "phase 6, paged cache with prefix sharing", card)
+        if engines[0].prefix_hit_tokens_total <= hits:
+            fail("prefix path: the graph check's admissions hit nothing")
+    del engines
 
     # report only: wave 2 again on one engine without sharing (other
     # batch shapes, so the card need not give the same bits)
@@ -2090,6 +2363,7 @@ def ssm_path_phase(card: str, n_containers: int = 2, max_new: int = 32):
                                     dtype=np.int32), max_new)
             for i, n in enumerate(SSM_PLENS)]
     backend = ThreadBackend(model, params, n_containers, config=config)
+    engines = list(backend.engines)
     with Router(backend) as router:
         # warm-up: first cuBLAS handles and allocations, not counted
         for h in [router.submit(Request(1000 + i, rng.integers(
@@ -2120,6 +2394,12 @@ def ssm_path_phase(card: str, n_containers: int = 2, max_new: int = 32):
     if any(launches[k] for k in ATTENTION_KERNELS):
         fail(f"ssm path: attention kernels launched: {launches}")
     check_norm_launches(cfg, launches, "ssm path")
+    engine_graph_check(engines[0], [
+        Request(2000 + i, rng.integers(0, cfg.vocab_size, (n,),
+                                       dtype=np.int32), 40)
+        for i, n in enumerate((64, 128, 256, 512))],
+        "phase 8, mamba2 state rows", card)
+    del engines
 
     # the 200-token request alone: a one-row prefill, then decode steps in
     # a batch as wide as the engine's slots with the other rows empty, so
@@ -2148,8 +2428,7 @@ def ssm_path_phase(card: str, n_containers: int = 2, max_new: int = 32):
     # phase 4's): what the rmsnorm kernel moves on this family's step
     turns = norms_in_turns(
         lambda: decode_step_profile(model, params, tok, cache, pos))
-    fmt = ("host_ms={:.3f} kernel_launches={} device_ms={:.3f} "
-           "attention_device_ms={:.4f}").format
+    fmt = STEP_FMT
 
     n_tok = sum(len(c.tokens) for c in comps)
     ttfc_p50 = float(np.percentile([h.ttfc_s for h in handles], 50))
@@ -2179,8 +2458,13 @@ def decode_step_profile(model, params, tok, cache, pos):
     """One decode step's host wall (mean of 10, each ending in a
     synchronize, after 3 unmeasured), its kernel launches (profiler count
     of launch calls), its device ms (the profiler's self device time of
-    every kernel of the step; 0 where the profiler sees no device) and the
-    part of it in the decode attention kernels (``DECODE_KERNEL_NAMES``)."""
+    every kernel and copy of the step; 0 where the profiler sees no
+    device) and the
+    part of it in the decode attention kernels (``DECODE_KERNEL_NAMES``);
+    then the same step replayed from a CUDA graph as an engine replays it
+    (``replayed_step_profile``: wall ms, the launch calls the profiler
+    sees, host µs to enqueue a replay, graph nodes)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         model.decode_step(params, tok, cache, pos)
@@ -2195,15 +2479,15 @@ def decode_step_profile(model, params, tok, cache, pos):
         model.decode_step(params, tok, cache, pos)
         torch.cuda.synchronize()
     events = prof.key_averages()
-    launches = sum(e.count for e in events if e.key in (
-        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
-        "cuLaunchKernelEx"))
-    device_ms = sum(getattr(e, "self_device_time_total", 0)
-                    for e in events) / 1e3
-    attention_ms = sum(getattr(e, "self_device_time_total", 0)
-                       for e in events
+    launches = sum(e.count for e in events if e.key in KERNEL_LAUNCH_CALLS)
+    # device-side entries only: a host operation's device column repeats
+    # the time of the kernels it launched
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    attention_ms = sum(e.self_device_time_total for e in on_card
                        if any(n in e.key for n in DECODE_KERNEL_NAMES)) / 1e3
-    return step_ms, launches, device_ms, attention_ms
+    return (step_ms, launches, device_ms, attention_ms,
+            *replayed_step_profile(model, params, tok, cache, pos))
 
 
 # ---------------------------------------------------------------------------
@@ -2308,8 +2592,7 @@ def deepseek_path_phase(card: str, n_containers: int = 2,
     # phase 4's): what the rmsnorm kernel moves on this family's step
     turns = norms_in_turns(
         lambda: decode_step_profile(model, params, tok, cache, pos))
-    fmt = ("host_ms={:.3f} kernel_launches={} device_ms={:.3f} "
-           "attention_device_ms={:.4f}").format
+    fmt = STEP_FMT
     n_tok = sum(len(c.tokens) for c in comps)
     ttfc_p50 = float(np.percentile([h.ttfc_s for h in handles], 50))
     print(f"deepseek path: {cfg.name} {cfg.n_layers} layers bf16, Router("
@@ -2514,6 +2797,11 @@ def process_phase(model, params, card: str, max_new: int = 32):
         info = backend.child_info[1]
         if info["torch_preloaded"] or info["memory_allocated"] >= weights:
             fail(f"phase 10 kill: respawned child {info}")
+        # the respawned child captures its step graph at its first chunk
+        for h in [router.submit(dataclasses.replace(r, rid=5000 + r.rid))
+                  for r in reqs[:4]]:
+            h.result()
+        respawned = backend.child_stats()[1][1]
 
     dn = str(config.dtype).split(".")[1]
     for name, (wall, tok_s, ttfc) in readings.items():
@@ -2536,8 +2824,11 @@ def process_phase(model, params, card: str, max_new: int = 32):
           f"after 2 steps: {fails[0].kind} ({first_line}), "
           f"{len(retried)} requests retried with a RetryEvent, streams "
           f"equal to the fault-free run, wall_s={kill_wall:.4f}, respawn landed "
-          f"{respawn_s:.2f} s after the failure; MPS control daemon running: "
-          f"{mps_running()} [card: {card}]", flush=True)
+          f"{respawn_s:.2f} s after the failure (the respawned child "
+          f"captures its step graph at its first chunk, after that: "
+          f"capture_s={respawned.get('graph_capture_s')} pool_bytes="
+          f"{respawned.get('graph_pool_bytes')}); MPS control daemon "
+          f"running: {mps_running()} [card: {card}]", flush=True)
     total: dict = {}
     for counts, _ in children["2 process"][0]:
         for k, v in counts.items():
@@ -2614,9 +2905,9 @@ def main() -> int:
     # the same weights over int8 caches
     torch.cuda.empty_cache()
     model8 = Model(dataclasses.replace(model.cfg, kv_cache_dtype="int8"))
-    ops.reset_launch_counts()
-    parity_phase(model8, params, EngineConfig(max_seqs=4, **base), card)
-    parity8 = ops.launch_counts()
+    dense8, paged8 = parity_phase(model8, params,
+                                  EngineConfig(max_seqs=4, **base), card)
+    parity8 = {k: n + paged8[k] for k, n in dense8.items()}
     for k in ("decode_attention", "paged_decode_attention"):
         if parity8[k] or not parity8[f"{k}_int8"]:
             fail(f"int8 dense vs paged: launches {parity8}")

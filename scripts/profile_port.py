@@ -4,6 +4,7 @@
     python3 scripts/profile_port.py [--src DIR] [--out FILE]
     python3 scripts/profile_port.py --prefill [--src DIR] [--out FILE]
     python3 scripts/profile_port.py --decode [--src DIR] [--out FILE]
+    python3 scripts/profile_port.py --chunk [--src DIR] [--out FILE]
 
 Serves the ``chip_smoke.py`` phase-4 request set (qwen3-0.6b at full
 width, 28 layers, bf16, random weights from seed 0; n_slots=4,
@@ -46,6 +47,19 @@ and over an int8 KV cache: its host ms, kernel launches, device ms, and
 the device ms and launches of the decode attention kernels by name; and
 the same step of mamba2-2.7b and deepseek-v2-lite-16b (bf16): host ms,
 launches, device ms and the rmsnorm kernels' device ms.
+
+``--chunk`` reads the serving engine's decode chunk: for qwen3-0.6b,
+mamba2-2.7b and deepseek-v2-lite-16b (full width, bf16, seed 0; one
+dense engine, n_slots=4, max_len=2048, chunk_tokens=32; four requests of
+64-512 prompt tokens, so four rows decode 32-step chunks), the wall of a
+chunk per token step (host clock, each chunk ending in its one
+device-to-host read), a chunk's device ms per step and the host calls
+it makes (``torch.profiler``: kernel launches, graph launches, copies),
+and where the engine captures a step graph its capture seconds, pool
+bytes and replays; then the device time of the 4-slot decode step alone
+(``chip_smoke.py``'s ``decode_step_profile``, eager and replayed). Read
+against ``--src`` of a parent whose engine decodes eagerly, it compares
+eager dispatch with graph replay on one card.
 
 ``--src`` imports the port from another checkout's ``src`` (for example
 a parent commit unpacked beside this one), so two versions can be read
@@ -242,8 +256,8 @@ def profile_decode() -> dict:
         tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
         pos = torch.tensor([48, 160, 300, 544], dtype=torch.int32,
                            device="cuda")
-        step_ms, launches, device_ms, _ = cs.decode_step_profile(
-            model, params, tok, cache, pos)
+        step_ms, launches, device_ms = cs.decode_step_profile(
+            model, params, tok, cache, pos)[:3]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             model.decode_step(params, tok, cache, pos)
@@ -267,8 +281,8 @@ def profile_decode() -> dict:
         tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
         pos = torch.tensor([48, 160, 300, 544], dtype=torch.int32,
                            device="cuda")
-        step_ms, launches, device_ms, _ = cs.decode_step_profile(
-            model, params, tok, cache, pos)
+        step_ms, launches, device_ms = cs.decode_step_profile(
+            model, params, tok, cache, pos)[:3]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             model.decode_step(params, tok, cache, pos)
@@ -284,6 +298,78 @@ def profile_decode() -> dict:
         torch.cuda.empty_cache()
     return {"kernels": kernels, "depth_graph_ms": depths, "rmsnorm": norms,
             **steps}
+
+
+CHUNK_MODELS = ("qwen3-0.6b", "mamba2-2.7b", "deepseek-v2-lite-16b")
+CHUNK_PLENS = (64, 128, 256, 512)   # lengths mamba2's scan chunk divides
+TIMED_CHUNKS = 3
+
+
+def profile_chunks(name: str) -> dict:
+    """One dense engine of ``name`` decoding four rows in 32-step chunks:
+    the wall of a chunk per token step (``TIMED_CHUNKS`` chunks, after the
+    admission's chunk), then one chunk under the profiler (device ms per
+    step, host calls by kind), and the engine's step graph where it has
+    one; then the 4-slot decode step alone, eager and replayed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    cs.np, cs.torch = np, torch      # its main() binds these
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import (EngineConfig, Request,
+                                            ServingEngine)
+
+    model = Model(get_config(name))
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    chunk = 32
+    eng = ServingEngine(model, params, EngineConfig(
+        n_slots=4, max_len=2048, dtype=torch.bfloat16, chunk_tokens=chunk))
+    rng = np.random.default_rng(11)
+    eng.submit_many([Request(i, rng.integers(
+        0, model.cfg.vocab_size, (n,), dtype=np.int32),
+        1 + chunk * (TIMED_CHUNKS + 2)) for i, n in enumerate(CHUNK_PLENS)])
+    eng.step()                        # admission + the first chunk
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(TIMED_CHUNKS):
+        t0 = time.perf_counter()
+        eng.step()
+        walls.append((time.perf_counter() - t0) / chunk * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    evts = prof.key_averages()
+
+    def calls(*keys):
+        return sum(e.count for e in evts if e.key in keys)
+    out = {"model": name, "rows": len(CHUNK_PLENS), "chunk_steps": chunk,
+           "step_wall_ms": walls,
+           "step_device_ms": sum(_device_us(e) for e in evts) / 1e3 / chunk,
+           "chunk_kernel_launches": calls(*cs.KERNEL_LAUNCH_CALLS),
+           "chunk_graph_launches": calls("cudaGraphLaunch",
+                                         "cuGraphLaunch"),
+           "chunk_memcpy_calls": calls("cudaMemcpyAsync", "cudaMemcpy"),
+           "graph_capture_s": getattr(eng, "graph_capture_s", None),
+           "graph_pool_bytes": getattr(eng, "graph_pool_bytes", None),
+           "graph_replays": getattr(eng, "graph_replays", None),
+           "chunks": eng.chunks}
+    eng.run()
+    del eng
+    cache = model.init_cache(4, 2048, torch.bfloat16)
+    tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    pos = torch.tensor([48, 160, 300, 544], dtype=torch.int32,
+                       device="cuda")
+    step = cs.decode_step_profile(model, params, tok, cache, pos)
+    out["decode_step"] = dict(zip(
+        ("host_ms", "kernel_launches", "device_ms", "attention_device_ms",
+         "replayed_wall_ms", "replayed_profiler_launches",
+         "replay_enqueue_us", "graph_nodes"), step))
+    del cache, params, model
+    torch.cuda.empty_cache()
+    return out
 
 
 HOST_REPS = 2000
@@ -409,6 +495,7 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--prefill", action="store_true")
     ap.add_argument("--decode", action="store_true")
+    ap.add_argument("--chunk", action="store_true")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -435,6 +522,10 @@ def main() -> int:
     if args.decode:
         return _report({"src": args.src, "card": card, **profile_decode()},
                        args.out or ROOT / "build" / "profile_decode.json")
+    if args.chunk:
+        return _report({"src": args.src, "card": card,
+                        "models": [profile_chunks(n) for n in CHUNK_MODELS]},
+                       args.out or ROOT / "build" / "profile_chunk.json")
     cfg = get_config("qwen3-0.6b")
     model = Model(cfg)
     params = model.init(seed=0, dtype=torch.bfloat16)

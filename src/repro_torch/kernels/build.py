@@ -9,6 +9,7 @@ only pybind11, since the Python wrappers pass raw pointers.
 """
 from __future__ import annotations
 
+import contextlib
 import pathlib
 import threading
 
@@ -54,18 +55,31 @@ def check_launch(err: int, name: str) -> None:
                            f"({extension().error_string(err)})")
 
 
+# the launch tally of the CUDA graph capture this thread runs, if any
+_capturing = threading.local()
+
+
 class LaunchCounter:
     """Launches of one kernel: the wrapper adds one where it launches, so a
     run can show that its path went through the kernel. Thread-safe, since
-    container threads launch concurrently."""
+    container threads launch concurrently.
+
+    A CUDA graph capture launches nothing: inside ``capture_tally`` this
+    thread's adds go to the capture's tally instead, and each replay of the
+    graph adds the tally (``add_launches``). Another thread's launches
+    meanwhile still reach the count."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._n = 0
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
+        tally = getattr(_capturing, "tally", None)
+        if tally is not None:
+            tally[self] = tally.get(self, 0) + n
+            return
         with self._lock:
-            self._n += 1
+            self._n += n
 
     @property
     def value(self) -> int:
@@ -74,3 +88,22 @@ class LaunchCounter:
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """While open, this thread's launches are tallied into the yielded
+    dict (counter -> launches), not counted: the calls made while a CUDA
+    graph is captured, whose kernels run only when it is replayed."""
+    outer = getattr(_capturing, "tally", None)
+    _capturing.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _capturing.tally = outer
+
+
+def add_launches(tally: dict, times: int = 1) -> None:
+    """Count a captured tally's launches ``times`` times: once a replay."""
+    for counter, n in tally.items():
+        counter.add(n * times)

@@ -121,7 +121,9 @@ def rmsnorm_pair(x, x_scale, y, y_scale, eps: float = 1e-6):
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches so far, by kernel name."""
+    """Kernel launches so far, by kernel name: the kernels that ran, so a
+    captured CUDA graph's count once for each replay, not at its capture
+    (``build.capture_tally``, ``build.add_launches``)."""
     return {name: c.value for name, c in COUNTERS.items()}
 
 

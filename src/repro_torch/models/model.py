@@ -5,11 +5,15 @@ A port of the dense, moe and ssm paths of ``repro.models.model.Model``.
 JAX scans one stacked parameter tree over the layers (for moe, the
 ``n_dense_layers`` leading dense layers as ``dense0``, then the MoE
 ``stack``); the port keeps one parameter dict per layer
-(``params["layers"]``, in that order) and loops over them. The
-fused greedy ``decode_chunk`` is a Python loop over ``decode_step`` whose
-per-slot bookkeeping (tokens, positions, remaining budgets, active flags)
-stays on the device, so a chunk costs no host synchronisation until its
-caller reads the result.
+(``params["layers"]``, in that order) and loops over them.
+
+The fused greedy chunk has one body, ``decode_chunk_step``: one
+``decode_step`` plus the per-slot bookkeeping (tokens, positions,
+remaining budgets, active flags, emitted counts, the token block), all
+updated in place in device tensors (``chunk_buffers``) with no host read.
+``decode_chunk`` loops it ``n_tokens`` times, as JAX's ``lax.scan`` runs
+its step body; on the card the serving engine captures the same body
+once in a CUDA graph and replays it (``serving/engine.py``).
 
 Parameters::
 
@@ -230,10 +234,64 @@ class Model:
             x = _DECODE[_kind(p)](p, self.cfg, x, c, pos)
         return self._head(params, x[:, -1])
 
+    def chunk_buffers(self, batch: int, n_tokens: int,
+                      device: torch.device | None = None) -> dict:
+        """Zeroed device state for ``decode_chunk_step`` over ``batch``
+        slots and up to ``n_tokens`` steps: ``tokens``, ``pos``,
+        ``remaining`` and ``active`` (0 or 1), each (batch,) int32;
+        ``col`` (1,) int64, the block column the next step writes;
+        ``emitted`` (batch,) int32; ``block`` (batch, n_tokens) int32.
+
+        All are views of one int32 tensor laid out as [tokens | pos |
+        remaining | active | col | emitted | the block by step], so
+        ``head`` (everything up to ``emitted``) is written from the host
+        in one copy and ``out`` (``emitted``, then the block one step of
+        ``batch`` tokens after another) read back in one copy of its
+        first ``batch * (1 + steps)`` elements."""
+        B = batch
+        mem = torch.zeros(5 * B + 2 + n_tokens * B, dtype=torch.int32,
+                          device=device or self.device)
+        state = mem[:4 * B].view(4, B)
+        return {"tokens": state[0], "pos": state[1],
+                "remaining": state[2], "active": state[3],
+                # 16·B bytes in: a valid place for an int64
+                "col": mem[4 * B:4 * B + 2].view(torch.int64),
+                "emitted": mem[4 * B + 2:5 * B + 2],
+                "block": mem[5 * B + 2:].view(n_tokens, B).T,
+                "head": mem[:5 * B + 2], "out": mem[4 * B + 2:]}
+
+    def decode_chunk_step(self, params: Params, cache: Cache, buf: dict,
+                          *, max_len: int) -> None:
+        """One greedy step of every slot in lockstep, in place on ``buf``
+        (``chunk_buffers``) and ``cache``: an active slot takes the argmax
+        token and advances its position and budget, and deactivates once
+        its budget reaches 0 or its position ``max_len - 1``; an inactive
+        slot keeps its state and only writes ignorable keys into its own
+        cache row. The step's token of every slot goes into ``block`` at
+        column ``col``, ``active`` is added into ``emitted``, and ``col``
+        advances. No host read, so the step can be captured in a CUDA
+        graph and replayed."""
+        tok, pos, rem = buf["tokens"], buf["pos"], buf["remaining"]
+        act = buf["active"].bool()
+        logits = self.decode_step(params, tok[:, None], cache, pos)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = torch.where(act, nxt, tok)
+        new_pos = torch.where(act, pos + 1, pos)
+        new_rem = torch.where(act, rem - 1, rem)
+        buf["block"].index_copy_(1, buf["col"], nxt[:, None])
+        buf["emitted"].add_(act)
+        new_act = act & (new_rem > 0) & (new_pos < max_len - 1)
+        tok.copy_(nxt)
+        pos.copy_(new_pos)
+        rem.copy_(new_rem)
+        buf["active"].copy_(new_act)
+        buf["col"].add_(1)
+
     def decode_chunk(self, params: Params, cache: Cache, state: dict,
                      n_tokens: int, *, max_len: int
                      ) -> tuple[torch.Tensor, torch.Tensor, dict]:
-        """Greedy decode of ``n_tokens`` steps for every slot in lockstep.
+        """Greedy decode of ``n_tokens`` steps for every slot in lockstep:
+        ``n_tokens`` calls of ``decode_chunk_step``.
 
         ``state`` holds device tensors, one entry per slot: ``tokens``
         (last token, int32), ``pos`` (its position), ``remaining``
@@ -245,20 +303,13 @@ class Model:
         Returns ``(tokens (B, n_tokens), emitted (B,), new_state)``; per
         slot only the first ``emitted`` tokens of its row are real.
         """
-        tok, pos = state["tokens"], state["pos"]
-        rem, act = state["remaining"], state["active"]
-        toks, emits = [], []
+        tokens = state["tokens"]
+        buf = self.chunk_buffers(tokens.shape[0], n_tokens, tokens.device)
+        for name in ("tokens", "pos", "remaining", "active"):
+            buf[name].copy_(state[name])
         for _ in range(n_tokens):
-            logits = self.decode_step(params, tok[:, None], cache, pos)
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-            nxt = torch.where(act, nxt, tok)
-            pos = torch.where(act, pos + 1, pos)
-            rem = torch.where(act, rem - 1, rem)
-            toks.append(nxt)
-            emits.append(act)
-            act = act & (rem > 0) & (pos < max_len - 1)
-            tok = nxt
-        emitted = torch.stack(emits, dim=1).sum(dim=1, dtype=torch.int32)
-        new_state = {"tokens": tok, "pos": pos, "remaining": rem,
-                     "active": act}
-        return torch.stack(toks, dim=1), emitted, new_state
+            self.decode_chunk_step(params, cache, buf, max_len=max_len)
+        new_state = {"tokens": buf["tokens"], "pos": buf["pos"],
+                     "remaining": buf["remaining"],
+                     "active": buf["active"].bool()}
+        return buf["block"], buf["emitted"], new_state

@@ -722,10 +722,11 @@ class ProcessBackend:
     def child_stats(self, reset: bool = False,
                     timeout_s: float = 60.0) -> list[tuple[dict, dict]]:
         """Ask every serving child for its ``(launch_counts, memory)`` now
-        (after a synchronize on its device) and wait for the replies,
-        routing any other message as ``poll`` would; with ``reset`` each
-        child then sets its counts to 0. Raises if a child does not reply
-        within ``timeout_s``."""
+        (after a synchronize on its device; ``memory`` also holds its
+        engine's ``graph_capture_s`` and ``graph_pool_bytes``) and wait
+        for the replies, routing any other message as ``poll`` would;
+        with ``reset`` each child then sets its counts to 0. Raises if a
+        child does not reply within ``timeout_s``."""
         self._ensure_workers()
         cids = [cid for cid in range(self.capacity) if self._alive[cid]]
         for cid in cids:

@@ -135,11 +135,16 @@ def _serving_child(conn, cid: int, cfg, device: str, engine_kw: dict,
         engine.on_event = buf.append
 
         def memory() -> dict:
+            """Device memory, and the engine's decode graph: its capture
+            seconds and private pool bytes (None until it is captured)."""
+            graph = {"graph_capture_s": engine.graph_capture_s,
+                     "graph_pool_bytes": engine.graph_pool_bytes}
             if dev.type != "cuda":
-                return {"memory_allocated": 0, "max_memory_allocated": 0}
+                return {"memory_allocated": 0, "max_memory_allocated": 0,
+                        **graph}
             return {"memory_allocated": torch.cuda.memory_allocated(dev),
                     "max_memory_allocated":
-                        torch.cuda.max_memory_allocated(dev)}
+                        torch.cuda.max_memory_allocated(dev), **graph}
         try:
             cores = sorted(os.sched_getaffinity(0))
         except AttributeError:              # non-Linux dev host

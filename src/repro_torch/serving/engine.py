@@ -21,29 +21,43 @@ one fused decode chunk:
   stops admission. With ``prefix_cache`` a request's leading full prompt
   blocks map onto cached pages (chained blake2b block hashes) and only
   the residual suffix is prefilled, behind the gathered prefix.
-* **Decode** runs ``Model.decode_chunk`` for every active slot in
-  lockstep. The chunk length is ``EngineConfig.chunk_tokens``, clamped by
-  the shortest remaining budget and ``max_len`` headroom among active
-  slots and rounded down to a power of two, so no step is wasted on a
-  finished slot. The chunk's tokens and emitted counts come to the host in
+* **Decode** runs one fused chunk for every active slot in lockstep. The
+  chunk length is ``EngineConfig.chunk_tokens``, clamped by the shortest
+  remaining budget and ``max_len`` headroom among active slots and
+  rounded down to a power of two, so no step is wasted on a finished
+  slot. The chunk's tokens and emitted counts come to the host in
   exactly ONE device-to-host transfer.
 
 Events (``serving/events.py``) are emitted as the JAX engine emits them:
 one ``ChunkEvent`` per request per macro-step and a ``DoneEvent`` per
 completion, built from data already on the host.
 
-On a CUDA device each engine issues its work on its own CUDA stream, so
-the kernels of a ``ThreadBackend``'s engines may overlap on one card —
-the GPU form of splitting one device's work across containers. Their
-host work still shares the interpreter lock, and eager decode is
-host-bound (see PERF.md), so today two threaded engines are slower than
-the same two stepped in turn.
+On the CPU a chunk is ``Model.decode_chunk``. On a CUDA device it is the
+counterpart of JAX's jitted, cache-donated chunk: the engine owns its
+chunk state on the card (``Model.chunk_buffers``), writes the host's
+slot state into it in ONE host-to-device copy, and replays a CUDA graph
+of one chunk step (``Model.decode_chunk_step``) ``n_tokens`` times, as
+XLA loops the scan body, before the one device-to-host copy. The graph
+is captured on the engine's first chunk, after that chunk's first step
+ran eagerly, and holds the cache leaves, the shared block table, the
+weights and the chunk state by address: all are updated in place only,
+and a moved one raises before the next replay. ``graph_capture_s``,
+``graph_pool_bytes`` (the rise of ``torch.cuda.memory_reserved()``
+across the capture: the graph's private pool) and ``graph_replays``
+report it; the kernel launch counts add the captured step's launches at
+each replay.
+
+Each engine issues its work on its own CUDA stream, so the kernels of a
+``ThreadBackend``'s engines may overlap on one card — the GPU form of
+splitting one device's work across containers. Their host work (prefill
+and the chunk's bookkeeping) still shares the interpreter lock.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import hashlib
+import threading
 import time
 import warnings
 from collections import deque
@@ -53,6 +67,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.build import add_launches, capture_tally
 from repro_torch.models.cache import PagedLayout
 from repro_torch.models.layers import ROW_SLICE
 from repro_torch.serving.cache import DenseCache, PagedCache
@@ -98,6 +113,25 @@ PROMPT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 #   ROW_SLICE-row slices, which gives a row the same bits at any count;
 #   the engine does not pad them.
 MIN_PREFILL_ROWS = ROW_SLICE
+
+
+# CUDA graph captures run one at a time in the process: on entry
+# torch.cuda.graph synchronizes the device and empties the allocator's
+# cache, which must not meet another thread's capture in flight. Other
+# threads' eager work may run during a capture ("thread_local" mode).
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _tensors(tree, path: str = ""):
+    """(path, tensor) for every tensor of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tensors(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tensors(v, f"{path}/{i}")
+    elif isinstance(tree, torch.Tensor):
+        yield path, tree
 
 
 def _bucket(n: int, buckets=PROMPT_BUCKETS) -> int:
@@ -243,6 +277,19 @@ class ServingEngine:
         self.prefix_hit_tokens_total = 0  # positions served from hits
         self.busy_s = 0.0             # wall time spent inside step()
         self.peak_active = 0          # most rows active at once
+        # the card's chunk: its state, the captured step graph, the step's
+        # kernel launches (counted at each replay) and the addresses the
+        # graph was captured over
+        self._buf = None
+        self._graph = None
+        self._tally: dict = {}
+        self._addresses: list[int] = []
+        self.graph_capture_s: float | None = None
+        self.graph_pool_bytes: int | None = None
+        self.graph_replays = 0
+        if self.device.type == "cuda":
+            with self._on_stream():
+                self._buf = model.chunk_buffers(n_rows, config.chunk_tokens)
 
     def _on_stream(self):
         if self.stream is None:
@@ -534,14 +581,7 @@ class ServingEngine:
         for i in active:
             s = self.slots[i]
             state[:, i] = (s.generated[-1], s.pos, s.remaining, 1)
-        dev = torch.from_numpy(state).to(self.device)
-        block, emitted, _ = self.model.decode_chunk(
-            self.params, self.cache_backend.tree,
-            {"tokens": dev[0], "pos": dev[1], "remaining": dev[2],
-             "active": dev[3].bool()},
-            n_tokens, max_len=self.max_len)
-        host = torch.cat([block, emitted[:, None]], dim=1).cpu().numpy()
-        block, emitted = host[:, :-1], host[:, -1]
+        block, emitted = self._run_chunk(state, n_tokens)
         now = time.perf_counter()
         for i in active:
             s = self.slots[i]
@@ -556,6 +596,86 @@ class ServingEngine:
             if s.remaining <= 0 or s.pos >= self.max_len - 1:
                 self._finish(i)
         self.chunks += 1
+
+    def _run_chunk(self, state: np.ndarray,
+                   n_tokens: int) -> tuple[np.ndarray, np.ndarray]:
+        """``n_tokens`` greedy steps from ``state`` (tokens, pos,
+        remaining, active of every row, (4, rows) int32): the token block
+        (rows, n_tokens) and emitted counts (rows,) on the host."""
+        if self._buf is None:
+            dev = torch.from_numpy(state).to(self.device)
+            block, emitted, _ = self.model.decode_chunk(
+                self.params, self.cache_backend.tree,
+                {"tokens": dev[0], "pos": dev[1], "remaining": dev[2],
+                 "active": dev[3].bool()},
+                n_tokens, max_len=self.max_len)
+            host = torch.cat([block, emitted[:, None]], dim=1).cpu().numpy()
+            return host[:, :-1], host[:, -1]
+        B = state.shape[1]
+        head = np.zeros(5 * B + 2, np.int32)   # col and emitted start at 0
+        head[:4 * B] = state.reshape(-1)
+        self._buf["head"].copy_(torch.from_numpy(head))
+        replays = n_tokens
+        if self._graph is None:
+            # the first step runs eagerly on the engine's stream (its
+            # first cuBLAS calls and module loads happen outside any
+            # capture) and counts as a real step; then the capture
+            self._step()
+            self._capture()
+            replays -= 1
+        else:
+            self._check_addresses()
+        for _ in range(replays):
+            self._graph.replay()
+        add_launches(self._tally, replays)
+        self.graph_replays += replays
+        out = self._buf["out"][:B * (n_tokens + 1)].cpu().numpy()
+        return out[B:].reshape(n_tokens, B).T, out[:B]
+
+    def _step(self) -> None:
+        self.model.decode_chunk_step(self.params, self.cache_backend.tree,
+                                     self._buf, max_len=self.max_len)
+
+    def graph_leaves(self) -> list[tuple[str, torch.Tensor]]:
+        """(path, tensor) of everything the chunk step reads or writes by
+        address: every cache leaf (the paged block table once per layer
+        group), every weight and the chunk state."""
+        return [*_tensors(self.cache_backend.tree, "cache"),
+                *_tensors(self.params, "params"),
+                *_tensors(self._buf or {}, "chunk")]
+
+    def _capture(self) -> None:
+        """Capture one chunk step on the engine's stream (its launches go
+        to the tally a replay counts), and record what it holds by
+        address."""
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with _CAPTURE_LOCK, capture_tally() as tally:
+            with torch.cuda.graph(graph, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                reserved = torch.cuda.memory_reserved(self.device)
+                self._step()
+                self.graph_pool_bytes = (
+                    torch.cuda.memory_reserved(self.device) - reserved)
+        self.graph_capture_s = time.perf_counter() - t0
+        self._graph, self._tally = graph, tally
+        self._addresses = [t.data_ptr() for _, t in self.graph_leaves()]
+
+    def _check_addresses(self) -> None:
+        """Raise before a replay if a tensor the graph was captured over
+        is gone or has moved: a replay would read and write the old
+        address."""
+        leaves = self.graph_leaves()
+        now = [t.data_ptr() for _, t in leaves]
+        if now != self._addresses:
+            moved = ([p for (p, _), a, b in zip(leaves, now, self._addresses)
+                      if a != b] if len(now) == len(self._addresses)
+                     else [f"{len(self._addresses)} tensors at capture, "
+                           f"{len(now)} now"])
+            raise RuntimeError(
+                f"the engine's decode graph holds tensors by address, and "
+                f"{moved[:4]} moved since its capture; caches, weights "
+                "and the chunk state must be updated in place")
 
     # ------------------------------------------------------------------
     def step(self) -> bool:

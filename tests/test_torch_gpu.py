@@ -1510,3 +1510,193 @@ def test_children_leave_no_weights_parked_in_the_parent(cuda, kill,
     else:
         assert after >= before + weights and parked, (out.stdout,
                                                       out.stderr)
+
+
+# ---------------------------------------------------------------------------
+# the decode chunk as a captured CUDA graph (serving/engine.py)
+# ---------------------------------------------------------------------------
+# (arch, int8 KV cache, cache, prefix sharing); every cache kind a card
+# engine replays its step graph over
+GRAPH_KINDS = {
+    "dense": ("qwen3-0.6b-reduced", False, "dense", False),
+    "paged_shared": ("qwen3-0.6b-reduced", False, "paged", True),
+    "int8_dense": ("qwen3-0.6b-reduced", True, "dense", False),
+    "int8_paged": ("qwen3-0.6b-reduced", True, "paged", False),
+    "mamba2": ("mamba2-2.7b-reduced", False, "dense", False),
+    "mla_dense": ("deepseek-v2-lite-16b-reduced", False, "dense", False),
+    "mla_paged": ("deepseek-v2-lite-16b-reduced", False, "paged", False)}
+# prompt lengths every family admits (mamba2-reduced: ones its 32-token
+# scan chunk divides) and budgets
+GRAPH_SPECS = [(12, 21), (32, 9), (20, 30), (64, 17)]
+
+
+def _graph_engine(kind, dtype=torch.bfloat16, seed=0):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    arch, int8, cache, share = GRAPH_KINDS[kind]
+    cfg = get_config(arch)
+    if int8:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    model = Model(cfg, device="cuda")
+    params = model.init(seed=seed, dtype=dtype)
+    config = EngineConfig(n_slots=3, max_len=128, chunk_tokens=8,
+                          dtype=dtype, cache=cache, block_size=16,
+                          prefix_cache=share,
+                          max_seqs=4 if cache == "paged" else None)
+    return ServingEngine(model, params, config, device="cuda")
+
+
+def _requests(vocab, specs, seed, prefix=None, start=0):
+    import numpy as np
+
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(seed)
+    head = () if prefix is None else (prefix,)
+    return [Request(start + i, np.concatenate(
+        [*head, rng.integers(0, vocab, (n,), dtype=np.int32)]), m)
+        for i, (n, m) in enumerate(specs)]
+
+
+def _graph_vs_eager(eng, what):
+    """``chip_smoke.py``'s ``graph_vs_eager``: the engine's next chunk,
+    replayed, against ``Model.decode_chunk`` run eagerly from the same
+    state on a clone of its cache (tokens, emitted counts, every cache
+    leaf's bytes and launch counts equal). Returns the chunk's steps."""
+    import pathlib
+    import sys
+
+    import numpy as np
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke as cs   # its module scope imports the stdlib only
+    cs.np, cs.torch = np, torch
+    return cs.graph_vs_eager(eng, what, "card test")
+
+
+@pytest.mark.parametrize("kind", list(GRAPH_KINDS))
+def test_graph_replay_gives_the_eager_chunks_bits(cuda, kind):
+    """Every cache kind: the replayed chunk equals the eager
+    ``decode_chunk`` in tokens, emitted counts, every cache leaf's bytes
+    and launch counts; on the paged cache with sharing also after
+    admissions that rewrote the table and after a copy-on-write fork."""
+    eng = _graph_engine(kind)
+    vocab = eng.model.cfg.vocab_size
+    prefix = None
+    if GRAPH_KINDS[kind][3]:
+        import numpy as np
+        prefix = np.random.default_rng(9).integers(0, vocab, (32,),
+                                                   dtype=np.int32)
+        eng.submit_many(_requests(vocab, [(7, 3)], 1, prefix, start=100))
+        eng.run()                     # indexes the shared prompt
+    eng.submit_many(_requests(vocab, GRAPH_SPECS, 2, prefix))
+    eng.step()                        # admission, eager step, capture
+    assert eng.graph_capture_s > 0 and eng.graph_pool_bytes >= 0
+    compared = _graph_vs_eager(eng, kind)
+    if prefix is not None:
+        assert eng.prefix_hit_tokens_total > 0
+        cb = eng.cache_backend
+        row = next(i for i, s in enumerate(eng.slots) if s.active
+                   and cb.allocator.ref(cb._blocks[i][0]) > 1)
+        assert cb._cow_fork(row, 0)
+        compared += _graph_vs_eager(eng, f"{kind} after a fork")
+    eng.submit_many(_requests(vocab, [(16, 11)], 3, prefix, start=50))
+    eng.step()                        # a re-admission, then a chunk
+    while any(s.active for s in eng.slots):
+        compared += _graph_vs_eager(eng, kind)
+    eng.run()
+    assert compared >= 8
+
+
+def test_graph_streams_equal_the_eager_engines(cuda):
+    """A card engine's greedy streams through its graph equal the same
+    requests served with every chunk step eager."""
+    streams = []
+    for graph in (True, False):
+        eng = _graph_engine("dense")
+        if not graph:
+            def eager(state, n, eng=eng):
+                st = torch.from_numpy(state).cuda()
+                block, emitted, _ = eng.model.decode_chunk(
+                    eng.params, eng.cache_backend.tree,
+                    {"tokens": st[0], "pos": st[1], "remaining": st[2],
+                     "active": st[3].bool()}, n, max_len=eng.max_len)
+                return block.cpu().numpy(), emitted.cpu().numpy()
+            eng._run_chunk = eager
+        eng.submit_many(_requests(eng.model.cfg.vocab_size, GRAPH_SPECS, 4))
+        streams.append({c.rid: c.tokens for c in eng.run()})
+        assert (eng._graph is not None) == graph
+    assert streams[0] == streams[1]
+
+
+def _serve_all(eng, first, later, seed, barrier=None):
+    """Serve ``first``, and ``later`` after two steps, to completion; the
+    tokens by request id."""
+    vocab = eng.model.cfg.vocab_size
+    eng.submit_many(_requests(vocab, first, seed))
+    if barrier is not None:
+        barrier.wait()
+    got, steps = {}, 0
+    while eng.has_work:
+        eng.step()
+        steps += 1
+        if steps == 2:
+            eng.submit_many(_requests(vocab, later, seed + 10, start=10))
+        got.update({c.rid: list(c.tokens) for c in eng.done})
+        eng.done.clear()
+    return got
+
+
+def test_two_engines_capture_at_once_while_the_other_prefills(cuda):
+    """Two engines in two threads reach their first chunk together, the
+    first behind a 512-token prefill, and prefill again while the other
+    replays; both capture, and their streams equal each engine's served
+    alone."""
+    import threading
+
+    plans = [([(12, 20), (500, 9)], [(300, 6)]),
+             ([(20, 25), (30, 7)], [(300, 6)])]
+    alone = [_serve_all(_graph_engine("dense"), *plans[i], seed=5 + i)
+             for i in range(2)]
+    engines = [_graph_engine("dense") for _ in range(2)]
+    barrier = threading.Barrier(2)
+    out, errors = [None, None], []
+
+    def worker(i):
+        try:
+            out[i] = _serve_all(engines[i], *plans[i], seed=5 + i,
+                                barrier=barrier)
+        except BaseException as e:       # carried across the join
+            errors.append(e)
+    workers = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    assert not errors, errors
+    assert all(e.graph_capture_s is not None for e in engines)
+    assert out == alone
+
+
+@pytest.mark.parametrize("what", ["cache", "table", "weight"])
+def test_a_moved_leaf_raises_before_the_replay(cuda, what):
+    eng = _graph_engine("paged_shared" if what == "table" else "dense")
+    eng.submit_many(_requests(eng.model.cfg.vocab_size, [(20, 30)], 6))
+    eng.step()
+    assert eng._graph is not None
+    tree = eng.cache_backend.tree
+    if what == "cache":
+        tree[1]["v"] = tree[1]["v"].clone()
+    elif what == "table":
+        tree[0]["table"] = tree[0]["table"].clone()
+    else:
+        mlp = eng.params["layers"][0]["mlp"]
+        mlp["w_up"] = mlp["w_up"].clone()
+    replays = eng.graph_replays
+    with pytest.raises(RuntimeError, match="moved since its capture"):
+        eng.step()
+    assert eng.graph_replays == replays
