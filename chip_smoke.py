@@ -161,9 +161,44 @@ Phases, each raising on failure (any failure exits nonzero):
     pool bytes (the respawned child's once it has served), and whether
     an MPS control daemon runs.
 
+11. The request contract of the fixed-count path on phase 4's model
+    (bf16, n_slots=4, max_len=2048, chunk_tokens=32):
+    a. Sampling inside the step graph: ``Router(ThreadBackend(2))`` with
+       ``greedy=False, seed=7`` serves 8 requests, each complete; the
+       same seed again gives identical streams, seed 8 differs; one
+       sampling engine passes ``graph_vs_eager`` (its random stream's
+       state cloned; the state after the chunk equal too), and two
+       consecutive replays from one slot state sample other tokens while
+       the restored stream state gives the first tokens again; a
+       per-token engine (``chunked=False``) with the same seed gives the
+       chunked engine's sampled streams; the sampler alone, one 16-way
+       row repeated 20,000 times in one call, passes chi-square against
+       ``softmax`` at p > 1e-3. Reports a 4-row step's replayed device
+       time greedy against sampling, in turns, and the sampler's alone.
+    b. The per-token baseline, greedy, on one engine: its streams equal
+       the chunked engine's; reports wall, tok/s, host reads and kernel
+       launches of both.
+    c. Deadlines and shedding: ``request_deadline_s=1e-4`` over a paged
+       engine fails with kind ``"deadline"``, then an undeadlined request
+       completes and every block is back in the pool; ``deadline_s=0.35``
+       with max_new=500 fails ``"mid-decode"`` and frees its slot;
+       ``max_queue=4`` over 8 submissions gives 4 ``RejectedEvent``s with
+       ``retry_after_s`` 0.25 and 4 completions; one capture an engine.
+    d. ``ThreadBackend`` supervision: after one warm-up step an engine,
+       an ``"error"`` fault in container 1 two steps into phase 10's
+       requests gives one ``ContainerFailure(kind="error")``,
+       ``RetryEvent``s and a rebuilt engine that captures its own graph,
+       with the fault-free streams; ``memory_allocated`` must fall by
+       the dead engine's dense cache between the failure and the new
+       engine's build, and rise by less than half of it over the run; a
+       fault in
+       every incarnation trips the breaker and the Router serves on
+       container 0 alone. Reports the rebuild's seconds and memory.
+
 Then a JSON line with each kernel's launches (from the phase of the path
-it serves), error and times (eight kernels), the card's ``nvidia-smi``
-line, and the result line ``{"ok": true, "device": {...}}``.
+it serves, and by phase), error and times (eight kernels), the card's
+``nvidia-smi`` line, and the result line ``{"ok": true, "device":
+{...}}``.
 
 It needs the checkout's ``src/`` and a CUDA device; without either it
 exits nonzero before printing any result.
@@ -1689,6 +1724,7 @@ def graph_vs_eager(engine, what: str, card: str) -> int:
 
     def spy(state, n):
         seen["state"], seen["n"] = state.copy(), n
+        seen["draw"] = engine.draws
         seen["out"] = run(state, n)
         return seen["out"]
     engine._run_chunk = spy
@@ -1706,15 +1742,30 @@ def graph_vs_eager(engine, what: str, card: str) -> int:
         fail(f"graph vs eager ({what}): {engine.graph_replays - replays} "
              f"replays for a {n}-step chunk")
     st = torch.from_numpy(seen["state"]).cuda()
-    block, emitted, _ = engine.model.decode_chunk(
-        engine.params, clone, {"tokens": st[0], "pos": st[1],
-                               "remaining": st[2], "active": st[3].bool()},
-        n, max_len=engine.max_len)
+    state = {"tokens": st[0], "pos": st[1], "remaining": st[2],
+             "active": st[3].bool()}
+    kw, key = {}, ""
+    if not engine.greedy:
+        # the random stream's state as the chunk found it, cloned
+        from repro_torch.models.sampling import new_key
+        state["key"], kw["greedy"] = new_key(
+            engine.config.seed, seen["draw"], "cuda"), False
+    block, emitted, new = engine.model.decode_chunk(
+        engine.params, clone, state, n, max_len=engine.max_len, **kw)
     torch.cuda.synchronize()
     after = ops.launch_counts()
     if not (np.array_equal(block.cpu().numpy(), seen["out"][0])
             and np.array_equal(emitted.cpu().numpy(), seen["out"][1])):
         fail(f"graph vs eager ({what}): tokens or emitted counts differ")
+    if not engine.greedy:
+        want = new_key(engine.config.seed, seen["draw"] + n).tolist()
+        got = engine._buf["key"].tolist()
+        if new["key"].tolist() != want or got != want or \
+                engine.draws != want[1]:
+            fail(f"graph vs eager ({what}): the random stream after the "
+                 f"chunk: replayed {got}, eager {new['key'].tolist()}, "
+                 f"want {want}, engine draws {engine.draws}")
+        key = f", the random stream [seed, draw] {want} after both"
     leaves = 0
     for j, (g, c) in enumerate(zip(engine.cache_backend.tree, clone)):
         for k, t in g.items():
@@ -1729,8 +1780,9 @@ def graph_vs_eager(engine, what: str, card: str) -> int:
     print(f"graph vs eager ({what}): a {n}-step chunk over {len(active)} "
           f"active rows replayed from the engine's step graph equals "
           f"Model.decode_chunk run eagerly on a clone of its cache: tokens, "
-          f"emitted counts, {leaves} cache leaves bit for bit, launches "
-          f"{ {k: v for k, v in replayed.items() if v} }; the engine's "
+          f"emitted counts, {leaves} cache leaves bit for bit{key}, "
+          f"launches { {k: v for k, v in replayed.items() if v} }; the "
+          f"engine's "
           f"capture {engine.graph_capture_s:.4f} s, pool "
           f"{engine.graph_pool_bytes} B, replays {engine.graph_replays} "
           f"[card: {card}]", flush=True)
@@ -2836,6 +2888,466 @@ def process_phase(model, params, card: str, max_new: int = 32):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the request contract of the fixed-count serving path
+# ---------------------------------------------------------------------------
+# one fixed 16-way logits row, the sampler's chi-square gate
+LOGITS16 = [2.0, 1.0, 0.5, 0.0, -0.5, -1.0, 1.5, 0.25,
+            3.0, -2.0, 0.75, -0.25, 1.25, 0.1, -1.5, 2.5]
+CACHE_BYTES = 28 * 2 * 4 * 2048 * 8 * 128 * 2   # qwen3's dense bf16 cache
+
+
+def noise_advances(engine) -> int:
+    """The step graph of a sampling engine (captured, requests active)
+    replayed three times from the same slot state: the second replay
+    keeps the random stream as the first replay advanced it and must
+    sample another token in some active row; the third restores the
+    first's stream and must give its tokens again. Each replay advances
+    the draw by one. Returns the rows that differ. Leaves the engine
+    unfit to serve on (its stream state on the card is rewritten)."""
+    from repro_torch.models.sampling import new_key
+    active = [i for i, s in enumerate(engine.slots) if s.active]
+    if engine.greedy or engine._graph is None or not active:
+        fail("noise check: needs a sampling engine with its graph and "
+             "active rows")
+    B = len(engine.slots)
+    head = np.zeros(5 * B + 6, np.int32)
+    for i in active:
+        s = engine.slots[i]
+        head[[i, B + i, 2 * B + i, 3 * B + i]] = (
+            s.generated[-1], s.pos, s.remaining, 1)
+    draw = engine.draws
+    head[4 * B + 2:4 * B + 6].view(np.int64)[:] = new_key(
+        engine.config.seed, draw).numpy()
+    buf = engine._buf
+    picks, keys = [], []
+    with engine._on_stream():
+        for restore_key in (True, False, True):
+            part = head if restore_key else head[:4 * B + 2]
+            buf["head"][:len(part)].copy_(torch.from_numpy(part))
+            engine._graph.replay()
+            picks.append(buf["block"][:, 0].cpu().numpy()[active])
+            keys.append(buf["key"].tolist()[1])
+    torch.cuda.synchronize()
+    if keys != [draw + 1, draw + 2, draw + 1]:
+        fail(f"noise check: draws after each replay {keys}, want "
+             f"{[draw + 1, draw + 2, draw + 1]}")
+    if not np.array_equal(picks[0], picks[2]):
+        fail("noise check: the same stream state sampled other tokens")
+    differ = int((picks[0] != picks[1]).sum())
+    if not differ:
+        fail("noise check: two consecutive replays drew the same tokens "
+             "in every active row (the noise did not advance)")
+    return differ
+
+
+def step_replay_ms(model, params, greedy: bool, reps: int = 50) -> float:
+    """Device ms of one 4-row qwen3 chunk step replayed from a CUDA graph
+    (rows live to 48/160/300/544 and inactive, so their positions hold),
+    greedy or sampling: ``reps`` replays back to back between two CUDA
+    events."""
+    cache = model.init_cache(4, 2048, torch.bfloat16)
+    buf = model.chunk_buffers(4, reps + 8)   # a block column a step run
+    buf["pos"].copy_(torch.tensor([48, 160, 300, 544], dtype=torch.int32))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+
+    def step():
+        model.decode_chunk_step(params, cache, buf, max_len=2048,
+                                greedy=greedy)
+    from repro_torch.kernels.build import capture_tally
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        step()
+        with capture_tally():
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                step()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph, cache, buf
+    return start.elapsed_time(end) / reps
+
+
+def watch_rebuilds(backend) -> list:
+    """Wrap a ThreadBackend's failure handling: for each rebuild from now
+    on, ``(cid, incarnation, memory_allocated as the failure is handled,
+    once the dead engine is dropped, once the new engine is built)``.
+    Taken there, no other allocation falls between the readings; over a
+    longer window cuBLAS adds a 32 MiB workspace for each new pair of a
+    worker thread's handle and an engine's stream."""
+    seen, entry = [], []
+    fail, build = backend._fail_container, backend._build_engine
+
+    def fail_container(cid, message):
+        entry.append(torch.cuda.memory_allocated())
+        fail(cid, message)
+
+    def build_engine(cid, incarnation):
+        dropped = torch.cuda.memory_allocated()
+        eng = build(cid, incarnation)
+        seen.append((cid, incarnation, entry[-1], dropped,
+                     torch.cuda.memory_allocated()))
+        return eng
+    backend._fail_container = fail_container
+    backend._build_engine = build_engine
+    return seen
+
+
+def count_captures(backend) -> list:
+    """Wrap each engine's capture so the calls are counted per engine."""
+    counts = []
+    for eng in backend.engines:
+        n = [0]
+        real = eng._capture
+
+        def capture(real=real, n=n):
+            n[0] += 1
+            real()
+        eng._capture = capture
+        counts.append(n)
+    return counts
+
+
+def request_contract_phase(model, params, card: str, max_new: int = 32):
+    """Phase 11 on full-width qwen3-0.6b (bf16, phase 4's seeded weights,
+    n_slots=4, max_len=2048, chunk_tokens=32): sampling inside the step
+    graph (11a), the per-token baseline (11b), deadlines and shedding
+    (11c) and ThreadBackend supervision (11d). Returns the phase's kernel
+    launch counts."""
+    import scipy.stats
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.sampling import gumbel_argmax, new_key
+    from repro_torch.serving.backend import ThreadBackend
+    from repro_torch.serving.engine import (EngineConfig, Request,
+                                            ServingEngine)
+    from repro_torch.serving.events import (ContainerFailure, FailedEvent,
+                                            RejectedEvent, RetryEvent)
+    from repro_torch.serving.faults import Fault, FaultPlan
+    from repro_torch.serving.router import (RequestFailed, RequestRejected,
+                                            Router)
+
+    cfg = model.cfg
+    base = dict(n_slots=4, max_len=2048, dtype=torch.bfloat16,
+                chunk_tokens=32)
+    rng = np.random.default_rng(11)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (n,),
+                                    dtype=np.int32), max_new)
+            for i, n in enumerate(MAIN_PLENS)]
+    phase_t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    parts = {}
+
+    def complete(tokens, what):
+        if sorted(tokens) != [r.rid for r in reqs] or any(
+                len(t) != max_new or not all(0 <= x < cfg.vocab_size
+                                             for x in t)
+                for t in tokens.values()):
+            fail(f"phase 11 {what}: not every request completed with "
+                 f"{max_new} tokens")
+
+    # -- 11a: sampling inside the step graph ---------------------------
+    t0 = time.perf_counter()
+    sampled = {}
+    for seed in (7, 7, 8):
+        config = EngineConfig(greedy=False, seed=seed, **base)
+        with Router(ThreadBackend(model, params, 2, config)) as router:
+            tokens, _, _ = serve_timed(router, reqs)
+        complete(tokens, f"11a seed {seed}")
+        sampled.setdefault(seed, []).append(tokens)
+    if sampled[7][0] != sampled[7][1]:
+        fail("phase 11a: the same seed sampled other streams")
+    if sampled[8][0] == sampled[7][0]:
+        fail("phase 11a: seed 8 sampled seed 7's streams")
+    n_diff = sum(a != b for r in sampled[7][0] for a, b in
+                 zip(sampled[7][0][r], sampled[8][0][r]))
+    # one sampling engine: the replayed chunk against the eager chunk,
+    # then consecutive replays against each other
+    eng = ServingEngine(model, params,
+                        EngineConfig(greedy=False, seed=7, **base))
+    eng.submit_many([dataclasses.replace(r) for r in reqs[:4]])
+    eng.step()
+    graph_vs_eager(eng, "phase 11a, sampling, dense bf16 cache", card)
+    differ = noise_advances(eng)
+    del eng
+    # chunked and per-token engines with one seed, one engine each
+    streams = {}
+    for chunked in (True, False):
+        eng = ServingEngine(model, params, EngineConfig(
+            greedy=False, seed=7, chunked=chunked, **base))
+        eng.submit_many([dataclasses.replace(r) for r in reqs])
+        streams[chunked] = {c.rid: list(c.tokens) for c in eng.run()}
+        complete(streams[chunked], f"11a chunked={chunked}")
+        if chunked:
+            draws = eng.draws
+        elif eng.draws != draws:
+            fail(f"phase 11a: per-token engine took {eng.draws} draws, "
+                 f"the chunked one {draws}")
+        del eng
+    if streams[True] != streams[False]:
+        bad = [r for r in streams[True] if streams[True][r] !=
+               streams[False][r]]
+        fail(f"phase 11a: sampled per-token streams differ from the "
+             f"chunked engine's for requests {bad}")
+    # the sampler alone: one 16-way row repeated 20,000 times, one call
+    n = 20_000
+    row = torch.tensor(LOGITS16, dtype=torch.float64)
+    p = torch.softmax(row, 0).numpy()
+    logits = row.float().cuda().repeat(n, 1)
+    picks = gumbel_argmax(logits, new_key(7, 0, "cuda")).cpu().numpy()
+    chi = scipy.stats.chisquare(np.bincount(picks, minlength=16), p * n)
+    if not chi.pvalue > 1e-3:
+        fail(f"phase 11a: sampler frequencies fail chi-square against "
+             f"softmax (p = {chi.pvalue:.3e})")
+    # a 4-row step replayed, greedy against sampling, in turns; and the
+    # sampler alone over a step's logits
+    walls = [step_replay_ms(model, params, g)
+             for g in (True, False, False, True)]
+    step_logits = torch.randn(4, cfg.vocab_size, device="cuda").to(
+        torch.bfloat16)
+    key = new_key(7, 0, "cuda")
+    sampler_ms = time_graph_ms(lambda: gumbel_argmax(step_logits, key))
+    parts["11a"] = time.perf_counter() - t0
+    print(f"request contract (11a), sampling: Router(ThreadBackend(2)) "
+          f"greedy=False seed=7 served {len(reqs)} requests prompts "
+          f"{MAIN_PLENS} max_new={max_new}, every request complete; seed 7 "
+          f"twice gives identical streams, seed 8 differs in {n_diff} of "
+          f"{len(reqs) * max_new} tokens; per-token (chunked=False) == "
+          f"chunked sampled streams ({draws} draws each); two consecutive "
+          f"replays from one slot state sampled other tokens in {differ} "
+          f"of 4 rows, the restored stream state the same tokens; sampler "
+          f"chi-square over {n} draws of a 16-way row p={chi.pvalue:.4f} "
+          f"[card: {card}]", flush=True)
+    print(f"request contract (11a), a 4-row qwen3 step replayed from a "
+          f"graph (rows live to 48/160/300/544), device ms in turns greedy "
+          f"{walls[0]:.4f} / sampling {walls[1]:.4f} / sampling "
+          f"{walls[2]:.4f} / greedy {walls[3]:.4f}; the sampler alone over "
+          f"4 x {cfg.vocab_size} bf16 logits {sampler_ms:.5f} ms (graph "
+          f"replay) [card: {card}]", flush=True)
+
+    # -- 11b: the per-token baseline -----------------------------------
+    t0 = time.perf_counter()
+    readings, greedy = {}, {}
+    for chunked in (True, False):
+        eng = ServingEngine(model, params,
+                            EngineConfig(chunked=chunked, **base))
+        eng.submit_many([Request(900, reqs[0].prompt, 4)])
+        eng.run()                      # warm-up (and the capture)
+        torch.cuda.synchronize()
+        reads, before = eng.host_reads, ops.launch_counts()
+        t1 = time.perf_counter()
+        eng.submit_many([dataclasses.replace(r) for r in reqs])
+        greedy[chunked] = {c.rid: list(c.tokens) for c in eng.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        after = ops.launch_counts()
+        complete(greedy[chunked], f"11b chunked={chunked}")
+        n_tok = sum(len(t) for t in greedy[chunked].values())
+        readings[chunked] = (wall, n_tok / wall, eng.host_reads - reads,
+                             sum(after.values()) - sum(before.values()))
+        del eng
+    if greedy[True] != greedy[False]:
+        bad = [r for r in greedy[True] if greedy[True][r] != greedy[False][r]]
+        fail(f"phase 11b: per-token greedy streams differ from the chunked "
+             f"engine's for requests {bad}")
+    parts["11b"] = time.perf_counter() - t0
+    fmt = "wall_s={:.4f} tok_per_s={:.2f} host_reads={} kernel_launches={}"
+    print(f"request contract (11b), one engine, {len(reqs)} requests "
+          f"prompts {MAIN_PLENS} max_new={max_new}, greedy: per-token "
+          f"(chunked=False) {fmt.format(*readings[False])}; chunked "
+          f"{fmt.format(*readings[True])}; speedup "
+          f"{readings[True][1] / readings[False][1]:.2f}x; streams equal "
+          f"[card: {card}]", flush=True)
+
+    # -- 11c: deadlines and shedding -----------------------------------
+    t0 = time.perf_counter()
+    paged = EngineConfig(cache="paged", block_size=16, max_seqs=4, **base)
+    backend = ThreadBackend(model, params, 1, paged)
+    captures = count_captures(backend)
+    with Router(backend, request_deadline_s=1e-4) as router:
+        h = router.submit(Request(0, reqs[1].prompt, 300))
+        try:
+            h.result()
+            fail("phase 11c: a 1e-4 s deadline did not fail")
+        except RequestFailed as e:
+            if not isinstance(e.event, FailedEvent) or \
+                    e.event.kind != "deadline":
+                fail(f"phase 11c: deadline failure {e.event}")
+            first_reason = e.event.reason
+        router.request_deadline_s = None
+        ok = router.submit(Request(1, reqs[1].prompt, max_new)).tokens()
+        eng = backend.engines[0]
+        cb = eng.cache_backend
+        cb.flush()
+        if len(ok) != max_new or eng.has_work or cb.n_live_blocks or \
+                cb.allocator.n_free != cb.layout.max_blocks:
+            fail(f"phase 11c: after the deadline, {len(ok)} tokens, work "
+                 f"{eng.has_work}, {cb.n_live_blocks} live blocks, "
+                 f"{cb.allocator.n_free} of {cb.layout.max_blocks} free")
+        paged_replays = eng.graph_replays
+    backend = ThreadBackend(model, params, 1, EngineConfig(**base))
+    captures += count_captures(backend)
+    with Router(backend, deadline_grace_s=60.0, max_queue=4) as router:
+        eng = backend.engines[0]
+        h = router.submit(Request(2, reqs[0].prompt, 500, deadline_s=0.35))
+        t1 = time.perf_counter()
+        try:
+            h.result()
+            fail("phase 11c: the mid-decode deadline did not fail")
+        except RequestFailed as e:
+            if e.event.kind != "deadline" or \
+                    "mid-decode" not in e.event.reason:
+                fail(f"phase 11c: mid-decode failure {e.event}")
+            mid_reason, mid_s = e.event.reason, time.perf_counter() - t1
+        if eng.has_work:
+            fail("phase 11c: the expired request kept its slot")
+        replays0 = eng.graph_replays
+        handles = [router.submit(dataclasses.replace(r, rid=100 + r.rid))
+                   for r in reqs]
+        rejected = [h for h in handles if isinstance(h.failure,
+                                                     RejectedEvent)]
+        hints = {h.failure.retry_after_s for h in rejected}
+        for h in rejected:
+            try:
+                h.result()
+                fail("phase 11c: a shed request completed")
+            except RequestRejected:
+                pass
+        served = [h for h in handles if h not in rejected]
+        lens = [len(h.tokens()) for h in served]
+        if len(rejected) != 4 or hints != {0.25} or \
+                router.shed_total != 4 or lens != [max_new] * 4:
+            fail(f"phase 11c: max_queue=4 over 8 submissions: "
+                 f"{len(rejected)} rejected, hints {hints}, shed_total "
+                 f"{router.shed_total}, served lengths {lens}")
+        if eng.graph_replays <= replays0:
+            fail("phase 11c: the served requests replayed no graph")
+    if [c[0] for c in captures] != [1, 1]:
+        fail(f"phase 11c: captures per engine {[c[0] for c in captures]}")
+    parts["11c"] = time.perf_counter() - t0
+    print(f"request contract (11c): request_deadline_s=1e-4 over a paged "
+          f"engine fails typed ('{first_reason}'), then an undeadlined "
+          f"request completes and all blocks are back in the pool "
+          f"({paged_replays} replays); deadline_s=0.35 max_new=500 fails "
+          f"after {mid_s:.3f} s ('{mid_reason}') and frees its slot; "
+          f"max_queue=4 over 8 submissions: 4 RejectedEvent (retry_after_s "
+          f"0.25), 4 complete; one capture an engine [card: {card}]",
+          flush=True)
+
+    # -- 11d: ThreadBackend supervision --------------------------------
+    t0 = time.perf_counter()
+    rng10 = np.random.default_rng(10)      # phase 10's requests
+    reqs10 = [Request(i, rng10.integers(0, cfg.vocab_size, (n,),
+                                        dtype=np.int32), max_new)
+              for i, n in enumerate(MAIN_PLENS)]
+    config = EngineConfig(**base)
+    with Router(ThreadBackend(model, params, 2, config)) as router:
+        want, _, _ = serve_timed(router, reqs10)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # one warm-up step an engine (its graph, its stream's cuBLAS
+    # workspace), then the error two steps into phase 10's requests
+    plan = FaultPlan((Fault("error", container_id=1, after_steps=3),))
+    backend = ThreadBackend(model, params, 2, config, fault_plan=plan)
+    with Router(backend, max_retries=2) as router:
+        for h in [router.submit(Request(1000 + i, reqs10[i].prompt, 2))
+                  for i in range(2)]:
+            h.result()
+        if any(e._graph is None for e in backend.engines):
+            fail("phase 11d: the warm-up left an engine without its graph")
+        rebuilds = watch_rebuilds(backend)
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        got, (fault_wall, _, _), events = serve_timed(router, reqs10)
+        fails = router.container_failures
+        if len(fails) != 1 or not isinstance(fails[0], ContainerFailure) \
+                or fails[0].kind != "error" or fails[0].container_id != 1:
+            fail(f"phase 11d: failures {fails}")
+        retried = {rid for rid, evs in events.items()
+                   if any(isinstance(e, RetryEvent) for e in evs)}
+        if not retried or retried != set(fails[0].lost_rids):
+            fail(f"phase 11d: retried {sorted(retried)}, lost "
+                 f"{fails[0].lost_rids}")
+        if got != want:
+            bad = [r for r in got if got[r] != want[r]]
+            fail(f"phase 11d: streams after the rebuild differ from the "
+                 f"fault-free run for {bad}")
+        new = backend.engines[1]
+        if new.graph_capture_s is None:
+            # the rebuilt engine captures at its first chunk
+            for h in [router.submit(dataclasses.replace(r, rid=500 + r.rid))
+                      for r in reqs10[:2]]:
+                h.result()
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        rebuild_s, capture_s = backend.rebuild_s[1], new.graph_capture_s
+        if capture_s is None or not backend.alive(1):
+            fail("phase 11d: the rebuilt engine never captured its graph")
+        if len(rebuilds) != 1:
+            fail(f"phase 11d: rebuilds {rebuilds}")
+        _, _, mem_failed, mem_dropped, mem_built = rebuilds[0]
+        # the dead engine's cache is gone before the new one allocates;
+        # over the whole run only cuBLAS workspaces may add
+        if mem_failed - mem_dropped < CACHE_BYTES or \
+                mem_after - mem_before >= CACHE_BYTES // 2:
+            fail(f"phase 11d: memory_allocated {mem_before} B before the "
+                 f"run, {mem_failed} B at the failure, {mem_dropped} B once "
+                 f"the dead engine was dropped, {mem_after} B after the "
+                 f"rebuild: the dead engine's {CACHE_BYTES} B cache stayed "
+                 f"allocated")
+    del backend, new
+    torch.cuda.empty_cache()
+    plan = FaultPlan((Fault("error", container_id=1, after_steps=1,
+                            incarnation=None),))
+    backend = ThreadBackend(model, params, 2, config, fault_plan=plan,
+                            max_respawns=1)
+    with Router(backend, max_retries=3) as router:
+        broken, _, _ = serve_timed(router, reqs10)
+        complete(broken, "11d breaker")
+        if backend.alive(1) or len(router.container_failures) != 2:
+            fail(f"phase 11d: breaker: alive {backend.alive(1)}, failures "
+                 f"{len(router.container_failures)}")
+        after = [router.submit(dataclasses.replace(r, rid=700 + r.rid))
+                 for r in reqs10[:4]]
+        if any(h.container_id != 0 for h in after) or any(
+                len(h.tokens()) != max_new for h in after):
+            fail("phase 11d: after the breaker the Router did not serve "
+                 "on container 0 alone")
+    del backend
+    torch.cuda.empty_cache()
+    parts["11d"] = time.perf_counter() - t0
+    print(f"request contract (11d): an error fault in container 1 two "
+          f"steps into the run (after a warm-up step): one "
+          f"ContainerFailure(kind='error'), {len(retried)} "
+          f"requests retried with a RetryEvent, streams equal to the "
+          f"fault-free run (wall_s={fault_wall:.4f}); the rebuild took "
+          f"{rebuild_s:.4f} s (engine and cache) + {capture_s:.4f} s (its "
+          f"graph capture at its first chunk); memory_allocated "
+          f"{mem_before} B before the run, {mem_failed} B at the failure, "
+          f"{mem_dropped} B once the dead engine was dropped, {mem_built} B "
+          f"with the new engine built, {mem_after} B after the rebuild "
+          f"served (the dead engine's cache is {CACHE_BYTES} B); a fault "
+          f"in every incarnation trips the breaker after 1 respawn and "
+          f"the Router serves on container 0 alone [card: {card}]",
+          flush=True)
+    launches = ops.launch_counts()
+    print(f"request contract (11): parts in s "
+          f"{ {k: round(v, 2) for k, v in parts.items()} }, whole phase "
+          f"{time.perf_counter() - phase_t0:.2f} s, launches {launches} "
+          f"[card: {card}]", flush=True)
+    return launches
+
+
 def full_width_model(dtype):
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import Model
@@ -2923,6 +3435,10 @@ def main() -> int:
         fail(f"phase 10 left processes running: "
              f"{multiprocessing.active_children()}")
 
+    # the request contract of the fixed-count path on the same weights
+    torch.cuda.empty_cache()
+    contract_launches = request_contract_phase(model, params, card)
+
     # the SSM family, once the qwen3 weights and caches are released
     del model, model8, params
     torch.cuda.empty_cache()
@@ -2948,7 +3464,8 @@ def main() -> int:
                 "phase8": ssm_launches, "phase9": mla_launches,
                 "phase9b_dense": mla_parity[0],
                 "phase9b_paged": mla_parity[1],
-                "phase10": process_launches}
+                "phase10": process_launches,
+                "phase11": contract_launches}
     main_phase = {"flash_attention": "phase4", "decode_attention": "phase4",
                   "paged_decode_attention": "phase6",
                   "decode_attention_int8": "phase7a",

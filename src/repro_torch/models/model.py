@@ -7,10 +7,12 @@ JAX scans one stacked parameter tree over the layers (for moe, the
 ``stack``); the port keeps one parameter dict per layer
 (``params["layers"]``, in that order) and loops over them.
 
-The fused greedy chunk has one body, ``decode_chunk_step``: one
-``decode_step`` plus the per-slot bookkeeping (tokens, positions,
-remaining budgets, active flags, emitted counts, the token block), all
-updated in place in device tensors (``chunk_buffers``) with no host read.
+The fused chunk has one body, ``decode_chunk_step``: one ``decode_step``,
+the pick (argmax, or with ``greedy=False`` a Gumbel-max sample from the
+random stream ``key`` held in the same buffers, ``models/sampling.py``)
+and the per-slot bookkeeping (tokens, positions, remaining budgets,
+active flags, emitted counts, the token block), all updated in place in
+device tensors (``chunk_buffers``) with no host read.
 ``decode_chunk`` loops it ``n_tokens`` times, as JAX's ``lax.scan`` runs
 its step body; on the card the serving engine captures the same body
 once in a CUDA graph and replays it (``serving/engine.py``).
@@ -46,6 +48,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models import cache as paged
+from repro_torch.models import sampling
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (embed_fwd, init_norm, linear_fwd,
                                        norm_fwd, prefill_products, project,
@@ -239,43 +242,52 @@ class Model:
         """Zeroed device state for ``decode_chunk_step`` over ``batch``
         slots and up to ``n_tokens`` steps: ``tokens``, ``pos``,
         ``remaining`` and ``active`` (0 or 1), each (batch,) int32;
-        ``col`` (1,) int64, the block column the next step writes;
-        ``emitted`` (batch,) int32; ``block`` (batch, n_tokens) int32.
+        ``col`` (1,) int64, the block column the next step writes; ``key``
+        (2,) int64, the sampler's ``[seed, draw]`` (read and advanced by a
+        sampling step only); ``emitted`` (batch,) int32; ``block`` (batch,
+        n_tokens) int32.
 
         All are views of one int32 tensor laid out as [tokens | pos |
-        remaining | active | col | emitted | the block by step], so
+        remaining | active | col | key | emitted | the block by step], so
         ``head`` (everything up to ``emitted``) is written from the host
         in one copy and ``out`` (``emitted``, then the block one step of
         ``batch`` tokens after another) read back in one copy of its
         first ``batch * (1 + steps)`` elements."""
         B = batch
-        mem = torch.zeros(5 * B + 2 + n_tokens * B, dtype=torch.int32,
+        mem = torch.zeros(5 * B + 6 + n_tokens * B, dtype=torch.int32,
                           device=device or self.device)
         state = mem[:4 * B].view(4, B)
         return {"tokens": state[0], "pos": state[1],
                 "remaining": state[2], "active": state[3],
                 # 16·B bytes in: a valid place for an int64
                 "col": mem[4 * B:4 * B + 2].view(torch.int64),
-                "emitted": mem[4 * B + 2:5 * B + 2],
-                "block": mem[5 * B + 2:].view(n_tokens, B).T,
-                "head": mem[:5 * B + 2], "out": mem[4 * B + 2:]}
+                "key": mem[4 * B + 2:4 * B + 6].view(torch.int64),
+                "emitted": mem[4 * B + 6:5 * B + 6],
+                "block": mem[5 * B + 6:].view(n_tokens, B).T,
+                "head": mem[:5 * B + 6], "out": mem[4 * B + 6:]}
 
     def decode_chunk_step(self, params: Params, cache: Cache, buf: dict,
-                          *, max_len: int) -> None:
-        """One greedy step of every slot in lockstep, in place on ``buf``
-        (``chunk_buffers``) and ``cache``: an active slot takes the argmax
-        token and advances its position and budget, and deactivates once
-        its budget reaches 0 or its position ``max_len - 1``; an inactive
-        slot keeps its state and only writes ignorable keys into its own
-        cache row. The step's token of every slot goes into ``block`` at
-        column ``col``, ``active`` is added into ``emitted``, and ``col``
-        advances. No host read, so the step can be captured in a CUDA
-        graph and replayed."""
+                          *, max_len: int, greedy: bool = True) -> None:
+        """One step of every slot in lockstep, in place on ``buf``
+        (``chunk_buffers``) and ``cache``: an active slot takes the picked
+        token (the argmax, or with ``greedy=False`` the Gumbel-max sample
+        of draw ``key[1]``, after which the draw advances, as JAX splits
+        its key every step) and advances its position and budget, and
+        deactivates once its budget reaches 0 or its position ``max_len -
+        1``; an inactive slot keeps its state and only writes ignorable
+        keys into its own cache row. The step's token of every slot goes
+        into ``block`` at column ``col``, ``active`` is added into
+        ``emitted``, and ``col`` advances. No host read, so the step can
+        be captured in a CUDA graph and replayed."""
         tok, pos, rem = buf["tokens"], buf["pos"], buf["remaining"]
         act = buf["active"].bool()
         logits = self.decode_step(params, tok[:, None], cache, pos)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        nxt = torch.where(act, nxt, tok)
+        if greedy:
+            nxt = torch.argmax(logits, dim=-1)
+        else:
+            nxt = sampling.gumbel_argmax(logits, buf["key"])
+            buf["key"][1:].add_(1)
+        nxt = torch.where(act, nxt.to(torch.int32), tok)
         new_pos = torch.where(act, pos + 1, pos)
         new_rem = torch.where(act, rem - 1, rem)
         buf["block"].index_copy_(1, buf["col"], nxt[:, None])
@@ -288,28 +300,36 @@ class Model:
         buf["col"].add_(1)
 
     def decode_chunk(self, params: Params, cache: Cache, state: dict,
-                     n_tokens: int, *, max_len: int
+                     n_tokens: int, *, max_len: int, greedy: bool = True
                      ) -> tuple[torch.Tensor, torch.Tensor, dict]:
-        """Greedy decode of ``n_tokens`` steps for every slot in lockstep:
+        """Decode of ``n_tokens`` steps for every slot in lockstep:
         ``n_tokens`` calls of ``decode_chunk_step``.
 
         ``state`` holds device tensors, one entry per slot: ``tokens``
         (last token, int32), ``pos`` (its position), ``remaining``
-        (tokens still to emit) and ``active`` (bool). An active slot emits
-        one token per step and deactivates once ``remaining`` reaches 0
-        or ``pos`` reaches ``max_len - 1``; after that its state is frozen
-        and its steps only write ignorable keys into its own cache row.
+        (tokens still to emit) and ``active`` (bool); with ``greedy=False``
+        also ``key``, the sampler's (2,) int64 ``[seed, draw]``
+        (``models/sampling.py``), which advances by one draw a step. An
+        active slot emits one token per step and deactivates once
+        ``remaining`` reaches 0 or ``pos`` reaches ``max_len - 1``; after
+        that its state is frozen and its steps only write ignorable keys
+        into its own cache row.
 
         Returns ``(tokens (B, n_tokens), emitted (B,), new_state)``; per
         slot only the first ``emitted`` tokens of its row are real.
         """
         tokens = state["tokens"]
         buf = self.chunk_buffers(tokens.shape[0], n_tokens, tokens.device)
-        for name in ("tokens", "pos", "remaining", "active"):
+        names = ("tokens", "pos", "remaining", "active") + (
+            () if greedy else ("key",))
+        for name in names:
             buf[name].copy_(state[name])
         for _ in range(n_tokens):
-            self.decode_chunk_step(params, cache, buf, max_len=max_len)
+            self.decode_chunk_step(params, cache, buf, max_len=max_len,
+                                   greedy=greedy)
         new_state = {"tokens": buf["tokens"], "pos": buf["pos"],
                      "remaining": buf["remaining"],
                      "active": buf["active"].bool()}
+        if not greedy:
+            new_state["key"] = buf["key"]
         return buf["block"], buf["emitted"], new_state

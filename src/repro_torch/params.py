@@ -14,9 +14,16 @@ The bytes are kept exactly (bfloat16 included) unless a ``dtype`` cast
 is asked for; a Mamba2 block's float32 leaves (``models.ssm.F32_LEAVES``)
 and the MoE router (``models.moe.F32_LEAVES``) stay float32 under any
 cast, as the reference keeps them.
+
+``save_params`` writes the port's parameters back into that stacked
+layout as one ``.npz`` (a leaf a key, its path joined by ``/``; bfloat16
+leaves as their 16-bit words under a ``@bfloat16`` suffix), and
+``load_params`` reads such a file through ``from_numpy``: the weight
+handoff of a ``ProcessBackend(params_path=...)``.
 """
 from __future__ import annotations
 
+import os
 from typing import Any
 
 import numpy as np
@@ -32,6 +39,9 @@ F32_LEAVES = ssm.F32_LEAVES + moe.F32_LEAVES
 
 def _tensor(a: Any, device: torch.device,
             dtype: torch.dtype | None) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):       # a bfloat16 leaf of load_params
+        t = a.contiguous().clone().to(device)
+        return t if dtype is None else t.to(dtype)
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
         # numpy has no native bfloat16: move the raw 16-bit words
@@ -87,3 +97,71 @@ def from_numpy(cfg: ArchConfig, tree: dict, *,
                         for name, depth in groups.items()
                         for layer in range(depth)]
     return params
+
+
+_BF16 = "@bfloat16"
+
+
+def _flat(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def save_params(params: dict, path: str | os.PathLike) -> str:
+    """Write the port's parameters (``Model.init`` or ``from_numpy``) to
+    ``path`` as ``.npz`` in the stacked layout ``from_numpy`` takes: the
+    per-layer dicts stacked along a leading layer axis into ``stack``
+    (and, for an MoE model, its leading dense layers into ``dense0``).
+    The bytes are kept exactly. Returns the path."""
+    layers = params["layers"]
+    groups: dict[str, list] = {}
+    for p in layers:
+        # an MoE model's leading dense layers (their MLP is "mlp") are
+        # dense0, its MoE layers the stack; any other model is one stack
+        name = ("dense0" if "mlp" in p and any("moe" in q for q in layers)
+                else "stack")
+        groups.setdefault(name, []).append(p)
+    tree = {k: v for k, v in params.items() if k != "layers"}
+    for name, group in groups.items():
+        tree[name] = _stack(group)
+    arrays = {}
+    for key, t in _flat(tree):
+        t = t.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            arrays[key + _BF16] = t.view(torch.int16).numpy().view(
+                np.uint16)
+        else:
+            arrays[key] = t.numpy()
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+    return str(path)
+
+
+def _stack(group: list) -> dict:
+    first = group[0]
+    return {k: (_stack([p[k] for p in group]) if isinstance(v, dict)
+                else torch.stack([p[k] for p in group]))
+            for k, v in first.items()}
+
+
+def load_params(cfg: ArchConfig, path: str | os.PathLike, *,
+                device: str | torch.device = "cuda",
+                dtype: torch.dtype | None = None) -> dict:
+    """The parameters a ``save_params`` file holds, on ``device``, through
+    ``from_numpy`` (so with its checks and its ``dtype`` rule)."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            a = z[key]
+            if key.endswith(_BF16):
+                key = key[:-len(_BF16)]
+                a = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+            node = tree
+            *parents, leaf = key.split("/")
+            for k in parents:
+                node = node.setdefault(k, {})
+            node[leaf] = a
+    return from_numpy(cfg, tree, device=device, dtype=dtype)

@@ -18,9 +18,11 @@ Router is written for::
 macro-step — in worker threads when more than one has work and
 ``concurrent`` is set (each engine issues on its own CUDA stream; the
 threads share the interpreter lock between PyTorch operations) — and
-returns the events that materialised. It has no supervision yet: an
-engine whose step raises is not respawned; ``poll`` joins every step and
-then re-raises the first error.
+returns the events that materialised. It supervises its engines: an
+engine whose step raises becomes a ``ContainerFailure`` in ``poll()``
+carrying its queued and active request ids, and is rebuilt in place
+while the respawn budget lasts (a circuit breaker after
+``max_respawns``).
 
 ``ProcessBackend`` runs each engine in its own spawned process, pinned to
 its own cores before it imports torch (``core/testbed.spawn_pinned``,
@@ -34,10 +36,12 @@ the parent's one copy of the weights (CUDA IPC).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import inspect
 import multiprocessing as mp
 import threading
 import time
+import traceback
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Sequence
@@ -47,12 +51,12 @@ import torch
 from repro_torch.core.testbed import assign_core_sets, spawn_pinned
 from repro_torch.device import resolve_device
 from repro_torch.serving.child import _serving_child
-from repro_torch.serving.engine import (Completion, EngineConfig, Request,
-                                        ServingEngine)
+from repro_torch.serving.engine import (_CAPTURE_LOCK, Completion,
+                                        EngineConfig, Request, ServingEngine)
 from repro_torch.serving.events import (ContainerFailure, DoneEvent, Event,
                                         FailedEvent)
-from repro_torch.serving.faults import (EXIT_FAULT_KILL, FaultPlan,
-                                        describe_exitcode)
+from repro_torch.serving.faults import (EXIT_FAULT_KILL, FaultInjector,
+                                        FaultPlan, describe_exitcode)
 
 _READY_POLL_S = 0.05
 _IDLE_POLL_S = 0.05
@@ -64,29 +68,111 @@ _ERROR_EXIT_WAIT_S = 10.0
 
 
 class ThreadBackend:
+    """One ServingEngine per container in this process.
+
+    Supervision, as in JAX: an engine whose ``step()`` raises is failed,
+    not propagated. ``poll()`` joins every step, then puts a
+    ``ContainerFailure(kind="error")`` with the engine's queued and active
+    request ids into the event stream and, while the respawn budget lasts,
+    rebuilds the engine in place over the same model and weights
+    (incarnation bumped, so a ``FaultPlan`` scoped to incarnation 0 does
+    not fire again). The dead engine, with its cache, its decode graph and
+    its stream, is dropped before the new one is built, and the new one
+    captures its own graph at its first chunk (under the engine's capture
+    lock) while the other containers keep serving. ``rebuild_s[cid]`` is
+    the last rebuild's seconds (the cache allocated, no capture yet).
+    After ``max_respawns`` rebuilds the circuit breaker trips: ``alive``
+    is False and ``submit`` raises. ``drain`` keeps the wave contract: it
+    raises on a circuit-broken container or a failed step."""
+
     def __init__(self, model, params: dict, n_containers: int,
                  config: EngineConfig | None = None, *,
                  concurrent: bool = True,
+                 fault_plan: FaultPlan | None = None,
+                 max_respawns: int = 2,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.capacity = n_containers
         self.concurrent = concurrent
         self.config = config or EngineConfig()
+        self.model = model
+        self.params = params
+        self.fault_plan = fault_plan
+        self.max_respawns = max_respawns
         self._events: deque[Event] = deque()   # append is GIL-atomic
         self._executor: ThreadPoolExecutor | None = None
-        self.engines: list[ServingEngine] = []
-        for cid in range(n_containers):
-            eng = ServingEngine(model, params, self.config,
-                                device=self.device)
-            eng.container_id = cid
-            eng.on_event = self._events.append
-            self.engines.append(eng)
+        self.failures: list[ContainerFailure] = []
+        self._alive = [True] * n_containers
+        self._respawns = [0] * n_containers
+        self._incarnation = [0] * n_containers
+        # a dead engine's busy seconds and tokens: stats() adds them, so
+        # the counters stay monotone across a rebuild
+        self._stats_base = [(0.0, 0)] * n_containers
+        self.rebuild_s: list[float | None] = [None] * n_containers
+        self.engines: list[ServingEngine] = [
+            self._build_engine(cid, 0) for cid in range(n_containers)]
+
+    def _build_engine(self, cid: int, incarnation: int) -> ServingEngine:
+        eng = ServingEngine(self.model, self.params, self.config,
+                            device=self.device)
+        eng.container_id = cid
+        eng.on_event = self._events.append
+        if self.fault_plan is not None:
+            inj = FaultInjector(self.fault_plan, cid, incarnation)
+            eng.fault = inj if inj.armed else None
+        return eng
+
+    def _fail_container(self, cid: int, message: str) -> None:
+        """Turn a failed step into a ContainerFailure event and rebuild
+        the engine (bounded) or trip the breaker."""
+        eng = self.engines[cid]
+        lost = tuple(r.rid for r in eng.queue) + tuple(
+            s.rid for s in eng.slots if s.active)
+        fail = ContainerFailure(
+            container_id=cid, kind="error",
+            message=f"engine step raised:\n{message}",
+            time_s=time.perf_counter(), lost_rids=lost)
+        self.failures.append(fail)
+        self._events.append(fail)
+        base_b, base_t = self._stats_base[cid]
+        self._stats_base[cid] = (base_b + eng.busy_s,
+                                 base_t + eng.tokens_generated)
+        if self._respawns[cid] >= self.max_respawns:
+            self._alive[cid] = False
+            return
+        self._respawns[cid] += 1
+        self._incarnation[cid] += 1
+        # drop the dead engine (its cache, graph and stream) before the
+        # new one allocates: nothing else holds it once the step's
+        # traceback is gone
+        self.engines[cid] = None
+        del eng
+        gc.collect()
+        if self.device.type == "cuda":
+            with _CAPTURE_LOCK:      # never beside another thread's capture
+                torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        self.engines[cid] = self._build_engine(cid, self._incarnation[cid])
+        self.rebuild_s[cid] = time.perf_counter() - t0
+
+    # -- supervision surface -------------------------------------------
+    def alive(self, cid: int) -> bool:
+        return self._alive[cid]
 
     def submit(self, cid: int, req: Request) -> None:
+        if not self._alive[cid]:
+            raise RuntimeError(f"container {cid} is circuit-broken "
+                               f"(after {self._respawns[cid]} respawns)")
         self.engines[cid].submit(req)
 
-    def poll(self) -> list[Event]:
-        active = [eng for eng in self.engines if eng.has_work]
+    def _step_all(self) -> list[tuple[int, str]]:
+        """One step of every live engine with work (in worker threads when
+        more than one has work and ``concurrent`` is set), every step
+        joined; ``(cid, traceback text)`` of each step that raised. The
+        exceptions and their frames end here, so none keeps a dead engine
+        alive."""
+        active = [eng for cid, eng in enumerate(self.engines)
+                  if self._alive[cid] and eng.has_work]
         if self.concurrent and len(active) > 1:
             if self._executor is None:
                 # persistent workers: a stream polls once per macro-step
@@ -94,13 +180,32 @@ class ThreadBackend:
                     max_workers=self.capacity,
                     thread_name_prefix="container-step")
             futures = [self._executor.submit(eng.step) for eng in active]
-            errors = [f.exception() for f in futures]   # joins every step
-            for e in errors:
-                if e is not None:
-                    raise e
+            errors = [f.exception() for f in futures]
         else:
+            errors = []
             for eng in active:
-                eng.step()
+                try:
+                    eng.step()
+                    errors.append(None)
+                except BaseException as e:
+                    errors.append(e)
+        failed = []
+        for eng, e in zip(active, errors):
+            if e is not None:
+                failed.append((eng.container_id, "".join(
+                    traceback.format_exception(type(e), e,
+                                               e.__traceback__))))
+                seen = set()
+                while e is not None and id(e) not in seen:
+                    seen.add(id(e))
+                    traceback.clear_frames(e.__traceback__)
+                    e.__traceback__ = None
+                    e = e.__cause__ or e.__context__
+        return failed
+
+    def poll(self) -> list[Event]:
+        for cid, message in self._step_all():
+            self._fail_container(cid, message)
         for eng in self.engines:
             # streamed completions travel in DoneEvents; drop the engines'
             # done lists or a long stream accumulates them
@@ -116,17 +221,27 @@ class ThreadBackend:
 
     def cancel(self, cid: int, rid: int) -> None:
         """Drop ``rid`` from container ``cid`` (queued or mid-decode); a
-        finished request is a no-op."""
-        self.engines[cid].cancel(rid)
+        finished request, or a circuit-broken container, is a no-op."""
+        if self._alive[cid]:
+            self.engines[cid].cancel(rid)
 
     def stats(self, cid: int) -> tuple[float, int]:
         eng = self.engines[cid]
-        return eng.busy_s, eng.tokens_generated
+        base_b, base_t = self._stats_base[cid]
+        return base_b + eng.busy_s, base_t + eng.tokens_generated
 
     def drain(self) -> list[tuple[list[Completion], float, float, int]]:
         """Run every container to idle (in threads when ``concurrent``);
         per container ``(completions, wall_s, busy_s, tokens)``. Events
-        emitted meanwhile are dropped — drain callers take completions."""
+        emitted meanwhile are dropped — drain callers take completions.
+        Waves have no per-request recovery: a circuit-broken container or
+        a failed step raises."""
+        dead = [cid for cid in range(self.capacity)
+                if not self._alive[cid]]
+        if dead:
+            raise RuntimeError(
+                f"cannot drain a wave: containers {dead} are "
+                "circuit-broken (see backend.failures)")
         out: list[Any] = [None] * self.capacity
 
         def run_one(cid: int) -> None:
@@ -189,7 +304,10 @@ class ProcessBackend:
     Weights: pass ``params`` (the tree on ``device``; the parent keeps it
     alive, and each child, respawns included, receives it over its pipe
     after it has pinned itself and imported torch: CUDA tensors as IPC
-    handles, so the card holds one copy) or ``params_seed`` (each child
+    handles, so the card holds one copy), ``params_path`` (a ``.npz``
+    written by ``repro_torch.params.save_params``, which each child loads
+    onto its device through ``params.load_params``: a copy a child; keep
+    the file while the backend lives) or ``params_seed`` (each child
     draws ``Model.init(params_seed, config.dtype)`` itself). The kernels
     are built in the parent before the first spawn, so children only
     load them.
@@ -216,6 +334,7 @@ class ProcessBackend:
                  config: EngineConfig | None = None, *,
                  params: dict | None = None,
                  params_seed: int | None = None,
+                 params_path: str | None = None,
                  device: str | torch.device = "cuda",
                  allow_shared_cores: bool = False,
                  start_timeout_s: float = 600.0,
@@ -225,9 +344,12 @@ class ProcessBackend:
                  heartbeat_s: float = 0.5,
                  heartbeat_timeout_s: float | None = 60.0):
         self.device = resolve_device(device)
-        if (params is None) == (params_seed is None):
-            raise ValueError("pass params or params_seed, not both or "
-                             "neither")
+        if params_path is not None and params is not None:
+            raise ValueError("pass params_path or params, not both")
+        if sum(x is not None for x in (params, params_seed,
+                                       params_path)) != 1:
+            raise ValueError("pass params or params_seed (or params_path): "
+                             "exactly one")
         if params is not None:
             table = params["embed"]["table"]
             if table.device != self.device:
@@ -238,6 +360,8 @@ class ProcessBackend:
         self.config = config or EngineConfig()
         self.params = params
         self.params_seed = params_seed
+        self.params_path = (None if params_path is None
+                            else str(params_path))
         self.start_timeout_s = start_timeout_s
         self.fault_plan = fault_plan
         self.max_respawns = max_respawns
@@ -298,7 +422,8 @@ class ProcessBackend:
             _serving_child, self.core_sets[cid],
             args=(cid, self.cfg, self.device.type,
                   _engine_config_wire(self.config), incarnation,
-                  self.fault_plan, self.heartbeat_s, self.params_seed),
+                  self.fault_plan, self.heartbeat_s, self.params_seed,
+                  self.params_path),
             ctx=ctx)
 
     def _send_params(self, cid: int, conn) -> None:

@@ -21,8 +21,10 @@ Weights. The parent sends ``("params", tree)`` right after the spawn.
 a CUDA IPC handle, so every child maps the parent's one copy of the
 weights instead of holding its own; a CPU tensor moves to shared memory.
 The parent keeps the tree alive while any child may attach, respawns
-included. With ``params_seed`` the child draws its own weights instead
-(``Model.init(seed, dtype)``).
+included. With ``params_path`` the child loads a ``.npz`` written by
+``repro_torch.params.save_params`` onto its device
+(``params.load_params``, through ``params.from_numpy``), and with
+``params_seed`` it draws its own weights (``Model.init(seed, dtype)``).
 """
 from __future__ import annotations
 
@@ -45,7 +47,8 @@ def _tree_bytes(tree) -> int:
 def _serving_child(conn, cid: int, cfg, device: str, engine_kw: dict,
                    incarnation: int = 0, fault_plan=None,
                    heartbeat_s: float = 0.0,
-                   params_seed: int | None = None) -> None:
+                   params_seed: int | None = None,
+                   params_path: str | None = None) -> None:
     """Container body (module-level: spawn pickles it by reference).
     Affinity was already applied by ``spawn_pinned``; the torch import
     below therefore sizes the intra-op pool from the container's cpuset.
@@ -114,7 +117,10 @@ def _serving_child(conn, cid: int, cfg, device: str, engine_kw: dict,
         kw = dict(engine_kw)
         kw["dtype"] = getattr(torch, kw["dtype"])
         config = EngineConfig(**kw)
-        if params_seed is None:
+        if params_path is not None:
+            from repro_torch.params import load_params
+            params = load_params(cfg, params_path, device=dev)
+        elif params_seed is None:
             msg = conn.recv()
             if msg[0] != "params":
                 raise RuntimeError(f"expected the weights, got {msg[0]!r}")

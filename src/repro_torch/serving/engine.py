@@ -1,51 +1,72 @@
-"""Continuous-batching serving engine with fused greedy multi-token decode.
+"""Continuous-batching serving engine with fused multi-token decode.
 
 A port of ``repro.serving.engine.ServingEngine`` for the dense and MoE
 families (GQA or MLA), over the dense or the paged cache, and for the
-SSM family over its dense state rows. Each ``step()`` admits queued requests and then runs
-one fused decode chunk:
+SSM family over its dense state rows. Each ``step()`` expires deadlines,
+admits queued requests and then runs one fused decode chunk (or, with
+``chunked=False``, one decode step):
 
 * **Dense admission** pops the queue head plus every queued request with
   the same admit key, up to the free slots, and prefills them as one
-  batch in one call; per-row ``logits_at`` picks each prompt's last real
-  position. The key is the prompt-length bucket (``PROMPT_BUCKETS``),
-  into which the batch is right-padded, or, for an SSM model, the exact
-  prompt length: its recurrent state would absorb pad tokens
-  (``_pad_ok``), so its batches are exactly as wide as their prompts.
-  The prefill rows are copied into their slots, and the greedy prefill
-  sample is each request's first streamed chunk.
+  batch in one call (``batch_admit=False``: one request a prefill);
+  per-row ``logits_at`` picks each prompt's last real position. The key
+  is the prompt-length bucket (``PROMPT_BUCKETS``), into which the batch
+  is right-padded, or, for an SSM model, the exact prompt length: its
+  recurrent state would absorb pad tokens (``_pad_ok``), so its batches
+  are exactly as wide as their prompts; and the names of the request's
+  ``extras``. The prefill rows are copied into their slots, and the
+  prefill sample is each request's first streamed chunk.
 * **Paged admission** (``EngineConfig(cache="paged")``) is strict FIFO on
   the block budget: the run of consecutive queue heads that share an
-  admit key prefills as one batch, each reserving
-  ``ceil(tokens / block_size)`` blocks, and a head that does not fit
-  stops admission. With ``prefix_cache`` a request's leading full prompt
-  blocks map onto cached pages (chained blake2b block hashes) and only
-  the residual suffix is prefilled, behind the gathered prefix.
+  admit key prefills as one batch (``batch_admit=False``: a run of one),
+  each reserving ``ceil(tokens / block_size)`` blocks, and a head that
+  does not fit stops admission. With ``prefix_cache`` a request's
+  leading full prompt blocks map onto cached pages (chained blake2b
+  block hashes over its extras and tokens) and only the residual suffix
+  is prefilled, behind the gathered prefix.
 * **Decode** runs one fused chunk for every active slot in lockstep. The
   chunk length is ``EngineConfig.chunk_tokens``, clamped by the shortest
   remaining budget and ``max_len`` headroom among active slots and
   rounded down to a power of two, so no step is wasted on a finished
   slot. The chunk's tokens and emitted counts come to the host in
-  exactly ONE device-to-host transfer.
+  exactly ONE device-to-host transfer. ``chunked=False`` is the
+  per-token baseline: one ``Model.decode_step``, one pick and one host
+  read per generated token, always eager.
+* **Picks** are the argmax, or with ``greedy=False`` a Gumbel-max sample
+  over the full vocabulary (``models/sampling.py``) from the engine's one
+  random stream, seeded by ``EngineConfig.seed`` and advanced once per
+  pick: the prefill sample, then every decode step, in that order, as
+  JAX threads its key. A chunked engine and a ``chunked=False`` one with
+  the same seed therefore give the same sampled streams.
+* **Deadlines**: a request's ``deadline_s`` is re-stamped on the engine's
+  clock at ``submit``; each step first fails every expired request with
+  ``FailedEvent(kind="deadline")``, queued ones leaving the queue and
+  active ones freeing their slot (paged: through the deferred free, as
+  ``cancel`` does).
 
 Events (``serving/events.py``) are emitted as the JAX engine emits them:
-one ``ChunkEvent`` per request per macro-step and a ``DoneEvent`` per
-completion, built from data already on the host.
+one ``ChunkEvent`` per request per macro-step (per token on the
+per-token path), a ``DoneEvent`` per completion and a ``FailedEvent`` per
+expiry, built from data already on the host.
 
 On the CPU a chunk is ``Model.decode_chunk``. On a CUDA device it is the
 counterpart of JAX's jitted, cache-donated chunk: the engine owns its
 chunk state on the card (``Model.chunk_buffers``), writes the host's
-slot state into it in ONE host-to-device copy, and replays a CUDA graph
-of one chunk step (``Model.decode_chunk_step``) ``n_tokens`` times, as
-XLA loops the scan body, before the one device-to-host copy. The graph
-is captured on the engine's first chunk, after that chunk's first step
-ran eagerly, and holds the cache leaves, the shared block table, the
-weights and the chunk state by address: all are updated in place only,
-and a moved one raises before the next replay. ``graph_capture_s``,
-``graph_pool_bytes`` (the rise of ``torch.cuda.memory_reserved()``
-across the capture: the graph's private pool) and ``graph_replays``
-report it; the kernel launch counts add the captured step's launches at
-each replay.
+slot state and the random stream's state into it in ONE host-to-device
+copy, and replays a CUDA graph of one chunk step
+(``Model.decode_chunk_step``) ``n_tokens`` times, as XLA loops the scan
+body, before the one device-to-host copy. The graph is captured on the
+engine's first chunk, after that chunk's first step ran eagerly, and
+holds the cache leaves, the shared block table, the weights and the
+chunk state by address: all are updated in place only, and a moved one
+raises before the next replay. ``greedy`` is fixed per engine, so a
+sampling engine also captures one graph; its step reads the stream's
+state from the chunk buffers and advances it there, so every replay
+draws new noise. ``graph_capture_s``, ``graph_pool_bytes`` (the rise of
+``torch.cuda.memory_reserved()`` across the capture: the graph's private
+pool) and ``graph_replays`` report it; the kernel launch counts add the
+captured step's launches at each replay. ``host_reads`` counts the
+device-to-host reads of picks and chunks.
 
 Each engine issues its work on its own CUDA stream, so the kernels of a
 ``ThreadBackend``'s engines may overlap on one card — the GPU form of
@@ -70,8 +91,9 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.build import add_launches, capture_tally
 from repro_torch.models.cache import PagedLayout
 from repro_torch.models.layers import ROW_SLICE
+from repro_torch.models.sampling import gumbel_argmax, new_key
 from repro_torch.serving.cache import DenseCache, PagedCache
-from repro_torch.serving.events import ChunkEvent, DoneEvent
+from repro_torch.serving.events import ChunkEvent, DoneEvent, FailedEvent
 
 
 @dataclasses.dataclass
@@ -79,6 +101,19 @@ class Request:
     rid: int
     prompt: np.ndarray            # (prompt_len,) int32
     max_new_tokens: int
+    # per-request model inputs beside the prompt, keyed by name: their
+    # names enter the admit key and their bytes the block hashes, as in
+    # JAX; the ported families read none of them
+    extras: dict = dataclasses.field(default_factory=dict)
+    # seconds the request may spend in the serving stack (None = no
+    # deadline): the Router stamps its own clock at submit, the engine
+    # re-stamps on arrival, so the engine's expiry frees resources and
+    # the Router's backstop is the end-to-end check
+    deadline_s: float | None = None
+    # SLO class name and tenant id, carried for the Router; the engine
+    # ignores both
+    priority: str = "default"
+    tenant: str = ""
 
 
 @dataclasses.dataclass
@@ -147,6 +182,11 @@ class EngineConfig:
     """Configuration of one ServingEngine; decode chunks of up to
     ``chunk_tokens`` steps, caches in ``dtype``.
 
+    ``greedy=False`` samples (Gumbel-max over the full vocabulary) from
+    one random stream seeded by ``seed``; ``batch_admit=False`` admits one
+    request a prefill; ``chunked=False`` decodes one eager step a token
+    (the per-token baseline).
+
     ``cache="dense"``: ``n_slots`` private ``(max_len, ...)`` cache rows.
     ``cache="paged"``: a pool of ``max_blocks`` shared pages of
     ``block_size`` tokens, per-sequence block tables and up to
@@ -163,6 +203,10 @@ class EngineConfig:
     max_seqs: int | None = None
     prefix_cache: bool = False
     dtype: torch.dtype = torch.float32
+    greedy: bool = True
+    seed: int = 0
+    batch_admit: bool = True
+    chunked: bool = True
     chunk_tokens: int = 32
 
     def __post_init__(self):
@@ -207,6 +251,7 @@ class _Slot:
     remaining: int = 0
     generated: list = dataclasses.field(default_factory=list)
     started: float = 0.0          # perf_counter stamp
+    deadline: float | None = None  # absolute perf_counter expiry stamp
     hit_tokens: int = 0           # prefix-cache hit positions
 
 
@@ -270,6 +315,11 @@ class ServingEngine:
         self.slots = [_Slot() for _ in range(n_rows)]
         self.queue: deque[Request] = deque()
         self.done: list[Completion] = []
+        self.greedy = config.greedy
+        self.batch_admit = config.batch_admit
+        self.chunked = config.chunked
+        self._draw = 0                # the random stream's next draw
+        self._deadline_abs: dict[int, float] = {}  # rid -> expiry (queued)
         self.steps = 0                # step() calls that found work
         self.chunks = 0               # fused decode chunks run
         self.tokens_generated = 0     # tokens emitted (prefill + decode)
@@ -277,6 +327,8 @@ class ServingEngine:
         self.prefix_hit_tokens_total = 0  # positions served from hits
         self.busy_s = 0.0             # wall time spent inside step()
         self.peak_active = 0          # most rows active at once
+        self.host_reads = 0           # device-to-host reads of picks/chunks
+        self.budget_exhausted = False  # last run() hit max_steps with work
         # the card's chunk: its state, the captured step graph, the step's
         # kernel launches (counted at each replay) and the addresses the
         # graph was captured over
@@ -287,7 +339,7 @@ class ServingEngine:
         self.graph_capture_s: float | None = None
         self.graph_pool_bytes: int | None = None
         self.graph_replays = 0
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.chunked:
             with self._on_stream():
                 self._buf = model.chunk_buffers(n_rows, config.chunk_tokens)
 
@@ -306,6 +358,12 @@ class ServingEngine:
         if self.on_event is not None:
             self.on_event(DoneEvent(comp.rid, self.container_id, comp, now))
 
+    def _emit_fail(self, rid: int, kind: str, reason: str,
+                   now: float) -> None:
+        if self.on_event is not None:
+            self.on_event(FailedEvent(rid, self.container_id, kind, reason,
+                                      now))
+
     def submit(self, req: Request) -> None:
         if req.max_new_tokens <= 0:
             # zero-budget requests complete empty without touching the
@@ -314,6 +372,9 @@ class ServingEngine:
             self.done.append(comp)
             self._emit_done(comp, time.perf_counter())
             return
+        if req.deadline_s is not None:
+            self._deadline_abs[req.rid] = (time.perf_counter()
+                                           + req.deadline_s)
         self.queue.append(req)
 
     def submit_many(self, reqs) -> None:
@@ -333,21 +394,25 @@ class ServingEngine:
         cfg = self.model.cfg
         return not (cfg.is_ssm or cfg.sliding_window > 0)
 
-    def _admit_key(self, n_tokens: int) -> int:
-        """Prefill width of ``n_tokens`` prompt positions: requests with
-        one key prefill as one batch of this width."""
+    def _width(self, n_tokens: int) -> int:
+        """Prefill width of ``n_tokens`` prompt positions: the bucket, or
+        the exact length where padding is not harmless."""
         return _bucket(n_tokens) if self._pad_ok else n_tokens
+
+    def _admit_key(self, req: Request) -> tuple:
+        """Requests with one key prefill as one batch: the prefill width
+        and the names of the request's extras."""
+        return (self._width(len(req.prompt)), tuple(sorted(req.extras)))
 
     def _take_bucket(self, n_free: int) -> list[Request]:
         """Pop the head request plus every queued request with its admit
         key (keeping the queue order of the rest), up to ``n_free``."""
-        key = self._admit_key(len(self.queue[0].prompt))
+        key = self._admit_key(self.queue[0])
         take: list[Request] = []
         rest: deque[Request] = deque()
         while self.queue and len(take) < n_free:
             r = self.queue.popleft()
-            (take if self._admit_key(len(r.prompt)) == key
-             else rest).append(r)
+            (take if self._admit_key(r) == key else rest).append(r)
         rest.extend(self.queue)
         self.queue = rest
         return take
@@ -358,7 +423,8 @@ class ServingEngine:
             return
         free = [i for i, s in enumerate(self.slots) if not s.active]
         while free and self.queue:
-            reqs = self._take_bucket(len(free))
+            reqs = (self._take_bucket(len(free)) if self.batch_admit
+                    else [self.queue.popleft()])
             self._admit_batch([free.pop(0) for _ in reqs], reqs)
 
     # -- paged admission ---------------------------------------------------
@@ -370,12 +436,17 @@ class ServingEngine:
     def _block_hashes(self, req: Request) -> list[bytes]:
         """Content hash per FULL prompt block: a chained blake2b seeded
         with the vision-token count (an int64 0: the port serves text
-        only, and requests carry no extras), then each block's int32
-        token ids — byte for byte the JAX engine's chain, so a hash
-        commits to everything at and before its block."""
+        only) and the request's extras (each name, then its bytes, in name
+        order), then each block's int32 token ids — byte for byte the JAX
+        engine's chain, so a hash commits to everything at and before its
+        block."""
         bs = self.config.block_size
         seed = hashlib.blake2b(digest_size=16)
         seed.update(np.int64(0).tobytes())
+        for k in sorted(req.extras):
+            seed.update(k.encode())
+            seed.update(np.ascontiguousarray(
+                np.asarray(req.extras[k])).tobytes())
         prev = seed.digest()
         prompt = np.ascontiguousarray(np.asarray(req.prompt), np.int32)
         out: list[bytes] = []
@@ -402,13 +473,15 @@ class ServingEngine:
         length folded in so a batch shares one context width and rope
         offset (hit and miss requests never share a dispatch)."""
         if plan is None or plan[0] == 0:
-            return (_bucket(len(req.prompt)),)
-        return (_bucket(len(req.prompt) - plan[0]), plan[0])
+            return self._admit_key(req)
+        return (_bucket(len(req.prompt) - plan[0]),
+                tuple(sorted(req.extras)), plan[0])
 
     def _admit_paged(self) -> None:
         """Block-budget admission, strict FIFO: pop queue heads while a
         free row AND enough blocks exist, batching the run of consecutive
-        heads that share an admit key into one prefill. A head that does
+        heads that share an admit key into one prefill (one head a
+        prefill with ``batch_admit=False``). A head that does
         not fit stops admission (nothing is scanned past it). Rows freed
         during the round park in the cache's pending list; they are
         flushed before the free rows are recomputed, so a reservation is
@@ -424,7 +497,8 @@ class ServingEngine:
             slot_ids: list[int] = []
             plans: list = []
             blocked: bool | str = False
-            while self.queue and free:
+            limit = len(free) if self.batch_admit else 1
+            while self.queue and free and len(take) < limit:
                 req = self.queue[0]
                 plan = self._peek_plan(req) if self._share else None
                 if self._key_for(req, plan) != key:
@@ -477,7 +551,7 @@ class ServingEngine:
         # prompts (or, for a hit, their suffixes behind H shared
         # positions) right-padded into one batch of the admit key's width,
         # with zero rows past the n requests (_prefill_rows)
-        bl = self._admit_key(len(reqs[0].prompt) - H)
+        bl = self._width(len(reqs[0].prompt) - H)
         rows = self._prefill_rows(n, bl)
         padded = np.zeros((rows, bl), np.int32)
         logits_idx = np.zeros((rows,), np.int64)
@@ -520,13 +594,15 @@ class ServingEngine:
             # chain past their hit; indexed hashes are skipped)
             for i, pl in zip(slot_ids, plans):
                 self.cache_backend.register_prefix(i, pl[2])
-        first = torch.argmax(logits, dim=-1).cpu().numpy()
+        first = self._pick(logits)
         now = time.perf_counter()
         for j, (i, r) in enumerate(zip(slot_ids, reqs)):
             self.slots[i] = _Slot(
                 active=True, rid=r.rid, pos=len(r.prompt),
                 prompt_len=len(r.prompt), remaining=r.max_new_tokens - 1,
-                generated=[int(first[j])], started=now, hit_tokens=H)
+                generated=[int(first[j])], started=now,
+                deadline=self._deadline_abs.pop(r.rid, None),
+                hit_tokens=H)
             self.tokens_generated += 1
             # the prefill sample is the request's first streamed chunk
             self._emit_chunk(r.rid, (int(first[j]),), now)
@@ -536,6 +612,26 @@ class ServingEngine:
             if self.slots[i].active and self.slots[i].remaining <= 0:
                 self._finish(i)
 
+    def _key(self) -> torch.Tensor:
+        """The random stream's state now, on the engine's device."""
+        return new_key(self.config.seed, self._draw, self.device)
+
+    @property
+    def draws(self) -> int:
+        """Draws the random stream has given (one a sampled pick)."""
+        return self._draw
+
+    def _pick(self, logits: torch.Tensor) -> np.ndarray:
+        """Each row's token on the host: the argmax, or one sample of the
+        stream's next draw."""
+        if self.greedy:
+            picked = torch.argmax(logits, dim=-1)
+        else:
+            picked = gumbel_argmax(logits, self._key())
+            self._draw += 1
+        self.host_reads += 1
+        return picked.cpu().numpy()
+
     def cancel(self, rid: int) -> bool:
         """Remove a request from the engine — queued or mid-decode — and
         free its cache reservation (paged: through the deferred
@@ -543,6 +639,7 @@ class ServingEngine:
         NO event: the canceller (the Router, or a backend's ``cancel``)
         owns the request's terminal event. Returns whether the request was
         found."""
+        self._deadline_abs.pop(rid, None)
         for r in self.queue:
             if r.rid == rid:
                 self.queue = deque(q for q in self.queue if q.rid != rid)
@@ -553,6 +650,30 @@ class ServingEngine:
                 self.slots[i] = _Slot()
                 return True
         return False
+
+    def _expire_deadlines(self) -> None:
+        """Fail every queued or active request whose deadline passed with
+        a ``FailedEvent(kind="deadline")``. Runs at the top of each step,
+        before admission, so an expiry frees its slot (paged: its blocks,
+        through the deferred free that admission's flush reclaims)."""
+        now = time.perf_counter()
+        if self._deadline_abs:
+            expired = {rid for rid, t in self._deadline_abs.items()
+                       if now > t}
+            if expired:
+                self.queue = deque(r for r in self.queue
+                                   if r.rid not in expired)
+                for rid in expired:
+                    del self._deadline_abs[rid]
+                    self._emit_fail(rid, "deadline",
+                                    "deadline expired while queued", now)
+        for i, s in enumerate(self.slots):
+            if s.active and s.deadline is not None and now > s.deadline:
+                self._emit_fail(s.rid, "deadline",
+                                f"deadline expired mid-decode after "
+                                f"{len(s.generated)} tokens", now)
+                self.cache_backend.free(i)
+                self.slots[i] = _Slot()
 
     def _finish(self, i: int) -> None:
         s = self.slots[i]
@@ -599,22 +720,33 @@ class ServingEngine:
 
     def _run_chunk(self, state: np.ndarray,
                    n_tokens: int) -> tuple[np.ndarray, np.ndarray]:
-        """``n_tokens`` greedy steps from ``state`` (tokens, pos,
-        remaining, active of every row, (4, rows) int32): the token block
-        (rows, n_tokens) and emitted counts (rows,) on the host."""
+        """``n_tokens`` steps from ``state`` (tokens, pos, remaining,
+        active of every row, (4, rows) int32) and the random stream's
+        state: the token block (rows, n_tokens) and emitted counts (rows,)
+        on the host. A sampling chunk takes ``n_tokens`` draws."""
+        self.host_reads += 1
         if self._buf is None:
             dev = torch.from_numpy(state).to(self.device)
+            st = {"tokens": dev[0], "pos": dev[1], "remaining": dev[2],
+                  "active": dev[3].bool()}
+            kw = {}
+            if not self.greedy:
+                st["key"], kw["greedy"] = self._key(), False
+                self._draw += n_tokens
             block, emitted, _ = self.model.decode_chunk(
-                self.params, self.cache_backend.tree,
-                {"tokens": dev[0], "pos": dev[1], "remaining": dev[2],
-                 "active": dev[3].bool()},
-                n_tokens, max_len=self.max_len)
+                self.params, self.cache_backend.tree, st, n_tokens,
+                max_len=self.max_len, **kw)
             host = torch.cat([block, emitted[:, None]], dim=1).cpu().numpy()
             return host[:, :-1], host[:, -1]
         B = state.shape[1]
-        head = np.zeros(5 * B + 2, np.int32)   # col and emitted start at 0
+        # tokens, pos, remaining, active | col (0) | key | emitted (0)
+        head = np.zeros(5 * B + 6, np.int32)
         head[:4 * B] = state.reshape(-1)
+        head[4 * B + 2:4 * B + 6].view(np.int64)[:] = new_key(
+            self.config.seed, self._draw).numpy()
         self._buf["head"].copy_(torch.from_numpy(head))
+        if not self.greedy:
+            self._draw += n_tokens
         replays = n_tokens
         if self._graph is None:
             # the first step runs eagerly on the engine's stream (its
@@ -634,7 +766,8 @@ class ServingEngine:
 
     def _step(self) -> None:
         self.model.decode_chunk_step(self.params, self.cache_backend.tree,
-                                     self._buf, max_len=self.max_len)
+                                     self._buf, max_len=self.max_len,
+                                     greedy=self.greedy)
 
     def graph_leaves(self) -> list[tuple[str, torch.Tensor]]:
         """(path, tensor) of everything the chunk step reads or writes by
@@ -677,10 +810,39 @@ class ServingEngine:
                 f"{moved[:4]} moved since its capture; caches, weights "
                 "and the chunk state must be updated in place")
 
+    def _decode_token(self, active: list[int]) -> None:
+        """The per-token baseline: one eager ``Model.decode_step`` over
+        every row (inactive rows at token 0, position 0, as in JAX), one
+        pick and one host read per generated token, and one ChunkEvent per
+        request per token. No graph: this is what the fused chunk is
+        measured against."""
+        n_rows = len(self.slots)
+        tokens = np.zeros((n_rows, 1), np.int32)
+        pos = np.zeros((n_rows,), np.int32)
+        for i in active:
+            s = self.slots[i]
+            tokens[i, 0] = s.generated[-1]
+            pos[i] = s.pos
+        logits = self.model.decode_step(
+            self.params, torch.from_numpy(tokens).to(self.device),
+            self.cache_backend.tree, torch.from_numpy(pos).to(self.device))
+        nxt = self._pick(logits)
+        now = time.perf_counter()
+        for i in active:
+            s = self.slots[i]
+            s.generated.append(int(nxt[i]))
+            s.pos += 1
+            s.remaining -= 1
+            self.tokens_generated += 1
+            self._emit_chunk(s.rid, (int(nxt[i]),), now)
+            if s.remaining <= 0 or s.pos >= self.max_len - 1:
+                self._finish(i)
+
     # ------------------------------------------------------------------
     def step(self) -> bool:
-        """One macro-iteration: admit, then one decode chunk. Returns
-        whether the engine still has work."""
+        """One macro-iteration: expire deadlines, admit, then one decode
+        chunk (one decode step with ``chunked=False``). Returns whether
+        the engine still has work."""
         if not self.has_work:
             return False
         self.steps += 1
@@ -688,26 +850,33 @@ class ServingEngine:
             self.fault.on_step(self.steps)   # may raise InjectedFault
         t0 = time.perf_counter()
         with self._on_stream():
+            self._expire_deadlines()
             self._admit()
             active = [i for i, s in enumerate(self.slots) if s.active]
             if active:
-                self._decode_chunk(active)
+                if self.chunked:
+                    self._decode_chunk(active)
+                else:
+                    self._decode_token(active)
         self.busy_s += time.perf_counter() - t0
         return self.has_work
 
     def run(self, max_steps: int = 10_000) -> list[Completion]:
         """Drive until idle (or ``max_steps`` ``step()`` calls for this
-        call) and return the finished completions; exhausting the budget
-        with work left warns."""
+        call) and return the finished completions. Exhausting the budget
+        with work left sets ``budget_exhausted`` and warns; a run that
+        drains clears the flag."""
         start = self.steps
         while self.has_work and self.steps - start < max_steps:
             self.step()
-        if self.has_work:
+        self.budget_exhausted = self.has_work
+        if self.budget_exhausted:
             n_active = sum(1 for s in self.slots if s.active)
             warnings.warn(
                 f"ServingEngine.run() exhausted max_steps={max_steps} with "
                 f"{len(self.queue)} queued and {n_active} active requests "
-                "remaining; returning partial completions", RuntimeWarning,
+                "remaining; returning partial completions "
+                "(engine.budget_exhausted is set)", RuntimeWarning,
                 stacklevel=2)
         out, self.done = self.done, []
         return out

@@ -4,13 +4,14 @@ types the port emits).
 Per request the stream is one or more ``ChunkEvent``s — the first carries
 the prefill sample and marks time-to-first-chunk, each later one a fused
 decode chunk's tokens — then exactly one terminal event: ``DoneEvent``
-with the finished ``Completion``, or ``FailedEvent``. A ``RetryEvent``
-marks a re-dispatch after the request was lost with its container: the
-chunks before it belong to the aborted attempt. ``ContainerFailure`` is
-the container-scoped record a supervising backend (``ProcessBackend``)
-returns from ``poll()``; ``ThreadBackend`` has no supervision yet and
-raises instead. Events are frozen, picklable dataclasses, and this
-module imports no torch: process children unpickle it before theirs.
+with the finished ``Completion``, or ``FailedEvent``; a request that
+admission sheds gets a single ``RejectedEvent`` instead. A
+``RetryEvent`` marks a re-dispatch after the request was lost with its
+container: the chunks before it belong to the aborted attempt.
+``ContainerFailure`` is the container-scoped record a supervising
+backend (``ThreadBackend``, ``ProcessBackend``) returns from ``poll()``.
+Events are frozen, picklable dataclasses, and this module imports no
+torch: process children unpickle it before theirs.
 """
 from __future__ import annotations
 
@@ -66,6 +67,23 @@ class FailedEvent:
 
 
 @dataclasses.dataclass(frozen=True)
+class RejectedEvent:
+    """Terminal event: admission control shed this request instead of
+    queueing it (the in-flight bound ``max_queue`` reached, or the ttfc
+    tail over the shed threshold). ``retry_after_s`` is the Router's
+    backpressure hint; ``kind`` ∈ {"queue", "slo"} names the threshold
+    that tripped and ``priority`` the request's class ("default" without
+    SLO classes)."""
+    rid: int
+    reason: str
+    retry_after_s: float
+    time_s: float
+    container_id: int = -1        # never dispatched
+    kind: str = "queue"
+    priority: str = "default"
+
+
+@dataclasses.dataclass(frozen=True)
 class ContainerFailure:
     """Container-scoped typed failure: the container died (``"dead"``),
     raised from ``engine.step()`` (``"error"``), went silent (``"hung"``)
@@ -79,4 +97,4 @@ class ContainerFailure:
 
 
 Event = Union[ChunkEvent, DoneEvent, RetryEvent, FailedEvent,
-              ContainerFailure]
+              RejectedEvent, ContainerFailure]

@@ -1530,7 +1530,7 @@ GRAPH_KINDS = {
 GRAPH_SPECS = [(12, 21), (32, 9), (20, 30), (64, 17)]
 
 
-def _graph_engine(kind, dtype=torch.bfloat16, seed=0):
+def _graph_engine(kind, dtype=torch.bfloat16, seed=0, **options):
     import dataclasses
 
     from repro_torch.configs.registry import get_config
@@ -1546,7 +1546,8 @@ def _graph_engine(kind, dtype=torch.bfloat16, seed=0):
     config = EngineConfig(n_slots=3, max_len=128, chunk_tokens=8,
                           dtype=dtype, cache=cache, block_size=16,
                           prefix_cache=share,
-                          max_seqs=4 if cache == "paged" else None)
+                          max_seqs=4 if cache == "paged" else None,
+                          **options)
     return ServingEngine(model, params, config, device="cuda")
 
 
@@ -1700,3 +1701,119 @@ def test_a_moved_leaf_raises_before_the_replay(cuda, what):
     with pytest.raises(RuntimeError, match="moved since its capture"):
         eng.step()
     assert eng.graph_replays == replays
+
+
+# ---------------------------------------------------------------------------
+# sampling inside the step graph, and a rebuilt thread container
+# ---------------------------------------------------------------------------
+def _chip_smoke():
+    import pathlib
+    import sys
+
+    import numpy as np
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke as cs   # its module scope imports the stdlib only
+    cs.np, cs.torch = np, torch
+    return cs
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged_shared", "mamba2",
+                                  "mla_dense"])
+def test_sampling_graph_replay_gives_the_eager_chunks_bits(cuda, kind):
+    """A sampling engine's replayed chunks equal the eager chunks run
+    from the same random stream state, and leave the stream where the
+    eager chunk leaves it, chunk after chunk."""
+    eng = _graph_engine(kind, greedy=False, seed=3)
+    eng.submit_many(_requests(eng.model.cfg.vocab_size, GRAPH_SPECS, 2))
+    eng.step()
+    assert eng._graph is not None
+    compared = 0
+    while any(s.active for s in eng.slots):
+        compared += _graph_vs_eager(eng, f"{kind} sampling")
+    eng.run()
+    assert compared >= 8 and eng.draws > compared
+
+
+def test_consecutive_replays_draw_new_noise(cuda):
+    """Replays from one slot state: the second, with the stream as the
+    first advanced it, samples other tokens; restoring the stream gives
+    the first replay's tokens again."""
+    eng = _graph_engine("dense", greedy=False, seed=5)
+    eng.submit_many(_requests(eng.model.cfg.vocab_size, GRAPH_SPECS, 3))
+    eng.step()
+    assert _chip_smoke().noise_advances(eng) > 0
+
+
+def test_sampled_streams_through_the_graph_equal_per_token(cuda):
+    """One seed, one stream: the graph-served chunked engine and the
+    eager per-token engine sample the same streams; another seed
+    differs."""
+    streams = []
+    for chunked, seed in ((True, 4), (False, 4), (True, 9)):
+        eng = _graph_engine("dense", greedy=False, seed=seed,
+                            chunked=chunked)
+        eng.submit_many(_requests(eng.model.cfg.vocab_size, GRAPH_SPECS, 4))
+        streams.append({c.rid: c.tokens for c in eng.run()})
+        assert (eng._graph is not None) == chunked
+    assert streams[0] == streams[1] != streams[2]
+
+
+def test_a_rebuilt_thread_engine_frees_the_old_cache_and_captures_anew(
+        cuda):
+    """An error in container 1's engine: the engine is rebuilt (its own
+    cache, stream and graph) while container 0's engine keeps replaying;
+    the dead engine's cache is freed, and every stream equals the
+    fault-free run's."""
+    import weakref
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.backend import ThreadBackend
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.faults import Fault, FaultPlan
+    from repro_torch.serving.router import Router
+
+    # float32: a prefill row's bits do not depend on its batch there
+    # (fixed 128-row projection slices), so a retried request re-batched
+    # on the rebuilt engine must give the fault-free bits
+    model = Model(get_config("qwen3-0.6b-reduced"), device="cuda")
+    params = model.init(seed=0, dtype=torch.float32)
+    config = EngineConfig(n_slots=2, max_len=8192, chunk_tokens=4,
+                          dtype=torch.float32)
+    reqs = _requests(model.cfg.vocab_size,
+                     [(12, 30), (32, 30), (20, 30), (16, 30)], 8)
+    with Router(ThreadBackend(model, params, 2, config)) as router:
+        want = {h.rid: h.tokens() for h in [router.submit(r) for r in reqs]}
+    # one warm-up step an engine (its first cuBLAS workspace, its graph),
+    # then the error two steps into the real run
+    plan = FaultPlan((Fault("error", container_id=1, after_steps=3),))
+    backend = ThreadBackend(model, params, 2, config, fault_plan=plan)
+    dead = weakref.ref(backend.engines[1])
+    cache_bytes = sum(t.nbytes for g in backend.engines[1].cache_backend.tree
+                      for t in g.values())
+    with Router(backend, max_retries=2) as router:
+        for h in [router.submit(r) for r in _requests(
+                model.cfg.vocab_size, [(12, 2), (12, 2)], 9, start=50)]:
+            h.result()
+        assert all(e._graph is not None for e in backend.engines)
+        rebuilds = _chip_smoke().watch_rebuilds(backend)
+        handles = [router.submit(r) for r in reqs]
+        replays = None
+        while not all(h.done for h in handles):
+            router.poll()
+            if backend.failures and replays is None:
+                replays = backend.engines[0].graph_replays
+        got = {h.rid: h.tokens() for h in handles}
+        assert backend.engines[0].graph_replays > replays
+        new = backend.engines[1]
+        assert dead() is None and new.graph_capture_s is not None
+        assert backend.rebuild_s[1] is not None
+        # the dead engine's cache was freed before the new one allocated
+        [(cid, incarnation, failed, dropped, built)] = rebuilds
+        assert (cid, incarnation) == (1, 1)
+        assert failed - dropped >= cache_bytes, (failed, dropped)
+        assert built - dropped >= cache_bytes, (dropped, built)
+    assert [f.kind for f in router.container_failures] == ["error"]
+    assert got == want

@@ -38,7 +38,8 @@ def _modules() -> list[str]:
 def test_every_port_module_imports_with_jax_and_repro_blocked():
     assert len(_modules()) >= 20
     assert {"repro_torch.kernels.rmsnorm", "repro_torch.serving.child",
-            "repro_torch.serving.faults",
+            "repro_torch.serving.faults", "repro_torch.serving.pool",
+            "repro_torch.models.sampling",
             "repro_torch.core.testbed"} <= set(_modules())
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
