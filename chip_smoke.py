@@ -134,6 +134,13 @@ Phases, each raising on failure (any failure exits nonzero):
    cache's bytes, and one decode step's host time, kernel launches and
    device time with the norms in plain tensor code and through the
    rmsnorm kernel, in turns.
+   b. The paged cache over mamba2's state rows, same weights: one dense
+      (n_slots 4) and one paged engine (block_size 16, max_seqs 8) over
+      phase 5's groups at lengths the scan's chunk divides; the tree has
+      no paged group (the rows stay dense, sized by max_seqs) and the
+      block budget bounds admission. Identical greedy streams, the paged
+      engine's ``peak_active`` above the dense engine's slots,
+      ``graph_vs_eager`` on both; reports the SSM row bytes a sequence.
 9. The MoE family with latent attention: ``Router(ThreadBackend(2))``
    over full-width deepseek-v2-lite-16b (27 layers, MLA, 64 routed
    experts top-6 + 2 shared, bfloat16, random weights from a seed, one
@@ -194,6 +201,27 @@ Phases, each raising on failure (any failure exits nonzero):
        fault in
        every incarnation trips the breaker and the Router serves on
        container 0 alone. Reports the rebuild's seconds and memory.
+
+12. The online container-count loop on phase 4's model (bf16, n_slots=4,
+    max_len=2048, chunk_tokens=32, one request a prefill so a request's
+    bits do not depend on its container or batch). Each count's backend
+    or pool serves a warm-up request a container first.
+    a. ``Router(backend_factory=n -> ThreadBackend(n), feasible_counts=
+       card_feasible_counts(..., max_containers=4), window=8,
+       epsilon=0.0, objective="energy")`` serves 6 windows of phase 4's
+       traffic, drained window by window; per window n, wall,
+       ``EnergyProxy`` J, the card's measured J (mean ``nvidia-smi
+       power.draw`` sampled every 100 ms by a helper thread, times the
+       wall; read and printed only), tok/s and ttfc p50/p95; then the
+       scheduler's ``summary()`` and ``choice``. Gates: the bootstrap
+       visits every feasible count, each count's backend is built once,
+       and every request's greedy tokens equal a fixed
+       ``Router(ThreadBackend(1))``'s.
+    b. ``AdaptiveServingPool`` (threads) over the same traffic as 6
+       waves: the same tokens; its history printed.
+    c. One wave through ``ProcessContainerPool(2)`` against
+       ``ContainerServingPool(2)``: identical ordered completions; both
+       walls and proxy energies printed. No child outlives the phase.
 
 Then a JSON line with each kernel's launches (from the phase of the path
 it serves, and by phase), error and times (eight kernels), the card's
@@ -1927,12 +1955,14 @@ PARITY_GROUPS = [((150, 200, 256, 180), 24), ((40, 50, 64, 33), 32),
                  ((300, 400, 512), 16)]
 
 
-def parity_phase(model, params, config, card: str, groups=PARITY_GROUPS):
+def parity_phase(model, params, config, card: str, groups=PARITY_GROUPS,
+                 peaks: list | None = None):
     """Serve the same requests through one dense and one paged engine
     (``config`` with cache="paged"); their greedy streams must be
     identical. Then each engine serves one more group with a chunk held to
     the eager chunk (``engine_graph_check``). Returns each engine's kernel
-    launches of the compared streams (dense, paged)."""
+    launches of the compared streams (dense, paged); each engine's
+    ``peak_active`` over them goes into ``peaks`` when given."""
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import Request, ServingEngine
 
@@ -1957,6 +1987,8 @@ def parity_phase(model, params, config, card: str, groups=PARITY_GROUPS):
         launches.append({k: n - before[k]
                          for k, n in ops.launch_counts().items()})
         streams.append({c.rid: list(c.tokens) for c in comps})
+        if peaks is not None:
+            peaks.append(eng.peak_active)
         if model.device.type == "cuda":
             engine_graph_check(eng, [
                 Request(1000 + j, rng.integers(0, model.cfg.vocab_size, (n,),
@@ -2389,25 +2421,23 @@ ATTENTION_KERNELS = ("flash_attention", "decode_attention",
                      "paged_decode_attention_int8")
 
 
-def ssm_path_phase(card: str, n_containers: int = 2, max_new: int = 32):
+def ssm_path_phase(model, params, card: str, n_containers: int = 2,
+                   max_new: int = 32):
     """Router(ThreadBackend(2)) over full-width mamba2-2.7b (64 layers,
-    bf16, random weights from seed 0), n_slots=4, max_len=2048: 8
+    bf16, random weights from seed 0: ``full_width_ssm``), n_slots=4,
+    max_len=2048: 8
     requests with 64-1024-token prompts, each a length the scan's chunk
     (min(256, S)) divides. Every request completes with ``max_new``
     tokens; the 200-token request's stream equals that request run alone
     on the model; ``ssd_scan`` launches a multiple of 64 (one per layer per
     prefill) and at least once per layer per distinct length; no
     attention kernel launches. Returns the launch counts of the run."""
-    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models.model import Model
     from repro_torch.serving.backend import ThreadBackend
     from repro_torch.serving.engine import EngineConfig, Request
     from repro_torch.serving.router import Router
 
-    cfg = get_config("mamba2-2.7b")
-    model = Model(cfg)
-    params = model.init(seed=0, dtype=torch.bfloat16)
+    cfg = model.cfg
     config = EngineConfig(n_slots=4, max_len=2048, chunk_tokens=32,
                           dtype=torch.bfloat16)
     rng = np.random.default_rng(8)
@@ -3348,6 +3378,324 @@ def request_contract_phase(model, params, card: str, max_new: int = 32):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8b: the paged cache over mamba2's state rows
+# ---------------------------------------------------------------------------
+# phase 5's groups at lengths mamba2's scan chunk (min(256, S)) divides:
+# every prompt of at most 256 tokens, then multiples of 256
+SSM_PARITY_GROUPS = [((150, 200, 256, 180), 24), ((40, 50, 64, 33), 32),
+                     ((512, 768, 1024), 16)]
+
+
+def full_width_ssm():
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+
+    model = Model(get_config("mamba2-2.7b"))
+    return model, model.init(seed=0, dtype=torch.bfloat16)
+
+
+def ssm_paged_phase(model, params, card: str):
+    """Phase 8b: one dense (n_slots 4) and one paged engine (block_size 16,
+    max_seqs 8, the dense footprint of 512 blocks) over full-width
+    mamba2-2.7b serve ``SSM_PARITY_GROUPS``: identical greedy streams, the
+    paged engine with more sequences in flight than the dense one has
+    slots, and ``graph_vs_eager`` on both (``parity_phase``). The paged
+    tree has no paged group: the conv and state rows stay dense, sized by
+    max_seqs. Returns the two engines' summed launches."""
+    from repro_torch.serving.engine import EngineConfig
+
+    config = EngineConfig(n_slots=4, max_len=2048, chunk_tokens=32,
+                          dtype=torch.bfloat16, block_size=16, max_seqs=8)
+    peaks: list[int] = []
+    dense, paged = parity_phase(model, params, config, card,
+                                groups=SSM_PARITY_GROUPS, peaks=peaks)
+    if peaks[1] <= config.n_slots:
+        fail(f"phase 8b: the paged engine peaked at {peaks[1]} sequences, "
+             f"not more than the dense engine's {config.n_slots} slots")
+    if dense["ssd_scan"] <= 0 or paged["ssd_scan"] != dense["ssd_scan"]:
+        fail(f"phase 8b: ssd_scan launches dense {dense['ssd_scan']}, "
+             f"paged {paged['ssd_scan']}")
+    if any(dense[k] or paged[k] for k in ATTENTION_KERNELS):
+        fail(f"phase 8b: attention kernels launched: {dense} {paged}")
+    row = tree_bytes(model.init_cache(1, config.max_len, config.dtype))
+    print(f"paged ssm (8b): peak_active dense {peaks[0]}, paged {peaks[1]} "
+          f"(max_seqs {config.max_seqs}, max_blocks "
+          f"{config.resolved_max_blocks}); SSM row bytes per sequence "
+          f"{row} (conv tails + states, {model.cfg.n_layers} layers), "
+          f"{row * config.max_seqs} B for the paged engine's rows "
+          f"[card: {card}]", flush=True)
+    return {k: n + paged[k] for k, n in dense.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the online container-count loop
+# ---------------------------------------------------------------------------
+ONLINE_WINDOWS = 6
+
+
+class PowerMeter:
+    """The card's draw from ``nvidia-smi --query-gpu=power.draw`` every
+    100 ms, read by a helper thread: ``joules(t0, t1, wall)`` is the mean
+    draw of the samples stamped in [t0, t1] times ``wall``. Read and
+    printed only; nothing steers by it."""
+
+    def __init__(self):
+        import threading
+
+        self.samples: list[tuple[float, float]] = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            try:
+                watts = float(line.strip())
+            except ValueError:
+                continue
+            self.samples.append((time.perf_counter(), watts))
+
+    def joules(self, t0: float, t1: float, wall: float):
+        """(joules, samples), or (None, 0) with no sample in [t0, t1]."""
+        got = [w for t, w in list(self.samples) if t0 <= t <= t1]
+        if not got:
+            return None, 0
+        return sum(got) / len(got) * wall, len(got)
+
+    def close(self) -> None:
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=10)
+        self.thread.join(timeout=10)
+
+
+def measured(meter, t0, t1, wall) -> str:
+    joules, n = meter.joules(t0, t1, wall)
+    if joules is None:
+        return "measured_j=not measured (no power.draw sample)"
+    return f"measured_j={joules:.4f} ({n} power.draw samples)"
+
+
+def online_requests(cfg, seed: int, max_new: int = 32) -> list:
+    """ONLINE_WINDOWS windows of phase 4's 8 prompt lengths, each with
+    tokens of its own, max_new 32."""
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(seed)
+    return [[Request(w * 8 + i, rng.integers(0, cfg.vocab_size, (n,),
+                                             dtype=np.int32), max_new)
+             for i, n in enumerate(MAIN_PLENS)]
+            for w in range(ONLINE_WINDOWS)]
+
+
+def warm_backend(backend, cfg, rng) -> None:
+    """Every container of ``backend`` admits a request and decodes: its
+    first cuBLAS calls, its allocations and its graph capture, before any
+    window's clock."""
+    from repro_torch.serving.engine import Request
+
+    for cid in range(backend.capacity):
+        backend.submit(cid, Request(9000 + cid, rng.integers(
+            0, cfg.vocab_size, (20,), dtype=np.int32), 4))
+    while any(backend.load(cid) for cid in range(backend.capacity)):
+        backend.poll()
+    backend.poll()
+    torch.cuda.synchronize()
+
+
+def online_loop_phase(model, params, card: str):
+    """Phase 12 on full-width qwen3-0.6b (bf16, phase 4's seeded weights,
+    n_slots=4, max_len=2048, chunk_tokens=32, one request a prefill so a
+    request's bits do not depend on which container, or which batch, it
+    landed in: cuBLAS gives a bf16 prefill row other bits below 128 rows
+    a batch, see ``MIN_PREFILL_ROWS`` in ``serving/engine.py``):
+
+    a. ``Router(backend_factory=n -> ThreadBackend(n), feasible_counts=
+       card_feasible_counts(..., max_containers=4), window=8, epsilon=0,
+       objective="energy")`` serves 6 windows of phase 4's traffic,
+       drained window by window. Per window: n, wall, EnergyProxy J, the
+       card's measured J, tok/s, ttfc p50/p95. Gates: the bootstrap visits
+       every feasible count, each count's backend is built once, and every
+       request's greedy tokens equal a fixed Router(ThreadBackend(1))'s.
+    b. ``AdaptiveServingPool`` (threads) over the same traffic as 6 waves:
+       the same tokens, its history printed.
+    c. One wave through ``ProcessContainerPool(2)`` (pinned children, the
+       weights over CUDA IPC) against ``ContainerServingPool(2)``:
+       identical ordered completions; walls and proxy energies printed.
+
+    Each count's backend or pool serves a warm-up request a container
+    before the loop, so no window pays a graph capture. Returns 12a's
+    kernel launches."""
+    from repro_torch.core.containers import card_feasible_counts
+    from repro_torch.kernels import ops
+    from repro_torch.serving.adaptive import AdaptiveServingPool
+    from repro_torch.serving.backend import ThreadBackend
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.pool import ContainerServingPool
+    from repro_torch.serving.process_pool import ProcessContainerPool
+    from repro_torch.serving.router import Router
+
+    cfg = model.cfg
+    config = EngineConfig(n_slots=4, max_len=2048, chunk_tokens=32,
+                          dtype=torch.bfloat16, batch_admit=False)
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    counts = card_feasible_counts(cfg, config, card_bytes=card_bytes,
+                                  max_containers=4)
+    if len(counts) < 2:
+        fail(f"phase 12: feasible counts {counts} on {card_bytes} B")
+    windows = online_requests(cfg, seed=12)
+    flat = [r for w in windows for r in w]
+    rng = np.random.default_rng(13)
+    phase_t0 = time.perf_counter()
+
+    # the reference: one container, fixed
+    with Router(ThreadBackend(model, params, 1, config)) as fixed:
+        warm_backend(fixed.backend, cfg, rng)
+        want = {h.rid: h.tokens() for h in [
+            fixed.submit(dataclasses.replace(r)) for r in flat]}
+
+    meter = PowerMeter()
+    try:
+        # 12a: the adaptive Router
+        warm = {}
+        for n in counts:
+            warm[n] = ThreadBackend(model, params, n, config)
+            warm_backend(warm[n], cfg, rng)
+        built: list[int] = []
+
+        def factory(n):
+            built.append(n)
+            return warm[n]
+        got = {}
+        ops.reset_launch_counts()
+        with Router(backend_factory=factory, feasible_counts=counts,
+                    window=8, epsilon=0.0, objective="energy") as router:
+            for w, reqs in enumerate(windows):
+                t0 = time.perf_counter()
+                handles = [router.submit(dataclasses.replace(r))
+                           for r in reqs]
+                router.drain()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                got.update({h.rid: list(h.completion.tokens)
+                            for h in handles})
+                if len(router.history) != w + 1:
+                    fail(f"phase 12a: {len(router.history)} windows after "
+                         f"{w + 1} drained")
+                ws = router.history[-1]
+                print(f"online loop (12a) window {w}: n={ws.n_containers} "
+                      f"wall_s={ws.wall_s:.4f} proxy_j={ws.energy_j:.4f} "
+                      f"{measured(meter, t0, t1, ws.wall_s)} "
+                      f"tok_per_s={ws.tokens_per_s:.2f} ttfc_p50_s="
+                      f"{ws.ttfc_p50_s:.4f} ttfc_p95_s={ws.ttfc_p95_s:.4f} "
+                      f"[card: {card}]", flush=True)
+            launches = ops.launch_counts()
+            summary, choice = router.scheduler.summary(), router.choice
+            history = list(router.history)
+        print(f"online loop (12a): feasible counts {counts} from "
+              f"card_feasible_counts on {card_bytes} B, counts by window "
+              f"{[w.n_containers for w in history]}, scheduler summary "
+              f"{summary}, choice {choice}, backends built {built}; "
+              f"launches {launches} [card: {card}]", flush=True)
+        if {w.n_containers for w in history[:len(counts)]} != set(counts):
+            fail(f"phase 12a: the bootstrap visited "
+                 f"{[w.n_containers for w in history]}, not every count of "
+                 f"{counts}")
+        if len(built) != len(set(built)):
+            fail(f"phase 12a: backends built {built}: a count twice")
+        if got != want:
+            bad = [rid for rid in want if got.get(rid) != want[rid]]
+            fail(f"phase 12a: requests {bad} differ from the fixed "
+                 "Router(ThreadBackend(1))'s greedy tokens")
+        for k in ("flash_attention", "decode_attention"):
+            if launches[k] <= 0:
+                fail(f"phase 12a: {k} never launched: {launches}")
+        check_norm_launches(cfg, launches, "phase 12a")
+        del warm
+        torch.cuda.empty_cache()
+
+        # 12b: the adaptive pool over waves
+        def pool_factory(n):
+            pool = ContainerServingPool(model, params, n, config)
+            warm_backend(pool.backend, cfg, rng)
+            return pool
+        apool = AdaptiveServingPool(model, params, counts,
+                                    objective="energy", config=config,
+                                    pool_factory=pool_factory)
+        got = {}
+        for w, reqs in enumerate(windows):
+            t0 = time.perf_counter()
+            out = apool.serve_wave([dataclasses.replace(r) for r in reqs])
+            t1 = time.perf_counter()
+            if [c.rid for c in out] != [r.rid for r in reqs]:
+                fail(f"phase 12b: wave {w} came back out of order")
+            got.update({c.rid: list(c.tokens) for c in out})
+            h = apool.history[-1]
+            print(f"adaptive pool (12b) wave {w}: n={h.n_containers} "
+                  f"wall_s={h.wall_s:.4f} proxy_j={h.energy_j:.4f} "
+                  f"{measured(meter, t0, t1, h.wall_s)} "
+                  f"tok_per_s={h.tokens_per_s:.2f} latency_p50_s="
+                  f"{h.latency_p50_s:.4f} latency_p95_s="
+                  f"{h.latency_p95_s:.4f} [card: {card}]", flush=True)
+        print(f"adaptive pool (12b): counts by wave "
+              f"{[h.n_containers for h in apool.history]}, choice "
+              f"{apool.choice} [card: {card}]", flush=True)
+        apool.close()
+        torch.cuda.empty_cache()
+        if got != want:
+            bad = [rid for rid in want if got.get(rid) != want[rid]]
+            fail(f"phase 12b: requests {bad} differ from the fixed "
+                 "Router(ThreadBackend(1))'s greedy tokens")
+
+        # 12c: one wave in pinned processes against the same in threads
+        wave = windows[0]
+        out = {}
+        for name, pool in (
+                ("2 threaded", ContainerServingPool(model, params, 2,
+                                                    config)),
+                ("2 process", ProcessContainerPool(cfg, 2, config,
+                                                   params=params,
+                                                   allow_shared_cores=True,
+                                                   start_timeout_s=300))):
+            try:
+                # warm-up wave: spawn, first cuBLAS calls, graph captures
+                pool.serve_timed([dataclasses.replace(r, rid=r.rid + 500)
+                                  for r in wave])
+                t0 = time.perf_counter()
+                ordered, _, wall, energy = pool.serve_timed(
+                    [dataclasses.replace(r) for r in wave])
+                t1 = time.perf_counter()
+            finally:
+                pool.close()
+            out[name] = [(c.rid, list(c.tokens)) for c in ordered]
+            print(f"process pool (12c) {name}: one wave of 8, wall_s="
+                  f"{wall:.4f} proxy_j={energy:.4f} "
+                  f"{measured(meter, t0, t1, wall)} [card: {card}]",
+                  flush=True)
+        if out["2 process"] != out["2 threaded"]:
+            fail("phase 12c: the process pool's ordered completions differ "
+                 "from the thread pool's")
+        if [t for _, t in out["2 threaded"]] != [want[r.rid] for r in wave]:
+            fail("phase 12c: the pools' tokens differ from the fixed "
+                 "Router(ThreadBackend(1))'s")
+    finally:
+        meter.close()
+    if multiprocessing.active_children():
+        fail(f"phase 12 left processes running: "
+             f"{multiprocessing.active_children()}")
+    print(f"online loop (12): whole phase "
+          f"{time.perf_counter() - phase_t0:.2f} s [card: {card}]",
+          flush=True)
+    return launches
+
+
 def full_width_model(dtype):
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import Model
@@ -3439,10 +3787,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     contract_launches = request_contract_phase(model, params, card)
 
-    # the SSM family, once the qwen3 weights and caches are released
+    # the online container-count loop on the same weights
+    torch.cuda.empty_cache()
+    online_launches = online_loop_phase(model, params, card)
+
+    # the SSM family, once the qwen3 weights and caches are released, on
+    # the dense and on the paged cache
     del model, model8, params
     torch.cuda.empty_cache()
-    ssm_launches = ssm_path_phase(card)
+    ssm_model, ssm_params = full_width_ssm()
+    ssm_launches = ssm_path_phase(ssm_model, ssm_params, card)
+    torch.cuda.empty_cache()
+    ssm_paged_launches = ssm_paged_phase(ssm_model, ssm_params, card)
+    del ssm_model, ssm_params
 
     # the MoE family with latent attention, once mamba2's weights are
     # released
@@ -3456,7 +3813,8 @@ def main() -> int:
     # (the int8 Router path) for the paged int8 kernel, 8 (mamba2) for
     # the SSD scan and 9 (deepseek) for the MLA decode kernel; rmsnorm
     # runs on every path, counted from phase 4; phase 10 sums the process
-    # containers' own counts
+    # containers' own counts; phase 8b sums mamba2's dense and paged
+    # engines, phase 12 is the adaptive Router's run (12a)
     by_phase = {"phase4": launches, "phase6": paged_launches,
                 "phase6c": sharing_launches,
                 "phase6c_f32": sharing_launches_f32,
@@ -3464,8 +3822,10 @@ def main() -> int:
                 "phase8": ssm_launches, "phase9": mla_launches,
                 "phase9b_dense": mla_parity[0],
                 "phase9b_paged": mla_parity[1],
+                "phase8b": ssm_paged_launches,
                 "phase10": process_launches,
-                "phase11": contract_launches}
+                "phase11": contract_launches,
+                "phase12": online_launches}
     main_phase = {"flash_attention": "phase4", "decode_attention": "phase4",
                   "paged_decode_attention": "phase6",
                   "decode_attention_int8": "phase7a",

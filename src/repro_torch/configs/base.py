@@ -114,6 +114,72 @@ class ArchConfig:
     def ssm_n_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
 
+    def param_count(self) -> int:
+        """Analytic parameter count, as the JAX package computes it (the
+        container budgets of ``core/containers.py`` size weights by it)."""
+        d = self.d_model
+        n = self.vocab_size * d                       # embed
+        if not self.tie_embeddings:
+            n += self.vocab_size * d                  # lm head
+        if self.is_moe and self.n_dense_layers:
+            # leading dense layers use the dense FFN width, not the experts
+            n += self._dense_layer_params() * self.n_dense_layers
+            n += self._decoder_layer_params() * (self.n_layers
+                                                 - self.n_dense_layers)
+        else:
+            n += self._decoder_layer_params() * self.n_layers
+        if self.shared_attn_every:
+            n += self._dense_layer_params()           # the shared block
+        if self.n_encoder_layers:
+            n += self._dense_layer_params() * self.n_encoder_layers
+        if self.n_vision_tokens:
+            n += self.vision_embed_dim * d + d * d    # projector (2 layer)
+        return n + d                                  # final norm
+
+    def _attn_params(self) -> int:
+        d = self.d_model
+        if self.mla:
+            qk_head = self.qk_nope_head_dim + self.qk_rope_head_dim
+            n = d * self.n_heads * qk_head                       # q proj
+            n += d * (self.kv_lora_rank + self.qk_rope_head_dim)  # kv down
+            n += self.kv_lora_rank * self.n_heads * (
+                self.qk_nope_head_dim + self.v_head_dim)          # kv up
+            return n + self.n_heads * self.v_head_dim * d         # o proj
+        hd = self.head_dim
+        return (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                + self.n_heads * hd * d)       # q, k and v, o
+
+    def _mlp_params(self, d_ff: int) -> int:
+        # gate+up+down when gated (SwiGLU); up+down otherwise
+        return (3 if self.mlp_gated else 2) * self.d_model * d_ff
+
+    def _decoder_layer_params(self) -> int:
+        d = self.d_model
+        if self.arch_type in ("ssm", "hybrid"):
+            # Mamba2 block: in_proj (x, z, B, C, dt), conv, out_proj, norms
+            di, ds, ng = self.d_inner, self.ssm_state, self.ssm_n_groups
+            nh = self.ssm_n_heads
+            n = d * (2 * di + 2 * ng * ds + nh)   # in_proj
+            n += (di + 2 * ng * ds) * self.ssm_conv_width  # conv1d
+            n += di * d                            # out_proj
+            return n + 2 * nh + di + d             # A_log, D, norm, rmsnorm
+        n = self._attn_params() + 2 * d            # attn + 2 norms
+        if self.cross_attention:
+            n += self._attn_params() + d           # cross-attn + 3rd norm
+        if self.is_moe:
+            n += d * self.n_experts                               # router
+            n += self.n_experts * self._mlp_params(self.moe_d_ff)
+            n += self.n_shared_experts * self._mlp_params(self.moe_d_ff)
+        else:
+            n += self._mlp_params(self.d_ff)
+        return n
+
+    def _dense_layer_params(self) -> int:
+        """A dense attention + MLP layer with its two norms (an MoE model's
+        leading layers, a shared block, an encoder layer)."""
+        return (self._attn_params() + self._mlp_params(self.d_ff)
+                + 2 * self.d_model)
+
 
 def reduce_config(cfg: ArchConfig, **overrides) -> ArchConfig:
     """A smoke-testable reduced variant of the same architecture family."""

@@ -36,7 +36,8 @@ that every layer shares (``models/cache.py``); with
 (``models/attention.py``). An MLA layer's cache holds its latents,
 ``{"ckv", "k_rope"}`` rows or ``{"ckv_pages", "k_rope_pages"}`` over the
 table. An SSM layer's cache is one ``{"conv", "state"}`` row group
-(``models/ssm.py``), which has no paged form here.
+(``models/ssm.py``), which has no paged form: a paged engine keeps
+these dense rows beside its block accounting.
 Updated in place by ``prefill``, ``prefill_suffix`` and ``decode_step``.
 """
 from __future__ import annotations
@@ -159,15 +160,12 @@ class Model:
         group refers to one shared (batch, nblk) table. An int8 cache
         (``cfg.kv_cache_dtype``) ignores ``dtype`` for its codes and
         scales. An SSM model's rows are its conv tails and states, which
-        ``max_len`` does not size and no layout pages here."""
+        ``max_len`` does not size and no layout pages: with a layout it
+        gets the same dense rows, ``batch`` of them, and the paged
+        engine's block accounting runs over a tree with no paged group,
+        as in JAX."""
         cfg = self.cfg
         if self.fam == "ssm":
-            if layout is not None:
-                # JAX pages nothing of an SSM model, but its engine still
-                # runs the paged cache's block accounting over it
-                raise NotImplementedError(
-                    f"{cfg.name}: a paged cache over SSM state rows is not "
-                    "ported")
             return [ssm_lib.init_mamba2_cache(cfg, batch, dtype, self.device)
                     for _ in range(cfg.n_layers)]
         if layout is None:

@@ -15,9 +15,13 @@ its row index, not on how many rows the logits have, so a prefill batch
 padded with extra rows samples its real rows as the unpadded batch would.
 
 The hash is a 32-bit integer mixer (16, 0x21f0aaad, 15, 0x735a2d97, 15)
-applied twice: over ``e ^ seed``, then over that ``^ draw``. Its values
-are kept below 2**32 in int64 tensors, and both multipliers are below
-2**31, so no product overflows. The top 24 bits give a uniform in (0, 1).
+applied three times: over ``e``, then over that ``^ seed``, then over
+that ``^ draw``. The seed and the draw each enter after a mixing round:
+xored into the raw counter, a seed would only permute one field (the
+noise of seed ``s`` at element ``e`` would be seed 0's at ``e ^ s``), so
+two seeds would sample tokens related by xor. Its values are kept below
+2**32 in int64 tensors, and both multipliers are below 2**31, so no
+product overflows. The top 24 bits give a uniform in (0, 1).
 ``seed`` and ``draw`` are taken modulo 2**32, and the logits of one pick
 may hold at most 2**32 elements.
 """
@@ -49,7 +53,7 @@ def uniform(key: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
         raise ValueError(f"{rows} x {cols} elements exceed one draw")
     e = torch.arange(rows * cols, dtype=torch.int64,
                      device=key.device).view(rows, cols)
-    x = _mix(e ^ key[0:1])
+    x = _mix(_mix(e) ^ key[0:1])
     x = _mix(x ^ (key[1:2] & M32))
     return ((x >> 8).to(torch.float32) + 0.5) * 2.0 ** -24
 

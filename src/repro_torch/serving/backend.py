@@ -165,6 +165,10 @@ class ThreadBackend:
                                f"(after {self._respawns[cid]} respawns)")
         self.engines[cid].submit(req)
 
+    def submit_many(self, cid: int, reqs: Sequence[Request]) -> None:
+        for r in reqs:
+            self.submit(cid, r)
+
     def _step_all(self) -> list[tuple[int, str]]:
         """One step of every live engine with work (in worker threads when
         more than one has work and ``concurrent`` is set), every step
@@ -230,9 +234,11 @@ class ThreadBackend:
         base_b, base_t = self._stats_base[cid]
         return base_b + eng.busy_s, base_t + eng.tokens_generated
 
-    def drain(self) -> list[tuple[list[Completion], float, float, int]]:
-        """Run every container to idle (in threads when ``concurrent``);
-        per container ``(completions, wall_s, busy_s, tokens)``. Events
+    def drain(self, concurrent: bool | None = None
+              ) -> list[tuple[list[Completion], float, float, int]]:
+        """Run every container to idle (in threads when ``concurrent``,
+        the backend's setting unless given); per container
+        ``(completions, wall_s, busy_s, tokens)``. Events
         emitted meanwhile are dropped — drain callers take completions.
         Waves have no per-request recovery: a circuit-broken container or
         a failed step raises."""
@@ -256,7 +262,9 @@ class ThreadBackend:
             except BaseException as e:  # carried across the thread join
                 out[cid] = e
 
-        if self.concurrent and self.capacity > 1:
+        if concurrent is None:
+            concurrent = self.concurrent
+        if concurrent and self.capacity > 1:
             workers = [threading.Thread(target=run_one, args=(cid,),
                                         daemon=True)
                        for cid in range(self.capacity)]

@@ -10,7 +10,8 @@ pages.
 * ``PagedCache`` — a shared pool of ``max_blocks`` physical pages plus a
   per-row block table (``models/cache.py``). Admission reserves
   ``ceil(tokens / block_size)`` blocks per request, so in-flight
-  concurrency is bounded by the block budget, not by ``n_slots``.
+  concurrency is bounded by the block budget, not by ``n_slots``. Layer
+  groups that do not page (an SSM model's state rows) stay dense rows.
 
 Both own the HOST-side accounting; the device tensors are the model's
 cache tree (``tree``), which the paged cache updates in place on the
@@ -149,7 +150,10 @@ class PagedCache:
     block lists, and — with ``prefix_cache`` — a content-hash index over
     full prompt blocks plus an LRU of cache-only residents. ``tree`` is
     the model's paged cache (a list of per-layer groups sharing one
-    table); an empty list keeps everything on the host."""
+    table); an empty list keeps everything on the host. An SSM model's
+    tree holds no paged group, only its dense conv and state rows, as in
+    JAX: there is no table to write or scrub, and the allocator's blocks
+    still bound how many sequences are resident."""
 
     def __init__(self, tree: list, n_rows: int, layout: PagedLayout,
                  max_len: int, prefix_cache: bool = False):
@@ -383,7 +387,24 @@ class PagedCache:
         position ``offset + i`` of a row lands at ``(table[p // bs],
         p % bs)``. Positions past the row's reservation hit the scratch
         page, and so do positions past the table (an explicit clamp: a
-        tensor index there would raise or wrap)."""
+        tensor index there would raise or wrap). A layer group that is
+        not paged (an SSM model's conv tails and states) takes its rows
+        whole, as ``DenseCache.insert`` copies them, so an admission
+        overwrites whatever a freed row's lockstep decode steps left
+        there and a freed row needs no reset."""
+        if self._groups:
+            self._scatter_pages(src_cache, rows, offset)
+        dense = [(g, src) for g, src in zip(self.tree, src_cache)
+                 if not is_paged_group(g)]
+        if dense:
+            leaf = next(iter(dense[0][0].values()))
+            idx = torch.as_tensor(rows, dtype=torch.long, device=leaf.device)
+            for g, src in dense:
+                for name, t in g.items():
+                    t.index_copy_(0, idx, src[name].to(t.dtype))
+
+    def _scatter_pages(self, src_cache: list, rows: list[int],
+                       offset: int) -> None:
         dev = self._table.device
         bs, scratch = self.layout.block_size, self.layout.scratch_page
         host = self._table_rows(rows)
@@ -391,13 +412,15 @@ class PagedCache:
         self._table[torch.as_tensor(rows, dtype=torch.long,
                                     device=dev)] = table
         nblk = host.shape[1]
-        W = src_cache[0][_pairs(self._groups[0])[0][1]].shape[1]
+        paged = [(g, src) for g, src in zip(self.tree, src_cache)
+                 if is_paged_group(g)]
+        W = paged[0][1][_pairs(paged[0][0])[0][1]].shape[1]
         pos = torch.arange(W, device=dev) + offset
         blk = pos // bs
         page = torch.where(blk[None, :] < nblk,
                            table.long()[:, blk.clamp(max=nblk - 1)],
                            scratch)                            # (n, W)
         off = torch.remainder(pos, bs)
-        for g, src in zip(self._groups, src_cache):
+        for g, src in paged:
             for dk, sk in _pairs(g):
                 g[dk][page, off] = src[sk].to(g[dk].dtype)

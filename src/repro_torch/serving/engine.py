@@ -2,7 +2,9 @@
 
 A port of ``repro.serving.engine.ServingEngine`` for the dense and MoE
 families (GQA or MLA), over the dense or the paged cache, and for the
-SSM family over its dense state rows. Each ``step()`` expires deadlines,
+SSM family over its dense state rows, under either cache's admission
+(paged: the block budget bounds the resident sequences, the rows stay
+dense). Each ``step()`` expires deadlines,
 admits queued requests and then runs one fused decode chunk (or, with
 ``chunked=False``, one decode step):
 
@@ -537,10 +539,13 @@ class ServingEngine:
         fewer than 128 token rows of cache and prefill. Not in float32,
         whose projections are sliced instead, nor on the dense path, which
         never shares, nor for MoE, where the expert capacity couples a
-        batch's rows, nor on the CPU."""
+        batch's rows, nor for an SSM model, which never shares either: a
+        paged SSM engine prefills the batch the dense one does, so the
+        two give a row the same state bits, and JAX's scan runs the
+        unpadded batch; nor on the CPU."""
         if (self.device.type != "cuda" or not self.paged
                 or self.config.dtype != torch.bfloat16
-                or self.model.fam == "moe"):
+                or self.model.fam in ("moe", "ssm")):
             return n
         return max(n, -(-MIN_PREFILL_ROWS // width))
 

@@ -1,11 +1,16 @@
-"""Request-level streaming Router over a fixed set of containers.
+"""Request-level streaming Router over containers.
 
-A port of the fixed-count path of ``repro.serving.router.Router``::
+A port of ``repro.serving.router.Router``, in its fixed-count and its
+adaptive mode::
 
     router = Router(ThreadBackend(model, params, n))   # or ProcessBackend
     handle = router.submit(Request(...))          # returns immediately
     for ev in handle.stream():                    # ChunkEvent... DoneEvent
         ...
+
+    router = Router(backend_factory=lambda n: ThreadBackend(model, params,
+                                                            n, config),
+                    feasible_counts=[1, 2, 4], window=8)  # adaptive
 
 Dispatch is least-loaded + bucket-aware over the containers the backend
 reports ``alive``: a request goes to the container with the fewest
@@ -38,31 +43,50 @@ Load shedding: ``submit`` rejects — a handle born terminal with one
 ``max_queue`` requests are in flight (``kind="queue"``) or the p95 of
 the time-to-first-chunk samples of the last ``shed_window_s`` seconds
 is over ``shed_p95_s`` (``kind="slo"``; no verdict below 8 samples).
-``retry_after_s`` is 0.25 s, JAX's hint while no window history exists.
+``retry_after_s`` is the last window's median request latency (at least
+0.05 s), or 0.25 s while no window history exists, as in JAX.
 
-Not in the port yet: adaptive container counts and windows, SLO classes
-and their backlog, tenant quotas and ``dispatch_depth``.
+Adaptive mode (``backend_factory`` + ``feasible_counts``, or a
+``scheduler``) closes the paper's online loop at window granularity:
+completions accumulate into a window of observed wall, ``EnergyProxy``
+energy, tokens/s, time-to-first-chunk and latency (``WindowStats``); at
+every ``window`` completions (or ``window_s`` seconds with at least one)
+the ``DivideAndSaveScheduler`` observes the window and picks the next
+count, and the Router swaps to that count's backend once the stream has
+drained, so no request is stranded mid-decode. Backends are built once a
+count, kept warm across resizes and closed by ``close()``. ``serve_wave``
+is the wave shim over it: submit all, drain, ``pool.assemble_wave``'s
+accounting.
+
+Not in the port yet: SLO classes and their backlog, per-class window
+stats, tenant quotas and ``dispatch_depth``.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import Counter, deque
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator, Sequence
 
 import torch
 
+from repro_torch.core.scheduler import DivideAndSaveScheduler
 from repro_torch.device import resolve_device
 from repro_torch.serving.engine import Completion, Request, _bucket
 from repro_torch.serving.events import (ChunkEvent, ContainerFailure,
                                         DoneEvent, Event, FailedEvent,
                                         RejectedEvent, RetryEvent)
-from repro_torch.serving.pool import percentiles
+from repro_torch.serving.pool import (ContainerResult, EnergyProxy,
+                                      _warn_wave_shim, assemble_wave,
+                                      latency_percentiles, percentiles)
 
 _IDLE_SLEEP_S = 0.002
 # the shed hint while no window history exists (the fixed-count Router
 # keeps none), as in JAX
 _RETRY_AFTER_S = 0.25
+# the least hint a window's median latency may give, so clients cannot
+# hot-loop
+_RETRY_AFTER_FLOOR_S = 0.05
 
 
 class RequestFailed(RuntimeError):
@@ -88,6 +112,28 @@ class RequestRejected(RequestFailed):
         self.event = event
 
 
+@dataclasses.dataclass
+class WindowStats:
+    """One scheduler observation window of streamed serving, the
+    request-level counterpart of ``adaptive.WaveResult``."""
+    window: int
+    n_containers: int
+    wall_s: float
+    energy_j: float
+    n_requests: int
+    n_tokens: int = 0
+    tokens_per_s: float = 0.0
+    ttfc_p50_s: float = 0.0       # time-to-first-chunk, median
+    ttfc_p95_s: float = 0.0       # time-to-first-chunk, tail
+    latency_p50_s: float = 0.0
+    latency_p95_s: float = 0.0
+    n_retries: int = 0            # re-dispatches after container failures
+    n_failed: int = 0             # terminal FailedEvents in the window
+    n_shed: int = 0               # admission rejections in the window
+    prefix_hit_tokens: int = 0    # prompt tokens served from the prefix
+                                  # cache instead of prefill (paged only)
+
+
 class CompletionHandle:
     """Live view of one submitted request. ``stream()`` yields its events
     as they arrive (pumping the router while it waits); ``result()``
@@ -104,6 +150,7 @@ class CompletionHandle:
         self.attempts: int = 0                # retries so far
         self.ttfc_s: float | None = None      # submit → first ChunkEvent
         self.container_id: int | None = None
+        self.done_at: float | None = None     # DoneEvent arrival stamp
 
     @property
     def done(self) -> bool:
@@ -151,20 +198,54 @@ class CompletionHandle:
 
 
 class Router:
-    """Continuous admission over one fixed-count backend (``ThreadBackend``
-    or ``ProcessBackend``), with deadlines and load shedding."""
+    """Continuous admission over a ``ThreadBackend`` or ``ProcessBackend``,
+    with deadlines and load shedding.
 
-    def __init__(self, backend, *, max_retries: int = 1,
+    Fixed mode: pass ``backend``. Adaptive mode: pass ``backend_factory``
+    (count -> backend on ``device``) plus ``feasible_counts`` (or a
+    ``scheduler``; ``objective``, ``epsilon``, ``seed`` and ``deadline_s``,
+    the scheduler's time bound, build one); the Router starts at the
+    scheduler's pick and resizes between windows of ``window``
+    completions (or ``window_s`` seconds)."""
+
+    def __init__(self, backend=None, *,
+                 backend_factory: Callable[[int], Any] | None = None,
+                 feasible_counts: Sequence[int] | None = None,
+                 scheduler: DivideAndSaveScheduler | None = None,
+                 objective: str = "energy",
+                 epsilon: float = 0.0, seed: int = 0,
+                 deadline_s: float | None = None,
+                 window: int = 16,
+                 window_s: float | None = None,
+                 energy: EnergyProxy | None = None,
+                 max_retries: int = 1,
                  request_deadline_s: float | None = None,
                  deadline_grace_s: float = 0.5,
                  max_queue: int | None = None,
                  shed_p95_s: float | None = None,
                  shed_window_s: float = 30.0,
                  device: str | torch.device = "cuda"):
-        dev = resolve_device(device)
-        if backend.device != dev:
-            raise ValueError(f"backend serves on {backend.device}, router "
-                             f"asked for {dev}")
+        if backend is None and backend_factory is None:
+            raise ValueError("need a backend or a backend_factory")
+        self.device = resolve_device(device)
+        self.energy = energy or EnergyProxy()
+        self.window = window
+        # a time-closed window (None: completion count only), so sparse
+        # traffic still gives the scheduler observations
+        self.window_s = window_s
+        self.scheduler = scheduler
+        self._factory = backend_factory
+        self._backends: dict[int, Any] = {}
+        if backend_factory is not None:
+            if scheduler is None:
+                if not feasible_counts:
+                    raise ValueError("adaptive mode needs feasible_counts "
+                                     "(or an explicit scheduler)")
+                self.scheduler = DivideAndSaveScheduler(
+                    list(feasible_counts), objective=objective,
+                    deadline_s=deadline_s, epsilon=epsilon, seed=seed)
+            backend = self._backend_for(self.scheduler.pick())
+        self._check_device(backend)
         self.backend = backend
         self.max_retries = max_retries
         self.request_deadline_s = request_deadline_s
@@ -187,10 +268,45 @@ class Router:
         # (stamp, seconds) ttfc samples for the shed threshold, aged out
         # past shed_window_s so a past spike stops shedding
         self._recent_ttfc: deque[tuple[float, float]] = deque(maxlen=64)
+        self.history: list[WindowStats] = []
+        self._target_n: int | None = None    # a resize awaiting a drain
+        self._new_window()
+
+    def _check_device(self, backend) -> None:
+        if backend.device != self.device:
+            raise ValueError(f"backend serves on {backend.device}, router "
+                             f"asked for {self.device}")
+
+    def _backend_for(self, n: int):
+        """The count's backend, built by the factory at its first pick
+        and cached warm."""
+        if n not in self._backends:
+            backend = self._factory(n)
+            self._check_device(backend)
+            self._backends[n] = backend
+        return self._backends[n]
+
+    def _new_window(self) -> None:
+        """Open a window: its clock, the backend's counters (with a
+        scheduler only; a fixed Router reads none) and its
+        accumulators."""
+        self._window_t0 = time.perf_counter()
+        self._window_stats0 = (
+            [self.backend.stats(cid) for cid in range(self.backend.capacity)]
+            if self.scheduler is not None else [])
+        self._window_done: list[Completion] = []
+        self._window_ttfc: list[float] = []
+        self._window_retries = 0
+        self._window_failed = 0
+        self._window_shed = 0
 
     @property
     def in_flight(self) -> int:
         return len(self._handles)
+
+    @property
+    def n_containers(self) -> int:
+        return self.backend.capacity
 
     def _alive_cids(self) -> list[int]:
         """Containers the backend reports ``alive`` (a backend without a
@@ -242,6 +358,15 @@ class Router:
                                f"{self.shed_p95_s:g}s")
         return None
 
+    def _retry_after_hint(self) -> float:
+        """The backpressure hint of a shed request: about one median
+        request latency of the last window (the shortest wait after which
+        the picture can have changed), floored so clients cannot
+        hot-loop; 0.25 s while no window history exists."""
+        if self.history and self.history[-1].latency_p50_s > 0:
+            return max(_RETRY_AFTER_FLOOR_S, self.history[-1].latency_p50_s)
+        return _RETRY_AFTER_S
+
     def _terminal_handle(self, req: Request, ev) -> CompletionHandle:
         """A handle born terminal (shed, or nowhere to dispatch): never
         registered, its single event already pending."""
@@ -264,14 +389,17 @@ class Router:
         shed = self._shed_reason()
         if shed is not None:
             self.shed_total += 1
+            self._window_shed += 1
             return self._terminal_handle(req, RejectedEvent(
-                req.rid, shed[1], _RETRY_AFTER_S, now, kind=shed[0]))
+                req.rid, shed[1], self._retry_after_hint(), now,
+                kind=shed[0]))
         if req.deadline_s is None and self.request_deadline_s is not None:
             req = dataclasses.replace(req,
                                       deadline_s=self.request_deadline_s)
         cid = self._dispatch(req)
         if cid is None:
             self.failed_total += 1
+            self._window_failed += 1
             return self._terminal_handle(req, FailedEvent(
                 req.rid, -1, "container",
                 "no healthy container to dispatch to (all circuit-broken "
@@ -311,6 +439,7 @@ class Router:
         handle.failure = ev
         handle._pending.append(ev)
         self.failed_total += 1
+        self._window_failed += 1
 
     def _expire_deadlines(self, now: float) -> None:
         """The deadline backstop: the engine expires deadlines itself (that
@@ -373,6 +502,7 @@ class Router:
             if deadline_abs is not None:
                 self._deadline_abs[rid] = deadline_abs   # the backstop's
             self.retry_total += 1
+            self._window_retries += 1
             handle._pending.append(RetryEvent(
                 rid, cid, handle.attempts, reason, now))
             resubmit = req
@@ -411,15 +541,17 @@ class Router:
                 handle.ttfc_s = now - self._submit_t[ev.rid]
                 self.note_ttfc(handle.ttfc_s, at=now)
             elif isinstance(ev, DoneEvent):
-                handle.completion = ev.completion
-                self._forget(ev.rid)
+                self._on_done(handle, ev)
             elif isinstance(ev, FailedEvent):
                 # an engine-side terminal (a deadline expired inside the
                 # container, whose resources are already freed there)
                 handle.failure = ev
                 self._forget(ev.rid)
                 self.failed_total += 1
+                self._window_failed += 1
         self._expire_deadlines(now)
+        if self.scheduler is not None:
+            self._maybe_rotate_window()
         if block and not events:
             time.sleep(_IDLE_SLEEP_S)
         return events
@@ -427,6 +559,17 @@ class Router:
     def poll(self) -> list[Event]:
         """Advance containers and route events; returns the routed batch."""
         return self._pump(block=False)
+
+    def _on_done(self, handle: CompletionHandle, ev: DoneEvent) -> None:
+        handle.completion = ev.completion
+        handle.done_at = time.perf_counter()
+        self._forget(handle.rid)
+        if self.scheduler is not None:
+            # the window's samples feed the scheduler only; a fixed Router
+            # keeps no completion past its handle
+            self._window_done.append(ev.completion)
+            if handle.ttfc_s is not None:
+                self._window_ttfc.append(handle.ttfc_s)
 
     def cancel(self, rid: int, reason: str = "cancelled by caller") -> bool:
         """Cancel an in-flight request: removed in its container (slot and
@@ -448,13 +591,135 @@ class Router:
         while self._handles:
             self._pump(block=True)
 
+    # -- windowed adaptation --------------------------------------------
+    def _maybe_rotate_window(self) -> None:
+        """The window closes on its completion count, or with
+        ``window_s`` on elapsed time once it holds a completion (an idle
+        time-expired window only restarts its clock); the backend swap it
+        asks for waits until nothing is in flight, since a resize under a
+        live request would strand its slot. At the swap the outgoing
+        backend's partial window is observed first (without a repick),
+        the bucket counters start over for the new containers and the
+        shed tail is cleared: it described the outgoing count."""
+        time_up = (self.window_s is not None
+                   and time.perf_counter() - self._window_t0
+                   >= self.window_s)
+        if len(self._window_done) >= self.window:
+            self._observe_window()
+        elif time_up:
+            if self._window_done:
+                self._observe_window()
+            else:
+                self._new_window()
+        if self._target_n is None or self._handles:
+            return
+        if (self._target_n != self.backend.capacity
+                and self._factory is not None):
+            if self._window_done:
+                self._observe_window(repick=False)
+            self.backend = self._backend_for(self._target_n)
+            self._cid_buckets = [Counter()
+                                 for _ in range(self.backend.capacity)]
+            self._recent_ttfc.clear()
+            self._new_window()
+        self._target_n = None
+
+    def _observe_window(self, repick: bool = True) -> None:
+        """Record the window's ``WindowStats``, feed the scheduler its
+        (n, wall, energy, ttfc p95) and, with ``repick``, ask for the next
+        count. A time-closed window of fewer than ``window`` completions
+        is scaled up to the window's size, so observations stay
+        comparable (the fit models a per-request cost)."""
+        n = self.backend.capacity
+        wall = time.perf_counter() - self._window_t0
+        now = [self.backend.stats(cid) for cid in range(n)]
+        busy = [b - b0 for (b, _), (b0, _) in zip(now, self._window_stats0)]
+        toks = sum(t - t0 for (_, t), (_, t0) in zip(now,
+                                                     self._window_stats0))
+        energy_j = sum(self.energy.container_energy(wall, b, n)
+                       for b in busy)
+        ttfc50, ttfc95 = percentiles(self._window_ttfc)
+        lat50, lat95 = latency_percentiles(self._window_done)
+        self.history.append(WindowStats(
+            len(self.history), n, wall, energy_j, len(self._window_done),
+            toks, toks / wall if wall > 0 else 0.0, ttfc50, ttfc95,
+            lat50, lat95, n_retries=self._window_retries,
+            n_failed=self._window_failed, n_shed=self._window_shed,
+            prefix_hit_tokens=sum(c.prefix_hit_tokens
+                                  for c in self._window_done)))
+        done = len(self._window_done)
+        scale = 1.0
+        if self.window_s is not None and 0 < done < self.window:
+            scale = self.window / done
+        self.scheduler.observe(n, wall * scale, energy_j * scale,
+                               ttfc_p95_s=ttfc95 if self._window_ttfc
+                               else None)
+        if repick:
+            self._target_n = self.scheduler.pick()
+        self._new_window()
+
+    @property
+    def choice(self) -> int:
+        """The exploitation-only container count (what a converged
+        deployment runs); adaptive mode only."""
+        if self.scheduler is None:
+            raise RuntimeError("a fixed-count Router has no scheduler")
+        return self.scheduler.best()
+
+    # -- wave shim -------------------------------------------------------
+    def serve_wave(self, requests: list[Request]
+                   ) -> tuple[list[Completion], list[ContainerResult],
+                              float, float]:
+        """The wave API over streaming: submit all, drain, and rebuild the
+        per-container accounting with ``assemble_wave``. Completions come
+        back in submission order; a request that ends without one fails
+        the wave."""
+        _warn_wave_shim("Router.serve_wave")
+        # pinned for the wave: a window boundary inside drain() may swap
+        # self.backend, and the wave's counters are the serving backend's
+        backend = self.backend
+        stats0 = [backend.stats(cid) for cid in range(backend.capacity)]
+        t0 = time.perf_counter()
+        handles = [self.submit(r) for r in requests]
+        self.drain()
+        wall = time.perf_counter() - t0
+        failed = [h.rid for h in handles if h.completion is None]
+        if failed:
+            raise RuntimeError(
+                f"wave failed: requests {failed} ended without a "
+                "completion (see router.container_failures)")
+        capacity = backend.capacity
+        segments: list[list[Request]] = [[] for _ in range(capacity)]
+        comps: list[list[Completion]] = [[] for _ in range(capacity)]
+        # a container's wall runs from submit to its last DoneEvent
+        last = [0.0] * capacity
+        for r, h in zip(requests, handles):
+            segments[h.container_id].append(r)
+            comps[h.container_id].append(h.completion)
+            last[h.container_id] = max(last[h.container_id],
+                                       h.done_at - t0)
+        now = [backend.stats(cid) for cid in range(capacity)]
+        out = [(comps[cid], last[cid], now[cid][0] - stats0[cid][0],
+                now[cid][1] - stats0[cid][1]) for cid in range(capacity)]
+        _, results, energy = assemble_wave(out, segments, wall, self.energy)
+        return [h.completion for h in handles], results, wall, energy
+
+    def serve(self, requests: list[Request]
+              ) -> tuple[list[Completion], list[ContainerResult]]:
+        ordered, results, _, _ = self.serve_wave(requests)
+        return ordered, results
+
     def close(self) -> None:
-        """Close the backend; handles still mid-stream raise rather than
-        hang."""
+        """Close the backend, and every cached backend of adaptive mode;
+        handles still mid-stream raise rather than hang."""
         if self._closed:
             return
         self._closed = True
-        self.backend.close()
+        backends = {id(b): b for b in self._backends.values()}
+        backends[id(self.backend)] = self.backend
+        for b in backends.values():
+            b.close()
+        self._backends = {}
 
     def __enter__(self) -> "Router":
         return self

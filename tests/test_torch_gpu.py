@@ -1817,3 +1817,86 @@ def test_a_rebuilt_thread_engine_frees_the_old_cache_and_captures_anew(
         assert built - dropped >= cache_bytes, (dropped, built)
     assert [f.kind for f in router.container_failures] == ["error"]
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# the paged cache over SSM rows, and the online container-count loop
+# ---------------------------------------------------------------------------
+def test_paged_mamba2_graph_replay_gives_the_eager_chunks_bits(cuda):
+    """A paged mamba2 engine (no paged group: the state rows stay dense
+    under the block accounting): replayed chunks equal the eager chunks
+    over every state row, through a re-admission into a freed row, and
+    its greedy streams equal the dense engine's."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    model = Model(get_config("mamba2-2.7b-reduced"), device="cuda")
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    base = dict(n_slots=3, max_len=128, chunk_tokens=8,
+                dtype=torch.bfloat16)
+    eng = ServingEngine(model, params, EngineConfig(
+        cache="paged", block_size=16, max_seqs=4, **base), device="cuda")
+    assert eng.cache_backend._groups == []
+    vocab = model.cfg.vocab_size
+    eng.submit_many(_requests(vocab, GRAPH_SPECS, 2))
+    eng.step()
+    compared = _graph_vs_eager(eng, "mamba2 paged")
+    eng.submit_many(_requests(vocab, [(16, 11)], 3, start=50))
+    eng.step()
+    while any(s.active for s in eng.slots):
+        compared += _graph_vs_eager(eng, "mamba2 paged")
+    eng.run()
+    assert compared >= 8
+    streams = []
+    for cache in ("dense", "paged"):
+        e = ServingEngine(model, params, EngineConfig(
+            cache=cache, block_size=16, max_seqs=4 if cache == "paged"
+            else None, **base), device="cuda")
+        e.submit_many(_requests(vocab, GRAPH_SPECS, 4))
+        streams.append({c.rid: c.tokens for c in e.run()})
+        assert e._graph is not None
+    assert streams[0] == streams[1]
+
+
+def test_a_two_count_adaptive_router_serves_the_fixed_routers_tokens(cuda):
+    """Over reduced qwen3 on the card, one request a prefill: windows of 4
+    through Router(backend_factory=ThreadBackend, counts 1 and 2) visit
+    both counts, build each backend once, and give a fixed
+    Router(ThreadBackend(1))'s greedy tokens."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.containers import card_feasible_counts
+    from repro_torch.models.model import Model
+    from repro_torch.serving.backend import ThreadBackend
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.router import Router
+
+    model = Model(get_config("qwen3-0.6b-reduced"), device="cuda")
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    config = EngineConfig(n_slots=2, max_len=128, chunk_tokens=8,
+                          dtype=torch.bfloat16, batch_admit=False)
+    counts = card_feasible_counts(
+        model.cfg, config, max_containers=2,
+        card_bytes=torch.cuda.get_device_properties(0).total_memory)
+    assert counts == [1, 2]
+    reqs = _requests(model.cfg.vocab_size,
+                     [(12, 9), (32, 5), (20, 12), (64, 7)] * 3, 6)
+    with Router(ThreadBackend(model, params, 1, config)) as fixed:
+        want = {h.rid: h.tokens() for h in [fixed.submit(r) for r in reqs]}
+    built = []
+
+    def factory(n):
+        built.append(n)
+        return ThreadBackend(model, params, n, config)
+    got = {}
+    with Router(backend_factory=factory, feasible_counts=counts, window=4,
+                epsilon=0.0) as router:
+        for i in range(0, len(reqs), 4):
+            handles = [router.submit(r) for r in reqs[i:i + 4]]
+            router.drain()
+            got.update({h.rid: h.tokens() for h in handles})
+        assert {w.n_containers for w in router.history} == {1, 2}
+        assert all(w.energy_j > 0 and w.tokens_per_s > 0
+                   for w in router.history)
+    assert sorted(built) == [1, 2]
+    assert got == want

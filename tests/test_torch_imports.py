@@ -40,7 +40,11 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
     assert {"repro_torch.kernels.rmsnorm", "repro_torch.serving.child",
             "repro_torch.serving.faults", "repro_torch.serving.pool",
             "repro_torch.models.sampling",
-            "repro_torch.core.testbed"} <= set(_modules())
+            "repro_torch.core.testbed", "repro_torch.core.splitter",
+            "repro_torch.core.energy_model", "repro_torch.core.scheduler",
+            "repro_torch.core.containers",
+            "repro_torch.serving.process_pool",
+            "repro_torch.serving.adaptive"} <= set(_modules())
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         class Blk(importlib.abc.MetaPathFinder):
@@ -124,6 +128,8 @@ def test_unported_configurations_raise():
 
 
 def test_mamba2_is_accepted_and_its_paged_cache_is_not_ported():
+    """mamba2 serves on both caches; its paged cache pages nothing (the
+    state rows stay dense under the block accounting, as in JAX)."""
     cfg = get_config("mamba2-2.7b-reduced")
     model = Model(cfg, device="cpu")
     assert model.fam == "ssm"
@@ -135,10 +141,11 @@ def test_mamba2_is_accepted_and_its_paged_cache_is_not_ported():
     ServingEngine(model, params, EngineConfig(n_slots=2, max_len=32),
                   device="cpu")
     paged = EngineConfig(n_slots=2, max_len=32, cache="paged")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServingEngine(model, params, paged, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ThreadBackend(model, params, 2, paged, device="cpu")
+    eng = ServingEngine(model, params, paged, device="cpu")
+    assert eng.paged and eng.cache_backend._groups == []
+    assert [set(g) for g in eng.cache_backend.tree] == [
+        {"conv", "state"}] * cfg.n_layers
+    ThreadBackend(model, params, 2, paged, device="cpu").close()
 
 
 def test_int8_kv_cache_is_accepted_on_both_layouts():

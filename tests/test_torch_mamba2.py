@@ -150,13 +150,18 @@ def test_model_prefill_and_decode_logits_match_jax(pair):
 
 
 def test_prefill_suffix_and_paged_cache_are_refused(pair):
+    """Prefix sharing is refused; a paged layout pages nothing of an SSM
+    model (its cache is the dense state rows, as in JAX; the paged engine
+    runs its block accounting beside them, tests/test_torch_paged_ssm.py)."""
     from repro_torch.models.cache import PagedLayout
     _, _, tm, tp = pair
     with pytest.raises(ValueError, match="prefix sharing unsupported"):
         tm.prefill_suffix(tp, torch.zeros((1, 4), dtype=torch.int32),
                           tm.init_cache(1, 4), [], 16)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tm.init_cache(1, 32, layout=PagedLayout(16, 4))
+    paged = tm.init_cache(1, 32, layout=PagedLayout(16, 4))
+    dense = tm.init_cache(1, 32)
+    assert [{k: t.shape for k, t in g.items()} for g in paged] == [
+        {k: t.shape for k, t in g.items()} for g in dense]
 
 
 def _specs(plens_max_new, seed):
