@@ -223,8 +223,36 @@ Phases, each raising on failure (any failure exits nonzero):
        ``ContainerServingPool(2)``: identical ordered completions; both
        walls and proxy energies printed. No child outlives the phase.
 
+13. Trace replay under SLO classes on phase 4's model (bf16, n_slots=4,
+    max_len=2048, chunk_tokens=32, one request a prefill): the first 96
+    arrivals of the ``diurnal-bursty`` preset (seed 1), replayed
+    open-loop by ``workload.replay`` at time_scale 10, prompts over the
+    full vocabulary, classes ``interactive:0.5,batch:8.0``.
+    a. ``Router(ThreadBackend(2), slo=..., tenant_quota=8,
+       max_queue=32)``, the backend's submit logged beside the Router's
+       live backlog. Gates: every request ends in exactly one terminal
+       event; done + shed + failed = 96; each dispatch takes the lowest
+       (rank, arrival) of the live backlog; every ``RejectedEvent`` has a
+       kind in {queue, slo, tenant} and a class of the spec; every
+       completed request's greedy tokens equal a plain fixed
+       ``Router(ThreadBackend(2))``'s, fed one request at a time.
+    b. The adaptive Router over ``card_feasible_counts`` (at most 4),
+       ``objective="energy_under_slo"``, window 16, window_s 5, beside the
+       same trace through the SLO-blind adaptive Router
+       (``objective="energy"``): per window n, wall, proxy J, the card's
+       J (phase 12's sampler) and ``per_class``; each report's goodput,
+       per-class p95 and attainment, counts visited and final n. Gates:
+       both account for all 96; the SLO run's ``per_class`` names spec
+       classes only.
+    c. ``python -m repro_torch.launch.serve --arch qwen3-0.6b --trace
+       bursty --time-scale 10 --priority-classes interactive:0.5,batch:8.0
+       --tenant-quota 8 --containers 2 --cache paged --prefix-cache`` as a
+       subprocess with a timeout: exit 0, its report line parsed and
+       adding up, and its own kernel launches (flash, paged decode,
+       rmsnorm) nonzero.
+
 Then a JSON line with each kernel's launches (from the phase of the path
-it serves, and by phase), error and times (eight kernels), the card's
+it serves, and by phase, phase 13's three parts among them), error and times (eight kernels), the card's
 ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 {...}}``.
 
@@ -3696,6 +3724,299 @@ def online_loop_phase(model, params, card: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: trace replay and SLO classes
+# ---------------------------------------------------------------------------
+# the diurnal-bursty preset at the benchmark's trace seed, its first 96
+# arrivals, replayed open-loop 10x compressed under two classes
+SLO13 = "interactive:0.5,batch:8.0"
+TRACE13_SEED = 1
+TRACE13_N = 96
+TIME_SCALE13 = 10.0
+CLI13 = ["--arch", "qwen3-0.6b", "--trace", "bursty", "--time-scale", "10",
+         "--priority-classes", SLO13, "--tenant-quota", "8",
+         "--containers", "2", "--cache", "paged", "--prefix-cache"]
+CLI13_TIMEOUT_S = 400
+REPORT13 = (r"^trace (\S+) \(seed (\d+), time_scale ([\d.]+)\): (\d+)/(\d+) "
+            r"done, (\d+) shed, (\d+) failed in ([\d.]+)s$")
+
+
+def trace13(n: int = TRACE13_N):
+    """The phase's trace: diurnal-bursty, seed 1, its first ``n``
+    arrivals."""
+    from repro_torch.workload.traces import get_preset, synthesize
+
+    trace = synthesize(get_preset("diurnal-bursty"), seed=TRACE13_SEED)
+    return dataclasses.replace(trace, requests=trace.requests[:n])
+
+
+def slo_replay(router, trace, vocab_size: int):
+    """Replay ``trace`` open-loop through an SLO ``router``, logging each
+    dispatch beside the backlog still live at that moment: (dispatched
+    (rank, rid), the lowest live (rank, rid) or None). Returns (report,
+    handles, log)."""
+    from repro_torch.workload.replay import replay
+
+    backend, slo = router.backend, router.slo
+    log, handles = [], []
+    submit_backend, submit_router = backend.submit, router.submit
+
+    def logged(cid, req):
+        live = [(rank, rid) for rank, _, rid in router._backlog
+                if rid in router._handles and rid not in router._rid_cid]
+        log.append(((slo.cls(req.priority).rank, req.rid),
+                    min(live) if live else None))
+        submit_backend(cid, req)
+
+    def kept(req):
+        h = submit_router(req)
+        handles.append(h)
+        return h
+    backend.submit = logged
+    router.submit = kept
+    report = replay(trace, router, time_scale=TIME_SCALE13,
+                    vocab_size=vocab_size)
+    return report, handles, log
+
+
+def check_slo_run(report, handles, log, slo, n: int, what: str) -> dict:
+    """The SLO run's gates: one terminal a request, every request counted,
+    dispatch in (rank, arrival) order of the live backlog, every
+    rejection typed with its class. Returns the completed tokens by
+    rid."""
+    from repro_torch.serving.events import (DoneEvent, FailedEvent,
+                                            RejectedEvent)
+    from repro_torch.serving.router import RequestFailed
+
+    if report.n_done + report.n_shed + report.n_failed != n \
+            or report.n_requests != n or len(handles) != n:
+        fail(f"{what}: {report.n_done} done + {report.n_shed} shed + "
+             f"{report.n_failed} failed of {report.n_requests} "
+             f"({len(handles)} handles), not {n}")
+    done = {}
+    for h in handles:
+        terminals = []
+        try:
+            for ev in h.stream():
+                if isinstance(ev, (DoneEvent, FailedEvent, RejectedEvent)):
+                    terminals.append(ev)
+        except RequestFailed:
+            pass
+        if len(terminals) != 1:
+            fail(f"{what}: request {h.rid} ended in {len(terminals)} "
+                 "terminal events")
+        ev = terminals[0]
+        if isinstance(ev, RejectedEvent):
+            if ev.kind not in ("queue", "slo", "tenant") \
+                    or ev.priority not in slo.names():
+                fail(f"{what}: request {h.rid} rejected with kind "
+                     f"{ev.kind!r}, class {ev.priority!r}")
+        elif isinstance(ev, DoneEvent):
+            done[h.rid] = list(h.completion.tokens)
+    for got, lowest in log:
+        if lowest is not None and got > lowest:
+            fail(f"{what}: dispatched (rank, rid) {got} while {lowest} "
+                 "waited in the backlog")
+    return done
+
+
+def print_report(report, what: str, card: str) -> None:
+    classes = "; ".join(
+        f"{name}: done {cw.n_done} shed {cw.n_shed} failed {cw.n_failed} "
+        f"ttfc_p95_s={cw.ttfc_p95_s:.4f} attained {cw.attained}"
+        for name, cw in sorted(report.per_class.items()))
+    print(f"{what}: {report.n_done}/{report.n_requests} done, "
+          f"{report.n_shed} shed, {report.n_failed} failed, duration_s="
+          f"{report.duration_s:.4f} goodput_rps={report.goodput_rps:.4f} "
+          f"ttfc_p95_s={report.ttfc_p95_s:.4f} proxy_j={report.energy_j:.4f}"
+          f" counts_visited {list(report.counts_visited)} final_n "
+          f"{report.final_n}; {classes} [card: {card}]", flush=True)
+
+
+def slo_trace_phase(model, params, card: str):
+    """Phase 13 on full-width qwen3-0.6b (bf16, phase 4's seeded weights,
+    n_slots=4, max_len=2048, chunk_tokens=32, one request a prefill):
+    the first 96 arrivals of diurnal-bursty (seed 1), replayed open-loop
+    at time_scale 10, prompts over the full vocabulary, under
+    ``interactive:0.5,batch:8.0``.
+
+    a. ``Router(ThreadBackend(2), slo, tenant_quota=8, max_queue=32)``
+       through ``workload.replay``. Gates: one terminal a request, 96
+       accounted, each dispatch the lowest (rank, arrival) of the live
+       backlog, rejections typed with their class, and every completed
+       request's greedy tokens those of a fixed Router(ThreadBackend(2))
+       without an SLO, fed one request at a time.
+    b. The adaptive Router over ``card_feasible_counts`` (at most 4),
+       ``objective="energy_under_slo"``, window 16, window_s 5, beside
+       the SLO-blind adaptive Router (``objective="energy"``): per window
+       n, wall, proxy J, the card's J and ``per_class``; each report's
+       goodput, per-class p95 and attainment, counts visited, final n.
+       Gates: both account for the 96, per_class names spec classes only.
+    c. The launcher, ``python -m repro_torch.launch.serve`` in the trace
+       mode on paged engines with prefix sharing, as a subprocess: exit 0
+       and its report line parsed. Its kernel launches are its own.
+
+    Returns the launches of 13a, 13b (both runs) and 13c."""
+    from repro_torch.core.containers import card_feasible_counts
+    from repro_torch.kernels import ops
+    from repro_torch.serving.backend import ThreadBackend
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.router import Router
+    from repro_torch.workload.replay import build_request, replay
+    from repro_torch.workload.slo import SLOSpec
+
+    cfg = model.cfg
+    config = EngineConfig(n_slots=4, max_len=2048, chunk_tokens=32,
+                          dtype=torch.bfloat16, batch_admit=False)
+    slo = SLOSpec.parse(SLO13)
+    trace = trace13()
+    rng = np.random.default_rng(14)
+    phase_t0 = time.perf_counter()
+
+    # 13a: the fixed SLO Router
+    backend = ThreadBackend(model, params, 2, config)
+    warm_backend(backend, cfg, rng)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with Router(backend, slo=slo, tenant_quota=8, max_queue=32) as router:
+        report, handles, log = slo_replay(router, trace, cfg.vocab_size)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches_a = ops.launch_counts()
+        done = check_slo_run(report, handles, log, slo, TRACE13_N,
+                             "phase 13a")
+    print_report(report, f"slo replay (13a) wall_s={wall:.4f}", card)
+    print(f"slo replay (13a): {len(log)} dispatches, "
+          f"{sum(1 for _, low in log if low is not None)} with a live "
+          f"backlog; launches {launches_a} [card: {card}]", flush=True)
+    by_rid = {tr.rid: tr for tr in trace.requests}
+    t0 = time.perf_counter()
+    with Router(ThreadBackend(model, params, 2, config)) as plain:
+        want = {rid: plain.submit(build_request(
+            by_rid[rid], vocab_size=cfg.vocab_size)).tokens()
+                for rid in sorted(done)}
+    print(f"slo replay (13a): the plain Router's {len(want)} requests one "
+          f"at a time in {time.perf_counter() - t0:.4f} s [card: {card}]",
+          flush=True)
+    if done != want:
+        bad = [rid for rid in want if done.get(rid) != want[rid]]
+        fail(f"phase 13a: requests {bad} differ from the plain fixed "
+             "Router's greedy tokens")
+    for k in ("flash_attention", "decode_attention"):
+        if launches_a[k] <= 0:
+            fail(f"phase 13a: {k} never launched: {launches_a}")
+    check_norm_launches(cfg, launches_a, "phase 13a")
+    torch.cuda.empty_cache()
+
+    # 13b: the adaptive Router, with the SLO and without
+    counts = card_feasible_counts(
+        cfg, config, max_containers=4,
+        card_bytes=torch.cuda.get_device_properties(0).total_memory)
+    launches_b = {k: 0 for k in ops.COUNTERS}
+    meter = PowerMeter()
+    try:
+        for name, kw in (("slo", dict(slo=slo, tenant_quota=8,
+                                      max_queue=32,
+                                      objective="energy_under_slo")),
+                         ("blind", dict(max_queue=32,
+                                        objective="energy"))):
+            warm = {}
+            for n in counts:
+                warm[n] = ThreadBackend(model, params, n, config)
+                warm_backend(warm[n], cfg, rng)
+            stamps = []
+            ops.reset_launch_counts()
+            with Router(backend_factory=warm.__getitem__,
+                        feasible_counts=counts, window=16, window_s=5.0,
+                        epsilon=0.0, **kw) as router:
+                observe = router._observe_window
+
+                def stamped(repick=True, router=router, observe=observe):
+                    t_open = router._window_t0
+                    observe(repick)
+                    stamps.append((t_open, time.perf_counter()))
+                router._observe_window = stamped
+                report = replay(trace, router, time_scale=TIME_SCALE13,
+                                vocab_size=cfg.vocab_size)
+                torch.cuda.synchronize()
+                history = list(router.history)
+                summary = router.scheduler.summary()
+            for n in warm:
+                warm[n].close()
+            for k, v in ops.launch_counts().items():
+                launches_b[k] += v
+            for w, (t_open, t_close) in zip(history, stamps):
+                classes = "; ".join(
+                    f"{c}: done {cw.n_done} shed {cw.n_shed} failed "
+                    f"{cw.n_failed} ttfc_p95_s={cw.ttfc_p95_s:.4f} "
+                    f"attained {cw.attained}"
+                    for c, cw in sorted(w.per_class.items()))
+                print(f"online slo (13b, {name}) window {w.window}: "
+                      f"n={w.n_containers} requests={w.n_requests} wall_s="
+                      f"{w.wall_s:.4f} proxy_j={w.energy_j:.4f} "
+                      f"{measured(meter, t_open, t_close, w.wall_s)} "
+                      f"ttfc_p95_s={w.ttfc_p95_s:.4f} shed {w.n_shed} "
+                      f"per_class [{classes}] [card: {card}]", flush=True)
+            print_report(report, f"online slo (13b, {name})", card)
+            print(f"online slo (13b, {name}): scheduler summary {summary}"
+                  f" [card: {card}]", flush=True)
+            if report.n_done + report.n_shed + report.n_failed \
+                    != TRACE13_N:
+                fail(f"phase 13b ({name}): {report.n_done} + "
+                     f"{report.n_shed} + {report.n_failed} != "
+                     f"{TRACE13_N}")
+            named = {c for w in history for c in w.per_class}
+            if name == "slo" and not named <= set(slo.names()):
+                fail(f"phase 13b: per_class names {named} outside "
+                     f"{slo.names()}")
+            if name == "blind" and named:
+                fail(f"phase 13b: the SLO-blind Router kept per_class "
+                     f"{named}")
+            del warm
+            torch.cuda.empty_cache()
+    finally:
+        meter.close()
+
+    # 13c: the launcher in the trace mode, its own process
+    import re
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *CLI13],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+            capture_output=True, text=True, timeout=CLI13_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"phase 13c: the launcher ran past {CLI13_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    m = re.search(REPORT13, out.stdout, re.M)
+    if out.returncode != 0 or m is None:
+        fail(f"phase 13c: launcher exit {out.returncode}, report line "
+             f"{'found' if m else 'missing'}\n{out.stdout[-3000:]}\n"
+             f"{out.stderr[-3000:]}")
+    n_done, total, n_shed, n_failed = (int(m.group(i)) for i in (4, 5, 6, 7))
+    if n_done + n_shed + n_failed != total or total == 0:
+        fail(f"phase 13c: report line {m.group(0)!r} does not add up")
+    lm = re.search(r"^kernel launches: (\{.*\})$", out.stdout, re.M)
+    launches_c = json.loads(lm.group(1)) if lm else {}
+    for k in ("flash_attention", "paged_decode_attention", "rmsnorm"):
+        if launches_c.get(k, 0) <= 0:
+            fail(f"phase 13c: the launcher's {k} never launched: "
+                 f"{launches_c}")
+    for line in out.stdout.splitlines():
+        if line.startswith(("trace ", "goodput ", "  [")):
+            print(f"launcher (13c): {line}", flush=True)
+    print(f"launcher (13c): exit 0 in {wall:.2f} s (process start, model "
+          f"init, replay); launches {launches_c} [card: {card}]",
+          flush=True)
+    if multiprocessing.active_children():
+        fail(f"phase 13 left processes running: "
+             f"{multiprocessing.active_children()}")
+    print(f"slo replay (13): whole phase "
+          f"{time.perf_counter() - phase_t0:.2f} s [card: {card}]",
+          flush=True)
+    return launches_a, launches_b, launches_c
+
+
 def full_width_model(dtype):
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import Model
@@ -3791,6 +4112,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     online_launches = online_loop_phase(model, params, card)
 
+    # trace replay under SLO classes on the same weights, and the launcher
+    torch.cuda.empty_cache()
+    slo_launches = slo_trace_phase(model, params, card)
+
     # the SSM family, once the qwen3 weights and caches are released, on
     # the dense and on the paged cache
     del model, model8, params
@@ -3814,7 +4139,9 @@ def main() -> int:
     # the SSD scan and 9 (deepseek) for the MLA decode kernel; rmsnorm
     # runs on every path, counted from phase 4; phase 10 sums the process
     # containers' own counts; phase 8b sums mamba2's dense and paged
-    # engines, phase 12 is the adaptive Router's run (12a)
+    # engines, phase 12 is the adaptive Router's run (12a); phase 13a the
+    # fixed SLO Router's replay, 13b both adaptive replays, 13c the
+    # launcher's own process (paged engines)
     by_phase = {"phase4": launches, "phase6": paged_launches,
                 "phase6c": sharing_launches,
                 "phase6c_f32": sharing_launches_f32,
@@ -3825,7 +4152,9 @@ def main() -> int:
                 "phase8b": ssm_paged_launches,
                 "phase10": process_launches,
                 "phase11": contract_launches,
-                "phase12": online_launches}
+                "phase12": online_launches,
+                "phase13a": slo_launches[0], "phase13b": slo_launches[1],
+                "phase13c": slo_launches[2]}
     main_phase = {"flash_attention": "phase4", "decode_attention": "phase4",
                   "paged_decode_attention": "phase6",
                   "decode_attention_int8": "phase7a",

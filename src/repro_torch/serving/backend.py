@@ -318,7 +318,8 @@ class ProcessBackend:
     the file while the backend lives) or ``params_seed`` (each child
     draws ``Model.init(params_seed, config.dtype)`` itself). The kernels
     are built in the parent before the first spawn, so children only
-    load them.
+    load them. ``total_cores`` carves the first that many of the cores
+    this process may use (default all of them), as in JAX.
 
     Submissions travel at the next ``poll()``, one message per container
     holding every request submitted to it since the last poll, and the
@@ -344,6 +345,7 @@ class ProcessBackend:
                  params_seed: int | None = None,
                  params_path: str | None = None,
                  device: str | torch.device = "cuda",
+                 total_cores: int | None = None,
                  allow_shared_cores: bool = False,
                  start_timeout_s: float = 600.0,
                  fault_plan: FaultPlan | None = None,
@@ -379,7 +381,7 @@ class ProcessBackend:
             heartbeat_timeout_s if heartbeat_s > 0 else None)
         # fail fast, before any spawn: more containers than cores cannot
         # be disjoint (see core/testbed.assign_core_sets)
-        self.core_sets = assign_core_sets(n_containers,
+        self.core_sets = assign_core_sets(n_containers, total_cores,
                                           allow_shared=allow_shared_cores)
         self.reported_core_sets: list[frozenset[int]] | None = None
         # per container: the handshake's info (weight bytes, the child's

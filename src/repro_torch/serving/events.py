@@ -69,11 +69,12 @@ class FailedEvent:
 @dataclasses.dataclass(frozen=True)
 class RejectedEvent:
     """Terminal event: admission control shed this request instead of
-    queueing it (the in-flight bound ``max_queue`` reached, or the ttfc
-    tail over the shed threshold). ``retry_after_s`` is the Router's
-    backpressure hint; ``kind`` ∈ {"queue", "slo"} names the threshold
-    that tripped and ``priority`` the request's class ("default" without
-    SLO classes)."""
+    queueing it (the in-flight bound ``max_queue`` or its class's share
+    of it reached, the ttfc tail over the shed threshold, or the
+    request's tenant at its in-flight quota). ``retry_after_s`` is the
+    Router's backpressure hint; ``kind`` ∈ {"queue", "slo", "tenant"}
+    names the threshold that tripped and ``priority`` the SLO class the
+    request resolved to ("default" without SLO classes)."""
     rid: int
     reason: str
     retry_after_s: float

@@ -58,14 +58,29 @@ count, kept warm across resizes and closed by ``close()``. ``serve_wave``
 is the wave shim over it: submit all, drain, ``pool.assemble_wave``'s
 accounting.
 
-Not in the port yet: SLO classes and their backlog, per-class window
-stats, tenant quotas and ``dispatch_depth``.
+SLO mode (pass a ``workload.slo.SLOSpec``), as in JAX: requests carry a
+priority class and a tenant; admission enters a router-side backlog
+ordered by (class rank, submit order) instead of a container's FIFO, and
+leaves it as containers fall below ``dispatch_depth`` queued+active
+requests, so ordering happens where ranks exist (a re-dispatch after a
+container failure still goes straight to a container). Each class sheds
+on its own share of ``max_queue`` (``queue_limit``) and its own ttfc
+tail against ``shed_ttfc_threshold``; ``tenant_quota`` bounds a tenant's
+in-flight requests (``RejectedEvent(kind="tenant")``); each window's
+``WindowStats.per_class`` carries per-class tails and attainment. In
+adaptive mode with ``objective="energy_under_slo"`` the scheduler's
+constraint is the tightest class's target, its tail sample the
+loss-censored p95 of that class (``censored_ttfc_p95``, shed and failed
+arrivals counted at twice the target), and the first window after a
+resize is a warm-up: recorded in ``history``, withheld from the
+scheduler. Without an SLOSpec every path is the one above.
 """
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import time
-from collections import Counter, deque
+from collections import Counter, defaultdict, deque
 from typing import Any, Callable, Iterator, Sequence
 
 import torch
@@ -79,6 +94,9 @@ from repro_torch.serving.events import (ChunkEvent, ContainerFailure,
 from repro_torch.serving.pool import (ContainerResult, EnergyProxy,
                                       _warn_wave_shim, assemble_wave,
                                       latency_percentiles, percentiles)
+from repro_torch.workload.slo import (SLOSpec, censored_ttfc_p95,
+                                      class_window, queue_limit,
+                                      shed_ttfc_threshold)
 
 _IDLE_SLEEP_S = 0.002
 # the shed hint while no window history exists (the fixed-count Router
@@ -132,6 +150,9 @@ class WindowStats:
     n_shed: int = 0               # admission rejections in the window
     prefix_hit_tokens: int = 0    # prompt tokens served from the prefix
                                   # cache instead of prefill (paged only)
+    # per-SLO-class slice of the window (name -> workload.slo.ClassWindow
+    # with tails and attainment); empty without an SLOSpec
+    per_class: dict = dataclasses.field(default_factory=dict)
 
 
 class CompletionHandle:
@@ -151,6 +172,8 @@ class CompletionHandle:
         self.ttfc_s: float | None = None      # submit → first ChunkEvent
         self.container_id: int | None = None
         self.done_at: float | None = None     # DoneEvent arrival stamp
+        self.priority: str = "default"        # resolved SLO class name
+        self.tenant: str = ""
 
     @property
     def done(self) -> bool:
@@ -206,7 +229,8 @@ class Router:
     ``scheduler``; ``objective``, ``epsilon``, ``seed`` and ``deadline_s``,
     the scheduler's time bound, build one); the Router starts at the
     scheduler's pick and resizes between windows of ``window``
-    completions (or ``window_s`` seconds)."""
+    completions (or ``window_s`` seconds). ``slo``, ``tenant_quota`` and
+    ``dispatch_depth`` turn on SLO mode (module docstring)."""
 
     def __init__(self, backend=None, *,
                  backend_factory: Callable[[int], Any] | None = None,
@@ -224,6 +248,9 @@ class Router:
                  max_queue: int | None = None,
                  shed_p95_s: float | None = None,
                  shed_window_s: float = 30.0,
+                 slo: SLOSpec | None = None,
+                 tenant_quota: int | None = None,
+                 dispatch_depth: int = 4,
                  device: str | torch.device = "cuda"):
         if backend is None and backend_factory is None:
             raise ValueError("need a backend or a backend_factory")
@@ -234,6 +261,9 @@ class Router:
         # traffic still gives the scheduler observations
         self.window_s = window_s
         self.scheduler = scheduler
+        self.slo = slo
+        self.tenant_quota = tenant_quota
+        self.dispatch_depth = dispatch_depth
         self._factory = backend_factory
         self._backends: dict[int, Any] = {}
         if backend_factory is not None:
@@ -241,9 +271,14 @@ class Router:
                 if not feasible_counts:
                     raise ValueError("adaptive mode needs feasible_counts "
                                      "(or an explicit scheduler)")
+                slo_kw = ({"objective": "energy_under_slo",
+                           "slo_ttfc_p95_s": slo.constraint.ttfc_p95_s}
+                          if slo is not None
+                          and objective == "energy_under_slo"
+                          else {"objective": objective})
                 self.scheduler = DivideAndSaveScheduler(
-                    list(feasible_counts), objective=objective,
-                    deadline_s=deadline_s, epsilon=epsilon, seed=seed)
+                    list(feasible_counts), deadline_s=deadline_s,
+                    epsilon=epsilon, seed=seed, **slo_kw)
             backend = self._backend_for(self.scheduler.pick())
         self._check_device(backend)
         self.backend = backend
@@ -259,6 +294,12 @@ class Router:
         self._rid_cid: dict[int, int] = {}
         self._submit_t: dict[int, float] = {}
         self._deadline_abs: dict[int, float] = {}  # the backstop's clock
+        # SLO mode: a (rank, submit seq, rid) heap of registered requests
+        # not yet dispatched; entries whose rid ended (left _handles) or
+        # was placed (entered _rid_cid) are skipped lazily
+        self._backlog: list[tuple[int, int, int]] = []
+        self._subseq = 0
+        self._tenants: Counter = Counter()      # in-flight per tenant
         # per-container multiset of in-flight admission buckets
         self._cid_buckets = [Counter() for _ in range(backend.capacity)]
         self.container_failures: list[ContainerFailure] = []
@@ -268,8 +309,14 @@ class Router:
         # (stamp, seconds) ttfc samples for the shed threshold, aged out
         # past shed_window_s so a past spike stops shedding
         self._recent_ttfc: deque[tuple[float, float]] = deque(maxlen=64)
+        # SLO mode: each class sheds against its own recent tail
+        self._recent_ttfc_cls: dict[str, deque] = defaultdict(
+            lambda: deque(maxlen=64))
         self.history: list[WindowStats] = []
         self._target_n: int | None = None    # a resize awaiting a drain
+        # SLO mode: the first window after a resize is a warm-up, its
+        # (loss-censored) tail the transition's, not the new count's
+        self._warmup_window = False
         self._new_window()
 
     def _check_device(self, backend) -> None:
@@ -299,6 +346,9 @@ class Router:
         self._window_retries = 0
         self._window_failed = 0
         self._window_shed = 0
+        # per-class accumulators, filled with a scheduler and an SLOSpec
+        self._window_cls: dict[str, dict] = defaultdict(
+            lambda: {"ttfc": [], "lat": [], "shed": 0, "failed": 0})
 
     @property
     def in_flight(self) -> int:
@@ -315,24 +365,36 @@ class Router:
         return [cid for cid in range(self.backend.capacity)
                 if alive is None or alive(cid)]
 
-    def _dispatch(self, req: Request) -> int | None:
+    def _dispatch(self, req: Request,
+                  max_load: int | None = None) -> int | None:
         """Least-loaded live container, ties toward a bucket hit; None if
-        every container is dead, respawning or circuit-broken."""
+        every container is dead, respawning or circuit-broken — or, with
+        ``max_load`` (the SLO backlog's bounded depth), if every live
+        container already holds that many requests, so the request stays
+        in the rank-ordered backlog."""
         cids = self._alive_cids()
         if not cids:
             return None
         load = self.backend.load
+        if max_load is not None:
+            cids = [c for c in cids if load(c) < max_load]
+            if not cids:
+                return None
         bucket = _bucket(len(req.prompt))
         cid = min(cids, key=lambda c: (
             load(c), 0 if self._cid_buckets[c][bucket] else 1, c))
         self._cid_buckets[cid][bucket] += 1
         return cid
 
-    def note_ttfc(self, seconds: float, at: float | None = None) -> None:
+    def note_ttfc(self, seconds: float, at: float | None = None,
+                  priority: str = "default") -> None:
         """Record one time-to-first-chunk sample for the shed threshold's
-        p95 (stamped now unless ``at`` is given)."""
+        p95 (stamped now unless ``at`` is given), and in SLO mode for its
+        class's."""
         stamp = time.perf_counter() if at is None else at
         self._recent_ttfc.append((stamp, seconds))
+        if self.slo is not None:
+            self._recent_ttfc_cls[priority].append((stamp, seconds))
 
     @staticmethod
     def _aged_p95(samples: deque, horizon: float) -> float | None:
@@ -344,18 +406,38 @@ class Router:
             return None
         return percentiles([v for _, v in samples])[1]
 
-    def _shed_reason(self) -> tuple[str, str] | None:
-        """(kind, reason) when admission should shed now, else None."""
-        if (self.max_queue is not None
-                and len(self._handles) >= self.max_queue):
-            return ("queue", f"queue full: {len(self._handles)} in flight "
-                             f">= {self.max_queue}")
-        if self.shed_p95_s is not None:
-            p95 = self._aged_p95(self._recent_ttfc,
+    def _shed_reason(self, req: Request,
+                     cls=None) -> tuple[str, str] | None:
+        """(kind, reason) when admission should shed ``req`` now, else
+        None. kind ∈ {"tenant", "queue", "slo"}; with an SLO class the
+        queue bound and the ttfc threshold are the class's, so one class's
+        overload cannot starve another's admission."""
+        if (self.tenant_quota is not None and req.tenant
+                and self._tenants[req.tenant] >= self.tenant_quota):
+            return ("tenant", f"tenant {req.tenant!r} at quota: "
+                              f"{self._tenants[req.tenant]} in flight >= "
+                              f"tenant_quota={self.tenant_quota}")
+        if self.max_queue is not None:
+            limit = (queue_limit(cls, self.max_queue) if cls is not None
+                     else self.max_queue)
+            if len(self._handles) >= limit:
+                extra = (f" (class {cls.name!r} share of "
+                         f"max_queue={self.max_queue})"
+                         if cls is not None and limit != self.max_queue
+                         else "")
+                return ("queue", f"queue full: {len(self._handles)} in "
+                                 f"flight >= {limit}{extra}")
+        threshold = (shed_ttfc_threshold(cls, self.shed_p95_s)
+                     if cls is not None else self.shed_p95_s)
+        if threshold is not None:
+            samples = (self._recent_ttfc_cls[cls.name] if cls is not None
+                       else self._recent_ttfc)
+            p95 = self._aged_p95(samples,
                                  time.perf_counter() - self.shed_window_s)
-            if p95 is not None and p95 > self.shed_p95_s:
-                return ("slo", f"ttfc p95 {p95:.3f}s over shed threshold "
-                               f"{self.shed_p95_s:g}s")
+            if p95 is not None and p95 > threshold:
+                scope = f"class {cls.name!r} " if cls is not None else ""
+                return ("slo", f"{scope}ttfc p95 {p95:.3f}s over shed "
+                               f"threshold {threshold:g}s")
         return None
 
     def _retry_after_hint(self) -> float:
@@ -376,44 +458,89 @@ class Router:
         return handle
 
     def submit(self, req: Request) -> CompletionHandle:
-        """Dispatch one request now; returns its handle immediately. A
-        shed request's handle is born rejected (its stream yields one
+        """Admit one request now; returns its handle immediately. A shed
+        request's handle is born rejected (its stream yields one
         ``RejectedEvent`` and raises ``RequestRejected``); with no healthy
         container the handle is born failed (one ``FailedEvent``, then
-        ``RequestFailed``)."""
+        ``RequestFailed``). Without an SLOSpec the request goes to a
+        container at once; with one it enters the rank-ordered backlog,
+        which dispatches as containers fall below ``dispatch_depth``."""
         if self._closed:
             raise RuntimeError("router is closed")
         if req.rid in self._handles:
             raise ValueError(f"request id {req.rid} is already in flight")
         now = time.perf_counter()
-        shed = self._shed_reason()
+        cls = self.slo.cls(req.priority) if self.slo is not None else None
+        shed = self._shed_reason(req, cls)
         if shed is not None:
             self.shed_total += 1
             self._window_shed += 1
+            pri = cls.name if cls is not None else "default"
+            if self.scheduler is not None and cls is not None:
+                self._window_cls[pri]["shed"] += 1
             return self._terminal_handle(req, RejectedEvent(
                 req.rid, shed[1], self._retry_after_hint(), now,
-                kind=shed[0]))
+                kind=shed[0], priority=pri))
         if req.deadline_s is None and self.request_deadline_s is not None:
             req = dataclasses.replace(req,
                                       deadline_s=self.request_deadline_s)
-        cid = self._dispatch(req)
-        if cid is None:
-            self.failed_total += 1
-            self._window_failed += 1
-            return self._terminal_handle(req, FailedEvent(
-                req.rid, -1, "container",
-                "no healthy container to dispatch to (all circuit-broken "
-                "or respawning)", now))
         handle = CompletionHandle(req.rid, self)
-        handle.container_id = cid
+        if cls is None:
+            cid = self._dispatch(req)
+            if cid is None:
+                self.failed_total += 1
+                self._window_failed += 1
+                return self._terminal_handle(req, FailedEvent(
+                    req.rid, -1, "container",
+                    "no healthy container to dispatch to (all "
+                    "circuit-broken or respawning)", now))
+            handle.container_id = cid
+            self._rid_cid[req.rid] = cid
+        else:
+            handle.priority = cls.name
+            handle.tenant = req.tenant
         self._handles[req.rid] = handle
         self._requests[req.rid] = req
-        self._rid_cid[req.rid] = cid
         self._submit_t[req.rid] = now
         if req.deadline_s is not None:
             self._deadline_abs[req.rid] = now + req.deadline_s
-        self.backend.submit(cid, req)
+        if cls is None:
+            self.backend.submit(handle.container_id, req)
+        else:
+            if req.tenant:
+                self._tenants[req.tenant] += 1
+            heapq.heappush(self._backlog, (cls.rank, self._subseq, req.rid))
+            self._subseq += 1
+            self._drain_backlog()
         return handle
+
+    def _drain_backlog(self) -> None:
+        """Dispatch backlog entries in (rank, submit order) while a live
+        container holds fewer than ``dispatch_depth`` requests. Entries of
+        ended or placed rids are dropped as they surface; the drain stops
+        at the first entry it cannot place (skipping past it would invert
+        rank order), and fails it if no container is alive at all."""
+        while self._backlog:
+            _, _, rid = self._backlog[0]
+            handle = self._handles.get(rid)
+            if handle is None or rid in self._rid_cid:
+                heapq.heappop(self._backlog)
+                continue
+            req = self._requests[rid]
+            cid = self._dispatch(req, max_load=self.dispatch_depth)
+            if cid is None:
+                if not self._alive_cids():
+                    heapq.heappop(self._backlog)
+                    self._fail_request(
+                        rid, "container",
+                        "no healthy container to dispatch to (all "
+                        "circuit-broken or respawning)")
+                    continue
+                break                  # every live container at depth
+            heapq.heappop(self._backlog)
+            handle.container_id = cid
+            self._rid_cid[rid] = cid
+            self.backend.submit(cid, req)
 
     def _forget(self, rid: int) -> None:
         """Release every router-side record of ``rid`` (the handle's
@@ -422,7 +549,11 @@ class Router:
         req = self._requests.pop(rid, None)
         if cid is not None and req is not None:
             self._cid_buckets[cid][_bucket(len(req.prompt))] -= 1
-        self._handles.pop(rid, None)
+        handle = self._handles.pop(rid, None)
+        if handle is not None and handle.tenant:
+            self._tenants[handle.tenant] -= 1
+            if self._tenants[handle.tenant] <= 0:
+                del self._tenants[handle.tenant]
         self._submit_t.pop(rid, None)
         self._deadline_abs.pop(rid, None)
 
@@ -440,6 +571,8 @@ class Router:
         handle._pending.append(ev)
         self.failed_total += 1
         self._window_failed += 1
+        if self.scheduler is not None and self.slo is not None:
+            self._window_cls[handle.priority]["failed"] += 1
 
     def _expire_deadlines(self, now: float) -> None:
         """The deadline backstop: the engine expires deadlines itself (that
@@ -539,7 +672,8 @@ class Router:
             handle._pending.append(ev)
             if isinstance(ev, ChunkEvent) and handle.ttfc_s is None:
                 handle.ttfc_s = now - self._submit_t[ev.rid]
-                self.note_ttfc(handle.ttfc_s, at=now)
+                self.note_ttfc(handle.ttfc_s, at=now,
+                               priority=handle.priority)
             elif isinstance(ev, DoneEvent):
                 self._on_done(handle, ev)
             elif isinstance(ev, FailedEvent):
@@ -549,7 +683,12 @@ class Router:
                 self._forget(ev.rid)
                 self.failed_total += 1
                 self._window_failed += 1
+                if self.scheduler is not None and self.slo is not None:
+                    self._window_cls[handle.priority]["failed"] += 1
         self._expire_deadlines(now)
+        if self.slo is not None:
+            # completions freed container places: pull the backlog forward
+            self._drain_backlog()
         if self.scheduler is not None:
             self._maybe_rotate_window()
         if block and not events:
@@ -563,6 +702,7 @@ class Router:
     def _on_done(self, handle: CompletionHandle, ev: DoneEvent) -> None:
         handle.completion = ev.completion
         handle.done_at = time.perf_counter()
+        submit_t = self._submit_t.get(handle.rid)
         self._forget(handle.rid)
         if self.scheduler is not None:
             # the window's samples feed the scheduler only; a fixed Router
@@ -570,6 +710,12 @@ class Router:
             self._window_done.append(ev.completion)
             if handle.ttfc_s is not None:
                 self._window_ttfc.append(handle.ttfc_s)
+            if self.slo is not None:
+                acc = self._window_cls[handle.priority]
+                if handle.ttfc_s is not None:
+                    acc["ttfc"].append(handle.ttfc_s)
+                if submit_t is not None:
+                    acc["lat"].append(handle.done_at - submit_t)
 
     def cancel(self, rid: int, reason: str = "cancelled by caller") -> bool:
         """Cancel an in-flight request: removed in its container (slot and
@@ -600,7 +746,10 @@ class Router:
         live request would strand its slot. At the swap the outgoing
         backend's partial window is observed first (without a repick),
         the bucket counters start over for the new containers and the
-        shed tail is cleared: it described the outgoing count."""
+        shed tails are cleared: they described the outgoing count. In SLO
+        mode the new count's first window is a warm-up (withheld from the
+        scheduler: one loss-censored tail of the transition could brand
+        the incoming count infeasible)."""
         time_up = (self.window_s is not None
                    and time.perf_counter() - self._window_t0
                    >= self.window_s)
@@ -621,6 +770,8 @@ class Router:
             self._cid_buckets = [Counter()
                                  for _ in range(self.backend.capacity)]
             self._recent_ttfc.clear()
+            self._recent_ttfc_cls.clear()
+            self._warmup_window = self.slo is not None
             self._new_window()
         self._target_n = None
 
@@ -629,7 +780,11 @@ class Router:
         (n, wall, energy, ttfc p95) and, with ``repick``, ask for the next
         count. A time-closed window of fewer than ``window`` completions
         is scaled up to the window's size, so observations stay
-        comparable (the fit models a per-request cost)."""
+        comparable (the fit models a per-request cost). The tail sample is
+        the window's ttfc p95, or in SLO mode the constraint class's p95
+        with its shed and failed arrivals counted at twice its target
+        (admission pins the admitted tail at the shed threshold, so
+        without them every count would look feasible)."""
         n = self.backend.capacity
         wall = time.perf_counter() - self._window_t0
         now = [self.backend.stats(cid) for cid in range(n)]
@@ -640,20 +795,40 @@ class Router:
                        for b in busy)
         ttfc50, ttfc95 = percentiles(self._window_ttfc)
         lat50, lat95 = latency_percentiles(self._window_done)
+        per_class = {}
+        if self.slo is not None:
+            per_class = {
+                name: class_window(self.slo.cls(name), name, acc["ttfc"],
+                                   acc["lat"], acc["shed"], acc["failed"])
+                for name, acc in sorted(self._window_cls.items())}
         self.history.append(WindowStats(
             len(self.history), n, wall, energy_j, len(self._window_done),
             toks, toks / wall if wall > 0 else 0.0, ttfc50, ttfc95,
             lat50, lat95, n_retries=self._window_retries,
             n_failed=self._window_failed, n_shed=self._window_shed,
             prefix_hit_tokens=sum(c.prefix_hit_tokens
-                                  for c in self._window_done)))
+                                  for c in self._window_done),
+            per_class=per_class))
+        if self._warmup_window:
+            # the transition window: kept in history, withheld from the
+            # scheduler, and the current pick stands
+            self._warmup_window = False
+            self._new_window()
+            return
         done = len(self._window_done)
         scale = 1.0
         if self.window_s is not None and 0 < done < self.window:
             scale = self.window / done
+        q95 = ttfc95 if self._window_ttfc else None
+        if self.slo is not None:
+            constraint = self.slo.constraint
+            acc = self._window_cls.get(constraint.name)
+            if acc is not None:
+                q95 = censored_ttfc_p95(acc["ttfc"],
+                                        acc["shed"] + acc["failed"],
+                                        2.0 * constraint.ttfc_p95_s)
         self.scheduler.observe(n, wall * scale, energy_j * scale,
-                               ttfc_p95_s=ttfc95 if self._window_ttfc
-                               else None)
+                               ttfc_p95_s=q95)
         if repick:
             self._target_n = self.scheduler.pick()
         self._new_window()

@@ -1900,3 +1900,70 @@ def test_a_two_count_adaptive_router_serves_the_fixed_routers_tokens(cuda):
                    for w in router.history)
     assert sorted(built) == [1, 2]
     assert got == want
+
+
+def test_slo_replay_dispatches_in_rank_order_with_the_plain_tokens(cuda):
+    """Phase 13a at 24 requests over reduced qwen3 on the card: the first
+    24 arrivals of diurnal-bursty (seed 1), open-loop, through
+    Router(ThreadBackend(2)) under interactive:0.5,batch:8.0 with
+    tenant_quota 8 and max_queue 32, compressed 100x so that the reduced
+    model, which serves a request in milliseconds, still finds a backlog.
+    Every dispatch takes the lowest (rank, arrival) of the live backlog,
+    some with entries waiting, each request ends once, and every
+    completed request's greedy tokens equal a plain fixed Router's fed one
+    request at a time."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.backend import ThreadBackend
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.events import RejectedEvent
+    from repro_torch.serving.router import Router
+    from repro_torch.workload.replay import build_request, replay
+    from repro_torch.workload.slo import SLOSpec
+    from repro_torch.workload.traces import get_preset, synthesize
+
+    model = Model(get_config("qwen3-0.6b-reduced"), device="cuda")
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    config = EngineConfig(n_slots=4, max_len=512, chunk_tokens=32,
+                          dtype=torch.bfloat16, batch_admit=False)
+    slo = SLOSpec.parse("interactive:0.5,batch:8.0")
+    trace = synthesize(get_preset("diurnal-bursty"), seed=1)
+    trace = dataclasses.replace(trace, requests=trace.requests[:24])
+    vocab = model.cfg.vocab_size
+    backend = ThreadBackend(model, params, 2, config)
+    log, handles = [], []
+    with Router(backend, slo=slo, tenant_quota=8, max_queue=32) as router:
+        submit_backend, submit_router = backend.submit, router.submit
+
+        def logged(cid, req):
+            live = [(rank, rid) for rank, _, rid in router._backlog
+                    if rid in router._handles and rid not in router._rid_cid]
+            log.append(((slo.cls(req.priority).rank, req.rid),
+                        min(live) if live else None))
+            submit_backend(cid, req)
+
+        def kept(req):
+            h = submit_router(req)
+            handles.append(h)
+            return h
+        backend.submit, router.submit = logged, kept
+        report = replay(trace, router, time_scale=100.0, vocab_size=vocab)
+    assert report.n_done + report.n_shed + report.n_failed == 24
+    assert all(low is None or got <= low for got, low in log)
+    assert any(low is not None for _, low in log)
+    done = {}
+    for h in handles:
+        assert h.done and (h.completion is None) != (h.failure is None)
+        if isinstance(h.failure, RejectedEvent):
+            assert h.failure.kind in ("queue", "slo", "tenant")
+            assert h.failure.priority in slo.names()
+        elif h.completion is not None:
+            done[h.rid] = list(h.completion.tokens)
+    assert len(done) == report.n_done > 0
+    by_rid = {tr.rid: tr for tr in trace.requests}
+    with Router(ThreadBackend(model, params, 2, config)) as plain:
+        want = {rid: plain.submit(build_request(
+            by_rid[rid], vocab_size=vocab)).tokens() for rid in sorted(done)}
+    assert done == want

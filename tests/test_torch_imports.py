@@ -70,6 +70,44 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
     assert "port imports ok" in out.stdout
 
 
+def test_workload_and_launcher_modules_run_with_jax_and_repro_blocked():
+    """The trace, SLO, replay and simulator modules and the serve launcher
+    import without JAX or the reference package, and the device-free ones
+    run: a preset synthesised, simulated under an SLO, its report out."""
+    new = {"repro_torch.workload", "repro_torch.workload.traces",
+           "repro_torch.workload.slo", "repro_torch.workload.replay",
+           "repro_torch.workload.sim", "repro_torch.launch",
+           "repro_torch.launch.serve"}
+    assert new <= set(_modules())
+    script = textwrap.dedent(f"""
+        import importlib, importlib.abc, sys
+        class Blk(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    raise ImportError(f"blocked import of {{name}}")
+        sys.meta_path.insert(0, Blk())
+        for mod in {sorted(new)!r}:
+            importlib.import_module(mod)
+        from repro_torch.workload import SLOSpec, get_preset, synthesize
+        from repro_torch.workload.sim import simulate
+        trace = synthesize(get_preset("bursty"), seed=1)
+        rep = simulate(trace, feasible_counts=[1, 2],
+                       objective="energy_under_slo",
+                       slo=SLOSpec.parse("interactive:0.5,batch:8.0"))
+        assert rep.n_done + rep.n_shed + rep.n_failed == rep.n_requests
+        sys.modules["repro_torch.launch.serve"]._parser(("qwen3-0.6b",))
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+        print("workload imports ok")
+    """)
+    out = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"},
+        timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "workload imports ok" in out.stdout
+
+
 def test_chip_smoke_imports_nothing_of_jax_or_repro():
     src = (REPO / "chip_smoke.py").read_text()
     for line in src.splitlines():
