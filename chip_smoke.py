@@ -60,7 +60,15 @@ Phases, each raising on failure (any failure exits nonzero):
    512-token qwen3 prefill beside the plain version and
    ``torch.nn.functional.rms_norm`` (a yardstick the port never calls),
    and at a 4-slot decode step's norms beside ``rms_norm`` and the
-   launch floor (an empty kernel), all as device time.
+   launch floor (an empty kernel), all as device time. The prefill and
+   decode kernels at the shapes of phase 14's models, in float32 and
+   bfloat16, timed in bfloat16 beside the plain version and
+   ``scaled_dot_product_attention`` with each shape's bound:
+   ``flash_attention`` at gemma3-27b's local prefill (B 1, S 1300, H 32,
+   Hkv 16, K 128, window 1024), ``decode_attention`` at G 2, K 128 over
+   a 1024-slot ring written past position 1024, and ``decode_attention``
+   and ``paged_decode_attention`` at qwen3-8b's 4-row step (G 4, K 128;
+   the paged kernel bit for bit the dense one over the gathered view).
 3. Model: qwen3-0.6b at full width cut to 2 layers, the 2-layer
    mamba2-2.7b-reduced and the 2-layer deepseek-v2-lite-16b-reduced,
    float32, the port's seeded init: prefill + 8 greedy decode steps on
@@ -251,8 +259,35 @@ Phases, each raising on failure (any failure exits nonzero):
        adding up, and its own kernel launches (flash, paged decode,
        rmsnorm) nonzero.
 
+14. The gemma family and the 8B dense configs at full width (bf16,
+    random weights from seed 0, n_slots=4, max_len=2048, chunk_tokens=32;
+    each model freed before the next, ``memory_allocated`` printed):
+    a. qwen3-8b (36 layers, d 4096, 32/8 heads, K 128) and llama3.1-8b
+       (32 layers): phase 4's 8 requests through
+       ``Router(ThreadBackend(2))`` (every request completes; the prefill
+       and dense decode kernels a multiple of the layers), phase 5's
+       dense-vs-paged streams identical with ``graph_vs_eager`` on both
+       engines, and a 4-row decode step replayed from a graph beside its
+       bound (weights and live K/V read once).
+    b. gemma3-27b (62 layers: 10 super-blocks of 5 local layers over a
+       1024-slot ring and 1 global, then 2 local; d 5376, 32/16 heads, K
+       128, vocab 262 144; 56.8 GB), its engines built directly (two dense
+       caches beside the weights exceed ``card_feasible_counts``' 0.65
+       share): 8 requests of 64, 500, 1000, 1020, 1030, 1300, 1700 and
+       1900 tokens (rings that wrap in prefill, in decode, or never),
+       max_new=32, through ``Router(ThreadBackend(2))`` over dense
+       engines, then one dense engine, then one paged engine
+       (``prefix_cache=True``, max_seqs 4: dense rings beside 10 paged
+       global layers); identical greedy streams, 0 hit tokens, the paged
+       kernel on the global layers only; ``graph_vs_eager`` on both
+       engines; a 4-row decode step replayed beside its bound.
+    c. reduced gemma (2 super-blocks and a remainder layer, a 16-slot
+       ring) in float32: a 40-token prefill and 40 decode steps on the
+       card against the CPU within 1e-3, the rings wrapping in both.
+    Prints the phase's time.
+
 Then a JSON line with each kernel's launches (from the phase of the path
-it serves, and by phase, phase 13's three parts among them), error and times (eight kernels), the card's
+it serves, and by phase, phase 13's three parts and phase 14's among them), error and times (eight kernels), the card's
 ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 {...}}``.
 
@@ -1325,6 +1360,146 @@ def decode_main_calls(gen) -> dict:
     return calls
 
 
+# the served shapes of the gemma family and the 8B dense configs: gemma's
+# local prefill (window 1024) and its 1024-slot ring written past
+# position 1024 (G = 2, K = 128), and qwen3-8b's 4-row decode step (G = 4,
+# K = 128, the widest instantiation) over the dense ring and the pages
+GEMMA_FLASH = dict(B=1, S=1300, H=32, Hkv=16, K=128, window=1024)
+GEMMA_RING = dict(B=4, W=1024, H=32, Hkv=16, K=128,
+                  pos=[1030, 1500, 2047, 700])
+G4_DECODE = dict(B=4, W=2048, H=32, Hkv=8, K=128, depth=[48, 160, 300, 544])
+
+
+def bound_ms(flops, nbytes, dn) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_FLOPS[dn], nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def family_shape_checks(gen) -> dict:
+    """The prefill, dense decode and paged decode kernels at the shapes
+    the gemma family and the 8B dense configs give them (GEMMA_FLASH,
+    GEMMA_RING, G4_DECODE), held against their plain versions in float32
+    and bfloat16 (the paged kernel also bit for bit against the dense one
+    over the gathered view), then in bfloat16 timed (device time from
+    graph replays) beside the plain version and
+    ``scaled_dot_product_attention``, with the shape's bound. Returns
+    {kernel: {label: row}}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import ring_positions
+
+    dev = torch.device("cuda")
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def sdpa(q, k, v, valid):
+        q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        return lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=valid[:, None, None, :], enable_gqa=True)
+
+    out: dict = {}
+
+    def row(name, label, calls, bound, shape):
+        """Check in both dtypes (``calls(dtype)`` gives kernel, plain and
+        library calls), then time the bfloat16 one."""
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            k_call, p_call, lib = calls(dtype)
+            got = k_call()
+            torch.cuda.synchronize()
+            err = check_close(got, p_call(), dn, f"{name} {label} {dn}")
+            print(f"{name} {label} {dn} {shape}: max_abs_err={err:.3e}",
+                  flush=True)
+        out.setdefault(name, {})[label] = {
+            "max_abs_err": err, "ms": time_graph_ms(k_call),
+            "plain_ms": time_ms(p_call, reps=5),
+            "library_ms": time_graph_ms(lib),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "shape": shape + " bf16; ms and library_ms device time (100 "
+                     "calls replayed from a CUDA graph), plain_ms launched "
+                     "one by one (CUDA events); library_ms is sdpa"}
+
+    f = GEMMA_FLASH
+    mask = ref.attention_mask(f["S"], f["S"], causal=True,
+                              window=f["window"], device=dev)
+
+    def flash_calls(dtype):
+        q = randn(f["B"], f["S"], f["H"], f["K"], dtype=dtype)
+        k, v = (randn(f["B"], f["S"], f["Hkv"], f["K"], dtype=dtype)
+                for _ in range(2))
+        kw = dict(causal=True, window=f["window"])
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        return (lambda: fa.flash_attention(q, k, v, **kw),
+                lambda: ref.flash_attention(q, k, v, **kw),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    pairs = int(mask.sum())
+    row("flash_attention", "gemma_local", flash_calls,
+        bound_ms(4 * f["B"] * f["H"] * pairs * f["K"],
+                 2 * f["B"] * f["S"] * (f["H"] + f["Hkv"]) * f["K"] * 2,
+                 "bfloat16"),
+        f"B={f['B']} S={f['S']} H={f['H']} Hkv={f['Hkv']} K={f['K']} "
+        f"window={f['window']} causal")
+
+    def decode_row(label, B, W, h, hkv, k_, valid, shape):
+        def calls(dtype):
+            q = randn(B, h, k_, dtype=dtype)
+            k, v = (randn(B, W, hkv, k_, dtype=dtype) for _ in range(2))
+            return (lambda: da.decode_attention(q, k, v, valid),
+                    lambda: ref.decode_attention(q, k, v, valid),
+                    sdpa(q, k, v, valid))
+        live = int(valid.sum())
+        row("decode_attention", label, calls,
+            bound_ms(4 * live * h * k_,
+                     2 * live * hkv * k_ * 2 + 2 * B * h * k_ * 2 + B * W,
+                     "bfloat16"), shape)
+
+    r = GEMMA_RING
+    pos = torch.tensor(r["pos"], device=dev)
+    decode_row("gemma_ring", r["B"], r["W"], r["H"], r["Hkv"], r["K"],
+               (ring_positions(r["W"], pos) >= 0).contiguous(),
+               f"B={r['B']} ring W={r['W']} H={r['H']} Hkv={r['Hkv']} "
+               f"K={r['K']} written to positions {r['pos']}")
+    g = G4_DECODE
+    depth = torch.tensor(g["depth"], device=dev)
+    decode_row("g4", g["B"], g["W"], g["H"], g["Hkv"], g["K"],
+               torch.arange(g["W"], device=dev)[None, :] < depth[:, None],
+               f"B={g['B']} W={g['W']} H={g['H']} Hkv={g['Hkv']} "
+               f"K={g['K']} live={g['depth']}")
+
+    bs, nblk = 16, g["W"] // 16
+
+    def paged_calls(dtype):
+        q, kp, vp, table, lens, _ = paged_case(
+            gen, g["depth"], h=g["H"], hkv=g["Hkv"], k=g["K"], bs=bs,
+            nblk=nblk, dtype=dtype)
+        kd, vd, valid = gathered(kp, vp, table, lens)
+        dense = da.decode_attention(q, kd, vd, valid)
+        got = pa.paged_decode_attention(q, kp, vp, table, lens)
+        if not torch.equal(got, dense):
+            fail(f"paged_decode_attention G=4 {dtype}: not bitwise the "
+                 "dense kernel over the gathered view")
+        return (lambda: pa.paged_decode_attention(q, kp, vp, table, lens),
+                lambda: ref.paged_decode_attention(q, kp, vp, table, lens),
+                sdpa(q, kd, vd, valid))
+    live = sum(g["depth"])
+    row("paged_decode_attention", "g4", paged_calls,
+        bound_ms(4 * live * g["H"] * g["K"],
+                 2 * live * g["Hkv"] * g["K"] * 2
+                 + 2 * g["B"] * g["H"] * g["K"] * 2 + g["B"] * nblk * 4,
+                 "bfloat16"),
+        f"B={g['B']} bs={bs} nblk={nblk} H={g['H']} Hkv={g['Hkv']} "
+        f"K={g['K']} live={g['depth']} (bitwise the dense kernel over the "
+        "gathered view)")
+    return out
+
+
 def kernel_phase():
     import torch.nn.functional as F
 
@@ -1540,6 +1715,11 @@ def kernel_phase():
                  "decode_shapes are a 4-slot decode step's norms (graph); "
                  "launch_floor_ms is torch.cuda._sleep(0) (graph)"}
     print(f"rmsnorm main shape: {results['rmsnorm']}", flush=True)
+
+    # the gemma family's and the 8B configs' shapes (phase 14's)
+    for name, rows in family_shape_checks(gen).items():
+        results[name]["family_shapes"] = rows
+        print(f"{name} family shapes: {rows}", flush=True)
     return results
 
 
@@ -1549,9 +1729,10 @@ def kernel_phase():
 LOGIT_TOL = 1e-3
 
 
-def model_phase(cfg, last: list[int]):
-    """``cfg`` on the card against the CPU plain path: a 2-row, 64-token
-    prefill with logits at ``last`` per row, then 8 greedy decode steps."""
+def model_phase(cfg, last: list[int], S: int = 64, steps: int = 8):
+    """``cfg`` on the card against the CPU plain path: a 2-row, S-token
+    prefill with logits at ``last`` per row, then ``steps`` greedy decode
+    steps."""
     from repro_torch.models.model import Model
 
     cpu_model = Model(cfg, device="cpu")
@@ -1567,25 +1748,25 @@ def model_phase(cfg, last: list[int]):
     gpu_params = to_cuda(cpu_params)
 
     rng = np.random.default_rng(0)
-    B, S, max_len = 2, 64, 128
+    B, max_len = 2, 128
     toks = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32))
     last = torch.tensor(last)
     cc, gc = cpu_model.init_cache(B, max_len), gpu_model.init_cache(B, max_len)
-    worst, agree, steps = 0.0, 0, 0
+    worst, agree, rows = 0.0, 0, 0
     cl = cpu_model.prefill(cpu_params, toks, cc, logits_at=last)
     gl = gpu_model.prefill(gpu_params, toks.cuda(), gc,
                            logits_at=last.cuda()).cpu()
     pos = last + 1
-    for step in range(9):
+    for step in range(steps + 1):
         err = float((gl - cl).abs().max())
         worst = max(worst, err)
         if err > LOGIT_TOL + LOGIT_TOL * float(cl.abs().max()):
             fail(f"model: step {step} logits differ by {err:.3e}")
         nxt = cl.argmax(-1)
         agree += int((gl.argmax(-1) == nxt).sum())
-        steps += B
-        if step == 8:
+        rows += B
+        if step == steps:
             break
         tok = nxt.to(torch.int32)[:, None]
         cl = cpu_model.decode_step(cpu_params, tok, cc, pos)
@@ -1594,10 +1775,10 @@ def model_phase(cfg, last: list[int]):
         pos = pos + 1
     if not np.isfinite(cl.numpy()).all():
         fail("model: CPU logits are not finite")
-    print(f"model {cfg.name} ({cfg.n_layers} layers, f32): prefill + 8 "
-          f"greedy decode steps, max |logit diff| card vs CPU = "
-          f"{worst:.3e} (tolerance {LOGIT_TOL} abs + rel), token "
-          f"agreement {agree}/{steps}", flush=True)
+    print(f"model {cfg.name} ({cfg.n_layers} layers, f32): {S}-token "
+          f"prefill + {steps} greedy decode steps, max |logit diff| card vs "
+          f"CPU = {worst:.3e} (tolerance {LOGIT_TOL} abs + rel), token "
+          f"agreement {agree}/{rows}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4017,6 +4198,280 @@ def slo_trace_phase(model, params, card: str):
     return launches_a, launches_b, launches_c
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the gemma family and the 8B dense configs at full width
+# ---------------------------------------------------------------------------
+# prompts below the 1024-token window, ones that wrap the local rings in
+# decode (1000 and 1020 + 32 new tokens) and ones that wrap them in prefill
+GEMMA_PLENS = [64, 500, 1000, 1020, 1030, 1300, 1700, 1900]
+
+
+def seeded_requests(cfg, plens, seed: int, max_new: int = 32,
+                    start: int = 0) -> list:
+    """One request a prompt length, ids from ``start``, prompts drawn over
+    the vocabulary from ``seed``."""
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(start + i, rng.integers(0, cfg.vocab_size, (n,),
+                                            dtype=np.int32), max_new)
+            for i, n in enumerate(plens)]
+
+
+def serve_router(model, params, config, reqs, what: str,
+                 card: str) -> tuple[dict, dict]:
+    """``Router(ThreadBackend(2))`` over ``model``: a warm-up request a
+    container (first cuBLAS handles, the step graphs' captures; not
+    counted), then ``reqs``, each of which must complete with its
+    ``max_new_tokens`` in-range tokens and a first chunk. Returns the
+    streams and the kernel launches of the timed run."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.backend import ThreadBackend
+    from repro_torch.serving.router import Router
+
+    cfg = model.cfg
+    backend = ThreadBackend(model, params, 2, config=config)
+    with Router(backend) as router:
+        for h in [router.submit(r) for r in seeded_requests(
+                cfg, (20, 40), 99, max_new=4, start=1000)]:
+            h.result()
+        torch.cuda.synchronize()
+        reqs = [dataclasses.replace(r) for r in reqs]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        handles = [router.submit(r) for r in reqs]
+        comps = [h.result() for h in handles]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        captures = [e.graph_capture_s for e in backend.engines]
+    for r, c, h in zip(reqs, comps, handles):
+        if c.rid != r.rid or len(c.tokens) != r.max_new_tokens:
+            fail(f"{what}: request {r.rid} gave {len(c.tokens)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in c.tokens):
+            fail(f"{what}: request {r.rid} has out-of-range tokens")
+        if h.ttfc_s is None:
+            fail(f"{what}: request {r.rid} has no first chunk")
+    for name in ("flash_attention", "decode_attention"):
+        if launches[name] <= 0 or launches[name] % cfg.n_layers:
+            fail(f"{what}: {launches[name]} {name} launches; need a positive "
+                 f"multiple of {cfg.n_layers}")
+    if launches["paged_decode_attention"]:
+        fail(f"{what}: the paged kernel launched on dense engines")
+    check_norm_launches(cfg, launches, what)
+    n_tok = sum(len(c.tokens) for c in comps)
+    ttfc_p50 = float(np.percentile([h.ttfc_s for h in handles], 50))
+    print(f"{what}: {cfg.name} {cfg.n_layers} layers bf16, Router("
+          f"ThreadBackend(2)) dense cache n_slots={config.n_slots} max_len="
+          f"{config.max_len} chunk_tokens={config.chunk_tokens}, "
+          f"{len(reqs)} requests prompts {[len(r.prompt) for r in reqs]} "
+          f"max_new={reqs[0].max_new_tokens}: "
+          f"wall_s={wall:.4f} tok_per_s={n_tok / wall:.2f} ttfc_p50_s="
+          f"{ttfc_p50:.4f} capture_s={[round(c, 4) for c in captures]} "
+          f"launches={ {k: v for k, v in launches.items() if v} } "
+          f"[card: {card}]", flush=True)
+    del backend
+    torch.cuda.empty_cache()
+    return {c.rid: list(c.tokens) for c in comps}, launches
+
+
+def decode_step_ms(model, params, pos: list, weight_bytes: int,
+                   reps: int = 20) -> dict:
+    """A 4-row bf16 decode step as an engine replays it, over a fresh
+    cache (2048 positions) written to ``pos``: one ``decode_chunk_step``
+    captured in a CUDA graph (rows inactive, so positions hold) after one
+    eager step, then ``reps`` replays back to back between CUDA events:
+    the step's ms. Its bound: the weights (``weight_bytes``) and each
+    layer's live keys and values (the ring's slots up to ``pos``) read
+    once over 3.35 TB/s."""
+    B = len(pos)
+    cache = model.init_cache(B, 2048, torch.bfloat16)
+    buf = model.chunk_buffers(B, reps + 1)
+    buf["pos"].copy_(torch.tensor(pos, dtype=torch.int32))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        model.decode_chunk_step(params, cache, buf, max_len=2048)
+        with torch.cuda.graph(graph, stream=side):
+            model.decode_chunk_step(params, cache, buf, max_len=2048)
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(3):
+        buf["col"].zero_()
+        graph.replay()
+    buf["col"].zero_()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    row = 2 * cfg.n_kv_heads * cfg.head_dim * 2          # k and v, bf16
+    kv = sum(min(p + 1, g["k"].shape[1]) * row
+             for g in cache for p in pos)
+    del cache, graph
+    return {"ms": start.elapsed_time(end) / reps,
+            "bound_ms": (weight_bytes + kv) / PEAK_BYTES_S * 1e3,
+            "bound_by": "bytes", "positions": list(pos)}
+
+
+def dense_8b_phase(name: str, card: str) -> dict:
+    """14a: full-width ``name`` (bf16, random weights from seed 0): phase
+    4's 8 requests through ``Router(ThreadBackend(2))``, then phase 5's
+    dense-vs-paged streams (with ``graph_vs_eager`` on both engines).
+    Frees the model. Returns the launches of the Router run and of the
+    paged engine's compared streams."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import EngineConfig
+
+    t0 = time.perf_counter()
+    cfg = get_config(name)
+    model = Model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    weight_bytes = tree_bytes(params)
+    config = EngineConfig(n_slots=4, max_len=2048, chunk_tokens=32,
+                          dtype=torch.bfloat16)
+    _, launches = serve_router(model, params, config,
+                               seeded_requests(cfg, MAIN_PLENS, 1),
+                               f"14a {name}", card)
+    _, paged = parity_phase(
+        model, params, dataclasses.replace(config, cache="paged",
+                                           block_size=16, max_seqs=4), card)
+    if not paged["paged_decode_attention"]:
+        fail(f"14a {name}: the paged engine never launched the paged kernel")
+    step = decode_step_ms(model, params, [48, 160, 300, 544], weight_bytes)
+    print(f"14a {name}: a 4-row decode step replayed {step} [card: {card}]",
+          flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+    print(f"14a {name}: {cfg.n_layers} layers d={cfg.d_model} H={cfg.n_heads}"
+          f" Hkv={cfg.n_kv_heads} K={cfg.head_dim} d_ff={cfg.d_ff} vocab="
+          f"{cfg.vocab_size}, {cfg.param_count() / 1e9:.2f} G parameters, "
+          f"weights {weight_bytes} B; {time.perf_counter() - t0:.1f} s; "
+          f"after freeing it memory_allocated="
+          f"{torch.cuda.memory_allocated()} B [card: {card}]", flush=True)
+    return {"router": launches, "paged": paged}
+
+
+def gemma_phase(card: str, max_new: int = 32) -> dict:
+    """14b: full-width gemma3-27b (62 layers, bf16, random weights from
+    seed 0, one copy for every engine), n_slots 4, max_len 2048: the 8
+    GEMMA_PLENS requests through ``Router(ThreadBackend(2))`` over dense
+    engines, then through one dense engine and one paged engine
+    (``prefix_cache=True``, ``max_seqs`` 4: the 52 local rings stay dense
+    rows beside the 10 paged global layers). The three give identical
+    greedy streams, the paged engine no hit token; ``graph_vs_eager``
+    holds on both engines. The engines are built directly: two dense
+    caches beside the weights pass ``card_feasible_counts``' 0.65 share.
+    Frees the model. Returns the launches of the Router run and of each
+    engine."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.containers import card_feasible_counts
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
+
+    t0 = time.perf_counter()
+    cfg = get_config("gemma3-27b")
+    model = Model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    weight_bytes = tree_bytes(params)
+    config = EngineConfig(n_slots=4, max_len=2048, chunk_tokens=32,
+                          dtype=torch.bfloat16)
+    feasible = card_feasible_counts(
+        cfg, config, card_bytes=torch.cuda.get_device_properties(0)
+        .total_memory, max_containers=4)
+    print(f"14b gemma3-27b: {cfg.n_layers} layers (windows "
+          f"{model.windows.count(cfg.sliding_window)} x "
+          f"{cfg.sliding_window}, {model.windows.count(0)} global) d="
+          f"{cfg.d_model} H={cfg.n_heads} Hkv={cfg.n_kv_heads} K="
+          f"{cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size}, "
+          f"{cfg.param_count() / 1e9:.2f} G parameters, weights "
+          f"{weight_bytes} B in {time.perf_counter() - t0:.1f} s; "
+          f"card_feasible_counts={feasible}; memory_allocated="
+          f"{torch.cuda.memory_allocated()} B [card: {card}]", flush=True)
+    reqs = seeded_requests(cfg, GEMMA_PLENS, 7, max_new)
+    streams, router = serve_router(model, params, config, reqs,
+                                   "14b gemma3-27b", card)
+    rng = np.random.default_rng(8)
+    out, launches = {"router": streams}, {"router": router}
+    for cache in ("dense", "paged"):
+        conf = (dataclasses.replace(config, cache="paged", block_size=16,
+                                    max_seqs=4, prefix_cache=True)
+                if cache == "paged" else config)
+        eng = ServingEngine(model, params, conf)
+        cache_bytes = tree_bytes(eng.cache_backend.tree)
+        eng.submit_many([dataclasses.replace(r) for r in reqs])
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        comps = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches[cache] = ops.launch_counts()
+        out[cache] = {c.rid: list(c.tokens) for c in comps}
+        hits = sum(c.prefix_hit_tokens for c in comps)
+        if hits or eng.prefix_hit_tokens_total:
+            fail(f"14b gemma3-27b {cache}: {hits} prefix hit tokens under a "
+                 "window")
+        print(f"14b gemma3-27b {cache} engine: {len(comps)} requests in "
+              f"{wall:.4f} s, cache {cache_bytes} B, prefix hit tokens "
+              f"{hits}, launches "
+              f"{ {k: v for k, v in launches[cache].items() if v} } "
+              f"[card: {card}]", flush=True)
+        engine_graph_check(eng, [
+            Request(2000 + j, rng.integers(0, cfg.vocab_size, (n,),
+                                           dtype=np.int32), 40)
+            for j, n in enumerate((1020, 300))],
+            f"gemma3-27b {cache} cache", card)
+        del eng
+        torch.cuda.empty_cache()
+    if not launches["paged"]["paged_decode_attention"]:
+        fail("14b gemma3-27b: the paged engine never launched the paged "
+             "kernel")
+    step = decode_step_ms(model, params, [1030, 1500, 2047, 700],
+                          weight_bytes)
+    print(f"14b gemma3-27b: a 4-row decode step replayed {step} "
+          f"[card: {card}]", flush=True)
+    for r in reqs:
+        got = [out[k].get(r.rid) for k in ("router", "dense", "paged")]
+        if not got[0] == got[1] == got[2]:
+            fail(f"14b gemma3-27b: request {r.rid} ({len(r.prompt)} tokens) "
+                 f"streams differ: router {got[0][:6]}... dense "
+                 f"{(got[1] or [])[:6]}... paged {(got[2] or [])[:6]}...")
+    del model, params
+    torch.cuda.empty_cache()
+    print(f"14b gemma3-27b: {len(reqs)} requests, identical greedy streams "
+          f"through the Router, the dense and the paged engine; "
+          f"{time.perf_counter() - t0:.1f} s; after freeing it "
+          f"memory_allocated={torch.cuda.memory_allocated()} B "
+          f"[card: {card}]", flush=True)
+    return launches
+
+
+def family_phase(card: str) -> dict:
+    """Phase 14: 14a qwen3-8b and llama3.1-8b, 14b gemma3-27b, 14c the
+    ring against the CPU. Returns the launches by part."""
+    from repro_torch.configs.base import reduce_config
+    from repro_torch.configs.registry import get_config
+
+    t0 = time.perf_counter()
+    launches = {}
+    for name in ("qwen3-8b", "llama3.1-8b"):
+        launches[name] = dense_8b_phase(name, card)
+    launches["gemma3-27b"] = gemma_phase(card)
+    # 14c: 2 super-blocks and a remainder layer, a 16-slot ring that wraps
+    # in the 40-token prefill and over the 40 decode steps
+    model_phase(reduce_config(get_config("gemma3-27b"), n_layers=5,
+                              sliding_window=16), [39, 39], S=40, steps=40)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s [card: {card}]",
+          flush=True)
+    return launches
+
+
 def full_width_model(dtype):
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import Model
@@ -4131,6 +4586,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     mla_launches, mla_parity = deepseek_path_phase(card)
 
+    # the gemma family and the 8B dense configs, once deepseek's weights
+    # are released
+    torch.cuda.empty_cache()
+    family = family_phase(card)
+
     # each kernel's launches come from the path it serves: phase 4 (dense
     # cache) for the prefill and dense decode kernels, phase 6 (paged
     # cache with prefix sharing) for the paged decode kernel, phase 7a
@@ -4141,7 +4601,9 @@ def main() -> int:
     # containers' own counts; phase 8b sums mamba2's dense and paged
     # engines, phase 12 is the adaptive Router's run (12a); phase 13a the
     # fixed SLO Router's replay, 13b both adaptive replays, 13c the
-    # launcher's own process (paged engines)
+    # launcher's own process (paged engines); phase 14a each 8B model's
+    # Router run and its paged engine's compared streams, 14b gemma's
+    # Router run and its dense and paged engines
     by_phase = {"phase4": launches, "phase6": paged_launches,
                 "phase6c": sharing_launches,
                 "phase6c_f32": sharing_launches_f32,
@@ -4154,7 +4616,14 @@ def main() -> int:
                 "phase11": contract_launches,
                 "phase12": online_launches,
                 "phase13a": slo_launches[0], "phase13b": slo_launches[1],
-                "phase13c": slo_launches[2]}
+                "phase13c": slo_launches[2],
+                "phase14a_qwen3-8b": family["qwen3-8b"]["router"],
+                "phase14a_qwen3-8b_paged": family["qwen3-8b"]["paged"],
+                "phase14a_llama3.1-8b": family["llama3.1-8b"]["router"],
+                "phase14a_llama3.1-8b_paged": family["llama3.1-8b"]["paged"],
+                "phase14b": family["gemma3-27b"]["router"],
+                "phase14b_dense": family["gemma3-27b"]["dense"],
+                "phase14b_paged": family["gemma3-27b"]["paged"]}
     main_phase = {"flash_attention": "phase4", "decode_attention": "phase4",
                   "paged_decode_attention": "phase6",
                   "decode_attention_int8": "phase7a",

@@ -105,6 +105,22 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    def layer_windows(self) -> list[int]:
+        """Each layer's attention window in the port's layer order (0:
+        the full horizon). The gemma family (``local_global_pattern`` =
+        k) runs ``n_layers // (k + 1)`` super-blocks of k local layers
+        and one global, then the remaining ``n_layers mod (k + 1)``
+        layers local, as ``repro.models.model.Model`` lays them out; any
+        other family gives every layer ``sliding_window``."""
+        gemma = (self.local_global_pattern > 0 and not self.is_moe
+                 and self.arch_type not in ("audio", "hybrid", "ssm"))
+        if not gemma:
+            return [self.sliding_window] * self.n_layers
+        per = self.local_global_pattern + 1
+        n_super = self.n_layers // per
+        return ([self.sliding_window] * (per - 1) + [0]) * n_super + [
+            self.sliding_window] * (self.n_layers - n_super * per)
+
     @property
     def d_inner(self) -> int:
         """Mamba2 inner width."""

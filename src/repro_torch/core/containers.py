@@ -169,10 +169,11 @@ def engine_cache_bytes(cfg: ArchConfig, engine_config) -> int:
     ``engine_config`` (a ``serving.engine.EngineConfig``), leaf by leaf as
     ``Model.init_cache`` builds it: dense rows ``(n_rows, max_len, ...)``,
     or ``max_blocks + 1`` pages of ``block_size`` positions and one
-    shared int32 block table; int8 codes with float32 scales for an int8
-    cache; latent rows or pages for MLA (which ignores the int8 option);
-    conv and state rows, ``n_rows`` of them, for an SSM model under
-    either cache."""
+    shared int32 block table; a sliding-window ring ``(n_rows,
+    min(window, max_len), ...)`` under either cache; int8 codes with
+    float32 scales for an int8 cache; latent rows or pages for MLA (which
+    ignores the int8 option); conv and state rows, ``n_rows`` of them,
+    for an SSM model under either cache."""
     ec = engine_config
     item = _itemsize(ec.dtype)
     rows, L = ec.n_rows, cfg.n_layers
@@ -181,19 +182,24 @@ def engine_cache_bytes(cfg: ArchConfig, engine_config) -> int:
         per_row = ((cfg.ssm_conv_width - 1) * conv_dim
                    + cfg.ssm_n_heads * cfg.ssm_head_dim * cfg.ssm_state)
         return L * rows * per_row * item
-    paged = ec.cache == "paged"
-    if paged:
-        positions = (ec.resolved_max_blocks + 1) * ec.block_size
-        table = rows * (ec.max_len // ec.block_size) * 4
-    else:
-        positions, table = rows * ec.max_len, 0
     if cfg.mla:
         per_pos = (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * item
     elif cfg.kv_cache_dtype == "int8":
         per_pos = 2 * cfg.n_kv_heads * (cfg.head_dim + 4)
     else:
         per_pos = 2 * cfg.n_kv_heads * cfg.head_dim * item
-    return L * positions * per_pos + table
+    # a sliding ring (window < max_len; MLA takes none) is dense rows
+    # min(window, max_len) wide under either cache; the other groups are
+    # max_len-wide rows or pages over one shared table
+    windows = [0 if cfg.mla else w for w in cfg.layer_windows()]
+    rings = [w for w in windows if 0 < w < ec.max_len]
+    n_full = L - len(rings)
+    if ec.cache == "paged":
+        full = (ec.resolved_max_blocks + 1) * ec.block_size
+        table = rows * (ec.max_len // ec.block_size) * 4 if n_full else 0
+    else:
+        full, table = rows * ec.max_len, 0
+    return (n_full * full + rows * sum(rings)) * per_pos + table
 
 
 def chunk_buffer_bytes(engine_config) -> int:

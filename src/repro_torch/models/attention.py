@@ -9,7 +9,9 @@ over the dense ring or the block table. All reach the hand-written
 kernels through ``kernels.ops``.
 
 Cache layout (per layer): ``{"k": (B, W, Hkv, hd), "v": (B, W, Hkv, hd)}``
-with ``W`` the cache window (= max_len here). With
+with ``W`` the ring's width: ``min(window, max_len)`` for a sliding-window
+layer (gemma's local layers, mixtral), else ``max_len``; every reader
+takes ``W`` from the cache leaf. With
 ``kv_cache_dtype="int8"`` k/v hold int8 codes and the group adds
 ``"k_scale"``/``"v_scale"`` (B, W, Hkv) float32, one absmax scale per
 (slot, kv head) (``_quant_kv``). Keys are stored post-RoPE; slot ``s``
@@ -54,8 +56,12 @@ def init_attn(cfg: ArchConfig, dtype: torch.dtype,
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int,
-                    dtype: torch.dtype, device: torch.device) -> dict:
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+                    dtype: torch.dtype, device: torch.device,
+                    window: int = 0) -> dict:
+    """A zeroed ring ``min(window, max_len)`` wide with a window, else
+    ``max_len`` wide."""
+    W = min(window, max_len) if window else max_len
+    shape = (batch, W, cfg.n_kv_heads, cfg.head_dim)
     if cfg.kv_cache_dtype == "int8":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -124,13 +130,14 @@ def ring_positions(W: int, pos: torch.Tensor) -> torch.Tensor:
 
 
 def attn_prefill_into_cache(p: dict, cfg: ArchConfig, x: torch.Tensor,
-                            cache: dict) -> torch.Tensor:
-    """Causal prefill of x (B, S, d) from position 0; leaves the last W
+                            cache: dict, *, window: int = 0) -> torch.Tensor:
+    """Causal prefill of x (B, S, d) from position 0, each query seeing
+    the ``window`` keys up to its own with a window; leaves the last W
     keys/values in the ring (written in place). Returns (B, S, d)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _qkv(p, cfg, x, positions)
-    out = kops.flash_attention(q, k, v, causal=True, window=0,
+    out = kops.flash_attention(q, k, v, causal=True, window=window,
                                softcap=cfg.attn_logit_softcap)
     y = _out(out, p["wo"])
     W = cache["k"].shape[1]

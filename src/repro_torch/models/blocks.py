@@ -1,16 +1,20 @@
 """The residual blocks, as ``repro.models.blocks``: the dense block
-(pre-norm attention + SwiGLU MLP: prefill into the cache, residual-suffix
-prefill behind a shared prefix, one-token decode; ``attn_mlp_*``), the
-MoE block (pre-norm attention + mixture of experts; ``attn_moe_*``) and
-the SSM block (pre-norm Mamba2; ``ssm_*``). Attention is GQA or, when the
-layer's parameters hold ``w_dkv``, DeepSeek's MLA over the latent cache;
-a config with ``mla`` builds MLA in its dense layers too."""
+(pre-norm attention + gated MLP, its activation the config's ``act``:
+prefill into the cache, residual-suffix prefill behind a shared prefix,
+one-token decode; ``attn_mlp_*``), the MoE block (pre-norm attention +
+mixture of experts; ``attn_moe_*``) and the SSM block (pre-norm Mamba2;
+``ssm_*``). Attention is GQA or, when the layer's parameters hold
+``w_dkv``, DeepSeek's MLA over the latent cache; a config with ``mla``
+builds MLA in its dense layers too. A prefill takes its layer's
+``window`` (0: full horizon), and ``init_block_cache`` builds the
+layer's cache group for that window."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import cache as paged
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import init_mlp, init_norm, mlp_fwd, norm_fwd
@@ -23,10 +27,10 @@ def _init_attn(cfg: ArchConfig, dtype: torch.dtype,
 
 
 def _attn_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor,
-                  cache: dict) -> torch.Tensor:
+                  cache: dict, window: int) -> torch.Tensor:
     if "w_dkv" in p:
         return attn.mla_prefill_into_cache(p, cfg, x, cache)
-    return attn.attn_prefill_into_cache(p, cfg, x, cache)
+    return attn.attn_prefill_into_cache(p, cfg, x, cache, window=window)
 
 
 def _attn_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
@@ -46,9 +50,10 @@ def init_attn_mlp(cfg: ArchConfig, dtype: torch.dtype,
 
 
 def attn_mlp_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor,
-                     cache: dict) -> torch.Tensor:
-    x = x + _attn_prefill(p["attn"], cfg, norm_fwd(cfg, p["ln1"], x), cache)
-    return x + mlp_fwd(p["mlp"], norm_fwd(cfg, p["ln2"], x))
+                     cache: dict, *, window: int = 0) -> torch.Tensor:
+    x = x + _attn_prefill(p["attn"], cfg, norm_fwd(cfg, p["ln1"], x), cache,
+                          window)
+    return x + mlp_fwd(p["mlp"], norm_fwd(cfg, p["ln2"], x), cfg.act)
 
 
 def attn_mlp_suffix_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -57,14 +62,14 @@ def attn_mlp_suffix_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor,
     x = x + attn.attn_suffix_prefill_into_cache(
         p["attn"], cfg, norm_fwd(cfg, p["ln1"], x), cache, ctx_k, ctx_v,
         offset)
-    return x + mlp_fwd(p["mlp"], norm_fwd(cfg, p["ln2"], x))
+    return x + mlp_fwd(p["mlp"], norm_fwd(cfg, p["ln2"], x), cfg.act)
 
 
 def attn_mlp_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
                     pos: torch.Tensor) -> torch.Tensor:
     x = x + _attn_decode(p["attn"], cfg, norm_fwd(cfg, p["ln1"], x), cache,
                          pos)
-    return x + mlp_fwd(p["mlp"], norm_fwd(cfg, p["ln2"], x))
+    return x + mlp_fwd(p["mlp"], norm_fwd(cfg, p["ln2"], x), cfg.act)
 
 
 def init_attn_moe(cfg: ArchConfig, dtype: torch.dtype,
@@ -77,8 +82,9 @@ def init_attn_moe(cfg: ArchConfig, dtype: torch.dtype,
 
 
 def attn_moe_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor,
-                     cache: dict) -> torch.Tensor:
-    x = x + _attn_prefill(p["attn"], cfg, norm_fwd(cfg, p["ln1"], x), cache)
+                     cache: dict, *, window: int = 0) -> torch.Tensor:
+    x = x + _attn_prefill(p["attn"], cfg, norm_fwd(cfg, p["ln1"], x), cache,
+                          window)
     return x + moe_lib.moe_fwd(p["moe"], cfg, norm_fwd(cfg, p["ln2"], x))
 
 
@@ -99,6 +105,27 @@ def attn_moe_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
     return x + moe_lib.moe_fwd(p["moe"], cfg, norm_fwd(cfg, p["ln2"], x))
 
 
+def init_block_cache(cfg: ArchConfig, batch: int, max_len: int,
+                     dtype: torch.dtype, device: torch.device, *,
+                     window: int = 0, table: torch.Tensor | None = None,
+                     layout: paged.PagedLayout | None = None) -> dict:
+    """One attention layer's cache group, by JAX's rule: with a
+    ``layout``, a group whose window covers the horizon
+    (``cache.pageable``) pages over the shared ``table``; a genuinely
+    sliding ring (W < max_len) has no block-table form and stays dense
+    rows, ``batch`` of them. Without a layout: a ring ``min(window,
+    max_len)`` wide with a window (``attention.init_attn_cache``), or MLA
+    latent rows (an MLA layer takes no window)."""
+    if layout is not None and paged.pageable(window, max_len):
+        init = (paged.init_paged_mla_cache if cfg.mla
+                else paged.init_paged_attn_cache)
+        return init(cfg, table, layout, dtype)
+    if cfg.mla:
+        return attn.init_mla_cache(cfg, batch, max_len, dtype, device)
+    return attn.init_attn_cache(cfg, batch, max_len, dtype, device,
+                                window=window)
+
+
 def init_ssm_block(cfg: ArchConfig, dtype: torch.dtype,
                    generator: torch.Generator) -> dict:
     return {"ln": init_norm(cfg, cfg.d_model, dtype, generator.device),
@@ -106,8 +133,9 @@ def init_ssm_block(cfg: ArchConfig, dtype: torch.dtype,
 
 
 def ssm_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor,
-                cache: dict) -> torch.Tensor:
+                cache: dict, *, window: int = 0) -> torch.Tensor:
     """Builds the layer's cache (conv tail + final state) from scratch."""
+    del window  # an SSM layer attends over nothing
     return x + ssm_lib.mamba2_fwd(p["mamba"], cfg, norm_fwd(cfg, p["ln"], x),
                                   cache)
 

@@ -137,7 +137,7 @@ def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU), embedding, linear
+# MLP (gated: SwiGLU or GeGLU), embedding, linear
 # ---------------------------------------------------------------------------
 def init_mlp(d_model: int, d_ff: int, dtype: torch.dtype,
              generator: torch.Generator) -> dict:
@@ -149,9 +149,20 @@ def init_mlp(d_model: int, d_ff: int, dtype: torch.dtype,
                                        generator)}
 
 
-def mlp_fwd(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return project(F.silu(project(x, p["w_gate"])) * project(x, p["w_up"]),
-                   p["w_down"])
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (the exact erf
+    form is another function)."""
+    return F.gelu(x, approximate="tanh")
+
+
+# the config's ``act`` by name, as ``repro.models.layers.mlp_fwd`` reads it
+ACTIVATIONS = {"silu": F.silu, "gelu": gelu_tanh}
+
+
+def mlp_fwd(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """The gated MLP ``act(x·w_gate) * (x·w_up) · w_down``."""
+    return project(ACTIVATIONS[act](project(x, p["w_gate"]))
+                   * project(x, p["w_up"]), p["w_down"])
 
 
 def embed_fwd(p: dict, tokens: torch.Tensor) -> torch.Tensor:

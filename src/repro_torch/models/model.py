@@ -1,11 +1,16 @@
-"""Model assembly for the dense, MoE and SSM families: init, caches,
-prefill, decode.
+"""Model assembly for the dense, gemma, MoE and SSM families: init,
+caches, prefill, decode.
 
-A port of the dense, moe and ssm paths of ``repro.models.model.Model``.
-JAX scans one stacked parameter tree over the layers (for moe, the
-``n_dense_layers`` leading dense layers as ``dense0``, then the MoE
-``stack``); the port keeps one parameter dict per layer
-(``params["layers"]``, in that order) and loops over them.
+A port of the dense, gemma, moe and ssm paths of
+``repro.models.model.Model``. JAX scans one stacked parameter tree over
+the layers (for moe, the ``n_dense_layers`` leading dense layers as
+``dense0``, then the MoE ``stack``; for gemma, ``super`` blocks of
+``local_global_pattern`` local layers and one global, then the ``rem``
+local layers); the port keeps one parameter dict per layer
+(``params["layers"]``, in that order: for gemma each super-block's
+locals, its global, then the remainder) and loops over them, each layer
+with its window (``Model.windows``: ``sliding_window`` for a local
+layer, 0 for a global one).
 
 The fused chunk has one body, ``decode_chunk_step``: one ``decode_step``,
 the pick (argmax, or with ``greedy=False`` a Gumbel-max sample from the
@@ -21,7 +26,7 @@ Parameters::
 
     {"embed": {"table": (V, d)}, "final_norm": {...},
      "lm_head": {"w": (d, V)}  (untied configs only),
-     "layers": [{"ln1", "attn", "ln2", "mlp"} per layer]   (dense)
+     "layers": [{"ln1", "attn", "ln2", "mlp"} per layer]   (dense, gemma)
                [{"ln1", "attn", "ln2", "mlp"} x n_dense_layers,
                 {"ln1", "attn", "ln2", "moe"} x the rest]  (moe)
                [{"ln", "mamba"} per layer]                 (ssm)}
@@ -29,9 +34,10 @@ Parameters::
 where ``attn`` is GQA or, for a config with ``mla``, DeepSeek's latent
 attention (``models/attention.py``).
 
-Cache: one ``{"k", "v"}`` dict of (B, max_len, Hkv, hd) tensors per layer,
-or, with a ``PagedLayout``, one paged group per layer over a block table
-that every layer shares (``models/cache.py``); with
+Cache: one ``{"k", "v"}`` dict of (B, W, Hkv, hd) tensors per layer (a
+ring ``W = min(window, max_len)`` wide), or, with a ``PagedLayout``, one
+paged group per full-horizon layer over a block table that every layer
+shares (``models/cache.py``), a sliding ring staying dense rows; with
 ``kv_cache_dtype="int8"`` either holds int8 codes plus float32 scales
 (``models/attention.py``). An MLA layer's cache holds its latents,
 ``{"ckv", "k_rope"}`` rows or ``{"ckv_pages", "k_rope_pages"}`` over the
@@ -46,13 +52,14 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention as attn
+from repro_torch.kernels.decode_attention import check_kernel_shape
 from repro_torch.models import blocks
 from repro_torch.models import cache as paged
 from repro_torch.models import sampling
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (embed_fwd, init_norm, linear_fwd,
-                                       norm_fwd, prefill_products, project,
+from repro_torch.models.layers import (ACTIVATIONS, embed_fwd, init_norm,
+                                       linear_fwd, norm_fwd,
+                                       prefill_products, project,
                                        truncated_normal)
 
 Params = dict
@@ -75,19 +82,18 @@ def family(cfg: ArchConfig) -> str:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """The port serves the text-only dense family with a full-horizon
-    cache, in the model's dtype or int8, the MoE family with GQA or MLA
-    attention (deepseek-v2-lite) and the SSM family (mamba2); other
-    families and options (a sliding window, as mixtral's) are later
-    slices."""
+    """The port serves the text-only dense family, the gemma family
+    (local/global super-blocks), the MoE family with GQA or MLA attention
+    and the SSM family (mamba2), with or without a sliding window, in the
+    model's dtype or over an int8 cache, with a gated SiLU or gelu MLP;
+    the audio, hybrid and vision families, learned positions and
+    non-gated MLPs are later slices."""
     unsupported = {  # an MLA cache ignores kv_cache_dtype, as in JAX
         "arch_type": cfg.arch_type not in ("dense", "moe", "ssm"),
-        "sliding_window": cfg.sliding_window > 0,
-        "local_global_pattern": cfg.local_global_pattern > 0,
         "kv_cache_dtype": cfg.kv_cache_dtype not in ("model", "int8"),
         "pos_embed": cfg.pos_embed != "rope",
         "n_vision_tokens": cfg.n_vision_tokens > 0,
-        "act": cfg.act != "silu",
+        "act": cfg.act not in ACTIVATIONS,
         "mlp_gated": not cfg.mlp_gated,
     }
     bad = [k for k, v in unsupported.items() if v]
@@ -109,15 +115,28 @@ def _kind(p: dict) -> str:
     return "ssm" if "mamba" in p else "moe" if "moe" in p else "mlp"
 
 
+def check_card_shape(cfg: ArchConfig) -> None:
+    """On the card, refuse a GQA model whose head shape the decode
+    kernels are not instantiated for (``G = H / Hkv`` and ``K``), before
+    any weight or cache is made."""
+    if cfg.arch_type == "ssm" or cfg.mla:
+        return
+    check_kernel_shape(cfg.name, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+
+
 class Model:
-    """A dense, MoE or SSM decoder on one device (``"cuda"`` unless told
-    ``"cpu"``)."""
+    """A dense, gemma, MoE or SSM decoder on one device (``"cuda"``
+    unless told ``"cpu"``)."""
 
     def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            check_card_shape(cfg)
         check_supported(cfg)
         self.cfg = cfg
         self.fam = family(cfg)
-        self.device = resolve_device(device)
+        # each layer's attention window, in params["layers"] order
+        self.windows = cfg.layer_windows()
 
     # ------------------------------------------------------------------
     def init(self, seed: int = 0, dtype: torch.dtype = torch.float32
@@ -148,16 +167,22 @@ class Model:
 
     @property
     def n_dense_layers(self) -> int:
-        """Leading layers with a dense MLP: all of a dense model's, the
-        first ``n_dense_layers`` of an MoE model's."""
+        """Leading layers with a dense MLP: all of a dense or gemma
+        model's, the first ``n_dense_layers`` of an MoE model's."""
         return (self.cfg.n_dense_layers if self.fam == "moe"
                 else self.cfg.n_layers)
 
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.float32,
-                   layout: paged.PagedLayout | None = None) -> Cache:
-        """Dense rows, or with ``layout`` the paged cache: every layer's
-        group refers to one shared (batch, nblk) table. An int8 cache
+                   layout: paged.PagedLayout | None = None, *,
+                   width: int | None = None) -> Cache:
+        """Dense rows (each layer's ring ``min(window, max_len)`` wide),
+        or with ``layout`` the paged cache: every full-horizon layer's
+        group refers to one shared (batch, nblk) table, and a sliding
+        ring stays dense rows, as in JAX. ``width`` makes a prefill
+        mini-cache for an engine of horizon ``max_len``: its full-horizon
+        groups ``width`` wide, each sliding ring as wide as the engine's,
+        so the engine copies the ring whole. An int8 cache
         (``cfg.kv_cache_dtype``) ignores ``dtype`` for its codes and
         scales. An SSM model's rows are its conv tails and states, which
         ``max_len`` does not size and no layout pages: with a layout it
@@ -168,17 +193,13 @@ class Model:
         if self.fam == "ssm":
             return [ssm_lib.init_mamba2_cache(cfg, batch, dtype, self.device)
                     for _ in range(cfg.n_layers)]
-        if layout is None:
-            init = attn.init_mla_cache if cfg.mla else attn.init_attn_cache
-            return [init(cfg, batch, max_len, dtype, self.device)
-                    for _ in range(cfg.n_layers)]
-        if not paged.pageable(cfg.sliding_window, max_len):
-            raise ValueError(f"{cfg.name}: a {cfg.sliding_window}-token "
-                             f"window does not page over {max_len}")
-        table = paged.new_table(batch, max_len, layout, self.device)
-        init = (paged.init_paged_mla_cache if cfg.mla
-                else paged.init_paged_attn_cache)
-        return [init(cfg, table, layout, dtype) for _ in range(cfg.n_layers)]
+        full = [paged.pageable(w, max_len) for w in self.windows]
+        table = (paged.new_table(batch, max_len, layout, self.device)
+                 if layout is not None and any(full) else None)
+        return [blocks.init_block_cache(
+            cfg, batch, max_len if width is None or not f else width, dtype,
+            self.device, window=w, table=table, layout=layout)
+            for w, f in zip(self.windows, full)]
 
     # ------------------------------------------------------------------
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -202,8 +223,8 @@ class Model:
         returns the logits (B, V) at ``logits_at``."""
         with prefill_products():
             x = embed_fwd(params["embed"], tokens)
-            for p, c in zip(params["layers"], cache):
-                x = _PREFILL[_kind(p)](p, self.cfg, x, c)
+            for p, c, w in zip(params["layers"], cache, self.windows):
+                x = _PREFILL[_kind(p)](p, self.cfg, x, c, window=w)
             return self._head(params, self._sel(x, logits_at))
 
     def prefill_suffix(self, params: Params, tokens: torch.Tensor,

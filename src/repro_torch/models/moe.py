@@ -30,7 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import init_mlp, mlp_fwd, truncated_normal
+from repro_torch.models.layers import (ACTIVATIONS, init_mlp, mlp_fwd,
+                                      truncated_normal)
 
 # leaves kept in float32 whatever the model's dtype
 F32_LEAVES = ("router",)
@@ -102,7 +103,8 @@ def moe_fwd(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     xe = buf[:, :E * C].reshape(G, E, C, d).transpose(0, 1).reshape(
         E, G * C, d)
     w = p["experts"]
-    h = torch.bmm(F.silu(torch.bmm(xe, w["w_gate"]))
+    act = ACTIVATIONS[cfg.act]
+    h = torch.bmm(act(torch.bmm(xe, w["w_gate"]))
                   * torch.bmm(xe, w["w_up"]), w["w_down"])   # (E, G·C, d)
     h = h.reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
     back = h.gather(1, torch.where(keep, slot, 0)[..., None].expand(
@@ -111,5 +113,5 @@ def moe_fwd(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     back = back * gates.reshape(G, TgK, 1).to(x.dtype)
     out = back.reshape(T, K, d).sum(dim=1)
     if "shared" in p:
-        out = out + mlp_fwd(p["shared"], xt)
+        out = out + mlp_fwd(p["shared"], xt, cfg.act)
     return out.reshape(B, S, d)

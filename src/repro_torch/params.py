@@ -7,16 +7,21 @@ layout ``repro.serving.backend.save_params`` writes: ``embed``,
 leading layer axis: ``{ln1, attn, ln2, mlp}`` for the dense family,
 ``{ln, mamba}`` for the SSM family, ``{ln1, attn, ln2, moe}`` for the MoE
 family, whose ``n_dense_layers`` leading dense layers come as a second
-group ``dense0`` of the dense family's layout) and returns the port's
-parameter dict, with each stacked (L, ...) leaf split into per-layer
-tensors, ``dense0``'s first. An expert weight keeps its leading E axis.
+group ``dense0`` of the dense family's layout; the gemma family's dense
+layers come as ``super: {local: (n_super, k, ...), global: (n_super,
+...)}`` for its super-blocks of k local layers and one global, and
+``rem: (n_rem, ...)`` for the local layers left over) and returns the
+port's parameter dict, with each stacked leaf split into per-layer
+tensors in layer order (``dense0``'s first; each super-block's locals,
+then its global, then ``rem``). An expert weight keeps its leading E
+axis.
 The bytes are kept exactly (bfloat16 included) unless a ``dtype`` cast
 is asked for; a Mamba2 block's float32 leaves (``models.ssm.F32_LEAVES``)
 and the MoE router (``models.moe.F32_LEAVES``) stay float32 under any
 cast, as the reference keeps them.
 
 ``save_params`` writes the port's parameters back into that stacked
-layout as one ``.npz`` (a leaf a key, its path joined by ``/``; bfloat16
+layout (a gemma model's given its config) as one ``.npz`` (a leaf a key, its path joined by ``/``; bfloat16
 leaves as their 16-bit words under a ``@bfloat16`` suffix), and
 ``load_params`` reads such a file through ``from_numpy``: the weight
 handoff of a ``ProcessBackend(params_path=...)``.
@@ -52,11 +57,43 @@ def _tensor(a: Any, device: torch.device,
     return t if dtype is None else t.to(dtype)
 
 
-def _convert(tree: Any, device: torch.device, dtype, layer: int | None):
+def _convert(tree: Any, device: torch.device, dtype,
+             layer: tuple[int, ...] = ()):
     if isinstance(tree, dict):
         return {k: _convert(v, device, None if k in F32_LEAVES else dtype,
                             layer) for k, v in tree.items()}
-    return _tensor(tree if layer is None else tree[layer], device, dtype)
+    return _tensor(tree[layer] if layer else tree, device, dtype)
+
+
+def _layout(cfg: ArchConfig) -> tuple[dict, list]:
+    """The stacked groups of ``cfg``'s tree, each path (a tuple of keys)
+    with the leading axes of its leaves, and each port layer's (path,
+    index into those axes), in layer order."""
+    if family(cfg) == "gemma":
+        k = cfg.local_global_pattern
+        n_super = cfg.n_layers // (k + 1)
+        n_rem = cfg.n_layers - n_super * (k + 1)
+        groups = {("super", "local"): (n_super, k),
+                  ("super", "global"): (n_super,)}
+        order = [slot for i in range(n_super)
+                 for slot in [(("super", "local"), (i, j))
+                              for j in range(k)]
+                 + [(("super", "global"), (i,))]]
+        if n_rem:
+            groups[("rem",)] = (n_rem,)
+            order += [(("rem",), (i,)) for i in range(n_rem)]
+        return groups, order
+    n_dense = cfg.n_dense_layers if family(cfg) == "moe" else 0
+    groups = {("dense0",): (n_dense,)} if n_dense else {}
+    groups[("stack",)] = (cfg.n_layers - n_dense,)
+    return groups, [(path, (i,)) for path, (n,) in groups.items()
+                    for i in range(n)]
+
+
+def _at(tree: dict, path: tuple) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def _leaves(tree: Any):
@@ -73,11 +110,9 @@ def from_numpy(cfg: ArchConfig, tree: dict, *,
     """Port parameters for ``cfg`` from a nested dict of numpy arrays."""
     check_supported(cfg)
     dev = resolve_device(device)
-    n_dense = cfg.n_dense_layers if family(cfg) == "moe" else 0
-    # stacked groups in layer order, with their depths
-    groups = {"dense0": n_dense} if n_dense else {}
-    groups["stack"] = cfg.n_layers - n_dense
-    need = {"embed", "final_norm", *groups} | (
+    groups, order = _layout(cfg)
+    tops = {path[0] for path in groups}
+    need = {"embed", "final_norm", *tops} | (
         set() if cfg.tie_embeddings else {"lm_head"})
     if set(tree) != need:
         raise ValueError(f"{cfg.name}: parameter groups {sorted(tree)}, "
@@ -86,16 +121,17 @@ def from_numpy(cfg: ArchConfig, tree: dict, *,
     if table != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"{cfg.name}: embed table {table}, expected "
                          f"{(cfg.vocab_size, cfg.d_model)}")
-    for name, depth in groups.items():
-        depths = {np.shape(a)[0] for a in _leaves(tree[name])}
-        if depths != {depth}:
-            raise ValueError(f"{cfg.name}: {name} leaves have leading axes "
-                             f"{sorted(depths)}, expected {depth}")
-    params = {k: _convert(v, dev, dtype, None)
-              for k, v in tree.items() if k not in groups}
-    params["layers"] = [_convert(tree[name], dev, dtype, layer)
-                        for name, depth in groups.items()
-                        for layer in range(depth)]
+    for path, axes in groups.items():
+        found = {tuple(np.shape(a)[:len(axes)])
+                 for a in _leaves(_at(tree, path))}
+        if found != {axes}:
+            raise ValueError(f"{cfg.name}: {'/'.join(path)} leaves have "
+                             f"leading axes {sorted(found)}, expected "
+                             f"{axes}")
+    params = {k: _convert(v, dev, dtype)
+              for k, v in tree.items() if k not in tops}
+    params["layers"] = [_convert(_at(tree, path), dev, dtype, index)
+                        for path, index in order]
     return params
 
 
@@ -110,23 +146,36 @@ def _flat(tree: dict, prefix: str = ""):
             yield f"{prefix}{k}", v
 
 
-def save_params(params: dict, path: str | os.PathLike) -> str:
+def save_params(params: dict, path: str | os.PathLike,
+                cfg: ArchConfig | None = None) -> str:
     """Write the port's parameters (``Model.init`` or ``from_numpy``) to
     ``path`` as ``.npz`` in the stacked layout ``from_numpy`` takes: the
     per-layer dicts stacked along a leading layer axis into ``stack``
-    (and, for an MoE model, its leading dense layers into ``dense0``).
-    The bytes are kept exactly. Returns the path."""
+    (and, for an MoE model, its leading dense layers into ``dense0``),
+    or, given the gemma config ``cfg``, into its ``super`` and ``rem``
+    groups (without ``cfg`` a gemma model would be written as one
+    ``stack``, which ``load_params`` refuses). The bytes are kept
+    exactly. Returns the path."""
     layers = params["layers"]
-    groups: dict[str, list] = {}
-    for p in layers:
+    if cfg is not None:
+        groups, order = _layout(cfg)
+        names = [path for path, _ in order]
+    else:
         # an MoE model's leading dense layers (their MLP is "mlp") are
         # dense0, its MoE layers the stack; any other model is one stack
-        name = ("dense0" if "mlp" in p and any("moe" in q for q in layers)
-                else "stack")
-        groups.setdefault(name, []).append(p)
+        moe_model = any("moe" in q for q in layers)
+        names = [("dense0",) if "mlp" in p and moe_model else ("stack",)
+                 for p in layers]
+        groups = {n: (names.count(n),) for n in dict.fromkeys(names)}
+    members: dict[tuple, list] = {}
+    for p, name in zip(layers, names):
+        members.setdefault(name, []).append(p)
     tree = {k: v for k, v in params.items() if k != "layers"}
-    for name, group in groups.items():
-        tree[name] = _stack(group)
+    for name, axes in groups.items():
+        node = tree
+        for k in name[:-1]:
+            node = node.setdefault(k, {})
+        node[name[-1]] = _stack(members[name], axes)
     arrays = {}
     for key, t in _flat(tree):
         t = t.detach().cpu().contiguous()
@@ -140,10 +189,13 @@ def save_params(params: dict, path: str | os.PathLike) -> str:
     return str(path)
 
 
-def _stack(group: list) -> dict:
+def _stack(group: list, axes: tuple[int, ...]) -> dict:
+    """The leaves of ``group``'s layer dicts stacked in order, the
+    leading axis reshaped to ``axes``."""
     first = group[0]
-    return {k: (_stack([p[k] for p in group]) if isinstance(v, dict)
-                else torch.stack([p[k] for p in group]))
+    return {k: (_stack([p[k] for p in group], axes) if isinstance(v, dict)
+                else torch.stack([p[k] for p in group]).reshape(
+                    *axes, *v.shape))
             for k, v in first.items()}
 
 

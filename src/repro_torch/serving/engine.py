@@ -1,7 +1,8 @@
 """Continuous-batching serving engine with fused multi-token decode.
 
-A port of ``repro.serving.engine.ServingEngine`` for the dense and MoE
-families (GQA or MLA), over the dense or the paged cache, and for the
+A port of ``repro.serving.engine.ServingEngine`` for the dense, gemma
+and MoE families (GQA or MLA), over the dense or the paged cache (whose
+sliding-window rings stay dense rows beside the paged groups), and for the
 SSM family over its dense state rows, under either cache's admission
 (paged: the block budget bounds the resident sequences, the rows stay
 dense). Each ``step()`` expires deadlines,
@@ -539,13 +540,16 @@ class ServingEngine:
         fewer than 128 token rows of cache and prefill. Not in float32,
         whose projections are sliced instead, nor on the dense path, which
         never shares, nor for MoE, where the expert capacity couples a
-        batch's rows, nor for an SSM model, which never shares either: a
-        paged SSM engine prefills the batch the dense one does, so the
-        two give a row the same state bits, and JAX's scan runs the
-        unpadded batch; nor on the CPU."""
+        batch's rows, nor for an SSM model or one with a sliding window
+        (gemma), which never share either: their paged engines prefill
+        the batch the dense one does, so the two give a row the same bits
+        (padded, a gemma prompt prefilled alone at its exact width would
+        run other row counts than on the dense engine below 128 rows),
+        and JAX runs the unpadded batch; nor on the CPU."""
         if (self.device.type != "cuda" or not self.paged
                 or self.config.dtype != torch.bfloat16
-                or self.model.fam in ("moe", "ssm")):
+                or self.model.fam in ("moe", "ssm")
+                or self.model.cfg.sliding_window > 0):
             return n
         return max(n, -(-MIN_PREFILL_ROWS // width))
 
@@ -581,13 +585,18 @@ class ServingEngine:
                                                ctx, H, logits_at=logits_at)
             self.prefix_hit_tokens_total += n * H
         else:
-            # the paged mini-cache is bucket-wide (JAX builds it max_len
-            # wide): positions at or past a row's length are never read,
-            # so the rest of the horizon need not be zero-filled. It is
-            # capped at max_len, where a bucket past the horizon wraps
-            # its padding into the ring exactly as the dense cache does
+            # the paged mini-cache's full-horizon groups are bucket-wide
+            # (JAX builds them max_len wide): positions at or past a
+            # row's length are never read, so the rest of the horizon
+            # need not be zero-filled. They are capped at max_len, where
+            # a bucket past the horizon wraps its padding into the ring
+            # exactly as the dense cache does. A sliding ring is as wide
+            # as the engine's (min(window, max_len)) under either cache,
+            # so a prompt longer than the window wraps into the slots the
+            # engine decodes from, and insert copies the ring whole
             width = min(bl, self.max_len) if self.paged else self.max_len
-            src = self.model.init_cache(rows, width, dtype)
+            src = self.model.init_cache(rows, self.max_len, dtype,
+                                        width=width)
             logits = self.model.prefill(self.params, tokens, src,
                                         logits_at=logits_at)
         if rows > n:

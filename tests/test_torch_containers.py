@@ -100,6 +100,11 @@ CACHE_CASES = {
     "mla_dense": ("deepseek-v2-lite-16b-reduced", False, {}),
     "mla_paged": ("deepseek-v2-lite-16b-reduced", False,
                   {"cache": "paged", "max_seqs": 3, "max_blocks": 9}),
+    "gemma_dense": ("gemma3-27b-reduced", False, {"max_len": 128}),
+    "gemma_paged": ("gemma3-27b-reduced", False,
+                    {"max_len": 128, "cache": "paged", "max_seqs": 3}),
+    "gemma_int8_paged": ("gemma3-27b-reduced", True,
+                         {"max_len": 128, "cache": "paged", "max_seqs": 3}),
     "ssm_dense": ("mamba2-2.7b-reduced", False, {}),
     "ssm_paged": ("mamba2-2.7b-reduced", False,
                   {"cache": "paged", "max_seqs": 6}),
@@ -124,8 +129,8 @@ def test_engine_cache_bytes_are_the_engines_own(case, dtype):
     if int8:
         cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
     model = Model(cfg, device="cpu")
-    config = EngineConfig(n_slots=3, max_len=64, dtype=dtype,
-                          chunk_tokens=8, **extra)
+    config = EngineConfig(**{"n_slots": 3, "max_len": 64, "dtype": dtype,
+                             "chunk_tokens": 8, **extra})
     eng = ServingEngine(model, model.init(seed=0), config, device="cpu")
     assert tcont.engine_cache_bytes(cfg, config) == _tree_bytes(
         eng.cache_backend.tree)

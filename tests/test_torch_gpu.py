@@ -1524,7 +1524,11 @@ GRAPH_KINDS = {
     "int8_paged": ("qwen3-0.6b-reduced", True, "paged", False),
     "mamba2": ("mamba2-2.7b-reduced", False, "dense", False),
     "mla_dense": ("deepseek-v2-lite-16b-reduced", False, "dense", False),
-    "mla_paged": ("deepseek-v2-lite-16b-reduced", False, "paged", False)}
+    "mla_paged": ("deepseek-v2-lite-16b-reduced", False, "paged", False),
+    # a 64-slot local ring (wraps past position 64) beside a global layer
+    # that is a full ring or paged
+    "gemma_dense": ("gemma3-27b-reduced", False, "dense", False),
+    "gemma_paged": ("gemma3-27b-reduced", False, "paged", False)}
 # prompt lengths every family admits (mamba2-reduced: ones its 32-token
 # scan chunk divides) and budgets
 GRAPH_SPECS = [(12, 21), (32, 9), (20, 30), (64, 17)]
@@ -1967,3 +1971,134 @@ def test_slo_replay_dispatches_in_rank_order_with_the_plain_tokens(cuda):
         want = {rid: plain.submit(build_request(
             by_rid[rid], vocab_size=vocab)).tokens() for rid in sorted(done)}
     assert done == want
+
+
+# ---------------------------------------------------------------------------
+# the gemma family and the 8B dense configs
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_gemmas_local_prefill(cuda, dtype):
+    """gemma3-27b's local layers: a 1300-token prompt under the 1024-token
+    window, H 32 / Hkv 16 / K 128."""
+    q = _randn(cuda, 1, 1300, 32, 128, dtype=dtype)
+    k = _randn(cuda, 1, 1300, 16, 128, dtype=dtype)
+    v = _randn(cuda, 1, 1300, 16, 128, dtype=dtype)
+    got = ops.flash_attention(q, k, v, window=1024)
+    torch.cuda.synchronize()
+    _assert_close(got, ref.flash_attention(q, k, v, window=1024), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_over_gemmas_wrapped_ring(cuda, dtype):
+    """G 2, K 128 over a 1024-slot ring written to positions past 1024
+    (every slot live) and below it (a live prefix)."""
+    from repro_torch.models.attention import ring_positions
+    pos = torch.tensor([1030, 1500, 2047, 700], device="cuda")
+    valid = (ring_positions(1024, pos) >= 0).contiguous()
+    assert bool(valid[:3].all()) and int(valid[3].sum()) == 701
+    q = _randn(cuda, 4, 32, 128, dtype=dtype)
+    k = _randn(cuda, 4, 1024, 16, 128, dtype=dtype)
+    v = _randn(cuda, 4, 1024, 16, 128, dtype=dtype)
+    got = ops.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    _assert_close(got, ref.decode_attention(q, k, v, valid), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernels_at_the_8b_configs_g4(cuda, dtype):
+    """qwen3-8b's and llama3.1-8b's 4-row decode step: G 4, K 128 (G·K =
+    512, the widest instantiation), dense and paged, the paged kernel
+    bitwise the dense one over the gathered view."""
+    got = _split_case(cuda, dtype, [48, 160, 300, 544], 32, 8, 128, 16,
+                      128, 0.0)
+    assert got.shape == (4, 32, 128)
+
+
+def _gemma_reduced(**over):
+    import dataclasses
+
+    from repro_torch.configs.base import reduce_config
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(reduce_config(
+        get_config("gemma3-27b"), n_layers=5, sliding_window=16), **over)
+
+
+def test_gemma_reduced_on_the_card_matches_the_cpu(cuda):
+    """Reduced gemma (two super-blocks and a remainder layer, a 16-slot
+    ring) in float32: a 40-token prefill and 40 decode steps, so the rings
+    wrap in both, with card logits within 1e-3 of the CPU's; then the
+    same requests through a card engine and a CPU engine, dense and paged,
+    give the same greedy streams."""
+    import numpy as np
+
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = _gemma_reduced()
+    cpu, card = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    cp = cpu.init(seed=0)
+    gp = _to_card(cp)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40), dtype=np.int32))
+    cc, gc = cpu.init_cache(2, 128), card.init_cache(2, 128)
+    cl = cpu.prefill(cp, toks, cc)
+    gl = card.prefill(gp, toks.cuda(), gc).cpu()
+    pos = torch.full((2,), 40, dtype=torch.int32)
+    for step in range(41):
+        torch.testing.assert_close(gl, cl, atol=1e-3, rtol=1e-3,
+                                   msg=f"step {step}")
+        if step == 40:
+            break
+        tok = cl.argmax(-1).to(torch.int32)[:, None]
+        cl = cpu.decode_step(cp, tok, cc, pos)
+        gl = card.decode_step(gp, tok.cuda(), gc, pos.cuda()).cpu()
+        pos = pos + 1
+    specs = [(10, 30), (40, 14), (25, 9), (64, 20)]
+    for cache in ("dense", "paged"):
+        conf = EngineConfig(n_slots=2, max_len=128, chunk_tokens=8,
+                            cache=cache, max_seqs=2 if cache == "paged"
+                            else None)
+        streams = []
+        for model, params, dev in ((cpu, cp, "cpu"), (card, gp, "cuda")):
+            eng = ServingEngine(model, params, conf, device=dev)
+            eng.submit_many(_requests(cfg.vocab_size, specs, 6))
+            streams.append({c.rid: c.tokens for c in eng.run()})
+        assert streams[0] == streams[1], cache
+
+
+def test_gemma_dense_equals_paged_in_bf16_without_prefill_padding(cuda):
+    """A bf16 paged gemma engine prefills each prompt alone at its exact
+    width, as the dense engine does: the window shuts the sharing gate,
+    so ``MIN_PREFILL_ROWS`` padding has nothing to equalise and is not
+    applied, and the two engines' greedy streams are identical."""
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = _gemma_reduced()
+    model = Model(cfg, device="cuda")
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    specs = [(10, 30), (40, 14), (25, 9), (64, 20), (100, 12)]
+    streams = []
+    for cache in ("dense", "paged"):
+        eng = ServingEngine(model, params, EngineConfig(
+            n_slots=2, max_len=128, chunk_tokens=8, cache=cache,
+            max_seqs=2 if cache == "paged" else None, prefix_cache=True
+            if cache == "paged" else False, dtype=torch.bfloat16),
+            device="cuda")
+        assert eng._prefill_rows(1, 10) == 1 and not eng._share
+        eng.submit_many(_requests(cfg.vocab_size, specs, 7))
+        streams.append({c.rid: c.tokens for c in eng.run()})
+    assert streams[0] == streams[1]
+
+
+def test_model_refuses_head_shapes_without_a_kernel_on_the_card(cuda):
+    """mixtral-8x22b's G = 6 and zamba2-7b's K = 112 have no decode
+    kernel: ``Model`` refuses them on the card, naming G and K."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    base = get_config("qwen3-8b")
+    with pytest.raises(ValueError, match="G=6, K=128"):
+        Model(dataclasses.replace(base, n_heads=48, n_kv_heads=8))
+    with pytest.raises(ValueError, match="G=1, K=112"):
+        Model(dataclasses.replace(base, n_heads=32, n_kv_heads=32,
+                                  head_dim=112))

@@ -44,7 +44,9 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
             "repro_torch.core.energy_model", "repro_torch.core.scheduler",
             "repro_torch.core.containers",
             "repro_torch.serving.process_pool",
-            "repro_torch.serving.adaptive"} <= set(_modules())
+            "repro_torch.serving.adaptive",
+            "repro_torch.configs.qwen3_8b", "repro_torch.configs.llama31_8b",
+            "repro_torch.configs.gemma3_27b"} <= set(_modules())
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         class Blk(importlib.abc.MetaPathFinder):
@@ -108,6 +110,46 @@ def test_workload_and_launcher_modules_run_with_jax_and_repro_blocked():
     assert "workload imports ok" in out.stdout
 
 
+def test_new_families_serve_with_jax_and_repro_blocked():
+    """The gemma and 8B configs load, and reduced gemma (a local ring that
+    wraps beside a paged global layer) serves on the CPU, without JAX or
+    the reference package."""
+    script = textwrap.dedent("""
+        import importlib.abc, sys
+        class Blk(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    raise ImportError(f"blocked import of {name}")
+        sys.meta_path.insert(0, Blk())
+        import numpy as np
+        from repro_torch.configs.base import reduce_config
+        from repro_torch.configs.registry import get_config
+        from repro_torch.models.model import Model
+        from repro_torch.serving.engine import (EngineConfig, Request,
+                                                ServingEngine)
+        for name in ("qwen3-8b", "llama3.1-8b", "gemma3-27b"):
+            Model(get_config(name), device="cpu")
+        cfg = reduce_config(get_config("gemma3-27b"), n_layers=3,
+                            sliding_window=8)
+        model = Model(cfg, device="cpu")
+        eng = ServingEngine(model, model.init(seed=0), EngineConfig(
+            n_slots=2, max_len=32, cache="paged", chunk_tokens=4),
+            device="cpu")
+        eng.submit(Request(0, np.arange(12, dtype=np.int32), 10))
+        (done,) = eng.run()
+        assert len(done.tokens) == 10
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+        print("new families ok")
+    """)
+    out = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"},
+        timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "new families ok" in out.stdout
+
+
 def test_chip_smoke_imports_nothing_of_jax_or_repro():
     src = (REPO / "chip_smoke.py").read_text()
     for line in src.splitlines():
@@ -158,11 +200,17 @@ def test_engine_refuses_params_on_another_device():
 def test_unported_configurations_raise():
     import dataclasses
     cfg = get_config(ARCH)
-    for change in ({"sliding_window": 8}, {"kv_cache_dtype": "fp8"},
-                   {"n_experts": 4, "sliding_window": 8},  # mixtral's
-                   {"arch_type": "hybrid"}, {"act": "gelu"}):
+    for change in ({"kv_cache_dtype": "fp8"}, {"arch_type": "hybrid"},
+                   {"arch_type": "audio"}, {"n_vision_tokens": 8},
+                   {"pos_embed": "learned"}, {"mlp_gated": False},
+                   {"act": "relu"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             Model(dataclasses.replace(cfg, **change), device="cpu")
+    # served since the gemma slice: a window (mixtral's too), the
+    # local/global pattern and the tanh gelu
+    for change in ({"sliding_window": 8}, {"local_global_pattern": 1},
+                   {"n_experts": 4, "sliding_window": 8}, {"act": "gelu"}):
+        Model(dataclasses.replace(cfg, **change), device="cpu")
 
 
 def test_mamba2_is_accepted_and_its_paged_cache_is_not_ported():

@@ -13,7 +13,9 @@ draw), float32, within 1e-5:
   engine's;
 * T = 12 with 16 dispatch groups, which halves G twice (16 -> 8 -> 4);
 * a window-free GQA MoE (mixtral's reduced config without its window)
-  through the paged engine with prefix sharing, against the JAX engine.
+  through the paged engine with prefix sharing, against the JAX engine;
+* the same MoE with a 16-token window on both caches, against the JAX
+  engine.
 """
 from __future__ import annotations
 
@@ -171,3 +173,36 @@ def test_window_free_gqa_moe_shares_prefixes_like_jax():
                     for c in te.run()})
     assert got == want
     assert te.prefix_hit_tokens_total == 64 * 3
+
+
+@pytest.mark.parametrize("cache", ["dense", "paged"])
+def test_windowed_gqa_moe_serves_jax_streams(cache):
+    """The window reaches the MoE block (``attn_moe_prefill(window=)``):
+    mixtral's reduced config with a 16-token window over a 64-token
+    horizon, prompts shorter and longer than the window and budgets that
+    wrap every ring in decode. The paged engine keeps the rings dense (no
+    layer pages), and both engines give the JAX engine's greedy tokens.
+    On the card the full mixtral-8x22b is refused for its G = 6
+    (tests/test_torch_dense_families.py)."""
+    from repro_torch.configs.base import ArchConfig
+    jcfg = dataclasses.replace(jax_config("mixtral-8x22b-reduced"),
+                               sliding_window=16)
+    cfg = ArchConfig(**dataclasses.asdict(jcfg))
+    jm = JaxModel(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = Model(cfg, device="cpu")
+    assert tm.windows == [16] * cfg.n_layers
+    tp = bridge.from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
+    rng = np.random.default_rng(4)
+    specs = [(i, rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32), mn)
+             for i, (n, mn) in enumerate([(10, 20), (40, 9), (10, 5),
+                                          (40, 12)])]
+    conf = dict(n_slots=2, max_len=64, chunk_tokens=4, cache=cache)
+    je = jeng.ServingEngine(jm, jp, jeng.EngineConfig(**conf))
+    te = ServingEngine(tm, tp, EngineConfig(**conf), device="cpu")
+    assert all(g["k"].shape[1] == 16 for g in te.cache_backend.tree)
+    je.submit_many([jeng.Request(i, p, mn) for i, p, mn in specs])
+    te.submit_many([Request(i, p, mn) for i, p, mn in specs])
+    want = {c.rid: list(c.tokens) for c in je.run()}
+    got = {c.rid: list(c.tokens) for c in te.run()}
+    assert got == want and len(got) == len(specs)

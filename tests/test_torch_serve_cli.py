@@ -2,7 +2,8 @@
 the CPU at the reduced qwen3 config: the trace mode under SLO classes
 (fixed count and online), the streamed and the wave fixed modes, the
 online Router and the adaptive pool each print what JAX's launcher
-prints; without a card the default ``--device cuda`` raises."""
+prints; the reduced gemma and 8B configs serve the fixed mode; without
+a card the default ``--device cuda`` raises."""
 from __future__ import annotations
 
 import re
@@ -81,6 +82,19 @@ def test_online_mode_prints_windows_and_the_choice(capsys, stream):
     assert "feasible counts: [1, 2]" in out
     assert re.search(r"^converged choice: n=[12]$", out, re.M)
     assert "scheduler summary:" in out
+
+
+@pytest.mark.filterwarnings("ignore::DeprecationWarning")
+@pytest.mark.parametrize("arch", ["gemma3-27b", "qwen3-8b", "llama3.1-8b"])
+def test_new_archs_serve_reduced_on_the_cpu(capsys, arch):
+    """``--arch gemma3-27b --reduced --device cpu`` (and the 8B configs)
+    serves the fixed mode over paged engines, gemma's local rings beside
+    its paged global layer."""
+    out = _run(capsys, "--arch", arch, "--containers", "2", "--requests",
+               "4", "--max-new", "3", "--cache", "paged")
+    assert re.search(r"^n=2 \(concurrent\+stream\): 4 requests, 12 "
+                     r"tokens in ", out, re.M), out
+    assert out.rstrip().splitlines()[-1].startswith("kernel launches: ")
 
 
 def test_no_submesh_and_no_card_means_no_run(monkeypatch):
