@@ -69,6 +69,14 @@ Phases, each raising on failure (any failure exits nonzero):
    a 1024-slot ring written past position 1024, and ``decode_attention``
    and ``paged_decode_attention`` at qwen3-8b's 4-row step (G 4, K 128;
    the paged kernel bit for bit the dense one over the gathered view).
+   Those of phase 15's models, the same way (the scan within SSD_TOL of
+   max|plain|; library_ms ``F.rms_norm`` for the norms, none for the
+   scan): ``flash_attention`` at zamba2-7b's shared attention (B 1, S
+   512, H = Hkv = 32, K = Kv = 112, causal), ``decode_attention`` and
+   ``paged_decode_attention`` at (G, K) = (1, 112) (H 32) and (6, 128)
+   (H 48, Hkv 8) over 4 rows live to 48-544 of 2048, ``ssd_scan`` at a
+   512-token zamba2 prefill (nh 112, hd 64, ds 64, chunk 256) and
+   ``rmsnorm`` at (512, 3584 / 6144 / 7168).
 3. Model: qwen3-0.6b at full width cut to 2 layers, the 2-layer
    mamba2-2.7b-reduced and the 2-layer deepseek-v2-lite-16b-reduced,
    float32, the port's seeded init: prefill + 8 greedy decode steps on
@@ -116,12 +124,14 @@ Phases, each raising on failure (any failure exits nonzero):
       identical bit for bit, and wave 2 must hit the shared prompt (a
       difference fails with a bisect: the prefill kernel over [context |
       suffix] against the whole prompt, one projection at the two modes'
-      row counts). Reports what padding prefill batches to 128 token rows
-      costs the sharing engine (wall, ttfc p50, peak memory), in turns
-      with and without it. Then the same gate in float32 at full width
+      row counts). The prefill projections on the card of a model that
+      can share run in fixed ROW_SLICE-row slices (``models/layers.py``,
+      ``Model.prefill``'s ``row_invariant``), so a row's bits do not move
+      with its batch (what that costs phases 4 and 6c against another
+      checkout: ``scripts/prefill_turns.py``). Then the same gate in
+      float32 at full width
       (the same seed's weights in float32, phase 6's whole two waves, 16
-      requests): float32 projections run in fixed 128-row slices on the
-      card, so streams and prefill logits must agree bit for bit too.
+      requests): streams and prefill logits must agree bit for bit too.
 7. The int8 KV cache (``kv_cache_dtype="int8"``), same weights:
    a. dense vs paged as in phase 5, on int8 caches: identical greedy
       streams, through the two int8 decode kernels only;
@@ -286,8 +296,43 @@ Phases, each raising on failure (any failure exits nonzero):
        card against the CPU within 1e-3, the rings wrapping in both.
     Prints the phase's time.
 
+15. The hybrid family, the vision prefix and mixtral at full width (bf16,
+    random weights from seed 0, chunk_tokens=32; each model freed before
+    the next; each prints a 4-row decode step replayed from a graph
+    beside its bytes bound at 3.35 TB/s):
+    a. zamba2-7b, not cut (81 Mamba2 layers, 13 super-blocks of 6 each
+       followed by the one weight-shared attention + MLP block, then 3;
+       d 3584, 32 heads of 112, SSD 112 heads of 64, state 64; 13.5 GB),
+       n_slots=4, max_len=2048: phase 8's 8 requests of 64-1024 tokens
+       (lengths the scan's chunk divides) through
+       ``Router(ThreadBackend(2))`` (flash, dense decode and the scan a
+       multiple of their layers), then phase 8b's groups through a dense
+       and a paged engine (13 paged groups beside 81 dense SSM rows):
+       identical streams, ``graph_vs_eager`` on both, the paged kernel,
+       the scan, flash and rmsnorm launching in the paged engine.
+    b. internvl2-26b, not cut (48 layers, d 6144, 48/8 heads of 128, G 6;
+       a 3200 -> 6144 -> 6144 image projection; 39.8 GB): 8 requests of
+       16-512 tokens, each behind 256 random patch embeddings, through
+       ``Router(ThreadBackend(2))`` (``card_feasible_counts`` printed;
+       two engines either way); then 4 requests behind one image and one
+       256-token system prompt, in phases of 1 and 3, through a dense
+       engine, a paged engine with ``prefix_cache`` (the second phase must
+       hit) and one without: identical streams.
+    c. mixtral-8x22b at full width cut to 8 of its 56 layers (8 experts
+       top-2, d_ff 16384, G 6, window 4096; 40.9 GB, the whole model
+       281 GB, more than the card): max_len 8192, prompts of 64-1024
+       tokens, 4200 and 5000 (rings that wrap in prefill) and 4080 (its
+       ring wraps in decode), max_new 32, through
+       ``Router(ThreadBackend(2))``, one dense and one paged engine
+       (``prefix_cache``; every ring stays dense rows): identical streams.
+    d. reduced zamba2, internvl2 (8 image positions) and mixtral in
+       float32: prefill and decode steps on the card against the CPU
+       within 1e-3.
+    Prints the phase's time.
+
 Then a JSON line with each kernel's launches (from the phase of the path
-it serves, and by phase, phase 13's three parts and phase 14's among them), error and times (eight kernels), the card's
+it serves, and by phase, phase 13's three parts and phases 14's and 15's
+among them), error and times (eight kernels), the card's
 ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 {...}}``.
 
@@ -1059,7 +1104,7 @@ def flash_shape_checks(gen):
 # come (4096 to 7168); the main shape is the block norm of a 512-token
 # qwen3 prefill
 RMS_WIDTHS = (128, 512, 1024, 2048, 2560, 5120)
-RMS_LATER = (4096, 5376, 6144, 7168)
+RMS_LATER = (3584, 4096, 5376, 6144, 7168)
 RMS_ROWS = (1, 37, 4099)      # no multiple of the kernel's rows a block
 RMS_MAIN = dict(rows=512, D=1024)
 RMS_EPS = 1e-6
@@ -1500,6 +1545,167 @@ def family_shape_checks(gen) -> dict:
     return out
 
 
+# the shapes the hybrid, vision and windowed-MoE families give the kernels
+# (phase 15's): zamba2-7b's shared attention (H = Hkv = 32, K = Kv = 112)
+# in a 512-token prefill and a 4-row decode step, mixtral-8x22b's and
+# internvl2-26b's 4-row step (G = 6: H 48, Hkv 8, K 128), zamba2's SSD
+# scan over a 512-token prefill and the norms of the three at 512 rows
+ZAMBA_FLASH = dict(B=1, S=512, H=32, Hkv=32, K=112)
+NEW_DECODE = {"zamba_k112": dict(H=32, Hkv=32, K=112),
+              "g6": dict(H=48, Hkv=8, K=128)}
+ZAMBA_SSD = dict(B=1, S=512, nh=112, hd=64, ng=1, ds=64, chunk=256)
+NEW_NORMS = {"zamba block (512, 3584)": 3584,
+             "internvl2/mixtral block (512, 6144)": 6144,
+             "zamba gated (512, 7168)": 7168}
+
+
+def later_shape_checks(gen) -> dict:
+    """The prefill, dense and paged decode, SSD scan and rmsnorm kernels
+    at the shapes of phase 15's models (ZAMBA_FLASH, NEW_DECODE at
+    G4_DECODE's 4 rows live to 48-544 of 2048, ZAMBA_SSD, NEW_NORMS), each
+    held against its plain version in float32 (2e-5) and bfloat16 (2e-2;
+    the scan at SSD_TOL of max|plain|), the paged kernel bit for bit the
+    dense one over the gathered view, then in bfloat16 timed as device
+    time (100 calls replayed from a CUDA graph) beside the plain version
+    and the library call (sdpa; F.rms_norm; none for the scan), with the
+    shape's bound. Returns {kernel: {label: row}}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ssd
+
+    dev = torch.device("cuda")
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def sdpa(q, k, v, valid):
+        q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        return lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=valid[:, None, None, :], enable_gqa=True)
+
+    out: dict = {}
+
+    def row(name, label, calls, bound, shape, close=check_close,
+            library="sdpa"):
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            k_call, p_call, lib = calls(dtype)
+            got = k_call()
+            torch.cuda.synchronize()
+            err = close(got, p_call(), dn, f"{name} {label} {dn}")
+            print(f"{name} {label} {dn} {shape}: max_abs_err={err:.3e}",
+                  flush=True)
+        out.setdefault(name, {})[label] = {
+            "max_abs_err": err, "ms": time_graph_ms(k_call),
+            "plain_ms": time_ms(p_call, reps=5),
+            "library_ms": time_graph_ms(lib) if lib else None,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "shape": shape + " bf16; ms and library_ms device time (100 "
+                     "calls replayed from a CUDA graph), plain_ms launched "
+                     f"one by one (CUDA events); library_ms is {library}"}
+
+    f = ZAMBA_FLASH
+    mask = ref.attention_mask(f["S"], f["S"], causal=True, window=0,
+                              device=dev)
+
+    def flash_calls(dtype):
+        q = randn(f["B"], f["S"], f["H"], f["K"], dtype=dtype)
+        k, v = (randn(f["B"], f["S"], f["Hkv"], f["K"], dtype=dtype)
+                for _ in range(2))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        return (lambda: fa.flash_attention(q, k, v),
+                lambda: ref.flash_attention(q, k, v),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True))
+    row("flash_attention", "zamba_k112", flash_calls,
+        bound_ms(4 * f["B"] * f["H"] * int(mask.sum()) * f["K"],
+                 2 * f["B"] * f["S"] * (f["H"] + f["Hkv"]) * f["K"] * 2,
+                 "bfloat16"),
+        f"B={f['B']} S={f['S']} H={f['H']} Hkv={f['Hkv']} K=Kv={f['K']} "
+        "causal")
+
+    g = G4_DECODE
+    B, W, depth = g["B"], g["W"], g["depth"]
+    valid = (torch.arange(W, device=dev)[None, :]
+             < torch.tensor(depth, device=dev)[:, None])
+    live = sum(depth)
+    bs, nblk = 16, W // 16
+    for label, d in NEW_DECODE.items():
+        h, hkv, k_ = d["H"], d["Hkv"], d["K"]
+
+        def dense_calls(dtype):
+            q = randn(B, h, k_, dtype=dtype)
+            k, v = (randn(B, W, hkv, k_, dtype=dtype) for _ in range(2))
+            return (lambda: da.decode_attention(q, k, v, valid),
+                    lambda: ref.decode_attention(q, k, v, valid),
+                    sdpa(q, k, v, valid))
+        shape = f"B={B} W={W} H={h} Hkv={hkv} K={k_} live={depth}"
+        row("decode_attention", label, dense_calls,
+            bound_ms(4 * live * h * k_,
+                     2 * live * hkv * k_ * 2 + 2 * B * h * k_ * 2 + B * W,
+                     "bfloat16"), shape)
+
+        def paged_calls(dtype):
+            q, kp, vp, table, lens, _ = paged_case(
+                gen, depth, h=h, hkv=hkv, k=k_, bs=bs, nblk=nblk,
+                dtype=dtype)
+            kd, vd, vmask = gathered(kp, vp, table, lens)
+            dense = da.decode_attention(q, kd, vd, vmask)
+            got = pa.paged_decode_attention(q, kp, vp, table, lens)
+            if not torch.equal(got, dense):
+                fail(f"paged_decode_attention {label} {dtype}: not bitwise "
+                     "the dense kernel over the gathered view")
+            return (lambda: pa.paged_decode_attention(q, kp, vp, table,
+                                                      lens),
+                    lambda: ref.paged_decode_attention(q, kp, vp, table,
+                                                       lens),
+                    sdpa(q, kd, vd, vmask))
+        row("paged_decode_attention", label, paged_calls,
+            bound_ms(4 * live * h * k_,
+                     2 * live * hkv * k_ * 2 + 2 * B * h * k_ * 2
+                     + B * nblk * 4, "bfloat16"),
+            f"B={B} bs={bs} nblk={nblk} H={h} Hkv={hkv} K={k_} live={depth}"
+            " (bitwise the dense kernel over the gathered view)")
+
+    m = ZAMBA_SSD
+
+    def ssd_calls(dtype):
+        args = ssd_inputs(gen, m["B"], m["S"], m["nh"], m["hd"], m["ng"],
+                          m["ds"], dtype)
+        return (lambda: ssd.ssd_scan(*args, chunk=m["chunk"]),
+                lambda: ref.ssd_scan(*args, chunk=m["chunk"]), None)
+
+    def ssd_both(got, want, dn, what):
+        return max(ssd_close(a, b, dn, f"{what} {n}")
+                   for n, a, b in zip(("y", "state"), got, want))
+    dn = "bfloat16"
+    row("ssd_scan", "zamba", ssd_calls,
+        ssd_bound(*(m[k] for k in ("B", "S", "nh", "hd", "ng", "ds",
+                                   "chunk")), dn, 2),
+        f"B={m['B']} S={m['S']} nh={m['nh']} hd={m['hd']} ng={m['ng']} "
+        f"ds={m['ds']} chunk={m['chunk']} (max_abs_err: max |kernel - "
+        "plain| / max|plain| over y and the state)", close=ssd_both,
+        library="none: no PyTorch call computes the SSD scan")
+
+    for label, D in NEW_NORMS.items():
+        def norm_calls(dtype, D=D):
+            x = randn(1, 512, D, dtype=dtype)
+            scale = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)
+                     ).to(dtype)
+            return (lambda: rn.rmsnorm(x, scale, RMS_EPS),
+                    lambda: ref.rmsnorm(x, scale, RMS_EPS),
+                    lambda: F.rms_norm(x, (D,), weight=scale, eps=RMS_EPS))
+        row("rmsnorm", label, norm_calls,
+            rmsnorm_bound([(512, D)], dn, 2, 2),
+            f"x=(1, 512, {D}), scale ({D},)", library="F.rms_norm")
+    return out
+
+
 def kernel_phase():
     import torch.nn.functional as F
 
@@ -1716,10 +1922,14 @@ def kernel_phase():
                  "launch_floor_ms is torch.cuda._sleep(0) (graph)"}
     print(f"rmsnorm main shape: {results['rmsnorm']}", flush=True)
 
-    # the gemma family's and the 8B configs' shapes (phase 14's)
+    # the gemma family's and the 8B configs' shapes (phase 14's), then the
+    # hybrid, vision and windowed-MoE families' (phase 15's)
     for name, rows in family_shape_checks(gen).items():
         results[name]["family_shapes"] = rows
         print(f"{name} family shapes: {rows}", flush=True)
+    for name, rows in later_shape_checks(gen).items():
+        results[name].setdefault("family_shapes", {}).update(rows)
+        print(f"{name} phase 15 shapes: {rows}", flush=True)
     return results
 
 
@@ -1754,9 +1964,15 @@ def model_phase(cfg, last: list[int], S: int = 64, steps: int = 8):
     last = torch.tensor(last)
     cc, gc = cpu_model.init_cache(B, max_len), gpu_model.init_cache(B, max_len)
     worst, agree, rows = 0.0, 0, 0
-    cl = cpu_model.prefill(cpu_params, toks, cc, logits_at=last)
+    img = {}
+    if cfg.n_vision_tokens:   # an image ahead of each prompt (last counts it)
+        img["vision_embeds"] = torch.from_numpy((0.1 * rng.standard_normal(
+            (B, cfg.n_vision_tokens, cfg.vision_embed_dim))).astype(
+                np.float32))
+    cl = cpu_model.prefill(cpu_params, toks, cc, logits_at=last, **img)
     gl = gpu_model.prefill(gpu_params, toks.cuda(), gc,
-                           logits_at=last.cuda()).cpu()
+                           logits_at=last.cuda(),
+                           **{k: v.cuda() for k, v in img.items()}).cpu()
     pos = last + 1
     for step in range(steps + 1):
         err = float((gl - cl).abs().max())
@@ -1918,13 +2134,15 @@ def norms_in_turns(step) -> list:
 def norms_per_forward(cfg) -> int:
     """rmsnorm launches in one forward (a prefill batch or a decode step):
     per layer the block norms (two, one for an SSM block) plus the q/k
-    norms (one pair launch), the MLA latent norm or the mamba2 gated norm;
-    then the final norm."""
-    if cfg.is_ssm:
-        per_layer = 2
-    else:
-        per_layer = 2 + (1 if cfg.qk_norm else 0) + (1 if cfg.mla else 0)
-    return cfg.n_layers * per_layer + 1
+    norms (one pair launch), the MLA latent norm or the mamba2 gated norm
+    (for zamba, each SSM layer's and each application of the shared
+    block's); then the final norm."""
+    attn = 2 + (1 if cfg.qk_norm else 0) + (1 if cfg.mla else 0)
+    if cfg.arch_type == "hybrid":
+        # every SSM layer, then each application of the shared block
+        return (cfg.n_layers * 2
+                + cfg.n_layers // cfg.shared_attn_every * attn + 1)
+    return cfg.n_layers * (2 if cfg.is_ssm else attn) + 1
 
 
 def check_norm_launches(cfg, launches: dict, what: str) -> None:
@@ -2408,10 +2626,11 @@ def sharing_bisect(model, params):
     same keys and values (bitwise: the kernel walks keys in the same tiles
     from position 0), and (b) one q projection of the same rows at the two
     row counts the two modes prefill (a 128-token suffix batch against
-    eight 512-token prompts; cuBLAS picks its algorithm by shape). Returns
-    (flash_bitwise, projection_bitwise)."""
+    eight 512-token prompts; cuBLAS picks its algorithm by shape, so a
+    prefill slices its products). Returns (flash_bitwise,
+    projection_bitwise)."""
     from repro_torch.kernels import ops
-    from repro_torch.models.layers import project
+    from repro_torch.models.layers import prefill_products, project
 
     dev, dt = model.device, params["embed"]["table"].dtype
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -2426,20 +2645,19 @@ def sharing_bisect(model, params):
     w = params["layers"][0]["attn"]["wq"]
     w = w.reshape(w.shape[0], -1)
     x = torch.randn(8 * whole, w.shape[0], generator=gen, device=dev).to(dt)
-    proj_bitwise = torch.equal(project(x[:sb], w), project(x, w)[:sb])
+    with prefill_products(every_dtype=True):
+        proj_bitwise = torch.equal(project(x[:sb], w), project(x, w)[:sb])
     return flash_bitwise, proj_bitwise
 
 
-def sharing_gate_phase(model, params, config, card: str, max_new: int = 32,
-                       padding: bool = True):
+def sharing_gate_phase(model, params, config, card: str, max_new: int = 32):
     """6c: one paged engine with prefix sharing and one without, at the
     same block budget, each driven through phase 6's two waves in turn,
     draining between them. Wave 2 must hit the shared prompt, the greedy
     streams must be identical and each request's prefill logits equal bit
     for bit between the modes. On a difference the failure carries the
     bisect: the prefill kernel over [context | suffix] against the whole
-    prompt, and a q projection at the two modes' row counts. Then, with
-    ``padding``, what the engine's prefill padding costs. Returns the
+    prompt, and a q projection at the two modes' row counts. Returns the
     launch counts of the two engines' runs."""
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import Request, ServingEngine
@@ -2494,57 +2712,7 @@ def sharing_gate_phase(model, params, config, card: str, max_new: int = 32,
           f"sharing on and off; hit_tokens on={hits[0]} off={hits[1]} "
           f"prefill_tokens_executed on={prefill[0]} off={prefill[1]}; "
           f"launches={launches} [card: {card}]", flush=True)
-    if padding:
-        padding_cost(model, params, dataclasses.replace(config,
-                                                        prefix_cache=True),
-                     waves, max_new, card)
     return launches
-
-
-def padding_cost(model, params, config, waves, max_new: int, card: str):
-    """What the padding of prefill batches to MIN_PREFILL_ROWS token rows
-    costs a sharing engine: phase 6's two waves through one engine with
-    and without it, in turns padded, unpadded, unpadded, padded. Reports
-    wall, ttfc p50 (submission to first chunk) and the peak device memory
-    above what the engine held before serving (prefill mini-caches and
-    activations)."""
-    from repro_torch.serving import engine as engine_mod
-    from repro_torch.serving.engine import Request, ServingEngine
-    from repro_torch.serving.events import ChunkEvent
-
-    rows = engine_mod.MIN_PREFILL_ROWS
-    turns = []
-    for pad in (True, False, False, True):
-        engine_mod.MIN_PREFILL_ROWS = rows if pad else 1
-        try:
-            eng = ServingEngine(model, params, config, device=model.device)
-            first: dict = {}
-            eng.on_event = lambda ev: (isinstance(ev, ChunkEvent) and
-                                       first.setdefault(ev.rid, ev.time_s))
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            held = torch.cuda.memory_allocated()
-            ttfc = []
-            t0 = time.perf_counter()
-            for wave in waves:
-                t_sub = time.perf_counter()
-                eng.submit_many([Request(rid, prompt, max_new)
-                                 for rid, prompt in wave])
-                eng.run()
-                ttfc += [first[rid] - t_sub for rid, _ in wave]
-            torch.cuda.synchronize()
-            turns.append((time.perf_counter() - t0,
-                          float(np.percentile(ttfc, 50)),
-                          torch.cuda.max_memory_allocated() - held))
-            del eng
-        finally:
-            engine_mod.MIN_PREFILL_ROWS = rows
-    fmt = "wall_s={:.4f} ttfc_p50_s={:.4f} peak_bytes_above_engine={}".format
-    print(f"sharing gate (6c), padding cost: phase 6's waves through one "
-          f"sharing engine in turns padded, unpadded, unpadded, padded: "
-          f"padded to {rows} token rows {fmt(*turns[0])} / "
-          f"{fmt(*turns[3])}; unpadded {fmt(*turns[1])} / "
-          f"{fmt(*turns[2])} [card: {card}]", flush=True)
 
 
 def kv_pool_bytes(engine) -> int:
@@ -3723,8 +3891,9 @@ def online_loop_phase(model, params, card: str):
     """Phase 12 on full-width qwen3-0.6b (bf16, phase 4's seeded weights,
     n_slots=4, max_len=2048, chunk_tokens=32, one request a prefill so a
     request's bits do not depend on which container, or which batch, it
-    landed in: cuBLAS gives a bf16 prefill row other bits below 128 rows
-    a batch, see ``MIN_PREFILL_ROWS`` in ``serving/engine.py``):
+    landed in; written when cuBLAS gave a bf16 prefill row other bits at
+    other batch sizes, before bf16 prefill products were sliced, see
+    ``ROW_SLICE`` in ``models/layers.py``):
 
     a. ``Router(backend_factory=n -> ThreadBackend(n), feasible_counts=
        card_feasible_counts(..., max_containers=4), window=8, epsilon=0,
@@ -4218,6 +4387,20 @@ def seeded_requests(cfg, plens, seed: int, max_new: int = 32,
             for i, n in enumerate(plens)]
 
 
+def with_images(cfg, reqs, seed: int) -> list:
+    """``reqs`` with an image each for a vision model (``vision_embeds``
+    (n_vision_tokens, vision_embed_dim) float32, 0.1 x N(0, 1) from
+    ``seed``); unchanged for any other model."""
+    if not cfg.n_vision_tokens:
+        return reqs
+    rng = np.random.default_rng(seed)
+    for r in reqs:
+        r.extras = {"vision_embeds": (0.1 * rng.standard_normal(
+            (cfg.n_vision_tokens, cfg.vision_embed_dim))).astype(
+                np.float32)}
+    return reqs
+
+
 def serve_router(model, params, config, reqs, what: str,
                  card: str) -> tuple[dict, dict]:
     """``Router(ThreadBackend(2))`` over ``model``: a warm-up request a
@@ -4232,8 +4415,8 @@ def serve_router(model, params, config, reqs, what: str,
     cfg = model.cfg
     backend = ThreadBackend(model, params, 2, config=config)
     with Router(backend) as router:
-        for h in [router.submit(r) for r in seeded_requests(
-                cfg, (20, 40), 99, max_new=4, start=1000)]:
+        for h in [router.submit(r) for r in with_images(cfg, seeded_requests(
+                cfg, (20, 40), 99, max_new=4, start=1000), 98)]:
             h.result()
         torch.cuda.synchronize()
         reqs = [dataclasses.replace(r) for r in reqs]
@@ -4252,10 +4435,15 @@ def serve_router(model, params, config, reqs, what: str,
             fail(f"{what}: request {r.rid} has out-of-range tokens")
         if h.ttfc_s is None:
             fail(f"{what}: request {r.rid} has no first chunk")
+    n_attn = model.kinds.count("attn")
     for name in ("flash_attention", "decode_attention"):
-        if launches[name] <= 0 or launches[name] % cfg.n_layers:
+        if launches[name] <= 0 or launches[name] % n_attn:
             fail(f"{what}: {launches[name]} {name} launches; need a positive "
-                 f"multiple of {cfg.n_layers}")
+                 f"multiple of {n_attn}")
+    if model.fam == "zamba" and (launches["ssd_scan"] <= 0
+                                 or launches["ssd_scan"] % cfg.n_layers):
+        fail(f"{what}: {launches['ssd_scan']} ssd_scan launches; need a "
+             f"positive multiple of {cfg.n_layers}")
     if launches["paged_decode_attention"]:
         fail(f"{what}: the paged kernel launched on dense engines")
     check_norm_launches(cfg, launches, what)
@@ -4309,7 +4497,10 @@ def decode_step_ms(model, params, pos: list, weight_bytes: int,
     torch.cuda.synchronize()
     cfg = model.cfg
     row = 2 * cfg.n_kv_heads * cfg.head_dim * 2          # k and v, bf16
-    kv = sum(min(p + 1, g["k"].shape[1]) * row
+    # live K/V read once; an SSM layer's conv tail and state read and
+    # written once
+    kv = sum(min(p + 1, g["k"].shape[1]) * row if "k" in g
+             else 2 * sum(t.nbytes for t in g.values()) // B
              for g in cache for p in pos)
     del cache, graph
     return {"ms": start.elapsed_time(end) / reps,
@@ -4472,6 +4663,300 @@ def family_phase(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the hybrid family, the vision prefix and mixtral at full width
+# ---------------------------------------------------------------------------
+# internvl2's prompts behind their images (256 positions each)
+VLM_PLENS = [16, 40, 100, 200, 256, 300, 450, 512]
+# mixtral's: below the 4096-slot window; two whose rings wrap in prefill,
+# and one (the last) whose ring wraps in decode
+MIXTRAL_PLENS = [64, 200, 333, 512, 800, 1024, 4200, 5000, 4080]
+MIXTRAL_LAYERS = 8
+VLM_SYSTEM, VLM_TAIL = 256, 64
+
+
+def distinct_bytes(tree) -> int:
+    """Bytes of the distinct tensors of a tree (zamba's shared block, which
+    every super-block refers to, once)."""
+    seen = {}
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, list):
+            for v in t:
+                walk(v)
+        else:
+            seen[t.data_ptr()] = t.nbytes
+    walk(tree)
+    return sum(seen.values())
+
+
+def phase15_header(what: str, model, params, t0: float, card: str,
+                   extra: str = "") -> int:
+    """Print the model's shape and weights; returns the weights' distinct
+    bytes."""
+    cfg = model.cfg
+    weights = distinct_bytes(params)
+    print(f"{what}: {cfg.n_layers} layers (kinds {model.kinds.count('ssm')} "
+          f"ssm, {model.kinds.count('attn')} attention) d={cfg.d_model} "
+          f"H={cfg.n_heads} Hkv={cfg.n_kv_heads} K={cfg.head_dim} d_ff="
+          f"{cfg.d_ff} vocab={cfg.vocab_size}, {cfg.param_count() / 1e9:.2f} "
+          f"G parameters, weights {weights} B in {time.perf_counter() - t0:.1f}"
+          f" s{extra}; memory_allocated={torch.cuda.memory_allocated()} B "
+          f"[card: {card}]", flush=True)
+    return weights
+
+
+def phase15_step(what: str, model, params, weights: int, card: str) -> dict:
+    """A 4-row decode step replayed from its graph beside its bytes bound:
+    the distinct weights (and, for zamba, also every application's read
+    of the shared block), live K/V and SSM rows at 3.35 TB/s."""
+    vis = distinct_bytes(params.get("vis_proj", {}))
+    step = decode_step_ms(model, params, [48, 160, 300, 544], weights - vis)
+    reads = tree_bytes({k: v for k, v in params.items() if k != "vis_proj"})
+    step["bound_reads_ms"] = (step["bound_ms"] + (reads - weights + vis)
+                              / PEAK_BYTES_S * 1e3)
+    print(f"{what}: a 4-row decode step replayed {step} (bound_ms: distinct "
+          "weights read once, the image projection left out; "
+          "bound_reads_ms: every layer's weights as the step reads them) "
+          f"[card: {card}]", flush=True)
+    return step
+
+
+def zamba_phase(card: str) -> dict:
+    """15a: full-width zamba2-7b (81 SSM layers, 13 applications of one
+    shared attention + MLP block, bf16, random weights from seed 0):
+    SSM_PLENS through ``Router(ThreadBackend(2))``, then phase 8b's groups
+    through a dense and a paged engine (``parity_phase``: identical
+    streams, ``graph_vs_eager`` on both; the paged engine's 13 attention
+    groups paged beside 81 dense SSM rows). Frees the model."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import EngineConfig
+
+    t0 = time.perf_counter()
+    cfg = get_config("zamba2-7b")
+    model = Model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    weights = phase15_header("15a zamba2-7b", model, params, t0, card)
+    config = EngineConfig(n_slots=4, max_len=2048, chunk_tokens=32,
+                          dtype=torch.bfloat16)
+    _, router = serve_router(model, params, config,
+                             seeded_requests(cfg, SSM_PLENS, 1),
+                             "15a zamba2-7b", card)
+    dense, paged = parity_phase(
+        model, params, dataclasses.replace(config, cache="paged",
+                                           block_size=16, max_seqs=4),
+        card, groups=SSM_PARITY_GROUPS)
+    for k in ("paged_decode_attention", "ssd_scan", "flash_attention",
+              "rmsnorm"):
+        if not paged[k]:
+            fail(f"15a zamba2-7b: the paged engine never launched {k}")
+    step = phase15_step("15a zamba2-7b", model, params, weights, card)
+    del model, params
+    torch.cuda.empty_cache()
+    print(f"15a zamba2-7b: {time.perf_counter() - t0:.1f} s; after freeing "
+          f"it memory_allocated={torch.cuda.memory_allocated()} B "
+          f"[card: {card}]", flush=True)
+    return {"router": router, "dense": dense, "paged": paged, "step": step}
+
+
+def vlm_sharing(model, params, config, card: str, rng) -> dict:
+    """15b's sharing check: 4 requests behind one image and one
+    VLM_SYSTEM-token system prompt (tails of VLM_TAIL tokens), in JAX's
+    ``_serve_phases`` form (one request, drained, then three) through a
+    dense engine, a paged engine with ``prefix_cache`` and one without.
+    The three give identical greedy streams; the sharing engine's second
+    phase hits (prefix-hit tokens > 0), the others never. Returns each
+    engine's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = model.cfg
+    system = rng.integers(0, cfg.vocab_size, (VLM_SYSTEM,), dtype=np.int32)
+    image = (0.1 * rng.standard_normal(
+        (cfg.n_vision_tokens, cfg.vision_embed_dim))).astype(np.float32)
+    reqs = [Request(3000 + i, np.concatenate([system, rng.integers(
+        0, cfg.vocab_size, (VLM_TAIL,), dtype=np.int32)]), 32,
+        extras={"vision_embeds": image}) for i in range(4)]
+    phases = [reqs[:1], reqs[1:]]
+    paged = dataclasses.replace(config, cache="paged", block_size=16,
+                                max_seqs=4)
+    confs = {"dense": config,
+             "paged_sharing": dataclasses.replace(paged, prefix_cache=True),
+             "paged": paged}
+    out, launches = {}, {}
+    for name, conf in confs.items():
+        eng = ServingEngine(model, params, conf)
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        got, hits = {}, {}
+        for ph in phases:
+            eng.submit_many([dataclasses.replace(r) for r in ph])
+            for c in eng.run():
+                got[c.rid], hits[c.rid] = list(c.tokens), c.prefix_hit_tokens
+        torch.cuda.synchronize()
+        launches[name] = ops.launch_counts()
+        out[name] = got
+        print(f"15b internvl2-26b sharing, {name} engine: {len(got)} "
+              f"requests (image + {VLM_SYSTEM}-token system prompt + "
+              f"{VLM_TAIL}-token tails, max_new 32, phases of 1 and 3) in "
+              f"{time.perf_counter() - t1:.4f} s, prefix hit tokens "
+              f"{hits}, prefill_tokens_executed "
+              f"{eng.prefill_tokens_executed}, launches "
+              f"{ {k: v for k, v in launches[name].items() if v} } "
+              f"[card: {card}]", flush=True)
+        want_hit = name == "paged_sharing"
+        if want_hit != (sum(hits.values()) > 0):
+            fail(f"15b internvl2-26b {name}: prefix hit tokens {hits}")
+        del eng
+        torch.cuda.empty_cache()
+    for r in reqs:
+        got = [out[k].get(r.rid) for k in confs]
+        if not got[0] == got[1] == got[2]:
+            fail(f"15b internvl2-26b sharing: request {r.rid} streams "
+                 f"differ: dense {got[0][:6]}... sharing "
+                 f"{(got[1] or [])[:6]}... paged {(got[2] or [])[:6]}...")
+    return launches
+
+
+def vlm_phase(card: str) -> dict:
+    """15b: full-width internvl2-26b (48 layers, G = 6, bf16, random
+    weights from seed 0; requests carry 256 random patch embeddings of
+    width 3200 from a seed): VLM_PLENS behind their images through
+    ``Router(ThreadBackend(2))``, then ``vlm_sharing``. Frees the
+    model."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.containers import card_feasible_counts
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import EngineConfig
+
+    t0 = time.perf_counter()
+    cfg = get_config("internvl2-26b")
+    model = Model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    config = EngineConfig(n_slots=4, max_len=2048, chunk_tokens=32,
+                          dtype=torch.bfloat16)
+    feasible = card_feasible_counts(
+        cfg, config, card_bytes=torch.cuda.get_device_properties(0)
+        .total_memory, max_containers=4)
+    weights = phase15_header(
+        "15b internvl2-26b", model, params, t0, card,
+        f"; card_feasible_counts={feasible}"
+        + ("" if 2 in feasible else " (two engines built all the same)"))
+    reqs = with_images(cfg, seeded_requests(cfg, VLM_PLENS, 11), 12)
+    _, router = serve_router(model, params, config, reqs,
+                             "15b internvl2-26b", card)
+    sharing = vlm_sharing(model, params, config, card,
+                          np.random.default_rng(13))
+    if not sharing["paged_sharing"]["paged_decode_attention"]:
+        fail("15b internvl2-26b: the sharing engine never launched the "
+             "paged kernel")
+    step = phase15_step("15b internvl2-26b", model, params, weights, card)
+    del model, params
+    torch.cuda.empty_cache()
+    print(f"15b internvl2-26b: {time.perf_counter() - t0:.1f} s; after "
+          f"freeing it memory_allocated={torch.cuda.memory_allocated()} B "
+          f"[card: {card}]", flush=True)
+    return {"router": router, **sharing, "step": step}
+
+
+def mixtral_phase(card: str, max_new: int = 32) -> dict:
+    """15c: mixtral-8x22b at full width cut to MIXTRAL_LAYERS of its 56
+    layers (8 experts top-2 of d_ff 16384, G = 6, window 4096; bf16,
+    random weights from seed 0), max_len 8192: MIXTRAL_PLENS through
+    ``Router(ThreadBackend(2))``, then through one dense and one paged
+    engine (``prefix_cache``: the window shuts it; every layer's
+    4096-slot ring stays dense rows, so no group pages). Identical greedy
+    streams through the three. Frees the model."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    t0 = time.perf_counter()
+    full = get_config("mixtral-8x22b")
+    cfg = dataclasses.replace(full, n_layers=MIXTRAL_LAYERS)
+    model = Model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    weights = phase15_header(
+        f"15c mixtral-8x22b cut to {MIXTRAL_LAYERS} of {full.n_layers} "
+        "layers", model, params, t0, card,
+        f"; the whole model's {full.param_count() / 1e9:.2f} G parameters "
+        f"are {full.param_count() * 2} B of bf16, more than the card's "
+        f"{torch.cuda.get_device_properties(0).total_memory} B")
+    config = EngineConfig(n_slots=4, max_len=8192, chunk_tokens=32,
+                          dtype=torch.bfloat16)
+    reqs = seeded_requests(cfg, MIXTRAL_PLENS, 21, max_new)
+    streams, router = serve_router(model, params, config, reqs,
+                                   "15c mixtral-8x22b", card)
+    out, launches = {"router": streams}, {"router": router}
+    for cache in ("dense", "paged"):
+        conf = (dataclasses.replace(config, cache="paged", block_size=16,
+                                    max_seqs=4, prefix_cache=True)
+                if cache == "paged" else config)
+        eng = ServingEngine(model, params, conf)
+        eng.submit_many([dataclasses.replace(r) for r in reqs])
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        comps = eng.run()
+        torch.cuda.synchronize()
+        launches[cache] = ops.launch_counts()
+        out[cache] = {c.rid: list(c.tokens) for c in comps}
+        hits = sum(c.prefix_hit_tokens for c in comps)
+        if hits:
+            fail(f"15c mixtral {cache}: {hits} prefix hit tokens under a "
+                 "window")
+        print(f"15c mixtral-8x22b {cache} engine: {len(comps)} requests in "
+              f"{time.perf_counter() - t1:.4f} s, cache "
+              f"{tree_bytes(eng.cache_backend.tree)} B, launches "
+              f"{ {k: v for k, v in launches[cache].items() if v} } "
+              f"[card: {card}]", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    for r in reqs:
+        got = [out[k].get(r.rid) for k in ("router", "dense", "paged")]
+        if not got[0] == got[1] == got[2]:
+            fail(f"15c mixtral-8x22b: request {r.rid} ({len(r.prompt)} "
+                 f"tokens) streams differ: router {got[0][:6]}... dense "
+                 f"{(got[1] or [])[:6]}... paged {(got[2] or [])[:6]}...")
+    step = phase15_step("15c mixtral-8x22b", model, params, weights, card)
+    del model, params
+    torch.cuda.empty_cache()
+    print(f"15c mixtral-8x22b: {len(reqs)} requests (prompts "
+          f"{MIXTRAL_PLENS}), identical greedy streams through the Router, "
+          f"the dense and the paged engine; {time.perf_counter() - t0:.1f} "
+          f"s; after freeing it memory_allocated="
+          f"{torch.cuda.memory_allocated()} B [card: {card}]", flush=True)
+    return {**launches, "step": step}
+
+
+def later_family_phase(card: str) -> dict:
+    """Phase 15: 15a zamba2-7b, 15b internvl2-26b, 15c mixtral-8x22b cut
+    to 8 layers, 15d the three reduced models against the CPU. Returns
+    the launches by part."""
+    from repro_torch.configs.registry import get_config
+
+    t0 = time.perf_counter()
+    out = {"zamba2-7b": zamba_phase(card)}
+    out["internvl2-26b"] = vlm_phase(card)
+    out["mixtral-8x22b"] = mixtral_phase(card)
+    # 15d: reduced zamba (2 SSM layers, each followed by the shared block),
+    # internvl2 (8 image positions ahead of the 64-token prompt) and
+    # mixtral (a 64-slot ring that decode wraps)
+    model_phase(get_config("zamba2-7b-reduced"), [63, 40])
+    model_phase(get_config("internvl2-26b-reduced"), [71, 48])
+    model_phase(get_config("mixtral-8x22b-reduced"), [63, 40], steps=16)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s [card: {card}]",
+          flush=True)
+    return out
+
+
 def full_width_model(dtype):
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import Model
@@ -4529,13 +5014,13 @@ def main() -> int:
         model, params, EngineConfig(max_seqs=8, **base), card)
     # 6c again in float32 at full width (its own weights from the same
     # seed), phase 6's whole two waves: the float32 projections run in
-    # fixed 128-row slices on the card, so sharing on == off bit for bit
+    # fixed ROW_SLICE-row slices on the card, so sharing on == off bit for
+    # bit
     torch.cuda.empty_cache()
     model32, params32 = full_width_model(torch.float32)
     sharing_launches_f32 = sharing_gate_phase(
         model32, params32,
-        EngineConfig(max_seqs=8, **{**base, "dtype": torch.float32}), card,
-        padding=False)
+        EngineConfig(max_seqs=8, **{**base, "dtype": torch.float32}), card)
     del model32, params32
 
     # the same weights over int8 caches
@@ -4591,6 +5076,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     family = family_phase(card)
 
+    # the hybrid family, the vision prefix and mixtral
+    torch.cuda.empty_cache()
+    later = later_family_phase(card)
+
     # each kernel's launches come from the path it serves: phase 4 (dense
     # cache) for the prefill and dense decode kernels, phase 6 (paged
     # cache with prefix sharing) for the paged decode kernel, phase 7a
@@ -4603,7 +5092,9 @@ def main() -> int:
     # fixed SLO Router's replay, 13b both adaptive replays, 13c the
     # launcher's own process (paged engines); phase 14a each 8B model's
     # Router run and its paged engine's compared streams, 14b gemma's
-    # Router run and its dense and paged engines
+    # Router run and its dense and paged engines; phase 15a zamba's Router
+    # run and its dense and paged engines, 15b internvl2's Router run and
+    # its sharing engine, 15c mixtral's Router run and its paged engine
     by_phase = {"phase4": launches, "phase6": paged_launches,
                 "phase6c": sharing_launches,
                 "phase6c_f32": sharing_launches_f32,
@@ -4623,7 +5114,16 @@ def main() -> int:
                 "phase14a_llama3.1-8b_paged": family["llama3.1-8b"]["paged"],
                 "phase14b": family["gemma3-27b"]["router"],
                 "phase14b_dense": family["gemma3-27b"]["dense"],
-                "phase14b_paged": family["gemma3-27b"]["paged"]}
+                "phase14b_paged": family["gemma3-27b"]["paged"],
+                "phase15a_zamba2-7b": later["zamba2-7b"]["router"],
+                "phase15a_zamba2-7b_dense": later["zamba2-7b"]["dense"],
+                "phase15a_zamba2-7b_paged": later["zamba2-7b"]["paged"],
+                "phase15b_internvl2-26b": later["internvl2-26b"]["router"],
+                "phase15b_internvl2-26b_sharing":
+                    later["internvl2-26b"]["paged_sharing"],
+                "phase15c_mixtral-8x22b": later["mixtral-8x22b"]["router"],
+                "phase15c_mixtral-8x22b_paged":
+                    later["mixtral-8x22b"]["paged"]}
     main_phase = {"flash_attention": "phase4", "decode_attention": "phase4",
                   "paged_decode_attention": "phase6",
                   "decode_attention_int8": "phase7a",

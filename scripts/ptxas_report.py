@@ -15,9 +15,13 @@ reader can see which bodies run their products on the tensor cores. Ends
 with a count of instantiations, spilling ones and ones with tensor-core
 instructions, then the MLA decode kernels' and the int8 decode split
 passes' own counts, and the rmsnorm instantiations' registers and spills
-one by one; it exits 1 unless every bf16 MLA split body has tensor-core
-instructions, no MLA instantiation spills, the int8 split passes are
-there and none of them spills, and the rmsnorm instantiations are there
+one by one, and the split decode body's instantiations at the pairs past
+G * K <= 512, (G, K) = (1, 112) and (6, 128), one by one; it exits 1
+unless every bf16 MLA split body has tensor-core instructions, no MLA
+instantiation spills, the int8 split passes are there and none of them
+spills, the rmsnorm instantiations are there and none of them spills,
+and the 12 split decode instantiations at the new pairs (split pass: 2
+query dtypes x 2 address policies x 2 pairs; merge: 2 x 2) are there
 and none of them spills.
 """
 from __future__ import annotations
@@ -140,8 +144,21 @@ def main() -> int:
     print(f"rmsnorm: {len(norm)} instantiations, most registers "
           f"{max((table[n][0] for n in norm), default=0)}, "
           f"{len(norm_spill)} spill")
+    # the split decode body at (G, K) = (1, 112) and (6, 128)
+    new = sorted((n for n in table if re.search(
+        r"decode_split_detail::decode_(split|merge)_kernel<[^,<>]+, "
+        r"(1, 112|6, 128)\b", names[n])), key=lambda n: names[n])
+    new_spill = [n for n in new if table[n][1] or table[n][2]]
+    for n in new:
+        regs, st, ld = table[n]
+        print(f"split decode new shape: regs={regs} spill_stores={st} "
+              f"spill_loads={ld} {names[n]}")
+    print(f"split decode new shapes: {len(new)} instantiations, most "
+          f"registers {max((table[n][0] for n in new), default=0)}, "
+          f"{len(new_spill)} spill")
     return 1 if (bare or spill or not tc_partial or not int8
-                 or int8_spill or not norm or norm_spill) else 0
+                 or int8_spill or not norm or norm_spill or len(new) != 12
+                 or new_spill) else 0
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""Registry of the ported architectures (the dense, gemma, SSM and MoE
-families so far), under the JAX package's names."""
+"""Registry of the ported architectures (the dense, gemma, SSM, MoE and
+hybrid families and the vision-prefixed dense model; not whisper yet),
+under the JAX package's names."""
 from __future__ import annotations
 
 import importlib
@@ -14,6 +15,9 @@ _MODULES = {
     "gemma3-27b": "repro_torch.configs.gemma3_27b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

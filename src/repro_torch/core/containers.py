@@ -173,15 +173,20 @@ def engine_cache_bytes(cfg: ArchConfig, engine_config) -> int:
     min(window, max_len), ...)`` under either cache; int8 codes with
     float32 scales for an int8 cache; latent rows or pages for MLA (which
     ignores the int8 option); conv and state rows, ``n_rows`` of them,
-    for an SSM model under either cache."""
+    for each SSM layer under either cache (a hybrid model's beside the
+    attention groups of its shared block's applications)."""
     ec = engine_config
     item = _itemsize(ec.dtype)
     rows, L = ec.n_rows, cfg.n_layers
-    if cfg.arch_type == "ssm":
+    ssm_bytes = 0
+    if cfg.is_ssm:
         conv_dim = cfg.d_inner + 2 * cfg.ssm_n_groups * cfg.ssm_state
         per_row = ((cfg.ssm_conv_width - 1) * conv_dim
                    + cfg.ssm_n_heads * cfg.ssm_head_dim * cfg.ssm_state)
-        return L * rows * per_row * item
+        ssm_bytes = L * rows * per_row * item
+        if cfg.arch_type == "ssm":
+            return ssm_bytes
+        L = cfg.n_layers // cfg.shared_attn_every   # attention groups
     if cfg.mla:
         per_pos = (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * item
     elif cfg.kv_cache_dtype == "int8":
@@ -191,7 +196,8 @@ def engine_cache_bytes(cfg: ArchConfig, engine_config) -> int:
     # a sliding ring (window < max_len; MLA takes none) is dense rows
     # min(window, max_len) wide under either cache; the other groups are
     # max_len-wide rows or pages over one shared table
-    windows = [0 if cfg.mla else w for w in cfg.layer_windows()]
+    windows = ([0] * L if cfg.mla or cfg.is_ssm
+               else cfg.layer_windows())
     rings = [w for w in windows if 0 < w < ec.max_len]
     n_full = L - len(rings)
     if ec.cache == "paged":
@@ -199,7 +205,7 @@ def engine_cache_bytes(cfg: ArchConfig, engine_config) -> int:
         table = rows * (ec.max_len // ec.block_size) * 4 if n_full else 0
     else:
         full, table = rows * ec.max_len, 0
-    return (n_full * full + rows * sum(rings)) * per_pos + table
+    return ssm_bytes + (n_full * full + rows * sum(rings)) * per_pos + table
 
 
 def chunk_buffer_bytes(engine_config) -> int:

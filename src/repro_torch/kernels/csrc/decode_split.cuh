@@ -21,8 +21,10 @@
 // position writes max = -inf, normaliser 0 and returns: it reads no K/V
 // (and a paged one not even the table, since it compares its first
 // position with lengths[b] before anything else). In a live split,
-// LPR = min(32, K*itemsize/16) lanes hold a row, each lane 16-byte loads
-// of it (bf16 K = 128: 16 lanes, two rows a warp instruction), and the
+// LPR = min(32, K*itemsize/16) lanes hold a row (rounded up to a power of
+// two: at K = 112 the last lanes of a row hold nothing), each lane
+// 16-byte loads of it (bf16 K = 128: 16 lanes, two rows a warp
+// instruction), and the
 // block's NW*32/LPR row workers take the split's positions round robin.
 // A warp issues the K and V loads of a batch of R rows a worker (R*RPW
 // rows a warp, 16 at bf16 K = 128) before it computes, then all G*R scores
@@ -141,8 +143,13 @@ __global__ void __launch_bounds__(NW * 32)
                         float softcap) {
   constexpr int VE = 16 / sizeof(T);          // elements a 16-byte load
   constexpr int NV = K / VE;                  // 16-byte loads a row
-  constexpr int LPR = NV < 32 ? NV : 32;      // lanes a row
-  constexpr int VPL = NV / LPR;               // loads a lane a row
+  // lanes a row: NV rounded up to a power of two, at most 32. Where NV is
+  // no power of two (K = 112: 14 loads in bf16, 28 in f32) the lanes past
+  // NV load nothing and add exact zeros, so a row's sums keep their order
+  constexpr int LPR = NV > 16 ? 32 : NV > 8 ? 16 : NV > 4 ? 8 : NV > 2 ? 4
+                      : NV > 1 ? 2 : 1;
+  constexpr int VPL = (NV + LPR - 1) / LPR;   // loads a lane a row
+  static_assert(K % VE == 0 && (NV <= 32 || NV % 32 == 0), "row loads");
   constexpr int EPL = VPL * VE;               // elements a lane a row
   constexpr int RPW = 32 / LPR;               // rows a warp instruction
   constexpr int NWK = NW * RPW;               // row workers a block
@@ -187,6 +194,8 @@ __global__ void __launch_bounds__(NW * 32)
   const int grp = lane / LPR, li = lane % LPR;
   const int worker = warp * RPW + grp;
   const int H = Hkv * G;
+  // the lane holds a part of the row (always, unless NV is no power of two)
+  const bool lv = LPR * VPL == NV || li < NV;
 
   float qr[G][EPL];
 #pragma unroll
@@ -195,8 +204,9 @@ __global__ void __launch_bounds__(NW * 32)
     for (int c = 0; c < VPL; ++c)
 #pragma unroll
       for (int e = 0; e < VE; ++e)
-        qr[g][c * VE + e] = to_float(
-            q[(size_t(b) * H + hk * G + g) * K + (c * LPR + li) * VE + e]);
+        qr[g][c * VE + e] = lv ? to_float(
+            q[(size_t(b) * H + hk * G + g) * K + (c * LPR + li) * VE + e])
+            : 0.f;
 
   float m[G], l[G], acc[G][EPL];
 #pragma unroll
@@ -228,8 +238,9 @@ __global__ void __launch_bounds__(NW * 32)
       const size_t base = (size_t(crow[u]) * Hkv + hk) * NV + li;
 #pragma unroll
       for (int c = 0; c < VPL; ++c) {
-        kr[u][c] = ok[u] ? __ldg(k4 + base + c * LPR) : make_uint4(0, 0, 0, 0);
-        vr[u][c] = ok[u] ? __ldg(v4 + base + c * LPR) : make_uint4(0, 0, 0, 0);
+        const bool ld = ok[u] && lv;
+        kr[u][c] = ld ? __ldg(k4 + base + c * LPR) : make_uint4(0, 0, 0, 0);
+        vr[u][c] = ld ? __ldg(v4 + base + c * LPR) : make_uint4(0, 0, 0, 0);
       }
     }
 
@@ -291,7 +302,7 @@ __global__ void __launch_bounds__(NW * 32)
       for (int e = 0; e < EPL; ++e)
         acc[g][e] += __shfl_xor_sync(FULL, acc[g][e], o);
     }
-  if (grp == 0) {
+  if (grp == 0 && lv) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       if (li == 0) {
@@ -376,17 +387,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, Rows rows,
   return cudaGetLastError();
 }
 
-// G * K <= 512 keeps a lane's q and accumulator registers bounded
+// The (G, K) pairs (kernels/decode_attention.py KERNEL_SHAPES): G * K <=
+// 512 keeps a lane's q and accumulator registers bounded, and two pairs
+// past that rule: K = 112 at G = 1 (zamba2-7b) and K = 128 at G = 6
+// (mixtral-8x22b, internvl2-26b: 48 q and 48 accumulator floats a lane
+// in bf16, a 12 KB shared context and a 768-thread merge block)
 template <typename T, int G, typename Rows>
 cudaError_t launch_k(int K, const void* q, const void* k,
                      const void* v, Rows rows, void* out, void* work, int B,
                      int Hkv, int nsplit, float scale, float softcap,
                      cudaStream_t stream) {
   switch (K) {
-    case 32: return launch<T, G, 32>(q, k, v, rows, out, work, B, Hkv, nsplit, scale, softcap, stream);
-    case 64: return launch<T, G, 64>(q, k, v, rows, out, work, B, Hkv, nsplit, scale, softcap, stream);
+    case 32:
+      if constexpr (G != 6) return launch<T, G, 32>(q, k, v, rows, out, work, B, Hkv, nsplit, scale, softcap, stream);
+      return cudaErrorInvalidValue;
+    case 64:
+      if constexpr (G != 6) return launch<T, G, 64>(q, k, v, rows, out, work, B, Hkv, nsplit, scale, softcap, stream);
+      return cudaErrorInvalidValue;
+    case 112:
+      if constexpr (G == 1) return launch<T, G, 112>(q, k, v, rows, out, work, B, Hkv, nsplit, scale, softcap, stream);
+      return cudaErrorInvalidValue;
     case 128:
-      if constexpr (G <= 4) return launch<T, G, 128>(q, k, v, rows, out, work, B, Hkv, nsplit, scale, softcap, stream);
+      if constexpr (G <= 4 || G == 6) return launch<T, G, 128>(q, k, v, rows, out, work, B, Hkv, nsplit, scale, softcap, stream);
       return cudaErrorInvalidValue;
     case 256:
       if constexpr (G <= 2) return launch<T, G, 256>(q, k, v, rows, out, work, B, Hkv, nsplit, scale, softcap, stream);
@@ -404,6 +426,7 @@ cudaError_t launch_g(int G, int K, const void* q, const void* k,
     case 1: return launch_k<T, 1>(K, q, k, v, rows, out, work, B, Hkv, nsplit, scale, softcap, s);
     case 2: return launch_k<T, 2>(K, q, k, v, rows, out, work, B, Hkv, nsplit, scale, softcap, s);
     case 4: return launch_k<T, 4>(K, q, k, v, rows, out, work, B, Hkv, nsplit, scale, softcap, s);
+    case 6: return launch_k<T, 6>(K, q, k, v, rows, out, work, B, Hkv, nsplit, scale, softcap, s);
     case 8: return launch_k<T, 8>(K, q, k, v, rows, out, work, B, Hkv, nsplit, scale, softcap, s);
     default: return cudaErrorInvalidValue;
   }

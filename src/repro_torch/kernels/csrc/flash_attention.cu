@@ -48,7 +48,9 @@
 // lone group of four warps left every warp's chain of loads, products and
 // exponentials bare (on an H100: 35 us a call with one group, 21 us with
 // two). K is zero-padded to a multiple of 64 (exact zeros add nothing), Kv
-// is one of 16 ... 256. The causal grid starts with its heaviest query tiles.
+// is one of 16, 32, 64, 112 (zamba2-7b: 14 n8 output tiles, a V row 14
+// cp.async chunks), 128, 256. The causal grid starts with its heaviest
+// query tiles.
 // mma.sync rather than wgmma: at Sq = 512 a warpgroup's 64 rows would
 // leave the grid at the same 128 blocks, and the job is too short for
 // wgmma's deeper pipeline to pay. What is left: the heaviest query tile's
@@ -268,6 +270,7 @@ cudaError_t launch_kv(int Kv, const void* q, const void* k, const void* v,
     case 16: return launch<T, 1>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
     case 32: return launch<T, 2>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
     case 64: return launch<T, 4>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
+    case 112: return launch<T, 7>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
     case 128: return launch<T, 8>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
     case 256: return launch<T, 16>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
     default: return cudaErrorInvalidValue;
@@ -578,6 +581,7 @@ cudaError_t launch_kv(int Kv, const void* q, const void* k, const void* v,
     case 16: return launch<KP, 16>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
     case 32: return launch<KP, 32>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
     case 64: return launch<KP, 64>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
+    case 112: return launch<KP, 112>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
     case 128: return launch<KP, 128>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
     case 256: return launch<KP, 256>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
     default: return cudaErrorInvalidValue;

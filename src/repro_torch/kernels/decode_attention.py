@@ -22,10 +22,14 @@ import torch
 from repro_torch.kernels.build import LaunchCounter, check_launch, extension
 
 DTYPES = (torch.float32, torch.bfloat16)
-# (G, K) the kernels are instantiated for: G = H / Hkv, G * K <= 512
-GROUPS = (1, 2, 4, 8)
-HEAD_DIMS = (32, 64, 128, 256)
-MAX_GROUP_WIDTH = 512
+# (G, K) the int8 split body is instantiated for: G = H / Hkv in (1, 2, 4,
+# 8), K in (32, 64, 128, 256), G * K <= 512
+INT8_SHAPES = frozenset((g, k) for g in (1, 2, 4, 8)
+                        for k in (32, 64, 128, 256) if g * k <= 512)
+# (G, K) the bf16/f32 split body is instantiated for: the int8 set, K =
+# 112 at G = 1 (zamba2-7b's shared attention) and G = 6 at K = 128
+# (mixtral-8x22b, internvl2-26b)
+KERNEL_SHAPES = INT8_SHAPES | {(1, 112), (6, 128)}
 # positions a block of the split body covers (the kernel's P, which it
 # checks against the value passed)
 SPLIT = 64
@@ -45,13 +49,16 @@ def check_cuda(name: str, q: torch.Tensor, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
-def check_kernel_shape(name: str, H: int, Hkv: int, K: int) -> None:
-    """Raise unless the kernels are instantiated for G = H / Hkv and K."""
+def check_kernel_shape(name: str, H: int, Hkv: int, K: int, *,
+                       int8: bool = False) -> None:
+    """Raise unless the split body (with ``int8``, the int8 split body) is
+    instantiated for G = H / Hkv and K."""
     G = H // Hkv
-    if G not in GROUPS or K not in HEAD_DIMS or G * K > MAX_GROUP_WIDTH:
-        raise ValueError(f"{name}: no kernel for G={G}, K={K} "
-                         f"(G in {GROUPS}, K in {HEAD_DIMS}, "
-                         f"G*K <= {MAX_GROUP_WIDTH})")
+    shapes = INT8_SHAPES if int8 else KERNEL_SHAPES
+    if (G, K) not in shapes:
+        kind = "int8 " if int8 else ""
+        raise ValueError(f"{name}: no {kind}kernel for G={G}, K={K} "
+                         f"((G, K) in {sorted(shapes)})")
 
 
 def split_layout(extent: int, B: int, Hkv: int, G: int,
@@ -90,7 +97,8 @@ def check_int8(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "axis")
 
 
-def _check_dense(name: str, q, k, v, valid) -> tuple[int, int, int, int, int]:
+def _check_dense(name: str, q, k, v, valid, *, int8: bool = False
+                 ) -> tuple[int, int, int, int, int]:
     if valid.dtype != torch.bool:
         raise TypeError(f"{name}: valid must be bool, got {valid.dtype}")
     if q.dim() != 3 or k.dim() != 4 or valid.dim() != 2:
@@ -103,7 +111,7 @@ def _check_dense(name: str, q, k, v, valid) -> tuple[int, int, int, int, int]:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, valid "
                          f"{tuple(valid.shape)} do not match")
-    check_kernel_shape(name, H, Hkv, K)
+    check_kernel_shape(name, H, Hkv, K, int8=int8)
     return B, W, H, Hkv, K
 
 
@@ -148,7 +156,7 @@ def decode_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_cuda(name, q, k=k, v=v, valid=valid, k_scale=k_scale,
                v_scale=v_scale)
     check_int8(name, q, k, v, k_scale, v_scale)
-    B, W, H, Hkv, K = _check_dense(name, q, k, v, valid)
+    B, W, H, Hkv, K = _check_dense(name, q, k, v, valid, int8=True)
     check_aligned(name, k=k, v=v)
     _, shape = split_layout(W, B, Hkv, H // Hkv, K)
     out = torch.empty((B, H, K), dtype=q.dtype, device=q.device)

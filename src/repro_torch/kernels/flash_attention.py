@@ -13,7 +13,7 @@ import torch
 from repro_torch.kernels.build import LaunchCounter, check_launch, extension
 
 DTYPES = (torch.float32, torch.bfloat16)
-VALUE_WIDTHS = (16, 32, 64, 128, 256)
+VALUE_WIDTHS = (16, 32, 64, 112, 128, 256)
 MAX_HEAD_DIM = 256
 
 launches = LaunchCounter()

@@ -9,7 +9,8 @@ tensors to the plain version (``kernels.ref.paged_decode_attention``)
 instead. Each shares its body with its dense sibling (the split body
 for ``paged_decode_attention``, the int8 split body for
 ``paged_decode_attention_int8``, each with the same ``SPLIT`` and
-workspace), so they take the same (G, K).
+workspace), so each takes its sibling's (G, K): the split body's
+``KERNEL_SHAPES``, the int8 split body's ``INT8_SHAPES``.
 """
 from __future__ import annotations
 
@@ -26,8 +27,8 @@ launches = LaunchCounter()
 int8_launches = LaunchCounter()
 
 
-def _check_paged(name: str, q, k_pages, v_pages, table, lengths
-                 ) -> tuple[int, int, int, int, int, int]:
+def _check_paged(name: str, q, k_pages, v_pages, table, lengths, *,
+                 int8: bool = False) -> tuple[int, int, int, int, int, int]:
     for arg, t in (("table", table), ("lengths", lengths)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: {arg} must be int32, got {t.dtype}")
@@ -45,7 +46,7 @@ def _check_paged(name: str, q, k_pages, v_pages, table, lengths
                          f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, "
                          f"table {tuple(table.shape)}, lengths "
                          f"{tuple(lengths.shape)} do not match")
-    check_kernel_shape(name, H, Hkv, K)
+    check_kernel_shape(name, H, Hkv, K, int8=int8)
     return B, nblk, bs, H, Hkv, K
 
 
@@ -104,7 +105,7 @@ def paged_decode_attention_int8(q: torch.Tensor, k_pages: torch.Tensor,
                table=table, lengths=lengths)
     check_int8(name, q, k_pages, v_pages, k_scale_pages, v_scale_pages)
     B, nblk, bs, H, Hkv, K = _check_paged(name, q, k_pages, v_pages, table,
-                                          lengths)
+                                          lengths, int8=True)
     check_aligned(name, k_pages=k_pages, v_pages=v_pages)
     _, shape = split_layout(nblk * bs, B, Hkv, H // Hkv, K)
     out = torch.empty((B, H, K), dtype=q.dtype, device=q.device)

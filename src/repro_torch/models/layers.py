@@ -88,50 +88,68 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # ---------------------------------------------------------------------------
 # projections
 # ---------------------------------------------------------------------------
-# Inside a prefill (``prefill_products``) a float32 product on the card
-# runs in fixed slices of this many rows, so a row's bits do not depend on
-# the batch's row count (serving.engine's MIN_PREFILL_ROWS note says which
-# module keeps that for which dtype). A decode step keeps one product: its
-# rows are the engine's slots, a fixed count.
-ROW_SLICE = 128
+# Prefix sharing prefills a few suffix rows where the plain path prefills
+# the whole prompt, so on the card a prefill row's bits must not depend on
+# how many rows its batch holds; cuBLAS picks its GEMM algorithm by shape
+# and gives a row other bits at other row counts, in float32 (above 128
+# rows too) and in bfloat16 (below 128 rows at qwen3's down projection,
+# K = 3072, N = 1024; at 128, 192 and 384 rows against 2304 or 4096 at
+# internvl2-26b's, K = 16384, N = 6144; and in its logits head at 1-4
+# rows against 256, on the H100). One strided-batched GEMM over the
+# slices does not help: it too gives a row other bits at other batch
+# counts. So inside a prefill (``prefill_products``) a product on the card
+# runs as products of exactly ROW_SLICE rows each, which gives a row the
+# same bits at any count (tests/test_torch_gpu.py::
+# test_prefill_gemms_give_a_row_the_same_bits_from_min_prefill_rows_on):
+# every float32 product (so a request's bits do not depend on its batch),
+# and every product with ``every_dtype``, which the engines of a model
+# that can share a prefix ask for (``Model.prefill``'s ``row_invariant``).
+# A prefill is host-bound on the card, so its cost is the calls a slice
+# makes: 512 rows cost phases 4 and 6c less than 128 or 256 did
+# (scripts/prefill_turns.py, PERF.md). A decode step keeps one product:
+# its rows are the engine's slots, a fixed count.
+ROW_SLICE = 512
 
 _prefill = threading.local()
 
 
 @contextlib.contextmanager
-def prefill_products():
-    """Within it, ``project`` slices float32 products on the card (per
-    thread: a ThreadBackend runs one engine a thread)."""
-    was = getattr(_prefill, "on", False)
-    _prefill.on = True
+def prefill_products(every_dtype: bool = False):
+    """Within it, ``project`` slices float32 products on the card, and
+    with ``every_dtype`` every product (per thread: a ThreadBackend runs
+    one engine a thread)."""
+    was = getattr(_prefill, "on", False), getattr(_prefill, "every", False)
+    _prefill.on, _prefill.every = True, every_dtype
     try:
         yield
     finally:
-        _prefill.on = was
+        _prefill.on, _prefill.every = was
 
 
 def sliced_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x (..., K) @ w (K, N)`` as products of exactly ``ROW_SLICE`` rows
     each, the last slice zero-padded: every row goes through a GEMM of one
-    shape."""
-    lead, K = x.shape[:-1], x.shape[-1]
+    shape. A prefill is host-bound on the card, so this makes as few
+    calls as it can: one product where one slice holds every row."""
+    K, N = w.shape
     x2 = x.reshape(-1, K)
     n = x2.shape[0]
-    padded = -(-n // ROW_SLICE) * ROW_SLICE
-    if padded != n:
-        x2 = torch.cat([x2, x2.new_zeros((padded - n, K))])
-    out = x2.new_empty((padded, w.shape[1]))
-    for i in range(0, padded, ROW_SLICE):
-        torch.mm(x2[i:i + ROW_SLICE], w, out=out[i:i + ROW_SLICE])
-    return out[:n].reshape(*lead, w.shape[1])
+    if n % ROW_SLICE:
+        x2 = F.pad(x2, (0, 0, 0, ROW_SLICE - n % ROW_SLICE))
+    if x2.shape[0] == ROW_SLICE:
+        y = x2 @ w
+    else:
+        y = torch.cat([part @ w for part in x2.split(ROW_SLICE)])
+    return y[:n].reshape(*x.shape[:-1], N)
 
 
 def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` for every projection of a forward: float32 on the card
-    inside ``prefill_products`` through ``sliced_matmul``; otherwise (a
-    decode step, bfloat16, the CPU) as one product."""
-    if (x.device.type == "cuda" and x.dtype == torch.float32
-            and getattr(_prefill, "on", False)):
+    """``x @ w`` for every projection of a forward: on the card inside
+    ``prefill_products`` through ``sliced_matmul`` (float32, or every
+    dtype with ``every_dtype``); otherwise (a decode step, the CPU) as one
+    product."""
+    if (x.device.type == "cuda" and getattr(_prefill, "on", False)
+            and (x.dtype == torch.float32 or _prefill.every)):
         return sliced_matmul(x, w)
     return x @ w
 

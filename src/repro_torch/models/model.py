@@ -1,16 +1,27 @@
-"""Model assembly for the dense, gemma, MoE and SSM families: init,
-caches, prefill, decode.
+"""Model assembly for the dense (with a vision prefix), gemma, MoE, SSM
+and hybrid (zamba) families: init, caches, prefill, decode.
 
-A port of the dense, gemma, moe and ssm paths of
+A port of the dense, gemma, moe, ssm and zamba paths of
 ``repro.models.model.Model``. JAX scans one stacked parameter tree over
 the layers (for moe, the ``n_dense_layers`` leading dense layers as
 ``dense0``, then the MoE ``stack``; for gemma, ``super`` blocks of
 ``local_global_pattern`` local layers and one global, then the ``rem``
-local layers); the port keeps one parameter dict per layer
-(``params["layers"]``, in that order: for gemma each super-block's
-locals, its global, then the remainder) and loops over them, each layer
-with its window (``Model.windows``: ``sliding_window`` for a local
-layer, 0 for a global one).
+local layers; for zamba, ``super`` blocks of ``shared_attn_every`` SSM
+layers each followed by the one weight-shared attention + MLP block,
+then the ``rem`` SSM layers); the port keeps one parameter dict per
+layer (``params["layers"]``, in that order: for gemma each super-block's
+locals, its global, then the remainder; for zamba each super-block's SSM
+layers, then the shared block's one dict, the same object at every
+application, then the remainder) and loops over them, each layer with
+its window (``Model.windows``: ``sliding_window`` for a local layer, 0
+for a global one or an application of zamba's shared block) and its kind
+(``Model.kinds``: ``"ssm"`` or ``"attn"``).
+
+A model with ``n_vision_tokens`` (internvl2) takes each prompt's
+precomputed patch embeddings, ``vision_embeds`` (B, nv, vision_embed_dim)
+float32, at prefill: ``vis_proj`` maps them (``w1``, the tanh gelu,
+``w2``) into the embedding space ahead of the token embeddings, so the
+image holds positions 0 .. nv - 1 and the prompt starts at nv.
 
 The fused chunk has one body, ``decode_chunk_step``: one ``decode_step``,
 the pick (argmax, or with ``greedy=False`` a Gumbel-max sample from the
@@ -26,10 +37,13 @@ Parameters::
 
     {"embed": {"table": (V, d)}, "final_norm": {...},
      "lm_head": {"w": (d, V)}  (untied configs only),
+     "vis_proj": {"w1": {"w": (vd, d)}, "w2": {"w": (d, d)}}  (vision),
      "layers": [{"ln1", "attn", "ln2", "mlp"} per layer]   (dense, gemma)
                [{"ln1", "attn", "ln2", "mlp"} x n_dense_layers,
                 {"ln1", "attn", "ln2", "moe"} x the rest]  (moe)
-               [{"ln", "mamba"} per layer]                 (ssm)}
+               [{"ln", "mamba"} per layer]                 (ssm)
+               [({"ln", "mamba"} x k, shared) x n_super,
+                {"ln", "mamba"} x n_rem]                   (zamba)}
 
 where ``attn`` is GQA or, for a config with ``mla``, DeepSeek's latent
 attention (``models/attention.py``).
@@ -43,7 +57,8 @@ shares (``models/cache.py``), a sliding ring staying dense rows; with
 ``{"ckv", "k_rope"}`` rows or ``{"ckv_pages", "k_rope_pages"}`` over the
 table. An SSM layer's cache is one ``{"conv", "state"}`` row group
 (``models/ssm.py``), which has no paged form: a paged engine keeps
-these dense rows beside its block accounting.
+these dense rows beside its block accounting (and, for zamba, beside
+the paged groups of the shared block's applications, one cache each).
 Updated in place by ``prefill``, ``prefill_suffix`` and ``decode_step``.
 """
 from __future__ import annotations
@@ -57,8 +72,8 @@ from repro_torch.models import blocks
 from repro_torch.models import cache as paged
 from repro_torch.models import sampling
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (ACTIVATIONS, embed_fwd, init_norm,
-                                       linear_fwd, norm_fwd,
+from repro_torch.models.layers import (ACTIVATIONS, embed_fwd, gelu_tanh,
+                                       init_norm, linear_fwd, norm_fwd,
                                        prefill_products, project,
                                        truncated_normal)
 
@@ -82,19 +97,24 @@ def family(cfg: ArchConfig) -> str:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """The port serves the text-only dense family, the gemma family
-    (local/global super-blocks), the MoE family with GQA or MLA attention
-    and the SSM family (mamba2), with or without a sliding window, in the
-    model's dtype or over an int8 cache, with a gated SiLU or gelu MLP;
-    the audio, hybrid and vision families, learned positions and
-    non-gated MLPs are later slices."""
+    """The port serves the dense family (text only or with a vision
+    prefix), the gemma family (local/global super-blocks), the MoE family
+    with GQA or MLA attention, the SSM family (mamba2) and the hybrid
+    family (zamba2: SSM layers and a weight-shared attention block), with
+    or without a sliding window, in the model's dtype or over an int8
+    cache, with a gated SiLU or gelu MLP; the audio family (whisper),
+    learned positions and non-gated MLPs are a later slice."""
     unsupported = {  # an MLA cache ignores kv_cache_dtype, as in JAX
-        "arch_type": cfg.arch_type not in ("dense", "moe", "ssm"),
+        "arch_type": cfg.arch_type not in ("dense", "moe", "ssm", "hybrid",
+                                           "vlm"),
         "kv_cache_dtype": cfg.kv_cache_dtype not in ("model", "int8"),
         "pos_embed": cfg.pos_embed != "rope",
-        "n_vision_tokens": cfg.n_vision_tokens > 0,
         "act": cfg.act not in ACTIVATIONS,
         "mlp_gated": not cfg.mlp_gated,
+        "shared_attn_every": (cfg.arch_type == "hybrid"
+                              and cfg.shared_attn_every < 1),
+        "vision_embed_dim": (cfg.n_vision_tokens > 0
+                             and cfg.vision_embed_dim < 1),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -116,17 +136,37 @@ def _kind(p: dict) -> str:
 
 
 def check_card_shape(cfg: ArchConfig) -> None:
-    """On the card, refuse a GQA model whose head shape the decode
-    kernels are not instantiated for (``G = H / Hkv`` and ``K``), before
-    any weight or cache is made."""
+    """On the card, refuse a GQA model whose head shape its decode
+    kernels are not instantiated for (``G = H / Hkv`` and ``K``; over an
+    int8 cache, the int8 split body's shapes), before any weight or cache
+    is made."""
     if cfg.arch_type == "ssm" or cfg.mla:
         return
-    check_kernel_shape(cfg.name, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    check_kernel_shape(cfg.name, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                       int8=cfg.kv_cache_dtype == "int8")
+
+
+def layer_kinds(cfg: ArchConfig) -> list[str]:
+    """The kind of each entry of ``params["layers"]``: ``"ssm"`` (a
+    Mamba2 block) or ``"attn"`` (an attention block: dense, MoE, or an
+    application of zamba's shared block). Zamba runs ``n_layers //
+    shared_attn_every`` super-blocks of ``shared_attn_every`` SSM layers
+    and one application of the shared block, then the SSM layers left
+    over, as ``repro.models.model.Model`` lays them out."""
+    fam = family(cfg)
+    if fam == "ssm":
+        return ["ssm"] * cfg.n_layers
+    if fam == "zamba":
+        per = cfg.shared_attn_every
+        n_super = cfg.n_layers // per
+        return (["ssm"] * per + ["attn"]) * n_super + ["ssm"] * (
+            cfg.n_layers - n_super * per)
+    return ["attn"] * cfg.n_layers
 
 
 class Model:
-    """A dense, gemma, MoE or SSM decoder on one device (``"cuda"``
-    unless told ``"cpu"``)."""
+    """A dense (optionally vision-prefixed), gemma, MoE, SSM or hybrid
+    decoder on one device (``"cuda"`` unless told ``"cpu"``)."""
 
     def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
@@ -135,8 +175,11 @@ class Model:
         check_supported(cfg)
         self.cfg = cfg
         self.fam = family(cfg)
-        # each layer's attention window, in params["layers"] order
-        self.windows = cfg.layer_windows()
+        # each entry's kind and attention window, in params["layers"]
+        # order (zamba's shared block attends over the full horizon)
+        self.kinds = layer_kinds(cfg)
+        self.windows = (cfg.layer_windows() if self.fam != "zamba"
+                        else [0] * len(self.kinds))
 
     # ------------------------------------------------------------------
     def init(self, seed: int = 0, dtype: torch.dtype = torch.float32
@@ -154,9 +197,18 @@ class Model:
             p["lm_head"] = {"w": truncated_normal(
                 (cfg.d_model, cfg.vocab_size), dtype, cfg.d_model ** -0.5,
                 g)}
+        if cfg.n_vision_tokens:
+            vd, d = cfg.vision_embed_dim, cfg.d_model
+            p["vis_proj"] = {
+                "w1": {"w": truncated_normal((vd, d), dtype, vd ** -0.5, g)},
+                "w2": {"w": truncated_normal((d, d), dtype, d ** -0.5, g)}}
         if self.fam == "ssm":
             p["layers"] = [blocks.init_ssm_block(cfg, dtype, g)
                            for _ in range(cfg.n_layers)]
+        elif self.fam == "zamba":
+            shared = blocks.init_attn_mlp(cfg, dtype, g)
+            p["layers"] = [blocks.init_ssm_block(cfg, dtype, g)
+                           if k == "ssm" else shared for k in self.kinds]
         else:
             n_dense = self.n_dense_layers
             p["layers"] = [
@@ -184,22 +236,22 @@ class Model:
         groups ``width`` wide, each sliding ring as wide as the engine's,
         so the engine copies the ring whole. An int8 cache
         (``cfg.kv_cache_dtype``) ignores ``dtype`` for its codes and
-        scales. An SSM model's rows are its conv tails and states, which
+        scales. An SSM layer's rows are its conv tails and states, which
         ``max_len`` does not size and no layout pages: with a layout it
-        gets the same dense rows, ``batch`` of them, and the paged
-        engine's block accounting runs over a tree with no paged group,
-        as in JAX."""
+        gets the same dense rows, ``batch`` of them, beside the paged
+        groups of zamba's shared-block applications; a mamba2 model's
+        paged engine keeps its block accounting over a tree with no paged
+        group, as in JAX."""
         cfg = self.cfg
-        if self.fam == "ssm":
-            return [ssm_lib.init_mamba2_cache(cfg, batch, dtype, self.device)
-                    for _ in range(cfg.n_layers)]
-        full = [paged.pageable(w, max_len) for w in self.windows]
+        full = [k == "attn" and paged.pageable(w, max_len)
+                for k, w in zip(self.kinds, self.windows)]
         table = (paged.new_table(batch, max_len, layout, self.device)
                  if layout is not None and any(full) else None)
-        return [blocks.init_block_cache(
-            cfg, batch, max_len if width is None or not f else width, dtype,
-            self.device, window=w, table=table, layout=layout)
-            for w, f in zip(self.windows, full)]
+        return [ssm_lib.init_mamba2_cache(cfg, batch, dtype, self.device)
+                if k == "ssm" else blocks.init_block_cache(
+                    cfg, batch, max_len if width is None or not f else width,
+                    dtype, self.device, window=w, table=table, layout=layout)
+                for k, w, f in zip(self.kinds, self.windows, full)]
 
     # ------------------------------------------------------------------
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -217,29 +269,61 @@ class Model:
         idx = torch.as_tensor(logits_at, dtype=torch.long, device=x.device)
         return x[torch.arange(x.shape[0], device=x.device), idx]
 
+    def _embed(self, params: Params, tokens: torch.Tensor,
+               vision_embeds: torch.Tensor | None) -> torch.Tensor:
+        """The token embeddings, behind the projected image for a model
+        with ``n_vision_tokens``: ``vision_embeds`` (B, nv, vd) through
+        ``vis_proj`` in its own dtype (float32, as JAX promotes it against
+        the weights), the tanh gelu between, cast to the embeddings'
+        dtype."""
+        x = embed_fwd(params["embed"], tokens)
+        nv = self.cfg.n_vision_tokens
+        if not nv:
+            return x
+        shape = (tokens.shape[0], nv, self.cfg.vision_embed_dim)
+        if vision_embeds is None or tuple(vision_embeds.shape) != shape:
+            got = None if vision_embeds is None else tuple(
+                vision_embeds.shape)
+            raise ValueError(f"{self.cfg.name}: prefill needs vision_embeds "
+                             f"of shape {shape}, got {got}")
+        vp = params["vis_proj"]
+        v = vision_embeds.to(x.device)
+        v = project(v, vp["w1"]["w"].to(v.dtype))
+        v = project(gelu_tanh(v), vp["w2"]["w"].to(v.dtype))
+        return torch.cat([v.to(x.dtype), x], dim=1)
+
     def prefill(self, params: Params, tokens: torch.Tensor, cache: Cache,
-                logits_at: int | torch.Tensor = -1) -> torch.Tensor:
-        """tokens: (B, S) from position 0. Fills ``cache`` in place and
-        returns the logits (B, V) at ``logits_at``."""
-        with prefill_products():
-            x = embed_fwd(params["embed"], tokens)
+                logits_at: int | torch.Tensor = -1, *,
+                vision_embeds: torch.Tensor | None = None,
+                row_invariant: bool = False) -> torch.Tensor:
+        """tokens: (B, S) from position 0 (from position nv behind the
+        image of ``vision_embeds``, (B, nv, vd), for a model with
+        ``n_vision_tokens``). Fills ``cache`` in place and returns the
+        logits (B, V) at ``logits_at``, a position of the whole sequence
+        (image included). On the card float32 products run in fixed row
+        slices, and with ``row_invariant`` every product does, so a row's
+        bits do not depend on the batch (``layers.prefill_products``)."""
+        with prefill_products(every_dtype=row_invariant):
+            x = self._embed(params, tokens, vision_embeds)
             for p, c, w in zip(params["layers"], cache, self.windows):
                 x = _PREFILL[_kind(p)](p, self.cfg, x, c, window=w)
             return self._head(params, self._sel(x, logits_at))
 
     def prefill_suffix(self, params: Params, tokens: torch.Tensor,
                        cache: Cache, ctx: list, offset: int,
-                       logits_at: int | torch.Tensor = -1) -> torch.Tensor:
+                       logits_at: int | torch.Tensor = -1, *,
+                       row_invariant: bool = False) -> torch.Tensor:
         """Prefill only the residual suffix of prompts whose first
         ``offset`` positions are prefix-cache hits. ``tokens``: (B, S)
         suffix tokens; ``ctx``: one ``{"k", "v"}`` per layer, each
         (B, offset, Hkv, hd), gathered from the shared pages; ``cache``:
         a dense mini-cache of width S, filled in place with the suffix
         K/V. Returns the logits (B, V) at ``logits_at``. The dense and MoE
-        families over GQA only, as in JAX."""
+        families over GQA only, as in JAX. ``row_invariant`` as in
+        ``prefill``."""
         if self.fam not in ("dense", "moe") or self.cfg.mla:
             raise ValueError(f"prefix sharing unsupported for {self.fam}")
-        with prefill_products():
+        with prefill_products(every_dtype=row_invariant):
             x = embed_fwd(params["embed"], tokens)
             for p, c, cx in zip(params["layers"], cache, ctx):
                 x = _SUFFIX_PREFILL[_kind(p)](p, self.cfg, x, c, cx["k"],

@@ -10,18 +10,23 @@ family, whose ``n_dense_layers`` leading dense layers come as a second
 group ``dense0`` of the dense family's layout; the gemma family's dense
 layers come as ``super: {local: (n_super, k, ...), global: (n_super,
 ...)}`` for its super-blocks of k local layers and one global, and
-``rem: (n_rem, ...)`` for the local layers left over) and returns the
-port's parameter dict, with each stacked leaf split into per-layer
-tensors in layer order (``dense0``'s first; each super-block's locals,
-then its global, then ``rem``). An expert weight keeps its leading E
-axis.
+``rem: (n_rem, ...)`` for the local layers left over; the zamba family's
+come as ``super: {ssm: (n_super, k, ...)}`` for its super-blocks of k SSM
+layers, ``shared`` (no layer axis) for the one attention block every
+super-block applies, and ``rem: (n_rem, ...)`` for the SSM layers left
+over; a vision model adds ``vis_proj: {w1, w2}``) and returns the port's
+parameter dict, with each stacked leaf split into per-layer tensors in
+layer order (``dense0``'s first; each super-block's locals, then its
+global, then ``rem``; for zamba each super-block's SSM layers, then the
+shared block, converted once and the same dict at every application).
+An expert weight keeps its leading E axis.
 The bytes are kept exactly (bfloat16 included) unless a ``dtype`` cast
 is asked for; a Mamba2 block's float32 leaves (``models.ssm.F32_LEAVES``)
 and the MoE router (``models.moe.F32_LEAVES``) stay float32 under any
 cast, as the reference keeps them.
 
 ``save_params`` writes the port's parameters back into that stacked
-layout (a gemma model's given its config) as one ``.npz`` (a leaf a key, its path joined by ``/``; bfloat16
+layout (a gemma or zamba model's given its config) as one ``.npz`` (a leaf a key, its path joined by ``/``; bfloat16
 leaves as their 16-bit words under a ``@bfloat16`` suffix), and
 ``load_params`` reads such a file through ``from_numpy``: the weight
 handoff of a ``ProcessBackend(params_path=...)``.
@@ -68,7 +73,21 @@ def _convert(tree: Any, device: torch.device, dtype,
 def _layout(cfg: ArchConfig) -> tuple[dict, list]:
     """The stacked groups of ``cfg``'s tree, each path (a tuple of keys)
     with the leading axes of its leaves, and each port layer's (path,
-    index into those axes), in layer order."""
+    index into those axes), in layer order; an application of zamba's
+    shared block is ``(("shared",), None)``: that group has no layer
+    axis."""
+    if family(cfg) == "zamba":
+        k = cfg.shared_attn_every
+        n_super = cfg.n_layers // k
+        n_rem = cfg.n_layers - n_super * k
+        groups = {("super", "ssm"): (n_super, k)}
+        order = [slot for i in range(n_super)
+                 for slot in [(("super", "ssm"), (i, j)) for j in range(k)]
+                 + [(("shared",), None)]]
+        if n_rem:
+            groups[("rem",)] = (n_rem,)
+            order += [(("rem",), (i,)) for i in range(n_rem)]
+        return groups, order
     if family(cfg) == "gemma":
         k = cfg.local_global_pattern
         n_super = cfg.n_layers // (k + 1)
@@ -112,8 +131,11 @@ def from_numpy(cfg: ArchConfig, tree: dict, *,
     dev = resolve_device(device)
     groups, order = _layout(cfg)
     tops = {path[0] for path in groups}
-    need = {"embed", "final_norm", *tops} | (
-        set() if cfg.tie_embeddings else {"lm_head"})
+    shared = any(index is None for _, index in order)
+    need = ({"embed", "final_norm", *tops}
+            | (set() if cfg.tie_embeddings else {"lm_head"})
+            | ({"shared"} if shared else set())
+            | ({"vis_proj"} if cfg.n_vision_tokens else set()))
     if set(tree) != need:
         raise ValueError(f"{cfg.name}: parameter groups {sorted(tree)}, "
                          f"expected {sorted(need)}")
@@ -130,7 +152,9 @@ def from_numpy(cfg: ArchConfig, tree: dict, *,
                              f"{axes}")
     params = {k: _convert(v, dev, dtype)
               for k, v in tree.items() if k not in tops}
-    params["layers"] = [_convert(_at(tree, path), dev, dtype, index)
+    block = params.pop("shared", None)
+    params["layers"] = [block if index is None
+                        else _convert(_at(tree, path), dev, dtype, index)
                         for path, index in order]
     return params
 
@@ -152,14 +176,19 @@ def save_params(params: dict, path: str | os.PathLike,
     ``path`` as ``.npz`` in the stacked layout ``from_numpy`` takes: the
     per-layer dicts stacked along a leading layer axis into ``stack``
     (and, for an MoE model, its leading dense layers into ``dense0``),
-    or, given the gemma config ``cfg``, into its ``super`` and ``rem``
-    groups (without ``cfg`` a gemma model would be written as one
-    ``stack``, which ``load_params`` refuses). The bytes are kept
-    exactly. Returns the path."""
+    or, given the gemma or zamba config ``cfg``, into its ``super`` and
+    ``rem`` groups, zamba's shared block once as ``shared`` (without
+    ``cfg`` such a model would be written as one ``stack``, which
+    ``load_params`` refuses). The bytes are kept exactly. Returns the
+    path."""
     layers = params["layers"]
+    tree = {k: v for k, v in params.items() if k != "layers"}
     if cfg is not None:
         groups, order = _layout(cfg)
         names = [path for path, _ in order]
+        for p, (group, index) in zip(layers, order):
+            if index is None:
+                tree[group[0]] = p
     else:
         # an MoE model's leading dense layers (their MLP is "mlp") are
         # dense0, its MoE layers the stack; any other model is one stack
@@ -170,7 +199,6 @@ def save_params(params: dict, path: str | os.PathLike,
     members: dict[tuple, list] = {}
     for p, name in zip(layers, names):
         members.setdefault(name, []).append(p)
-    tree = {k: v for k, v in params.items() if k != "layers"}
     for name, axes in groups.items():
         node = tree
         for k in name[:-1]:

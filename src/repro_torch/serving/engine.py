@@ -1,11 +1,16 @@
 """Continuous-batching serving engine with fused multi-token decode.
 
-A port of ``repro.serving.engine.ServingEngine`` for the dense, gemma
-and MoE families (GQA or MLA), over the dense or the paged cache (whose
-sliding-window rings stay dense rows beside the paged groups), and for the
-SSM family over its dense state rows, under either cache's admission
-(paged: the block budget bounds the resident sequences, the rows stay
-dense). Each ``step()`` expires deadlines,
+A port of ``repro.serving.engine.ServingEngine`` for the dense (text
+only or behind a vision prefix), gemma and MoE families (GQA or MLA),
+over the dense or the paged cache (whose sliding-window rings stay dense
+rows beside the paged groups), and for the SSM and hybrid families over
+their dense state rows (zamba's shared-block applications paged beside
+them), under either cache's admission (paged: the block budget bounds
+the resident sequences, the rows stay dense). A vision model's request
+carries its patch embeddings as ``extras["vision_embeds"]``: the image
+takes the first ``n_vision_tokens`` positions of its sequence, in the
+cache, the block budget and the block hashes, as in JAX. Each ``step()``
+expires deadlines,
 admits queued requests and then runs one fused decode chunk (or, with
 ``chunked=False``, one decode step):
 
@@ -93,7 +98,6 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.build import add_launches, capture_tally
 from repro_torch.models.cache import PagedLayout
-from repro_torch.models.layers import ROW_SLICE
 from repro_torch.models.sampling import gumbel_argmax, new_key
 from repro_torch.serving.cache import DenseCache, PagedCache
 from repro_torch.serving.events import ChunkEvent, DoneEvent, FailedEvent
@@ -106,7 +110,8 @@ class Request:
     max_new_tokens: int
     # per-request model inputs beside the prompt, keyed by name: their
     # names enter the admit key and their bytes the block hashes, as in
-    # JAX; the ported families read none of them
+    # JAX; a vision model reads "vision_embeds" ((n_vision_tokens,
+    # vision_embed_dim) float32), the text families none of them
     extras: dict = dataclasses.field(default_factory=dict)
     # seconds the request may spend in the serving stack (None = no
     # deadline): the Router stamps its own clock at submit, the engine
@@ -132,25 +137,6 @@ class Completion:
 # THE prompt-length bucket table: the engine's padded batch admission and
 # the router's bucket-aware dispatch must agree on it
 PROMPT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
-
-
-# Prefix sharing prefills a few suffix rows where the plain path
-# prefills the whole prompt, so on the card a prefill row's bits must not
-# depend on how many rows its batch holds. cuBLAS picks its GEMM algorithm
-# by shape, and two modules keep the rows invariant, one for each dtype:
-# - bfloat16: this engine. A paged engine prefills at least this many
-#   token rows a batch, padded with whole zero rows (_prefill_rows). Below
-#   128 rows cuBLAS computes some widths another way (qwen3's down
-#   projection, K = 3072, N = 1024, on the H100), with reduced-precision
-#   reduction on or off; from 128 rows on a row of every bf16 projection
-#   of the models that share comes out the same whatever the batch
-#   (tests/test_torch_gpu.py::
-#   test_prefill_gemms_give_a_row_the_same_bits_from_min_prefill_rows_on).
-# - float32: models.layers.project. float32 rows move with the row count
-#   above 128 rows too, so a prefill's float32 projections run in fixed
-#   ROW_SLICE-row slices, which gives a row the same bits at any count;
-#   the engine does not pad them.
-MIN_PREFILL_ROWS = ROW_SLICE
 
 
 # CUDA graph captures run one at a time in the process: on entry
@@ -397,15 +383,39 @@ class ServingEngine:
         cfg = self.model.cfg
         return not (cfg.is_ssm or cfg.sliding_window > 0)
 
-    def _width(self, n_tokens: int) -> int:
-        """Prefill width of ``n_tokens`` prompt positions: the bucket, or
-        the exact length where padding is not harmless."""
-        return _bucket(n_tokens) if self._pad_ok else n_tokens
+    def _width(self, n_tokens: int, lead: int = 0) -> int:
+        """Prefill width of ``n_tokens`` prompt positions behind ``lead``
+        image positions: the bucket, or the exact length where padding is
+        not harmless. Behind an image the bucket is capped at ``max_len -
+        lead`` (never below the prompt): past the horizon the cache ring
+        would wrap the pad positions over the image's slots, which decode
+        reads. A text prompt keeps the JAX engine's width."""
+        if not self._pad_ok:
+            return n_tokens
+        if lead:
+            return min(_bucket(n_tokens),
+                       max(n_tokens, self.max_len - lead))
+        return _bucket(n_tokens)
+
+    @property
+    def _row_invariant(self) -> bool:
+        """Whether a prefill runs every product on the card in fixed row
+        slices, not only float32's (``Model.prefill``'s
+        ``row_invariant``): for a model that can share a prefix (the
+        dense family without a window), in every engine, so a suffix
+        prefill gives a row the whole prompt's bits (sharing on == off)
+        and the dense and the paged engine give it the same bits. Not for
+        MoE, whose expert capacity couples a batch's rows, nor for an SSM
+        or windowed model, which never shares: their prefills keep one
+        product a projection in every engine."""
+        cfg = self.model.cfg
+        return self.model.fam == "dense" and cfg.sliding_window == 0
 
     def _admit_key(self, req: Request) -> tuple:
         """Requests with one key prefill as one batch: the prefill width
         and the names of the request's extras."""
-        return (self._width(len(req.prompt)), tuple(sorted(req.extras)))
+        return (self._width(len(req.prompt), self._nv),
+                tuple(sorted(req.extras)))
 
     def _take_bucket(self, n_free: int) -> list[Request]:
         """Pop the head request plus every queued request with its admit
@@ -431,21 +441,28 @@ class ServingEngine:
             self._admit_batch([free.pop(0) for _ in reqs], reqs)
 
     # -- paged admission ---------------------------------------------------
+    @property
+    def _nv(self) -> int:
+        """Positions the image takes ahead of each prompt (0: text)."""
+        return self.model.cfg.n_vision_tokens
+
     def _cache_tokens(self, req: Request) -> int:
-        """Cache positions a request can ever touch: prompt + decoded
-        tokens, clamped to the horizon (decode stops at max_len - 1)."""
-        return min(len(req.prompt) + req.max_new_tokens, self.max_len)
+        """Cache positions a request can ever touch: vision prefix +
+        prompt + decoded tokens, clamped to the horizon (decode stops at
+        max_len - 1)."""
+        return min(self._nv + len(req.prompt) + req.max_new_tokens,
+                   self.max_len)
 
     def _block_hashes(self, req: Request) -> list[bytes]:
-        """Content hash per FULL prompt block: a chained blake2b seeded
-        with the vision-token count (an int64 0: the port serves text
-        only) and the request's extras (each name, then its bytes, in name
-        order), then each block's int32 token ids — byte for byte the JAX
-        engine's chain, so a hash commits to everything at and before its
-        block."""
-        bs = self.config.block_size
+        """Content hash per FULL block of the sequence (vision prefix,
+        then prompt): a chained blake2b seeded with the vision-token count
+        (an int64) and the request's extras (each name, then its bytes, in
+        name order), then each block's int32 token ids (none for a block
+        inside the image) — byte for byte the JAX engine's chain, so a
+        hash commits to everything at and before its block."""
+        bs, nv = self.config.block_size, self._nv
         seed = hashlib.blake2b(digest_size=16)
-        seed.update(np.int64(0).tobytes())
+        seed.update(np.int64(nv).tobytes())
         for k in sorted(req.extras):
             seed.update(k.encode())
             seed.update(np.ascontiguousarray(
@@ -453,21 +470,26 @@ class ServingEngine:
         prev = seed.digest()
         prompt = np.ascontiguousarray(np.asarray(req.prompt), np.int32)
         out: list[bytes] = []
-        for i in range(len(prompt) // bs):
+        for i in range((nv + len(prompt)) // bs):
             hh = hashlib.blake2b(prev, digest_size=16)
-            hh.update(prompt[i * bs:(i + 1) * bs].tobytes())
+            hh.update(prompt[max(i * bs - nv, 0):
+                             max((i + 1) * bs - nv, 0)].tobytes())
             prev = hh.digest()
             out.append(prev)
         return out
 
     def _peek_plan(self, req: Request):
-        """Sharing plan ``(H, hit_hashes, full_hashes)``: ``H`` prompt
-        positions are cache hits, capped one block below the prompt end so
-        at least one residual token runs (the prefill sample needs it)."""
-        bs = self.config.block_size
+        """Sharing plan ``(H, hit_hashes, full_hashes)``: ``H`` sequence
+        positions are cache hits, capped one block below the sequence end
+        so at least one residual token runs (the prefill sample needs it),
+        and 0 when the hit does not cover the vision prefix (the suffix
+        prefill embeds text only)."""
+        bs, nv = self.config.block_size, self._nv
         full = self._block_hashes(req)
         hits = self.cache_backend.peek_hit_blocks(full)
-        H = min(len(hits), (len(req.prompt) - 1) // bs) * bs
+        H = min(len(hits), (nv + len(req.prompt) - 1) // bs) * bs
+        if H < nv:
+            H = 0
         return H, full[:H // bs], full
 
     def _key_for(self, req: Request, plan) -> tuple:
@@ -477,7 +499,7 @@ class ServingEngine:
         offset (hit and miss requests never share a dispatch)."""
         if plan is None or plan[0] == 0:
             return self._admit_key(req)
-        return (_bucket(len(req.prompt) - plan[0]),
+        return (_bucket(self._nv + len(req.prompt) - plan[0]),
                 tuple(sorted(req.extras)), plan[0])
 
     def _admit_paged(self) -> None:
@@ -532,42 +554,23 @@ class ServingEngine:
             free = [i for i, s in enumerate(self.slots) if not s.active]
 
     # ------------------------------------------------------------------
-    def _prefill_rows(self, n: int, width: int) -> int:
-        """Rows of a prefill batch of ``n`` prompts ``width`` tokens wide:
-        a bfloat16 paged engine on the card adds zero rows up to
-        ``MIN_PREFILL_ROWS`` token rows, so sharing on and off give the
-        same bits. Its mini-cache is ``width`` wide, so a batch gains
-        fewer than 128 token rows of cache and prefill. Not in float32,
-        whose projections are sliced instead, nor on the dense path, which
-        never shares, nor for MoE, where the expert capacity couples a
-        batch's rows, nor for an SSM model or one with a sliding window
-        (gemma), which never share either: their paged engines prefill
-        the batch the dense one does, so the two give a row the same bits
-        (padded, a gemma prompt prefilled alone at its exact width would
-        run other row counts than on the dense engine below 128 rows),
-        and JAX runs the unpadded batch; nor on the CPU."""
-        if (self.device.type != "cuda" or not self.paged
-                or self.config.dtype != torch.bfloat16
-                or self.model.fam in ("moe", "ssm")
-                or self.model.cfg.sliding_window > 0):
-            return n
-        return max(n, -(-MIN_PREFILL_ROWS // width))
-
     def _admit_batch(self, slot_ids: list[int], reqs: list[Request],
                      plans: list | None = None) -> None:
-        n = len(reqs)
+        n, nv = len(reqs), self._nv
         H = plans[0][0] if plans and plans[0] is not None else 0
-        # prompts (or, for a hit, their suffixes behind H shared
-        # positions) right-padded into one batch of the admit key's width,
-        # with zero rows past the n requests (_prefill_rows)
-        bl = self._width(len(reqs[0].prompt) - H)
-        rows = self._prefill_rows(n, bl)
-        padded = np.zeros((rows, bl), np.int32)
-        logits_idx = np.zeros((rows,), np.int64)
+        # prompts (or, for a hit, their suffixes behind H shared positions,
+        # which cover any vision prefix) right-padded into one batch of the
+        # admit key's width; a prompt's image goes ahead of it (``lead``
+        # positions)
+        lead = 0 if H else nv
+        bl = (self._width(nv + len(reqs[0].prompt) - H) if H
+              else self._width(len(reqs[0].prompt), nv))
+        padded = np.zeros((n, bl), np.int32)
+        logits_idx = np.zeros((n,), np.int64)
         for j, r in enumerate(reqs):
-            toks = np.asarray(r.prompt)[H:]
+            toks = np.asarray(r.prompt)[H - nv if H else 0:]
             padded[j, :len(toks)] = toks
-            logits_idx[j] = len(toks) - 1
+            logits_idx[j] = lead + len(toks) - 1
         tokens = torch.from_numpy(padded).to(self.device)
         logits_at = torch.from_numpy(logits_idx).to(self.device)
         dtype = self.config.dtype
@@ -576,33 +579,38 @@ class ServingEngine:
             # one gathered context of width exactly H serves the batch;
             # gather before insert rewrites these rows' tables
             ctx = self.cache_backend.gather_prefix(slot_ids, H)
-            if rows > n:
-                ctx = [{k: torch.cat([t, t.new_zeros((rows - n,
-                                                      *t.shape[1:]))])
-                        for k, t in g.items()} for g in ctx]
-            src = self.model.init_cache(rows, bl, dtype)
-            logits = self.model.prefill_suffix(self.params, tokens, src,
-                                               ctx, H, logits_at=logits_at)
+            src = self.model.init_cache(n, bl, dtype)
+            logits = self.model.prefill_suffix(
+                self.params, tokens, src, ctx, H, logits_at=logits_at,
+                row_invariant=self._row_invariant)
             self.prefix_hit_tokens_total += n * H
         else:
             # the paged mini-cache's full-horizon groups are bucket-wide
             # (JAX builds them max_len wide): positions at or past a
             # row's length are never read, so the rest of the horizon
             # need not be zero-filled. They are capped at max_len, where
-            # a bucket past the horizon wraps its padding into the ring
-            # exactly as the dense cache does. A sliding ring is as wide
+            # a text bucket past the horizon wraps its padding into the
+            # ring exactly as the dense cache does (behind an image the
+            # width stops at the horizon, ``_width``). A sliding ring is as wide
             # as the engine's (min(window, max_len)) under either cache,
             # so a prompt longer than the window wraps into the slots the
             # engine decodes from, and insert copies the ring whole
-            width = min(bl, self.max_len) if self.paged else self.max_len
-            src = self.model.init_cache(rows, self.max_len, dtype,
+            width = (min(lead + bl, self.max_len) if self.paged
+                     else self.max_len)
+            src = self.model.init_cache(n, self.max_len, dtype,
                                         width=width)
+            kw = {}
+            if nv:   # each request's image, stacked
+                kw["vision_embeds"] = torch.from_numpy(np.stack([
+                    np.asarray(r.extras["vision_embeds"]) for r in reqs])
+                ).to(self.device)
             logits = self.model.prefill(self.params, tokens, src,
-                                        logits_at=logits_at)
-        if rows > n:
-            src = [{k: t[:n] for k, t in g.items()} for g in src]
+                                        logits_at=logits_at,
+                                        row_invariant=self._row_invariant,
+                                        **kw)
         self.cache_backend.insert(src, slot_ids, offset=H)
-        self.prefill_tokens_executed += sum(len(r.prompt) - H for r in reqs)
+        self.prefill_tokens_executed += sum(nv + len(r.prompt) - H
+                                            for r in reqs)
         if self._share:
             # index the new rows' full prompt blocks (hit rows extend the
             # chain past their hit; indexed hashes are skipped)
@@ -611,8 +619,9 @@ class ServingEngine:
         first = self._pick(logits)
         now = time.perf_counter()
         for j, (i, r) in enumerate(zip(slot_ids, reqs)):
+            # prompt_len leaves the image out; pos is the next write
             self.slots[i] = _Slot(
-                active=True, rid=r.rid, pos=len(r.prompt),
+                active=True, rid=r.rid, pos=nv + len(r.prompt),
                 prompt_len=len(r.prompt), remaining=r.max_new_tokens - 1,
                 generated=[int(first[j])], started=now,
                 deadline=self._deadline_abs.pop(r.rid, None),

@@ -108,6 +108,11 @@ CACHE_CASES = {
     "ssm_dense": ("mamba2-2.7b-reduced", False, {}),
     "ssm_paged": ("mamba2-2.7b-reduced", False,
                   {"cache": "paged", "max_seqs": 6}),
+    "hybrid_dense": ("zamba2-7b-reduced", False, {}),
+    "hybrid_paged": ("zamba2-7b-reduced", False,
+                     {"cache": "paged", "max_seqs": 5}),
+    "vision_paged": ("internvl2-26b-reduced", False,
+                     {"cache": "paged", "max_seqs": 3}),
 }
 
 

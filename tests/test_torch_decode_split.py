@@ -81,6 +81,8 @@ def _close(got, want):
     (8, 8, 256, 30.0),     # G = 1, the widest K, softcap
     (16, 4, 64, 0.0),      # G = 4
     (16, 2, 32, 20.0),     # G = 8, the narrowest K, softcap
+    (32, 32, 112, 0.0),    # zamba2-7b: G = 1, K = 112
+    (48, 8, 128, 30.0),    # mixtral-8x22b, internvl2-26b: G = 6
 ])
 def test_ops_on_cpu_matches_the_jax_oracle_at_split_edges(W, H, Hkv, K,
                                                           softcap):

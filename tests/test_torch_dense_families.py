@@ -1,14 +1,18 @@
-"""The dense family's 8B configs (qwen3-8b, llama3.1-8b) and the shape
-check that refuses, on the card, the head shapes no decode kernel is
-built for.
+"""The dense family's 8B configs (qwen3-8b, llama3.1-8b), mixtral-8x22b,
+and the shape check that refuses, on the card, the head shapes no decode
+kernel is built for.
 
 Every field of the port's configs equals JAX's, under JAX's registry
-names. Reduced qwen3-8b and llama3.1-8b keep the full models' G = 4
-(``n_heads=8, n_kv_heads=2``) and match JAX's prefill and decode logits
-within 1e-4 (float32) and its engines' greedy streams on the dense and
-the paged cache. On a CUDA device ``Model`` refuses mixtral-8x22b (G = 6)
-and zamba2-7b (K = 112) for their shapes, naming G and K; on the CPU the
-families still to come (audio, vision, hybrid) are refused as before.
+names (zamba2-7b, internvl2-26b and mixtral-8x22b too, full and
+reduced). Reduced qwen3-8b and llama3.1-8b keep the full models' G = 4
+(``n_heads=8, n_kv_heads=2``), reduced mixtral its G = 6 (``n_heads=6,
+n_kv_heads=1``) and a 16-slot window that wraps; each matches JAX's
+prefill and decode logits within 1e-4 (float32) and its engines' greedy
+streams on the dense and the paged cache. On a CUDA device ``Model``
+takes exactly the (G, K) pairs the split body is built for, now (1, 112)
+and (6, 128) too, and refuses the rest, and the new pairs over an int8
+cache, naming G and K (and int8); on the CPU the audio family is refused
+as before.
 """
 from __future__ import annotations
 
@@ -34,13 +38,18 @@ from repro_torch.serving.engine import (EngineConfig, Request,  # noqa: E402
                                         ServingEngine)
 
 NEW = ("qwen3-8b", "llama3.1-8b", "gemma3-27b")
+LATER = ("zamba2-7b", "internvl2-26b", "mixtral-8x22b")
 DENSE_8B = ("qwen3-8b", "llama3.1-8b")
 G4 = dict(n_heads=8, n_kv_heads=2)       # the full models' G = 4, reduced
+# mixtral's G = 6, reduced, and a window its 30-token prompts wrap
+OVERRIDES = {**{n: G4 for n in DENSE_8B},
+             "mixtral-8x22b": dict(n_heads=6, n_kv_heads=1,
+                                   sliding_window=16)}
 TOL = 1e-4
 MAX_LEN = 64
 
 
-@pytest.mark.parametrize("name", [n + s for n in NEW
+@pytest.mark.parametrize("name", [n + s for n in NEW + LATER
                                   for s in ("", "-reduced")])
 def test_configs_equal_jax_field_by_field(name):
     assert (dataclasses.asdict(registry.get_config(name))
@@ -70,14 +79,18 @@ def test_full_width_configs_build_on_the_cpu():
         assert abs(cfg.param_count() - params) < 0.005e9
     assert abs(registry.get_config("gemma3-27b").param_count()
                - 28.42e9) < 0.005e9
+    for name, fam in zip(LATER, ("zamba", "dense", "moe")):
+        assert Model(registry.get_config(name), device="cpu").fam == fam
 
 
-@pytest.fixture(scope="module", params=DENSE_8B)
+@pytest.fixture(scope="module", params=DENSE_8B + ("mixtral-8x22b",))
 def pair(request):
-    jcfg = jax_reduce(jax_registry.get_config(request.param), **G4)
-    tcfg = reduce_config(registry.get_config(request.param), **G4)
+    over = OVERRIDES[request.param]
+    jcfg = jax_reduce(jax_registry.get_config(request.param), **over)
+    tcfg = reduce_config(registry.get_config(request.param), **over)
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
-    assert tcfg.n_heads // tcfg.n_kv_heads == 4
+    assert tcfg.n_heads // tcfg.n_kv_heads == over["n_heads"] // over[
+        "n_kv_heads"]
     jm = JaxModel(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     tm = Model(tcfg, device="cpu")
@@ -116,6 +129,9 @@ def test_engine_greedy_streams_equal_jax(pair, cache):
     specs = [(i, rng.integers(0, tm.cfg.vocab_size, (n,), dtype=np.int32),
               mn) for i, (n, mn) in enumerate([(5, 6), (17, 4), (30, 9),
                                                (12, 3), (9, 7)])]
+    if tm.cfg.sliding_window:
+        # mixtral: rings that wrap in prefill (30 tokens) and in decode
+        specs += [(5, specs[2][1].copy(), 20)]
     conf = dict(n_slots=2, max_len=MAX_LEN, chunk_tokens=4, cache=cache)
     je = jeng.ServingEngine(jm, jp, jeng.EngineConfig(**conf))
     te = ServingEngine(tm, tp, EngineConfig(**conf), device="cpu")
@@ -128,7 +144,7 @@ def test_engine_greedy_streams_equal_jax(pair, cache):
 
 def _port_config(name: str) -> ArchConfig:
     """A JAX config as the port's dataclass (the port's registry does not
-    list the families still to come)."""
+    list the audio family yet)."""
     return ArchConfig(**dataclasses.asdict(jax_registry.get_config(name)))
 
 
@@ -145,24 +161,57 @@ def fake_card(monkeypatch):
                                         ("zamba2-7b", "G=1, K=112")])
 def test_card_refuses_head_shapes_without_a_decode_kernel(fake_card, name,
                                                           shape):
-    """mixtral-8x22b and internvl2-26b have G = 6 (G·K = 768 > 512) and
-    zamba2-7b K = 112: refused at ``Model(...)`` for their shapes, with G
-    and K named, before anything reaches a kernel."""
-    with pytest.raises(ValueError, match=f"no kernel for {shape}"):
-        Model(_port_config(name))
+    """The int8 split body keeps its own shape set: mixtral-8x22b and
+    internvl2-26b (G = 6) and zamba2-7b (K = 112) over an int8 cache are
+    refused at ``Model(...)`` for their shapes, with G, K and int8 named,
+    before anything reaches a kernel; so are shapes no body is built for
+    (G = 6 at K = 256, G = 3)."""
+    cfg = dataclasses.replace(registry.get_config(name),
+                              kv_cache_dtype="int8")
+    with pytest.raises(ValueError, match=f"no int8 kernel for {shape}"):
+        Model(cfg)
+    for over, bad in ((dict(head_dim=256), "G=6, K=256"),
+                      (dict(n_kv_heads=16), "G=3, K=128")):
+        cfg = dataclasses.replace(registry.get_config("mixtral-8x22b"),
+                                  **over)
+        with pytest.raises(ValueError, match=f"no kernel for {bad}"):
+            Model(cfg)
 
 
 def test_card_accepts_the_served_shapes(fake_card):
-    for name in NEW + ("qwen3-0.6b", "stablelm-1.6b", "mamba2-2.7b",
-                       "deepseek-v2-lite-16b"):
+    for name in NEW + LATER + ("qwen3-0.6b", "stablelm-1.6b", "mamba2-2.7b",
+                               "deepseek-v2-lite-16b"):
         assert Model(registry.get_config(name)).device.type == "cuda"
-    # mixtral's window is served; only its G has no kernel on the card
+    # mixtral's window is served on the CPU too
     cfg = jax_reduce(jax_registry.get_config("mixtral-8x22b"))
     Model(ArchConfig(**dataclasses.asdict(cfg)), device="cpu")
 
 
-@pytest.mark.parametrize("name", ["whisper-large-v3", "internvl2-26b",
-                                  "zamba2-7b"])
+@pytest.mark.parametrize("G,K,int8,ok", [
+    (1, 112, False, True), (6, 128, False, True), (4, 128, False, True),
+    (2, 256, False, True), (8, 64, False, True), (6, 256, False, False),
+    (3, 128, False, False), (2, 112, False, False), (6, 64, False, False),
+    (1, 112, True, False), (6, 128, True, False), (4, 128, True, True)])
+def test_shape_rule_is_the_instantiated_pairs(G, K, int8, ok):
+    """``check_kernel_shape`` takes exactly the instantiated (G, K): the
+    split body's set adds (1, 112) and (6, 128) to the int8 body's (G in
+    1, 2, 4, 8, K in 32 ... 256, G·K <= 512); a refusal names G and K."""
+    from repro_torch.kernels import decode_attention as da
+
+    assert da.KERNEL_SHAPES - da.INT8_SHAPES == {(1, 112), (6, 128)}
+    if ok:
+        da.check_kernel_shape("m", 8 * G, 8, K, int8=int8)
+        return
+    with pytest.raises(ValueError, match=f"G={G}, K={K}") as e:
+        da.check_kernel_shape("m", 8 * G, 8, K, int8=int8)
+    assert ("int8" in str(e.value)) == int8
+
+
+@pytest.mark.parametrize("name", ["whisper-large-v3"])
 def test_families_still_to_come_are_refused_on_the_cpu(name):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    """Whisper is refused for its reasons, named: the audio family, its
+    learned positions and its non-gated gelu MLP."""
+    with pytest.raises(NotImplementedError, match="not ported yet") as e:
         Model(_port_config(name), device="cpu")
+    for reason in ("arch_type", "pos_embed", "mlp_gated"):
+        assert reason in str(e.value)

@@ -147,9 +147,9 @@ def test_batch_admit_false_equals_jax(weights, cache, chunked):
     calls = []
     real = tm.prefill
 
-    def spy(params, tokens, cache_, logits_at=-1):
+    def spy(params, tokens, cache_, logits_at=-1, **kw):
         calls.append(tokens.shape[0])
-        return real(params, tokens, cache_, logits_at=logits_at)
+        return real(params, tokens, cache_, logits_at=logits_at, **kw)
     tm.prefill = spy
     try:
         got = _serve(te, specs, Request)

@@ -59,6 +59,8 @@ def _assert_close(got, want, dtype):
     (2, 1, 50, 4, 2, 128, 128, 0, 0.0),       # Sq = 1
     (1, 40, 150, 4, 2, 64, 64, 0, 0.0),       # Sq < Skv, Skv ragged
     (1, 80, 50, 4, 2, 64, 64, 0, 0.0),        # rows that see no key
+    (1, 130, 130, 32, 32, 112, 112, 0, 0.0),  # zamba2-7b: Kv = 112
+    (2, 77, 77, 4, 2, 112, 112, 17, 0.0),     # Kv = 112, GQA and a window
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, Sq, Skv, H, Hkv, K, Kv,
                                     window, softcap):
@@ -224,27 +226,28 @@ def test_split_body_over_a_scattered_ring(cuda, dtype):
     (16, 2, 32),      # G = 8
     (16, 2, 64),      # G = 8, G*K = 512
     (16, 8, 256),     # G = 2, K = 256
+    (32, 32, 112),    # G = 1, K = 112 (zamba2-7b)
+    (48, 8, 128),     # G = 6, K = 128 (mixtral-8x22b, internvl2-26b)
 ])
 def test_split_body_groups_and_head_dims(cuda, dtype, H, Hkv, K):
     _split_case(cuda, dtype, [300, 64, 0, 129], H, Hkv, K, 16, 32, 30.0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_split_body_bits_do_not_depend_on_the_horizon(cuda, dtype):
+def _horizon_case(gen, dtype, H, Hkv, K):
     """The same live prefix gives the same bits at W = 512 and W = 2048
-    (dense), and at nblk = 32 and 128 (paged)."""
+    (dense), at nblk = 32 and 128 (paged), and dense = paged."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paged_attention as pa
     lengths = [48, 160, 300, 512, 0]
-    q, kp, vp, table, lens, _ = _paged_inputs(cuda, lengths, 16, 8, 128, 16,
+    q, kp, vp, table, lens, _ = _paged_inputs(gen, lengths, H, Hkv, K, 16,
                                               128, dtype)
     long_ = pa.paged_decode_attention(q, kp, vp, table, lens)
     short = pa.paged_decode_attention(q, kp, vp, table[:, :32].contiguous(),
                                       lens)
     assert torch.equal(long_, short)
     B = len(lengths)
-    k = kp[table.long()].reshape(B, 2048, 8, 128).contiguous()
-    v = vp[table.long()].reshape(B, 2048, 8, 128).contiguous()
+    k = kp[table.long()].reshape(B, 2048, Hkv, K).contiguous()
+    v = vp[table.long()].reshape(B, 2048, Hkv, K).contiguous()
     valid = torch.arange(2048, device="cuda")[None, :] < lens[:, None]
     wide = da.decode_attention(q, k, v, valid)
     narrow = da.decode_attention(q, k[:, :512].contiguous(),
@@ -252,6 +255,29 @@ def test_split_body_bits_do_not_depend_on_the_horizon(cuda, dtype):
                                  valid[:, :512].contiguous())
     assert torch.equal(wide, narrow)
     assert torch.equal(wide, long_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_body_bits_do_not_depend_on_the_horizon(cuda, dtype):
+    """The same live prefix gives the same bits at W = 512 and W = 2048
+    (dense), and at nblk = 32 and 128 (paged)."""
+    _horizon_case(cuda, dtype, 16, 8, 128)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edges", ["first", "second"])
+@pytest.mark.parametrize("H,Hkv,K", [(32, 32, 112), (48, 8, 128)])
+def test_split_body_new_shapes_at_edges_and_horizons(cuda, dtype, edges, H,
+                                                     Hkv, K):
+    """The two pairs past G·K <= 512, (G, K) = (1, 112) (lanes past a
+    row's 14 or 28 loads idle) and (6, 128) (a 768-thread merge): rows at
+    the split edges against the plain version, the paged kernel bit for
+    bit the dense one, and the same bits at horizons 512 and 2048."""
+    from repro_torch.kernels.decode_attention import SPLIT as P
+    lengths = ([P - 1, P, P + 1, 0, 2048] if edges == "first"
+               else [2 * P - 1, 2 * P, 2 * P + 1, 1, 2047])
+    _split_case(cuda, dtype, lengths, H, Hkv, K, 16, 128, 0.0)
+    _horizon_case(cuda, dtype, H, Hkv, K)
 
 
 def test_split_wrappers_reject_unaligned_kv(cuda):
@@ -1282,11 +1308,11 @@ def _bf16_reduced_precision_reduction(allowed: bool):
 
 @pytest.mark.parametrize("reduction_allowed", [True, False])
 def test_cublas_rows_depend_on_the_row_count(cuda, reduction_allowed):
-    """Why a paged engine prefills at least ``MIN_PREFILL_ROWS`` token rows
-    on the card: at qwen3's down projection (K = 3072, N = 1024, bf16)
-    cuBLAS gives the same rows other bits in a 16-row product than in a
-    4096-row one, with its reduced-precision reduction allowed (torch's
-    default) or not, so that setting is no way around the padding."""
+    """Why a prefill's bf16 products run in fixed slices on the card: at
+    qwen3's down projection (K = 3072, N = 1024, bf16) cuBLAS gives the
+    same rows other bits in a 16-row product than in a 4096-row one, with
+    its reduced-precision reduction allowed (torch's default) or not, so
+    that setting is no way around the slicing."""
     w = (0.03 * _randn(cuda, 3072, 1024, dtype=torch.float32)).bfloat16()
     x = _randn(cuda, 4096, 3072, dtype=torch.bfloat16)
     with _bf16_reduced_precision_reduction(reduction_allowed):
@@ -1298,22 +1324,23 @@ HEAD_ROWS = (1, 2, 3, 4, 8, 16)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("name", ["qwen3-0.6b", "stablelm-1.6b"])
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "stablelm-1.6b",
+                                  "internvl2-26b"])
 def test_prefill_gemms_give_a_row_the_same_bits_from_min_prefill_rows_on(
         cuda, name, dtype):
     """The projections of the models that share prefixes, at full width,
-    as a prefill computes them (``layers.project`` inside
-    ``layers.prefill_products``), give a row the same
-    bits whatever the row count, wherever the row sits among them. In
-    bf16 (one cuBLAS product) at every count from ``MIN_PREFILL_ROWS`` on,
-    and the logits head, which a prefill computes at one row a prompt,
-    from 1; with the engine's padding, sharing on and off then agree bit
-    for bit. In float32 cuBLAS gives the same rows other bits between 128
-    and 4096 rows at these widths, so the card runs float32 projections
-    in fixed slices of ``layers.ROW_SLICE`` rows: at every count from 1."""
+    as a paged engine's prefill computes them (``layers.project`` inside
+    ``layers.prefill_products(every_dtype=True)``), give a row the same
+    bits whatever the row count, wherever the row sits among them, and so
+    does the logits head, which a prefill computes at one row a prompt:
+    at every count from 1, so sharing on and off agree bit for bit. One
+    cuBLAS product would not: in float32 it gives the same rows other
+    bits between 128 and 4096 rows at these widths, in bfloat16 below 128
+    rows at qwen3's and at 128-384 rows (down projection) and 1-4 rows
+    (head) at internvl2-26b's, so the card runs a sharing engine's prefill
+    products in fixed slices of ``layers.ROW_SLICE`` rows."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.layers import prefill_products, project
-    from repro_torch.serving.engine import MIN_PREFILL_ROWS
 
     cfg = get_config(name)
     d, ff = cfg.d_model, cfg.d_ff
@@ -1321,15 +1348,14 @@ def test_prefill_gemms_give_a_row_the_same_bits_from_min_prefill_rows_on(
     bad = []
 
     def check(x, w, rows, what):
-        with prefill_products():
+        with prefill_products(every_dtype=True):
             full = project(x, w)
             for at in (0, 37):
                 bad.extend((what, at, m) for m in rows
                            if not torch.equal(project(x[at:at + m], w),
                                               full[at:at + m]))
 
-    rows = ([m for m in PREFILL_ROWS if m >= MIN_PREFILL_ROWS]
-            if dtype == torch.bfloat16 else (1, 16, 100) + PREFILL_ROWS)
+    rows = (1, 16, 100) + PREFILL_ROWS
     for K, N in sorted({(d, q), (d, kv), (q, d), (d, ff), (ff, d)}):
         w = (K ** -0.5 * _randn(cuda, K, N, dtype=torch.float32)).to(dtype)
         check(_randn(cuda, 4096, K, dtype=dtype), w, rows, (K, N))
@@ -1780,8 +1806,8 @@ def test_a_rebuilt_thread_engine_frees_the_old_cache_and_captures_anew(
     from repro_torch.serving.router import Router
 
     # float32: a prefill row's bits do not depend on its batch there
-    # (fixed 128-row projection slices), so a retried request re-batched
-    # on the rebuilt engine must give the fault-free bits
+    # (fixed ROW_SLICE-row projection slices), so a retried request
+    # re-batched on the rebuilt engine must give the fault-free bits
     model = Model(get_config("qwen3-0.6b-reduced"), device="cuda")
     params = model.init(seed=0, dtype=torch.float32)
     config = EngineConfig(n_slots=2, max_len=8192, chunk_tokens=4,
@@ -2067,9 +2093,8 @@ def test_gemma_reduced_on_the_card_matches_the_cpu(cuda):
 
 def test_gemma_dense_equals_paged_in_bf16_without_prefill_padding(cuda):
     """A bf16 paged gemma engine prefills each prompt alone at its exact
-    width, as the dense engine does: the window shuts the sharing gate,
-    so ``MIN_PREFILL_ROWS`` padding has nothing to equalise and is not
-    applied, and the two engines' greedy streams are identical."""
+    width, as the dense engine does (the window shuts the sharing gate),
+    and the two engines' greedy streams are identical."""
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     cfg = _gemma_reduced()
@@ -2083,22 +2108,48 @@ def test_gemma_dense_equals_paged_in_bf16_without_prefill_padding(cuda):
             max_seqs=2 if cache == "paged" else None, prefix_cache=True
             if cache == "paged" else False, dtype=torch.bfloat16),
             device="cuda")
-        assert eng._prefill_rows(1, 10) == 1 and not eng._share
+        assert not eng._share
         eng.submit_many(_requests(cfg.vocab_size, specs, 7))
         streams.append({c.rid: c.tokens for c in eng.run()})
     assert streams[0] == streams[1]
 
 
 def test_model_refuses_head_shapes_without_a_kernel_on_the_card(cuda):
-    """mixtral-8x22b's G = 6 and zamba2-7b's K = 112 have no decode
-    kernel: ``Model`` refuses them on the card, naming G and K."""
+    """G = 6 at K = 256 and G = 3 have no decode kernel, and the int8
+    split body has none at mixtral-8x22b's G = 6 or zamba2-7b's K = 112:
+    ``Model`` refuses them on the card, naming G and K (and int8); the
+    bf16 pairs (6, 128) and (1, 112) are taken."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import Model
     base = get_config("qwen3-8b")
-    with pytest.raises(ValueError, match="G=6, K=128"):
-        Model(dataclasses.replace(base, n_heads=48, n_kv_heads=8))
-    with pytest.raises(ValueError, match="G=1, K=112"):
-        Model(dataclasses.replace(base, n_heads=32, n_kv_heads=32,
-                                  head_dim=112))
+    g6 = dataclasses.replace(base, n_heads=48, n_kv_heads=8)
+    k112 = dataclasses.replace(base, n_heads=32, n_kv_heads=32, head_dim=112)
+    Model(g6)
+    Model(k112)
+    with pytest.raises(ValueError, match="G=6, K=256"):
+        Model(dataclasses.replace(g6, head_dim=256))
+    with pytest.raises(ValueError, match="G=3, K=128"):
+        Model(dataclasses.replace(base, n_heads=24))
+    with pytest.raises(ValueError, match="int8 kernel for G=6, K=128"):
+        Model(dataclasses.replace(g6, kv_cache_dtype="int8"))
+    with pytest.raises(ValueError, match="int8 kernel for G=1, K=112"):
+        Model(dataclasses.replace(k112, kv_cache_dtype="int8"))
+
+
+def test_ptxas_shows_no_spill_in_the_new_split_instantiations(cuda):
+    """``scripts/ptxas_report.py`` (its own build, ``-Xptxas=-v``) lists
+    the split body's (1, 112) and (6, 128) instantiations, both query
+    dtypes and both address policies, with no spill, and exits 0."""
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(root / "scripts" /
+                                              "ptxas_report.py")],
+                         capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-2000:]
+    line = [ln for ln in out.stdout.splitlines()
+            if ln.startswith("split decode new shapes:")]
+    assert line and line[0].endswith(" 0 spill"), line

@@ -46,7 +46,10 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
             "repro_torch.serving.process_pool",
             "repro_torch.serving.adaptive",
             "repro_torch.configs.qwen3_8b", "repro_torch.configs.llama31_8b",
-            "repro_torch.configs.gemma3_27b"} <= set(_modules())
+            "repro_torch.configs.gemma3_27b",
+            "repro_torch.configs.zamba2_7b",
+            "repro_torch.configs.internvl2_26b",
+            "repro_torch.configs.mixtral_8x22b"} <= set(_modules())
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         class Blk(importlib.abc.MetaPathFinder):
@@ -159,6 +162,18 @@ def test_chip_smoke_imports_nothing_of_jax_or_repro():
             assert top not in ("jax", "jaxlib", "repro"), line
 
 
+@pytest.mark.parametrize("script", ["profile_port.py", "ptxas_report.py",
+                                    "prefill_turns.py"])
+def test_port_scripts_import_nothing_of_jax_or_repro(script):
+    """The scripts that read the port on a card import no JAX either."""
+    src = (REPO / "scripts" / script).read_text()
+    for line in src.splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]):
+            top = words[1].split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), line
+
+
 @pytest.fixture
 def cpu_only(monkeypatch):
     """This host's view — no card — made explicit, so the test means the
@@ -200,16 +215,22 @@ def test_engine_refuses_params_on_another_device():
 def test_unported_configurations_raise():
     import dataclasses
     cfg = get_config(ARCH)
-    for change in ({"kv_cache_dtype": "fp8"}, {"arch_type": "hybrid"},
-                   {"arch_type": "audio"}, {"n_vision_tokens": 8},
+    for change in ({"kv_cache_dtype": "fp8"}, {"arch_type": "audio"},
                    {"pos_embed": "learned"}, {"mlp_gated": False},
-                   {"act": "relu"}):
+                   {"act": "relu"},
+                   # a hybrid without its shared block, an image without
+                   # a width: configurations no family serves
+                   {"arch_type": "hybrid"}, {"n_vision_tokens": 8}):
         with pytest.raises(NotImplementedError, match="not ported"):
             Model(dataclasses.replace(cfg, **change), device="cpu")
     # served since the gemma slice: a window (mixtral's too), the
-    # local/global pattern and the tanh gelu
+    # local/global pattern and the tanh gelu; since the zamba / internvl2
+    # slice the hybrid family and a vision prefix
     for change in ({"sliding_window": 8}, {"local_global_pattern": 1},
-                   {"n_experts": 4, "sliding_window": 8}, {"act": "gelu"}):
+                   {"n_experts": 4, "sliding_window": 8}, {"act": "gelu"},
+                   {"arch_type": "hybrid", "shared_attn_every": 1,
+                    "ssm_state": 16, "ssm_head_dim": 16},
+                   {"n_vision_tokens": 8, "vision_embed_dim": 16}):
         Model(dataclasses.replace(cfg, **change), device="cpu")
 
 

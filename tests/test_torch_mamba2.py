@@ -182,9 +182,9 @@ def _serve_both(pair, specs, monkeypatch, n_slots=2, max_len=128,
     widths = []
     prefill = tm.prefill
 
-    def recording_prefill(params, tokens, cache, logits_at=-1):
+    def recording_prefill(params, tokens, cache, logits_at=-1, **kw):
         widths.append(tuple(tokens.shape))
-        return prefill(params, tokens, cache, logits_at=logits_at)
+        return prefill(params, tokens, cache, logits_at=logits_at, **kw)
     monkeypatch.setattr(tm, "prefill", recording_prefill)
     je.submit_many([jeng.Request(i, p, mn) for i, p, mn in specs])
     te.submit_many([Request(i, p, mn) for i, p, mn in specs])

@@ -160,9 +160,9 @@ def test_greedy_decode_chunk_tokens_identical(pair):
 
 
 @pytest.mark.parametrize("shape", [(3, 77, 64), (5, 64), (2, 128, 64),
-                                   (0, 64)])
+                                   (0, 64), (3, 400, 64)])
 def test_sliced_matmul_is_the_products_of_its_slices(shape):
-    """``layers.sliced_matmul``, the card's float32 projection: every row
+    """``layers.sliced_matmul``, the card's prefill projection: every row
     comes from one ``ROW_SLICE``-row product of the zero-padded slice that
     holds it, and the whole agrees with JAX's ``x @ w``."""
     from repro_torch.models import layers
@@ -219,7 +219,38 @@ def test_prefill_products_is_scoped_to_its_thread():
         assert on()
     assert seen == [False] and not on()
     with pytest.raises(RuntimeError):
-        with layers.prefill_products():
+        with layers.prefill_products(every_dtype=True):
+            assert layers._prefill.every
             raise RuntimeError
-    assert not on()
+    assert not on() and not layers._prefill.every
 
+
+
+@pytest.mark.parametrize("name, cache, want", [
+    ("qwen3-0.6b", "paged", True), ("qwen3-0.6b", "dense", True),
+    ("mamba2-2.7b", "paged", False), ("gemma3-27b", "dense", False),
+    ("gemma3-27b", "paged", False), ("mixtral-8x22b", "dense", False)])
+def test_engine_slices_every_prefill_product_only_where_it_can_share(
+        name, cache, want):
+    """A prefill runs every product in fixed row slices on the card
+    (``Model.prefill(row_invariant=True)``) only for a model that can
+    share a prefix, in its dense and its paged engine alike; an SSM, a
+    windowed or an MoE model prefills with one product a projection
+    (float32 products are sliced all the same, in ``layers.project``)."""
+    from repro_torch.serving.engine import (EngineConfig, Request,
+                                            ServingEngine)
+
+    model = Model(get_config(f"{name}-reduced"), device="cpu")
+    params = model.init(seed=0)
+    eng = ServingEngine(model, params, EngineConfig(
+        n_slots=1, max_len=64, cache=cache), device="cpu")
+    seen, prefill = [], model.prefill
+
+    def spy(*args, row_invariant=False, **kw):
+        seen.append(row_invariant)
+        return prefill(*args, row_invariant=row_invariant, **kw)
+
+    model.prefill = spy
+    eng.submit(Request(0, np.arange(16, dtype=np.int32), 2))
+    eng.run()
+    assert seen == [want]
