@@ -76,7 +76,16 @@ Phases, each raising on failure (any failure exits nonzero):
    ``paged_decode_attention`` at (G, K) = (1, 112) (H 32) and (6, 128)
    (H 48, Hkv 8) over 4 rows live to 48-544 of 2048, ``ssd_scan`` at a
    512-token zamba2 prefill (nh 112, hd 64, ds 64, chunk 256) and
-   ``rmsnorm`` at (512, 3584 / 6144 / 7168).
+   ``rmsnorm`` at (512, 3584 / 6144 / 7168). Those of phase 16's
+   whisper-large-v3 (20 heads of 64, G = 1), the same way but timed in
+   the dtype the path runs them in: ``flash_attention`` not causal at the
+   encoder (B 1, S 1500) and at the cross attention's prefill (B 4, Sq
+   64, Skv 1500), both timed in float32 as the frames run, and causal at
+   the decoder's self attention prefill (B 3, Sq = Skv 256), timed in
+   bfloat16; ``decode_attention`` through ``ops.decode_cross_attention`` over 4
+   rows of a wholly valid 1500-row memory, and ``decode_attention`` and
+   ``paged_decode_attention`` over a 448-position horizon with rows live
+   to 63, 65, 129 and 448, timed in bfloat16.
 3. Model: qwen3-0.6b at full width cut to 2 layers, the 2-layer
    mamba2-2.7b-reduced and the 2-layer deepseek-v2-lite-16b-reduced,
    float32, the port's seeded init: prefill + 8 greedy decode steps on
@@ -330,9 +339,32 @@ Phases, each raising on failure (any failure exits nonzero):
        within 1e-3.
     Prints the phase's time.
 
+16. Whisper, the audio encoder-decoder, at full width and not cut
+    (arXiv:2212.04356; 32 encoder and 32 decoder layers, d 1280, 20 heads
+    of 64, d_ff 5120, vocab 51 866, 1500 frames; bf16, random weights
+    from seed 0, 3.07 GB), n_slots=4, max_len 448 (its decoder context),
+    chunk_tokens=32; each request carries its own 1500 x 1280 float32
+    frames (0.1 x N(0, 1) seeded by its id), which the encoder runs in
+    float32 against the bf16 weights, as JAX promotes them:
+    a. 8 requests of 4-224 decoder tokens, max_new 32, through
+       ``Router(ThreadBackend(2))`` over dense engines (flash and dense
+       decode a multiple of the 32 layers, no rmsnorm: whisper's norms
+       are layernorms), then one dense and one paged engine (block 16,
+       max_seqs 4, ``prefix_cache``: its positions shut the gate, 0 hit
+       tokens): identical greedy streams; ``graph_vs_eager`` on both
+       engines; each engine's prefills (rows, width, wall, the encoder's
+       share) and launches; a per-token engine on 2 requests equal to
+       the chunked streams; a 4-row decode step replayed over each cache
+       beside its bytes bound (the decoder's weights without the cross
+       attention's wk/wv, the memory rows and live self K/V).
+    b. reduced whisper (2 encoder and 2 decoder layers, 16 frames) in
+       float32: prefill and 8 decode steps on the card against the CPU
+       within 1e-3.
+    Prints the phase's time.
+
 Then a JSON line with each kernel's launches (from the phase of the path
-it serves, and by phase, phase 13's three parts and phases 14's and 15's
-among them), error and times (eight kernels), the card's
+it serves, and by phase, phase 13's three parts and phases 14's, 15's and
+16's among them), error and times (eight kernels), the card's
 ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 {...}}``.
 
@@ -1706,6 +1738,165 @@ def later_shape_checks(gen) -> dict:
     return out
 
 
+# whisper-large-v3's shapes (phase 16; 20 heads of 64, G = 1): the
+# encoder's self attention over its 1500 frames and the cross attention at
+# prefill (a 64-token bucket of 4 prompts against the 1500-row memory),
+# both not causal and run in float32 as the frames are; the decoder's
+# causal self attention at prefill (3 prompts in a 256-token bucket) in
+# the model's dtype; the cross decode of 4 rows over the wholly valid
+# memory (23 splits of 64 and one of 28); the self decode over the
+# 448-position horizon, rows live on both sides of the 64-position split
+# edges, over the dense ring and the pages
+WHISPER_FLASH = {
+    "whisper_encoder": dict(B=1, Sq=1500, Skv=1500, causal=False,
+                            timed="float32"),
+    "whisper_cross_prefill": dict(B=4, Sq=64, Skv=1500, causal=False,
+                                  timed="float32"),
+    "whisper_self_prefill": dict(B=3, Sq=256, Skv=256, causal=True,
+                                 timed="bfloat16")}
+WHISPER_HEADS = dict(H=20, Hkv=20, K=64)
+WHISPER_MEM = dict(B=4, W=1500)
+WHISPER_SELF = dict(W=448, depth=[63, 65, 129, 448])
+
+
+def whisper_shape_checks(gen) -> dict:
+    """The prefill, dense and paged decode kernels at whisper-large-v3's
+    shapes (WHISPER_FLASH, WHISPER_MEM, WHISPER_SELF at WHISPER_HEADS),
+    each held against its plain version in float32 (2e-5) and bfloat16
+    (2e-2), the paged kernel bit for bit the dense one over the gathered
+    view; then timed in the dtype the path runs them in (float32 for the
+    encoder and the cross prefill, bfloat16 for the decoder's causal
+    prefill and for decode) as device time (100 calls
+    replayed from a CUDA graph) beside the plain version and sdpa, with
+    the shape's bound. Returns {kernel: {label: row}}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    h, hkv, k_ = (WHISPER_HEADS[n] for n in ("H", "Hkv", "K"))
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def sdpa(q, k, v, valid):
+        q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        return lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=valid[:, None, None, :], enable_gqa=True)
+
+    out: dict = {}
+
+    def row(name, label, calls, bound, shape, timed):
+        """``calls(dtype)`` gives (kernel, plain, library); ``bound(dn)``
+        the bound; timed in ``timed``."""
+        errs, times = {}, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            k_call, p_call, lib = calls(dtype)
+            got = k_call()
+            torch.cuda.synchronize()
+            errs[dn] = check_close(got, p_call(), dn, f"{name} {label} {dn}")
+            print(f"{name} {label} {dn} {shape}: max_abs_err="
+                  f"{errs[dn]:.3e}", flush=True)
+            if dtype == timed:
+                b = bound(dn)
+                times = {"ms": time_graph_ms(k_call),
+                         "plain_ms": time_ms(p_call, reps=3),
+                         "library_ms": time_graph_ms(lib),
+                         "bound_ms": b[0], "bound_by": b[1]}
+        tn = str(timed).split(".")[1]
+        out.setdefault(name, {})[label] = {
+            "max_abs_err": errs[tn], "max_abs_err_by_dtype": errs, **times,
+            "shape": f"{shape}; timed in {tn}: ms and library_ms device "
+                     "time (100 calls replayed from a CUDA graph), plain_ms "
+                     "launched one by one (CUDA events); library_ms is sdpa"}
+
+    for label, f in WHISPER_FLASH.items():
+        B, Sq, Skv, causal = f["B"], f["Sq"], f["Skv"], f["causal"]
+        # query-key pairs the mask keeps
+        pairs = (int(ref.attention_mask(Sq, Skv, causal=True, window=0,
+                                        device=dev).sum())
+                 if causal else Sq * Skv)
+
+        def flash_calls(dtype, B=B, Sq=Sq, Skv=Skv, causal=causal):
+            q = randn(B, Sq, h, k_, dtype=dtype)
+            k, v = (randn(B, Skv, hkv, k_, dtype=dtype) for _ in range(2))
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            return (lambda: fa.flash_attention(q, k, v, causal=causal),
+                    lambda: ref.flash_attention(q, k, v, causal=causal),
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal))
+
+        def flash_bound(dn, B=B, Sq=Sq, Skv=Skv, pairs=pairs):
+            isz = 4 if dn == "float32" else 2
+            return bound_ms(4 * B * h * pairs * k_,
+                            2 * B * (Sq * h + Skv * hkv) * k_ * isz, dn)
+        row("flash_attention", label, flash_calls, flash_bound,
+            f"B={B} Sq={Sq} Skv={Skv} H={h} Hkv={hkv} K=Kv={k_} "
+            + ("causal" if causal else "not causal"),
+            getattr(torch, f["timed"]))
+
+    B, W = WHISPER_MEM["B"], WHISPER_MEM["W"]
+
+    def cross_calls(dtype):
+        q = randn(B, h, k_, dtype=dtype)
+        k, v = (randn(B, W, hkv, k_, dtype=dtype) for _ in range(2))
+        valid = torch.ones(B, W, dtype=torch.bool, device=dev)
+        return (lambda: ops.decode_cross_attention(q, k, v, valid),
+                lambda: ref.decode_attention(q, k, v, valid),
+                sdpa(q, k, v, valid))
+
+    def cross_bound(dn):
+        return bound_ms(4 * B * W * h * k_,
+                        2 * B * W * hkv * k_ * 2 + 2 * B * h * k_ * 2 + B * W,
+                        dn)
+    row("decode_attention", "whisper_cross", cross_calls, cross_bound,
+        f"B={B} W={W} H={h} Hkv={hkv} K={k_} all valid "
+        "(ops.decode_cross_attention)", torch.bfloat16)
+
+    W, depth = WHISPER_SELF["W"], WHISPER_SELF["depth"]
+    B, live, bs = len(depth), sum(depth), 16
+    nblk = W // bs
+    valid = (torch.arange(W, device=dev)[None, :]
+             < torch.tensor(depth, device=dev)[:, None])
+
+    def self_calls(dtype):
+        q = randn(B, h, k_, dtype=dtype)
+        k, v = (randn(B, W, hkv, k_, dtype=dtype) for _ in range(2))
+        return (lambda: da.decode_attention(q, k, v, valid),
+                lambda: ref.decode_attention(q, k, v, valid),
+                sdpa(q, k, v, valid))
+
+    def self_bound(dn, table_bytes=B * W):
+        return bound_ms(4 * live * h * k_,
+                        2 * live * hkv * k_ * 2 + 2 * B * h * k_ * 2
+                        + table_bytes, dn)
+    shape = f"B={B} W={W} H={h} Hkv={hkv} K={k_} live={depth}"
+    row("decode_attention", "whisper_self", self_calls, self_bound, shape,
+        torch.bfloat16)
+
+    def paged_calls(dtype):
+        q, kp, vp, table, lens, _ = paged_case(
+            gen, depth, h=h, hkv=hkv, k=k_, bs=bs, nblk=nblk, dtype=dtype)
+        kd, vd, vmask = gathered(kp, vp, table, lens)
+        if not torch.equal(pa.paged_decode_attention(q, kp, vp, table, lens),
+                           da.decode_attention(q, kd, vd, vmask)):
+            fail(f"paged_decode_attention whisper_self {dtype}: not bitwise "
+                 "the dense kernel over the gathered view")
+        return (lambda: pa.paged_decode_attention(q, kp, vp, table, lens),
+                lambda: ref.paged_decode_attention(q, kp, vp, table, lens),
+                sdpa(q, kd, vd, vmask))
+    row("paged_decode_attention", "whisper_self", paged_calls,
+        lambda dn: self_bound(dn, B * nblk * 4), f"B={B} bs={bs} nblk={nblk}"
+        f" H={h} Hkv={hkv} K={k_} live={depth} (bitwise the dense kernel "
+        "over the gathered view)", torch.bfloat16)
+    return out
+
+
 def kernel_phase():
     import torch.nn.functional as F
 
@@ -1930,6 +2121,9 @@ def kernel_phase():
     for name, rows in later_shape_checks(gen).items():
         results[name].setdefault("family_shapes", {}).update(rows)
         print(f"{name} phase 15 shapes: {rows}", flush=True)
+    for name, rows in whisper_shape_checks(gen).items():
+        results[name].setdefault("family_shapes", {}).update(rows)
+        print(f"{name} phase 16 shapes: {rows}", flush=True)
     return results
 
 
@@ -1969,6 +2163,9 @@ def model_phase(cfg, last: list[int], S: int = 64, steps: int = 8):
         img["vision_embeds"] = torch.from_numpy((0.1 * rng.standard_normal(
             (B, cfg.n_vision_tokens, cfg.vision_embed_dim))).astype(
                 np.float32))
+    if cfg.n_encoder_layers:  # whisper: each prompt's frames
+        img["audio_frames"] = torch.from_numpy((0.1 * rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model))).astype(np.float32))
     cl = cpu_model.prefill(cpu_params, toks, cc, logits_at=last, **img)
     gl = gpu_model.prefill(gpu_params, toks.cuda(), gc,
                            logits_at=last.cuda(),
@@ -2136,7 +2333,10 @@ def norms_per_forward(cfg) -> int:
     per layer the block norms (two, one for an SSM block) plus the q/k
     norms (one pair launch), the MLA latent norm or the mamba2 gated norm
     (for zamba, each SSM layer's and each application of the shared
-    block's); then the final norm."""
+    block's); then the final norm. A layernorm model (whisper) runs no
+    rmsnorm."""
+    if cfg.norm_type == "layernorm":
+        return 0
     attn = 2 + (1 if cfg.qk_norm else 0) + (1 if cfg.mla else 0)
     if cfg.arch_type == "hybrid":
         # every SSM layer, then each application of the shared block
@@ -2147,9 +2347,13 @@ def norms_per_forward(cfg) -> int:
 
 def check_norm_launches(cfg, launches: dict, what: str) -> None:
     """Every norm of the model runs the rmsnorm kernel: a positive
-    multiple of the norms of one forward."""
+    multiple of the norms of one forward (none for a layernorm model)."""
     n, per = launches["rmsnorm"], norms_per_forward(cfg)
-    if n <= 0 or n % per:
+    if per == 0:
+        if n:
+            fail(f"{what}: {n} rmsnorm launches from {cfg.name}, whose "
+                 "norms are layernorms; need none")
+    elif n <= 0 or n % per:
         fail(f"{what}: {n} rmsnorm launches; need a positive multiple of "
              f"{per} (the norms of one {cfg.name} forward)")
 
@@ -2157,6 +2361,28 @@ def check_norm_launches(cfg, launches: dict, what: str) -> None:
 # ---------------------------------------------------------------------------
 # the decode chunk as a captured CUDA graph, on every engine
 # ---------------------------------------------------------------------------
+def tree_clone(tree):
+    """A copy of a cache tree (lists and dicts of tensors, a whisper
+    layer's nested self group too) with every tensor cloned."""
+    if isinstance(tree, dict):
+        return {k: tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_clone(v) for v in tree]
+    return tree.clone()
+
+
+def tree_leaves(tree, path: str = ""):
+    """(path, tensor) of every tensor of a cache tree, in order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
 def graph_vs_eager(engine, what: str, card: str) -> int:
     """The engine's next chunk, replayed from its captured step graph,
     against ``Model.decode_chunk`` run eagerly from the same slot state on
@@ -2172,8 +2398,7 @@ def graph_vs_eager(engine, what: str, card: str) -> int:
         fail(f"graph vs eager ({what}): {len(active)} active rows, capture "
              f"{engine.graph_capture_s}")
     torch.cuda.synchronize()
-    clone = [{k: t.clone() for k, t in g.items()}
-             for g in engine.cache_backend.tree]
+    clone = tree_clone(engine.cache_backend.tree)
     seen = {}
     run = engine._run_chunk
 
@@ -2222,11 +2447,11 @@ def graph_vs_eager(engine, what: str, card: str) -> int:
                  f"want {want}, engine draws {engine.draws}")
         key = f", the random stream [seed, draw] {want} after both"
     leaves = 0
-    for j, (g, c) in enumerate(zip(engine.cache_backend.tree, clone)):
-        for k, t in g.items():
-            leaves += 1
-            if not torch.equal(t.view(torch.uint8), c[k].view(torch.uint8)):
-                fail(f"graph vs eager ({what}): layer {j} {k} differs")
+    for (path, t), (_, c) in zip(tree_leaves(engine.cache_backend.tree),
+                                 tree_leaves(clone)):
+        leaves += 1
+        if not torch.equal(t.view(torch.uint8), c.view(torch.uint8)):
+            fail(f"graph vs eager ({what}): cache leaf {path} differs")
     replayed = {k: mid[k] - before[k] for k in mid}
     eager = {k: after[k] - mid[k] for k in mid}
     if replayed != eager or not sum(replayed.values()):
@@ -4390,7 +4615,15 @@ def seeded_requests(cfg, plens, seed: int, max_new: int = 32,
 def with_images(cfg, reqs, seed: int) -> list:
     """``reqs`` with an image each for a vision model (``vision_embeds``
     (n_vision_tokens, vision_embed_dim) float32, 0.1 x N(0, 1) from
-    ``seed``); unchanged for any other model."""
+    ``seed``), with frames each for whisper (``audio_frames``
+    (encoder_seq, d_model) float32, 0.1 x N(0, 1) seeded by the request's
+    id); unchanged for any other model."""
+    if cfg.n_encoder_layers:
+        for r in reqs:
+            r.extras = {"audio_frames": (0.1 * np.random.default_rng(
+                r.rid).standard_normal((cfg.encoder_seq, cfg.d_model))
+            ).astype(np.float32)}
+        return reqs
     if not cfg.n_vision_tokens:
         return reqs
     rng = np.random.default_rng(seed)
@@ -4464,25 +4697,36 @@ def serve_router(model, params, config, reqs, what: str,
 
 
 def decode_step_ms(model, params, pos: list, weight_bytes: int,
-                   reps: int = 20) -> dict:
+                   reps: int = 20, max_len: int = 2048,
+                   paged: bool = False) -> dict:
     """A 4-row bf16 decode step as an engine replays it, over a fresh
-    cache (2048 positions) written to ``pos``: one ``decode_chunk_step``
-    captured in a CUDA graph (rows inactive, so positions hold) after one
-    eager step, then ``reps`` replays back to back between CUDA events:
-    the step's ms. Its bound: the weights (``weight_bytes``) and each
-    layer's live keys and values (the ring's slots up to ``pos``) read
-    once over 3.35 TB/s."""
+    cache (``max_len`` positions) written to ``pos``: one
+    ``decode_chunk_step`` captured in a CUDA graph (rows inactive, so
+    positions hold) after one eager step, then ``reps`` replays back to
+    back between CUDA events: the step's ms. Its bound: the weights
+    (``weight_bytes``) and each layer's live keys and values (the ring's
+    slots up to ``pos``; for whisper also its memory rows) read once over
+    3.35 TB/s. With ``paged`` the full-horizon groups are pages of 16
+    positions over a table that gives each row its own pages."""
+    from repro_torch.models.cache import PagedLayout, groups, is_paged_group
+
     B = len(pos)
-    cache = model.init_cache(B, 2048, torch.bfloat16)
+    layout = PagedLayout(16, B * max_len // 16) if paged else None
+    cache = model.init_cache(B, max_len, torch.bfloat16, layout=layout)
+    for g in groups(cache):
+        if is_paged_group(g):      # one table, shared by every group
+            g["table"].copy_(torch.arange(
+                B * max_len // 16, dtype=torch.int32).view(B, -1))
+            break
     buf = model.chunk_buffers(B, reps + 1)
     buf["pos"].copy_(torch.tensor(pos, dtype=torch.int32))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.stream(side):
-        model.decode_chunk_step(params, cache, buf, max_len=2048)
+        model.decode_chunk_step(params, cache, buf, max_len=max_len)
         with torch.cuda.graph(graph, stream=side):
-            model.decode_chunk_step(params, cache, buf, max_len=2048)
+            model.decode_chunk_step(params, cache, buf, max_len=max_len)
     torch.cuda.current_stream().wait_stream(side)
     for _ in range(3):
         buf["col"].zero_()
@@ -4498,14 +4742,23 @@ def decode_step_ms(model, params, pos: list, weight_bytes: int,
     cfg = model.cfg
     row = 2 * cfg.n_kv_heads * cfg.head_dim * 2          # k and v, bf16
     # live K/V read once; an SSM layer's conv tail and state read and
-    # written once
-    kv = sum(min(p + 1, g["k"].shape[1]) * row if "k" in g
-             else 2 * sum(t.nbytes for t in g.values()) // B
-             for g in cache for p in pos)
+    # written once; a whisper layer's memory rows read once
+
+    def group_bytes(g, p):
+        if "self" in g:
+            return ((g["mem_k"].nbytes + g["mem_v"].nbytes) // B
+                    + group_bytes(g["self"], p))
+        if "k" in g:
+            return min(p + 1, g["k"].shape[1]) * row
+        if "k_pages" in g:
+            return min(p + 1, max_len) * row
+        return 2 * sum(t.nbytes for t in g.values()) // B
+    kv = sum(group_bytes(g, p) for g in cache for p in pos)
     del cache, graph
     return {"ms": start.elapsed_time(end) / reps,
             "bound_ms": (weight_bytes + kv) / PEAK_BYTES_S * 1e3,
-            "bound_by": "bytes", "positions": list(pos)}
+            "bound_by": "bytes", "positions": list(pos),
+            **({"cache": "paged"} if paged else {})}
 
 
 def dense_8b_phase(name: str, card: str) -> dict:
@@ -4957,6 +5210,179 @@ def later_family_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: whisper, the audio encoder-decoder, at full width
+# ---------------------------------------------------------------------------
+# decoder prompts of 4-224 tokens (buckets 16-256), within whisper's
+# 448-token decoder context (n_text_ctx, arXiv:2212.04356)
+WHISPER_PLENS = [4, 12, 30, 48, 100, 150, 200, 224]
+WHISPER_MAX_LEN = 448
+
+
+class PrefillTimer:
+    """Wraps ``model.prefill`` and ``model._encode`` on the instance:
+    each call's wall time between two device synchronisations, and the
+    encoder's part of it. ``close()`` restores the methods."""
+
+    def __init__(self, model):
+        self.model, self.rows = model, []
+        prefill, encode = model.prefill, model._encode
+        enc = []
+
+        def timed_encode(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = encode(*a, **k)
+            torch.cuda.synchronize()
+            enc.append(time.perf_counter() - t0)
+            return out
+
+        def timed_prefill(params, tokens, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = prefill(params, tokens, *a, **k)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            self.rows.append({"rows": tokens.shape[0],
+                              "width": tokens.shape[1],
+                              "wall_s": round(wall, 5),
+                              "encoder_share": round(sum(enc) / wall, 4)})
+            enc.clear()
+            return out
+        model.prefill, model._encode = timed_prefill, timed_encode
+
+    def close(self):
+        del self.model.prefill, self.model._encode
+
+
+def whisper_phase(card: str, max_new: int = 32) -> dict:
+    """16a: full-width whisper-large-v3 (32 encoder and 32 decoder layers,
+    d 1280, 20 heads of 64, vocab 51 866; bf16, random weights from seed
+    0), n_slots 4, max_len 448, chunk 32; each request with its own 1500
+    x 1280 float32 frames: WHISPER_PLENS through
+    ``Router(ThreadBackend(2))`` over dense engines, then through one
+    dense and one paged engine (block 16, max_seqs 4, ``prefix_cache``:
+    learned positions shut it, 0 hit tokens): identical greedy streams;
+    ``graph_vs_eager`` on both engines; each engine's prefill walls and
+    the encoder's share; a per-token engine on two requests equal to the
+    chunked streams; a 4-row step replayed beside its bytes bound. Frees
+    the model. Returns the launches of the Router run and each engine."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.containers import card_feasible_counts
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    t0 = time.perf_counter()
+    cfg = get_config("whisper-large-v3")
+    model = Model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    config = EngineConfig(n_slots=4, max_len=WHISPER_MAX_LEN,
+                          chunk_tokens=32, dtype=torch.bfloat16)
+    feasible = card_feasible_counts(
+        cfg, config, card_bytes=torch.cuda.get_device_properties(0)
+        .total_memory, max_containers=4)
+    weights = phase15_header(
+        "16a whisper-large-v3", model, params, t0, card,
+        f"; {cfg.n_encoder_layers} encoder layers over {cfg.encoder_seq} "
+        f"frames; card_feasible_counts={feasible}")
+    reqs = with_images(cfg, seeded_requests(cfg, WHISPER_PLENS, 31,
+                                            max_new), 0)
+    streams, router = serve_router(model, params, config, reqs,
+                                   "16a whisper-large-v3", card)
+    out, launches, prefills = {"router": streams}, {"router": router}, {}
+    for cache in ("dense", "paged"):
+        conf = (dataclasses.replace(config, cache="paged", block_size=16,
+                                    max_seqs=4, prefix_cache=True)
+                if cache == "paged" else config)
+        eng = ServingEngine(model, params, conf)
+        eng.submit_many([dataclasses.replace(r) for r in reqs])
+        timer = PrefillTimer(model)
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        try:
+            comps = eng.run()
+            torch.cuda.synchronize()
+        finally:
+            timer.close()
+        wall = time.perf_counter() - t1
+        launches[cache] = ops.launch_counts()
+        prefills[cache] = timer.rows
+        out[cache] = {c.rid: list(c.tokens) for c in comps}
+        hits = sum(c.prefix_hit_tokens for c in comps)
+        if hits or eng.prefix_hit_tokens_total or eng._share:
+            fail(f"16a whisper {cache}: {hits} prefix hit tokens")
+        print(f"16a whisper-large-v3 {cache} engine: {len(comps)} requests "
+              f"in {wall:.4f} s, cache {tree_bytes(eng.cache_backend.tree)}"
+              f" B, prefix hit tokens {hits}, prefills {timer.rows}, "
+              f"launches { {k: v for k, v in launches[cache].items() if v} }"
+              f" [card: {card}]", flush=True)
+        engine_graph_check(eng, with_images(cfg, seeded_requests(
+            cfg, (224, 40), 33, 40, start=2000), 0),
+            f"whisper-large-v3 {cache} cache", card)
+        del eng
+        torch.cuda.empty_cache()
+    if not launches["paged"]["paged_decode_attention"]:
+        fail("16a whisper: the paged engine never launched the paged kernel")
+    for name in ("flash_attention", "decode_attention"):
+        if not launches["paged"][name]:
+            fail(f"16a whisper: the paged engine never launched {name}")
+    for r in reqs:
+        got = [out[k].get(r.rid) for k in ("router", "dense", "paged")]
+        if not got[0] == got[1] == got[2]:
+            fail(f"16a whisper-large-v3: request {r.rid} ({len(r.prompt)} "
+                 f"tokens) streams differ: router {got[0][:6]}... dense "
+                 f"{(got[1] or [])[:6]}... paged {(got[2] or [])[:6]}...")
+    # the per-token baseline on two requests
+    eng = ServingEngine(model, params, dataclasses.replace(
+        config, chunked=False))
+    eng.submit_many([dataclasses.replace(r) for r in reqs[:2]])
+    per_token = {c.rid: list(c.tokens) for c in eng.run()}
+    if per_token != {r.rid: out["dense"][r.rid] for r in reqs[:2]}:
+        fail("16a whisper-large-v3: per-token streams differ from chunked")
+    del eng
+    torch.cuda.empty_cache()
+    # the step reads the decoder's weights (the tied table as the head),
+    # not the encoder's nor the cross attention's wk/wv (prefill only)
+    cross_kv = sum(p["cross_attn"][n].nbytes for p in params["layers"]
+                   for n in ("wk", "wv"))
+    step_weights = distinct_bytes({k: v for k, v in params.items()
+                                   if k not in ("enc_layers", "enc_norm")
+                                   }) - cross_kv
+    step = {cache: decode_step_ms(model, params, [48, 160, 300, 447],
+                                  step_weights, max_len=WHISPER_MAX_LEN,
+                                  paged=cache == "paged")
+            for cache in ("dense", "paged")}
+    print(f"16a whisper-large-v3: a 4-row decode step replayed over each "
+          f"cache {step} (bound_ms: the decoder's weights without the cross "
+          f"attention's wk/wv, {step_weights} B, the memory rows and live "
+          f"self K/V read once at 3.35 TB/s) [card: {card}]", flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+    print(f"16a whisper-large-v3: {len(reqs)} requests (prompts "
+          f"{WHISPER_PLENS}), identical greedy streams through the Router, "
+          f"the dense and the paged engine, per-token = chunked on 2; "
+          f"weights {weights} B; {time.perf_counter() - t0:.1f} s; after "
+          f"freeing it memory_allocated={torch.cuda.memory_allocated()} B "
+          f"[card: {card}]", flush=True)
+    return {**launches, "step": step, "prefills": prefills}
+
+
+def audio_phase(card: str) -> dict:
+    """Phase 16: 16a whisper-large-v3 at full width, 16b reduced whisper
+    (2 encoder and 2 decoder layers, 16 frames) against the CPU in
+    float32. Returns 16a's launches."""
+    from repro_torch.configs.registry import get_config
+
+    t0 = time.perf_counter()
+    out = whisper_phase(card)
+    model_phase(get_config("whisper-large-v3-reduced"), [63, 40])
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s [card: {card}]",
+          flush=True)
+    return out
+
+
 def full_width_model(dtype):
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import Model
@@ -5080,6 +5506,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     later = later_family_phase(card)
 
+    # whisper, the audio encoder-decoder
+    torch.cuda.empty_cache()
+    audio = audio_phase(card)
+
     # each kernel's launches come from the path it serves: phase 4 (dense
     # cache) for the prefill and dense decode kernels, phase 6 (paged
     # cache with prefix sharing) for the paged decode kernel, phase 7a
@@ -5094,7 +5524,8 @@ def main() -> int:
     # Router run and its paged engine's compared streams, 14b gemma's
     # Router run and its dense and paged engines; phase 15a zamba's Router
     # run and its dense and paged engines, 15b internvl2's Router run and
-    # its sharing engine, 15c mixtral's Router run and its paged engine
+    # its sharing engine, 15c mixtral's Router run and its paged engine;
+    # phase 16a whisper's Router run and its dense and paged engines
     by_phase = {"phase4": launches, "phase6": paged_launches,
                 "phase6c": sharing_launches,
                 "phase6c_f32": sharing_launches_f32,
@@ -5123,7 +5554,10 @@ def main() -> int:
                     later["internvl2-26b"]["paged_sharing"],
                 "phase15c_mixtral-8x22b": later["mixtral-8x22b"]["router"],
                 "phase15c_mixtral-8x22b_paged":
-                    later["mixtral-8x22b"]["paged"]}
+                    later["mixtral-8x22b"]["paged"],
+                "phase16a_whisper-large-v3": audio["router"],
+                "phase16a_whisper-large-v3_dense": audio["dense"],
+                "phase16a_whisper-large-v3_paged": audio["paged"]}
     main_phase = {"flash_attention": "phase4", "decode_attention": "phase4",
                   "paged_decode_attention": "phase6",
                   "decode_attention_int8": "phase7a",

@@ -1,6 +1,7 @@
-"""Registry of the ported architectures (the dense, gemma, SSM, MoE and
-hybrid families and the vision-prefixed dense model; not whisper yet),
-under the JAX package's names."""
+"""Registry of the ported architectures (the dense, gemma, SSM, MoE,
+hybrid and audio encoder-decoder families and the vision-prefixed dense
+model: every family of the JAX package), under the JAX package's
+names."""
 from __future__ import annotations
 
 import importlib
@@ -18,6 +19,7 @@ _MODULES = {
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "internvl2-26b": "repro_torch.configs.internvl2_26b",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
 }
 
 ARCH_NAMES = tuple(_MODULES)

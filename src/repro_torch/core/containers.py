@@ -174,7 +174,10 @@ def engine_cache_bytes(cfg: ArchConfig, engine_config) -> int:
     float32 scales for an int8 cache; latent rows or pages for MLA (which
     ignores the int8 option); conv and state rows, ``n_rows`` of them,
     for each SSM layer under either cache (a hybrid model's beside the
-    attention groups of its shared block's applications)."""
+    attention groups of its shared block's applications); whisper's
+    memory rows, ``(n_rows, encoder_seq, Hkv, hd)`` keys and values a
+    decoder layer in ``dtype`` (an int8 cache too) under either cache,
+    beside its self attention's groups."""
     ec = engine_config
     item = _itemsize(ec.dtype)
     rows, L = ec.n_rows, cfg.n_layers
@@ -205,7 +208,10 @@ def engine_cache_bytes(cfg: ArchConfig, engine_config) -> int:
         table = rows * (ec.max_len // ec.block_size) * 4 if n_full else 0
     else:
         full, table = rows * ec.max_len, 0
-    return ssm_bytes + (n_full * full + rows * sum(rings)) * per_pos + table
+    memory = (L * rows * 2 * cfg.encoder_seq * cfg.n_kv_heads
+              * cfg.head_dim * item if cfg.arch_type == "audio" else 0)
+    return (ssm_bytes + memory + (n_full * full + rows * sum(rings))
+            * per_pos + table)
 
 
 def chunk_buffer_bytes(engine_config) -> int:

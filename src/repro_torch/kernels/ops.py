@@ -87,6 +87,15 @@ def paged_decode_attention(q, k_pages, v_pages, table, lengths, *,
                                       softcap=softcap)
 
 
+def decode_cross_attention(q, k, v, valid, *, softcap: float = 0.0):
+    """One query token against a fixed, wholly valid memory (whisper's
+    cross attention at decode), routed through ``decode_attention`` as
+    JAX routes it. q: (B, H, hd); k/v: (B, S_mem, Hkv, hd); ``valid``
+    the all-true (B, S_mem) bool mask the caller keeps (one tensor for
+    every layer of a step)."""
+    return decode_attention(q, k, v, valid, softcap=softcap)
+
+
 def ssd_scan(x, dt, A, B_, C_, D, *, chunk: int = 64):
     """Mamba2 SSD chunked scan; see ``kernels.ref.ssd_scan``."""
     if _on_cpu(x, dt, A, B_, C_, D):

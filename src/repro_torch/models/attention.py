@@ -2,11 +2,14 @@
 DeepSeek's multi-head latent attention (MLA) over the latent cache.
 
 The GQA branches of ``repro.models.attention``, in the model's dtype or
-over an int8 cache: ``attn_prefill_into_cache`` for prefill,
+over an int8 cache: ``attn_prefill`` for a prompt with no cache
+(whisper's encoder, not causal), ``attn_prefill_into_cache`` for prefill,
 ``attn_suffix_prefill_into_cache`` for the residual suffix behind a
 shared prefix (model dtype only), and ``attn_decode`` for one new token
-over the dense ring or the block table. All reach the hand-written
-kernels through ``kernels.ops``.
+over the dense ring or the block table; and whisper's cross attention
+(``cross_attn_memory``, ``cross_attn_prefill``, ``cross_attn_decode``)
+over the encoder's output. All reach the hand-written kernels through
+``kernels.ops``.
 
 Cache layout (per layer): ``{"k": (B, W, Hkv, hd), "v": (B, W, Hkv, hd)}``
 with ``W`` the ring's width: ``min(window, max_len)`` for a sliding-window
@@ -150,6 +153,55 @@ def attn_prefill_into_cache(p: dict, cfg: ArchConfig, x: torch.Tensor,
     for name, t in _leaves(cfg, k, v).items():
         cache[name][:, slots] = t.to(cache[name].dtype)
     return y
+
+
+def attn_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
+                 causal: bool = True) -> torch.Tensor:
+    """Prompt attention of x (B, S, d) from position 0 with no cache
+    (whisper's encoder runs it with ``causal=False``). Returns (B, S,
+    d)."""
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    q, k, v = _qkv(p, cfg, x, positions)
+    out = kops.flash_attention(q, k, v, causal=causal, window=0,
+                               softcap=cfg.attn_logit_softcap)
+    return _out(out, p["wo"])
+
+
+def cross_attn_memory(p: dict, cfg: ArchConfig, memory: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cross attention's keys and values (B, S_mem, Hkv, hd) of the
+    encoder output ``memory`` (B, S_mem, d), in its dtype against the
+    weights' (float32 frames keep them float32, as JAX promotes)."""
+    return (_proj(memory, p["wk"]).contiguous(),
+            _proj(memory, p["wv"]).contiguous())
+
+
+def cross_attn_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                       k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Decoder cross attention of x (B, S, d) over the whole memory
+    (k, v: (B, S_mem, Hkv, hd)), not causal. Queries in another dtype
+    than the memory (bfloat16 against float32) run in the memory's, an
+    exact cast up, and the output comes back in the queries' dtype: JAX's
+    oracle computes in float32 and returns q's dtype, and the card
+    kernel takes one dtype. Returns (B, S, d)."""
+    q = _proj(x, p["wq"]).contiguous()
+    out = kops.flash_attention(q.to(k.dtype), k, v, causal=False, window=0,
+                               softcap=cfg.attn_logit_softcap)
+    return _out(out.to(q.dtype), p["wo"])
+
+
+def cross_attn_decode(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                      k: torch.Tensor, v: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """One query token x (B, 1, d) against the whole memory (k, v: (B,
+    S_mem, Hkv, hd), in the cache's dtype) through the decode kernel
+    (``kernels.ops.decode_cross_attention``); ``valid`` is the step's
+    all-true (B, S_mem) mask, one tensor for every layer. Returns (B, 1,
+    d)."""
+    q = _proj(x, p["wq"])[:, 0].contiguous()
+    out = kops.decode_cross_attention(q, k, v, valid,
+                                      softcap=cfg.attn_logit_softcap)
+    return _out(out, p["wo"])[:, None]
 
 
 def attn_suffix_prefill_into_cache(p: dict, cfg: ArchConfig, x: torch.Tensor,

@@ -24,6 +24,9 @@ is the SCRATCH page: unreserved table entries point at it, so lockstep
 decode writes for idle or finished rows land there. Attention never reads
 past a row's length, so scratch and unowned pages are never read.
 
+A whisper layer nests its self attention's group under ``"self"`` beside
+its memory rows, which never page (``groups`` flattens such a tree).
+
 One logical block spans every layer, so the port keeps ONE table tensor
 that every layer's group refers to (JAX stacks a replica per layer); a
 table write is then one write, not one per layer.
@@ -110,3 +113,18 @@ def init_paged_mla_cache(cfg: ArchConfig, table: torch.Tensor,
 def is_paged_group(cache: dict) -> bool:
     """A per-layer cache dict built by one of the paged constructors."""
     return "k_pages" in cache or "ckv_pages" in cache
+
+
+def groups(tree: list) -> list[dict]:
+    """A cache tree's groups, in order: each layer's dict, or for a layer
+    that nests its self attention's group under ``"self"`` (whisper) that
+    group, then a dict of the layer's other leaves (its memory rows, the
+    same tensors). Two trees of one model give groups that pair up."""
+    out = []
+    for layer in tree:
+        if "self" in layer:
+            out.append(layer["self"])
+            out.append({k: v for k, v in layer.items() if k != "self"})
+        else:
+            out.append(layer)
+    return out

@@ -1,4 +1,5 @@
-"""Layer primitives: norms, rotary embeddings, MLP, embedding, linear.
+"""Layer primitives: norms, rotary embeddings, MLP, sinusoidal
+positions, embedding, linear.
 
 Plain functions on tensors over nested parameter dicts, mirroring
 ``repro.models.layers`` (the same parameter names and layouts, so weights
@@ -147,7 +148,11 @@ def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for every projection of a forward: on the card inside
     ``prefill_products`` through ``sliced_matmul`` (float32, or every
     dtype with ``every_dtype``); otherwise (a decode step, the CPU) as one
-    product."""
+    product. Operands of two dtypes meet in the wider one, as JAX
+    promotes them (whisper's float32 frames against bfloat16 weights)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     if (x.device.type == "cuda" and getattr(_prefill, "on", False)
             and (x.dtype == torch.float32 or _prefill.every)):
         return sliced_matmul(x, w)
@@ -155,16 +160,16 @@ def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# MLP (gated: SwiGLU or GeGLU), embedding, linear
+# MLP (gated: SwiGLU or GeGLU; or not gated), embedding, linear
 # ---------------------------------------------------------------------------
 def init_mlp(d_model: int, d_ff: int, dtype: torch.dtype,
-             generator: torch.Generator) -> dict:
+             generator: torch.Generator, gated: bool = True) -> dict:
     s_in, s_out = d_model ** -0.5, d_ff ** -0.5
-    return {"w_gate": truncated_normal((d_model, d_ff), dtype, s_in,
-                                       generator),
-            "w_up": truncated_normal((d_model, d_ff), dtype, s_in, generator),
-            "w_down": truncated_normal((d_ff, d_model), dtype, s_out,
-                                       generator)}
+    p = {"w_gate": truncated_normal((d_model, d_ff), dtype, s_in,
+                                    generator)} if gated else {}
+    p["w_up"] = truncated_normal((d_model, d_ff), dtype, s_in, generator)
+    p["w_down"] = truncated_normal((d_ff, d_model), dtype, s_out, generator)
+    return p
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -178,9 +183,32 @@ ACTIVATIONS = {"silu": F.silu, "gelu": gelu_tanh}
 
 
 def mlp_fwd(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    """The gated MLP ``act(x·w_gate) * (x·w_up) · w_down``."""
-    return project(ACTIVATIONS[act](project(x, p["w_gate"]))
-                   * project(x, p["w_up"]), p["w_down"])
+    """The gated MLP ``act(x·w_gate) * (x·w_up) · w_down``, or without
+    ``w_gate`` the plain one, ``act(x·w_up) · w_down``."""
+    actfn = ACTIVATIONS[act]
+    if "w_gate" in p:
+        h = actfn(project(x, p["w_gate"])) * project(x, p["w_up"])
+    else:
+        h = actfn(project(x, p["w_up"]))
+    return project(h, p["w_down"])
+
+
+# ln(1e4) as float32 rounds it (jnp.log(10000.0)), held as a Python float
+# so no host-to-device copy enters a captured step
+_LN_1E4 = float(torch.log(torch.tensor(10000.0)))
+
+
+def sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """JAX's fixed absolute positions (``repro.models.model._sinusoid``):
+    ``[sin | cos]`` of ``positions * exp(-ln(1e4) * i / max(d/2 - 1,
+    1))``, float32, shape ``positions.shape + (d,)`` (a zero column last
+    for odd ``d``)."""
+    half = d // 2
+    i = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = torch.exp(-_LN_1E4 * i / max(half - 1, 1))
+    ang = positions[..., None].float() * freqs
+    out = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return F.pad(out, (0, d % 2))
 
 
 def embed_fwd(p: dict, tokens: torch.Tensor) -> torch.Tensor:

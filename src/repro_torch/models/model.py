@@ -1,27 +1,39 @@
-"""Model assembly for the dense (with a vision prefix), gemma, MoE, SSM
-and hybrid (zamba) families: init, caches, prefill, decode.
+"""Model assembly for the dense (with a vision prefix), gemma, MoE, SSM,
+hybrid (zamba) and audio encoder-decoder (whisper) families: init,
+caches, prefill, decode.
 
-A port of the dense, gemma, moe, ssm and zamba paths of
-``repro.models.model.Model``. JAX scans one stacked parameter tree over
-the layers (for moe, the ``n_dense_layers`` leading dense layers as
-``dense0``, then the MoE ``stack``; for gemma, ``super`` blocks of
-``local_global_pattern`` local layers and one global, then the ``rem``
-local layers; for zamba, ``super`` blocks of ``shared_attn_every`` SSM
-layers each followed by the one weight-shared attention + MLP block,
-then the ``rem`` SSM layers); the port keeps one parameter dict per
-layer (``params["layers"]``, in that order: for gemma each super-block's
-locals, its global, then the remainder; for zamba each super-block's SSM
-layers, then the shared block's one dict, the same object at every
-application, then the remainder) and loops over them, each layer with
-its window (``Model.windows``: ``sliding_window`` for a local layer, 0
-for a global one or an application of zamba's shared block) and its kind
-(``Model.kinds``: ``"ssm"`` or ``"attn"``).
+A port of ``repro.models.model.Model``, every family. JAX scans one
+stacked parameter tree over the layers (for moe, the ``n_dense_layers``
+leading dense layers as ``dense0``, then the MoE ``stack``; for gemma,
+``super`` blocks of ``local_global_pattern`` local layers and one
+global, then the ``rem`` local layers; for zamba, ``super`` blocks of
+``shared_attn_every`` SSM layers each followed by the one weight-shared
+attention + MLP block, then the ``rem`` SSM layers); the port keeps one
+parameter dict per layer (``params["layers"]``, in that order: for gemma
+each super-block's locals, its global, then the remainder; for zamba
+each super-block's SSM layers, then the shared block's one dict, the
+same object at every application, then the remainder) and loops over
+them, each layer with its window (``Model.windows``: ``sliding_window``
+for a local layer, 0 for a global one or an application of zamba's
+shared block) and its kind (``Model.kinds``: ``"ssm"`` or ``"attn"``).
 
 A model with ``n_vision_tokens`` (internvl2) takes each prompt's
 precomputed patch embeddings, ``vision_embeds`` (B, nv, vision_embed_dim)
 float32, at prefill: ``vis_proj`` maps them (``w1``, the tanh gelu,
 ``w2``) into the embedding space ahead of the token embeddings, so the
 image holds positions 0 .. nv - 1 and the prompt starts at nv.
+
+Whisper takes each prompt's precomputed frame embeddings,
+``audio_frames`` (B, encoder_seq, d) float32, at prefill: the encoder
+(``enc_layers``, each ``attn_mlp`` with a plain gelu MLP, not causal,
+then ``enc_norm``) runs in the frames' dtype (float32 against bfloat16
+weights, as JAX promotes), from the frames plus the fixed sinusoid of
+``layers.sinusoid``; each decoder layer (``cross_prefill``) projects the
+output into its cross-attention keys and values, which that prefill
+reads in float32 and its cache stores in the cache's dtype. The token
+embeddings get the same sinusoid at their positions, at prefill over
+``0 .. S - 1`` and at decode over ``pos``. ``config.pos_embed`` reads
+"learned", as JAX's does; like JAX, the port learns no position table.
 
 The fused chunk has one body, ``decode_chunk_step``: one ``decode_step``,
 the pick (argmax, or with ``greedy=False`` a Gumbel-max sample from the
@@ -39,11 +51,15 @@ Parameters::
      "lm_head": {"w": (d, V)}  (untied configs only),
      "vis_proj": {"w1": {"w": (vd, d)}, "w2": {"w": (d, d)}}  (vision),
      "layers": [{"ln1", "attn", "ln2", "mlp"} per layer]   (dense, gemma)
+               [{"ln1", "self_attn", "ln2", "cross_attn", "ln3",
+                 "mlp"} per decoder layer]                  (whisper)
                [{"ln1", "attn", "ln2", "mlp"} x n_dense_layers,
                 {"ln1", "attn", "ln2", "moe"} x the rest]  (moe)
                [{"ln", "mamba"} per layer]                 (ssm)
                [({"ln", "mamba"} x k, shared) x n_super,
-                {"ln", "mamba"} x n_rem]                   (zamba)}
+                {"ln", "mamba"} x n_rem]                   (zamba),
+     "enc_layers": [{"ln1", "attn", "ln2", "mlp"} per encoder layer],
+     "enc_norm": {...}                                      (whisper)}
 
 where ``attn`` is GQA or, for a config with ``mla``, DeepSeek's latent
 attention (``models/attention.py``).
@@ -59,7 +75,11 @@ table. An SSM layer's cache is one ``{"conv", "state"}`` row group
 (``models/ssm.py``), which has no paged form: a paged engine keeps
 these dense rows beside its block accounting (and, for zamba, beside
 the paged groups of the shared block's applications, one cache each).
-Updated in place by ``prefill``, ``prefill_suffix`` and ``decode_step``.
+A whisper layer's cache nests its self attention's group (a ring or
+pages, as above) under ``"self"`` beside its memory rows ``"mem_k"`` /
+``"mem_v"`` (B, encoder_seq, Hkv, hd), which stay dense under a layout,
+as in JAX. Updated in place by ``prefill``, ``prefill_suffix`` and
+``decode_step``.
 """
 from __future__ import annotations
 
@@ -74,7 +94,7 @@ from repro_torch.models import sampling
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (ACTIVATIONS, embed_fwd, gelu_tanh,
                                        init_norm, linear_fwd, norm_fwd,
-                                       prefill_products, project,
+                                       prefill_products, project, sinusoid,
                                        truncated_normal)
 
 Params = dict
@@ -97,20 +117,24 @@ def family(cfg: ArchConfig) -> str:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """The port serves the dense family (text only or with a vision
-    prefix), the gemma family (local/global super-blocks), the MoE family
-    with GQA or MLA attention, the SSM family (mamba2) and the hybrid
-    family (zamba2: SSM layers and a weight-shared attention block), with
-    or without a sliding window, in the model's dtype or over an int8
-    cache, with a gated SiLU or gelu MLP; the audio family (whisper),
-    learned positions and non-gated MLPs are a later slice."""
+    """The port serves every family of the JAX package: the dense family
+    (text only or with a vision prefix), the gemma family (local/global
+    super-blocks), the MoE family with GQA or MLA attention, the SSM
+    family (mamba2), the hybrid family (zamba2: SSM layers and a
+    weight-shared attention block) and the audio encoder-decoder
+    (whisper), with or without a sliding window, in the model's dtype or
+    over an int8 cache, with a gated SiLU or gelu MLP, and for whisper its
+    sinusoidal positions and plain gelu MLP."""
+    audio = cfg.arch_type == "audio"
     unsupported = {  # an MLA cache ignores kv_cache_dtype, as in JAX
         "arch_type": cfg.arch_type not in ("dense", "moe", "ssm", "hybrid",
-                                           "vlm"),
+                                           "vlm", "audio"),
         "kv_cache_dtype": cfg.kv_cache_dtype not in ("model", "int8"),
-        "pos_embed": cfg.pos_embed != "rope",
+        "pos_embed": cfg.pos_embed != ("learned" if audio else "rope"),
         "act": cfg.act not in ACTIVATIONS,
-        "mlp_gated": not cfg.mlp_gated,
+        "mlp_gated": not (cfg.mlp_gated or audio),
+        "encoder": audio and (cfg.n_encoder_layers < 1
+                              or cfg.encoder_seq < 1),
         "shared_attn_every": (cfg.arch_type == "hybrid"
                               and cfg.shared_attn_every < 1),
         "vision_embed_dim": (cfg.n_vision_tokens > 0
@@ -148,11 +172,12 @@ def check_card_shape(cfg: ArchConfig) -> None:
 
 def layer_kinds(cfg: ArchConfig) -> list[str]:
     """The kind of each entry of ``params["layers"]``: ``"ssm"`` (a
-    Mamba2 block) or ``"attn"`` (an attention block: dense, MoE, or an
-    application of zamba's shared block). Zamba runs ``n_layers //
-    shared_attn_every`` super-blocks of ``shared_attn_every`` SSM layers
-    and one application of the shared block, then the SSM layers left
-    over, as ``repro.models.model.Model`` lays them out."""
+    Mamba2 block) or ``"attn"`` (an attention block: dense, MoE, an
+    application of zamba's shared block, or whisper's decoder layer).
+    Zamba runs ``n_layers // shared_attn_every`` super-blocks of
+    ``shared_attn_every`` SSM layers and one application of the shared
+    block, then the SSM layers left over, as ``repro.models.model.Model``
+    lays them out."""
     fam = family(cfg)
     if fam == "ssm":
         return ["ssm"] * cfg.n_layers
@@ -166,7 +191,8 @@ def layer_kinds(cfg: ArchConfig) -> list[str]:
 
 class Model:
     """A dense (optionally vision-prefixed), gemma, MoE, SSM or hybrid
-    decoder on one device (``"cuda"`` unless told ``"cpu"``)."""
+    decoder, or whisper's encoder-decoder, on one device (``"cuda"``
+    unless told ``"cpu"``)."""
 
     def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
@@ -209,6 +235,12 @@ class Model:
             shared = blocks.init_attn_mlp(cfg, dtype, g)
             p["layers"] = [blocks.init_ssm_block(cfg, dtype, g)
                            if k == "ssm" else shared for k in self.kinds]
+        elif self.fam == "whisper":
+            p["enc_layers"] = [blocks.init_attn_mlp(cfg, dtype, g)
+                               for _ in range(cfg.n_encoder_layers)]
+            p["enc_norm"] = init_norm(cfg, cfg.d_model, dtype, self.device)
+            p["layers"] = [blocks.init_cross_block(cfg, dtype, g)
+                           for _ in range(cfg.n_layers)]
         else:
             n_dense = self.n_dense_layers
             p["layers"] = [
@@ -241,12 +273,20 @@ class Model:
         gets the same dense rows, ``batch`` of them, beside the paged
         groups of zamba's shared-block applications; a mamba2 model's
         paged engine keeps its block accounting over a tree with no paged
-        group, as in JAX."""
+        group, as in JAX. A whisper layer's group is
+        ``blocks.init_cross_cache``'s: its self attention's group (paged
+        or ``width`` wide as any full-horizon group) beside its memory
+        rows, ``batch`` of them under either cache."""
         cfg = self.cfg
         full = [k == "attn" and paged.pageable(w, max_len)
                 for k, w in zip(self.kinds, self.windows)]
         table = (paged.new_table(batch, max_len, layout, self.device)
                  if layout is not None and any(full) else None)
+        if self.fam == "whisper":
+            return [blocks.init_cross_cache(
+                cfg, batch, max_len if width is None else width, dtype,
+                self.device, table=table, layout=layout)
+                for _ in range(cfg.n_layers)]
         return [ssm_lib.init_mamba2_cache(cfg, batch, dtype, self.device)
                 if k == "ssm" else blocks.init_block_cache(
                     cfg, batch, max_len if width is None or not f else width,
@@ -275,8 +315,11 @@ class Model:
         with ``n_vision_tokens``: ``vision_embeds`` (B, nv, vd) through
         ``vis_proj`` in its own dtype (float32, as JAX promotes it against
         the weights), the tanh gelu between, cast to the embeddings'
-        dtype."""
+        dtype. Whisper's get the sinusoid of positions 0 .. S - 1."""
         x = embed_fwd(params["embed"], tokens)
+        if self.fam == "whisper":
+            pos = torch.arange(x.shape[1], device=x.device)
+            return x + sinusoid(pos, self.cfg.d_model).to(x.dtype)
         nv = self.cfg.n_vision_tokens
         if not nv:
             return x
@@ -288,22 +331,49 @@ class Model:
                              f"of shape {shape}, got {got}")
         vp = params["vis_proj"]
         v = vision_embeds.to(x.device)
-        v = project(v, vp["w1"]["w"].to(v.dtype))
-        v = project(gelu_tanh(v), vp["w2"]["w"].to(v.dtype))
+        v = project(v, vp["w1"]["w"])
+        v = project(gelu_tanh(v), vp["w2"]["w"])
         return torch.cat([v.to(x.dtype), x], dim=1)
+
+    def _encode(self, params: Params, frames: torch.Tensor | None,
+                batch: int) -> torch.Tensor:
+        """Whisper's encoder over ``frames`` (B, encoder_seq, d) in their
+        dtype: frames plus the sinusoid, the encoder layers, ``enc_norm``
+        (JAX's ``_encode``)."""
+        cfg = self.cfg
+        shape = (batch, cfg.encoder_seq, cfg.d_model)
+        if frames is None or tuple(frames.shape) != shape:
+            got = None if frames is None else tuple(frames.shape)
+            raise ValueError(f"{cfg.name}: prefill needs audio_frames of "
+                             f"shape {shape}, got {got}")
+        x = frames.to(self.device)
+        pos = torch.arange(cfg.encoder_seq, device=x.device)
+        x = x + sinusoid(pos, cfg.d_model).to(x.dtype)
+        for p in params["enc_layers"]:
+            x = blocks.encoder_fwd(p, cfg, x)
+        return norm_fwd(cfg, params["enc_norm"], x)
 
     def prefill(self, params: Params, tokens: torch.Tensor, cache: Cache,
                 logits_at: int | torch.Tensor = -1, *,
                 vision_embeds: torch.Tensor | None = None,
+                audio_frames: torch.Tensor | None = None,
                 row_invariant: bool = False) -> torch.Tensor:
         """tokens: (B, S) from position 0 (from position nv behind the
         image of ``vision_embeds``, (B, nv, vd), for a model with
-        ``n_vision_tokens``). Fills ``cache`` in place and returns the
-        logits (B, V) at ``logits_at``, a position of the whole sequence
-        (image included). On the card float32 products run in fixed row
-        slices, and with ``row_invariant`` every product does, so a row's
-        bits do not depend on the batch (``layers.prefill_products``)."""
+        ``n_vision_tokens``; whisper's decoder prompt beside its
+        ``audio_frames``, (B, encoder_seq, d), which the encoder reads).
+        Fills ``cache`` in place and returns the logits (B, V) at
+        ``logits_at``, a position of the whole sequence (image included).
+        On the card float32 products run in fixed row slices, and with
+        ``row_invariant`` every product does, so a row's bits do not
+        depend on the batch (``layers.prefill_products``)."""
         with prefill_products(every_dtype=row_invariant):
+            if self.fam == "whisper":
+                memory = self._encode(params, audio_frames, tokens.shape[0])
+                x = self._embed(params, tokens, None)
+                for p, c in zip(params["layers"], cache):
+                    x = blocks.cross_prefill(p, self.cfg, x, memory, c)
+                return self._head(params, self._sel(x, logits_at))
             x = self._embed(params, tokens, vision_embeds)
             for p, c, w in zip(params["layers"], cache, self.windows):
                 x = _PREFILL[_kind(p)](p, self.cfg, x, c, window=w)
@@ -334,8 +404,18 @@ class Model:
                     cache: Cache, pos: torch.Tensor) -> torch.Tensor:
         """tokens: (B, 1); pos: (B,) positions of those tokens. Writes
         their keys/values (SSM: conv tails and states) into ``cache`` in
-        place; returns logits (B, V)."""
+        place; returns logits (B, V). Whisper's tokens get the sinusoid of
+        ``pos``, and its layers one all-true memory mask, built in the
+        step (so a captured step builds it in the graph)."""
         x = embed_fwd(params["embed"], tokens)
+        if self.fam == "whisper":
+            x = x + sinusoid(pos[:, None], self.cfg.d_model).to(x.dtype)
+            mem = cache[0]["mem_k"]
+            valid = torch.ones(mem.shape[:2], dtype=torch.bool,
+                               device=mem.device)
+            for p, c in zip(params["layers"], cache):
+                x = blocks.cross_decode(p, self.cfg, x, c, pos, valid)
+            return self._head(params, x[:, -1])
         for p, c in zip(params["layers"], cache):
             x = _DECODE[_kind(p)](p, self.cfg, x, c, pos)
         return self._head(params, x[:, -1])

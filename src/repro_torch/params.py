@@ -14,11 +14,14 @@ layers come as ``super: {local: (n_super, k, ...), global: (n_super,
 come as ``super: {ssm: (n_super, k, ...)}`` for its super-blocks of k SSM
 layers, ``shared`` (no layer axis) for the one attention block every
 super-block applies, and ``rem: (n_rem, ...)`` for the SSM layers left
-over; a vision model adds ``vis_proj: {w1, w2}``) and returns the port's
-parameter dict, with each stacked leaf split into per-layer tensors in
+over; a vision model adds ``vis_proj: {w1, w2}``; whisper's decoder
+layers come as the ``stack`` of ``{ln1, self_attn, ln2, cross_attn, ln3,
+mlp}``, beside ``enc_stack`` (its encoder layers, the dense family's
+layout) and ``enc_norm``) and returns the port's parameter dict, with each stacked leaf split into per-layer tensors in
 layer order (``dense0``'s first; each super-block's locals, then its
 global, then ``rem``; for zamba each super-block's SSM layers, then the
-shared block, converted once and the same dict at every application).
+shared block, converted once and the same dict at every application;
+whisper's encoder layers into ``enc_layers``).
 An expert weight keeps its leading E axis.
 The bytes are kept exactly (bfloat16 included) unless a ``dtype`` cast
 is asked for; a Mamba2 block's float32 leaves (``models.ssm.F32_LEAVES``)
@@ -109,6 +112,10 @@ def _layout(cfg: ArchConfig) -> tuple[dict, list]:
                     for i in range(n)]
 
 
+# whisper's stacked encoder layers
+_ENC = ("enc_stack",)
+
+
 def _at(tree: dict, path: tuple) -> Any:
     for k in path:
         tree = tree[k]
@@ -130,12 +137,16 @@ def from_numpy(cfg: ArchConfig, tree: dict, *,
     check_supported(cfg)
     dev = resolve_device(device)
     groups, order = _layout(cfg)
+    n_enc = cfg.n_encoder_layers if family(cfg) == "whisper" else 0
+    if n_enc:
+        groups[_ENC] = (n_enc,)
     tops = {path[0] for path in groups}
     shared = any(index is None for _, index in order)
     need = ({"embed", "final_norm", *tops}
             | (set() if cfg.tie_embeddings else {"lm_head"})
             | ({"shared"} if shared else set())
-            | ({"vis_proj"} if cfg.n_vision_tokens else set()))
+            | ({"vis_proj"} if cfg.n_vision_tokens else set())
+            | ({"enc_norm"} if n_enc else set()))
     if set(tree) != need:
         raise ValueError(f"{cfg.name}: parameter groups {sorted(tree)}, "
                          f"expected {sorted(need)}")
@@ -156,6 +167,9 @@ def from_numpy(cfg: ArchConfig, tree: dict, *,
     params["layers"] = [block if index is None
                         else _convert(_at(tree, path), dev, dtype, index)
                         for path, index in order]
+    if n_enc:
+        params["enc_layers"] = [_convert(_at(tree, _ENC), dev, dtype, (i,))
+                                for i in range(n_enc)]
     return params
 
 
@@ -179,10 +193,14 @@ def save_params(params: dict, path: str | os.PathLike,
     or, given the gemma or zamba config ``cfg``, into its ``super`` and
     ``rem`` groups, zamba's shared block once as ``shared`` (without
     ``cfg`` such a model would be written as one ``stack``, which
-    ``load_params`` refuses). The bytes are kept exactly. Returns the
-    path."""
+    ``load_params`` refuses); whisper's ``enc_layers`` into
+    ``enc_stack``. The bytes are kept exactly. Returns the path."""
     layers = params["layers"]
-    tree = {k: v for k, v in params.items() if k != "layers"}
+    tree = {k: v for k, v in params.items()
+            if k not in ("layers", "enc_layers")}
+    if "enc_layers" in params:
+        tree[_ENC[0]] = _stack(params["enc_layers"],
+                               (len(params["enc_layers"]),))
     if cfg is not None:
         groups, order = _layout(cfg)
         names = [path for path, _ in order]

@@ -42,7 +42,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from repro_torch.models.cache import PagedLayout, is_paged_group
+from repro_torch.models.cache import PagedLayout, groups, is_paged_group
 
 
 class BlockAllocator:
@@ -108,8 +108,9 @@ class DenseCache:
     """Row-per-slot cache over a model's per-layer ``{"k", "v"}`` tensors
     of shape (n_rows, max_len, Hkv, hd), plus ``{"k_scale", "v_scale"}``
     (n_rows, max_len, Hkv) for an int8 cache, an MLA layer's ``{"ckv",
-    "k_rope"}`` latent rows, or an SSM model's ``{"conv", "state"}``
-    rows; the row is axis 0 of every leaf."""
+    "k_rope"}`` latent rows, an SSM model's ``{"conv", "state"}`` rows,
+    or a whisper layer's ``"self"`` group beside its ``"mem_k"`` /
+    ``"mem_v"`` rows; the row is axis 0 of every leaf."""
 
     def __init__(self, tree: list, n_rows: int):
         self.tree = tree
@@ -125,9 +126,10 @@ class DenseCache:
         layer's group, so an int8 cache's scales go with its codes."""
         if offset:
             raise ValueError("DenseCache rows always start at position 0")
-        leaf = next(iter(self.tree[0].values()))
+        dst_groups = groups(self.tree)
+        leaf = next(iter(dst_groups[0].values()))
         idx = torch.as_tensor(rows, dtype=torch.long, device=leaf.device)
-        for dst, src in zip(self.tree, src_cache):
+        for dst, src in zip(dst_groups, groups(src_cache)):
             for name, t in dst.items():
                 t.index_copy_(0, idx, src[name].to(t.dtype))
 
@@ -153,7 +155,9 @@ class PagedCache:
     table); an empty list keeps everything on the host. An SSM model's
     tree holds no paged group, only its dense conv and state rows, as in
     JAX: there is no table to write or scrub, and the allocator's blocks
-    still bound how many sequences are resident."""
+    still bound how many sequences are resident. A whisper layer's self
+    attention group pages like any other; its memory rows stay dense
+    (``models.cache.groups`` splits the layer)."""
 
     def __init__(self, tree: list, n_rows: int, layout: PagedLayout,
                  max_len: int, prefix_cache: bool = False):
@@ -165,7 +169,7 @@ class PagedCache:
         self._blocks: list[list[int]] = [[] for _ in range(n_rows)]
         self._tokens: list[int] = [0] * n_rows
         self._pending: list[int] = []          # rows freed, not yet scrubbed
-        self._groups = [g for g in tree if is_paged_group(g)]
+        self._groups = [g for g in groups(tree) if is_paged_group(g)]
         self.prefix_cache = prefix_cache
         # content-hash index over full prompt blocks (both directions),
         # and the LRU of blocks whose ONLY reference is the cache's own
@@ -388,14 +392,15 @@ class PagedCache:
         p % bs)``. Positions past the row's reservation hit the scratch
         page, and so do positions past the table (an explicit clamp: a
         tensor index there would raise or wrap). A layer group that is
-        not paged (an SSM model's conv tails and states) takes its rows
-        whole, as ``DenseCache.insert`` copies them, so an admission
-        overwrites whatever a freed row's lockstep decode steps left
-        there and a freed row needs no reset."""
+        not paged (an SSM model's conv tails and states, a whisper layer's
+        memory rows) takes its rows whole, as ``DenseCache.insert``
+        copies them, so an admission overwrites whatever a freed row's
+        lockstep decode steps left there and a freed row needs no
+        reset."""
+        pairs = list(zip(groups(self.tree), groups(src_cache)))
         if self._groups:
-            self._scatter_pages(src_cache, rows, offset)
-        dense = [(g, src) for g, src in zip(self.tree, src_cache)
-                 if not is_paged_group(g)]
+            self._scatter_pages(pairs, rows, offset)
+        dense = [(g, src) for g, src in pairs if not is_paged_group(g)]
         if dense:
             leaf = next(iter(dense[0][0].values()))
             idx = torch.as_tensor(rows, dtype=torch.long, device=leaf.device)
@@ -403,7 +408,7 @@ class PagedCache:
                 for name, t in g.items():
                     t.index_copy_(0, idx, src[name].to(t.dtype))
 
-    def _scatter_pages(self, src_cache: list, rows: list[int],
+    def _scatter_pages(self, pairs: list, rows: list[int],
                        offset: int) -> None:
         dev = self._table.device
         bs, scratch = self.layout.block_size, self.layout.scratch_page
@@ -412,8 +417,7 @@ class PagedCache:
         self._table[torch.as_tensor(rows, dtype=torch.long,
                                     device=dev)] = table
         nblk = host.shape[1]
-        paged = [(g, src) for g, src in zip(self.tree, src_cache)
-                 if is_paged_group(g)]
+        paged = [(g, src) for g, src in pairs if is_paged_group(g)]
         W = paged[0][1][_pairs(paged[0][0])[0][1]].shape[1]
         pos = torch.arange(W, device=dev) + offset
         blk = pos // bs

@@ -3,13 +3,17 @@
 A port of ``repro.serving.engine.ServingEngine`` for the dense (text
 only or behind a vision prefix), gemma and MoE families (GQA or MLA),
 over the dense or the paged cache (whose sliding-window rings stay dense
-rows beside the paged groups), and for the SSM and hybrid families over
+rows beside the paged groups), for the SSM and hybrid families over
 their dense state rows (zamba's shared-block applications paged beside
 them), under either cache's admission (paged: the block budget bounds
-the resident sequences, the rows stay dense). A vision model's request
-carries its patch embeddings as ``extras["vision_embeds"]``: the image
-takes the first ``n_vision_tokens`` positions of its sequence, in the
-cache, the block budget and the block hashes, as in JAX. Each ``step()``
+the resident sequences, the rows stay dense), and for whisper (its self
+attention paged or dense, its encoder memory dense rows a sequence). A
+vision model's request carries its patch embeddings as
+``extras["vision_embeds"]``: the image takes the first
+``n_vision_tokens`` positions of its sequence, in the cache, the block
+budget and the block hashes, as in JAX. A whisper request carries its
+frames as ``extras["audio_frames"]`` ((encoder_seq, d_model) float32),
+which its prefill encodes and which take no position. Each ``step()``
 expires deadlines,
 admits queued requests and then runs one fused decode chunk (or, with
 ``chunked=False``, one decode step):
@@ -111,7 +115,8 @@ class Request:
     # per-request model inputs beside the prompt, keyed by name: their
     # names enter the admit key and their bytes the block hashes, as in
     # JAX; a vision model reads "vision_embeds" ((n_vision_tokens,
-    # vision_embed_dim) float32), the text families none of them
+    # vision_embed_dim) float32), whisper "audio_frames" ((encoder_seq,
+    # d_model) float32), the text families none of them
     extras: dict = dataclasses.field(default_factory=dict)
     # seconds the request may spend in the serving stack (None = no
     # deadline): the Router stamps its own clock at submit, the engine
@@ -133,6 +138,9 @@ class Completion:
     # prompt positions satisfied by prefix-cache hits (0 without sharing)
     prefix_hit_tokens: int = 0
 
+
+# the request extras that are Model.prefill inputs, stacked a batch
+MODEL_INPUTS = ("vision_embeds", "audio_frames")
 
 # THE prompt-length bucket table: the engine's padded batch admission and
 # the router's bucket-aware dispatch must agree on it
@@ -405,9 +413,9 @@ class ServingEngine:
         dense family without a window), in every engine, so a suffix
         prefill gives a row the whole prompt's bits (sharing on == off)
         and the dense and the paged engine give it the same bits. Not for
-        MoE, whose expert capacity couples a batch's rows, nor for an SSM
-        or windowed model, which never shares: their prefills keep one
-        product a projection in every engine."""
+        MoE, whose expert capacity couples a batch's rows, nor for an SSM,
+        windowed or encoder-decoder model, which never shares: their
+        prefills keep one product a projection in every engine."""
         cfg = self.model.cfg
         return self.model.fam == "dense" and cfg.sliding_window == 0
 
@@ -599,11 +607,11 @@ class ServingEngine:
                      else self.max_len)
             src = self.model.init_cache(n, self.max_len, dtype,
                                         width=width)
-            kw = {}
-            if nv:   # each request's image, stacked
-                kw["vision_embeds"] = torch.from_numpy(np.stack([
-                    np.asarray(r.extras["vision_embeds"]) for r in reqs])
-                ).to(self.device)
+            # each request's image or frames, stacked (the admit key holds
+            # the extras' names, so every request of the batch has them)
+            kw = {k: torch.from_numpy(np.stack([
+                np.asarray(r.extras[k]) for r in reqs])).to(self.device)
+                for k in MODEL_INPUTS if k in reqs[0].extras}
             logits = self.model.prefill(self.params, tokens, src,
                                         logits_at=logits_at,
                                         row_invariant=self._row_invariant,

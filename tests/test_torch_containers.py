@@ -6,7 +6,8 @@ card budget against the caches the port's engines really allocate.
 of the port's registry (full and reduced, int8 variants included), as
 does ``ArchConfig.param_count``. ``card_feasible_counts``'s cache term,
 ``engine_cache_bytes``, equals the summed bytes of a CPU engine's cache
-tree for the dense, paged, int8 (both), MLA (both) and SSM (both) cases,
+tree for the dense, paged, int8 (both), MLA (both), SSM (both) and
+whisper (dense, paged, int8 paged: the memory rows) cases,
 and its chunk term the bytes of ``Model.chunk_buffers``. The properties
 of ``tests/test_container_props.py`` run on both packages.
 """
@@ -113,16 +114,29 @@ CACHE_CASES = {
                      {"cache": "paged", "max_seqs": 5}),
     "vision_paged": ("internvl2-26b-reduced", False,
                      {"cache": "paged", "max_seqs": 3}),
+    # whisper's memory rows beside its self attention's rows or pages,
+    # in the model's dtype under an int8 cache too
+    "audio_dense": ("whisper-large-v3-reduced", False, {}),
+    "audio_paged": ("whisper-large-v3-reduced", False,
+                    {"cache": "paged", "max_seqs": 5}),
+    "audio_int8_paged": ("whisper-large-v3-reduced", True,
+                         {"cache": "paged", "max_seqs": 5}),
 }
 
 
 def _tree_bytes(tree) -> int:
     """Bytes of every distinct tensor of a cache tree (the paged table,
-    which every layer group refers to, once)."""
+    which every layer group refers to, once; a whisper layer's nested
+    self group too)."""
     seen = {}
-    for group in tree:
-        for t in group.values():
+
+    def walk(t):
+        if isinstance(t, (dict, list)):
+            for v in (t.values() if isinstance(t, dict) else t):
+                walk(v)
+        else:
             seen[t.data_ptr()] = t.numel() * t.element_size()
+    walk(tree)
     return sum(seen.values())
 
 

@@ -3,16 +3,16 @@ and the shape check that refuses, on the card, the head shapes no decode
 kernel is built for.
 
 Every field of the port's configs equals JAX's, under JAX's registry
-names (zamba2-7b, internvl2-26b and mixtral-8x22b too, full and
-reduced). Reduced qwen3-8b and llama3.1-8b keep the full models' G = 4
-(``n_heads=8, n_kv_heads=2``), reduced mixtral its G = 6 (``n_heads=6,
-n_kv_heads=1``) and a 16-slot window that wraps; each matches JAX's
-prefill and decode logits within 1e-4 (float32) and its engines' greedy
-streams on the dense and the paged cache. On a CUDA device ``Model``
-takes exactly the (G, K) pairs the split body is built for, now (1, 112)
-and (6, 128) too, and refuses the rest, and the new pairs over an int8
-cache, naming G and K (and int8); on the CPU the audio family is refused
-as before.
+names (zamba2-7b, internvl2-26b, mixtral-8x22b and whisper-large-v3 too,
+full and reduced). Reduced qwen3-8b and llama3.1-8b keep the full
+models' G = 4 (``n_heads=8, n_kv_heads=2``), reduced mixtral its G = 6
+(``n_heads=6, n_kv_heads=1``) and a 16-slot window that wraps; each
+matches JAX's prefill and decode logits within 1e-4 (float32) and its
+engines' greedy streams on the dense and the paged cache. On a CUDA
+device ``Model`` takes exactly the (G, K) pairs the split body is built
+for, now (1, 112) and (6, 128) too, and refuses the rest, and the new
+pairs over an int8 cache, naming G and K (and int8); every config of
+JAX's registry is served, whisper's too.
 """
 from __future__ import annotations
 
@@ -39,6 +39,7 @@ from repro_torch.serving.engine import (EngineConfig, Request,  # noqa: E402
 
 NEW = ("qwen3-8b", "llama3.1-8b", "gemma3-27b")
 LATER = ("zamba2-7b", "internvl2-26b", "mixtral-8x22b")
+LAST = ("whisper-large-v3",)
 DENSE_8B = ("qwen3-8b", "llama3.1-8b")
 G4 = dict(n_heads=8, n_kv_heads=2)       # the full models' G = 4, reduced
 # mixtral's G = 6, reduced, and a window its 30-token prompts wrap
@@ -49,7 +50,7 @@ TOL = 1e-4
 MAX_LEN = 64
 
 
-@pytest.mark.parametrize("name", [n + s for n in NEW + LATER
+@pytest.mark.parametrize("name", [n + s for n in NEW + LATER + LAST
                                   for s in ("", "-reduced")])
 def test_configs_equal_jax_field_by_field(name):
     assert (dataclasses.asdict(registry.get_config(name))
@@ -142,12 +143,6 @@ def test_engine_greedy_streams_equal_jax(pair, cache):
     assert got == want and len(got) == len(specs)
 
 
-def _port_config(name: str) -> ArchConfig:
-    """A JAX config as the port's dataclass (the port's registry does not
-    list the audio family yet)."""
-    return ArchConfig(**dataclasses.asdict(jax_registry.get_config(name)))
-
-
 @pytest.fixture
 def fake_card(monkeypatch):
     """A host that reports a card: ``Model`` resolves ``cuda:0`` and runs
@@ -179,7 +174,8 @@ def test_card_refuses_head_shapes_without_a_decode_kernel(fake_card, name,
 
 
 def test_card_accepts_the_served_shapes(fake_card):
-    for name in NEW + LATER + ("qwen3-0.6b", "stablelm-1.6b", "mamba2-2.7b",
+    for name in NEW + LATER + LAST + ("qwen3-0.6b", "stablelm-1.6b",
+                                      "mamba2-2.7b",
                                "deepseek-v2-lite-16b"):
         assert Model(registry.get_config(name)).device.type == "cuda"
     # mixtral's window is served on the CPU too
@@ -207,11 +203,62 @@ def test_shape_rule_is_the_instantiated_pairs(G, K, int8, ok):
     assert ("int8" in str(e.value)) == int8
 
 
-@pytest.mark.parametrize("name", ["whisper-large-v3"])
-def test_families_still_to_come_are_refused_on_the_cpu(name):
-    """Whisper is refused for its reasons, named: the audio family, its
-    learned positions and its non-gated gelu MLP."""
+def test_every_jax_config_is_served():
+    """``check_supported`` accepts every config of JAX's registry, full
+    and reduced, as the port's dataclass: the port serves every family.
+    A config the port does not serve is still refused for its reasons,
+    named: learned positions or a plain MLP outside the audio family."""
+    from repro_torch.models.model import check_supported
+
+    for name in jax_registry._MODULES:
+        for cfg in (jax_registry.get_config(name),
+                    jax_reduce(jax_registry.get_config(name))):
+            check_supported(ArchConfig(**dataclasses.asdict(cfg)))
+    bad = dataclasses.replace(registry.get_config("qwen3-0.6b"),
+                              pos_embed="learned", mlp_gated=False)
     with pytest.raises(NotImplementedError, match="not ported yet") as e:
-        Model(_port_config(name), device="cpu")
-    for reason in ("arch_type", "pos_embed", "mlp_gated"):
+        Model(bad, device="cpu")
+    for reason in ("pos_embed", "mlp_gated"):
         assert reason in str(e.value)
+
+
+@pytest.mark.parametrize("cache", ["dense", "paged"])
+def test_per_token_and_prefix_cache_give_the_chunked_streams(pair, cache):
+    """The six-family parity of tests/test_decode_chunk.py and
+    tests/test_paged_cache.py for these configs (mixtral is JAX's MoE
+    representative): a per-token engine gives the chunked engine's greedy
+    streams, and on the paged cache ``prefix_cache=True`` gives those of
+    sharing off (mixtral's window shuts the gate: 0 hit tokens); each
+    run's streams and hit tokens equal JAX's engine's in that mode."""
+    jm, jp, tm, tp = pair
+    rng = np.random.default_rng(3)
+    head = rng.integers(0, tm.cfg.vocab_size, (32,), dtype=np.int32)
+    specs = [(i, np.concatenate([head, rng.integers(
+        0, tm.cfg.vocab_size, (n,), dtype=np.int32)]), mn)
+        for i, (n, mn) in enumerate([(4, 5), (12, 3), (20, 6), (8, 4)])]
+    conf = dict(n_slots=2, max_len=MAX_LEN, chunk_tokens=4, cache=cache)
+
+    def run(**kw):
+        out = []
+        for eng, req in (
+                (ServingEngine(tm, tp, EngineConfig(**conf, **kw),
+                               device="cpu"), Request),
+                (jeng.ServingEngine(jm, jp, jeng.EngineConfig(**conf, **kw)),
+                 jeng.Request)):
+            got = {}
+            for phase in (specs[:1], specs[1:]):
+                eng.submit_many([req(i, p.copy(), mn) for i, p, mn in phase])
+                got.update({c.rid: (list(c.tokens), c.prefix_hit_tokens)
+                            for c in eng.run()})
+            out.append(got)
+        assert out[0] == out[1], f"{kw}: port {out[0]} != JAX {out[1]}"
+        return out[0]
+    want = run()
+    assert run(chunked=False) == want
+    if cache == "paged":
+        shared = run(prefix_cache=True)
+        assert {r: t for r, (t, _) in shared.items()} == {
+            r: t for r, (t, _) in want.items()}
+        hits = [h for _, h in shared.values()]
+        assert hits == ([0] * 4 if tm.cfg.sliding_window
+                        else [0, 32, 32, 32])

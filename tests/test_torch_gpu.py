@@ -2153,3 +2153,123 @@ def test_ptxas_shows_no_spill_in_the_new_split_instantiations(cuda):
     line = [ln for ln in out.stdout.splitlines()
             if ln.startswith("split decode new shapes:")]
     assert line and line[0].endswith(" 0 spill"), line
+
+
+# ---------------------------------------------------------------------------
+# whisper: the encoder, cross attention and the memory rows on the card
+# ---------------------------------------------------------------------------
+def _with_frames(cfg, reqs):
+    """Each request with its own frames, 0.1 x N(0, 1) seeded by its id."""
+    import numpy as np
+    for r in reqs:
+        r.extras = {"audio_frames": (0.1 * np.random.default_rng(
+            r.rid).standard_normal((cfg.encoder_seq, cfg.d_model))).astype(
+                np.float32)}
+    return reqs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_whispers_shapes(cuda, dtype):
+    """The prefill kernel not causal at the encoder's self attention (S
+    1500, H = Hkv = 20, K = Kv = 64) and at the cross attention (30
+    queries against 1500 keys), causal at the decoder's self attention
+    (3 prompts in a 256-token bucket, and a 100-token one off the tile
+    edges), and the decode kernel as ``decode_cross_attention`` over a
+    wholly valid 1500-row memory (23 splits of 64 and one of 28),
+    against their plain versions."""
+    q = _randn(cuda, 1, 1500, 20, 64, dtype=dtype)
+    k, v = (_randn(cuda, 1, 1500, 20, 64, dtype=dtype) for _ in range(2))
+    _assert_close(ops.flash_attention(q, k, v, causal=False),
+                  ref.flash_attention(q, k, v, causal=False), dtype)
+    for B, S in ((3, 256), (1, 100)):
+        qs, ks, vs = (_randn(cuda, B, S, 20, 64, dtype=dtype)
+                      for _ in range(3))
+        _assert_close(ops.flash_attention(qs, ks, vs, causal=True),
+                      ref.flash_attention(qs, ks, vs, causal=True), dtype)
+    q = _randn(cuda, 2, 30, 20, 64, dtype=dtype)
+    k, v = (_randn(cuda, 2, 1500, 20, 64, dtype=dtype) for _ in range(2))
+    _assert_close(ops.flash_attention(q, k, v, causal=False),
+                  ref.flash_attention(q, k, v, causal=False), dtype)
+    q = _randn(cuda, 3, 20, 64, dtype=dtype)
+    valid = torch.ones(3, 1500, dtype=torch.bool, device="cuda")
+    before = ops.launch_counts()["decode_attention"]
+    _assert_close(ops.decode_cross_attention(q, k[:1].expand(
+        3, -1, -1, -1).contiguous(), v[:1].expand(3, -1, -1, -1)
+        .contiguous(), valid), ref.decode_attention(
+            q, k[:1].expand(3, -1, -1, -1), v[:1].expand(3, -1, -1, -1),
+            valid), dtype)
+    assert ops.launch_counts()["decode_attention"] == before + 1
+
+
+def test_whisper_reduced_on_the_card_matches_the_cpu(cuda):
+    """Reduced whisper in float32: a 40-token prefill behind each row's
+    frames and 16 decode steps with card logits within 1e-3 of the CPU's;
+    then the same requests through a card and a CPU engine, dense and
+    paged, give the same greedy streams."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = get_config("whisper-large-v3-reduced")
+    cpu, card = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    cp = cpu.init(seed=0)
+    gp = _to_card(cp)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40),
+                                         dtype=np.int32))
+    frames = torch.from_numpy((0.1 * rng.standard_normal(
+        (2, cfg.encoder_seq, cfg.d_model))).astype(np.float32))
+    cc, gc = cpu.init_cache(2, 128), card.init_cache(2, 128)
+    cl = cpu.prefill(cp, toks, cc, audio_frames=frames)
+    gl = card.prefill(gp, toks.cuda(), gc,
+                      audio_frames=frames.cuda()).cpu()
+    pos = torch.full((2,), 40, dtype=torch.int32)
+    for step in range(17):
+        torch.testing.assert_close(gl, cl, atol=1e-3, rtol=1e-3,
+                                   msg=f"step {step}")
+        if step == 16:
+            break
+        tok = cl.argmax(-1).to(torch.int32)[:, None]
+        cl = cpu.decode_step(cp, tok, cc, pos)
+        gl = card.decode_step(gp, tok.cuda(), gc, pos.cuda()).cpu()
+        pos = pos + 1
+    specs = [(10, 30), (40, 14), (25, 9), (64, 20)]
+    for cache in ("dense", "paged"):
+        conf = EngineConfig(n_slots=2, max_len=128, chunk_tokens=8,
+                            cache=cache, max_seqs=2 if cache == "paged"
+                            else None)
+        streams = []
+        for model, params, dev in ((cpu, cp, "cpu"), (card, gp, "cuda")):
+            eng = ServingEngine(model, params, conf, device=dev)
+            eng.submit_many(_with_frames(cfg, _requests(cfg.vocab_size,
+                                                        specs, 6)))
+            streams.append({c.rid: c.tokens for c in eng.run()})
+        assert streams[0] == streams[1], cache
+
+
+@pytest.mark.parametrize("cache", ["dense", "paged"])
+def test_whisper_graph_replay_gives_the_eager_chunks_bits(cuda, cache):
+    """A bf16 whisper engine's replayed chunks equal the eager
+    ``decode_chunk`` on a clone of its cache (the memory rows and the
+    self attention's rows or pages among the leaves), and its dense and
+    paged streams are identical."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = get_config("whisper-large-v3-reduced")
+    model = Model(cfg, device="cuda")
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    eng = ServingEngine(model, params, EngineConfig(
+        n_slots=3, max_len=128, chunk_tokens=8, dtype=torch.bfloat16,
+        cache=cache, max_seqs=4 if cache == "paged" else None,
+        prefix_cache=cache == "paged"), device="cuda")
+    assert not eng._share
+    eng.submit_many(_with_frames(cfg, _requests(cfg.vocab_size,
+                                                GRAPH_SPECS, 2)))
+    eng.step()
+    compared = 0
+    while any(s.active for s in eng.slots):
+        compared += _graph_vs_eager(eng, f"whisper {cache}")
+    eng.run()
+    assert compared >= 8

@@ -49,7 +49,8 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
             "repro_torch.configs.gemma3_27b",
             "repro_torch.configs.zamba2_7b",
             "repro_torch.configs.internvl2_26b",
-            "repro_torch.configs.mixtral_8x22b"} <= set(_modules())
+            "repro_torch.configs.mixtral_8x22b",
+            "repro_torch.configs.whisper_large_v3"} <= set(_modules())
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         class Blk(importlib.abc.MetaPathFinder):
@@ -114,9 +115,10 @@ def test_workload_and_launcher_modules_run_with_jax_and_repro_blocked():
 
 
 def test_new_families_serve_with_jax_and_repro_blocked():
-    """The gemma and 8B configs load, and reduced gemma (a local ring that
-    wraps beside a paged global layer) serves on the CPU, without JAX or
-    the reference package."""
+    """The gemma, 8B and whisper configs load, and reduced gemma (a local
+    ring that wraps beside a paged global layer) and reduced whisper (its
+    frames in the request) serve on the CPU, without JAX or the reference
+    package."""
     script = textwrap.dedent("""
         import importlib.abc, sys
         class Blk(importlib.abc.MetaPathFinder):
@@ -130,7 +132,8 @@ def test_new_families_serve_with_jax_and_repro_blocked():
         from repro_torch.models.model import Model
         from repro_torch.serving.engine import (EngineConfig, Request,
                                                 ServingEngine)
-        for name in ("qwen3-8b", "llama3.1-8b", "gemma3-27b"):
+        for name in ("qwen3-8b", "llama3.1-8b", "gemma3-27b",
+                     "whisper-large-v3"):
             Model(get_config(name), device="cpu")
         cfg = reduce_config(get_config("gemma3-27b"), n_layers=3,
                             sliding_window=8)
@@ -139,6 +142,16 @@ def test_new_families_serve_with_jax_and_repro_blocked():
             n_slots=2, max_len=32, cache="paged", chunk_tokens=4),
             device="cpu")
         eng.submit(Request(0, np.arange(12, dtype=np.int32), 10))
+        (done,) = eng.run()
+        assert len(done.tokens) == 10
+        cfg = get_config("whisper-large-v3-reduced")
+        model = Model(cfg, device="cpu")
+        eng = ServingEngine(model, model.init(seed=0), EngineConfig(
+            n_slots=2, max_len=32, cache="paged", chunk_tokens=4),
+            device="cpu")
+        frames = np.zeros((cfg.encoder_seq, cfg.d_model), np.float32)
+        eng.submit(Request(0, np.arange(12, dtype=np.int32), 10,
+                           extras={"audio_frames": frames}))
         (done,) = eng.run()
         assert len(done.tokens) == 10
         assert not [m for m in sys.modules

@@ -229,14 +229,16 @@ def test_prefill_products_is_scoped_to_its_thread():
 @pytest.mark.parametrize("name, cache, want", [
     ("qwen3-0.6b", "paged", True), ("qwen3-0.6b", "dense", True),
     ("mamba2-2.7b", "paged", False), ("gemma3-27b", "dense", False),
-    ("gemma3-27b", "paged", False), ("mixtral-8x22b", "dense", False)])
+    ("gemma3-27b", "paged", False), ("mixtral-8x22b", "dense", False),
+    ("whisper-large-v3", "paged", False)])
 def test_engine_slices_every_prefill_product_only_where_it_can_share(
         name, cache, want):
     """A prefill runs every product in fixed row slices on the card
     (``Model.prefill(row_invariant=True)``) only for a model that can
     share a prefix, in its dense and its paged engine alike; an SSM, a
-    windowed or an MoE model prefills with one product a projection
-    (float32 products are sliced all the same, in ``layers.project``)."""
+    windowed, MoE or encoder-decoder model prefills with one product a
+    projection (float32 products are sliced all the same, in
+    ``layers.project``)."""
     from repro_torch.serving.engine import (EngineConfig, Request,
                                             ServingEngine)
 
@@ -251,6 +253,10 @@ def test_engine_slices_every_prefill_product_only_where_it_can_share(
         return prefill(*args, row_invariant=row_invariant, **kw)
 
     model.prefill = spy
-    eng.submit(Request(0, np.arange(16, dtype=np.int32), 2))
+    cfg = model.cfg
+    extras = ({"audio_frames": np.zeros((cfg.encoder_seq, cfg.d_model),
+                                        np.float32)}
+              if cfg.n_encoder_layers else {})
+    eng.submit(Request(0, np.arange(16, dtype=np.int32), 2, extras=extras))
     eng.run()
     assert seen == [want]
