@@ -74,7 +74,9 @@ Phases, each raising on failure (any failure exits nonzero):
    scan): ``flash_attention`` at zamba2-7b's shared attention (B 1, S
    512, H = Hkv = 32, K = Kv = 112, causal), ``decode_attention`` and
    ``paged_decode_attention`` at (G, K) = (1, 112) (H 32) and (6, 128)
-   (H 48, Hkv 8) over 4 rows live to 48-544 of 2048, ``ssd_scan`` at a
+   (H 48, Hkv 8) over 4 rows live to 48-544 of 2048 (and the int8 pair
+   there: paged bit for bit the dense one, NaN in unowned pages and
+   dead slots ignored, sdpa over the dequantised view), ``ssd_scan`` at a
    512-token zamba2 prefill (nh 112, hd 64, ds 64, chunk 256) and
    ``rmsnorm`` at (512, 3584 / 6144 / 7168). Those of phase 16's
    whisper-large-v3 (20 heads of 64, G = 1), the same way but timed in
@@ -337,6 +339,14 @@ Phases, each raising on failure (any failure exits nonzero):
     d. reduced zamba2, internvl2 (8 image positions) and mixtral in
        float32: prefill and decode steps on the card against the CPU
        within 1e-3.
+    e. each of a-c's models on its own weights over int8 caches (G, K =
+       1, 112 and 6, 128): a dense and a paged engine (max_len 2048, every
+       full-horizon group paged) serve 8 prompts of 33-256 tokens (behind
+       images for internvl2), max_new 24, with identical greedy streams,
+       the dense and paged int8 kernels launching and no bf16 decode
+       kernel; ``graph_vs_eager`` on both; then the three reduced models
+       over int8 caches, as registered and at the new head shapes, on the
+       card against the CPU within 1e-3.
     Prints the phase's time.
 
 16. Whisper, the audio encoder-decoder, at full width and not cut
@@ -361,6 +371,17 @@ Phases, each raising on failure (any failure exits nonzero):
        float32: prefill and 8 decode steps on the card against the CPU
        within 1e-3.
     Prints the phase's time.
+
+17. The paper's video-detection testbed (``core.testbed.run_split``):
+    ``VideoRequestStream``'s 900 frames (30 s at 30 fps) through the
+    YOLOv4-tiny-shaped detector (float32, TF32 off in every container),
+    batch 8, split among 1, 2, 4 and 8 containers pinned to disjoint
+    core sets of the host, every container on the one card: per count
+    the wall, per-container seconds, the activity model's W and J, the
+    card's J (power.draw; read only), t/t1, E/E1 and max |out - out_1|
+    (<= 1e-5); the fitted time and energy models and the scheduler's
+    pick; n = 1's first 16 outputs against the detector on the CPU
+    within 1e-3; no child left.
 
 Then a JSON line with each kernel's launches (from the phase of the path
 it serves, and by phase, phase 13's three parts and phases 14's, 15's and
@@ -1592,12 +1613,15 @@ NEW_NORMS = {"zamba block (512, 3584)": 3584,
 
 
 def later_shape_checks(gen) -> dict:
-    """The prefill, dense and paged decode, SSD scan and rmsnorm kernels
-    at the shapes of phase 15's models (ZAMBA_FLASH, NEW_DECODE at
-    G4_DECODE's 4 rows live to 48-544 of 2048, ZAMBA_SSD, NEW_NORMS), each
-    held against its plain version in float32 (2e-5) and bfloat16 (2e-2;
-    the scan at SSD_TOL of max|plain|), the paged kernel bit for bit the
-    dense one over the gathered view, then in bfloat16 timed as device
+    """The prefill, dense and paged decode (bf16/f32 K/V and int8 codes),
+    SSD scan and rmsnorm kernels at the shapes of phase 15's models
+    (ZAMBA_FLASH, NEW_DECODE at G4_DECODE's 4 rows live to 48-544 of 2048,
+    ZAMBA_SSD, NEW_NORMS), each held against its plain version in float32
+    (2e-5) and bfloat16 (2e-2; the scan at SSD_TOL of max|plain|; the
+    int8 pair with f32 / bf16 queries), the paged kernels bit for bit the
+    dense ones over the gathered view (the int8 ones also unmoved by NaN
+    in unowned pages and scale pages, the dense int8 one by NaN scales in
+    dead slots), then in bfloat16 timed as device
     time (100 calls replayed from a CUDA graph) beside the plain version
     and the library call (sdpa; F.rms_norm; none for the scan), with the
     shape's bound. Returns {kernel: {label: row}}."""
@@ -1703,6 +1727,77 @@ def later_shape_checks(gen) -> dict:
                      + B * nblk * 4, "bfloat16"),
             f"B={B} bs={bs} nblk={nblk} H={h} Hkv={hkv} K={k_} live={depth}"
             " (bitwise the dense kernel over the gathered view)")
+
+        # the int8 pair at the same shape: int8 codes and float32 scales
+        # by the model's quantiser under q in f32 / bf16; the yardstick
+        # is sdpa over the dequantised view in q's dtype
+        def dense8_calls(dtype):
+            q = randn(B, h, k_, dtype=dtype)
+            kq, ks = quant(randn(B, W, hkv, k_, dtype=torch.float32))
+            vq, vs = quant(randn(B, W, hkv, k_, dtype=torch.float32))
+            got = da.decode_attention_int8(q, kq, vq, valid, ks, vs)
+            kq2, vq2, ks2, vs2 = kq.clone(), vq.clone(), ks.clone(), vs.clone()
+            ks2[~valid], vs2[~valid] = float("nan"), float("nan")
+            kq2[~valid], vq2[~valid] = 127, -127
+            poisoned = da.decode_attention_int8(q, kq2, vq2, valid, ks2, vs2)
+            if not (torch.equal(got, poisoned)
+                    and bool(torch.isfinite(poisoned).all())):
+                fail(f"decode_attention_int8 {label} {dtype}: output moved "
+                     "with NaN scales in dead slots")
+            kf = (kq.float() * ks[..., None]).to(dtype)
+            vf = (vq.float() * vs[..., None]).to(dtype)
+            return (lambda: da.decode_attention_int8(q, kq, vq, valid, ks,
+                                                     vs),
+                    lambda: ref.decode_attention(q, kq, vq, valid,
+                                                 k_scale=ks, v_scale=vs),
+                    sdpa(q, kf, vf, valid))
+        row("decode_attention_int8", label, dense8_calls,
+            bound_ms(4 * live * h * k_ + 2 * live * hkv * k_,
+                     2 * live * hkv * (k_ + 4) + 2 * B * h * k_ * 2 + B * W,
+                     "bfloat16"),
+            shape + " int8 K/V (dead slots' NaN scales ignored)",
+            library="sdpa over the dequantised view")
+
+        def paged8_calls(dtype):
+            q, kp, vp, table, lens, unowned = paged_case(
+                gen, depth, h=h, hkv=hkv, k=k_, bs=bs, nblk=nblk,
+                dtype=torch.float32)
+            q = q.to(dtype)
+            kq, ks = quant(kp)
+            vq, vs = quant(vp)
+            kd, vd, vmask = gathered(kq, vq, table, lens)
+            ksd, vsd, _ = gathered(ks, vs, table, lens)
+            got = pa.paged_decode_attention_int8(q, kq, vq, ks, vs, table,
+                                                 lens)
+            if not torch.equal(got, da.decode_attention_int8(
+                    q, kd, vd, vmask, ksd, vsd)):
+                fail(f"paged_decode_attention_int8 {label} {dtype}: not "
+                     "bitwise the dense int8 kernel over the gathered view")
+            kq2, vq2, ks2, vs2 = kq.clone(), vq.clone(), ks.clone(), vs.clone()
+            ks2[unowned], vs2[unowned] = float("nan"), float("nan")
+            kq2[unowned], vq2[unowned] = 127, -127
+            poisoned = pa.paged_decode_attention_int8(q, kq2, vq2, ks2, vs2,
+                                                      table, lens)
+            if not (torch.equal(got, poisoned)
+                    and bool(torch.isfinite(poisoned).all())):
+                fail(f"paged_decode_attention_int8 {label} {dtype}: output "
+                     "moved with NaN in unowned pages or scale pages")
+            kf = (kd.float() * ksd[..., None]).to(dtype)
+            vf = (vd.float() * vsd[..., None]).to(dtype)
+            return (lambda: pa.paged_decode_attention_int8(
+                        q, kq, vq, ks, vs, table, lens),
+                    lambda: ref.paged_decode_attention(
+                        q, kq, vq, table, lens, k_scale_pages=ks,
+                        v_scale_pages=vs),
+                    sdpa(q, kf, vf, vmask))
+        row("paged_decode_attention_int8", label, paged8_calls,
+            bound_ms(4 * live * h * k_ + 2 * live * hkv * k_,
+                     2 * live * hkv * (k_ + 4) + 2 * B * h * k_ * 2
+                     + B * nblk * 4, "bfloat16"),
+            f"B={B} bs={bs} nblk={nblk} H={h} Hkv={hkv} K={k_} live={depth}"
+            " int8 pages (bitwise the dense int8 kernel over the gathered "
+            "view; NaN in unowned pages and scale pages ignored)",
+            library="sdpa over the dequantised view")
 
     m = ZAMBA_SSD
 
@@ -2188,7 +2283,9 @@ def model_phase(cfg, last: list[int], S: int = 64, steps: int = 8):
         pos = pos + 1
     if not np.isfinite(cl.numpy()).all():
         fail("model: CPU logits are not finite")
-    print(f"model {cfg.name} ({cfg.n_layers} layers, f32): {S}-token "
+    print(f"model {cfg.name} ({cfg.n_layers} layers, f32, G="
+          f"{cfg.n_heads // max(cfg.n_kv_heads, 1)} K={cfg.head_dim} "
+          f"kv_cache_dtype={cfg.kv_cache_dtype}): {S}-token "
           f"prefill + {steps} greedy decode steps, max |logit diff| card vs "
           f"CPU = {worst:.3e} (tolerance {LOGIT_TOL} abs + rel), token "
           f"agreement {agree}/{rows}", flush=True)
@@ -2451,7 +2548,14 @@ def graph_vs_eager(engine, what: str, card: str) -> int:
                                  tree_leaves(clone)):
         leaves += 1
         if not torch.equal(t.view(torch.uint8), c.view(torch.uint8)):
-            fail(f"graph vs eager ({what}): cache leaf {path} differs")
+            where = ""
+            if path.endswith("_pages"):
+                rows = (t.view(torch.uint8) != c.view(torch.uint8)).flatten(
+                    1).any(1).nonzero().flatten().tolist()
+                where = (f" in pages {rows[:16]} (the scratch page is "
+                         f"{t.shape[0] - 1})")
+            fail(f"graph vs eager ({what}): cache leaf {path} differs"
+                 f"{where}")
     replayed = {k: mid[k] - before[k] for k in mid}
     eager = {k: after[k] - mid[k] for k in mid}
     if replayed != eager or not sum(replayed.values()):
@@ -4038,17 +4142,17 @@ ONLINE_WINDOWS = 6
 
 class PowerMeter:
     """The card's draw from ``nvidia-smi --query-gpu=power.draw`` every
-    100 ms, read by a helper thread: ``joules(t0, t1, wall)`` is the mean
+    ``interval_ms`` (100 ms unless given), read by a helper thread: ``joules(t0, t1, wall)`` is the mean
     draw of the samples stamped in [t0, t1] times ``wall``. Read and
     printed only; nothing steers by it."""
 
-    def __init__(self):
+    def __init__(self, interval_ms: int = 100):
         import threading
 
         self.samples: list[tuple[float, float]] = []
         self.proc = subprocess.Popen(
             ["nvidia-smi", "-i", "0", "--query-gpu=power.draw",
-             "--format=csv,noheader,nounits", "-lms", "100"],
+             "--format=csv,noheader,nounits", "-lms", str(interval_ms)],
             stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
         self.thread = threading.Thread(target=self._read, daemon=True)
         self.thread.start()
@@ -4978,6 +5082,88 @@ def phase15_step(what: str, model, params, weights: int, card: str) -> dict:
     return step
 
 
+# 15e: prompts of at most 256 tokens (zamba's scan takes any length up to
+# its 256-token chunk), two of them on a 64-position split edge
+INT8_FAMILY_PLENS = [150, 200, 256, 180, 40, 50, 64, 33]
+# the reduced forms at the new head shapes (G, K) = (1, 112) and (6, 128)
+INT8_REDUCED = (("zamba2-7b-reduced", [63, 40], dict(head_dim=112)),
+                ("internvl2-26b-reduced", [71, 48],
+                 dict(n_heads=6, n_kv_heads=1, head_dim=128)),
+                ("mixtral-8x22b-reduced", [63, 40],
+                 dict(n_heads=6, n_kv_heads=1, head_dim=128)))
+
+
+def int8_family_check(model, params, what: str, card: str) -> dict:
+    """15e: ``model``'s weights (not made again) over int8 caches
+    (``kv_cache_dtype="int8"``): one dense and one paged engine (block 16,
+    max_seqs 4, max_len 2048, so every full-horizon group pages, mixtral's
+    4096-slot window included) serve INT8_FAMILY_PLENS (behind an image
+    each for a vision model), max_new 24, with identical greedy streams;
+    the dense engine launches the dense int8 kernel, the paged one the
+    paged int8 kernel, neither a bf16/f32 decode kernel; then each engine
+    holds a replayed chunk against the eager chunk (``graph_vs_eager``).
+    Returns each engine's launches of the compared streams."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    cfg = dataclasses.replace(model.cfg, kv_cache_dtype="int8")
+    model8 = Model(cfg)
+    config = EngineConfig(n_slots=4, max_len=2048, chunk_tokens=32,
+                          dtype=torch.bfloat16)
+    reqs = with_images(cfg, seeded_requests(cfg, INT8_FAMILY_PLENS, 31,
+                                            max_new=24), 32)
+    # as many as the engine has rows, so no row idles through the compared
+    # chunk (idle rows all write to the scratch page)
+    more = with_images(cfg, seeded_requests(cfg, (40, 64, 33, 50), 33,
+                                            max_new=40, start=100), 34)
+    out, launches = {}, {}
+    for cache in ("dense", "paged"):
+        conf = (config if cache == "dense" else dataclasses.replace(
+            config, cache="paged", block_size=16, max_seqs=4))
+        eng = ServingEngine(model8, params, conf)
+        eng.submit_many([dataclasses.replace(r) for r in reqs])
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        comps = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches[cache] = ops.launch_counts()
+        out[cache] = {c.rid: list(c.tokens) for c in comps}
+        print(f"{what} int8 {cache} engine: {len(comps)} requests (prompts "
+              f"{INT8_FAMILY_PLENS}, max_new 24) in {wall:.4f} s, cache "
+              f"{tree_bytes(eng.cache_backend.tree)} B, launches "
+              f"{ {k: v for k, v in launches[cache].items() if v} } "
+              f"[card: {card}]", flush=True)
+        engine_graph_check(eng, [dataclasses.replace(r) for r in more],
+                           f"{what} int8 {cache} cache", card)
+        del eng
+        torch.cuda.empty_cache()
+    for r in reqs:
+        got = [out[k].get(r.rid) for k in ("dense", "paged")]
+        if got[0] is None or len(got[0]) != r.max_new_tokens:
+            fail(f"{what} int8: request {r.rid} gave {got[0]}")
+        if not all(0 <= t < cfg.vocab_size for t in got[0]):
+            fail(f"{what} int8: request {r.rid} has out-of-range tokens")
+        if got[0] != got[1]:
+            fail(f"{what} int8: request {r.rid} ({len(r.prompt)} tokens) "
+                 f"streams differ: dense {got[0][:6]}... paged "
+                 f"{(got[1] or [])[:6]}...")
+    for cache, kernel in (("dense", "decode_attention_int8"),
+                          ("paged", "paged_decode_attention_int8")):
+        if launches[cache][kernel] <= 0:
+            fail(f"{what} int8 {cache}: {kernel} never launched")
+        bf16 = {k: launches[cache][k] for k in ("decode_attention",
+                                                "paged_decode_attention")}
+        if any(bf16.values()):
+            fail(f"{what} int8 {cache}: bf16/f32 decode kernels launched "
+                 f"{bf16}")
+    print(f"{what} int8: G={cfg.n_heads // cfg.n_kv_heads} K={cfg.head_dim}"
+          f", {len(reqs)} requests, identical greedy streams through the "
+          f"dense and the paged int8 engine [card: {card}]", flush=True)
+    return launches
+
+
 def zamba_phase(card: str) -> dict:
     """15a: full-width zamba2-7b (81 SSM layers, 13 applications of one
     shared attention + MLP block, bf16, random weights from seed 0):
@@ -5009,12 +5195,14 @@ def zamba_phase(card: str) -> dict:
         if not paged[k]:
             fail(f"15a zamba2-7b: the paged engine never launched {k}")
     step = phase15_step("15a zamba2-7b", model, params, weights, card)
+    int8 = int8_family_check(model, params, "15e zamba2-7b", card)
     del model, params
     torch.cuda.empty_cache()
     print(f"15a zamba2-7b: {time.perf_counter() - t0:.1f} s; after freeing "
           f"it memory_allocated={torch.cuda.memory_allocated()} B "
           f"[card: {card}]", flush=True)
-    return {"router": router, "dense": dense, "paged": paged, "step": step}
+    return {"router": router, "dense": dense, "paged": paged, "step": step,
+            "int8": int8}
 
 
 def vlm_sharing(model, params, config, card: str, rng) -> dict:
@@ -5110,12 +5298,13 @@ def vlm_phase(card: str) -> dict:
         fail("15b internvl2-26b: the sharing engine never launched the "
              "paged kernel")
     step = phase15_step("15b internvl2-26b", model, params, weights, card)
+    int8 = int8_family_check(model, params, "15e internvl2-26b", card)
     del model, params
     torch.cuda.empty_cache()
     print(f"15b internvl2-26b: {time.perf_counter() - t0:.1f} s; after "
           f"freeing it memory_allocated={torch.cuda.memory_allocated()} B "
           f"[card: {card}]", flush=True)
-    return {"router": router, **sharing, "step": step}
+    return {"router": router, **sharing, "step": step, "int8": int8}
 
 
 def mixtral_phase(card: str, max_new: int = 32) -> dict:
@@ -5179,6 +5368,7 @@ def mixtral_phase(card: str, max_new: int = 32) -> dict:
                  f"tokens) streams differ: router {got[0][:6]}... dense "
                  f"{(got[1] or [])[:6]}... paged {(got[2] or [])[:6]}...")
     step = phase15_step("15c mixtral-8x22b", model, params, weights, card)
+    int8 = int8_family_check(model, params, "15e mixtral-8x22b", card)
     del model, params
     torch.cuda.empty_cache()
     print(f"15c mixtral-8x22b: {len(reqs)} requests (prompts "
@@ -5186,13 +5376,15 @@ def mixtral_phase(card: str, max_new: int = 32) -> dict:
           f"the dense and the paged engine; {time.perf_counter() - t0:.1f} "
           f"s; after freeing it memory_allocated="
           f"{torch.cuda.memory_allocated()} B [card: {card}]", flush=True)
-    return {**launches, "step": step}
+    return {**launches, "step": step, "int8": int8}
 
 
 def later_family_phase(card: str) -> dict:
     """Phase 15: 15a zamba2-7b, 15b internvl2-26b, 15c mixtral-8x22b cut
-    to 8 layers, 15d the three reduced models against the CPU. Returns
-    the launches by part."""
+    to 8 layers, 15d the three reduced models against the CPU; 15e each of
+    the three over int8 caches (its 15a-c weights) and their reduced
+    forms over int8 caches against the CPU. Returns the launches by
+    part."""
     from repro_torch.configs.registry import get_config
 
     t0 = time.perf_counter()
@@ -5205,6 +5397,13 @@ def later_family_phase(card: str) -> dict:
     model_phase(get_config("zamba2-7b-reduced"), [63, 40])
     model_phase(get_config("internvl2-26b-reduced"), [71, 48])
     model_phase(get_config("mixtral-8x22b-reduced"), [63, 40], steps=16)
+    # 15e's reduced forms over int8 caches: as registered, then at the new
+    # head shapes (1, 112) and (6, 128)
+    for name, last, shape in INT8_REDUCED:
+        cfg = dataclasses.replace(get_config(name), kv_cache_dtype="int8")
+        steps = 16 if cfg.sliding_window else 8
+        model_phase(cfg, last, steps=steps)
+        model_phase(dataclasses.replace(cfg, **shape), last, steps=steps)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s [card: {card}]",
           flush=True)
     return out
@@ -5383,6 +5582,110 @@ def audio_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the paper's video-detection testbed on the card
+# ---------------------------------------------------------------------------
+TESTBED_COUNTS = (1, 2, 4, 8)
+TESTBED_BATCH = 8
+TESTBED_CPU_FRAMES = 16
+# a run takes 0.05-0.15 s on an H100 80GB HBM3 at 700 W: sample the draw
+# faster
+TESTBED_METER_MS = 20
+
+
+def testbed_phase(card: str) -> dict:
+    """17: ``core.testbed.run_split`` over ``VideoRequestStream``'s 900
+    frames (30 s at 30 fps), batch TESTBED_BATCH, at TESTBED_COUNTS
+    containers pinned over the host's cores, every container on the one
+    card. Per count: n, cores each, wall, per-container seconds, the
+    activity model's W and J, the card's J (``PowerMeter``: the mean
+    power.draw of the samples in the call's last wall seconds times the
+    wall; read, not used), t/t1, E/E1 and max |out - out_1|, which must
+    be <= 1e-5. Then the fitted time and energy models and the
+    scheduler's pick. n = 1's first TESTBED_CPU_FRAMES outputs must match
+    the detector on the CPU within 1e-3, and no child may outlive the
+    phase. Returns the rows."""
+    import multiprocessing as mp
+
+    from repro_torch.core import testbed as tb
+    from repro_torch.core.energy_model import fit_best
+    from repro_torch.core.scheduler import DivideAndSaveScheduler
+    from repro_torch.data.pipeline import VideoRequestStream
+
+    t_phase = time.perf_counter()
+    frames = VideoRequestStream().frames()
+    cores = len(tb.available_cores())
+    shared = cores < max(TESTBED_COUNTS)
+    print(f"17 testbed: {len(frames)} frames {frames.shape[1:]} float32, "
+          f"batch {TESTBED_BATCH}, counts {TESTBED_COUNTS} over {cores} "
+          f"host cores{' (shared: more containers than cores)' if shared else ''}"
+          f", every container on the card [card: {card}]", flush=True)
+    rows, base = [], None
+    meter = PowerMeter(TESTBED_METER_MS)
+    try:
+        for n in TESTBED_COUNTS:
+            r = tb.run_split(frames, n, batch=TESTBED_BATCH,
+                             allow_shared=shared)
+            t_ret = time.perf_counter()
+            if r.outputs.shape != (len(frames), 18) or not bool(
+                    np.isfinite(r.outputs).all()):
+                fail(f"17 testbed n={n}: outputs {r.outputs.shape} are not "
+                     "finite (900, 18)")
+            if base is None:
+                base = r
+            diff = float(np.abs(r.outputs - base.outputs).max())
+            if diff > 1e-5:
+                fail(f"17 testbed n={n}: outputs differ from n=1's by "
+                     f"{diff:.3e} > 1e-5")
+            joules, samples = meter.joules(t_ret - r.wall_s, t_ret, r.wall_s)
+            row = {"n": n, "cores_each": r.cores_per_container,
+                   "wall_s": r.wall_s, "per_container_s": r.per_container_s,
+                   "model_w": r.avg_power_w, "model_j": r.energy_j,
+                   "card_j": joules, "card_samples": samples,
+                   "t_over_t1": r.wall_s / base.wall_s,
+                   "e_over_e1": r.energy_j / base.energy_j,
+                   "max_diff_vs_n1": diff}
+            rows.append(row)
+            card_j = ("not measured (no power.draw sample)" if joules is None
+                      else f"{joules:.4f} ({samples} samples)")
+            print(f"17 testbed n={n}: cores_each={r.cores_per_container} "
+                  f"wall_s={r.wall_s:.4f} per_container_s="
+                  f"{[round(t, 4) for t in r.per_container_s]} "
+                  f"model_w={r.avg_power_w:.4f} model_j={r.energy_j:.4f} "
+                  f"card_j={card_j} t/t1={row['t_over_t1']:.4f} "
+                  f"E/E1={row['e_over_e1']:.4f} max|out-out1|={diff:.3e} "
+                  f"[card: {card}]", flush=True)
+            if mp.active_children():
+                fail(f"17 testbed n={n}: children left running: "
+                     f"{mp.active_children()}")
+    finally:
+        meter.close()
+    cpu = tb.detector_forward(
+        [torch.from_numpy(w) for w in tb.detector_weights(0)],
+        torch.from_numpy(frames[:TESTBED_CPU_FRAMES])).numpy()
+    err = float(np.abs(base.outputs[:TESTBED_CPU_FRAMES] - cpu).max())
+    if not err <= 1e-3 + 1e-3 * float(np.abs(cpu).max()):
+        fail(f"17 testbed: the card's first {TESTBED_CPU_FRAMES} outputs "
+             f"differ from the CPU detector's by {err:.3e}")
+    ns = np.array([r["n"] for r in rows], float)
+    tfit = fit_best(ns, np.array([r["t_over_t1"] for r in rows]))
+    efit = fit_best(ns, np.array([r["e_over_e1"] for r in rows]))
+    sched = DivideAndSaveScheduler(list(TESTBED_COUNTS), objective="energy",
+                                   epsilon=0.0)
+    for r in rows:
+        sched.observe(r["n"], r["wall_s"], r["model_j"])
+    pick = sched.pick()
+    print(f"17 testbed: fitted time model {tfit.kind} "
+          f"{tuple(float(c) for c in tfit.coef)} rmse {tfit.rmse:.4f}; "
+          f"fitted energy model {efit.kind} "
+          f"{tuple(float(c) for c in efit.coef)} rmse {efit.rmse:.4f}; "
+          f"scheduler picks n={pick} (energy objective); n=1's first "
+          f"{TESTBED_CPU_FRAMES} outputs vs the CPU detector max|diff|="
+          f"{err:.3e}; {time.perf_counter() - t_phase:.1f} s "
+          f"[card: {card}]", flush=True)
+    return {"rows": rows, "pick": pick}
+
+
 def full_width_model(dtype):
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import Model
@@ -5510,6 +5813,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     audio = audio_phase(card)
 
+    # the paper's video-detection testbed: n pinned containers on the card
+    torch.cuda.empty_cache()
+    testbed_phase(card)
+
     # each kernel's launches come from the path it serves: phase 4 (dense
     # cache) for the prefill and dense decode kernels, phase 6 (paged
     # cache with prefix sharing) for the paged decode kernel, phase 7a
@@ -5525,6 +5832,7 @@ def main() -> int:
     # Router run and its dense and paged engines; phase 15a zamba's Router
     # run and its dense and paged engines, 15b internvl2's Router run and
     # its sharing engine, 15c mixtral's Router run and its paged engine;
+    # phase 15e each of the three models' dense and paged int8 engines;
     # phase 16a whisper's Router run and its dense and paged engines
     by_phase = {"phase4": launches, "phase6": paged_launches,
                 "phase6c": sharing_launches,
@@ -5555,6 +5863,9 @@ def main() -> int:
                 "phase15c_mixtral-8x22b": later["mixtral-8x22b"]["router"],
                 "phase15c_mixtral-8x22b_paged":
                     later["mixtral-8x22b"]["paged"],
+                **{f"phase15e_{m}_int8_{c}": later[m]["int8"][c]
+                   for m in ("zamba2-7b", "internvl2-26b", "mixtral-8x22b")
+                   for c in ("dense", "paged")},
                 "phase16a_whisper-large-v3": audio["router"],
                 "phase16a_whisper-large-v3_dense": audio["dense"],
                 "phase16a_whisper-large-v3_paged": audio["paged"]}

@@ -22,7 +22,9 @@ instantiation spills, the int8 split passes are there and none of them
 spills, the rmsnorm instantiations are there and none of them spills,
 and the 12 split decode instantiations at the new pairs (split pass: 2
 query dtypes x 2 address policies x 2 pairs; merge: 2 x 2) are there
-and none of them spills.
+and none of them spills, and the 8 int8 split passes at those pairs (2
+query dtypes x 2 address policies x 2 pairs; the merge is the split
+body's) are there, listed one by one, and none of them spills.
 """
 from __future__ import annotations
 
@@ -156,9 +158,21 @@ def main() -> int:
     print(f"split decode new shapes: {len(new)} instantiations, most "
           f"registers {max((table[n][0] for n in new), default=0)}, "
           f"{len(new_spill)} spill")
+    # the int8 split pass at the same pairs
+    new8 = sorted((n for n in table if re.search(
+        r"decode_int8_detail::decode_int8_split_kernel<[^,<>]+, "
+        r"(1, 112|6, 128)\b", names[n])), key=lambda n: names[n])
+    new8_spill = [n for n in new8 if table[n][1] or table[n][2]]
+    for n in new8:
+        regs, st, ld = table[n]
+        print(f"int8 decode new shape: regs={regs} spill_stores={st} "
+              f"spill_loads={ld} {names[n]}")
+    print(f"int8 decode new shapes: {len(new8)} instantiations, most "
+          f"registers {max((table[n][0] for n in new8), default=0)}, "
+          f"{len(new8_spill)} spill")
     return 1 if (bare or spill or not tc_partial or not int8
                  or int8_spill or not norm or norm_spill or len(new) != 12
-                 or new_spill) else 0
+                 or new_spill or len(new8) != 8 or new8_spill) else 0
 
 
 if __name__ == "__main__":

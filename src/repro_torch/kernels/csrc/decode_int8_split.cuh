@@ -28,13 +28,18 @@
 //   having read no code, no scale and no table entry. The old dense body
 //   walked all W slots of every row.
 // - Narrow loads. A lane loads CPL codes of a row at once: 16 (one
-//   16-byte load, 8 lanes a row at K = 128) for G <= 2, 8 for G = 4 and 4
-//   for G = 8, whose q and accumulator would otherwise take 2*G*16
-//   registers a lane. A warp holds P / NW = 16 rows, so each issues every
-//   code and scale load of its rows (16 rows, K and V) before it
-//   computes: one batch a split. A code becomes a float exactly by the
-//   bias trick (code + 128 as the low byte of 2^23's mantissa, 2^23 + 128
-//   taken off again).
+//   16-byte load, 8 lanes a row at K = 128) for G <= 2, 8 for G = 4 and
+//   G = 6 and 4 for G = 8, whose q and accumulator would otherwise take
+//   2*G*16 registers a lane (G = 6 at 4 codes would need 32 lanes a row
+//   at K = 128). A row's K / CPL loads take LPR lanes, that count rounded
+//   up to a power of two: at K = 112 (16 codes a lane) a row's 7 loads
+//   take 8 lanes, the 8th loads nothing (112 = 7 x 16 B keeps every load
+//   16-byte aligned), holds q = 0 and codes 0, and adds exactly +0.0 to
+//   the row's shuffle sums, whose order stays that of K = 128. A warp
+//   holds P / NW = 16 rows, so each issues every code and scale load of
+//   its rows (16 rows, K and V) before it computes: one batch a split. A
+//   code becomes a float exactly by the bias trick (code + 128 as the low
+//   byte of 2^23's mantissa, 2^23 + 128 taken off again).
 // - Scale reads. A lane group loads its live rows' two scales beside
 //   their codes, in the same batch, so a scale read adds no round trip to
 //   the chain; a dead position's scales are never read (they count as 0).
@@ -89,7 +94,12 @@ using decode_split_detail::PagedSplit;
 
 // codes a lane loads from a row at once
 template <int G> constexpr int codes_a_lane() {
-  return G <= 2 ? 16 : G == 4 ? 8 : 4;
+  return G <= 2 ? 16 : G <= 6 ? 8 : 4;
+}
+
+// lanes a row: its n loads rounded up to a power of two
+constexpr int pow2_lanes(int n) {
+  return n > 16 ? 32 : n > 8 ? 16 : n > 4 ? 8 : n > 2 ? 4 : n > 1 ? 2 : 1;
 }
 
 // CPL codes at p (CPL-byte aligned) as CPL / 4 words, offset by 128 each
@@ -131,11 +141,12 @@ __global__ void __launch_bounds__(NW * 32)
                              float softcap) {
   constexpr int CPL = codes_a_lane<G>();  // codes a lane a row
   constexpr int WPL = CPL / 4;            // their 32-bit words
-  constexpr int LPR = K / CPL;            // lanes a row
+  constexpr int NV = K / CPL;             // loads a row
+  constexpr int LPR = pow2_lanes(NV);     // lanes a row
   constexpr int RPW = 32 / LPR;           // rows a warp instruction
   constexpr int R = P / NW / RPW;         // rows a lane group
-  static_assert(LPR >= 2 && LPR <= 16 && NW * 32 >= P && P % 32 == 0 &&
-                    R * RPW * NW == P,
+  static_assert(K % CPL == 0 && LPR >= 2 && LPR <= 16 && NW * 32 >= P &&
+                    P % 32 == 0 && R * RPW * NW == P,
                 "split shape");
   __shared__ int sm_row[P];
   __shared__ float sm_m[NW][G], sm_l[NW][G];
@@ -169,6 +180,8 @@ __global__ void __launch_bounds__(NW * 32)
   const int warp = tid / 32, lane = tid % 32;
   const int grp = lane / LPR, li = lane % LPR;
   const int H = Hkv * G;
+  // the lane holds a part of the row (always, unless NV is no power of two)
+  const bool lv = LPR == NV || li < NV;
 
   // the warp's P / NW consecutive positions: row u of lane group grp is
   // position (warp*R + u)*RPW + grp of the split
@@ -199,12 +212,14 @@ __global__ void __launch_bounds__(NW * 32)
 #pragma unroll
     for (int u = 0; u < R; ++u) {
       const size_t si = size_t(crow[u]) * Hkv + hk;  // the row's scales
-      if (ok[u]) {
+      if (ok[u] && lv) {
         load_codes<CPL>(kw[u], k + si * K + li * CPL);
         load_codes<CPL>(vw[u], v + si * K + li * CPL);
         ksc[u] = __ldg(k_scale + si) * scale;
         vsc[u] = __ldg(v_scale + si);
       } else {
+        // a dead row, or a lane past the row's loads (whose own scores
+        // and weights never reach the workspace)
         ksc[u] = vsc[u] = 0.f;
 #pragma unroll
         for (int w = 0; w < WPL; ++w) kw[u][w] = vw[u][w] = 0x80808080u;
@@ -215,7 +230,8 @@ __global__ void __launch_bounds__(NW * 32)
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int e = 0; e < CPL; ++e)
-        qr[g][e] = to_float(q[(size_t(b) * H + hk * G + g) * K + li * CPL + e]);
+        qr[g][e] = lv ? to_float(
+            q[(size_t(b) * H + hk * G + g) * K + li * CPL + e]) : 0.f;
 
     // all R*G scores, each code converted once for the G heads
     float sc[R][G];
@@ -287,7 +303,7 @@ __global__ void __launch_bounds__(NW * 32)
       for (int e = 0; e < CPL; ++e)
         acc[g][e] += __shfl_xor_sync(FULL, acc[g][e], o);
     }
-  if (grp == 0) {
+  if (grp == 0 && lv) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       if (li == 0) {
@@ -343,17 +359,26 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// the (G, K) of decode_split.cuh: G * K <= 512
+// the (G, K) of decode_split.cuh (kernels/decode_attention.py
+// KERNEL_SHAPES): G * K <= 512, K = 112 at G = 1 (zamba2-7b) and K = 128
+// at G = 6 (mixtral-8x22b, internvl2-26b)
 template <typename T, int G, typename Rows>
 cudaError_t launch_k(int K, const void* q, const void* k, const void* v,
                      const float* ks, const float* vs, Rows rows, void* out,
                      void* work, int B, int Hkv, int nsplit, float scale,
                      float softcap, cudaStream_t s) {
   switch (K) {
-    case 32: return launch<T, G, 32>(q, k, v, ks, vs, rows, out, work, B, Hkv, nsplit, scale, softcap, s);
-    case 64: return launch<T, G, 64>(q, k, v, ks, vs, rows, out, work, B, Hkv, nsplit, scale, softcap, s);
+    case 32:
+      if constexpr (G != 6) return launch<T, G, 32>(q, k, v, ks, vs, rows, out, work, B, Hkv, nsplit, scale, softcap, s);
+      return cudaErrorInvalidValue;
+    case 64:
+      if constexpr (G != 6) return launch<T, G, 64>(q, k, v, ks, vs, rows, out, work, B, Hkv, nsplit, scale, softcap, s);
+      return cudaErrorInvalidValue;
+    case 112:
+      if constexpr (G == 1) return launch<T, G, 112>(q, k, v, ks, vs, rows, out, work, B, Hkv, nsplit, scale, softcap, s);
+      return cudaErrorInvalidValue;
     case 128:
-      if constexpr (G <= 4) return launch<T, G, 128>(q, k, v, ks, vs, rows, out, work, B, Hkv, nsplit, scale, softcap, s);
+      if constexpr (G <= 4 || G == 6) return launch<T, G, 128>(q, k, v, ks, vs, rows, out, work, B, Hkv, nsplit, scale, softcap, s);
       return cudaErrorInvalidValue;
     case 256:
       if constexpr (G <= 2) return launch<T, G, 256>(q, k, v, ks, vs, rows, out, work, B, Hkv, nsplit, scale, softcap, s);
@@ -372,6 +397,7 @@ cudaError_t launch_g(int G, int K, const void* q, const void* k,
     case 1: return launch_k<T, 1>(K, q, k, v, ks, vs, rows, out, work, B, Hkv, nsplit, scale, softcap, s);
     case 2: return launch_k<T, 2>(K, q, k, v, ks, vs, rows, out, work, B, Hkv, nsplit, scale, softcap, s);
     case 4: return launch_k<T, 4>(K, q, k, v, ks, vs, rows, out, work, B, Hkv, nsplit, scale, softcap, s);
+    case 6: return launch_k<T, 6>(K, q, k, v, ks, vs, rows, out, work, B, Hkv, nsplit, scale, softcap, s);
     case 8: return launch_k<T, 8>(K, q, k, v, ks, vs, rows, out, work, B, Hkv, nsplit, scale, softcap, s);
     default: return cudaErrorInvalidValue;
   }

@@ -22,14 +22,14 @@ import torch
 from repro_torch.kernels.build import LaunchCounter, check_launch, extension
 
 DTYPES = (torch.float32, torch.bfloat16)
-# (G, K) the int8 split body is instantiated for: G = H / Hkv in (1, 2, 4,
-# 8), K in (32, 64, 128, 256), G * K <= 512
-INT8_SHAPES = frozenset((g, k) for g in (1, 2, 4, 8)
-                        for k in (32, 64, 128, 256) if g * k <= 512)
-# (G, K) the bf16/f32 split body is instantiated for: the int8 set, K =
+# (G, K) both split bodies (bf16/f32 and int8) are instantiated for: G =
+# H / Hkv in (1, 2, 4, 8), K in (32, 64, 128, 256), G * K <= 512, and K =
 # 112 at G = 1 (zamba2-7b's shared attention) and G = 6 at K = 128
 # (mixtral-8x22b, internvl2-26b)
-KERNEL_SHAPES = INT8_SHAPES | {(1, 112), (6, 128)}
+KERNEL_SHAPES = frozenset({(g, k) for g in (1, 2, 4, 8)
+                           for k in (32, 64, 128, 256) if g * k <= 512}
+                          | {(1, 112), (6, 128)})
+INT8_SHAPES = KERNEL_SHAPES
 # positions a block of the split body covers (the kernel's P, which it
 # checks against the value passed)
 SPLIT = 64
@@ -51,14 +51,13 @@ def check_cuda(name: str, q: torch.Tensor, **tensors: torch.Tensor) -> None:
 
 def check_kernel_shape(name: str, H: int, Hkv: int, K: int, *,
                        int8: bool = False) -> None:
-    """Raise unless the split body (with ``int8``, the int8 split body) is
-    instantiated for G = H / Hkv and K."""
+    """Raise unless the split body (with ``int8``, the int8 split body,
+    named in the message) is instantiated for G = H / Hkv and K."""
     G = H // Hkv
-    shapes = INT8_SHAPES if int8 else KERNEL_SHAPES
-    if (G, K) not in shapes:
+    if (G, K) not in KERNEL_SHAPES:
         kind = "int8 " if int8 else ""
         raise ValueError(f"{name}: no {kind}kernel for G={G}, K={K} "
-                         f"((G, K) in {sorted(shapes)})")
+                         f"((G, K) in {sorted(KERNEL_SHAPES)})")
 
 
 def split_layout(extent: int, B: int, Hkv: int, G: int,

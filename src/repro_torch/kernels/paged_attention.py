@@ -9,8 +9,8 @@ tensors to the plain version (``kernels.ref.paged_decode_attention``)
 instead. Each shares its body with its dense sibling (the split body
 for ``paged_decode_attention``, the int8 split body for
 ``paged_decode_attention_int8``, each with the same ``SPLIT`` and
-workspace), so each takes its sibling's (G, K): the split body's
-``KERNEL_SHAPES``, the int8 split body's ``INT8_SHAPES``.
+workspace), so each takes its sibling's (G, K), ``KERNEL_SHAPES`` (the
+int8 split body's ``INT8_SHAPES`` is the same set).
 """
 from __future__ import annotations
 

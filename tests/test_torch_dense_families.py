@@ -9,10 +9,10 @@ models' G = 4 (``n_heads=8, n_kv_heads=2``), reduced mixtral its G = 6
 (``n_heads=6, n_kv_heads=1``) and a 16-slot window that wraps; each
 matches JAX's prefill and decode logits within 1e-4 (float32) and its
 engines' greedy streams on the dense and the paged cache. On a CUDA
-device ``Model`` takes exactly the (G, K) pairs the split body is built
-for, now (1, 112) and (6, 128) too, and refuses the rest, and the new
-pairs over an int8 cache, naming G and K (and int8); every config of
-JAX's registry is served, whisper's too.
+device ``Model`` takes exactly the (G, K) pairs the split bodies are
+built for, (1, 112) and (6, 128) too, over a bf16 or an int8 cache, and
+refuses the rest, naming G and K; every config of JAX's registry is
+served, whisper's too.
 """
 from __future__ import annotations
 
@@ -156,15 +156,18 @@ def fake_card(monkeypatch):
                                         ("zamba2-7b", "G=1, K=112")])
 def test_card_refuses_head_shapes_without_a_decode_kernel(fake_card, name,
                                                           shape):
-    """The int8 split body keeps its own shape set: mixtral-8x22b and
-    internvl2-26b (G = 6) and zamba2-7b (K = 112) over an int8 cache are
-    refused at ``Model(...)`` for their shapes, with G, K and int8 named,
-    before anything reaches a kernel; so are shapes no body is built for
-    (G = 6 at K = 256, G = 3)."""
+    """The int8 split body is built for the split body's shapes:
+    mixtral-8x22b and internvl2-26b (G = 6) and zamba2-7b (K = 112) over
+    an int8 cache are taken on the card. Shapes no body is built for (G =
+    6 at K = 256, G = 3) are refused at ``Model(...)``, with G and K
+    named, before anything reaches a kernel."""
+    from repro_torch.kernels import decode_attention as da
+
     cfg = dataclasses.replace(registry.get_config(name),
                               kv_cache_dtype="int8")
-    with pytest.raises(ValueError, match=f"no int8 kernel for {shape}"):
-        Model(cfg)
+    assert f"G={cfg.n_heads // cfg.n_kv_heads}, K={cfg.head_dim}" == shape
+    assert (cfg.n_heads // cfg.n_kv_heads, cfg.head_dim) in da.INT8_SHAPES
+    assert Model(cfg).device.type == "cuda"
     for over, bad in ((dict(head_dim=256), "G=6, K=256"),
                       (dict(n_kv_heads=16), "G=3, K=128")):
         cfg = dataclasses.replace(registry.get_config("mixtral-8x22b"),
@@ -187,14 +190,16 @@ def test_card_accepts_the_served_shapes(fake_card):
     (1, 112, False, True), (6, 128, False, True), (4, 128, False, True),
     (2, 256, False, True), (8, 64, False, True), (6, 256, False, False),
     (3, 128, False, False), (2, 112, False, False), (6, 64, False, False),
-    (1, 112, True, False), (6, 128, True, False), (4, 128, True, True)])
+    (1, 112, True, True), (6, 128, True, True), (4, 128, True, True)])
 def test_shape_rule_is_the_instantiated_pairs(G, K, int8, ok):
-    """``check_kernel_shape`` takes exactly the instantiated (G, K): the
-    split body's set adds (1, 112) and (6, 128) to the int8 body's (G in
-    1, 2, 4, 8, K in 32 ... 256, G·K <= 512); a refusal names G and K."""
+    """``check_kernel_shape`` takes exactly the instantiated (G, K), one
+    set for both split bodies: G in 1, 2, 4, 8, K in 32 ... 256, G·K <=
+    512, and (1, 112) and (6, 128); a refusal names G and K (and int8 for
+    the int8 body)."""
     from repro_torch.kernels import decode_attention as da
 
-    assert da.KERNEL_SHAPES - da.INT8_SHAPES == {(1, 112), (6, 128)}
+    assert da.KERNEL_SHAPES == da.INT8_SHAPES
+    assert {(1, 112), (6, 128)} <= da.INT8_SHAPES
     if ok:
         da.check_kernel_shape("m", 8 * G, 8, K, int8=int8)
         return

@@ -512,7 +512,8 @@ def test_int8_split_body_over_a_scattered_ring(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,K", [(g, k) for g in (1, 2, 4, 8)
-                                 for k in (32, 64, 128, 256) if g * k <= 512])
+                                 for k in (32, 64, 128, 256) if g * k <= 512]
+                         + [(1, 112), (6, 128)])
 def test_int8_split_body_groups_and_head_dims(cuda, dtype, G, K):
     """Every (G, K) the int8 body is instantiated for, with softcap."""
     Hkv = 2
@@ -520,14 +521,13 @@ def test_int8_split_body_groups_and_head_dims(cuda, dtype, G, K):
                      32, 30.0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_int8_split_body_bits_do_not_depend_on_the_horizon(cuda, dtype):
-    """The same live prefix gives the same bits at W = 512 and W = 2048
-    (dense), at nblk = 32 and 128 (paged), and dense and paged agree."""
+def _int8_horizon_case(gen, dtype, H, Hkv, K):
+    """The same live prefix gives the same int8 bits at W = 512 and W =
+    2048 (dense), at nblk = 32 and 128 (paged), and dense = paged."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paged_attention as pa
     lengths = [48, 160, 300, 512, 0]
-    q, kp, vp, table, lens, _ = _paged_inputs(cuda, lengths, 16, 8, 128, 16,
+    q, kp, vp, table, lens, _ = _paged_inputs(gen, lengths, H, Hkv, K, 16,
                                               128, torch.float32)
     q = q.to(dtype)
     kq, ks = _quant(kp)
@@ -537,10 +537,10 @@ def test_int8_split_body_bits_do_not_depend_on_the_horizon(cuda, dtype):
                                            table[:, :32].contiguous(), lens)
     assert torch.equal(long_, short)
     B, idx = len(lengths), table.long()
-    kd = kq[idx].reshape(B, 2048, 8, 128).contiguous()
-    vd = vq[idx].reshape(B, 2048, 8, 128).contiguous()
-    ksd = ks[idx].reshape(B, 2048, 8).contiguous()
-    vsd = vs[idx].reshape(B, 2048, 8).contiguous()
+    kd = kq[idx].reshape(B, 2048, Hkv, K).contiguous()
+    vd = vq[idx].reshape(B, 2048, Hkv, K).contiguous()
+    ksd = ks[idx].reshape(B, 2048, Hkv).contiguous()
+    vsd = vs[idx].reshape(B, 2048, Hkv).contiguous()
     valid = torch.arange(2048, device="cuda")[None, :] < lens[:, None]
     wide = da.decode_attention_int8(q, kd, vd, valid, ksd, vsd)
     narrow = da.decode_attention_int8(
@@ -549,6 +549,30 @@ def test_int8_split_body_bits_do_not_depend_on_the_horizon(cuda, dtype):
         vsd[:, :512].contiguous())
     assert torch.equal(wide, narrow)
     assert torch.equal(wide, long_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_split_body_bits_do_not_depend_on_the_horizon(cuda, dtype):
+    """The same live prefix gives the same bits at W = 512 and W = 2048
+    (dense), at nblk = 32 and 128 (paged), and dense and paged agree."""
+    _int8_horizon_case(cuda, dtype, 16, 8, 128)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edges", ["first", "second"])
+@pytest.mark.parametrize("H,Hkv,K", [(32, 32, 112), (48, 8, 128)])
+def test_int8_split_body_new_shapes_at_edges_and_horizons(cuda, dtype, edges,
+                                                          H, Hkv, K):
+    """The int8 body at (G, K) = (1, 112) (a row's 7 loads on 8 lanes, the
+    8th idle) and (6, 128) (8 codes a lane, a 768-thread merge): rows at
+    the split edges against the plain version, the paged kernel bit for
+    bit the dense one, NaN in unowned pages ignored, and the same bits at
+    horizons 512 and 2048."""
+    from repro_torch.kernels.decode_attention import SPLIT as P
+    lengths = ([P - 1, P, P + 1, 0, 2048] if edges == "first"
+               else [2 * P - 1, 2 * P, 2 * P + 1, 1, 2047])
+    _int8_split_case(cuda, dtype, lengths, H, Hkv, K, 16, 128, 0.0)
+    _int8_horizon_case(cuda, dtype, H, Hkv, K)
 
 
 def test_int8_split_wrappers_reject_unaligned_codes(cuda):
@@ -2115,10 +2139,9 @@ def test_gemma_dense_equals_paged_in_bf16_without_prefill_padding(cuda):
 
 
 def test_model_refuses_head_shapes_without_a_kernel_on_the_card(cuda):
-    """G = 6 at K = 256 and G = 3 have no decode kernel, and the int8
-    split body has none at mixtral-8x22b's G = 6 or zamba2-7b's K = 112:
-    ``Model`` refuses them on the card, naming G and K (and int8); the
-    bf16 pairs (6, 128) and (1, 112) are taken."""
+    """G = 6 at K = 256 and G = 3 have no decode kernel: ``Model`` refuses
+    them on the card, naming G and K; mixtral-8x22b's (6, 128) and
+    zamba2-7b's (1, 112) are taken over a bf16 and over an int8 cache."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
@@ -2132,16 +2155,17 @@ def test_model_refuses_head_shapes_without_a_kernel_on_the_card(cuda):
         Model(dataclasses.replace(g6, head_dim=256))
     with pytest.raises(ValueError, match="G=3, K=128"):
         Model(dataclasses.replace(base, n_heads=24))
-    with pytest.raises(ValueError, match="int8 kernel for G=6, K=128"):
-        Model(dataclasses.replace(g6, kv_cache_dtype="int8"))
-    with pytest.raises(ValueError, match="int8 kernel for G=1, K=112"):
-        Model(dataclasses.replace(k112, kv_cache_dtype="int8"))
+    Model(dataclasses.replace(g6, kv_cache_dtype="int8"))
+    Model(dataclasses.replace(k112, kv_cache_dtype="int8"))
+    with pytest.raises(ValueError, match="int8 kernel for G=6, K=256"):
+        Model(dataclasses.replace(g6, head_dim=256, kv_cache_dtype="int8"))
 
 
 def test_ptxas_shows_no_spill_in_the_new_split_instantiations(cuda):
     """``scripts/ptxas_report.py`` (its own build, ``-Xptxas=-v``) lists
-    the split body's (1, 112) and (6, 128) instantiations, both query
-    dtypes and both address policies, with no spill, and exits 0."""
+    the split body's and the int8 split body's (1, 112) and (6, 128)
+    instantiations, both query dtypes and both address policies, with no
+    spill, and exits 0."""
     import pathlib
     import subprocess
     import sys
@@ -2150,9 +2174,11 @@ def test_ptxas_shows_no_spill_in_the_new_split_instantiations(cuda):
                                               "ptxas_report.py")],
                          capture_output=True, text=True, timeout=900)
     assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-2000:]
-    line = [ln for ln in out.stdout.splitlines()
-            if ln.startswith("split decode new shapes:")]
-    assert line and line[0].endswith(" 0 spill"), line
+    for head, n in (("split decode new shapes:", 12),
+                    ("int8 decode new shapes:", 8)):
+        line = [ln for ln in out.stdout.splitlines() if ln.startswith(head)]
+        assert line and line[0].endswith(" 0 spill"), line
+        assert f"{head} {n} instantiations" in line[0], line
 
 
 # ---------------------------------------------------------------------------
@@ -2273,3 +2299,73 @@ def test_whisper_graph_replay_gives_the_eager_chunks_bits(cuda, cache):
         compared += _graph_vs_eager(eng, f"whisper {cache}")
     eng.run()
     assert compared >= 8
+
+
+# ---------------------------------------------------------------------------
+# the detector testbed on the card, and card memory after an engine is freed
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n", [1, 2])
+def test_card_testbed_matches_the_cpu_detector(cuda, n):
+    """n pinned containers run their segments on the one card: the
+    combined outputs match the detector on the CPU within 1e-3, two
+    containers give one container's outputs within 1e-5, and no child is
+    left."""
+    import multiprocessing
+
+    import numpy as np
+
+    from repro_torch.core import testbed as tb
+    frames = tb.make_video(10, seed=4)
+    got = tb.run_split(frames, n, total_cores=2, batch=4)
+    want = tb.detector_forward(
+        [torch.from_numpy(w) for w in tb.detector_weights(0)],
+        torch.from_numpy(frames)).numpy()
+    assert got.outputs.shape == (10, 18) and got.disjoint
+    np.testing.assert_allclose(got.outputs, want, atol=1e-3, rtol=1e-3)
+    if n == 2:
+        one = tb.run_split(frames, 1, total_cores=2, batch=4)
+        np.testing.assert_allclose(got.outputs, one.outputs, atol=1e-5,
+                                   rtol=0)
+    cpc = got.cores_per_container
+    assert got.busy_core_seconds == sum(t * cpc for t in got.per_container_s)
+    assert got.busy_core_seconds <= n * cpc * got.wall_s + 1e-6
+    assert not multiprocessing.active_children()
+
+
+def test_card_memory_returns_after_an_engine_is_freed(cuda):
+    """A reduced bf16 model served through ``Router(ThreadBackend(2))``
+    (two engines, their streams and step graphs), then freed, 5 times:
+    once the cuBLAS workspaces are cleared, ``memory_allocated`` after
+    the last free is within 1 MiB of its value after the first (no
+    tensor of a freed model or engine is held); what the workspaces held
+    before the clearing is printed beside it."""
+    import gc
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.backend import ThreadBackend
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.router import Router
+    cfg = get_config("qwen3-0.6b-reduced")
+
+    def build_serve_free() -> tuple[int, int, int]:
+        model = Model(cfg, device="cuda")
+        params = model.init(seed=0, dtype=torch.bfloat16)
+        config = EngineConfig(n_slots=2, max_len=256, chunk_tokens=4,
+                              dtype=torch.bfloat16)
+        with Router(ThreadBackend(model, params, 2, config)) as router:
+            for h in [router.submit(r) for r in _requests(
+                    cfg.vocab_size, [(12, 8), (40, 8), (20, 8)], 3)]:
+                h.result()
+            footprint = torch.cuda.memory_allocated()
+        del router, params, model
+        gc.collect()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch._C._cuda_clearCublasWorkspaces()
+        return footprint, held, torch.cuda.memory_allocated()
+
+    rows = [build_serve_free() for _ in range(5)]
+    print(f"(footprint, after free, after clearing cuBLAS workspaces) B: "
+          f"{rows}")
+    assert rows[-1][2] - rows[0][2] <= 1 << 20, rows

@@ -42,7 +42,7 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
             "repro_torch.models.sampling",
             "repro_torch.core.testbed", "repro_torch.core.splitter",
             "repro_torch.core.energy_model", "repro_torch.core.scheduler",
-            "repro_torch.core.containers",
+            "repro_torch.core.containers", "repro_torch.data.pipeline",
             "repro_torch.serving.process_pool",
             "repro_torch.serving.adaptive",
             "repro_torch.configs.qwen3_8b", "repro_torch.configs.llama31_8b",
@@ -164,6 +164,52 @@ def test_new_families_serve_with_jax_and_repro_blocked():
         timeout=120)
     assert out.returncode == 0, out.stderr
     assert "new families ok" in out.stdout
+
+
+def test_testbed_stream_and_video_example_run_with_jax_and_repro_blocked():
+    """The detector testbed, the video stream and the video example import
+    without JAX or the reference package, and without torch (spawned
+    containers import them before they pin themselves); the detector then
+    runs on the CPU over the stream's frames."""
+    example = REPO / "examples" / "torch_serve_video_detection.py"
+    for line in example.read_text().splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]):
+            assert words[1].split(".")[0] not in ("jax", "jaxlib", "repro")
+    script = textwrap.dedent(f"""
+        import importlib.abc, importlib.util, sys
+        class Blk(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    raise ImportError(f"blocked import of {{name}}")
+        sys.meta_path.insert(0, Blk())
+        from repro_torch.core import testbed as tb
+        from repro_torch.data.pipeline import VideoRequestStream
+        spec = importlib.util.spec_from_file_location("example",
+                                                      {str(example)!r})
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        assert "torch" not in sys.modules
+        for name in ("P_IDLE_W", "P_CORE_W", "make_video",
+                     "detector_weights", "weights_from_jax",
+                     "detector_forward", "SplitRunResult", "run_split",
+                     "run_single_container", "spawn_pinned"):
+            assert hasattr(tb, name), name
+        import torch
+        frames = VideoRequestStream(3).frames()
+        out = tb.detector_forward(
+            [torch.from_numpy(w) for w in tb.detector_weights(0)],
+            torch.from_numpy(frames))
+        assert out.shape == (3, 18) and bool(torch.isfinite(out).all())
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+        print("testbed imports ok")
+    """)
+    out = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"},
+        timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "testbed imports ok" in out.stdout
 
 
 def test_chip_smoke_imports_nothing_of_jax_or_repro():

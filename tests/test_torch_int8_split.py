@@ -114,7 +114,8 @@ def _paged_args(B=3, nblk=13, bs=16, H=16, Hkv=8, K=128, offset=0):
             torch.full((B,), 100, dtype=torch.int32))
 
 
-@pytest.mark.parametrize("H,Hkv,K", [(16, 8, 128), (16, 2, 64), (8, 8, 256)])
+@pytest.mark.parametrize("H,Hkv,K", [(16, 8, 128), (16, 2, 64), (8, 8, 256),
+                                   (32, 32, 112), (48, 8, 128)])
 def test_dense_int8_wrapper_sizes_the_workspace_with_split_layout(no_card, H,
                                                                   Hkv, K):
     ext, layouts = no_card
@@ -207,6 +208,8 @@ def _close(got, want):
     (8, 8, 256, 30.0),     # G = 1, the widest K, softcap
     (16, 4, 64, 0.0),      # G = 4
     (16, 2, 32, 20.0),     # G = 8, the narrowest K, softcap
+    (8, 8, 112, 0.0),      # G = 1, K = 112 (zamba2-7b's shared attention)
+    (12, 2, 128, 30.0),    # G = 6 (mixtral-8x22b, internvl2-26b), softcap
 ])
 def test_int8_ops_on_cpu_match_jax_at_split_edges(edges, W, H, Hkv, K,
                                                   softcap):
