@@ -383,9 +383,34 @@ Phases, each raising on failure (any failure exits nonzero):
     pick; n = 1's first 16 outputs against the detector on the CPU
     within 1e-3; no child left.
 
+18. Training, float32 (``training_phase``): 18a full-width qwen3-0.6b
+    (random weights from seed 0), one forward and backward at batch 1,
+    seq 64 on the card and on this machine's CPU: loss within 1e-5
+    relative, global grad norm within 1e-4, every attention's forward and
+    backward and every norm's backward a kernel launch; 18b
+    ``launch.train`` over 20 steps at batch 8, seq 512, lr 1e-3, warmup
+    10: a finite, falling loss, 28 forward and 28 backward flash launches
+    a step and as many ``rmsnorm_bwd`` as ``rmsnorm`` launches, step ms,
+    tokens/s, the model's share of the f32 peak and the peak memory; 18c
+    reduced deepseek-v2-lite (MLA + MoE + aux loss), gemma3-27b (window)
+    and whisper-large-v3, 3 steps at lr 1e-3 on the card against the CPU
+    (first gradients within 1e-4 of max|CPU leaf|, each parameter leaf's
+    difference within 3e-2 of its own move, L2 over the leaf); 18d the card's refusals (mamba2: no
+    ``ssd_scan`` backward; bfloat16 parameters). Phase 2 holds the two
+    backward kernels against their plain versions at qwen3's training
+    batch (B 8, S 512), gemma's local window (S 1300, window 1024),
+    MLA's K 192 / Kv 128, whisper's encoder (S 1500, not causal) and a
+    ragged S 40 with softcap 5, and ``rmsnorm_bwd`` at (4096, 1024) and
+    the q/k pair at (65536, 128) / (32768, 128), within 5e-5 abs + rel
+    against max|plain|, bit for bit from run to run, the forward's out
+    bit for bit with its lse pointer set and null; timed beside their
+    bounds, plain versions and sdpa / ``F.rms_norm`` backward through
+    autograd.
+
 Then a JSON line with each kernel's launches (from the phase of the path
 it serves, and by phase, phase 13's three parts and phases 14's, 15's and
-16's among them), error and times (eight kernels), the card's
+16's among them), error and times (ten kernels: the eight TPU kernels'
+and the two backward kernels, from phase 18b), the card's
 ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 {...}}``.
 
@@ -1992,6 +2017,211 @@ def whisper_shape_checks(gen) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 2: the backward kernels (training), float32
+# ---------------------------------------------------------------------------
+BWD_TOL = 5e-5      # tests/test_kernels.py's grad tolerance, abs + rel
+# (name, B, S, H, Hkv, K, Kv, causal, window, softcap): qwen3-0.6b's
+# training batch (the line's shape), gemma3-27b's local window, MLA's
+# K 192 / Kv 128, whisper's encoder, a ragged softcapped tail
+FLASH_BWD = [("qwen3_train", 8, 512, 16, 8, 128, 128, True, 0, 0.0),
+             ("gemma_local", 1, 1300, 32, 16, 128, 128, True, 1024, 0.0),
+             ("mla", 1, 512, 16, 16, 192, 128, True, 0, 0.0),
+             ("whisper_encoder", 1, 1500, 20, 20, 64, 64, False, 0, 0.0),
+             ("ragged_softcap", 2, 40, 16, 8, 128, 128, True, 0, 5.0)]
+# (rows, D): qwen3-0.6b's block norm over a 4096-token batch; its q/k
+# norms over the same batch as one pair launch
+RMS_BWD_MAIN = (4096, 1024)
+RMS_BWD_PAIR = ((4096 * 16, 128), (4096 * 8, 128))
+
+
+def check_bwd(got, want, what: str) -> float:
+    """|got - want| <= tol + tol * max|want| (a gradient's scale is its
+    tensor's, so the relative part is against the largest element)."""
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        fail(f"{what}: kernel output is not finite")
+    err = float((g - w).abs().max())
+    bound = BWD_TOL + BWD_TOL * float(w.abs().max())
+    if err > bound:
+        fail(f"{what}: max abs error {err:.3e} over {bound:.3e}")
+    return err
+
+
+def sdpa_backward(q, k, v, dout, causal, window, softcap):
+    """One ``scaled_dot_product_attention`` backward through autograd on
+    the same inputs (the forward run once before timing), or None with
+    the reason where sdpa cannot compute the same function (a softcap).
+    A yardstick only: the port never calls sdpa."""
+    import torch.nn.functional as F
+    if softcap:
+        return None, "sdpa has no softcap"
+    qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    dt = dout.transpose(1, 2).contiguous()
+    Sq, Skv = q.shape[1], k.shape[1]
+    mask = None
+    if window:
+        from repro_torch.kernels import ref
+        mask = ref.attention_mask(Sq, Skv, causal=causal, window=window,
+                                  device=q.device)
+    try:
+        out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=q.shape[2] != k.shape[2])
+        fn = lambda: torch.autograd.grad(out, (qt, kt, vt), dt,  # noqa: E731
+                                         retain_graph=True)
+        fn()
+    except RuntimeError as e:
+        return None, f"sdpa refused: {str(e).splitlines()[0][:120]}"
+    return fn, "sdpa backward (autograd, forward excluded)"
+
+
+def backward_checks(gen) -> dict:
+    """The two backward kernels against their plain versions on the card,
+    float32: ``flash_attention_bwd`` at FLASH_BWD (with the forward's lse;
+    the forward's out bit for bit with its lse pointer set and null) and
+    ``rmsnorm_bwd`` at RMS_BWD_MAIN and the RMS_BWD_PAIR pair (one
+    launch). Each timed launched one by one (card ms) and replayed from a
+    CUDA graph (device ms), beside its bound, its plain version and the
+    library's backward through autograd. Returns the line's rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=f32)
+
+    rows = {}
+    for name, B, S, H_, Hkv, K_, Kv, causal, window, cap in FLASH_BWD:
+        q, k, v = randn(B, S, H_, K_), randn(B, S, Hkv, K_), randn(B, S, Hkv, Kv)
+        dout = randn(B, S, H_, Kv)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        served = fa.flash_attention(q, k, v, **kw)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(served, out):
+            fail(f"flash_attention {name}: out differs with the lse pointer "
+                 "set")
+        ro, rl = ref.flash_attention_lse(q, k, v, **kw)
+        what = f"flash_attention_bwd {name}"
+        check_close(out, ro, "float32", f"{what} forward")
+        check_bwd(lse, rl, f"{what} lse")
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_bwd(q, k, v, ro, rl, dout, **kw)
+        err = max(check_bwd(g, w, f"{what} {n}")
+                  for g, w, n in zip(got, want, ("dq", "dk", "dv")))
+        again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{what}: two calls gave other bits")
+        pairs = B * H_ * int(ref.attention_mask(S, S, causal=causal,
+                                                window=window,
+                                                device=dev).sum())
+        nbytes = 4 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                      + 2 * out.numel() + lse.numel())
+        bound, by = bound_ms(2 * pairs * (3 * K_ + 2 * Kv), nbytes,
+                             "float32")
+        del want, again, ro, rl
+
+        def kernel():
+            return fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+
+        def plain():
+            return ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        lib, lib_note = sdpa_backward(q, k, v, dout, **kw)
+        row = {"max_abs_err": err, "ms": time_ms(kernel, reps=10),
+               "graph_ms": time_graph_ms(kernel, reps=10),
+               "plain_ms": time_ms(plain, reps=2),
+               "bound_ms": bound, "bound_by": by,
+               "library_ms": None if lib is None else time_ms(lib, reps=10),
+               "library": lib_note,
+               "shape": f"B={B} S={S} H={H_} Hkv={Hkv} K={K_} Kv={Kv} "
+                        f"causal={causal} window={window} softcap={cap} f32"}
+        rows[name] = row
+        print(f"{what}: {row}", flush=True)
+        del q, k, v, dout, out, lse, got, served
+        torch.cuda.empty_cache()
+    flash = dict(rows.pop("qwen3_train"))
+    flash["shapes"] = rows
+    flash["shape"] += ("; ms and library_ms launched one by one (CUDA "
+                       "events), graph_ms replayed from a CUDA graph; bound "
+                       "2 * visible pairs * (3K + 2Kv) operations at 67 "
+                       "TFLOP/s f32")
+
+    def rms_case(shapes):
+        xs = [randn(r, D) for r, D in shapes]
+        ss = [1 + 0.1 * randn(D) for _, D in shapes]
+        gs = [randn(r, D) for r, D in shapes]
+        return xs, ss, gs
+
+    results = {}
+    (x,), (sc,), (g,) = rms_case([RMS_BWD_MAIN])
+    dx, ds = rn.rmsnorm_bwd(x, sc, g, RMS_EPS)
+    torch.cuda.synchronize()
+    rx, rs = ref.rmsnorm_bwd(x, sc, g, RMS_EPS)
+    err = max(check_bwd(dx, rx, "rmsnorm_bwd dx"),
+              check_bwd(ds, rs, "rmsnorm_bwd dscale"))
+    again = rn.rmsnorm_bwd(x, sc, g, RMS_EPS)
+    if not (torch.equal(dx, again[0]) and torch.equal(ds, again[1])):
+        fail("rmsnorm_bwd: two calls gave other bits")
+    xr, sr = x.clone().requires_grad_(True), sc.clone().requires_grad_(True)
+    y = F.rms_norm(xr, (x.shape[1],), weight=sr, eps=RMS_EPS)
+
+    def kernel():
+        return rn.rmsnorm_bwd(x, sc, g, RMS_EPS)
+
+    def library():
+        return torch.autograd.grad(y, (xr, sr), g, retain_graph=True)
+    rows_, D = RMS_BWD_MAIN
+    bound, by = bound_ms(6 * rows_ * D, 4 * (3 * rows_ * D + 2 * D),
+                         "float32")
+    results["rmsnorm_bwd"] = {
+        "max_abs_err": err, "ms": time_ms(kernel, reps=20),
+        "graph_ms": time_graph_ms(kernel, reps=20),
+        "plain_ms": time_ms(lambda: ref.rmsnorm_bwd(x, sc, g, RMS_EPS),
+                            reps=5),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_ms(library, reps=20),
+        "shape": f"x=({rows_}, {D}) f32, scale ({D},): qwen3-0.6b's block "
+                 "norm over a 4096-token batch; library_ms is "
+                 "torch.nn.functional.rms_norm's backward (autograd, "
+                 "forward excluded); graph_ms replayed from a CUDA graph"}
+    xs, ss, gs = rms_case(RMS_BWD_PAIR)
+    (dq, dsq), (dk, dsk) = rn.rmsnorm_pair_bwd(xs[0], ss[0], gs[0], xs[1],
+                                               ss[1], gs[1], RMS_EPS)
+    torch.cuda.synchronize()
+    err = 0.0
+    for got, (x_, s_, g_), n in (((dq, dsq), (xs[0], ss[0], gs[0]), "q"),
+                                 ((dk, dsk), (xs[1], ss[1], gs[1]), "k")):
+        want = ref.rmsnorm_bwd(x_, s_, g_, RMS_EPS)
+        solo = rn.rmsnorm_bwd(x_, s_, g_, RMS_EPS)
+        err = max(err, check_bwd(got[0], want[0], f"rmsnorm_bwd pair d{n}"),
+                  check_bwd(got[1], want[1], f"rmsnorm_bwd pair ds{n}"))
+        if not torch.equal(got[0], solo[0]):
+            fail(f"rmsnorm_bwd pair: {n}'s dx differs from its own launch")
+    n_el = sum(r * D_ for r, D_ in RMS_BWD_PAIR)
+
+    def pair():
+        return rn.rmsnorm_pair_bwd(xs[0], ss[0], gs[0], xs[1], ss[1], gs[1],
+                                   RMS_EPS)
+    bound, by = bound_ms(6 * n_el, 4 * (3 * n_el + 4 * 128), "float32")
+    results["rmsnorm_bwd"]["pair"] = {
+        "max_abs_err": err, "ms": time_ms(pair, reps=20),
+        "graph_ms": time_graph_ms(pair, reps=20), "bound_ms": bound,
+        "bound_by": by,
+        "shape": f"q {RMS_BWD_PAIR[0]} and k {RMS_BWD_PAIR[1]} f32, one "
+                 "launch (qwen3-0.6b's q/k norms over a 4096-token batch)"}
+    results["flash_attention_bwd"] = flash
+    print(f"rmsnorm_bwd: {results['rmsnorm_bwd']}", flush=True)
+    return results
+
+
 def kernel_phase():
     import torch.nn.functional as F
 
@@ -2219,6 +2449,7 @@ def kernel_phase():
     for name, rows in whisper_shape_checks(gen).items():
         results[name].setdefault("family_shapes", {}).update(rows)
         print(f"{name} phase 16 shapes: {rows}", flush=True)
+    results.update(backward_checks(gen))
     return results
 
 
@@ -5686,6 +5917,224 @@ def testbed_phase(card: str) -> dict:
     return {"rows": rows, "pick": pick}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training on the card
+# ---------------------------------------------------------------------------
+TRAIN_ARGS = ["--steps", "20", "--batch", "8", "--seq", "512", "--lr",
+              "1e-3"]
+TRAIN_FLOPS_F32 = 67e12      # H100 SXM f32 outside the tensor cores
+TRAIN_REDUCED = ("deepseek-v2-lite-16b-reduced", "gemma3-27b-reduced",
+                 "whisper-large-v3-reduced")
+# 18c's schedule: lr 1e-3 from the first step, so every parameter moves
+# about lr a step and a wrong or skipped update shows in every leaf
+TRAIN_REDUCED_OPT = {"lr": 1e-3, "warmup_steps": 1, "total_steps": 3}
+# 18c's bound on ||p_card - p_cpu|| / ||p3 - p0||, leaf by leaf (L2 over
+# the leaf). Card and CPU round differently, and AdamW scales each
+# element's step by its own gradient: an error small against the leaf's
+# largest gradient is a large share of a small element's step, so the
+# largest |difference| reaches a share of the leaf's largest move that
+# no fixed bound holds (gradient noise of 1e-6 of max|g| on the CPU gives
+# up to 1.15), and a norm over the leaf is held instead. On the CPU that
+# noise gives up to 1.5e-2, lr off by 5 % gives 5.5e-2 or more
+# (scripts/train_drift.py); a skipped update gives 1.
+TRAIN_DRIFT_TOL = 3e-2
+
+
+def _train_batch(cfg, seed: int, B: int, S: int) -> dict:
+    from repro_torch.data.pipeline import LmTokenStream
+    batch = LmTokenStream(cfg.vocab_size, S, B, seed).batch(0)
+    if cfg.arch_type == "audio":
+        rng = np.random.default_rng(seed)
+        batch["audio_frames"] = rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _grads(model, params, batch):
+    from repro_torch.train.loop import loss_and_grads
+    from repro_torch.train.optimizer import unique_leaves
+    loss, _, grads = loss_and_grads(model, params, batch)
+    return loss, [grads[id(t)] for t in unique_leaves(params)]
+
+
+def training_phase(card: str) -> dict:
+    """18: training through the port's entry points. 18a: full-width
+    qwen3-0.6b, random float32 weights from seed 0, one forward and
+    backward at batch 1, seq 64 on the card and on this machine's CPU:
+    loss within 1e-5 relative, global grad norm within 1e-4; 28 forward
+    and 28 backward flash launches, norms' backward launches = forward.
+    18b: ``launch.train`` at TRAIN_ARGS (warmup 10): a finite loss whose
+    last value is below its first, 28 forward and 28 backward flash
+    launches a step and the norms' backward launches equal to their
+    forward ones; step ms (median of steps 5-20), tokens/s, the model
+    share 6·N·tokens / step / 67 TFLOP/s and the peak
+    ``memory_allocated``. 18c: ``train_reduced_check`` of each
+    TRAIN_REDUCED model (MLA + MoE with its aux loss, a window, whisper's
+    encoder-decoder).
+    18d: ``make_train_step`` on the card refuses mamba2 (no ssd_scan
+    backward) and bfloat16 parameters. Returns 18b's launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import TrainConfig, make_train_step
+    from repro_torch.train.optimizer import map_tree
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-0.6b")
+    layers = cfg.n_layers
+    model = Model(cfg)
+    params = model.init(seed=0, dtype=torch.float32)
+    batch = _train_batch(cfg, 0, 1, 64)
+    ops.reset_launch_counts()
+    loss, grads = _grads(model, params, batch)
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    gnorm = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads)))
+    del grads
+    cpu_model = Model(cfg, device="cpu")
+    cpu_params = map_tree(lambda t: t.detach().cpu(), params)
+    cpu_loss, cpu_grads = _grads(cpu_model, cpu_params, batch)
+    cpu_norm = float(torch.sqrt(sum(torch.sum(g.double() ** 2)
+                                    for g in cpu_grads)))
+    del cpu_grads, cpu_params, params
+    rel_loss = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    rel_norm = abs(gnorm - cpu_norm) / cpu_norm
+    print(f"18a qwen3-0.6b f32 full width, B 1 S 64: loss card "
+          f"{float(loss):.7f} cpu {float(cpu_loss):.7f} (rel {rel_loss:.3e}); "
+          f"grad norm card {gnorm:.7f} cpu {cpu_norm:.7f} (rel "
+          f"{rel_norm:.3e}); launches {got} [card: {card}]", flush=True)
+    if not rel_loss <= 1e-5 or not rel_norm <= 1e-4:
+        fail(f"18a: card vs CPU loss rel {rel_loss:.3e} (> 1e-5?) or grad "
+             f"norm rel {rel_norm:.3e} (> 1e-4?)")
+    check_train_launches(got, layers, 1, "18a")
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    report = launch.main(TRAIN_ARGS)
+    launches = ops.launch_counts()
+    losses = report["loss"]
+    steps = len(losses)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"18b: losses {losses} are not finite or do not fall")
+    check_train_launches(launches, layers, steps, "18b")
+    step_s = float(np.median(report["step_s"][4:]))
+    tokens = 8 * 512
+    share = 6 * report["params"] * tokens / step_s / TRAIN_FLOPS_F32
+    print(f"18b launch.train {' '.join(TRAIN_ARGS)} (qwen3-0.6b f32 full "
+          f"width, {report['params']:,} params): loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; step_ms median(steps 5-20)={step_s * 1e3:.2f} "
+          f"(first {report['step_s'][0] * 1e3:.1f}); tokens/s="
+          f"{tokens / step_s:.1f}; model share 6*N*tokens/step/67 TFLOP/s="
+          f"{share:.4f}; peak memory_allocated={report['peak_bytes']:,} B; "
+          f"launches {launches} [card: {card}]", flush=True)
+    torch.cuda.empty_cache()
+
+    for name in TRAIN_REDUCED:
+        train_reduced_check(name, card)
+
+    for name, dtype, missing in (("mamba2-2.7b-reduced", torch.float32,
+                                  "ssd_scan"),
+                                 ("qwen3-0.6b-reduced", torch.bfloat16,
+                                  "bfloat16")):
+        m = Model(get_config(name))
+        try:
+            make_train_step(m, TrainConfig(), m.init(seed=0, dtype=dtype))
+        except NotImplementedError as e:
+            if missing not in str(e):
+                fail(f"18d {name}: the refusal does not name {missing}: {e}")
+            print(f"18d {name} {dtype}: refused: {e}", flush=True)
+        else:
+            fail(f"18d {name} {dtype}: make_train_step did not refuse")
+    print(f"18 training: {time.perf_counter() - t_phase:.1f} s "
+          f"[card: {card}]", flush=True)
+    return {"launches": launches, "step_ms": step_s * 1e3,
+            "tokens_s": tokens / step_s, "model_share": share,
+            "peak_bytes": report["peak_bytes"], "losses": losses}
+
+
+def train_reduced_check(name: str, card: str) -> None:
+    """18c for one reduced config: the first batch's gradients and then 3
+    steps of ``train`` at TRAIN_REDUCED_OPT on the card and on the CPU
+    from the same weights (seed 0): every gradient leaf within 1e-4 of
+    its max|CPU leaf|, and every parameter leaf's difference within
+    TRAIN_DRIFT_TOL of the leaf's own move (L2 norms over the leaf).
+    Prints beside them the first gradients' sign disagreements and the
+    largest |g| among them, and the largest |difference| against the
+    leaf's largest move and against max|leaf|."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import TrainConfig, train
+    from repro_torch.train.optimizer import (AdamWConfig, map_tree,
+                                             unique_leaves)
+
+    tcfg = TrainConfig(opt=AdamWConfig(**TRAIN_REDUCED_OPT))
+    rcfg = get_config(name)
+    if rcfg.is_moe and not rcfg.router_aux_loss_coef:
+        rcfg = dataclasses.replace(rcfg, router_aux_loss_coef=0.003)
+    init = Model(rcfg, device="cpu").init(seed=0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = Model(rcfg, device=dev)
+        p = map_tree(lambda t: t.to(m.device, copy=True), init)
+        ops.reset_launch_counts()
+        _, g1 = _grads(m, p, _train_batch(rcfg, 0, 4, 64))
+        batches = (_train_batch(rcfg, i, 4, 64) for i in range(3))
+        p, _, hist = train(m, tcfg, batches, 3, params=p, log_every=1)
+        out[dev] = ([t.detach().cpu() for t in unique_leaves(p)],
+                    [g.cpu() for g in g1], [h["loss"] for h in hist],
+                    ops.launch_counts())
+    (p_gpu, g_gpu, l_gpu, n_gpu), (p_cpu, g_cpu, l_cpu, _) = \
+        out["cuda"], out["cpu"]
+
+    def ratio(a, b):
+        return float(a) / max(float(b), 1e-30)
+    g_rel = max(ratio((a - b).abs().max(), b.abs().max())
+                for a, b in zip(g_gpu, g_cpu))
+    flips = [(torch.sign(a) != torch.sign(b), b) for a, b in
+             zip(g_gpu, g_cpu)]
+    n_flip = sum(int(f.sum()) for f, _ in flips)
+    flip_g = max([ratio(b[f].abs().max(), b.abs().max())
+                  for f, b in flips if f.any()], default=0.0)
+    moves = [b - z for b, z in zip(p_cpu, unique_leaves(init))]
+    drift = max(ratio((a - b).norm(), mv.norm())
+                for a, b, mv in zip(p_gpu, p_cpu, moves))
+    peak = max(ratio((a - b).abs().max(), mv.abs().max())
+               for a, b, mv in zip(p_gpu, p_cpu, moves))
+    of_leaf = max(ratio((a - b).abs().max(), b.abs().max())
+                  for a, b in zip(p_gpu, p_cpu))
+    n_attn = (rcfg.n_layers * 2 + rcfg.n_encoder_layers
+              if rcfg.arch_type == "audio" else rcfg.n_layers)
+    print(f"18c {name}: 3 steps at {TRAIN_REDUCED_OPT} card vs CPU, "
+          f"losses {l_gpu} / {l_cpu}; first gradients: worst |diff| / "
+          f"max|CPU leaf| {g_rel:.3e}, {n_flip} elements of another "
+          f"sign, the largest of them {flip_g:.3e} of max|g|; "
+          f"parameters: worst ||diff|| / ||move|| {drift:.3e} (bound "
+          f"{TRAIN_DRIFT_TOL}), max|diff| / max|move| {peak:.3e}, "
+          f"max|diff| / max|CPU leaf| {of_leaf:.3e}; card launches "
+          f"{n_gpu} [card: {card}]", flush=True)
+    if not g_rel <= 1e-4 or not drift <= TRAIN_DRIFT_TOL:
+        fail(f"18c {name}: gradients differ by {g_rel:.3e} of max|leaf| "
+             f"(> 1e-4?) or parameters by {drift:.3e} of their move "
+             f"(> {TRAIN_DRIFT_TOL}?)")
+    check_train_launches(n_gpu, n_attn, 4, f"18c {name}")
+
+
+def check_train_launches(got: dict, attn_layers: int, steps: int,
+                         what: str) -> None:
+    """Every attention ran forward and backward as a kernel
+    (``attn_layers`` flash launches each a step) and every norm's
+    backward as one (as many rmsnorm_bwd launches as rmsnorm ones)."""
+    want = attn_layers * steps
+    if got["flash_attention"] != want or got["flash_attention_bwd"] != want:
+        fail(f"{what}: flash launches {got['flash_attention']} forward, "
+             f"{got['flash_attention_bwd']} backward; expected {want} each")
+    if got["rmsnorm_bwd"] != got["rmsnorm"]:
+        fail(f"{what}: {got['rmsnorm_bwd']} rmsnorm_bwd launches against "
+             f"{got['rmsnorm']} rmsnorm")
+
+
 def full_width_model(dtype):
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import Model
@@ -5817,6 +6266,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     testbed_phase(card)
 
+    # training: full-width qwen3-0.6b through launch.train, float32
+    torch.cuda.empty_cache()
+    training = training_phase(card)
+
     # each kernel's launches come from the path it serves: phase 4 (dense
     # cache) for the prefill and dense decode kernels, phase 6 (paged
     # cache with prefix sharing) for the paged decode kernel, phase 7a
@@ -5868,13 +6321,15 @@ def main() -> int:
                    for c in ("dense", "paged")},
                 "phase16a_whisper-large-v3": audio["router"],
                 "phase16a_whisper-large-v3_dense": audio["dense"],
-                "phase16a_whisper-large-v3_paged": audio["paged"]}
+                "phase16a_whisper-large-v3_paged": audio["paged"],
+                "phase18b": training["launches"]}
     main_phase = {"flash_attention": "phase4", "decode_attention": "phase4",
                   "paged_decode_attention": "phase6",
                   "decode_attention_int8": "phase7a",
                   "paged_decode_attention_int8": "phase7b",
                   "ssd_scan": "phase8", "mla_decode_ctx": "phase9",
-                  "rmsnorm": "phase4"}
+                  "rmsnorm": "phase4", "flash_attention_bwd": "phase18b",
+                  "rmsnorm_bwd": "phase18b"}
     replaces = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:98"),
@@ -5895,6 +6350,13 @@ def main() -> int:
                            "src/repro/kernels/mla_decode.py:77"),
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:33"),
+        # no Pallas kernel: JAX's custom VJP of its jnp flash path, and
+        # autodiff of its plain RMSNorm
+        "flash_attention_bwd": (
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_ref.py:126"),
+        "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                        "src/repro/models/layers.py:59"),
     }
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": replaces[k][0],

@@ -1,7 +1,11 @@
 """Deterministic synthetic data streams, reproducible from (seed, index):
 no files, no global state. The port's copy of the reference's
-``repro.data.pipeline`` (numpy only), so far its video stream:
+``repro.data.pipeline`` (numpy only):
 
+  * ``LmTokenStream`` — seeded synthetic LM batches (zipf-ish marginals,
+    the second half of each row a copy of the first, so a model can
+    reduce the loss below ln(V)): the training substrate, the reference's
+    batches bit for bit for every (seed, step).
   * ``VideoRequestStream`` — the paper's workload: a "video" whose frames
     are independent inference units, for the detector testbed
     (``core.testbed``) and the serving example, as frames or as token
@@ -10,8 +14,31 @@ no files, no global state. The port's copy of the reference's
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class LmTokenStream:
+    vocab_size: int
+    seq_len: int
+    batch_size: int
+    seed: int = 0
+
+    def batch(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed, step))
+        base = rng.zipf(1.3, size=(self.batch_size, self.seq_len))
+        tokens = np.minimum(base - 1, self.vocab_size - 1).astype(np.int32)
+        half = self.seq_len // 2
+        tokens[:, half:half * 2] = tokens[:, :half]
+        return {"tokens": tokens}
+
+    def batches(self, start: int = 0) -> Iterator[dict]:
+        step = start
+        while True:
+            yield self.batch(step)
+            step += 1
 
 
 @dataclasses.dataclass

@@ -1,8 +1,8 @@
 // Python binding of the kernels for torch.utils.cpp_extension.
-// The Python wrappers (kernels/flash_attention.py,
+// The Python wrappers (kernels/flash_attention.py, with the backward,
 // kernels/decode_attention.py, kernels/paged_attention.py, each of the
 // last two with an int8 entry point, kernels/ssd_scan.py,
-// kernels/mla_decode.py and kernels/rmsnorm.py) check devices,
+// kernels/mla_decode.py and kernels/rmsnorm.py, with the backward) check devices,
 // types, shapes and layout, allocate the outputs and pass raw device
 // pointers, sizes and the CUDA stream as integers; these functions only
 // forward them and return the launch's CUDA error code. Nothing here needs the PyTorch headers, only
@@ -14,9 +14,22 @@
 #include <string>
 
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int B, int Sq, int Skv, int H, int Hkv,
-                           int K, int Kv, int causal, int window, float scale,
-                           float softcap, int is_bf16, void* stream);
+                           void* out, void* lse, int B, int Sq, int Skv,
+                           int H, int Hkv, int K, int Kv, int causal,
+                           int window, float scale, float softcap,
+                           int is_bf16, void* stream);
+int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
+                               const void* out, const void* lse,
+                               const void* dout, void* dq, void* dk, void* dv,
+                               void* delta, int B, int Sq, int Skv, int H,
+                               int Hkv, int K, int Kv, int causal, int window,
+                               float scale, float softcap, void* stream);
+int rmsnorm_bwd_launch(const void* x0, const void* scale0, const void* g0,
+                       void* dx0, long long rows0, long long row_stride0,
+                       const void* x1, const void* scale1, const void* g1,
+                       void* dx1, long long rows1, long long row_stride1,
+                       int D, float eps, void* rstd, void* partial,
+                       void* dscale, int chunks, void* stream);
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* valid, void* out, void* work, int B,
                             int W, int H, int Hkv, int K, int split,
@@ -63,13 +76,40 @@ namespace {
 void* ptr(std::uintptr_t p) { return reinterpret_cast<void*>(p); }
 
 int flash_attention(std::uintptr_t q, std::uintptr_t k, std::uintptr_t v,
-                    std::uintptr_t out, int B, int Sq, int Skv, int H,
-                    int Hkv, int K, int Kv, bool causal, int window,
-                    float scale, float softcap, bool is_bf16,
+                    std::uintptr_t out, std::uintptr_t lse, int B, int Sq,
+                    int Skv, int H, int Hkv, int K, int Kv, bool causal,
+                    int window, float scale, float softcap, bool is_bf16,
                     std::uintptr_t stream) {
-  return flash_attention_launch(ptr(q), ptr(k), ptr(v), ptr(out), B, Sq, Skv,
-                                H, Hkv, K, Kv, causal ? 1 : 0, window, scale,
-                                softcap, is_bf16 ? 1 : 0, ptr(stream));
+  return flash_attention_launch(ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse),
+                                B, Sq, Skv, H, Hkv, K, Kv, causal ? 1 : 0,
+                                window, scale, softcap, is_bf16 ? 1 : 0,
+                                ptr(stream));
+}
+
+int flash_attention_bwd(std::uintptr_t q, std::uintptr_t k, std::uintptr_t v,
+                        std::uintptr_t out, std::uintptr_t lse,
+                        std::uintptr_t dout, std::uintptr_t dq,
+                        std::uintptr_t dk, std::uintptr_t dv,
+                        std::uintptr_t delta, int B, int Sq, int Skv, int H,
+                        int Hkv, int K, int Kv, bool causal, int window,
+                        float scale, float softcap, std::uintptr_t stream) {
+  return flash_attention_bwd_launch(
+      ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), ptr(dout), ptr(dq),
+      ptr(dk), ptr(dv), ptr(delta), B, Sq, Skv, H, Hkv, K, Kv,
+      causal ? 1 : 0, window, scale, softcap, ptr(stream));
+}
+
+int rmsnorm_bwd(std::uintptr_t x0, std::uintptr_t scale0, std::uintptr_t g0,
+                std::uintptr_t dx0, long long rows0, long long row_stride0,
+                std::uintptr_t x1, std::uintptr_t scale1, std::uintptr_t g1,
+                std::uintptr_t dx1, long long rows1, long long row_stride1,
+                int D, float eps, std::uintptr_t rstd,
+                std::uintptr_t partial, std::uintptr_t dscale, int chunks,
+                std::uintptr_t stream) {
+  return rmsnorm_bwd_launch(ptr(x0), ptr(scale0), ptr(g0), ptr(dx0), rows0,
+                            row_stride0, ptr(x1), ptr(scale1), ptr(g1),
+                            ptr(dx1), rows1, row_stride1, D, eps, ptr(rstd),
+                            ptr(partial), ptr(dscale), chunks, ptr(stream));
 }
 
 int decode_attention(std::uintptr_t q, std::uintptr_t k, std::uintptr_t v,
@@ -161,6 +201,7 @@ int rmsnorm(std::uintptr_t x0, std::uintptr_t scale0, std::uintptr_t out0,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention", &flash_attention);
+  m.def("flash_attention_bwd", &flash_attention_bwd);
   m.def("decode_attention", &decode_attention);
   m.def("paged_decode_attention", &paged_decode_attention);
   m.def("decode_attention_int8", &decode_attention_int8);
@@ -172,6 +213,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         });
   m.def("mla_decode_ctx", &mla_decode_ctx);
   m.def("rmsnorm", &rmsnorm);
+  m.def("rmsnorm_bwd", &rmsnorm_bwd);
   m.def("error_string",
         [](int err) { return std::string(kernel_error_string(err)); });
 }

@@ -61,7 +61,11 @@
 // threads each own 4 query rows x 4 key columns of the score tile and 4
 // rows x Kv/16 columns of the output, all on the f32 CUDA cores. It stays
 // there on purpose: TF32 tensor cores keep 10 mantissa bits and would miss
-// the 2e-5 float32 parity contract.
+// the 2e-5 float32 parity contract. Given an `lse` pointer (training: the
+// backward in flash_attention_bwd.cu reads it) it also writes each row's
+// log-sum-exp m + log(max(l, 1e-30)), (B, H, Sq) float32, after the row's
+// output, which it leaves bit for bit as it is with a null pointer
+// (serving). The bf16 body takes no lse: no bf16 backward exists.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -111,8 +115,9 @@ template <typename T, int NC>  // NC = Kv / 16 output columns per thread
 __global__ void __launch_bounds__(NT)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
-                           int Sq, int Skv, int H, int Hkv, int K, int causal,
-                           int window, float scale, float softcap) {
+                           float* __restrict__ lse, int Sq, int Skv, int H,
+                           int Hkv, int K, int causal, int window,
+                           float scale, float softcap) {
   constexpr int Kv = NC * 16;
   extern __shared__ float smem[];
   const int ldq = K + 1;
@@ -240,13 +245,15 @@ __global__ void __launch_bounds__(NT)
     T* o = out + ((size_t(b) * Sq + row) * H + h) * Kv;
 #pragma unroll
     for (int c = 0; c < NC; ++c) o[tx + 16 * c] = from_float<T>(acc[i][c] / denom);
+    if (lse != nullptr && tx == 0)
+      lse[(size_t(b) * H + h) * Sq + row] = m[i] + logf(denom);
   }
 }
 
 template <typename T, int NC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Skv, int H, int Hkv, int K, int causal,
-                   int window, float scale, float softcap,
+                   float* lse, int B, int Sq, int Skv, int H, int Hkv, int K,
+                   int causal, int window, float scale, float softcap,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(K, NC * 16);
   cudaError_t err = cudaFuncSetAttribute(
@@ -256,23 +263,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_attention_kernel<T, NC><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, Hkv, K,
-      causal, window, scale, softcap);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Skv, H, Hkv,
+      K, causal, window, scale, softcap);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_kv(int Kv, const void* q, const void* k, const void* v,
-                      void* out, int B, int Sq, int Skv, int H, int Hkv, int K,
-                      int causal, int window, float scale, float softcap,
-                      cudaStream_t stream) {
+                      void* out, float* lse, int B, int Sq, int Skv, int H,
+                      int Hkv, int K, int causal, int window, float scale,
+                      float softcap, cudaStream_t stream) {
   switch (Kv) {
-    case 16: return launch<T, 1>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
-    case 32: return launch<T, 2>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
-    case 64: return launch<T, 4>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
-    case 112: return launch<T, 7>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
-    case 128: return launch<T, 8>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
-    case 256: return launch<T, 16>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
+    case 16: return launch<T, 1>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
+    case 32: return launch<T, 2>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
+    case 64: return launch<T, 4>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
+    case 112: return launch<T, 7>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
+    case 128: return launch<T, 8>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
+    case 256: return launch<T, 16>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -614,17 +621,22 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
 // Plain C++ entry point for the binding; returns the cudaError_t of the
 // launch (0 on success). The caller has checked shapes, types and layout.
+// `lse` is null in serving; the float32 body writes it where given, and
+// the bf16 body refuses one.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int B, int Sq, int Skv, int H, int Hkv,
-                           int K, int Kv, int causal, int window, float scale,
-                           float softcap, int is_bf16, void* stream) {
+                           void* out, void* lse, int B, int Sq, int Skv,
+                           int H, int Hkv, int K, int Kv, int causal,
+                           int window, float scale, float softcap,
+                           int is_bf16, void* stream) {
   if (B == 0 || Sq == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
+  if (is_bf16) {
+    if (lse != nullptr) return cudaErrorInvalidValue;
     return tc::launch_bf16(q, k, v, out, B, Sq, Skv, H, Hkv, K, Kv, causal,
                            window, scale, softcap, s);
-  return launch_kv<float>(Kv, q, k, v, out, B, Sq, Skv, H, Hkv, K, causal,
-                          window, scale, softcap, s);
+  }
+  return launch_kv<float>(Kv, q, k, v, out, static_cast<float*>(lse), B, Sq,
+                          Skv, H, Hkv, K, causal, window, scale, softcap, s);
 }
 
 const char* kernel_error_string(int err) {

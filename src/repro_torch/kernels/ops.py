@@ -5,6 +5,16 @@ tensor's device decides: a CPU tensor takes the plain PyTorch version in
 ``kernels.ref``; a CUDA tensor launches the hand-written kernel, whose
 wrapper raises on anything the kernel does not take. There is no other
 switch and no fallback.
+
+Where autograd records (grad enabled and an input that requires grad),
+``flash_attention``, ``rmsnorm`` and ``rmsnorm_pair`` run through a
+``torch.autograd.Function`` whose forward keeps what the backward reads
+and whose backward is the gradient kernel on the card
+(``flash_attention_bwd``, ``rmsnorm_bwd``: float32) and its plain version
+on the CPU, so the CPU trains through the same wiring the card does.
+Without grad the serving calls are unchanged, bit for bit. ``ssd_scan``
+has no backward kernel: on the card it refuses to run where autograd
+records rather than return an output with no gradient.
 """
 from __future__ import annotations
 
@@ -25,7 +35,9 @@ COUNTERS = {"flash_attention": _fa.launches,
             "paged_decode_attention_int8": _pa.int8_launches,
             "ssd_scan": _ssd.launches,
             "mla_decode_ctx": _mla.launches,
-            "rmsnorm": _rn.launches}
+            "rmsnorm": _rn.launches,
+            "flash_attention_bwd": _fa.bwd_launches,
+            "rmsnorm_bwd": _rn.bwd_launches}
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -45,9 +57,43 @@ def _scales(k_scale, v_scale) -> tuple:
     return () if k_scale is None else (k_scale, v_scale)
 
 
+def _records(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on these inputs."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient: the forward keeps q, k, v, out
+    and each row's log-sum-exp; the backward recomputes the probabilities
+    from them (``repro.kernels.flash_ref``'s custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        if _on_cpu(q, k, v):
+            out, lse = ref.flash_attention_lse(q, k, v, causal=causal,
+                                               window=window, softcap=softcap)
+        else:
+            out, lse = _fa.flash_attention(q, k, v, causal=causal,
+                                           window=window, softcap=softcap,
+                                           return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.masks = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = (ref.flash_attention_bwd if q.device.type == "cpu"
+               else _fa.flash_attention_bwd)
+        return (*bwd(q, k, v, out, lse, dout.contiguous(), **ctx.masks),
+                None, None, None)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0):
     """Prefill attention; see ``kernels.ref.flash_attention``."""
+    if _records(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window, softcap)
     if _on_cpu(q, k, v):
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
@@ -100,6 +146,10 @@ def ssd_scan(x, dt, A, B_, C_, D, *, chunk: int = 64):
     """Mamba2 SSD chunked scan; see ``kernels.ref.ssd_scan``."""
     if _on_cpu(x, dt, A, B_, C_, D):
         return ref.ssd_scan(x, dt, A, B_, C_, D, chunk=chunk)
+    if _records(x, dt, A, B_, C_, D):
+        raise NotImplementedError(
+            "ssd_scan: no backward kernel on the card yet (ssm and zamba "
+            "train on the CPU only)")
     return _ssd.ssd_scan(x, dt, A, B_, C_, D, chunk=chunk)
 
 
@@ -113,8 +163,45 @@ def mla_decode_ctx(q_lat, q_rope, ckv, k_rope, valid, *, scale: float):
                                scale=scale)
 
 
+# A Function's forward runs with grad off, so ``rmsnorm`` and
+# ``rmsnorm_pair`` called there take their serving dispatch.
+class _RmsNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        bwd = ref.rmsnorm_bwd if x.device.type == "cpu" else _rn.rmsnorm_bwd
+        return (*bwd(x, scale, g, ctx.eps), None)
+
+
+class _RmsNormPair(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, x_scale, y, y_scale, eps):
+        ctx.save_for_backward(x, x_scale, y, y_scale)
+        ctx.eps = eps
+        return rmsnorm_pair(x, x_scale, y, y_scale, eps)
+
+    @staticmethod
+    def backward(ctx, gx, gy):
+        x, x_scale, y, y_scale = ctx.saved_tensors
+        if x.device.type == "cpu":
+            dx = ref.rmsnorm_bwd(x, x_scale, gx, ctx.eps)
+            dy = ref.rmsnorm_bwd(y, y_scale, gy, ctx.eps)
+        else:
+            dx, dy = _rn.rmsnorm_pair_bwd(x, x_scale, gx, y, y_scale, gy,
+                                          ctx.eps)
+        return (*dx, *dy, None)
+
+
 def rmsnorm(x, scale, eps: float = 1e-6):
     """RMSNorm over the last axis; see ``kernels.ref.rmsnorm``."""
+    if _records(x, scale):
+        return _RmsNorm.apply(x, scale, eps)
     if _on_cpu(x, scale):
         return ref.rmsnorm(x, scale, eps)
     return _rn.rmsnorm(x, scale, eps)
@@ -124,6 +211,8 @@ def rmsnorm_pair(x, x_scale, y, y_scale, eps: float = 1e-6):
     """``(rmsnorm(x, x_scale, eps), rmsnorm(y, y_scale, eps))``: on the card
     one launch over both (one width and dtype), each row with the bits a
     single ``rmsnorm`` gives it; on the CPU the plain version twice."""
+    if _records(x, x_scale, y, y_scale):
+        return _RmsNormPair.apply(x, x_scale, y, y_scale, eps)
     if _on_cpu(x, x_scale, y, y_scale):
         return ref.rmsnorm(x, x_scale, eps), ref.rmsnorm(y, y_scale, eps)
     return _rn.rmsnorm_pair(x, x_scale, y, y_scale, eps)

@@ -51,14 +51,16 @@ def attention_mask(Sq: int, Skv: int, *, causal: bool, window: int,
     return mask
 
 
-def _masked_softmax_weights(scores: torch.Tensor, mask: torch.Tensor
-                            ) -> tuple[torch.Tensor, torch.Tensor]:
+def _masked_softmax_weights(scores: torch.Tensor, mask: torch.Tensor,
+                            with_max: bool = False) -> tuple:
     """Unnormalised weights with masked entries exactly 0.0, and their
-    row sums clamped at 1e-30 (so an all-masked row gives 0, not NaN)."""
+    row sums clamped at 1e-30 (so an all-masked row gives 0, not NaN);
+    with ``with_max`` also the row maxima they are taken against."""
     scores = scores.masked_fill(~mask, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m).masked_fill(~mask, 0.0)
-    return p, p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return (p, l, m[..., 0]) if with_max else (p, l)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -68,6 +70,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     H % Hkv == 0 (GQA: query head h reads kv head h // (H // Hkv)).
     ``window > 0`` keeps keys less than ``window`` positions behind the
     query. Returns (B, Sq, H, Kv) in q's dtype."""
+    return flash_attention_lse(q, k, v, causal=causal, window=window,
+                               softcap=softcap)[0]
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention`` (the same bits) and each row's log-sum-exp
+    ``m + log(l)`` of its visible scores, (B, H, Sq) float32: what the
+    backward reads (``repro.kernels.flash_ref._fwd_impl``'s ``lse``)."""
     B, Sq, H, K = q.shape
     Skv, Hkv, Kv = k.shape[1], k.shape[2], v.shape[3]
     g = H // Hkv
@@ -76,9 +89,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scores = _softcap(scores, softcap)
     mask = attention_mask(Sq, Skv, causal=causal, window=window,
                           device=q.device)
-    p, l = _masked_softmax_weights(scores, mask)
+    p, l, m = _masked_softmax_weights(scores, mask, with_max=True)
     out = torch.einsum("bhgqs,bshk->bhgqk", p, v.float()) / l
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Kv).to(q.dtype)
+    lse = (m + torch.log(l[..., 0])).reshape(B, H, Sq)
+    return (out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Kv).to(q.dtype),
+            lse)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients ``(dq, dk, dv)`` of ``flash_attention`` at (q, k, v)
+    given its ``out``, its ``lse`` ((B, H, Sq), ``flash_attention_lse``)
+    and the output's gradient ``dout``, as
+    ``repro.kernels.flash_ref._bwd_impl`` computes them: the probabilities
+    recomputed as ``exp(score - lse)`` (0 where masked), ``delta = Σ
+    dout·out`` a row, ``ds = p · (dout·vᵀ - delta)`` (times ``1 - t²``
+    under a softcap ``t = tanh(s / cap)``), ``dq = scale · ds·k``, ``dk =
+    scale · dsᵀ·q`` and ``dv = pᵀ·dout`` summed over the G query heads of
+    each kv head, in float32, each returned in its input's dtype."""
+    B, Sq, H, K = q.shape
+    Skv, Hkv, Kv = k.shape[1], k.shape[2], v.shape[3]
+    g = H // Hkv
+    scale = K ** -0.5
+    qg = q.reshape(B, Sq, Hkv, g, K).float()
+    kf, vf = k.float(), v.float()
+    sr = torch.einsum("bqhgk,bshk->bhgqs", qg, kf) * scale
+    t = torch.tanh(sr / softcap) if softcap and softcap > 0.0 else None
+    sc = sr if t is None else t * softcap
+    mask = attention_mask(Sq, Skv, causal=causal, window=window,
+                          device=q.device)
+    lse_g = lse.float().reshape(B, Hkv, g, Sq)[..., None]
+    p = torch.exp(sc.masked_fill(~mask, NEG_INF) - lse_g).masked_fill(
+        ~mask, 0.0)
+    dog = dout.reshape(B, Sq, Hkv, g, Kv).float()
+    delta = (dog * out.reshape(B, Sq, Hkv, g, Kv).float()).sum(-1)
+    dp = torch.einsum("bqhgk,bshk->bhgqs", dog, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    dq = torch.einsum("bhgqs,bshk->bqhgk", ds, kf) * scale
+    dk = torch.einsum("bhgqs,bqhgk->bshk", ds, qg) * scale
+    dv = torch.einsum("bhgqs,bqhgk->bshk", p, dog)
+    return (dq.reshape(B, Sq, H, K).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _dequant(codes: torch.Tensor, scale: torch.Tensor,
@@ -220,3 +276,17 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients ``(dx, dscale)`` of ``rmsnorm`` at (x, scale) given
+    the output's gradient ``dy``, in float32: with ``r = rsqrt(mean(x²) +
+    eps)`` and ``gs = dy·scale``, ``dx = r·gs - x·r³·mean(x·gs)`` a row
+    and ``dscale = Σ dy·x·r`` over every row; each in its input's
+    dtype."""
+    xf, gs = x.float(), dy.float() * scale.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    dx = r * gs - xf * r.pow(3) * (xf * gs).mean(dim=-1, keepdim=True)
+    dscale = (dy.float() * xf * r).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)

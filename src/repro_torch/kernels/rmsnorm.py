@@ -1,11 +1,15 @@
 """RMSNorm on the card: the wrapper of ``csrc/rmsnorm.cu``, which replaces
-the Pallas TPU kernel ``repro/kernels/rmsnorm.py::rmsnorm``.
+the Pallas TPU kernel ``repro/kernels/rmsnorm.py::rmsnorm``, and of
+``csrc/rmsnorm_bwd.cu``, its float32 gradient (JAX differentiates the
+plain ``repro.models.layers.rmsnorm_fwd``; no Pallas kernel).
 
 ``rmsnorm`` and ``rmsnorm_pair`` take CUDA tensors only and launch the
 kernel or raise; ``kernels.ops`` sends CPU tensors to the plain version
 (``kernels.ref.rmsnorm``) instead. ``rmsnorm_pair`` normalises two tensors
 of one width and type (a layer's q and k norms) in one launch, each row
-with exactly the bits ``rmsnorm`` gives it.
+with exactly the bits ``rmsnorm`` gives it. ``rmsnorm_bwd`` and
+``rmsnorm_pair_bwd`` are their gradients, one launch each (the pair's
+over both tensors, as its forward).
 
 ``layout`` picks the kernel's lane layout from the width and the type
 alone, which fixes a row's bits; ``_launch`` picks the 16-byte path or the
@@ -27,6 +31,9 @@ MAX_SLOTS = 8       # 16-byte vectors a lane holds in registers
 WARP_SLOTS = ((1, 1), (2, 1), (4, 2), (8, MAX_SLOTS))
 
 launches = LaunchCounter()
+bwd_launches = LaunchCounter()
+BWD_CHUNKS = 256    # the most row chunks of dscale's first stage
+BWD_CHUNK_ROWS = 32  # the fewest rows a chunk
 
 
 @functools.lru_cache(maxsize=None)
@@ -146,3 +153,82 @@ def rmsnorm_pair(x: torch.Tensor, x_scale: torch.Tensor, y: torch.Tensor,
     if segments:
         _launch(segments, eps)
     return outs
+
+
+def _bwd_segment(name: str, x: torch.Tensor, scale: torch.Tensor,
+                 g: torch.Tensor):
+    """(x2, row_stride, scale, g2, dx) of one tensor of the backward: x
+    as ``rmsnorm`` takes it, float32 with a float32 scale, and its
+    output's gradient ``g`` of x's shape (made contiguous)."""
+    x2, row_stride = _rows(name, x, scale)
+    if x.dtype != torch.float32 or scale.dtype != torch.float32:
+        raise TypeError(f"rmsnorm_bwd: {name} {x.dtype} with scale "
+                        f"{scale.dtype}; the backward kernel is float32 "
+                        "only")
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"rmsnorm_bwd: {name}'s gradient "
+                         f"{tuple(g.shape)} {g.dtype} on {g.device}, "
+                         f"expected {tuple(x.shape)} {x.dtype} on "
+                         f"{x.device}")
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    return x2, row_stride, scale, g.contiguous().view(-1, x2.shape[1]), dx
+
+
+def _bwd_launch(segments, eps: float) -> torch.Tensor:
+    """One launch of the backward over one or two segments of one width:
+    writes each segment's dx and returns its dscale rows (n_segments,
+    D). A segment with no rows has dscale 0 and is not launched over."""
+    D = segments[0][0].shape[1]
+    dev = segments[0][0].device
+    dscale = torch.zeros((len(segments), D), dtype=torch.float32,
+                         device=dev)
+    live = [(i, seg) for i, seg in enumerate(segments) if seg[0].shape[0]]
+    if not live:
+        return dscale
+    rows = [seg[0].shape[0] for _, seg in live]
+    chunks = max(1, min(BWD_CHUNKS, -(-max(rows) // BWD_CHUNK_ROWS)))
+    rstd = torch.empty(sum(rows), dtype=torch.float32, device=dev)
+    partial = torch.empty((len(live), chunks, D), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((len(live), D), dtype=torch.float32, device=dev)
+    args = []
+    for _, (x2, row_stride, scale, g2, dx) in live:
+        args += (x2.data_ptr(), scale.data_ptr(), g2.data_ptr(),
+                 dx.data_ptr(), x2.shape[0], row_stride)
+    args += (0,) * (12 - len(args))       # no second tensor: rows1 = 0
+    err = extension().rmsnorm_bwd(
+        *args, D, float(eps), rstd.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), chunks, torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(err, "rmsnorm_bwd")
+    bwd_launches.add()
+    for j, (i, _) in enumerate(live):
+        dscale[i] = out[j]
+    return dscale
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dscale)`` of ``rmsnorm(x, scale, eps)`` given the output's
+    gradient ``g``: float32 CUDA tensors, x's rows as ``rmsnorm`` takes
+    them (a strided slice too). dx is contiguous, of x's shape; dscale
+    sums every row, reduced in two fixed-order stages (no atomics, the
+    same bits every run)."""
+    seg = _bwd_segment("x", x, scale, g)
+    return seg[4], _bwd_launch([seg], eps)[0]
+
+
+def rmsnorm_pair_bwd(x: torch.Tensor, x_scale: torch.Tensor,
+                     gx: torch.Tensor, y: torch.Tensor,
+                     y_scale: torch.Tensor, gy: torch.Tensor,
+                     eps: float = 1e-6) -> tuple:
+    """The gradients of ``rmsnorm_pair`` in one launch: ``((dx,
+    dx_scale), (dy, dy_scale))`` given the gradients ``gx`` and ``gy`` of
+    its two outputs; x and y of one width, float32."""
+    sx = _bwd_segment("x", x, x_scale, gx)
+    sy = _bwd_segment("y", y, y_scale, gy)
+    if y.device != x.device or sy[0].shape[1] != sx[0].shape[1]:
+        raise ValueError(f"rmsnorm_bwd: a pair needs one width and device; "
+                         f"got D={sx[0].shape[1]} on {x.device} and "
+                         f"D={sy[0].shape[1]} on {y.device}")
+    dscale = _bwd_launch([sx, sy], eps)
+    return (sx[4], dscale[0]), (sy[4], dscale[1])

@@ -3,7 +3,7 @@ DeepSeek's multi-head latent attention (MLA) over the latent cache.
 
 The GQA branches of ``repro.models.attention``, in the model's dtype or
 over an int8 cache: ``attn_prefill`` for a prompt with no cache
-(whisper's encoder, not causal), ``attn_prefill_into_cache`` for prefill,
+(the training forward, and whisper's encoder, not causal), ``attn_prefill_into_cache`` for prefill,
 ``attn_suffix_prefill_into_cache`` for the residual suffix behind a
 shared prefix (model dtype only), and ``attn_decode`` for one new token
 over the dense ring or the block table; and whisper's cross attention
@@ -21,7 +21,8 @@ takes ``W`` from the cache leaf. With
 holds absolute position ``p_s = pos - ((pos - s) mod W)``, which the
 decode mask reconstructs. The paged layout is in ``models/cache.py``.
 
-MLA (``init_mla``, ``mla_prefill_into_cache``, ``mla_decode``) caches the
+MLA (``init_mla``, ``mla_prefill`` with no cache, ``mla_prefill_into_cache``,
+``mla_decode``) caches the
 normalised latent and the shared rope key per position, ``{"ckv": (B, L,
 r), "k_rope": (B, L, dr)}``, not per-head keys and values. A prefill
 wider than L keeps its first L positions (JAX's ``_mla_fill_cache``; the
@@ -156,13 +157,14 @@ def attn_prefill_into_cache(p: dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 def attn_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
-                 causal: bool = True) -> torch.Tensor:
-    """Prompt attention of x (B, S, d) from position 0 with no cache
-    (whisper's encoder runs it with ``causal=False``). Returns (B, S,
-    d)."""
+                 window: int = 0, causal: bool = True) -> torch.Tensor:
+    """Prompt attention of x (B, S, d) from position 0 with no cache: the
+    training forward, each query seeing the ``window`` keys up to its own
+    with a window (whisper's encoder runs it with ``causal=False``).
+    Returns (B, S, d)."""
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = _qkv(p, cfg, x, positions)
-    out = kops.flash_attention(q, k, v, causal=causal, window=0,
+    out = kops.flash_attention(q, k, v, causal=causal, window=window,
                                softcap=cfg.attn_logit_softcap)
     return _out(out, p["wo"])
 
@@ -320,13 +322,11 @@ def _mla_latents(p: dict, cfg: ArchConfig, x: torch.Tensor,
     return ckv, k_rope[:, :, 0]
 
 
-def mla_prefill_into_cache(p: dict, cfg: ArchConfig, x: torch.Tensor,
-                           cache: dict) -> torch.Tensor:
-    """Causal MLA prefill of x (B, S, d) from position 0: per-head keys
-    [k_nope | k_rope broadcast over the heads] and values expanded from
-    the latent, attention through ``kernels.ops.flash_attention`` (K =
-    dn + dr, Kv = dv). Writes the first ``min(L, S)`` latents and rope
-    keys into the cache rows in place. Returns (B, S, d)."""
+def _mla_attend(p: dict, cfg: ArchConfig, x: torch.Tensor):
+    """Causal MLA over x (B, S, d) from position 0: per-head keys [k_nope |
+    k_rope broadcast over the heads] and values expanded from the latent,
+    attention through ``kernels.ops.flash_attention`` (K = dn + dr, Kv =
+    dv). Returns the output (B, S, d), the latents and the rope keys."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
@@ -337,10 +337,24 @@ def mla_prefill_into_cache(p: dict, cfg: ArchConfig, x: torch.Tensor,
         B, S, cfg.n_heads, cfg.qk_rope_head_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     out = kops.flash_attention(q, k, v, causal=True, window=0)
-    take = min(cache["ckv"].shape[1], S)
+    return _out(out, p["wo"]), ckv, k_rope
+
+
+def mla_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Causal MLA of x (B, S, d) with no cache (the training forward,
+    ``repro.models.attention.mla_prefill``). Returns (B, S, d)."""
+    return _mla_attend(p, cfg, x)[0]
+
+
+def mla_prefill_into_cache(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                           cache: dict) -> torch.Tensor:
+    """``mla_prefill``, writing the first ``min(L, S)`` latents and rope
+    keys into the cache rows in place. Returns (B, S, d)."""
+    y, ckv, k_rope = _mla_attend(p, cfg, x)
+    take = min(cache["ckv"].shape[1], x.shape[1])
     cache["ckv"][:, :take] = ckv[:, :take].to(cache["ckv"].dtype)
     cache["k_rope"][:, :take] = k_rope[:, :take].to(cache["k_rope"].dtype)
-    return _out(out, p["wo"])
+    return y
 
 
 def mla_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,

@@ -10,7 +10,9 @@ GQA or, when the layer's parameters hold ``w_dkv``, DeepSeek's MLA over
 the latent cache; a config with ``mla`` builds MLA in its dense layers
 too. A prefill takes its layer's
 ``window`` (0: full horizon), and ``init_block_cache`` builds the
-layer's cache group for that window."""
+layer's cache group for that window. The ``*_fwd`` functions are the
+cacheless forwards that training runs (``Model.forward``), as JAX's
+``attn_mlp_fwd``, ``attn_moe_fwd``, ``ssm_fwd`` and ``cross_fwd``."""
 from __future__ import annotations
 
 import torch
@@ -36,6 +38,13 @@ def _attn_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor,
     return attn.attn_prefill_into_cache(p, cfg, x, cache, window=window)
 
 
+def _attn_fwd(p: dict, cfg: ArchConfig, x: torch.Tensor, window: int,
+              causal: bool = True) -> torch.Tensor:
+    if "w_dkv" in p:
+        return attn.mla_prefill(p, cfg, x)
+    return attn.attn_prefill(p, cfg, x, window=window, causal=causal)
+
+
 def _attn_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
                  pos: torch.Tensor) -> torch.Tensor:
     if "w_dkv" in p:
@@ -51,6 +60,14 @@ def init_attn_mlp(cfg: ArchConfig, dtype: torch.dtype,
             "ln2": init_norm(cfg, cfg.d_model, dtype, dev),
             "mlp": init_mlp(cfg.d_model, cfg.d_ff, dtype, generator,
                             cfg.mlp_gated)}
+
+
+def attn_mlp_fwd(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
+                 window: int = 0, causal: bool = True) -> torch.Tensor:
+    """The dense block over x (B, S, d) from position 0, no cache."""
+    x = x + _attn_fwd(p["attn"], cfg, norm_fwd(cfg, p["ln1"], x), window,
+                      causal)
+    return x + mlp_fwd(p["mlp"], norm_fwd(cfg, p["ln2"], x), cfg.act)
 
 
 def attn_mlp_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -83,6 +100,22 @@ def init_attn_moe(cfg: ArchConfig, dtype: torch.dtype,
             "attn": _init_attn(cfg, dtype, generator),
             "ln2": init_norm(cfg, cfg.d_model, dtype, dev),
             "moe": moe_lib.init_moe(cfg, dtype, generator)}
+
+
+def attn_moe_fwd(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
+                 window: int = 0, train: bool = False
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE block over x (B, S, d), no cache: ``(x, aux)``, aux the
+    block's Switch loss with ``train`` (the training capacity) and 0
+    without."""
+    x = x + _attn_fwd(p["attn"], cfg, norm_fwd(cfg, p["ln1"], x), window)
+    h = norm_fwd(cfg, p["ln2"], x)
+    if train:
+        mo, aux = moe_lib.moe_fwd(p["moe"], cfg, h, train=True)
+    else:
+        mo, aux = moe_lib.moe_fwd(p["moe"], cfg, h), x.new_zeros(
+            (), dtype=torch.float32)
+    return x + mo, aux
 
 
 def attn_moe_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -136,6 +169,11 @@ def init_ssm_block(cfg: ArchConfig, dtype: torch.dtype,
             "mamba": ssm_lib.init_mamba2(cfg, dtype, generator)}
 
 
+def ssm_fwd(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """The Mamba2 block over x (B, S, d), no cache."""
+    return x + ssm_lib.mamba2_fwd(p["mamba"], cfg, norm_fwd(cfg, p["ln"], x))
+
+
 def ssm_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor,
                 cache: dict, *, window: int = 0) -> torch.Tensor:
     """Builds the layer's cache (conv tail + final state) from scratch."""
@@ -172,6 +210,18 @@ def init_cross_block(cfg: ArchConfig, dtype: torch.dtype,
             "ln3": init_norm(cfg, cfg.d_model, dtype, dev),
             "mlp": init_mlp(cfg.d_model, cfg.d_ff, dtype, generator,
                             cfg.mlp_gated)}
+
+
+def cross_fwd(p: dict, cfg: ArchConfig, x: torch.Tensor,
+              memory: torch.Tensor) -> torch.Tensor:
+    """A decoder layer over x (B, S, d) and the encoder's output
+    ``memory``, no cache: causal self attention, cross attention, MLP."""
+    x = x + attn.attn_prefill(p["self_attn"], cfg,
+                              norm_fwd(cfg, p["ln1"], x))
+    k, v = attn.cross_attn_memory(p["cross_attn"], cfg, memory)
+    x = x + attn.cross_attn_prefill(p["cross_attn"], cfg,
+                                    norm_fwd(cfg, p["ln2"], x), k, v)
+    return x + mlp_fwd(p["mlp"], norm_fwd(cfg, p["ln3"], x), cfg.act)
 
 
 def cross_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor,

@@ -2,7 +2,8 @@
 hybrid (zamba) and audio encoder-decoder (whisper) families: init,
 caches, prefill, decode.
 
-A port of ``repro.models.model.Model``, every family. JAX scans one
+A port of ``repro.models.model.Model``, every family, with its training
+forward and loss (``forward``, ``loss``). JAX scans one
 stacked parameter tree over the layers (for moe, the ``n_dense_layers``
 leading dense layers as ``dense0``, then the MoE ``stack``; for gemma,
 ``super`` blocks of ``local_global_pattern`` local layers and one
@@ -64,6 +65,15 @@ Parameters::
 where ``attn`` is GQA or, for a config with ``mla``, DeepSeek's latent
 attention (``models/attention.py``).
 
+Training: ``forward`` runs a batch with no cache through the cacheless
+blocks (``blocks.*_fwd``) in JAX's order and returns the logits over
+every position and the summed MoE aux loss; ``loss`` is JAX's next-token
+loss over them. With ``remat`` each unit JAX rematerialises (a layer; a
+super-block for gemma and zamba; not gemma's and zamba's remainder
+layers, a MoE model's leading dense layers or whisper's encoder, which
+JAX keeps) runs under ``torch.utils.checkpoint``, its activations
+recomputed in the backward.
+
 Cache: one ``{"k", "v"}`` dict of (B, W, Hkv, hd) tensors per layer (a
 ring ``W = min(window, max_len)`` wide), or, with a ``PagedLayout``, one
 paged group per full-horizon layer over a block table that every layer
@@ -83,7 +93,10 @@ as in JAX. Updated in place by ``prefill``, ``prefill_suffix`` and
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -352,6 +365,119 @@ class Model:
         for p in params["enc_layers"]:
             x = blocks.encoder_fwd(p, cfg, x)
         return norm_fwd(cfg, params["enc_norm"], x)
+
+    # ------------------------------------------------------------------
+    # training forward and loss
+    # ------------------------------------------------------------------
+    def _units(self, n: int) -> list[tuple[list[int], bool]]:
+        """``params["layers"]`` (n entries) cut into the units JAX scans,
+        each with whether JAX rematerialises it."""
+        cfg = self.cfg
+        if self.fam in ("gemma", "zamba"):
+            # a super-block's layers; zamba's entries add the shared block
+            k = (cfg.local_global_pattern + 1 if self.fam == "gemma"
+                 else cfg.shared_attn_every)
+            n_super = cfg.n_layers // k
+            per = k if self.fam == "gemma" else k + 1
+            units = [(list(range(i * per, (i + 1) * per)), True)
+                     for i in range(n_super)]
+            return units + [([i], False) for i in range(n_super * per, n)]
+        first = self.n_dense_layers if self.fam == "moe" else 0
+        return [([i], i >= first) for i in range(n)]
+
+    def _layer_fwd(self, params: Params, i: int, x: torch.Tensor,
+                   train: bool, memory: torch.Tensor | None):
+        p = params["layers"][i]
+        if self.fam == "whisper":
+            return blocks.cross_fwd(p, self.cfg, x, memory), None
+        kind = _kind(p)
+        if kind == "moe":
+            return blocks.attn_moe_fwd(p, self.cfg, x,
+                                       window=self.windows[i], train=train)
+        if kind == "ssm":
+            return blocks.ssm_fwd(p, self.cfg, x), None
+        return blocks.attn_mlp_fwd(p, self.cfg, x,
+                                   window=self.windows[i]), None
+
+    def _unit_fwd(self, params: Params, idxs: list[int], x: torch.Tensor,
+                  train: bool, memory: torch.Tensor | None):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in idxs:
+            x, a = self._layer_fwd(params, i, x, train, memory)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    def forward(self, params: Params, batch: dict, remat: bool = False,
+                train: bool = False, remat_policy: str = "none"
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The training forward of ``batch`` with no cache: ``tokens`` (B,
+        S) from position 0, and ``vision_embeds`` (B, nv, vd) for a model
+        with ``n_vision_tokens`` or ``audio_frames`` (B, encoder_seq, d)
+        for whisper, tensors or numpy arrays. Returns ``(logits, aux)``:
+        the logits (B, nv + S, V) over every position (the image's too)
+        and the MoE layers' summed Switch loss (float32 0 without MoE).
+        ``train`` routes MoE tokens at the training capacity (JAX's
+        ``moe_train_cf``). ``remat`` recomputes each unit's activations in
+        the backward (the module docstring). ``remat_policy="collectives"``
+        saves the mesh's all-reduce outputs in JAX; one card has no
+        collective to save, so it raises."""
+        if remat_policy != "none":
+            raise ValueError(
+                f"remat_policy={remat_policy!r}: only 'none' on one card "
+                "('collectives' saves the all-reduce outputs of a mesh, "
+                "which one card does not have)")
+        as_t = functools.partial(torch.as_tensor, device=self.device)
+        tokens = as_t(batch["tokens"]).long()
+        memory = None
+        if self.fam == "whisper":
+            frames = batch.get("audio_frames")
+            memory = self._encode(params, None if frames is None
+                                  else as_t(frames), tokens.shape[0])
+            x = self._embed(params, tokens, None)
+        else:
+            vis = batch.get("vision_embeds")
+            x = self._embed(params, tokens,
+                            None if vis is None else as_t(vis))
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for idxs, rematted in self._units(len(params["layers"])):
+            fn = functools.partial(self._unit_fwd, params, idxs, train=train,
+                                   memory=memory)
+            if remat and rematted:
+                x, a = torch.utils.checkpoint.checkpoint(
+                    fn, x, use_reentrant=False)
+            else:
+                x, a = fn(x)
+            aux = aux + a
+        return self._head(params, x), aux
+
+    def loss(self, params: Params, batch: dict, remat: bool = False,
+             remat_policy: str = "none") -> tuple[torch.Tensor, dict]:
+        """JAX's next-token loss of ``batch`` (``forward``'s inputs, plus
+        an optional ``loss_mask`` (B, S)): the float32 mean over the
+        unmasked targets of ``logsumexp - gold`` (the image's positions
+        dropped), plus ``router_aux_loss_coef`` times the MoE aux loss.
+        Returns ``(total, {"nll", "moe_aux", "tokens"})``."""
+        cfg = self.cfg
+        logits, aux = self.forward(params, batch, remat=remat, train=True,
+                                   remat_policy=remat_policy)
+        if cfg.n_vision_tokens:
+            logits = logits[:, cfg.n_vision_tokens:]
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        tgt = tokens[:, 1:]
+        lg = logits[:, :-1].float()
+        nll = torch.logsumexp(lg, dim=-1) - lg.gather(-1, tgt[..., None])[
+            ..., 0]
+        if "loss_mask" in batch:
+            mask = torch.as_tensor(batch["loss_mask"],
+                                   device=self.device)[:, 1:].float()
+        else:
+            mask = torch.ones(tgt.shape, dtype=torch.float32,
+                              device=self.device)
+        n = mask.sum()
+        nll_mean = (nll * mask).sum() / n.clamp_min(1.0)
+        total = nll_mean + cfg.router_aux_loss_coef * aux
+        return total, {"nll": nll_mean, "moe_aux": aux, "tokens": n}
 
     def prefill(self, params: Params, tokens: torch.Tensor, cache: Cache,
                 logits_at: int | torch.Tensor = -1, *,

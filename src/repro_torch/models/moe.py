@@ -2,8 +2,7 @@
 
 A port of the single-device path of ``repro.models.moe.moe_fwd`` with its
 drop semantics (the mesh paths, ``_dispatch_shard_map`` and the sharding
-constraints, have no counterpart on one card; the Switch aux loss is for
-training and serving drops it):
+constraints, have no counterpart on one card):
 
 * the router's logits are float32 (``router`` is a float32 leaf whatever
   the model's dtype), softmaxed, cut to the top ``K`` experts (sorted,
@@ -13,12 +12,16 @@ training and serving drops it):
   group each (token, k) assignment takes the number of earlier
   assignments to its expert, in (token, k) order, as its position;
 * an expert holds C = max(4, min(Tg, int(Tg·K/E·cf + 0.5))) assignments
-  per group (cf = ``moe_eval_cf``); an assignment at position >= C is
-  dropped: it is written nowhere and adds 0;
+  per group (cf = ``moe_eval_cf``, or ``moe_train_cf`` in training); an
+  assignment at position >= C is dropped: it is written nowhere and adds
+  0;
 * the (G, E, C, d) buffer goes through every expert's SwiGLU as one
   batched product per weight (JAX leaves it to XLA outside any Pallas
   kernel), and each kept assignment's row comes back times its gate in
-  x's dtype, summed over its K experts, plus the shared experts' MLP.
+  x's dtype, summed over its K experts, plus the shared experts' MLP;
+* in training (``train=True``) it also returns the Switch load-balance
+  loss ``E · Σ_e mean_t(probs) · mean_t(count of e in the token's top
+  K)``, whose gradient flows through the router's probabilities.
 
 Parameters: ``{"router": (d, E) float32, "experts": {"w_gate", "w_up":
 (E, d, f), "w_down": (E, f, d)}, "shared": {...}}`` (the shared experts
@@ -54,10 +57,12 @@ def init_moe(cfg: ArchConfig, dtype: torch.dtype,
     return p
 
 
-def _capacity(n_tokens: int, cfg: ArchConfig) -> int:
-    """Slots per expert per group (the serving capacity factor)."""
+def _capacity(n_tokens: int, cfg: ArchConfig, train: bool = False) -> int:
+    """Slots per expert per group (the serving or training capacity
+    factor)."""
+    cf = cfg.moe_train_cf if train else cfg.moe_eval_cf
     per = n_tokens * cfg.n_experts_per_tok / cfg.n_experts
-    return max(4, min(n_tokens, int(per * cfg.moe_eval_cf + 0.5)))
+    return max(4, min(n_tokens, int(per * cf + 0.5)))
 
 
 def _groups(n_tokens: int, cfg: ArchConfig) -> int:
@@ -67,11 +72,13 @@ def _groups(n_tokens: int, cfg: ArchConfig) -> int:
     return G
 
 
-def route(p: dict, cfg: ArchConfig, xt: torch.Tensor):
+def route(p: dict, cfg: ArchConfig, xt: torch.Tensor, train: bool = False):
     """Routing of tokens xt (T, d): the top-K gates (T, K) float32 and
     experts (T, K), and per group the expert position of each (token, k)
-    assignment and whether it is kept. Returns ``(gates, experts, pos,
-    keep, C)`` with pos and keep (G, Tg·K)."""
+    assignment and whether it is kept, at the serving capacity or with
+    ``train`` the training one. Returns ``(gates, experts, pos, keep,
+    C, probs)`` with pos and keep (G, Tg·K) and the router's float32
+    probabilities (T, E)."""
     T = xt.shape[0]
     E, K = cfg.n_experts, cfg.n_experts_per_tok
     probs = torch.softmax(xt.float() @ p["router"], dim=-1)
@@ -82,17 +89,18 @@ def route(p: dict, cfg: ArchConfig, xt: torch.Tensor):
     onehot = F.one_hot(flat_e, E)                        # (G, Tg·K, E)
     before = torch.cumsum(onehot, dim=1) - onehot        # earlier ones
     pos = before.gather(2, flat_e[..., None])[..., 0]
-    C = _capacity(T // G, cfg)
-    return gates, experts, pos, pos < C, C
+    C = _capacity(T // G, cfg, train)
+    return gates, experts, pos, pos < C, C, probs
 
 
-def moe_fwd(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d)."""
+def moe_fwd(p: dict, cfg: ArchConfig, x: torch.Tensor, train: bool = False):
+    """x: (B, S, d) -> (B, S, d) (serving); with ``train`` the training
+    capacity and ``(out, aux)``, aux the float32 Switch loss."""
     B, S, d = x.shape
     T = B * S
     E, K = cfg.n_experts, cfg.n_experts_per_tok
     xt = x.reshape(T, d)
-    gates, experts, pos, keep, C = route(p, cfg, xt)
+    gates, experts, pos, keep, C, probs = route(p, cfg, xt, train)
     G, TgK = pos.shape
     # kept assignments own distinct (expert, position) slots of their
     # group's buffer; dropped ones all land on one sink row past the end
@@ -114,4 +122,9 @@ def moe_fwd(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     out = back.reshape(T, K, d).sum(dim=1)
     if "shared" in p:
         out = out + mlp_fwd(p["shared"], xt, cfg.act)
-    return out.reshape(B, S, d)
+    out = out.reshape(B, S, d)
+    if not train:
+        return out
+    me = probs.mean(dim=0)                               # (E,)
+    ce = F.one_hot(experts, E).float().sum(dim=1).mean(dim=0)
+    return out, E * torch.sum(me * ce)

@@ -32,7 +32,9 @@ cast, as the reference keeps them.
 layout (a gemma or zamba model's given its config) as one ``.npz`` (a leaf a key, its path joined by ``/``; bfloat16
 leaves as their 16-bit words under a ``@bfloat16`` suffix), and
 ``load_params`` reads such a file through ``from_numpy``: the weight
-handoff of a ``ProcessBackend(params_path=...)``.
+handoff of a ``ProcessBackend(params_path=...)``. ``to_numpy`` is
+``from_numpy``'s inverse, the same stacked layout as numpy arrays (how a
+test holds the port's gradients and updated parameters against JAX's).
 """
 from __future__ import annotations
 
@@ -184,17 +186,9 @@ def _flat(tree: dict, prefix: str = ""):
             yield f"{prefix}{k}", v
 
 
-def save_params(params: dict, path: str | os.PathLike,
-                cfg: ArchConfig | None = None) -> str:
-    """Write the port's parameters (``Model.init`` or ``from_numpy``) to
-    ``path`` as ``.npz`` in the stacked layout ``from_numpy`` takes: the
-    per-layer dicts stacked along a leading layer axis into ``stack``
-    (and, for an MoE model, its leading dense layers into ``dense0``),
-    or, given the gemma or zamba config ``cfg``, into its ``super`` and
-    ``rem`` groups, zamba's shared block once as ``shared`` (without
-    ``cfg`` such a model would be written as one ``stack``, which
-    ``load_params`` refuses); whisper's ``enc_layers`` into
-    ``enc_stack``. The bytes are kept exactly. Returns the path."""
+def _stacked(params: dict, cfg: ArchConfig | None) -> dict:
+    """The port's parameters in the stacked layout ``from_numpy`` takes
+    (``save_params``' rule for ``cfg``), as a tree of tensors."""
     layers = params["layers"]
     tree = {k: v for k, v in params.items()
             if k not in ("layers", "enc_layers")}
@@ -222,6 +216,21 @@ def save_params(params: dict, path: str | os.PathLike,
         for k in name[:-1]:
             node = node.setdefault(k, {})
         node[name[-1]] = _stack(members[name], axes)
+    return tree
+
+
+def save_params(params: dict, path: str | os.PathLike,
+                cfg: ArchConfig | None = None) -> str:
+    """Write the port's parameters (``Model.init`` or ``from_numpy``) to
+    ``path`` as ``.npz`` in the stacked layout ``from_numpy`` takes: the
+    per-layer dicts stacked along a leading layer axis into ``stack``
+    (and, for an MoE model, its leading dense layers into ``dense0``),
+    or, given the gemma or zamba config ``cfg``, into its ``super`` and
+    ``rem`` groups, zamba's shared block once as ``shared`` (without
+    ``cfg`` such a model would be written as one ``stack``, which
+    ``load_params`` refuses); whisper's ``enc_layers`` into
+    ``enc_stack``. The bytes are kept exactly. Returns the path."""
+    tree = _stacked(params, cfg)
     arrays = {}
     for key, t in _flat(tree):
         t = t.detach().cpu().contiguous()
@@ -233,6 +242,26 @@ def save_params(params: dict, path: str | os.PathLike,
     with open(path, "wb") as f:
         np.savez(f, **arrays)
     return str(path)
+
+
+def to_numpy(cfg: ArchConfig, params: dict) -> dict:
+    """The inverse of ``from_numpy``: the port's parameters for ``cfg`` (or
+    any tree of their shape, such as their gradients or an optimizer's
+    moments) as JAX's stacked tree of numpy arrays, copied off the device,
+    so they compare with JAX's leaf by leaf. ``to_numpy(cfg,
+    from_numpy(cfg, tree))`` equals a float32 ``tree`` bit for bit; a
+    bfloat16 leaf comes back as float32 (exactly its values: numpy has
+    no bfloat16)."""
+    check_supported(cfg)
+
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().to("cpu", copy=True)
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def walk(tree):
+        return ({k: walk(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else leaf(tree))
+    return walk(_stacked(params, cfg))
 
 
 def _stack(group: list, axes: tuple[int, ...]) -> dict:

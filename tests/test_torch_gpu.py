@@ -2369,3 +2369,106 @@ def test_card_memory_returns_after_an_engine_is_freed(cuda):
     print(f"(footprint, after free, after clearing cuBLAS workspaces) B: "
           f"{rows}")
     assert rows[-1][2] - rows[0][2] <= 1 << 20, rows
+
+
+# ---------------------------------------------------------------------------
+# training: the backward kernels and a reduced train step
+# ---------------------------------------------------------------------------
+BWD_TOL = 5e-5
+
+
+def _assert_bwd_close(got, want):
+    tol = BWD_TOL + BWD_TOL * float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,K,Kv,causal,window,softcap", [
+    (2, 77, 77, 16, 8, 128, 128, True, 0, 0.0),
+    (1, 130, 130, 8, 4, 128, 128, True, 40, 0.0),
+    (1, 100, 100, 4, 4, 192, 128, True, 0, 0.0),
+    (1, 150, 150, 4, 4, 64, 64, False, 0, 0.0),
+    (2, 40, 40, 4, 2, 128, 128, True, 0, 5.0),
+    (1, 40, 150, 4, 2, 64, 64, False, 0, 0.0),
+    (1, 37, 37, 4, 2, 48, 32, True, 0, 0.0),
+    (2, 1, 50, 4, 2, 32, 32, True, 0, 0.0),
+])
+def test_flash_backward_kernel_matches_plain(cuda, B, Sq, Skv, H, Hkv, K, Kv,
+                                             causal, window, softcap):
+    from repro_torch.kernels import flash_attention as fa
+    f32 = torch.float32
+    q = _randn(cuda, B, Sq, H, K, dtype=f32)
+    k = _randn(cuda, B, Skv, Hkv, K, dtype=f32)
+    v = _randn(cuda, B, Skv, Hkv, Kv, dtype=f32)
+    dout = _randn(cuda, B, Sq, H, Kv, dtype=f32)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, fa.flash_attention(q, k, v, **kw))
+    ro, rl = ref.flash_attention_lse(q, k, v, **kw)
+    _assert_bwd_close(lse, rl)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want = ref.flash_attention_bwd(q, k, v, ro, rl, dout, **kw)
+    for g, w in zip(got, want):
+        _assert_bwd_close(g, w)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("rows,D", [(4096, 1024), (37, 128), (5, 3584)])
+def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, D):
+    from repro_torch.kernels import rmsnorm as rn
+    f32 = torch.float32
+    x = _randn(cuda, rows, D, dtype=f32)
+    s = 1 + 0.1 * _randn(cuda, D, dtype=f32)
+    g = _randn(cuda, rows, D, dtype=f32)
+    dx, ds = rn.rmsnorm_bwd(x, s, g)
+    rx, rs = ref.rmsnorm_bwd(x, s, g)
+    _assert_bwd_close(dx, rx)
+    _assert_bwd_close(ds, rs)
+    wide = _randn(cuda, rows, D + 64, dtype=f32)
+    dx, ds = rn.rmsnorm_bwd(wide[:, :D], s, g)
+    rx, rs = ref.rmsnorm_bwd(wide[:, :D], s, g)
+    _assert_bwd_close(dx, rx)
+    _assert_bwd_close(ds, rs)
+    (a, b), (c, d) = rn.rmsnorm_pair_bwd(x, s, g, x[:3], s, g[:3])
+    assert torch.equal(a, rn.rmsnorm_bwd(x, s, g)[0])
+    _assert_bwd_close(d, ref.rmsnorm_bwd(x[:3], s, g[:3])[1])
+
+
+@pytest.mark.parametrize("name", ["qwen3-0.6b-reduced",
+                                  "deepseek-v2-lite-16b-reduced",
+                                  "gemma3-27b-reduced",
+                                  "whisper-large-v3-reduced"])
+def test_reduced_train_step_card_matches_cpu(cuda, name):
+    """One step's loss and gradients on the card against the CPU from the
+    same weights, and every attention and norm a kernel launch forward and
+    backward."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import map_tree, unique_leaves
+    cfg = get_config(name)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 64))}
+    if cfg.arch_type == "audio":
+        batch["audio_frames"] = rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    cpu_params = Model(cfg, device="cpu").init(seed=0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = Model(cfg, device=dev)
+        params = map_tree(lambda t: t.to(dev).requires_grad_(True),
+                          cpu_params)
+        leaves = unique_leaves(params)
+        ops.reset_launch_counts()
+        loss, _ = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        out[dev] = (float(loss), [g.cpu() for g in grads],
+                    ops.launch_counts())
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((a - b).abs().max()) <= 1e-4 * max(
+            float(b.abs().max()), 1e-30)
+    n = out["cuda"][2]
+    assert n["flash_attention"] == n["flash_attention_bwd"] > 0
+    assert n["rmsnorm"] == n["rmsnorm_bwd"]

@@ -50,7 +50,10 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
             "repro_torch.configs.zamba2_7b",
             "repro_torch.configs.internvl2_26b",
             "repro_torch.configs.mixtral_8x22b",
-            "repro_torch.configs.whisper_large_v3"} <= set(_modules())
+            "repro_torch.configs.whisper_large_v3",
+            "repro_torch.train.optimizer", "repro_torch.train.loop",
+            "repro_torch.train.checkpoint",
+            "repro_torch.launch.train"} <= set(_modules())
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         class Blk(importlib.abc.MetaPathFinder):
@@ -63,7 +66,8 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
             importlib.import_module(mod)
         ops = sys.modules["repro_torch.kernels.ops"]
         assert {{"decode_attention_int8", "paged_decode_attention_int8",
-                 "ssd_scan", "mla_decode_ctx", "rmsnorm"}} <= set(ops.COUNTERS)
+                 "ssd_scan", "mla_decode_ctx", "rmsnorm",
+                 "flash_attention_bwd", "rmsnorm_bwd"}} <= set(ops.COUNTERS)
         assert not [m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         print("port imports ok")
@@ -210,6 +214,63 @@ def test_testbed_stream_and_video_example_run_with_jax_and_repro_blocked():
         timeout=120)
     assert out.returncode == 0, out.stderr
     assert "testbed imports ok" in out.stdout
+
+
+def test_training_launcher_and_example_run_with_jax_and_repro_blocked():
+    """``launch.train`` (one reduced step on the CPU), the train loop,
+    optimizer and checkpoints, and ``examples/torch_train_lm.py`` (four
+    reduced steps, its loss falling) run without JAX or the reference
+    package."""
+    example = REPO / "examples" / "torch_train_lm.py"
+    for line in example.read_text().splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]):
+            assert words[1].split(".")[0] not in ("jax", "jaxlib", "repro")
+    script = textwrap.dedent(f"""
+        import importlib.abc, importlib.util, sys, tempfile, os
+        class Blk(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    raise ImportError(f"blocked import of {{name}}")
+        sys.meta_path.insert(0, Blk())
+        from repro_torch.launch import train
+        with tempfile.TemporaryDirectory() as out:
+            report = train.main(["--reduced", "--device", "cpu", "--steps",
+                                 "1", "--seq", "16", "--save",
+                                 os.path.join(out, "ck")])
+            assert len(report["loss"]) == 1
+            spec = importlib.util.spec_from_file_location(
+                "example", {str(example)!r})
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            res = mod.main(["--reduced", "--device", "cpu", "--steps", "4",
+                            "--seq", "16", "--batch", "2", "--lr", "3e-3",
+                            "--out", out])
+            assert len(res["history"]) == 2
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+        print("training imports ok")
+    """)
+    out = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+             "OMP_NUM_THREADS": "1"}, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "training imports ok" in out.stdout
+
+
+def test_training_entry_points_default_to_cuda_and_refuse_without_a_card(
+        cpu_only):
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--reduced", "--steps", "1"])
+    example = REPO / "examples" / "torch_train_lm.py"
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("torch_train_lm", example)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--reduced", "--steps", "1"])
 
 
 def test_chip_smoke_imports_nothing_of_jax_or_repro():

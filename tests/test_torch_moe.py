@@ -70,7 +70,7 @@ def test_moe_fwd_matches_jax(over, B, S, drops):
     got = moe.moe_fwd(tp, cfg, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
-    _, _, pos, keep, C = moe.route(tp, cfg, torch.from_numpy(x).reshape(
+    _, _, pos, keep, C, _ = moe.route(tp, cfg, torch.from_numpy(x).reshape(
         B * S, cfg.d_model))
     G = pos.shape[0]
     assert G * pos.shape[1] == B * S * cfg.n_experts_per_tok
@@ -90,7 +90,7 @@ def test_dropped_assignments_add_nothing():
     # group, so only the first C = 4 tokens of each group keep theirs
     x = torch.ones((1, 64, cfg.d_model))
     out = moe.moe_fwd(tp, cfg, x)
-    _, _, _, keep, C = moe.route(tp, cfg, x.reshape(64, cfg.d_model))
+    _, _, _, keep, C, _ = moe.route(tp, cfg, x.reshape(64, cfg.d_model))
     kept = keep.reshape(4, 16, 2).all(dim=2).reshape(64)
     assert C == 4 and int(kept.sum()) == 4 * C
     assert bool((out[0, ~kept] == 0).all())
@@ -124,8 +124,8 @@ def test_drop_variant_engine_matches_jax(drop_models, cache, monkeypatch):
     dropped = []
     route = moe.route
 
-    def recording_route(p, cfg, xt):
-        out = route(p, cfg, xt)
+    def recording_route(p, cfg, xt, train=False):
+        out = route(p, cfg, xt, train)
         dropped.append(int((~out[3]).sum()))
         return out
     monkeypatch.setattr(moe, "route", recording_route)
