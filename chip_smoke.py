@@ -438,6 +438,9 @@ SRC = ROOT / "src"
 
 # NVIDIA H100 SXM data sheet: dense peaks at the 700 W limit
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 outside tensor cores
+# the float32 flash bodies run every product as three TF32 products (split
+# hi / lo): their operations are bounded at a third of the dense TF32 rate
+SPLIT_TF32_FLOPS = 494.7e12 / 3
 PEAK_BYTES_S = 3.35e12
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 H, HKV, K = 16, 8, 128
@@ -1499,6 +1502,19 @@ def bound_ms(flops, nbytes, dn) -> tuple[float, str]:
                                        else "bytes")
 
 
+def f32_flash_bound(flops, nbytes) -> tuple[float, str, float]:
+    """A float32 flash kernel's bound: the smaller of its CUDA-core bound
+    (operations at 67 TFLOP/s) and its split-TF32 bound (3 x operations at
+    494.7 TFLOP/s), each the larger of its operations' and its bytes'
+    time, so that no row reads faster than its bound; then the CUDA-core
+    bound."""
+    cores = bound_ms(flops, nbytes, "float32")
+    t_ops, t_bytes = flops / SPLIT_TF32_FLOPS, nbytes / PEAK_BYTES_S
+    split = (max(t_ops, t_bytes) * 1e3,
+             "operations" if t_ops >= t_bytes else "bytes")
+    return (*min(split, cores), cores[0])
+
+
 def family_shape_checks(gen) -> dict:
     """The prefill, dense decode and paged decode kernels at the shapes
     the gemma family and the 8B dense configs give them (GEMMA_FLASH,
@@ -1928,6 +1944,8 @@ def whisper_shape_checks(gen) -> dict:
                          "plain_ms": time_ms(p_call, reps=3),
                          "library_ms": time_graph_ms(lib),
                          "bound_ms": b[0], "bound_by": b[1]}
+                if len(b) > 2:
+                    times["bound_cuda_cores_ms"] = b[2]
         tn = str(timed).split(".")[1]
         out.setdefault(name, {})[label] = {
             "max_abs_err": errs[tn], "max_abs_err_by_dtype": errs, **times,
@@ -1953,8 +1971,11 @@ def whisper_shape_checks(gen) -> dict:
 
         def flash_bound(dn, B=B, Sq=Sq, Skv=Skv, pairs=pairs):
             isz = 4 if dn == "float32" else 2
-            return bound_ms(4 * B * h * pairs * k_,
-                            2 * B * (Sq * h + Skv * hkv) * k_ * isz, dn)
+            flops = 4 * B * h * pairs * k_
+            nbytes = 2 * B * (Sq * h + Skv * hkv) * k_ * isz
+            if dn == "float32":
+                return f32_flash_bound(flops, nbytes)
+            return bound_ms(flops, nbytes, dn)
         row("flash_attention", label, flash_calls, flash_bound,
             f"B={B} Sq={Sq} Skv={Skv} H={h} Hkv={hkv} K=Kv={k_} "
             + ("causal" if causal else "not causal"),
@@ -2048,28 +2069,54 @@ def check_bwd(got, want, what: str) -> float:
     return err
 
 
+def _sdpa_call(q, k, v, causal, window, softcap, grad):
+    """sdpa on (q, k, v)'s values in its own layout, with the flash
+    kernels' mask, and the (B, H, S, .) inputs; None where sdpa cannot
+    compute the same function (a softcap)."""
+    import torch.nn.functional as F
+    if softcap:
+        return None, None
+    qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_(grad)
+                  for t in (q, k, v))
+    mask = None
+    if window:
+        from repro_torch.kernels import ref
+        mask = ref.attention_mask(q.shape[1], k.shape[1], causal=causal,
+                                  window=window, device=q.device)
+
+    def call():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=q.shape[2] != k.shape[2])
+    return call, (qt, kt, vt)
+
+
+def sdpa_forward(q, k, v, causal, window, softcap):
+    """One ``scaled_dot_product_attention`` forward on the same inputs, or
+    None with the reason where sdpa cannot compute the same function. A
+    yardstick only: the port never calls sdpa."""
+    call, _ = _sdpa_call(q, k, v, causal, window, softcap, False)
+    if call is None:
+        return None, "sdpa has no softcap"
+    try:
+        call()
+    except RuntimeError as e:
+        return None, f"sdpa refused: {str(e).splitlines()[0][:120]}"
+    return call, "sdpa forward (f32)"
+
+
 def sdpa_backward(q, k, v, dout, causal, window, softcap):
     """One ``scaled_dot_product_attention`` backward through autograd on
     the same inputs (the forward run once before timing), or None with
     the reason where sdpa cannot compute the same function (a softcap).
     A yardstick only: the port never calls sdpa."""
-    import torch.nn.functional as F
-    if softcap:
+    call, leaves = _sdpa_call(q, k, v, causal, window, softcap, True)
+    if call is None:
         return None, "sdpa has no softcap"
-    qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_(True)
-                  for t in (q, k, v))
     dt = dout.transpose(1, 2).contiguous()
-    Sq, Skv = q.shape[1], k.shape[1]
-    mask = None
-    if window:
-        from repro_torch.kernels import ref
-        mask = ref.attention_mask(Sq, Skv, causal=causal, window=window,
-                                  device=q.device)
     try:
-        out = F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
-            enable_gqa=q.shape[2] != k.shape[2])
-        fn = lambda: torch.autograd.grad(out, (qt, kt, vt), dt,  # noqa: E731
+        out = call()
+        fn = lambda: torch.autograd.grad(out, leaves, dt,  # noqa: E731
                                          retain_graph=True)
         fn()
     except RuntimeError as e:
@@ -2084,7 +2131,10 @@ def backward_checks(gen) -> dict:
     ``rmsnorm_bwd`` at RMS_BWD_MAIN and the RMS_BWD_PAIR pair (one
     launch). Each timed launched one by one (card ms) and replayed from a
     CUDA graph (device ms), beside its bound, its plain version and the
-    library's backward through autograd. Returns the line's rows."""
+    library's backward through autograd. The float32 forward with its lse
+    (what training runs) is timed at each FLASH_BWD shape too, as device
+    ms beside its bound and sdpa's float32 forward. Returns the line's
+    rows, the forward's under "flash_attention_train_forward"."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -2097,7 +2147,7 @@ def backward_checks(gen) -> dict:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev, dtype=f32)
 
-    rows = {}
+    rows, forward = {}, {}
     for name, B, S, H_, Hkv, K_, Kv, causal, window, cap in FLASH_BWD:
         q, k, v = randn(B, S, H_, K_), randn(B, S, Hkv, K_), randn(B, S, Hkv, Kv)
         dout = randn(B, S, H_, Kv)
@@ -2110,7 +2160,7 @@ def backward_checks(gen) -> dict:
                  "set")
         ro, rl = ref.flash_attention_lse(q, k, v, **kw)
         what = f"flash_attention_bwd {name}"
-        check_close(out, ro, "float32", f"{what} forward")
+        fwd_err = check_close(out, ro, "float32", f"{what} forward")
         check_bwd(lse, rl, f"{what} lse")
         got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
         torch.cuda.synchronize()
@@ -2125,9 +2175,31 @@ def backward_checks(gen) -> dict:
                                                 device=dev).sum())
         nbytes = 4 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
                       + 2 * out.numel() + lse.numel())
-        bound, by = bound_ms(2 * pairs * (3 * K_ + 2 * Kv), nbytes,
-                             "float32")
+        bound, by, cores = f32_flash_bound(2 * pairs * (3 * K_ + 2 * Kv),
+                                           nbytes)
         del want, again, ro, rl
+
+        # the forward with its lse: q, k, v read, out and lse written
+        f_bound, f_by, f_cores = f32_flash_bound(
+            2 * pairs * (K_ + Kv),
+            4 * (q.numel() + k.numel() + v.numel() + out.numel()
+                 + lse.numel()))
+        lib_f, lib_f_note = sdpa_forward(q, k, v, **kw)
+        forward[f"train_{name}"] = {
+            "max_abs_err": fwd_err,
+            "ms": time_graph_ms(lambda: fa.flash_attention(
+                q, k, v, return_lse=True, **kw), reps=20),
+            "bound_ms": f_bound, "bound_by": f_by,
+            "bound_cuda_cores_ms": f_cores,
+            "library_ms": None if lib_f is None else time_graph_ms(
+                lib_f, reps=20),
+            "library": lib_f_note,
+            "shape": f"B={B} S={S} H={H_} Hkv={Hkv} K={K_} Kv={Kv} "
+                     f"causal={causal} window={window} softcap={cap} f32 "
+                     "with its lse (training's forward); ms and library_ms "
+                     "device time (replayed from a CUDA graph)"}
+        print(f"flash_attention train forward {name}: "
+              f"{forward[f'train_{name}']}", flush=True)
 
         def kernel():
             return fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
@@ -2139,6 +2211,7 @@ def backward_checks(gen) -> dict:
                "graph_ms": time_graph_ms(kernel, reps=10),
                "plain_ms": time_ms(plain, reps=2),
                "bound_ms": bound, "bound_by": by,
+               "bound_cuda_cores_ms": cores,
                "library_ms": None if lib is None else time_ms(lib, reps=10),
                "library": lib_note,
                "shape": f"B={B} S={S} H={H_} Hkv={Hkv} K={K_} Kv={Kv} "
@@ -2151,8 +2224,9 @@ def backward_checks(gen) -> dict:
     flash["shapes"] = rows
     flash["shape"] += ("; ms and library_ms launched one by one (CUDA "
                        "events), graph_ms replayed from a CUDA graph; bound "
-                       "2 * visible pairs * (3K + 2Kv) operations at 67 "
-                       "TFLOP/s f32")
+                       "2 * visible pairs * (3K + 2Kv) operations at the "
+                       "split-TF32 rate (3 x operations at 494.7 TFLOP/s), "
+                       "bound_cuda_cores_ms at 67 TFLOP/s f32")
 
     def rms_case(shapes):
         xs = [randn(r, D) for r, D in shapes]
@@ -2218,6 +2292,7 @@ def backward_checks(gen) -> dict:
         "shape": f"q {RMS_BWD_PAIR[0]} and k {RMS_BWD_PAIR[1]} f32, one "
                  "launch (qwen3-0.6b's q/k norms over a 4096-token batch)"}
     results["flash_attention_bwd"] = flash
+    results["flash_attention_train_forward"] = forward
     print(f"rmsnorm_bwd: {results['rmsnorm_bwd']}", flush=True)
     return results
 
@@ -2449,7 +2524,10 @@ def kernel_phase():
     for name, rows in whisper_shape_checks(gen).items():
         results[name].setdefault("family_shapes", {}).update(rows)
         print(f"{name} phase 16 shapes: {rows}", flush=True)
-    results.update(backward_checks(gen))
+    backward = backward_checks(gen)
+    results["flash_attention"]["family_shapes"].update(
+        backward.pop("flash_attention_train_forward"))
+    results.update(backward)
     return results
 
 

@@ -5,6 +5,7 @@
     python3 scripts/profile_port.py --prefill [--src DIR] [--out FILE]
     python3 scripts/profile_port.py --decode [--src DIR] [--out FILE]
     python3 scripts/profile_port.py --chunk [--src DIR] [--out FILE]
+    python3 scripts/profile_port.py --flash [--src DIR] [--out FILE]
 
 Serves the ``chip_smoke.py`` phase-4 request set (qwen3-0.6b at full
 width, 28 layers, bf16, random weights from seed 0; n_slots=4,
@@ -60,6 +61,15 @@ bytes and replays; then the device time of the 4-slot decode step alone
 (``chip_smoke.py``'s ``decode_step_profile``, eager and replayed). Read
 against ``--src`` of a parent whose engine decodes eagerly, it compares
 eager dispatch with graph replay on one card.
+
+``--flash`` reads the float32 flash kernels' device time (100 calls, 20
+for the backward, replayed from a CUDA graph) at ``chip_smoke.py``'s
+FLASH_BWD shapes (the forward with its lse, as training runs it, and
+``flash_attention_bwd``) and its float32 WHISPER_FLASH shapes (the
+forward), with each CUDA kernel's device ms a call by name
+(``torch.profiler``) and digests of the outputs on fixed inputs. Read
+against ``--src`` of a parent in turns, it compares two bodies of the
+same kernels on one card.
 
 ``--src`` imports the port from another checkout's ``src`` (for example
 a parent commit unpacked beside this one), so two versions can be read
@@ -490,12 +500,82 @@ def output_digests() -> dict:
     return out
 
 
+def profile_flash() -> dict:
+    """The float32 flash forward (with its lse) and backward at
+    FLASH_BWD's shapes, and the forward at the float32 WHISPER_FLASH
+    shapes: graph-replayed device ms, device ms by CUDA kernel, digests."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    cs.np, cs.torch = np, torch      # its main() binds these
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def by_kernel(fn, reps=10):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return {e.key[:100]: _device_us(e) / reps / 1e3
+                for e in prof.key_averages() if _device_us(e) > 0}
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    shapes = [(f"train_{name}", B, S, S, H_, Hkv, K_, Kv, causal, window, cap)
+              for name, B, S, H_, Hkv, K_, Kv, causal, window, cap
+              in cs.FLASH_BWD]
+    h, hkv, k_ = (cs.WHISPER_HEADS[n] for n in ("H", "Hkv", "K"))
+    shapes += [(label, f["B"], f["Sq"], f["Skv"], h, hkv, k_, k_,
+                f["causal"], 0, 0.0)
+               for label, f in cs.WHISPER_FLASH.items()
+               if f["timed"] == "float32"]
+    rows = {}
+    for name, B, Sq, Skv, H_, Hkv, K_, Kv, causal, window, cap in shapes:
+        q, k, v = randn(B, Sq, H_, K_), randn(B, Skv, Hkv, K_), randn(
+            B, Skv, Hkv, Kv)
+        kw = dict(causal=causal, window=window, softcap=cap)
+
+        def fwd():
+            return fa.flash_attention(q, k, v, return_lse=True, **kw)
+        out, lse = fwd()
+        row = {"forward_ms": cs.time_graph_ms(fwd),
+               "forward_kernel_ms": by_kernel(fwd),
+               "forward_digest": digest(out, lse)}
+        if name.startswith("train_"):
+            dout = randn(B, Sq, H_, Kv)
+
+            def bwd():
+                return fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            row.update(backward_ms=cs.time_graph_ms(bwd, reps=20),
+                       backward_kernel_ms=by_kernel(bwd),
+                       backward_digest=digest(*bwd()))
+        rows[name] = {"shape": f"B={B} Sq={Sq} Skv={Skv} H={H_} Hkv={Hkv} "
+                               f"K={K_} Kv={Kv} causal={causal} "
+                               f"window={window} softcap={cap} f32", **row}
+        print(name, {k: v for k, v in row.items() if k.endswith("_ms")},
+              flush=True)
+        del q, k, v, out, lse
+        torch.cuda.empty_cache()
+    return {"flash": rows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--prefill", action="store_true")
     ap.add_argument("--decode", action="store_true")
     ap.add_argument("--chunk", action="store_true")
+    ap.add_argument("--flash", action="store_true")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -526,6 +606,9 @@ def main() -> int:
         return _report({"src": args.src, "card": card,
                         "models": [profile_chunks(n) for n in CHUNK_MODELS]},
                        args.out or ROOT / "build" / "profile_chunk.json")
+    if args.flash:
+        return _report({"src": args.src, "card": card, **profile_flash()},
+                       args.out or ROOT / "build" / "profile_flash.json")
     cfg = get_config("qwen3-0.6b")
     model = Model(cfg)
     params = model.init(seed=0, dtype=torch.bfloat16)

@@ -5,9 +5,10 @@ of the port, on a machine with ``nvcc``.
     python3 scripts/ptxas_report.py
 
 Builds ``src/repro_torch/kernels/csrc`` with the port's own flags plus
-``-Xptxas=-v`` into ``build/kernels_ptxas`` (the port's ``build/kernels``
-is left alone); the ptxas output goes to this process's standard output
-as the build runs. Then it reads the built library's SASS with
+``-Xptxas=-v`` into ``build/kernels_ptxas``, emptied first so that every
+source compiles and ptxas reports every kernel (the port's
+``build/kernels`` is left alone); the ptxas output goes to this
+process's standard output as the build runs. Then it reads the built library's SASS with
 ``cuobjdump -sass`` and prints one line per kernel instantiation: its
 registers, spill stores and loads (bytes, from ptxas) and its count of
 tensor-core instructions (``HMMA``, or ``HGMMA`` for ``wgmma``), so a
@@ -24,7 +25,12 @@ and the 12 split decode instantiations at the new pairs (split pass: 2
 query dtypes x 2 address policies x 2 pairs; merge: 2 x 2) are there
 and none of them spills, and the 8 int8 split passes at those pairs (2
 query dtypes x 2 address policies x 2 pairs; the merge is the split
-body's) are there, listed one by one, and none of them spills.
+body's) are there, listed one by one, and none of them spills. The
+float32 flash bodies (the forward's split-TF32 body and the backward's
+dq and dk/dv passes) are listed one by one too; it exits 1 unless every
+one of them has tensor-core instructions and none that the registry's
+head shapes reach (K / Kv 64 / 64, 112 / 112, 128 / 128 and 192 / 128:
+tiles 64 / 64, 128 / 128 and 192 / 128) spills.
 """
 from __future__ import annotations
 
@@ -91,6 +97,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.build import load_kernels
 
+    # a build left from an earlier run would compile nothing and print no
+    # ptxas lines
+    shutil.rmtree(BUILD, ignore_errors=True)
     # ninja writes the compiler's output to file descriptor 1
     with tempfile.TemporaryFile(mode="w+") as log:
         saved = os.dup(1)
@@ -170,9 +179,27 @@ def main() -> int:
     print(f"int8 decode new shapes: {len(new8)} instantiations, most "
           f"registers {max((table[n][0] for n in new8), default=0)}, "
           f"{len(new8_spill)} spill")
+    # the float32 flash bodies on the tensor cores (split TF32), and the
+    # tile widths the registry's head shapes reach
+    f32 = sorted((n for n in table if re.search(
+        r"f32tc::flash_attention_f32_kernel<|dq_kernel<|dkdv_kernel<",
+        names[n])), key=lambda n: names[n])
+    f32_bare = [n for n in f32 if not ops.get(n, 0)]
+    reached = [n for n in f32 if re.search(r"<(64, 64|128, 128|192, 128)\b",
+                                           names[n])]
+    f32_spill = [n for n in reached if table[n][1] or table[n][2]]
+    for n in f32:
+        regs, st, ld = table[n]
+        print(f"flash f32: regs={regs} spill_stores={st} spill_loads={ld} "
+              f"tensor_core_instructions={ops.get(n, 0)} "
+              f"registry={'yes' if n in reached else 'no'} {names[n]}")
+    print(f"flash f32: {len(f32)} instantiations, {len(f32) - len(f32_bare)} "
+          f"with tensor-core instructions, {len(reached)} the registry "
+          f"reaches of which {len(f32_spill)} spill")
     return 1 if (bare or spill or not tc_partial or not int8
                  or int8_spill or not norm or norm_spill or len(new) != 12
-                 or new_spill or len(new8) != 8 or new8_spill) else 0
+                 or new_spill or len(new8) != 8 or new8_spill or not f32
+                 or f32_bare or len(reached) < 9 or f32_spill) else 0
 
 
 if __name__ == "__main__":

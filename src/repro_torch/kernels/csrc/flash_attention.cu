@@ -56,16 +56,36 @@
 // wgmma's deeper pipeline to pay. What is left: the heaviest query tile's
 // block still walks all 8 KV tiles on one SM.
 //
-// float32 body (unchanged since the first port). Q, K and V are staged in
-// shared memory as float32 (row strides padded by one word); 16 x 16
-// threads each own 4 query rows x 4 key columns of the score tile and 4
-// rows x Kv/16 columns of the output, all on the f32 CUDA cores. It stays
-// there on purpose: TF32 tensor cores keep 10 mantissa bits and would miss
-// the 2e-5 float32 parity contract. Given an `lse` pointer (training: the
-// backward in flash_attention_bwd.cu reads it) it also writes each row's
-// log-sum-exp m + log(max(l, 1e-30)), (B, H, Sq) float32, after the row's
-// output, which it leaves bit for bit as it is with a null pointer
-// (serving). The bf16 body takes no lse: no bf16 backward exists.
+// float32 body (f32tc::; it replaced a CUDA-core body of 16 x 16 threads,
+// each with a 4 x 4 outer product, at about 16 TFLOP/s). The grid, the KV
+// walk on absolute 64-key tiles, the masks, the exact 0 weight of a
+// masked score and the two warp groups' parity split and fixed merge are
+// the bf16 body's. Both products run as split TF32 (mma.cuh): every
+// operand x is split into hi = tf32(x) and lo = tf32(x - hi) as it loads
+// into its fragment, and a product is lo.hi + hi.lo + hi.hi, three
+// mma.sync.m16n8k8 into one f32 accumulator: about 22 significant bits,
+// at 495 / 3 = 165 TFLOP/s against the CUDA cores' 67. One TF32 product
+// (11 bits) would miss the 2e-5 float32 contract some 40-fold; the split
+// keeps it with a wide margin (tests/test_torch_tf32_split.py emulates
+// the arithmetic against JAX's flash path). P goes from the score
+// accumulators into the A fragments of P.V with its keys permuted in each
+// k8 step (no shuffle), V's rows read in the same order, and each k8
+// step's three product rounds run across eight n8 tiles, so independent
+// products stand between dependent ones. K and V tiles are staged as
+// float32 by cp.async (16-byte chunks where every row starts on 16 bytes;
+// element by element otherwise), one buffer of each a group: K(i + 1)
+// loads during tile i's softmax and P.V, V(i + 1) during its Q.K^T.
+// Shared rows are width + 4 floats apart, free of bank conflicts in both
+// fragment patterns. K is zero-padded to 64, 128, 192 or 256 columns and
+// Kv to 64, 128 or 256 (exact zeros add nothing; the products run over
+// the padded widths, so their code unrolls). Two warp groups wherever
+// their tiles fit (all but Kv = 256 with K > 64, and K > 192), one block
+// an SM: two blocks at K = Kv = 64 (128 registers a thread) spilled.
+// Given an `lse` pointer (training: the backward in flash_attention_bwd.cu
+// reads it) it also writes each row's log-sum-exp (m + log2(max(l,
+// 1e-30))) * ln 2, (B, H, Sq) float32, after the row's output, which it
+// leaves bit for bit as it is with a null pointer (serving). The bf16
+// body takes no lse: no bf16 backward exists.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -75,214 +95,324 @@
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per block
+// ---------------------------------------------------------------------------
+// float32 body: split TF32 on the tensor cores
+// ---------------------------------------------------------------------------
+namespace f32tc {
+
+constexpr int BQ = 64;   // query rows per block, 16 per warp of a group
 constexpr int BK = 64;   // keys per KV tile
-constexpr int NT = 256;  // 16 x 16 threads
+constexpr int GT = 128;  // threads of a warp group: four warps
+constexpr int MAX_SMEM = 232448;   // bytes of shared memory a block may use
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// Shared rows are float32, width + 4 floats apart (width a multiple of 8):
+// fragment loads along a row (8 rows x 4 columns) and down the permuted
+// columns (4 row pairs x 8 columns) then hit 32 distinct banks, and every
+// row starts on 16 bytes for cp.async.
+// Q, then each warp group's K and V tile (one buffer each)
+constexpr size_t group_bytes(int KP, int KVP) {
+  return sizeof(float) * size_t(BK) * (KP + 4 + KVP + 4);
 }
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
+constexpr size_t smem_bytes(int KP, int KVP, int NG) {
+  return sizeof(float) * size_t(BQ) * (KP + 4) + NG * group_bytes(KP, KVP);
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// sum / max over the 16 lanes that share a row group (lane bits 0..3)
-__device__ __forceinline__ float group16_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float group16_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// two warp groups wherever their tiles fit in shared memory
+constexpr int groups(int KP, int KVP) {
+  return smem_bytes(KP, KVP, 2) <= MAX_SMEM ? 2 : 1;
 }
 
-size_t smem_bytes(int K, int Kv) {
-  return sizeof(float) *
-         (size_t(BQ) * (K + 1) + size_t(BK) * (K + 1) + size_t(BK) * Kv +
-          size_t(BQ) * (BK + 1));
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "n"(GT) : "memory");
 }
 
-template <typename T, int NC>  // NC = Kv / 16 output columns per thread
-__global__ void __launch_bounds__(NT)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           float* __restrict__ lse, int Sq, int Skv, int H,
-                           int Hkv, int K, int causal, int window,
-                           float scale, float softcap) {
-  constexpr int Kv = NC * 16;
-  extern __shared__ float smem[];
-  const int ldq = K + 1;
-  const int ldp = BK + 1;
-  float* qs = smem;              // BQ x ldq
-  float* ks = qs + BQ * ldq;     // BK x ldq
-  float* vs = ks + BK * ldq;     // BK x Kv
-  float* ps = vs + BK * Kv;      // BQ x ldp
+// KP, KVP: the tiles' widths, K rounded up to 64, 128, 192 or 256 and Kv
+// to 64, 128 or 256 (zero columns add nothing). NG warp groups split the
+// KV tiles by the parity of their absolute index as the bf16 body's do,
+// and merge in a fixed order.
+template <int KP, int KVP>
+__global__ void __launch_bounds__(GT * groups(KP, KVP))
+    flash_attention_f32_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               float* __restrict__ out,
+                               float* __restrict__ lse, int Sq, int Skv,
+                               int H, int Hkv, int K, int Kv, int causal,
+                               int window, float scale, float softcap,
+                               int vec) {
+  constexpr int NG = groups(KP, KVP);
+  constexpr int LDK = KP + 4, LDV = KVP + 4;
+  constexpr int NO = KVP / 8;  // n8 tiles of the output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // BQ x LDK
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // the causal grid's heaviest query tiles (the last ones) start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = warp / 4, wg = warp % 4, gtid = tid % GT;
+  const int gr = lane / 4, tq = lane % 4;
   const int off = Skv - Sq;  // right-aligned queries
+  float* ks = qs + BQ * LDK + grp * BK * (LDK + LDV);  // this group's K
+  float* vs = ks + BK * LDK;                           // and V
 
-  for (int i = tid; i < BQ * K; i += NT) {
-    const int r = i / K, d = i % K, qp = q0 + r;
-    qs[r * ldq + d] =
-        qp < Sq ? to_float(q[((size_t(b) * Sq + qp) * H + h) * K + d]) : 0.f;
-  }
-
-  // keys this tile can see: causal stops at the last row's position, a
-  // window starts at the oldest key the first row still sees
+  // KV tiles on absolute boundaries from position 0, so a row meets the
+  // same tiles whatever block it is in (tiles wholly masked for it leave
+  // its state exact)
   const int last_row = min(q0 + BQ, Sq) - 1;
   const int kv_end = causal ? min(Skv, last_row + off + 1) : Skv;
   int kv_begin = window > 0 ? max(0, q0 + off - window + 1) : 0;
   kv_begin = (kv_begin / BK) * BK;
+  const bool any = kv_end > kv_begin;
+  const int t_begin = kv_begin / BK, t_end = (kv_end + BK - 1) / BK;
+  const int t_first = t_begin + ((grp - t_begin % NG) + NG) % NG;
+  const int count = any && t_first < t_end ? (t_end - t_first + NG - 1) / NG : 0;
 
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
+  // this kv head's key and value rows
+  const int k_ld = Hkv * K, v_ld = Hkv * Kv;
+  const float* kg = k + (size_t(b) * Skv * Hkv + hk) * K;
+  const float* vg = v + (size_t(b) * Skv * Hkv + hk) * Kv;
+  auto load_k = [&](int k0) {
+    mma::load_tile_f32<BK, GT>(ks, LDK, kg + size_t(k0) * k_ld, k_ld,
+                               Skv - k0, K, KP, vec, gtid);
+  };
+  auto load_v = [&](int k0) {
+    mma::load_tile_f32<BK, GT>(vs, LDV, vg + size_t(k0) * v_ld, v_ld,
+                               Skv - k0, Kv, KVP, vec, gtid);
+  };
+  // two commit groups in flight at a time: K then V of a tile; K(i + 1)
+  // loads while tile i's softmax and P.V run, V(i + 1) while its Q.K^T
+  // runs (a group commits even when it has nothing left to load)
+  if (any)
+    mma::load_tile_f32<BQ, GT * NG>(qs, LDK,
+                                    q + ((size_t(b) * Sq + q0) * H + h) * K,
+                                    size_t(H) * K, Sq - q0, K, KP, vec, tid);
+  if (count > 0) load_k(t_first * BK);
+  mma::cp_async_commit();
+  if (count > 0) load_v(t_first * BK);
+  mma::cp_async_commit();
+  mma::cp_async_wait<1>();
+  __syncthreads();  // Q and each group's first K
 
-  for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BK * K; i += NT) {
-      const int r = i / K, d = i % K, kp = k0 + r;
-      ks[r * ldq + d] =
-          kp < Skv ? to_float(k[((size_t(b) * Skv + kp) * Hkv + hk) * K + d])
-                   : 0.f;
+  // rows gr and gr + 8 of this warp's 16: running max (log2 units), sum
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  const float scale2 = scale * LOG2E;
+  const int r_lo = q0 + wg * 16, r_hi = r_lo + 15;
+  const float* qa = qs + (wg * 16 + gr) * LDK + tq;
+  const float* kb = ks + gr * LDK + tq;
+  const float* vb = vs + 2 * tq * LDV + gr;
+
+  for (int i = 0; i < count; ++i) {
+    const int k0 = (t_first + i * NG) * BK;
+    if (i > 0) {
+      mma::cp_async_wait<1>();
+      group_sync(grp);  // K(i) landed
     }
-    for (int i = tid; i < BK * Kv; i += NT) {
-      const int r = i / Kv, d = i % Kv, kp = k0 + r;
-      vs[r * Kv + d] =
-          kp < Skv ? to_float(v[((size_t(b) * Skv + kp) * Hkv + hk) * Kv + d])
-                   : 0.f;
-    }
-    __syncthreads();
 
-    // scores for rows ty*4+i and key columns tx+16*j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < K; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * ldq + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = ks[(tx + 16 * j) * ldq + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-    }
+    // S = Q.K^T: 16 rows x 64 keys a warp, eight n8 tiles
+    float s[8][4];
+    mma::rows_dot_tf32<8, KP>(s, qa, LDK, kb, LDK);
+    group_sync(grp);  // K read: the next tile's K may land
+    if (i + 1 < count) load_k(k0 + NG * BK);
+    mma::cp_async_commit();
 
+    // scale (to log2 units), softcap, mask; the online softmax on the
+    // fragments, each row reduced over its quad (lanes 4 gr .. 4 gr + 3)
+    // in one fixed order. A tile every row of the warp sees whole skips
+    // the per-score mask.
+    const bool whole = k0 + BK <= Skv && r_hi < Sq &&
+                       (!causal || k0 + BK - 1 <= r_lo + off) &&
+                       (window <= 0 || k0 > r_hi + off - window);
+    float rmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      const int qpos = row + off;
-      float rmax = -INFINITY;
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        const bool ok = row < Sq && kp < Skv && (!causal || kp <= qpos) &&
-                        (window <= 0 || kp > qpos - window);
-        float x = s[i][j] * scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        s[i][j] = ok ? x : -INFINITY;
-        rmax = fmaxf(rmax, s[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        float x;
+        if (softcap > 0.f)
+          x = tanhf(s[n][e] * scale / softcap) * softcap * LOG2E;
+        else
+          x = s[n][e] * scale2;
+        if (!whole) {
+          const int row = r_lo + gr + (e >> 1) * 8;
+          const int qpos = row + off;
+          const int kp = k0 + n * 8 + 2 * tq + (e & 1);
+          const bool ok = row < Sq && kp < Skv && (!causal || kp <= qpos) &&
+                          (window <= 0 || kp > qpos - window);
+          x = ok ? x : -INFINITY;
+        }
+        s[n][e] = x;
+        rmax[e >> 1] = fmaxf(rmax[e >> 1], x);
       }
-      const float m_new = fmaxf(m[i], group16_max(rmax));
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 1));
+      rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 2));
+      const float m_new = fmaxf(m_run[r], rmax[r]);
       // nothing visible yet: keep the (zero) state as it is
-      const float alpha = m_new == -INFINITY ? 1.f : expf(m[i] - m_new);
-      float rsum = 0.f;
+      alpha[r] = m_new == -INFINITY ? 1.f : exp2f(m_run[r] - m_new);
+      m_run[r] = m_new;
+    }
+    float rsum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_new);
-        ps[(ty * 4 + i) * ldp + tx + 16 * j] = p;
-        rsum += p;
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p =
+            s[n][e] == -INFINITY ? 0.f : exp2f(s[n][e] - m_run[e >> 1]);
+        s[n][e] = p;  // P stays in the accumulators: A of P.V
+        rsum[e >> 1] += p;
       }
-      l[i] = l[i] * alpha + group16_sum(rsum);
-      m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+    for (int r = 0; r < 2; ++r) {
+      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
+      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
+      l_run[r] = l_run[r] * alpha[r] + rsum[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    mma::cp_async_wait<1>();
+    group_sync(grp);  // V(i) landed
+    // O += P.V: each n8 tile of P is the A fragment of one k8 step with
+    // its keys permuted, V's rows read in the same order; eight output
+    // tiles at a time
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const mma::FragA a = mma::c_to_a_tf32(s[kk]);
+#pragma unroll
+      for (int c = 0; c < NO; c += 8) {
+        mma::FragB fb[8];
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          fb[n] = mma::load_bk_tf32(vb + kk * 8 * LDV + (c + n) * 8, LDV);
+        mma::mma_tf32x3(*reinterpret_cast<float(*)[8][4]>(o[c]), a, fb);
+      }
+    }
+    group_sync(grp);  // V read: the next tile's V may land
+    if (i + 1 < count) load_v(k0 + NG * BK);
+    mma::cp_async_commit();
+  }
+  mma::cp_async_wait<0>();
+
+  if constexpr (NG == 2) {
+    // group 1 hands its rows' (max, sum, output) to group 0 through its
+    // own (now idle) tile buffers; group 0 merges them after its own
+    constexpr int W = NO * 4 + 4;
+    float* xch = qs + BQ * LDK + BK * (LDK + LDV) + (wg * 32 + lane) * W;
+    __syncthreads();
+    if (grp == 1) {
+      xch[0] = m_run[0];
+      xch[1] = m_run[1];
+      xch[2] = l_run[0];
+      xch[3] = l_run[1];
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xch[4 + n * 4 + e] = o[n][e];
     }
     __syncthreads();
-
-    for (int j = 0; j < BK; ++j) {
-      float vv[NC];
+    if (grp == 1) return;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = vs[j * Kv + tx + 16 * c];
+    for (int r = 0; r < 2; ++r) {
+      const float m1 = xch[r], l1 = xch[2 + r];
+      const float m = fmaxf(m_run[r], m1);
+      const float a0 = m_run[r] == -INFINITY ? 0.f : exp2f(m_run[r] - m);
+      const float a1 = m1 == -INFINITY ? 0.f : exp2f(m1 - m);
+      l_run[r] = l_run[r] * a0 + l1 * a1;
+      m_run[r] = m;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = ps[(ty * 4 + i) * ldp + j];
+      for (int n = 0; n < NO; ++n)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-      }
+        for (int e = 0; e < 2; ++e)
+          o[n][2 * r + e] =
+              o[n][2 * r + e] * a0 + xch[4 + n * 4 + 2 * r + e] * a1;
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r_lo + gr + r * 8;
     if (row >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + ((size_t(b) * Sq + row) * H + h) * Kv;
+    const float denom = fmaxf(l_run[r], 1e-30f);
+    float* orow = out + ((size_t(b) * Sq + row) * H + h) * Kv + 2 * tq;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) o[tx + 16 * c] = from_float<T>(acc[i][c] / denom);
-    if (lse != nullptr && tx == 0)
-      lse[(size_t(b) * H + h) * Sq + row] = m[i] + logf(denom);
+    for (int n = 0; n < NO; ++n)
+      if (n * 8 < Kv)
+        *reinterpret_cast<float2*>(orow + n * 8) =
+            make_float2(o[n][2 * r] / denom, o[n][2 * r + 1] / denom);
+    // the row's log-sum-exp (natural units) after its output, which it
+    // leaves as it is with a null pointer
+    if (lse != nullptr && tq == 0)
+      lse[(size_t(b) * H + h) * Sq + row] = (m_run[r] + log2f(denom)) * LN2;
   }
 }
 
-template <typename T, int NC>
+template <int KP, int KVP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int B, int Sq, int Skv, int H, int Hkv, int K,
-                   int causal, int window, float scale, float softcap,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes(K, NC * 16);
+                   int Kv, int causal, int window, float scale, float softcap,
+                   int vec, cudaStream_t stream) {
+  constexpr int NG = groups(KP, KVP);
+  constexpr size_t smem = smem_bytes(KP, KVP, NG);
+  static_assert(smem <= MAX_SMEM, "float32 flash tiles exceed shared memory");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, NC>,
+      flash_attention_f32_kernel<KP, KVP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<T, NC><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Skv, H, Hkv,
-      K, causal, window, scale, softcap);
+  flash_attention_f32_kernel<KP, KVP><<<grid, GT * NG, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Skv,
+      H, Hkv, K, Kv, causal, window, scale, softcap, vec);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_kv(int Kv, const void* q, const void* k, const void* v,
-                      void* out, float* lse, int B, int Sq, int Skv, int H,
-                      int Hkv, int K, int causal, int window, float scale,
-                      float softcap, cudaStream_t stream) {
-  switch (Kv) {
-    case 16: return launch<T, 1>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
-    case 32: return launch<T, 2>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
-    case 64: return launch<T, 4>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
-    case 112: return launch<T, 7>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
-    case 128: return launch<T, 8>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
-    case 256: return launch<T, 16>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int KP>
+cudaError_t launch_kv(const void* q, const void* k, const void* v, void* out,
+                      float* lse, int B, int Sq, int Skv, int H, int Hkv,
+                      int K, int Kv, int causal, int window, float scale,
+                      float softcap, int vec, cudaStream_t stream) {
+  if (Kv <= 64)
+    return launch<KP, 64>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, Kv, causal, window, scale, softcap, vec, stream);
+  if (Kv <= 128)
+    return launch<KP, 128>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, Kv, causal, window, scale, softcap, vec, stream);
+  return launch<KP, 256>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, Kv, causal, window, scale, softcap, vec, stream);
 }
+
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       void* out, float* lse, int B, int Sq, int Skv, int H,
+                       int Hkv, int K, int Kv, int causal, int window,
+                       float scale, float softcap, cudaStream_t stream) {
+  // whole 16-byte chunks by cp.async where every row starts on 16 bytes
+  const int vec =
+      K % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  if (Kv % 16 || Kv > 256) return cudaErrorInvalidValue;
+  if (K <= 64)
+    return launch_kv<64>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, Kv, causal, window, scale, softcap, vec, stream);
+  if (K <= 128)
+    return launch_kv<128>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, Kv, causal, window, scale, softcap, vec, stream);
+  if (K <= 192)
+    return launch_kv<192>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, Kv, causal, window, scale, softcap, vec, stream);
+  if (K <= 256)
+    return launch_kv<256>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, Kv, causal, window, scale, softcap, vec, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace f32tc
 
 // ---------------------------------------------------------------------------
 // bfloat16 body: tensor cores
@@ -635,8 +765,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     return tc::launch_bf16(q, k, v, out, B, Sq, Skv, H, Hkv, K, Kv, causal,
                            window, scale, softcap, s);
   }
-  return launch_kv<float>(Kv, q, k, v, out, static_cast<float*>(lse), B, Sq,
-                          Skv, H, Hkv, K, causal, window, scale, softcap, s);
+  return f32tc::launch_f32(q, k, v, out, static_cast<float*>(lse), B, Sq,
+                           Skv, H, Hkv, K, Kv, causal, window, scale, softcap,
+                           s);
 }
 
 const char* kernel_error_string(int err) {

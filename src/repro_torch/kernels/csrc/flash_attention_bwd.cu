@@ -30,30 +30,51 @@
 // head and, within each, over the query tiles that can see the keys). So
 // every output element has one owner and is written once: no atomics,
 // and the sums run in one fixed order, so the bits repeat from run to
-// run. Both passes recompute the score tile the forward computed, with
-// the forward's thread layout and summation order (16 x 16 threads, each 4
-// query rows x 4 keys; K, then Kv, in order), so p matches the forward's.
-// Tiles are staged in shared memory as float32 rows padded by one word; K
-// is zero-padded to a multiple of 16 columns (exact zeros add nothing).
+// run.
+//
+// All five products run on the tensor cores as split TF32 (mma.cuh): S =
+// Q.K^T, dP = dO.V^T, dQ += dS.K, dV += P^T.dO and dK += dS^T.Q, each
+// operand split into hi + lo as it loads into its fragment, each product
+// three mma.sync.m16n8k8 into an f32 accumulator (about 22 significant
+// bits; one TF32 product would keep 11 and miss the 5e-5 gradient
+// contract). Both passes recompute S with the forward body's fragments,
+// k8 steps, split and order, so s is the forward's s bit for bit and p =
+// exp2(s * scale * log2 e - lse * log2 e) rests on the forward's scores. A
+// warp owns 16 query rows of S and dP. In the dq pass dS goes from its
+// accumulators into the A fragments of dS.K with its keys permuted in each
+// k8 step (no shuffle), as the forward's P does; two warp groups split the
+// KV tiles by parity where their tiles fit and add their dQ in a fixed
+// order. In the dk/dv pass eight warps share a query tile: P, then dS, go
+// through one 64 x 64 shared tile to be read transposed as the A fragments
+// of P^T.dO and dS^T.Q, and each warp owns 16 keys and half the columns
+// of dK and dV. Tiles are staged as float32 by cp.async (16-byte chunks
+// where every row starts on 16 bytes, element by element otherwise), rows
+// width + 4 floats apart, K zero-padded to 64, 128, 192 or 256 columns and
+// Kv to 64, 128 or 256 (exact zeros add nothing; the products run over the
+// padded widths, so their code unrolls).
 //
 // Bound. The function reads q, k, v, out, dout and lse once and writes dq,
 // dk and dv once, and does 2 * pairs * (3K + 2Kv) operations over the
 // visible (query, key) pairs of every head (the score, dO.V^T, dq, dk and
 // dv; the dq pass recomputes the first two on top). At qwen3-0.6b's
 // training shape (B 8, S 512, H 16, Hkv 8, K = Kv = 128, causal) that is
-// 21.5 GFLOP against 201 MB: bound by operations on the f32 CUDA cores
-// (67 TFLOP/s, 0.32 ms). This first design stays on the CUDA cores (TF32
-// would miss the float32 parity contract) and holds one block an SM (up to
-// 226 KB of shared memory); making it fast is later work.
+// 21.5 GFLOP against 201 MB: bound by operations, 0.13 ms at the split
+// TF32 rate (495 / 3 TFLOP/s), 0.32 ms at the f32 CUDA cores' 67.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
 constexpr int BQ = 64;   // query rows a tile
 constexpr int BK = 64;   // keys a tile
-constexpr int NT = 256;  // 16 x 16 threads
+constexpr int GT = 128;  // threads of a warp group: four warps
+constexpr int NT = 256;  // the delta and dk/dv passes' threads
+constexpr int MAX_SMEM = 232448;   // bytes of shared memory a block may use
+constexpr int LDP = BK + 4;        // the dk/dv pass's P / dS tile row
+constexpr float LOG2E = 1.4426950408889634f;
 
 // sum over the 32 lanes of a warp
 __device__ __forceinline__ float warp_sum(float x) {
@@ -82,276 +103,379 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// Stage rows [r0, r0 + n) of a (.., rows, heads, width) tensor's head `hh`
-// into shared memory, `ld` floats a row, zero past the tensor's rows and
-// past `width` up to `cols`.
-__device__ __forceinline__ void stage(float* dst, int ld, const float* src,
-                                      int r0, int n, int rows, int heads,
-                                      int hh, int width, int cols,
-                                      size_t batch_off, int tid) {
-  for (int i = tid; i < n * cols; i += NT) {
-    const int r = i / cols, d = i % cols, rr = r0 + r;
-    dst[r * ld + d] = (rr < rows && d < width)
-                          ? src[batch_off + (size_t(rr) * heads + hh) * width + d]
-                          : 0.f;
-  }
+// Shared memory of the dq pass: Q and dO tiles, then each warp group's K
+// and V tiles; of the dk/dv pass: K, V, Q and dO tiles and the P / dS
+// tile. Widths are the tiles' (KP, KVP), rows width + 4 floats apart.
+constexpr size_t dq_group_bytes(int KP, int KVP) {
+  return sizeof(float) * size_t(BK) * (KP + 4 + KVP + 4);
+}
+constexpr size_t dq_smem_bytes(int KP, int KVP, int NG) {
+  return sizeof(float) * size_t(BQ) * (KP + 4 + KVP + 4) +
+         NG * dq_group_bytes(KP, KVP);
+}
+constexpr size_t dkdv_smem_bytes(int KP, int KVP) {
+  return sizeof(float) * (size_t(BK + BQ) * (KP + 4 + KVP + 4) +
+                          size_t(BQ) * LDP);
+}
+constexpr int dq_groups(int KP, int KVP) {
+  return dq_smem_bytes(KP, KVP, 2) <= MAX_SMEM ? 2 : 1;
+}
+// two dk/dv blocks an SM where their tiles fit twice (of 233472 bytes,
+// 1024 reserved a block): registers are then held to 128 a thread
+constexpr int dkdv_min_blocks(int KP, int KVP) {
+  return 2 * (dkdv_smem_bytes(KP, KVP) + 1024) <= 233472 ? 2 : 1;
 }
 
-// The score tile of rows q0 + ty*4 + i against keys k0 + tx + 16*j, as the
-// forward computes it (fmaf over d in order, then scale, then the cap);
-// p = exp(s - lse) where visible and 0 elsewhere, and ds = p * (dp - delta)
-// (* (1 - t^2) with a cap), dp the dO.V^T tile. Both passes call this.
-__device__ __forceinline__ void p_and_ds(
-    const float* qs, int ldq, const float* ks, const float* dos, int ldo,
-    const float* vs, int ldv, const float* lse_s, const float* delta_s,
-    int q0, int k0, int Sq, int Skv, int off, int K, int Kv, int causal,
-    int window, float scale, float softcap, int ty, int tx, float p[4][4],
-    float ds[4][4]) {
-  float s[4][4], dp[4][4];
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "n"(GT) : "memory");
+}
+
+// p and ds in place of s and dp, on C fragments of 16 query rows (rows
+// row0 + gr, row0 + gr + 8) against NN n8 tiles of keys from key0:
+// p = exp2(x - lse2) where visible (0 elsewhere), x the scaled (capped)
+// score in log2 units as the forward computes it; ds = p (dp - delta)
+// (* (1 - t^2) under a cap t)
+template <int NN>
+__device__ __forceinline__ void p_and_ds(float (&s)[NN][4], float (&dp)[NN][4],
+                                         const float (&lse2)[2],
+                                         const float (&dl)[2], int row0,
+                                         int key0, int Sq, int Skv, int off,
+                                         int causal, int window, float scale,
+                                         float softcap, int gr, int tq) {
+  const float scale2 = scale * LOG2E;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < NN; ++n)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-  for (int d = 0; d < K; ++d) {
-    float a[4], bk[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * ldq + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bk[j] = ks[(tx + 16 * j) * ldq + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-  }
-  for (int d = 0; d < Kv; ++d) {
-    float a[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = dos[(ty * 4 + i) * ldo + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = vs[(tx + 16 * j) * ldv + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(a[i], bv[j], dp[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    const int qpos = row + off;
-    const float l = lse_s[ty * 4 + i], dl = delta_s[ty * 4 + i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kp = k0 + tx + 16 * j;
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + gr + (e >> 1) * 8;
+      const int qpos = row + off;
+      const int kp = key0 + n * 8 + 2 * tq + (e & 1);
       const bool ok = row < Sq && kp < Skv && (!causal || kp <= qpos) &&
                       (window <= 0 || kp > qpos - window);
-      float x = s[i][j] * scale, dcap = 1.f;
+      float x, dcap = 1.f;
       if (softcap > 0.f) {
-        const float t = tanhf(x / softcap);
-        x = t * softcap;
+        const float t = tanhf(s[n][e] * scale / softcap);
+        x = t * softcap * LOG2E;
         dcap = 1.f - t * t;
+      } else {
+        x = s[n][e] * scale2;
       }
-      const float pij = ok ? expf(x - l) : 0.f;
-      p[i][j] = pij;
-      ds[i][j] = pij * (dp[i][j] - dl) * dcap;
+      const float p = ok ? exp2f(x - lse2[e >> 1]) : 0.f;
+      s[n][e] = p;
+      dp[n][e] = p * (dp[n][e] - dl[e >> 1]) * dcap;
     }
+}
+
+// the rows' lse (in log2 units) and delta
+__device__ __forceinline__ void row_stats(const float* lse, const float* delta,
+                                          size_t base, int row0, int Sq,
+                                          float (&lse2)[2], float (&dl)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    lse2[r] = row < Sq ? lse[base + row] * LOG2E : 0.f;
+    dl[r] = row < Sq ? delta[base + row] : 0.f;
   }
 }
 
-// Q, K, dO and V tiles, the ds and p tiles, lse and delta of the rows
-size_t smem_floats(int KP, int Kv) {
-  return size_t(BQ + BK) * (KP + 1 + Kv + 1) + 2 * size_t(BQ) * (BK + 1) +
-         2 * BQ;
-}
-
-// dq: NK = KP / 16 output columns a thread (KP = K padded to 16)
-template <int NK>
-__global__ void __launch_bounds__(NT)
+// dq: KP, KVP the tiles' widths (K rounded up to 64, 128, 192 or 256, Kv
+// to 64, 128 or 256; zero columns add nothing), NG warp groups
+template <int KP, int KVP, int NG>
+__global__ void __launch_bounds__(GT * NG)
     dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               float* __restrict__ dq, int Sq, int Skv, int H, int Hkv, int K,
-              int Kv, int causal, int window, float scale, float softcap) {
-  constexpr int KP = NK * 16;
-  extern __shared__ float smem[];
-  const int ldq = KP + 1, ldo = Kv + 1, ldp = BK + 1;
-  float* qs = smem;                 // BQ x ldq
-  float* ks = qs + BQ * ldq;        // BK x ldq
-  float* dos = ks + BK * ldq;       // BQ x ldo
-  float* vs = dos + BQ * ldo;       // BK x ldo
-  float* dss = vs + BK * ldo;       // BQ x ldp
-  float* lse_s = dss + BQ * ldp;    // BQ
-  float* delta_s = lse_s + BQ;      // BQ
+              int Kv, int causal, int window, float scale, float softcap,
+              int vec) {
+  constexpr int LDK = KP + 4, LDV = KVP + 4;
+  constexpr int NQ = KP / 8;  // n8 tiles of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // BQ x LDK
+  float* dos = qs + BQ * LDK;                       // BQ x LDV
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
+  const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = warp / 4, wg = warp % 4, gtid = tid % GT;
+  const int gr = lane / 4, tq = lane % 4;
   const int off = Skv - Sq;
+  float* ks = dos + BQ * LDV + grp * BK * (LDK + LDV);  // this group's K
+  float* vs = ks + BK * LDK;                            // and V
 
-  stage(qs, ldq, q, q0, BQ, Sq, H, h, K, KP, size_t(b) * Sq * H * K, tid);
-  stage(dos, ldo, dout, q0, BQ, Sq, H, h, Kv, Kv, size_t(b) * Sq * H * Kv,
-        tid);
-  for (int i = tid; i < BQ; i += NT) {
-    const int row = q0 + i;
-    const size_t at = (size_t(b) * H + h) * Sq + row;
-    lse_s[i] = row < Sq ? lse[at] : 0.f;
-    delta_s[i] = row < Sq ? delta[at] : 0.f;
-  }
-
-  // the forward's KV tiles for this query tile
+  // the forward's KV tiles for this query tile, split by parity
   const int last_row = min(q0 + BQ, Sq) - 1;
   const int kv_end = causal ? min(Skv, last_row + off + 1) : Skv;
   int kv_begin = window > 0 ? max(0, q0 + off - window + 1) : 0;
   kv_begin = (kv_begin / BK) * BK;
+  const bool any = kv_end > kv_begin;
+  const int t_begin = kv_begin / BK, t_end = (kv_end + BK - 1) / BK;
+  const int t_first = t_begin + ((grp - t_begin % NG) + NG) % NG;
+  const int count = any && t_first < t_end ? (t_end - t_first + NG - 1) / NG : 0;
 
-  float acc[4][NK];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NK; ++c) acc[i][c] = 0.f;
+  const size_t kv_row = size_t(b) * Skv;
+  auto load_k = [&](int k0) {
+    mma::load_tile_f32<BK, GT>(ks, LDK, k + ((kv_row + k0) * Hkv + hk) * K,
+                               size_t(Hkv) * K, Skv - k0, K, KP, vec, gtid);
+  };
+  auto load_v = [&](int k0) {
+    mma::load_tile_f32<BK, GT>(vs, LDV, v + ((kv_row + k0) * Hkv + hk) * Kv,
+                               size_t(Hkv) * Kv, Skv - k0, Kv, KVP, vec, gtid);
+  };
+  if (any) {
+    const size_t q_row = size_t(b) * Sq + q0;
+    mma::load_tile_f32<BQ, GT * NG>(qs, LDK, q + (q_row * H + h) * K,
+                                    size_t(H) * K, Sq - q0, K, KP, vec, tid);
+    mma::load_tile_f32<BQ, GT * NG>(dos, LDV, dout + (q_row * H + h) * Kv,
+                                    size_t(H) * Kv, Sq - q0, Kv, KVP, vec,
+                                    tid);
+  }
+  if (count > 0) {
+    load_k(t_first * BK);
+    load_v(t_first * BK);
+  }
+  mma::cp_async_commit();
 
-  const size_t kv_off = size_t(b) * Skv * Hkv;
-  for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    stage(ks, ldq, k, k0, BK, Skv, Hkv, hk, K, KP, kv_off * K, tid);
-    stage(vs, ldo, v, k0, BK, Skv, Hkv, hk, Kv, Kv, kv_off * Kv, tid);
-    __syncthreads();
-    float p[4][4], ds[4][4];
-    p_and_ds(qs, ldq, ks, dos, ldo, vs, ldo, lse_s, delta_s, q0, k0, Sq, Skv,
-             off, K, Kv, causal, window, scale, softcap, ty, tx, p, ds);
+  const int r_lo = q0 + wg * 16;
+  float lse2[2], dl[2];
+  row_stats(lse, delta, (size_t(b) * H + h) * Sq, r_lo + gr, Sq, lse2, dl);
+  float acc[NQ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < NQ; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float* qa = qs + (wg * 16 + gr) * LDK + tq;
+  const float* doa = dos + (wg * 16 + gr) * LDV + tq;
+  const float* kb = ks + gr * LDK + tq;
+  const float* vb = vs + gr * LDV + tq;
+  const float* kr = ks + 2 * tq * LDK + gr;
+
+  mma::cp_async_wait<0>();
+  __syncthreads();  // Q, dO and each group's first K and V
+  for (int i = 0; i < count; ++i) {
+    const int k0 = (t_first + i * NG) * BK;
+    if (i > 0) {
+      mma::cp_async_wait<0>();
+      group_sync(grp);  // K(i) and V(i) landed
+    }
+    float s[8][4], dp[8][4];
+    mma::rows_dot_tf32<8, KP>(s, qa, LDK, kb, LDK);      // S = Q.K^T
+    mma::rows_dot_tf32<8, KVP>(dp, doa, LDV, vb, LDV);   // dP = dO.V^T
+    group_sync(grp);  // V read: the next tile's V may land
+    if (i + 1 < count) load_v(k0 + NG * BK);
+    mma::cp_async_commit();
+    p_and_ds<8>(s, dp, lse2, dl, r_lo, k0, Sq, Skv, off, causal, window,
+                scale, softcap, gr, tq);
+    // dQ += dS.K, dS's n8 tiles as A fragments with their keys permuted;
+    // eight dQ tiles at a time
 #pragma unroll
-      for (int j = 0; j < 4; ++j) dss[(ty * 4 + i) * ldp + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-    for (int j = 0; j < BK; ++j) {
-      float kk[NK];
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const mma::FragA a = mma::c_to_a_tf32(dp[kk]);
 #pragma unroll
-      for (int c = 0; c < NK; ++c) kk[c] = ks[j * ldq + tx + 16 * c];
+      for (int c = 0; c < NQ; c += 8) {
+        mma::FragB fb[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float d = dss[(ty * 4 + i) * ldp + j];
-#pragma unroll
-        for (int c = 0; c < NK; ++c) acc[i][c] = fmaf(d, kk[c], acc[i][c]);
+        for (int n = 0; n < 8; ++n)
+          fb[n] = mma::load_bk_tf32(kr + kk * 8 * LDK + (c + n) * 8, LDK);
+        mma::mma_tf32x3(*reinterpret_cast<float(*)[8][4]>(acc[c]), a, fb);
       }
     }
+    group_sync(grp);  // K read: the next tile's K may land
+    if (i + 1 < count) load_k(k0 + NG * BK);
+    mma::cp_async_commit();
+  }
+  mma::cp_async_wait<0>();
+
+  if constexpr (NG == 2) {
+    // group 1 hands its dQ to group 0 through its own (now idle) tiles;
+    // group 0 adds it after its own
+    float* xch = dos + BQ * LDV + BK * (LDK + LDV) + (wg * 32 + lane) * NQ * 4;
+    __syncthreads();
+    if (grp == 1) {
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xch[n * 4 + e] = acc[n][e];
+    }
+    __syncthreads();
+    if (grp == 1) return;
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += xch[n * 4 + e];
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r_lo + gr + r * 8;
     if (row >= Sq) continue;
     float* o = dq + ((size_t(b) * Sq + row) * H + h) * K;
 #pragma unroll
-    for (int c = 0; c < NK; ++c) {
-      const int col = tx + 16 * c;
-      if (col < K) o[col] = acc[i][c] * scale;
-    }
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * tq + e;
+        if (col < K) o[col] = acc[n][2 * r + e] * scale;
+      }
   }
 }
 
-// dk and dv: NK = KP / 16 key columns, NC = Kv / 16 value columns a thread
-template <int NK, int NC>
-__global__ void __launch_bounds__(NT)
+// dk and dv: KP and KVP the tiles' widths, as the dq pass's. Eight warps: for S and dP
+// warp w takes query rows (w % 4) * 16 of the tile against keys
+// (w / 4) * 32; for dK and dV keys (w % 4) * 16 and half (w / 4) of the
+// columns.
+template <int KP, int KVP>
+__global__ void __launch_bounds__(NT, dkdv_min_blocks(KP, KVP))
     dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dk,
                 float* __restrict__ dv, int Sq, int Skv, int H, int Hkv, int K,
-                int causal, int window, float scale, float softcap) {
-  constexpr int KP = NK * 16, Kv = NC * 16;
-  extern __shared__ float smem[];
-  const int ldq = KP + 1, ldo = Kv + 1, ldp = BK + 1;
-  float* qs = smem;                 // BQ x ldq
-  float* ks = qs + BQ * ldq;        // BK x ldq
-  float* dos = ks + BK * ldq;       // BQ x ldo
-  float* vs = dos + BQ * ldo;       // BK x ldo
-  float* dss = vs + BK * ldo;       // BQ x ldp
-  float* ps = dss + BQ * ldp;       // BQ x ldp
-  float* lse_s = ps + BQ * ldp;     // BQ
-  float* delta_s = lse_s + BQ;      // BQ
+                int Kv, int causal, int window, float scale, float softcap,
+                int vec) {
+  constexpr int LDK = KP + 4, LDV = KVP + 4;
+  constexpr int NKH = KP / 16, NVH = KVP / 16;  // n8 tiles a column half
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);  // BK x LDK
+  float* vs = ks + BK * LDK;                        // BK x LDV
+  float* qs = vs + BK * LDV;                        // BQ x LDK
+  float* dos = qs + BQ * LDK;                       // BQ x LDV
+  float* ps = dos + BQ * LDV;                       // BQ x LDP: P, then dS
 
   const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
   const int G = H / Hkv;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wr = warp % 4, wc = warp / 4;
+  const int gr = lane / 4, tq = lane % 4;
   const int off = Skv - Sq;
 
-  const size_t kv_off = size_t(b) * Skv * Hkv;
-  stage(ks, ldq, k, k0, BK, Skv, Hkv, hk, K, KP, kv_off * K, tid);
-  stage(vs, ldo, v, k0, BK, Skv, Hkv, hk, Kv, Kv, kv_off * Kv, tid);
+  const size_t kv_row = size_t(b) * Skv + k0;
+  mma::load_tile_f32<BK, NT>(ks, LDK, k + (kv_row * Hkv + hk) * K,
+                             size_t(Hkv) * K, Skv - k0, K, KP, vec, tid);
+  mma::load_tile_f32<BK, NT>(vs, LDV, v + (kv_row * Hkv + hk) * Kv,
+                             size_t(Hkv) * Kv, Skv - k0, Kv, KVP, vec, tid);
 
-  // the query tiles whose rows can see some key of this tile
+  // the query tiles whose rows can see some key of this tile, for each
+  // of the G heads: items j = g * n_q + t
   const int k_last = min(k0 + BK, Skv) - 1;
   int q_begin = causal ? max(0, k0 - off) : 0;
   q_begin = (q_begin / BQ) * BQ;
   const int q_end = window > 0 ? min(Sq, k_last + window - off) : Sq;
-
-  float dka[4][NK], dva[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < NK; ++c) dka[i][c] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dva[i][c] = 0.f;
+  const int n_q = q_end > q_begin ? (q_end - q_begin + BQ - 1) / BQ : 0;
+  const int items = G * n_q;
+  auto item_q0 = [&](int j) { return q_begin + (j % n_q) * BQ; };
+  auto item_h = [&](int j) { return hk * G + j / n_q; };
+  auto load_q = [&](int j) {
+    const int q0 = item_q0(j), h = item_h(j);
+    mma::load_tile_f32<BQ, NT>(qs, LDK,
+                               q + ((size_t(b) * Sq + q0) * H + h) * K,
+                               size_t(H) * K, Sq - q0, K, KP, vec, tid);
+  };
+  auto load_do = [&](int j) {
+    const int q0 = item_q0(j), h = item_h(j);
+    mma::load_tile_f32<BQ, NT>(dos, LDV,
+                               dout + ((size_t(b) * Sq + q0) * H + h) * Kv,
+                               size_t(H) * Kv, Sq - q0, Kv, KVP, vec, tid);
+  };
+  if (items > 0) {
+    load_q(0);
+    load_do(0);
   }
+  mma::cp_async_commit();
 
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
-      __syncthreads();  // the previous tile's readers are done
-      stage(qs, ldq, q, q0, BQ, Sq, H, h, K, KP, size_t(b) * Sq * H * K, tid);
-      stage(dos, ldo, dout, q0, BQ, Sq, H, h, Kv, Kv,
-            size_t(b) * Sq * H * Kv, tid);
-      for (int i = tid; i < BQ; i += NT) {
-        const int row = q0 + i;
-        const size_t at = (size_t(b) * H + h) * Sq + row;
-        lse_s[i] = row < Sq ? lse[at] : 0.f;
-        delta_s[i] = row < Sq ? delta[at] : 0.f;
-      }
-      __syncthreads();
-      float p[4][4], ds[4][4];
-      p_and_ds(qs, ldq, ks, dos, ldo, vs, ldo, lse_s, delta_s, q0, k0, Sq,
-               Skv, off, K, Kv, causal, window, scale, softcap, ty, tx, p,
-               ds);
+  float dka[NKH][4], dva[NVH][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < NKH; ++n) dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          ps[(ty * 4 + i) * ldp + tx + 16 * j] = p[i][j];
-          dss[(ty * 4 + i) * ldp + tx + 16 * j] = ds[i][j];
-        }
-      __syncthreads();
-      // this thread's keys ty*4 + r against every row of the tile
-      for (int i = 0; i < BQ; ++i) {
-        float qq[NK], dd[NC];
+  for (int n = 0; n < NVH; ++n) dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  const float* qa = qs + (wr * 16 + gr) * LDK + tq;
+  const float* doa = dos + (wr * 16 + gr) * LDV + tq;
+  const float* kb = ks + (wc * 32 + gr) * LDK + tq;
+  const float* vb = vs + (wc * 32 + gr) * LDV + tq;
+  float* pw = ps + (wr * 16 + gr) * LDP + wc * 32 + 2 * tq;  // C fragments
+  const float* pt = ps + 2 * tq * LDP + wr * 16 + gr;        // A of P^T
+  const int ck = wc * (KP / 2), cv = wc * (KVP / 2);          // column halves
+  const float* qr = qs + 2 * tq * LDK + ck + gr;
+  const float* dor = dos + 2 * tq * LDV + cv + gr;
+
+  for (int j = 0; j < items; ++j) {
+    const int q0 = item_q0(j), h = item_h(j);
+    float lse2[2], dl[2];
+    row_stats(lse, delta, (size_t(b) * H + h) * Sq, q0 + wr * 16 + gr, Sq,
+              lse2, dl);
+    mma::cp_async_wait<0>();
+    __syncthreads();  // Q and dO of item j (and K, V) landed
+    float s[4][4], dp[4][4];
+    mma::rows_dot_tf32<4, KP>(s, qa, LDK, kb, LDK);      // S = Q.K^T
+    mma::rows_dot_tf32<4, KVP>(dp, doa, LDV, vb, LDV);   // dP = dO.V^T
+    p_and_ds<4>(s, dp, lse2, dl, q0 + wr * 16, k0 + wc * 32, Sq, Skv, off,
+                causal, window, scale, softcap, gr, tq);
 #pragma unroll
-        for (int c = 0; c < NK; ++c) qq[c] = qs[i * ldq + tx + 16 * c];
+    for (int n = 0; n < 4; ++n) {
+      *reinterpret_cast<float2*>(pw + n * 8) = make_float2(s[n][0], s[n][1]);
+      *reinterpret_cast<float2*>(pw + 8 * LDP + n * 8) =
+          make_float2(s[n][2], s[n][3]);
+    }
+    __syncthreads();  // P stored
+    // dV += P^T.dO over the tile's 64 query rows, four dV tiles at a time
+#pragma unroll 2
+    for (int kk = 0; kk < BQ / 8; ++kk) {
+      const mma::FragA a = mma::load_at_tf32(pt + kk * 8 * LDP, LDP);
 #pragma unroll
-        for (int c = 0; c < NC; ++c) dd[c] = dos[i * ldo + tx + 16 * c];
+      for (int c = 0; c < NVH; c += 4) {
+        mma::FragB fb[4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float pv = ps[i * ldp + ty * 4 + r];
-          const float dsv = dss[i * ldp + ty * 4 + r];
-#pragma unroll
-          for (int c = 0; c < NK; ++c) dka[r][c] = fmaf(dsv, qq[c], dka[r][c]);
-#pragma unroll
-          for (int c = 0; c < NC; ++c) dva[r][c] = fmaf(pv, dd[c], dva[r][c]);
-        }
+        for (int n = 0; n < 4; ++n)
+          fb[n] = mma::load_bk_tf32(dor + kk * 8 * LDV + (c + n) * 8, LDV);
+        mma::mma_tf32x3(*reinterpret_cast<float(*)[4][4]>(dva[c]), a, fb);
       }
     }
+    __syncthreads();  // P and dO read
+    if (j + 1 < items) load_do(j + 1);
+    mma::cp_async_commit();
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      *reinterpret_cast<float2*>(pw + n * 8) = make_float2(dp[n][0], dp[n][1]);
+      *reinterpret_cast<float2*>(pw + 8 * LDP + n * 8) =
+          make_float2(dp[n][2], dp[n][3]);
+    }
+    __syncthreads();  // dS stored
+    // dK += dS^T.Q, four dK tiles at a time
+#pragma unroll 2
+    for (int kk = 0; kk < BQ / 8; ++kk) {
+      const mma::FragA a = mma::load_at_tf32(pt + kk * 8 * LDP, LDP);
+#pragma unroll
+      for (int c = 0; c < NKH; c += 4) {
+        mma::FragB fb[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          fb[n] = mma::load_bk_tf32(qr + kk * 8 * LDK + (c + n) * 8, LDK);
+        mma::mma_tf32x3(*reinterpret_cast<float(*)[4][4]>(dka[c]), a, fb);
+      }
+    }
+    __syncthreads();  // dS and Q read
+    if (j + 1 < items) load_q(j + 1);
+    mma::cp_async_commit();
   }
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int kp = k0 + ty * 4 + r;
+  for (int r = 0; r < 2; ++r) {
+    const int kp = k0 + wr * 16 + gr + r * 8;
     if (kp >= Skv) continue;
     const size_t at = (size_t(b) * Skv + kp) * Hkv + hk;
 #pragma unroll
-    for (int c = 0; c < NK; ++c) {
-      const int col = tx + 16 * c;
-      if (col < K) dk[at * K + col] = dka[r][c] * scale;
-    }
+    for (int n = 0; n < NKH; ++n)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dv[at * Kv + tx + 16 * c] = dva[r][c];
+      for (int e = 0; e < 2; ++e) {
+        const int col = ck + n * 8 + 2 * tq + e;
+        if (col < K) dk[at * K + col] = dka[n][2 * r + e] * scale;
+      }
+#pragma unroll
+    for (int n = 0; n < NVH; ++n) {
+      const int col = cv + n * 8 + 2 * tq;
+      if (col < Kv)
+        *reinterpret_cast<float2*>(dv + at * Kv + col) =
+            make_float2(dva[n][2 * r], dva[n][2 * r + 1]);
+    }
   }
 }
 
@@ -360,73 +484,92 @@ struct Args {
   float *dq, *dk, *dv, *delta;
   int B, Sq, Skv, H, Hkv, K, Kv, causal, window;
   float scale, softcap;
+  int vec;
   cudaStream_t stream;
 };
 
-template <int NK>
+template <int KP, int KVP>
 cudaError_t launch_dq(const Args& a) {
-  const size_t smem = sizeof(float) * smem_floats(NK * 16, a.Kv);
-  cudaError_t err = cudaFuncSetAttribute(
-      dq_kernel<NK>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  dq_kernel<NK><<<grid, NT, smem, a.stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.Sq, a.Skv, a.H, a.Hkv,
-      a.K, a.Kv, a.causal, a.window, a.scale, a.softcap);
-  return cudaGetLastError();
+  if constexpr (dq_smem_bytes(KP, KVP, 1) > MAX_SMEM) {
+    return cudaErrorInvalidValue;  // refused by the wrapper before this
+  } else {
+    constexpr int NG = dq_groups(KP, KVP);
+    constexpr size_t smem = dq_smem_bytes(KP, KVP, NG);
+    cudaError_t err = cudaFuncSetAttribute(
+        dq_kernel<KP, KVP, NG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
+    dq_kernel<KP, KVP, NG><<<grid, GT * NG, smem, a.stream>>>(
+        a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.Sq, a.Skv, a.H,
+        a.Hkv, a.K, a.Kv, a.causal, a.window, a.scale, a.softcap, a.vec);
+    return cudaGetLastError();
+  }
 }
 
-template <int NK, int NC>
+template <int KP, int KVP>
 cudaError_t launch_dkdv(const Args& a) {
-  const size_t smem = sizeof(float) * smem_floats(NK * 16, NC * 16);
-  cudaError_t err = cudaFuncSetAttribute(
-      dkdv_kernel<NK, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Skv + BK - 1) / BK, a.Hkv, a.B);
-  dkdv_kernel<NK, NC><<<grid, NT, smem, a.stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.Sq, a.Skv, a.H,
-      a.Hkv, a.K, a.causal, a.window, a.scale, a.softcap);
-  return cudaGetLastError();
+  if constexpr (dkdv_smem_bytes(KP, KVP) > MAX_SMEM) {
+    return cudaErrorInvalidValue;  // refused by the wrapper before this
+  } else {
+    constexpr size_t smem = dkdv_smem_bytes(KP, KVP);
+    cudaError_t err = cudaFuncSetAttribute(
+        dkdv_kernel<KP, KVP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.Skv + BK - 1) / BK, a.Hkv, a.B);
+    dkdv_kernel<KP, KVP><<<grid, NT, smem, a.stream>>>(
+        a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.Sq, a.Skv, a.H,
+        a.Hkv, a.K, a.Kv, a.causal, a.window, a.scale, a.softcap, a.vec);
+    return cudaGetLastError();
+  }
 }
 
-template <int NK>
-cudaError_t launch_kv(const Args& a) {
+template <int KP, int KVP>
+cudaError_t launch_passes(const Args& a) {
   if (a.Sq > 0) {
-    const cudaError_t err = launch_dq<NK>(a);
+    const cudaError_t err = launch_dq<KP, KVP>(a);
     if (err != cudaSuccess) return err;
   }
   if (a.Skv == 0) return cudaSuccess;
-  switch (a.Kv) {
-    case 16: return launch_dkdv<NK, 1>(a);
-    case 32: return launch_dkdv<NK, 2>(a);
-    case 64: return launch_dkdv<NK, 4>(a);
-    case 112: return launch_dkdv<NK, 7>(a);
-    case 128: return launch_dkdv<NK, 8>(a);
-    case 256: return launch_dkdv<NK, 16>(a);
-    default: return cudaErrorInvalidValue;
-  }
+  return launch_dkdv<KP, KVP>(a);
+}
+
+template <int KP>
+cudaError_t launch_kp(const Args& a) {
+  if (a.Kv <= 64) return launch_passes<KP, 64>(a);
+  if (a.Kv <= 128) return launch_passes<KP, 128>(a);
+  return launch_passes<KP, 256>(a);
 }
 
 }  // namespace
 
 // Plain C++ entry point for the binding; returns the cudaError_t of the
 // launches (0 on success). The caller has checked shapes, types, layout and
-// that the tiles fit in shared memory, and allocated the outputs and the
-// delta workspace (B, H, Sq).
+// that the tiles fit in shared memory (kernels/flash_attention.py,
+// bwd_smem_bytes), and allocated the outputs and the delta workspace
+// (B, H, Sq).
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* out, const void* lse,
                                const void* dout, void* dq, void* dk, void* dv,
                                void* delta, int B, int Sq, int Skv, int H,
                                int Hkv, int K, int Kv, int causal, int window,
                                float scale, float softcap, void* stream) {
+  // whole 16-byte chunks by cp.async where every staged row starts on 16
+  // bytes
+  const int vec =
+      K % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) &
+       15) == 0;
   const Args a{static_cast<const float*>(q), static_cast<const float*>(k),
                static_cast<const float*>(v), static_cast<const float*>(out),
                static_cast<const float*>(lse),
                static_cast<const float*>(dout), static_cast<float*>(dq),
                static_cast<float*>(dk), static_cast<float*>(dv),
                static_cast<float*>(delta), B, Sq, Skv, H, Hkv, K, Kv, causal,
-               window, scale, softcap, static_cast<cudaStream_t>(stream)};
+               window, scale, softcap, vec,
+               static_cast<cudaStream_t>(stream)};
   if (B == 0 || H == 0) return cudaSuccess;
   if (Sq > 0) {
     const long long rows = (long long)B * Sq * H;
@@ -436,13 +579,10 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  // with no query row dq is empty, and dk / dv come out 0 (no tile runs)
-  const int nk = (K + 15) / 16;
-  if (nk <= 1) return launch_kv<1>(a);
-  if (nk <= 2) return launch_kv<2>(a);
-  if (nk <= 4) return launch_kv<4>(a);
-  if (nk <= 8) return launch_kv<8>(a);
-  if (nk <= 12) return launch_kv<12>(a);
-  if (nk <= 16) return launch_kv<16>(a);
+  // with no query row dq is empty, and dk / dv come out 0 (no item runs)
+  if (K <= 64) return launch_kp<64>(a);
+  if (K <= 128) return launch_kp<128>(a);
+  if (K <= 192) return launch_kp<192>(a);
+  if (K <= 256) return launch_kp<256>(a);
   return cudaErrorInvalidValue;
 }

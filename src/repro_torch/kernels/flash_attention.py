@@ -23,17 +23,20 @@ MAX_HEAD_DIM = 256
 launches = LaunchCounter()
 bwd_launches = LaunchCounter()
 # the backward's tiles of 64 query rows and 64 keys in shared memory, as
-# float32 rows padded by one word: Q, dO, K and V tiles, two score tiles
-# and the rows' lse and delta (csrc/flash_attention_bwd.cu, smem_floats)
+# float32 rows width + 4 floats apart, K's width rounded up to 64, 128, 192
+# or 256 and Kv's to 64, 128 or 256 (csrc/flash_attention_bwd.cu): the dq
+# pass holds Q, dO and at least one K and V tile, the dk/dv pass those and
+# one 64 x 64 tile of P, then dS, so it is the larger
 BWD_TILE = 64
 MAX_SMEM = 232448
 
 
 def bwd_smem_bytes(K: int, Kv: int) -> int:
-    """Shared memory a backward block takes: K padded to 16 columns."""
-    KP = -(-K // 16) * 16
-    return 4 * (2 * BWD_TILE * (KP + 1 + Kv + 1)
-                + 2 * BWD_TILE * (BWD_TILE + 1) + 2 * BWD_TILE)
+    """Shared memory a backward dk/dv block takes."""
+    KP = next(w for w in (64, 128, 192, 256) if K <= w)
+    KVP = next(w for w in (64, 128, 256) if Kv <= w)
+    return 4 * (2 * BWD_TILE * (KP + 4 + KVP + 4)
+                + BWD_TILE * (BWD_TILE + 4))
 
 
 def _check(name: str, t: torch.Tensor, like: torch.Tensor, dtypes,

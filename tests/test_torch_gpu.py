@@ -2413,6 +2413,79 @@ def test_flash_backward_kernel_matches_plain(cuda, B, Sq, Skv, H, Hkv, K, Kv,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def _f32_flash_both_ways(q, k, v, dout, **kw):
+    """The float32 forward (out with and without its lse: the same bits)
+    and backward against their plain versions; returns the kernels'
+    (out, lse, dq, dk, dv)."""
+    from repro_torch.kernels import flash_attention as fa
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, fa.flash_attention(q, k, v, **kw))
+    ro, rl = ref.flash_attention_lse(q, k, v, **kw)
+    _assert_close(out, ro, torch.float32)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    for g, w in zip(grads, ref.flash_attention_bwd(q, k, v, ro, rl, dout,
+                                                   **kw)):
+        _assert_bwd_close(g, w)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    return (out, lse, *grads)
+
+
+@pytest.mark.parametrize("Sq,Skv", [(63, 63), (65, 65), (129, 129),
+                                    (63, 129), (129, 65), (65, 63)])
+@pytest.mark.parametrize("K,Kv", [(64, 64), (128, 128), (100, 112),
+                                  (36, 16)])
+def test_f32_flash_bodies_at_their_tile_edges(cuda, Sq, Skv, K, Kv):
+    """The split-TF32 forward and backward around the 64-row and 64-key
+    tile edges, with K not a multiple of 8 (100, 36: padded columns) and
+    Kv padded to the tiles' width (112, 16)."""
+    f32 = torch.float32
+    q = _randn(cuda, 1, Sq, 4, K, dtype=f32)
+    k = _randn(cuda, 1, Skv, 2, K, dtype=f32)
+    v = _randn(cuda, 1, Skv, 2, Kv, dtype=f32)
+    dout = _randn(cuda, 1, Sq, 4, Kv, dtype=f32)
+    _f32_flash_both_ways(q, k, v, dout)
+
+
+def _off_16_bytes(t):
+    """t's values in a fresh contiguous buffer one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("K", [128, 72, 5])
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, 0, 0.0), (False, 0, 0.0), (True, 33, 0.0), (True, 0, 30.0)])
+def test_f32_flash_bodies_on_rows_off_16_bytes(cuda, K, causal, window,
+                                               softcap):
+    """Rows that do not start on 16 bytes take the element-by-element
+    staging path, and give the bits of the 16-byte (cp.async) path."""
+    f32 = torch.float32
+    q = _randn(cuda, 2, 90, 4, K, dtype=f32)
+    k = _randn(cuda, 2, 90, 2, K, dtype=f32)
+    v = _randn(cuda, 2, 90, 2, 64, dtype=f32)
+    dout = _randn(cuda, 2, 90, 4, 64, dtype=f32)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    aligned = _f32_flash_both_ways(q, k, v, dout, **kw)
+    off = _f32_flash_both_ways(*(_off_16_bytes(t) for t in (q, k, v, dout)),
+                               **kw)
+    assert all(torch.equal(a, b) for a, b in zip(aligned, off))
+
+
+@pytest.mark.parametrize("K,Kv", [(128, 256), (256, 128)])
+def test_flash_backward_at_the_widest_tiles(cuda, K, Kv):
+    """K + Kv = 384, the widest pair whose tiles fit in shared memory."""
+    f32 = torch.float32
+    q = _randn(cuda, 1, 130, 4, K, dtype=f32)
+    k = _randn(cuda, 1, 130, 2, K, dtype=f32)
+    v = _randn(cuda, 1, 130, 2, Kv, dtype=f32)
+    dout = _randn(cuda, 1, 130, 4, Kv, dtype=f32)
+    _f32_flash_both_ways(q, k, v, dout, window=40)
+
+
 @pytest.mark.parametrize("rows,D", [(4096, 1024), (37, 128), (5, 3584)])
 def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, D):
     from repro_torch.kernels import rmsnorm as rn
