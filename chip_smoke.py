@@ -403,9 +403,10 @@ Phases, each raising on failure (any failure exits nonzero):
     ragged S 40 with softcap 5, and ``rmsnorm_bwd`` at (4096, 1024) and
     the q/k pair at (65536, 128) / (32768, 128), within 5e-5 abs + rel
     against max|plain|, bit for bit from run to run, the forward's out
-    bit for bit with its lse pointer set and null; timed beside their
-    bounds, plain versions and sdpa / ``F.rms_norm`` backward through
-    autograd.
+    bit for bit with its lse pointer set and null, the pair's dx and
+    dscale bit for bit those of each tensor's own call; timed beside
+    their bounds, plain versions and sdpa / ``F.rms_norm`` backward
+    through autograd (``F.rms_norm``'s also replayed from a graph).
 
 Then a JSON line with each kernel's launches (from the phase of the path
 it serves, and by phase, phase 13's three parts and phases 14's, 15's and
@@ -473,18 +474,20 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_graph_ms(fn, reps: int = 100) -> float:
+def time_graph_ms(fn, reps: int = 100, stream=None) -> float:
     """Device time of one call: ``reps`` calls captured in one CUDA graph
     and replayed, so the host's launch rate does not pace a call that is
-    shorter than its own Python overhead."""
-    side = torch.cuda.Stream()
+    shorter than its own Python overhead. ``stream``: warm up and capture
+    on it (an autograd backward runs on its forward's stream, so a
+    backward is captured on the stream its forward ran on)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -2124,19 +2127,41 @@ def sdpa_backward(q, k, v, dout, causal, window, softcap):
     return fn, "sdpa backward (autograd, forward excluded)"
 
 
+def rms_norm_backward(xs, scales, grads):
+    """``torch.nn.functional.rms_norm``'s backward through autograd on each
+    (x, scale, output gradient), a yardstick the port never calls: the
+    forwards run once here on a stream of their own, where the backwards
+    then run and are captured. Returns (call, stream)."""
+    import torch.nn.functional as F
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        done = []
+        for x, s, g in zip(xs, scales, grads):
+            xr = x.clone().requires_grad_(True)
+            sr = s.clone().requires_grad_(True)
+            done.append((F.rms_norm(xr, (x.shape[1],), weight=sr,
+                                    eps=RMS_EPS), (xr, sr), g))
+
+    def call():
+        return [torch.autograd.grad(y, leaves, g, retain_graph=True)
+                for y, leaves, g in done]
+    return call, stream
+
+
 def backward_checks(gen) -> dict:
     """The two backward kernels against their plain versions on the card,
     float32: ``flash_attention_bwd`` at FLASH_BWD (with the forward's lse;
     the forward's out bit for bit with its lse pointer set and null) and
     ``rmsnorm_bwd`` at RMS_BWD_MAIN and the RMS_BWD_PAIR pair (one
-    launch). Each timed launched one by one (card ms) and replayed from a
-    CUDA graph (device ms), beside its bound, its plain version and the
-    library's backward through autograd. The float32 forward with its lse
+    call; each tensor's dx and dscale bit for bit its own call's). Each
+    timed launched one by one (card ms) and replayed from a CUDA graph
+    (device ms), beside its bound, its plain version and the library's
+    backward through autograd (for the norm also from a graph, captured
+    on its forward's stream). The float32 forward with its lse
     (what training runs) is timed at each FLASH_BWD shape too, as device
     ms beside its bound and sdpa's float32 forward. Returns the line's
     rows, the forward's under "flash_attention_train_forward"."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
@@ -2244,14 +2269,10 @@ def backward_checks(gen) -> dict:
     again = rn.rmsnorm_bwd(x, sc, g, RMS_EPS)
     if not (torch.equal(dx, again[0]) and torch.equal(ds, again[1])):
         fail("rmsnorm_bwd: two calls gave other bits")
-    xr, sr = x.clone().requires_grad_(True), sc.clone().requires_grad_(True)
-    y = F.rms_norm(xr, (x.shape[1],), weight=sr, eps=RMS_EPS)
 
     def kernel():
         return rn.rmsnorm_bwd(x, sc, g, RMS_EPS)
-
-    def library():
-        return torch.autograd.grad(y, (xr, sr), g, retain_graph=True)
+    library, lib_stream = rms_norm_backward([x], [sc], [g])
     rows_, D = RMS_BWD_MAIN
     bound, by = bound_ms(6 * rows_ * D, 4 * (3 * rows_ * D + 2 * D),
                          "float32")
@@ -2262,10 +2283,13 @@ def backward_checks(gen) -> dict:
                             reps=5),
         "bound_ms": bound, "bound_by": by,
         "library_ms": time_ms(library, reps=20),
+        "library_graph_ms": time_graph_ms(library, reps=20,
+                                          stream=lib_stream),
         "shape": f"x=({rows_}, {D}) f32, scale ({D},): qwen3-0.6b's block "
-                 "norm over a 4096-token batch; library_ms is "
+                 "norm over a 4096-token batch; library is "
                  "torch.nn.functional.rms_norm's backward (autograd, "
-                 "forward excluded); graph_ms replayed from a CUDA graph"}
+                 "forward excluded); graph_ms and library_graph_ms "
+                 "replayed from a CUDA graph"}
     xs, ss, gs = rms_case(RMS_BWD_PAIR)
     (dq, dsq), (dk, dsk) = rn.rmsnorm_pair_bwd(xs[0], ss[0], gs[0], xs[1],
                                                ss[1], gs[1], RMS_EPS)
@@ -2279,18 +2303,25 @@ def backward_checks(gen) -> dict:
                   check_bwd(got[1], want[1], f"rmsnorm_bwd pair ds{n}"))
         if not torch.equal(got[0], solo[0]):
             fail(f"rmsnorm_bwd pair: {n}'s dx differs from its own launch")
+        if not torch.equal(got[1], solo[1]):
+            fail(f"rmsnorm_bwd pair: {n}'s dscale differs from its own "
+                 "launch")
     n_el = sum(r * D_ for r, D_ in RMS_BWD_PAIR)
 
     def pair():
         return rn.rmsnorm_pair_bwd(xs[0], ss[0], gs[0], xs[1], ss[1], gs[1],
                                    RMS_EPS)
+    library, lib_stream = rms_norm_backward(xs, ss, gs)
     bound, by = bound_ms(6 * n_el, 4 * (3 * n_el + 4 * 128), "float32")
     results["rmsnorm_bwd"]["pair"] = {
         "max_abs_err": err, "ms": time_ms(pair, reps=20),
         "graph_ms": time_graph_ms(pair, reps=20), "bound_ms": bound,
-        "bound_by": by,
+        "bound_by": by, "library_ms": time_ms(library, reps=20),
+        "library_graph_ms": time_graph_ms(library, reps=20,
+                                          stream=lib_stream),
         "shape": f"q {RMS_BWD_PAIR[0]} and k {RMS_BWD_PAIR[1]} f32, one "
-                 "launch (qwen3-0.6b's q/k norms over a 4096-token batch)"}
+                 "call (qwen3-0.6b's q/k norms over a 4096-token batch); "
+                 "the library backward once for each tensor"}
     results["flash_attention_bwd"] = flash
     results["flash_attention_train_forward"] = forward
     print(f"rmsnorm_bwd: {results['rmsnorm_bwd']}", flush=True)

@@ -6,6 +6,7 @@
     python3 scripts/profile_port.py --decode [--src DIR] [--out FILE]
     python3 scripts/profile_port.py --chunk [--src DIR] [--out FILE]
     python3 scripts/profile_port.py --flash [--src DIR] [--out FILE]
+    python3 scripts/profile_port.py --norm-bwd [--src DIR] [--out FILE]
 
 Serves the ``chip_smoke.py`` phase-4 request set (qwen3-0.6b at full
 width, 28 layers, bf16, random weights from seed 0; n_slots=4,
@@ -70,6 +71,16 @@ forward), with each CUDA kernel's device ms a call by name
 (``torch.profiler``) and digests of the outputs on fixed inputs. Read
 against ``--src`` of a parent in turns, it compares two bodies of the
 same kernels on one card.
+
+``--norm-bwd`` reads ``rmsnorm_bwd`` (float32) at ``chip_smoke.py``'s
+RMS_BWD_MAIN (qwen3-0.6b's block norm over a 4096-token batch) and its
+RMS_BWD_PAIR (the q/k norms in one call): device ms from a graph of 20
+calls beside ``torch.nn.functional.rms_norm``'s backward through autograd
+(forward excluded, captured on its forward's stream; twice for the pair)
+and the bytes bound, each CUDA kernel's device ms by name and digests of
+dx and dscale; then one training step of phase 18b (qwen3-0.6b, float32,
+B 8 x S 512) split by CUDA kernel, with the norm backward's share. Read
+against ``--src`` of a parent in turns (parent, change, change, parent).
 
 ``--src`` imports the port from another checkout's ``src`` (for example
 a parent commit unpacked beside this one), so two versions can be read
@@ -500,12 +511,119 @@ def output_digests() -> dict:
     return out
 
 
+def _by_kernel(fn, reps=10) -> dict:
+    """Device ms a call of each CUDA kernel ``fn`` runs, by name
+    (``torch.profiler`` over ``reps`` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:100]: _device_us(e) / reps / 1e3
+            for e in prof.key_averages() if _device_us(e) > 0}
+
+
+def profile_norm_bwd() -> dict:
+    """``rmsnorm_bwd`` at ``chip_smoke.py``'s RMS_BWD_MAIN and the
+    RMS_BWD_PAIR pair: device ms (graph) beside ``F.rms_norm``'s backward
+    through autograd (graph, forward excluded; once for each tensor of
+    the pair) and the bound, device ms by CUDA kernel, digests of dx and
+    dscale; then one training step of ``chip_smoke.py`` phase 18b (full
+    qwen3-0.6b, float32, B 8 x S 512, after two steps) split by CUDA
+    kernel, with the share of the norms' backward kernels."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    cs.np, cs.torch = np, torch      # its main() binds these
+    from repro_torch.kernels import rmsnorm as rn
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    rows, norm_names = {}, set()
+    for name, shapes in (("main", [cs.RMS_BWD_MAIN]),
+                         ("pair", list(cs.RMS_BWD_PAIR))):
+        xs = [randn(r, D) for r, D in shapes]
+        ss = [1 + 0.1 * randn(D) for _, D in shapes]
+        gs = [randn(r, D) for r, D in shapes]
+        if name == "main":
+            def call():
+                return [rn.rmsnorm_bwd(xs[0], ss[0], gs[0], cs.RMS_EPS)]
+        else:
+            def call():
+                return rn.rmsnorm_pair_bwd(xs[0], ss[0], gs[0], xs[1],
+                                           ss[1], gs[1], cs.RMS_EPS)
+        n_el = sum(r * D for r, D in shapes)
+        library, lib_stream = cs.rms_norm_backward(xs, ss, gs)
+        by = _by_kernel(call)
+        # the kernel's own (PyTorch's fill and copy kernels, which a
+        # wrapper may launch too, run all over a training step)
+        norm_names |= {k for k in by if "at::" not in k}
+        rows[name] = {
+            "shape": f"{shapes} f32",
+            "graph_ms": cs.time_graph_ms(call, reps=20),
+            "library_graph_ms": cs.time_graph_ms(library, reps=20,
+                                                 stream=lib_stream),
+            "bound_ms": cs.bound_ms(6 * n_el, 4 * (3 * n_el + 2 * sum(
+                D for _, D in shapes)), "float32")[0],
+            "kernel_ms": by,
+            "digest": _digest(torch.cat([t.flatten() for pair in call()
+                                         for t in pair]))}
+        print(name, {k: v for k, v in rows[name].items()
+                     if k.endswith("_ms")}, flush=True)
+        del xs, ss, gs, library
+        torch.cuda.empty_cache()
+    rows["train_step"] = train_step_split(norm_names)
+    return {"rmsnorm_bwd": rows}
+
+
+def train_step_split(norm_names) -> dict:
+    """One phase-18b training step's device ms by CUDA kernel (the 25
+    longest by name), its total, and the part and share of the kernels
+    named in ``norm_names`` (the norm backward's)."""
+    import chip_smoke as cs
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import LmTokenStream
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import TrainConfig, make_train_step
+    from repro_torch.train.optimizer import init_opt_state
+
+    args = dict(zip(cs.TRAIN_ARGS[::2], cs.TRAIN_ARGS[1::2]))
+    B, S = int(args["--batch"]), int(args["--seq"])
+    cfg = get_config("qwen3-0.6b")
+    model = Model(cfg)
+    params = model.init(seed=0)
+    step = make_train_step(model, TrainConfig(), params)
+    opt = init_opt_state(params)
+    stream = LmTokenStream(cfg.vocab_size, seq_len=S, batch_size=B)
+    for i in range(2):
+        params, opt, _ = step(params, opt, stream.batch(i))
+    torch.cuda.synchronize()
+
+    def one():
+        nonlocal params, opt
+        params, opt, _ = step(params, opt, stream.batch(2))
+    by = _by_kernel(one, reps=1)
+    total = sum(by.values())
+    norm = sum(v for k, v in by.items() if k in norm_names)
+    top = dict(sorted(by.items(), key=lambda kv: -kv[1])[:25])
+    del params, opt
+    torch.cuda.empty_cache()
+    out = {"shape": f"qwen3-0.6b f32, B {B} x S {S}, one step after two",
+           "device_ms": total, "norm_bwd_ms": norm,
+           "norm_bwd_share": norm / total, "kernels": len(by),
+           "top_kernel_ms": top}
+    print("train step", {k: v for k, v in out.items()
+                         if k != "top_kernel_ms"}, flush=True)
+    return out
+
+
 def profile_flash() -> dict:
     """The float32 flash forward (with its lse) and backward at
     FLASH_BWD's shapes, and the forward at the float32 WHISPER_FLASH
     shapes: graph-replayed device ms, device ms by CUDA kernel, digests."""
-    from torch.profiler import ProfilerActivity, profile
-
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     cs.np, cs.torch = np, torch      # its main() binds these
@@ -515,15 +633,6 @@ def profile_flash() -> dict:
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
-
-    def by_kernel(fn, reps=10):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        return {e.key[:100]: _device_us(e) / reps / 1e3
-                for e in prof.key_averages() if _device_us(e) > 0}
 
     def digest(*ts):
         h = hashlib.sha256()
@@ -549,7 +658,7 @@ def profile_flash() -> dict:
             return fa.flash_attention(q, k, v, return_lse=True, **kw)
         out, lse = fwd()
         row = {"forward_ms": cs.time_graph_ms(fwd),
-               "forward_kernel_ms": by_kernel(fwd),
+               "forward_kernel_ms": _by_kernel(fwd),
                "forward_digest": digest(out, lse)}
         if name.startswith("train_"):
             dout = randn(B, Sq, H_, Kv)
@@ -557,7 +666,7 @@ def profile_flash() -> dict:
             def bwd():
                 return fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
             row.update(backward_ms=cs.time_graph_ms(bwd, reps=20),
-                       backward_kernel_ms=by_kernel(bwd),
+                       backward_kernel_ms=_by_kernel(bwd),
                        backward_digest=digest(*bwd()))
         rows[name] = {"shape": f"B={B} Sq={Sq} Skv={Skv} H={H_} Hkv={Hkv} "
                                f"K={K_} Kv={Kv} causal={causal} "
@@ -576,6 +685,7 @@ def main() -> int:
     ap.add_argument("--decode", action="store_true")
     ap.add_argument("--chunk", action="store_true")
     ap.add_argument("--flash", action="store_true")
+    ap.add_argument("--norm-bwd", action="store_true")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -609,6 +719,9 @@ def main() -> int:
     if args.flash:
         return _report({"src": args.src, "card": card, **profile_flash()},
                        args.out or ROOT / "build" / "profile_flash.json")
+    if args.norm_bwd:
+        return _report({"src": args.src, "card": card, **profile_norm_bwd()},
+                       args.out or ROOT / "build" / "profile_norm_bwd.json")
     cfg = get_config("qwen3-0.6b")
     model = Model(cfg)
     params = model.init(seed=0, dtype=torch.bfloat16)

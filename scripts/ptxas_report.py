@@ -30,7 +30,11 @@ float32 flash bodies (the forward's split-TF32 body and the backward's
 dq and dk/dv passes) are listed one by one too; it exits 1 unless every
 one of them has tensor-core instructions and none that the registry's
 head shapes reach (K / Kv 64 / 64, 112 / 112, 128 / 128 and 192 / 128:
-tiles 64 / 64, 128 / 128 and 192 / 128) spills.
+tiles 64 / 64, 128 / 128 and 192 / 128) spills. The RMSNorm backward's
+16 instantiations (its rows pass at 7 layouts with 16-byte loads and one
+element at a time, the looping body past 8 vectors a lane, the dscale
+pass) are listed one by one; it exits 1 unless all 16 are there and none
+spills.
 """
 from __future__ import annotations
 
@@ -196,10 +200,25 @@ def main() -> int:
     print(f"flash f32: {len(f32)} instantiations, {len(f32) - len(f32_bare)} "
           f"with tensor-core instructions, {len(reached)} the registry "
           f"reaches of which {len(f32_spill)} spill")
+    # the norm backward: 14 rows passes (7 layouts, 16-byte and one
+    # element), the looping body and the dscale pass; every width reaches
+    # one, so none may spill
+    nbwd = sorted((n for n in table if re.search(
+        r"::(rows_kernel<|wide_kernel\(|dscale_kernel\()", names[n])),
+        key=lambda n: names[n])
+    nbwd_spill = [n for n in nbwd if table[n][1] or table[n][2]]
+    for n in nbwd:
+        regs, st, ld = table[n]
+        print(f"rmsnorm_bwd: regs={regs} spill_stores={st} spill_loads={ld} "
+              f"{names[n]}")
+    print(f"rmsnorm_bwd: {len(nbwd)} instantiations, most registers "
+          f"{max((table[n][0] for n in nbwd), default=0)}, "
+          f"{len(nbwd_spill)} spill")
     return 1 if (bare or spill or not tc_partial or not int8
                  or int8_spill or not norm or norm_spill or len(new) != 12
                  or new_spill or len(new8) != 8 or new8_spill or not f32
-                 or f32_bare or len(reached) < 9 or f32_spill) else 0
+                 or f32_bare or len(reached) < 9 or f32_spill
+                 or len(nbwd) != 16 or nbwd_spill) else 0
 
 
 if __name__ == "__main__":

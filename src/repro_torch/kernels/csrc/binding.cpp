@@ -26,10 +26,12 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                float scale, float softcap, void* stream);
 int rmsnorm_bwd_launch(const void* x0, const void* scale0, const void* g0,
                        void* dx0, long long rows0, long long row_stride0,
-                       const void* x1, const void* scale1, const void* g1,
-                       void* dx1, long long rows1, long long row_stride1,
-                       int D, float eps, void* rstd, void* partial,
-                       void* dscale, int chunks, void* stream);
+                       long long per0, int blocks0, const void* x1,
+                       const void* scale1, const void* g1, void* dx1,
+                       long long rows1, long long row_stride1,
+                       long long per1, int blocks1, int D, float eps,
+                       int warps, int slots, int vec, void* partial,
+                       void* dscale, int segments, void* stream);
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* valid, void* out, void* work, int B,
                             int W, int H, int Hkv, int K, int split,
@@ -99,17 +101,21 @@ int flash_attention_bwd(std::uintptr_t q, std::uintptr_t k, std::uintptr_t v,
       causal ? 1 : 0, window, scale, softcap, ptr(stream));
 }
 
+// rows1 = 0 and blocks1 = 0: one tensor; otherwise both in one call
 int rmsnorm_bwd(std::uintptr_t x0, std::uintptr_t scale0, std::uintptr_t g0,
                 std::uintptr_t dx0, long long rows0, long long row_stride0,
-                std::uintptr_t x1, std::uintptr_t scale1, std::uintptr_t g1,
-                std::uintptr_t dx1, long long rows1, long long row_stride1,
-                int D, float eps, std::uintptr_t rstd,
-                std::uintptr_t partial, std::uintptr_t dscale, int chunks,
-                std::uintptr_t stream) {
+                long long per0, int blocks0, std::uintptr_t x1,
+                std::uintptr_t scale1, std::uintptr_t g1, std::uintptr_t dx1,
+                long long rows1, long long row_stride1, long long per1,
+                int blocks1, int D, float eps, int warps, int slots,
+                bool vec, std::uintptr_t partial, std::uintptr_t dscale,
+                int segments, std::uintptr_t stream) {
   return rmsnorm_bwd_launch(ptr(x0), ptr(scale0), ptr(g0), ptr(dx0), rows0,
-                            row_stride0, ptr(x1), ptr(scale1), ptr(g1),
-                            ptr(dx1), rows1, row_stride1, D, eps, ptr(rstd),
-                            ptr(partial), ptr(dscale), chunks, ptr(stream));
+                            row_stride0, per0, blocks0, ptr(x1), ptr(scale1),
+                            ptr(g1), ptr(dx1), rows1, row_stride1, per1,
+                            blocks1, D, eps, warps, slots, vec ? 1 : 0,
+                            ptr(partial), ptr(dscale), segments,
+                            ptr(stream));
 }
 
 int decode_attention(std::uintptr_t q, std::uintptr_t k, std::uintptr_t v,

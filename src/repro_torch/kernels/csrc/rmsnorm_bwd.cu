@@ -11,37 +11,76 @@
 //
 // x rows are float32 with a row stride of `row_stride` elements and unit
 // column stride (the MLA latent dkv[..., :r] is read in place, as the
-// forward reads it); g, dx (rows, D) contiguous; scale and dscale (D,).
-// One launch may take two such tensors of one D (a layer's q and k norms,
-// which the forward normalises in one launch): every kernel's grid covers
-// both.
-//
-// Three kernels: (1) one warp a row (eight rows a block) reads x, g and
-// scale, reduces sum(x^2) and sum(x * gs) over its lanes (each lane its
-// columns lane, lane + 32, ... in order, then a xor-shuffle tree), writes
-// dx from a second read of the row, and keeps r for the row; (2) the first
-// stage of dscale: blocks of 32 columns x 8 row lanes, one per chunk of
-// rows, each lane summing g * x * r over its rows of the chunk in order,
-// the 8 lanes then added in order through shared memory into the chunk's
-// partial row; (3) one thread a column adds the chunks' partials in chunk
-// order. No atomics: the bits repeat from run to run.
+// forward reads it); g, dx (rows, D) contiguous; scale (D,); dscale
+// (segments, D), one row a tensor. One launch may take two such tensors
+// of one D (a layer's q and k norms, which the forward normalises in one
+// launch): both kernels' grids cover both.
 //
 // Bound. The function reads x, g and scale once and writes dx and dscale
 // once, ~6 operations an element: bound by bytes. At qwen3-0.6b's block
 // norm over a training batch (4096 rows, D 1024) that is 50.3 MB, 0.015 ms
-// at 3.35 TB/s. This design reads x and g twice (kernel 1's two passes,
-// then kernel 2), so it moves about twice the bound's bytes.
+// at 3.35 TB/s; at its q/k pair (65536 + 32768 rows of 128) 151 MB, 0.045
+// ms.
+//
+// Design: x and g are read once. (1) The rows pass holds a row in
+// registers as the forward does (rmsnorm.cu): a group of W warps owns a
+// row, and vector j of 4 floats belongs to thread j % (32 W) of the group
+// in slot j / (32 W), (W, N) from D alone (kernels/rmsnorm.py `layout`).
+// A lane issues every 16-byte load of x and g of U rows before it uses
+// any (U = 4 / N rows at N <= 2, else 1: at D = 128 a warp's row is one
+// vector a lane, so four rows keep the bytes in flight), reduces sum(x^2)
+// and sum(x * gs) from those registers, and writes dx from them. scale
+// and the lane's sums of g * x * r for its columns stay in registers over
+// every row its group walks: a lane's columns never change. A block is 8
+// warps, R = 8 / W groups; at the end the groups' sums are added in group
+// order through shared memory and the block writes one partial row of
+// dscale. (2) The dscale pass adds a segment's block partials: 8 runs of
+// consecutive blocks, each in block order, then the runs in order. Two
+// launches, no atomics and no workspace but the partial rows.
+//
+// Bits. A row's lane sums run in slot order, element order within a
+// slot (fmaf); a xor-shuffle tree adds the lanes of a warp; for W > 1 the
+// warps' sums are added in warp order through shared memory. So a row's
+// dx depends on its values, scale, eps and D alone. The rows of a segment
+// are split into blocks by the wrapper (`bwd_partition`) from the
+// segment's row count and D alone: block b owns rows [b per, (b + 1) per),
+// walked R U rows at a time, group q taking rows base + q U + u. So a
+// segment's dscale depends on its rows and D alone: never on the SM count
+// or on the other segment of a pair, and a pair's rows get the bits of
+// their solo launches. Inputs the 16-byte path cannot take (a base or row
+// stride off 16 bytes, D not a multiple of 4) run on the VEC = false
+// instantiation: the same lanes, slots, rows and order, one element at a
+// time, with the same bits. Rows wider than 8 vectors a lane of 8 warps
+// (D > 8192) run on `wide_kernel`: the same lane assignment looped over
+// the slots, reading x and g a second time to write dx and keeping the
+// block's dscale sums in its partial row.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NT = 256;        // threads a block
-constexpr int ROWS_A_BLOCK = NT / 32;
-constexpr int COLS = 32;       // columns a block of the dscale stages
-constexpr int LANES = NT / COLS;
+constexpr int VEC = 4;            // floats in a 16-byte vector
+constexpr int MAX_SLOTS = 8;      // 16-byte vectors a lane holds
+constexpr int BLOCK_WARPS = 8;    // warps a block of the rows pass
+constexpr int NT = 32 * BLOCK_WARPS;
+constexpr int RUNS = 8;           // runs of block partials, dscale pass
+constexpr int COLS = 32;          // columns a block of the dscale pass
 
+__host__ __device__ constexpr int groups_a_block(int W) {
+  return BLOCK_WARPS / W;
+}
+// rows a group holds in flight at once
+__host__ __device__ constexpr int rows_in_flight(int N) {
+  return N <= 2 ? 4 / N : 1;
+}
+// blocks an SM should hold (launch bounds): the register need grows with N
+__host__ __device__ constexpr int min_blocks(int N) {
+  return N <= 2 ? 3 : (N == 4 ? 2 : 1);
+}
+
+// One tensor of the backward and its partition: block b of the segment
+// owns rows [b per, min(rows, (b + 1) per)).
 struct Seg {
   const float* x;
   const float* scale;
@@ -49,120 +88,343 @@ struct Seg {
   float* dx;
   long long rows;
   long long row_stride;
+  long long per;
+  int blocks;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  return v;   // the same bits in every lane: each step adds a commuted pair
 }
 
-// (1) dx and r, one warp a row of either segment
-__global__ void __launch_bounds__(NT)
-    rows_kernel(Seg s0, Seg s1, int D, float eps, float* __restrict__ rstd) {
-  const long long all = s0.rows + s1.rows;
-  const int lane = threadIdx.x % 32;
-  for (long long r = (long long)blockIdx.x * ROWS_A_BLOCK + threadIdx.x / 32;
-       r < all; r += (long long)gridDim.x * ROWS_A_BLOCK) {
-    const bool first = r < s0.rows;
-    const Seg& s = first ? s0 : s1;
-    const long long i = first ? r : r - s0.rows;
-    const float* x = s.x + i * s.row_stride;
-    const float* g = s.g + i * D;
-    float ss = 0.f, sg = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float xv = x[c], gs = g[c] * s.scale[c];
-      ss = fmaf(xv, xv, ss);
-      sg = fmaf(xv, gs, sg);
+// 4 floats of a slot from p (element i of the row at p[i]); VEC_LOAD: one
+// 16-byte load, else element by element, those at or past D left 0
+template <bool VEC_LOAD>
+__device__ __forceinline__ void load4(const float* p, int i, int D,
+                                      float* v) {
+  if constexpr (VEC_LOAD) {
+    const float4 u = __ldg(reinterpret_cast<const float4*>(p + i));
+    v[0] = u.x;
+    v[1] = u.y;
+    v[2] = u.z;
+    v[3] = u.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) v[e] = i + e < D ? __ldg(p + i + e) : 0.f;
+  }
+}
+
+template <bool VEC_LOAD>
+__device__ __forceinline__ void store4(float* p, int i, int D,
+                                       const float* v) {
+  if constexpr (VEC_LOAD) {
+    *reinterpret_cast<float4*>(p + i) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      if (i + e < D) p[i + e] = v[e];
+  }
+}
+
+// (1) rows pass: dx of every row, and one partial row of dscale a block.
+// W warps a row, N vectors a lane; VEC_LOAD: 16-byte loads and stores.
+template <int W, int N, bool VEC_LOAD>
+__global__ void __launch_bounds__(NT, min_blocks(N))
+rows_kernel(Seg s0, Seg s1, int D, float eps, float* __restrict__ partial) {
+  constexpr int R = groups_a_block(W);
+  constexpr int U = rows_in_flight(N);
+  constexpr int LANES = 32 * W;
+  __shared__ float part[2][R][U][W][2];
+  // groups 1..R-1's dscale sums for group 0 to add (one float4 at R = 1)
+  __shared__ float4 merge[R > 1 ? R - 1 : 1][R > 1 ? N : 1]
+                         [R > 1 ? LANES : 1];
+  const int grp = threadIdx.x / LANES;
+  const int t = threadIdx.x % LANES;
+  const bool in0 = static_cast<int>(blockIdx.x) < s0.blocks;
+  const Seg s = in0 ? s0 : s1;
+  const long long b = in0 ? blockIdx.x : blockIdx.x - s0.blocks;
+  const long long r0 = b * s.per;
+  const long long r1 = min(s.rows, r0 + s.per);
+  // vectors a row; the one-element path's last vector may be partial
+  const int nvec = VEC_LOAD ? D / VEC : (D + VEC - 1) / VEC;
+
+  float sc[N][VEC], acc[N][VEC];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const int j = n * LANES + t;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) sc[n][e] = acc[n][e] = 0.f;
+    if (j < nvec) load4<VEC_LOAD>(s.scale, j * VEC, D, sc[n]);
+  }
+
+  int buf = 0;
+  // block-uniform trip count, so every thread reaches the barrier
+  for (long long base = r0; base < r1; base += R * U, buf ^= 1) {
+    float xv[U][N][VEC], gv[U][N][VEC];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {             // every load issued first
+      const long long row = base + grp * U + u;
+      const float* x = s.x + row * s.row_stride;
+      const float* g = s.g + row * D;
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const int j = n * LANES + t;
+        if (row < r1 && j < nvec) {
+          load4<VEC_LOAD>(x, j * VEC, D, xv[u][n]);
+          load4<VEC_LOAD>(g, j * VEC, D, gv[u][n]);
+        }
+      }
     }
+    float ss[U], sg[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long row = base + grp * U + u;
+      ss[u] = sg[u] = 0.f;
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const int j = n * LANES + t;
+        if (row < r1 && j < nvec) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            if (VEC_LOAD || j * VEC + e < D) {
+              const float x = xv[u][n][e];
+              ss[u] = fmaf(x, x, ss[u]);
+              sg[u] = fmaf(x, gv[u][n][e] * sc[n][e], sg[u]);
+            }
+          }
+        }
+      }
+      ss[u] = warp_sum(ss[u]);
+      sg[u] = warp_sum(sg[u]);
+    }
+    if constexpr (W > 1) {
+      if ((t & 31) == 0) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          part[buf][grp][u][t >> 5][0] = ss[u];
+          part[buf][grp][u][t >> 5][1] = sg[u];
+        }
+      }
+      __syncthreads();   // part[buf] is rewritten two iterations on, after
+                         // the next barrier: every read of it is done
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        ss[u] = part[buf][grp][u][0][0];
+        sg[u] = part[buf][grp][u][0][1];
+#pragma unroll
+        for (int w = 1; w < W; ++w) {
+          ss[u] += part[buf][grp][u][w][0];
+          sg[u] += part[buf][grp][u][w][1];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long row = base + grp * U + u;
+      if (row >= r1) continue;
+      const float r = rsqrtf(ss[u] / static_cast<float>(D) + eps);
+      const float coef = r * r * r * (sg[u] / static_cast<float>(D));
+      float* dx = s.dx + row * D;
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const int j = n * LANES + t;
+        if (j < nvec) {
+          float d[VEC];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const float x = xv[u][n][e], g = gv[u][n][e];
+            d[e] = fmaf(-x, coef, r * (g * sc[n][e]));
+            acc[n][e] = fmaf(g * x, r, acc[n][e]);
+          }
+          store4<VEC_LOAD>(dx, j * VEC, D, d);
+        }
+      }
+    }
+  }
+
+  // the groups' sums in group order, then the block's partial row
+  if constexpr (R > 1) {
+    if (grp > 0) {
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        merge[grp - 1][n][t] =
+            make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+    }
+    __syncthreads();
+    if (grp > 0) return;
+#pragma unroll
+    for (int q = 0; q < R - 1; ++q) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const float4 m = merge[q][n][t];
+        acc[n][0] += m.x;
+        acc[n][1] += m.y;
+        acc[n][2] += m.z;
+        acc[n][3] += m.w;
+      }
+    }
+  }
+  float* prow = partial + static_cast<long long>(blockIdx.x) * D;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const int j = n * LANES + t;
+    if (j < nvec) store4<VEC_LOAD>(prow, j * VEC, D, acc[n]);
+  }
+}
+
+// (1') rows pass for rows wider than MAX_SLOTS vectors a lane of 8 warps:
+// one row at a time, the slots looped, element by element; x and g read a
+// second time to write dx; each lane's dscale sums kept in the block's
+// partial row, which only that lane touches
+__global__ void __launch_bounds__(NT)
+wide_kernel(Seg s0, Seg s1, int D, float eps, float* __restrict__ partial) {
+  __shared__ float part[2][BLOCK_WARPS][2];
+  const int t = threadIdx.x;
+  const bool in0 = static_cast<int>(blockIdx.x) < s0.blocks;
+  const Seg s = in0 ? s0 : s1;
+  const long long b = in0 ? blockIdx.x : blockIdx.x - s0.blocks;
+  const long long r0 = b * s.per;
+  const long long r1 = min(s.rows, r0 + s.per);
+  const int slots = (D + VEC * NT - 1) / (VEC * NT);
+  float* prow = partial + static_cast<long long>(blockIdx.x) * D;
+  for (int n = 0; n < slots; ++n)
+    for (int e = 0; e < VEC; ++e) {
+      const int i = (n * NT + t) * VEC + e;
+      if (i < D) prow[i] = 0.f;
+    }
+  int buf = 0;
+  for (long long row = r0; row < r1; ++row, buf ^= 1) {
+    const float* x = s.x + row * s.row_stride;
+    const float* g = s.g + row * D;
+    float ss = 0.f, sg = 0.f;
+    for (int n = 0; n < slots; ++n)
+      for (int e = 0; e < VEC; ++e) {
+        const int i = (n * NT + t) * VEC + e;
+        if (i < D) {
+          const float xv = __ldg(x + i);
+          ss = fmaf(xv, xv, ss);
+          sg = fmaf(xv, __ldg(g + i) * __ldg(s.scale + i), sg);
+        }
+      }
     ss = warp_sum(ss);
     sg = warp_sum(sg);
-    const float rr = rsqrtf(ss / D + eps);
-    const float coef = rr * rr * rr * (sg / D);
-    float* dx = s.dx + i * D;
-    for (int c = lane; c < D; c += 32)
-      dx[c] = rr * (g[c] * s.scale[c]) - x[c] * coef;
-    if (lane == 0) rstd[r] = rr;
+    if ((t & 31) == 0) {
+      part[buf][t >> 5][0] = ss;
+      part[buf][t >> 5][1] = sg;
+    }
+    __syncthreads();
+    ss = part[buf][0][0];
+    sg = part[buf][0][1];
+    for (int w = 1; w < BLOCK_WARPS; ++w) {
+      ss += part[buf][w][0];
+      sg += part[buf][w][1];
+    }
+    const float r = rsqrtf(ss / static_cast<float>(D) + eps);
+    const float coef = r * r * r * (sg / static_cast<float>(D));
+    float* dx = s.dx + row * D;
+    for (int n = 0; n < slots; ++n)
+      for (int e = 0; e < VEC; ++e) {
+        const int i = (n * NT + t) * VEC + e;
+        if (i < D) {
+          const float xv = __ldg(x + i), gv = __ldg(g + i);
+          dx[i] = fmaf(-xv, coef, r * (gv * __ldg(s.scale + i)));
+          prow[i] = fmaf(gv * xv, r, prow[i]);
+        }
+      }
   }
 }
 
-// (2) partial[seg][chunk][col] = sum over the chunk's rows of g * x * r
-__global__ void __launch_bounds__(NT)
-    partial_kernel(Seg s0, Seg s1, int D, int chunks,
-                   const float* __restrict__ rstd, float* __restrict__ partial) {
-  __shared__ float acc[LANES][COLS];
-  const int seg = blockIdx.z, chunk = blockIdx.y;
-  const Seg& s = seg == 0 ? s0 : s1;
-  const float* r_of = rstd + (seg == 0 ? 0 : s0.rows);
+// (2) dscale[seg][col]: the segment's block partials in RUNS runs of
+// consecutive blocks, each run in block order, then the runs in order
+__global__ void __launch_bounds__(COLS * RUNS)
+dscale_kernel(int blocks0, int blocks1, int D,
+              const float* __restrict__ partial, float* __restrict__ dscale) {
+  __shared__ float run[RUNS][COLS];
+  const int seg = blockIdx.y;
+  const int nb = seg == 0 ? blocks0 : blocks1;
+  const float* p = partial + static_cast<long long>(seg == 0 ? 0 : blocks0) * D;
   const int tx = threadIdx.x % COLS, ty = threadIdx.x / COLS;
   const int col = blockIdx.x * COLS + tx;
-  const long long per = (s.rows + chunks - 1) / chunks;
-  const long long r0 = chunk * per, r1 = min(s.rows, r0 + per);
+  const int len = (nb + RUNS - 1) / RUNS;
+  const int b1 = min(nb, (ty + 1) * len);
   float a = 0.f;
-  if (col < D)
-    for (long long i = r0 + ty; i < r1; i += LANES)
-      a = fmaf(s.g[i * D + col] * s.x[i * s.row_stride + col], r_of[i], a);
-  acc[ty][tx] = a;
+  if (col < D) {
+#pragma unroll 8
+    for (int b = ty * len; b < b1; ++b)
+      a += p[static_cast<long long>(b) * D + col];
+  }
+  run[ty][tx] = a;
   __syncthreads();
   if (ty == 0 && col < D) {
-    float t = 0.f;
+    float total = run[0][tx];
 #pragma unroll
-    for (int l = 0; l < LANES; ++l) t += acc[l][tx];
-    partial[((size_t)seg * chunks + chunk) * D + col] = t;
+    for (int l = 1; l < RUNS; ++l) total += run[l][tx];
+    dscale[static_cast<long long>(seg) * D + col] = total;
   }
 }
 
-// (3) dscale[seg][col] = the chunks' partials added in order
-__global__ void __launch_bounds__(NT)
-    reduce_kernel(int D, int chunks, const float* __restrict__ partial,
-                  float* __restrict__ dscale) {
-  const int seg = blockIdx.y;
-  const int col = blockIdx.x * NT + threadIdx.x;
-  if (col >= D) return;
-  const float* p = partial + (size_t)seg * chunks * D + col;
-  float t = 0.f;
-  for (int c = 0; c < chunks; ++c) t += p[(size_t)c * D];
-  dscale[(size_t)seg * D + col] = t;
+// The rows pass `layout` asks for: (W, N) = (1, 1), (2, 1), (4, 1), (4, 2),
+// (8, 2), (8, 4), (8, 8) with 16-byte loads or one element at a time, and
+// wide_kernel past 8 vectors a lane.
+template <bool VEC_LOAD>
+int dispatch(const Seg& s0, const Seg& s1, int D, float eps, int warps,
+             int slots, float* partial, cudaStream_t st) {
+  const auto go = [&](auto kernel) {
+    kernel<<<s0.blocks + s1.blocks, NT, 0, st>>>(s0, s1, D, eps, partial);
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (warps * 16 + slots) {
+    case 1 * 16 + 1: return go(rows_kernel<1, 1, VEC_LOAD>);
+    case 2 * 16 + 1: return go(rows_kernel<2, 1, VEC_LOAD>);
+    case 4 * 16 + 1: return go(rows_kernel<4, 1, VEC_LOAD>);
+    case 4 * 16 + 2: return go(rows_kernel<4, 2, VEC_LOAD>);
+    case 8 * 16 + 2: return go(rows_kernel<8, 2, VEC_LOAD>);
+    case 8 * 16 + 4: return go(rows_kernel<8, 4, VEC_LOAD>);
+    case 8 * 16 + 8: return go(rows_kernel<8, MAX_SLOTS, VEC_LOAD>);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Plain C++ entry point for the binding; returns the cudaError_t of the
-// launches (0 on success). rows1 = 0 means one tensor. The caller has
-// checked shapes, types and layout, and allocated dx, the workspaces rstd
-// (rows0 + rows1) and partial (segments, chunks, D), and dscale
-// (segments, D).
+// launches (0 on success; cudaErrorInvalidValue for a layout with no
+// instantiation). rows1 = 0 and blocks1 = 0 mean one tensor. The caller
+// has checked shapes, types and layout, chosen (warps, slots) from D and
+// each segment's (per, blocks) from its rows and D, vec only where every
+// base and row stride lies on 16 bytes and 4 divides D, and allocated dx,
+// the partial rows (blocks0 + blocks1, D) and dscale (segments, D), which
+// the second launch writes whole (0 for a segment without rows).
 int rmsnorm_bwd_launch(const void* x0, const void* scale0, const void* g0,
                        void* dx0, long long rows0, long long row_stride0,
-                       const void* x1, const void* scale1, const void* g1,
-                       void* dx1, long long rows1, long long row_stride1,
-                       int D, float eps, void* rstd, void* partial,
-                       void* dscale, int chunks, void* stream) {
+                       long long per0, int blocks0, const void* x1,
+                       const void* scale1, const void* g1, void* dx1,
+                       long long rows1, long long row_stride1,
+                       long long per1, int blocks1, int D, float eps,
+                       int warps, int slots, int vec, void* partial,
+                       void* dscale, int segments, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Seg s0{static_cast<const float*>(x0), static_cast<const float*>(scale0),
                static_cast<const float*>(g0), static_cast<float*>(dx0), rows0,
-               row_stride0};
+               row_stride0, per0, blocks0};
   const Seg s1{static_cast<const float*>(x1), static_cast<const float*>(scale1),
                static_cast<const float*>(g1), static_cast<float*>(dx1), rows1,
-               row_stride1};
-  const int segs = rows1 > 0 ? 2 : 1;
-  const long long all = rows0 + rows1;
-  if (all == 0 || D == 0) return cudaSuccess;
-  long long blocks = (all + ROWS_A_BLOCK - 1) / ROWS_A_BLOCK;
-  if (blocks > 65535) blocks = 65535;
-  rows_kernel<<<unsigned(blocks), NT, 0, st>>>(s0, s1, D, eps,
-                                               static_cast<float*>(rstd));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 pgrid((D + COLS - 1) / COLS, chunks, segs);
-  partial_kernel<<<pgrid, NT, 0, st>>>(s0, s1, D, chunks,
-                                       static_cast<const float*>(rstd),
-                                       static_cast<float*>(partial));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 rgrid((D + NT - 1) / NT, segs);
-  reduce_kernel<<<rgrid, NT, 0, st>>>(D, chunks,
-                                      static_cast<const float*>(partial),
-                                      static_cast<float*>(dscale));
-  return cudaGetLastError();
+               row_stride1, per1, blocks1};
+  float* part = static_cast<float*>(partial);
+  if (blocks0 + blocks1 > 0) {
+    int err;
+    if (slots > MAX_SLOTS) {
+      wide_kernel<<<blocks0 + blocks1, NT, 0, st>>>(s0, s1, D, eps, part);
+      err = static_cast<int>(cudaGetLastError());
+    } else {
+      err = vec ? dispatch<true>(s0, s1, D, eps, warps, slots, part, st)
+                : dispatch<false>(s0, s1, D, eps, warps, slots, part, st);
+    }
+    if (err != 0) return err;
+  }
+  const dim3 grid((D + COLS - 1) / COLS, segments);
+  dscale_kernel<<<grid, COLS * RUNS, 0, st>>>(blocks0, blocks1, D, part,
+                                              static_cast<float*>(dscale));
+  return static_cast<int>(cudaGetLastError());
 }

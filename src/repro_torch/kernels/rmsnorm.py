@@ -8,8 +8,11 @@ kernel or raise; ``kernels.ops`` sends CPU tensors to the plain version
 (``kernels.ref.rmsnorm``) instead. ``rmsnorm_pair`` normalises two tensors
 of one width and type (a layer's q and k norms) in one launch, each row
 with exactly the bits ``rmsnorm`` gives it. ``rmsnorm_bwd`` and
-``rmsnorm_pair_bwd`` are their gradients, one launch each (the pair's
-over both tensors, as its forward).
+``rmsnorm_pair_bwd`` are their gradients, one call each (the pair's
+over both tensors, as its forward): a rows pass that writes dx and one
+partial row of dscale a block, then a pass that adds the partials in a
+fixed order. ``bwd_partition`` splits a tensor's rows into blocks from
+its row count and width alone.
 
 ``layout`` picks the kernel's lane layout from the width and the type
 alone, which fixes a row's bits; ``_launch`` picks the 16-byte path or the
@@ -32,8 +35,8 @@ WARP_SLOTS = ((1, 1), (2, 1), (4, 2), (8, MAX_SLOTS))
 
 launches = LaunchCounter()
 bwd_launches = LaunchCounter()
-BWD_CHUNKS = 256    # the most row chunks of dscale's first stage
-BWD_CHUNK_ROWS = 32  # the fewest rows a chunk
+BWD_BLOCK_WARPS = 8  # warps a block of the backward's rows pass
+BWD_MAX_BLOCKS = 256  # the most blocks of one tensor in the backward
 
 
 @functools.lru_cache(maxsize=None)
@@ -155,6 +158,31 @@ def rmsnorm_pair(x: torch.Tensor, x_scale: torch.Tensor, y: torch.Tensor,
     return outs
 
 
+def bwd_groups(D: int) -> tuple[int, int, int, int]:
+    """(W, N, R, U) of the backward's rows pass at width ``D`` (float32):
+    the forward's lane layout (W warps a row, N vectors a lane), R =
+    ``BWD_BLOCK_WARPS`` / W groups a block and U rows a group holds in
+    flight (4 / N at N <= 2, else 1). Rows past ``MAX_SLOTS`` vectors a
+    lane take the looping body: one 8-warp group, one row at a time."""
+    W, N = layout(D, 4)
+    return W, N, BWD_BLOCK_WARPS // W, 4 // N if N <= 2 else 1
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_partition(rows: int, D: int) -> tuple[int, int]:
+    """(per, blocks): the backward's blocks of one tensor of ``rows`` rows
+    of width ``D``. Block b owns rows [b·per, (b + 1)·per), walked R·U rows
+    at a time (``bwd_groups``); per is the fewest multiple of R·U that
+    needs at most ``BWD_MAX_BLOCKS`` blocks. A function of (rows, D)
+    alone, so a tensor's dscale has the same bits alone and in a pair."""
+    _, _, R, U = bwd_groups(D)
+    step = R * U
+    if rows == 0:
+        return step, 0
+    per = step * -(-(-(-rows // step)) // BWD_MAX_BLOCKS)
+    return per, -(-rows // per)
+
+
 def _bwd_segment(name: str, x: torch.Tensor, scale: torch.Tensor,
                  g: torch.Tensor):
     """(x2, row_stride, scale, g2, dx) of one tensor of the backward: x
@@ -175,34 +203,37 @@ def _bwd_segment(name: str, x: torch.Tensor, scale: torch.Tensor,
 
 
 def _bwd_launch(segments, eps: float) -> torch.Tensor:
-    """One launch of the backward over one or two segments of one width:
-    writes each segment's dx and returns its dscale rows (n_segments,
-    D). A segment with no rows has dscale 0 and is not launched over."""
+    """One call of the backward (two launches: rows, then dscale) over one
+    or two segments of one width: writes each segment's dx and returns
+    the (n_segments, D) dscale rows the kernel writes whole (0 for a
+    segment without rows). The rows take 16-byte loads where every base
+    and row stride lies on 16 bytes and 4 divides D."""
     D = segments[0][0].shape[1]
     dev = segments[0][0].device
-    dscale = torch.zeros((len(segments), D), dtype=torch.float32,
+    W, N, _, _ = bwd_groups(D)
+    args, blocks, addresses = [], 0, D * 4
+    for x2, row_stride, scale, g2, dx in segments:
+        rows = x2.shape[0]
+        per, n = bwd_partition(rows, D)
+        ptrs = (x2.data_ptr(), scale.data_ptr(), g2.data_ptr(),
+                dx.data_ptr())
+        if rows:
+            for q in ptrs:
+                addresses |= q
+            addresses |= row_stride * 4
+        args += (*ptrs, rows, row_stride, per, n)
+        blocks += n
+    args += (0,) * (16 - len(args))       # no second tensor: rows1 = 0
+    partial = torch.empty((blocks, D), dtype=torch.float32, device=dev)
+    dscale = torch.empty((len(segments), D), dtype=torch.float32,
                          device=dev)
-    live = [(i, seg) for i, seg in enumerate(segments) if seg[0].shape[0]]
-    if not live:
-        return dscale
-    rows = [seg[0].shape[0] for _, seg in live]
-    chunks = max(1, min(BWD_CHUNKS, -(-max(rows) // BWD_CHUNK_ROWS)))
-    rstd = torch.empty(sum(rows), dtype=torch.float32, device=dev)
-    partial = torch.empty((len(live), chunks, D), dtype=torch.float32,
-                          device=dev)
-    out = torch.empty((len(live), D), dtype=torch.float32, device=dev)
-    args = []
-    for _, (x2, row_stride, scale, g2, dx) in live:
-        args += (x2.data_ptr(), scale.data_ptr(), g2.data_ptr(),
-                 dx.data_ptr(), x2.shape[0], row_stride)
-    args += (0,) * (12 - len(args))       # no second tensor: rows1 = 0
+    vec = N <= MAX_SLOTS and addresses % VEC_BYTES == 0
     err = extension().rmsnorm_bwd(
-        *args, D, float(eps), rstd.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), chunks, torch.cuda.current_stream(dev).cuda_stream)
+        *args, D, float(eps), W, N, vec, partial.data_ptr(),
+        dscale.data_ptr(), len(segments),
+        torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "rmsnorm_bwd")
     bwd_launches.add()
-    for j, (i, _) in enumerate(live):
-        dscale[i] = out[j]
     return dscale
 
 
@@ -211,8 +242,8 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     """``(dx, dscale)`` of ``rmsnorm(x, scale, eps)`` given the output's
     gradient ``g``: float32 CUDA tensors, x's rows as ``rmsnorm`` takes
     them (a strided slice too). dx is contiguous, of x's shape; dscale
-    sums every row, reduced in two fixed-order stages (no atomics, the
-    same bits every run)."""
+    sums every row in a fixed order (per-block partial rows, then the
+    blocks in order; no atomics, the same bits every run)."""
     seg = _bwd_segment("x", x, scale, g)
     return seg[4], _bwd_launch([seg], eps)[0]
 
@@ -221,9 +252,10 @@ def rmsnorm_pair_bwd(x: torch.Tensor, x_scale: torch.Tensor,
                      gx: torch.Tensor, y: torch.Tensor,
                      y_scale: torch.Tensor, gy: torch.Tensor,
                      eps: float = 1e-6) -> tuple:
-    """The gradients of ``rmsnorm_pair`` in one launch: ``((dx,
-    dx_scale), (dy, dy_scale))`` given the gradients ``gx`` and ``gy`` of
-    its two outputs; x and y of one width, float32."""
+    """The gradients of ``rmsnorm_pair`` in one call: ``((dx, dx_scale),
+    (dy, dy_scale))`` given the gradients ``gx`` and ``gy`` of its two
+    outputs; x and y of one width, float32. Each tensor's dx and dscale
+    have the bits of its own ``rmsnorm_bwd``."""
     sx = _bwd_segment("x", x, x_scale, gx)
     sy = _bwd_segment("y", y, y_scale, gy)
     if y.device != x.device or sy[0].shape[1] != sx[0].shape[1]:

@@ -29,6 +29,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -255,23 +257,77 @@ def test_flash_wrappers_pass_lse_and_count_one_backward_launch(no_card):
         fa.flash_attention_bwd(big, big, big, big, torch.zeros(1, 2, 8), big)
 
 
+class _AtenOps(TorchDispatchMode):
+    """The names of the aten operations run while open."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+# what a backward call may run besides its kernel: allocations and views
+# (no torch.zeros, fill or copy: the kernel writes dscale whole)
+_BWD_HOST_OPS = {"empty", "view", "select"}
+
+
+def _bwd_call(ext, fn, *args):
+    """fn(*args) under _AtenOps, with the launches it counted and the
+    extension calls it made."""
+    before, n_calls = ops.launch_counts()["rmsnorm_bwd"], len(ext.calls)
+    with _AtenOps() as seen:
+        out = fn(*args)
+    assert set(seen.names) <= _BWD_HOST_OPS, seen.names
+    assert ops.launch_counts()["rmsnorm_bwd"] == before + 1
+    assert len(ext.calls) == n_calls + 1 and ext.calls[-1][0] == "rmsnorm_bwd"
+    return out, ext.calls[-1][1]
+
+
 def test_rmsnorm_bwd_wrappers_pass_segments_and_count_one_launch(no_card):
+    """One call is one counted launch with no zeros or copy on the host;
+    the single, strided and pair calls hand the kernel each segment's
+    pointers, rows, row stride and partition ((per, blocks) from its rows
+    and width alone), and dscale is the kernel's own (segments, D)
+    buffer."""
     ext = no_card
     x = torch.zeros(6, 576)[:, :512]
     s = torch.ones(512)
     g = torch.zeros(6, 512)
-    before = ops.launch_counts()["rmsnorm_bwd"]
-    dx, ds = rn.rmsnorm_bwd(x, s, g, EPS)
-    name, args = ext.calls[-1]
-    assert name == "rmsnorm_bwd"
-    assert args[0] == x.data_ptr() and args[4:6] == (6, 576)
-    assert args[10:12] == (0, 0) and args[12] == 512
+    (dx, ds), args = _bwd_call(ext, rn.rmsnorm_bwd, x, s, g, EPS)
+    assert args[:8] == (x.data_ptr(), s.data_ptr(), g.data_ptr(),
+                        dx.data_ptr(), 6, 576, *rn.bwd_partition(6, 512))
+    assert args[8:16] == (0,) * 8                 # no second tensor
+    assert args[16] == 512 and args[17] == pytest.approx(EPS)
+    assert args[18:21] == (*rn.layout(512, 4), True)
+    assert args[22] == ds.data_ptr() and args[23] == 1
     assert dx.shape == x.shape and dx.is_contiguous() and ds.shape == (512,)
-    q, k = torch.zeros(4, 1, 16, 128), torch.zeros(4, 1, 8, 128)
-    sq, sk = torch.ones(128), torch.ones(128)
-    (dq, dsq), (dk, dsk) = rn.rmsnorm_pair_bwd(q, sq, q, k, sk, k, EPS)
-    name, args = ext.calls[-1]
-    assert args[4:6] == (64, 128) and args[10:12] == (32, 128)
-    assert ops.launch_counts()["rmsnorm_bwd"] == before + 2
+
+    def rows(n, width):
+        return torch.zeros(4, 1, n, width), torch.ones(width)
+    (q, sq), (k, sk) = rows(16, 128), rows(8, 128)
+    ((dq, dsq), (dk, dsk)), args = _bwd_call(ext, rn.rmsnorm_pair_bwd, q,
+                                             sq, q, k, sk, k, EPS)
+    assert args[:8] == (q.data_ptr(), sq.data_ptr(), q.data_ptr(),
+                        dq.data_ptr(), 64, 128, *rn.bwd_partition(64, 128))
+    assert args[8:16] == (k.data_ptr(), sk.data_ptr(), k.data_ptr(),
+                          dk.data_ptr(), 32, 128, *rn.bwd_partition(32, 128))
+    assert args[22] == dsq.data_ptr() and args[23] == 2
+    assert dsk.data_ptr() == dsq.data_ptr() + 128 * 4
+    # each segment of the pair gets what its solo launch gets
+    _, solo = _bwd_call(ext, rn.rmsnorm_bwd, k, sk, k, EPS)
+    assert solo[4:8] == args[12:16] and solo[16:21] == args[16:21]
+    # an empty segment: no blocks, its dscale row still the kernel's
+    ((de, dse), _), args = _bwd_call(ext, rn.rmsnorm_pair_bwd, q[:0], sq,
+                                     q[:0], k, sk, k, EPS)
+    assert args[4] == 0 and args[7] == 0 and args[12:16] == solo[4:8]
+    assert de.shape == q[:0].shape and dse.data_ptr() == args[22]
+    # a base off 16 bytes takes the one-element path, same partition
+    off = torch.zeros(6 * 512 + 1)[1:].view(6, 512)
+    _, args = _bwd_call(ext, rn.rmsnorm_bwd, off, s, g, EPS)
+    assert args[4:8] == (6, 512, *rn.bwd_partition(6, 512))
+    assert args[18:21] == (*rn.layout(512, 4), False)
     with pytest.raises(TypeError, match="float32 only"):
         rn.rmsnorm_bwd(x.bfloat16(), s.bfloat16(), g.bfloat16())

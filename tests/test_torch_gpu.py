@@ -2507,6 +2507,79 @@ def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, D):
     _assert_bwd_close(d, ref.rmsnorm_bwd(x[:3], s, g[:3])[1])
 
 
+# every norm width the card trains or may train (D, row stride or 0):
+# qwen3-0.6b's block and q/k norms, deepseek's latent 512 read in rows of
+# 576 and its 2048, gemma3's 5376, zamba2's 3584, mamba2's 2560, 4096,
+# internvl2's and mixtral's 6144, and the reduced configs' 256, 64 and 32
+RMS_BWD_WIDTHS = ((1024, 0), (128, 0), (512, 576), (2048, 0), (5376, 0),
+                  (3584, 0), (2560, 0), (4096, 0), (6144, 0), (256, 0),
+                  (64, 0), (32, 0))
+
+
+def _rms_bwd_case(gen, rows, D, stride=0):
+    wide = _randn(gen, rows, stride or D, dtype=torch.float32)
+    s = 1 + 0.1 * _randn(gen, D, dtype=torch.float32)
+    return wide[:, :D], s, _randn(gen, rows, D, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("D,stride", RMS_BWD_WIDTHS)
+@pytest.mark.parametrize("rows", [1, 3, 37, 4099])
+def test_rmsnorm_bwd_at_every_training_width(cuda, D, stride, rows):
+    """dx and dscale against the plain version; one counted launch a
+    call; two calls give the same bits."""
+    from repro_torch.kernels import rmsnorm as rn
+    x, s, g = _rms_bwd_case(cuda, rows, D, stride)
+    before = ops.launch_counts()["rmsnorm_bwd"]
+    dx, ds = rn.rmsnorm_bwd(x, s, g)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rmsnorm_bwd"] == before + 1
+    rx, rs = ref.rmsnorm_bwd(x, s, g)
+    _assert_bwd_close(dx, rx)
+    _assert_bwd_close(ds, rs)
+    again = rn.rmsnorm_bwd(x, s, g)
+    assert torch.equal(dx, again[0]) and torch.equal(ds, again[1])
+
+
+@pytest.mark.parametrize("D", [1024, 128, 512, 5376, 1000, 5, 20000])
+def test_rmsnorm_bwd_off_16_bytes_gives_the_aligned_bits(cuda, D):
+    """A base one element off 16 bytes, a row stride of D + 1 and a
+    scale off 16 bytes take the one-element path with the 16-byte path's
+    bits; D = 1000 and 5 (4 does not divide them) and 20000 (past 8
+    vectors a lane: the looping body) against the plain version."""
+    from repro_torch.kernels import rmsnorm as rn
+    x, s, g = _rms_bwd_case(cuda, 37, D)
+    dx, ds = rn.rmsnorm_bwd(x, s, g)
+    rx, rs = ref.rmsnorm_bwd(x, s, g)
+    _assert_bwd_close(dx, rx)
+    _assert_bwd_close(ds, rs)
+    off_s = _copy_at(s[None], offset=1)[0]
+    for args in ((_copy_at(x, offset=1), s, _copy_at(g, offset=1)),
+                 (_copy_at(x, pad=1), s, g), (x, off_s, g)):
+        got = rn.rmsnorm_bwd(*args)
+        assert torch.equal(got[0], dx) and torch.equal(got[1], ds)
+
+
+@pytest.mark.parametrize("D,stride", [(128, 0), (1024, 0), (512, 576),
+                                      (5376, 0)])
+def test_rmsnorm_pair_bwd_equals_each_solo_launch(cuda, D, stride):
+    """A pair's dx and dscale equal each tensor's own launch bit for bit,
+    in either order, beside an empty tensor too (whose dscale is 0)."""
+    from repro_torch.kernels import rmsnorm as rn
+    x, sx, gx = _rms_bwd_case(cuda, 4099, D, stride)
+    y, sy, gy = _rms_bwd_case(cuda, 37, D)
+    solo_x, solo_y = rn.rmsnorm_bwd(x, sx, gx), rn.rmsnorm_bwd(y, sy, gy)
+    a, b = rn.rmsnorm_pair_bwd(x, sx, gx, y, sy, gy)
+    c, d = rn.rmsnorm_pair_bwd(y, sy, gy, x, sx, gx)
+    for got, want in ((a, solo_x), (b, solo_y), (c, solo_y), (d, solo_x)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    e, f = rn.rmsnorm_pair_bwd(x[:0], sx, gx[:0], y, sy, gy)
+    h, k = rn.rmsnorm_pair_bwd(y, sy, gy, x[:0], sx, gx[:0])
+    for empty, live in ((e, f), (k, h)):
+        assert empty[0].shape == (0, D) and not empty[1].any()
+        assert torch.equal(live[0], solo_y[0])
+        assert torch.equal(live[1], solo_y[1])
+
+
 @pytest.mark.parametrize("name", ["qwen3-0.6b-reduced",
                                   "deepseek-v2-lite-16b-reduced",
                                   "gemma3-27b-reduced",
