@@ -408,9 +408,26 @@ Phases, each raising on failure (any failure exits nonzero):
     their bounds, plain versions and sdpa / ``F.rms_norm`` backward
     through autograd (``F.rms_norm``'s also replayed from a graph).
 
+19. The H100 cost model (``cost_model_phase``), on phase 4's model and
+    weights (qwen3-0.6b, bf16, n_slots 4, max_len 2048): 19a the wall of
+    one steady-state ``ServingEngine.step`` at chunks of 1, 2, 4, 8, 16
+    and 32 steps (in rounds, the median of 7 after 2), fitted as a + b n:
+    ``core/roofline.DISPATCH_OVERHEAD_S`` must be within 2x of this run's
+    a; 19b ``decode_chunk_tokens`` of every registry config at 4 rows,
+    dense and paged over 2048 positions, and ``chunk_for`` at n = 1, 2, 4
+    with and without a 0.5 s SLO; 19c phase 4's 8 requests through
+    ``Router(ThreadBackend(2))`` with the default ``EngineConfig`` (the
+    cost model's chunk) and with chunk 32: identical greedy completions,
+    wall, ttfc p50, tok/s, host reads and chunks of each; 19d the
+    synchronizing calls of 5 steady-state steps of a dense greedy, a dense
+    sampling and a paged engine under ``torch.cuda.set_sync_debug_mode``:
+    one a chunk, the static host-sync allowance (and a pageable against
+    a pinned copy in); 19e ``examples/torch_serve_requests.py`` at full
+    width, its completions identical at 1, 2 and 4 containers.
+
 Then a JSON line with each kernel's launches (from the phase of the path
-it serves, and by phase, phase 13's three parts and phases 14's, 15's and
-16's among them), error and times (ten kernels: the eight TPU kernels'
+it serves, and by phase, phase 13's three parts and phases 14's, 15's,
+16's and 19c among them), error and times (ten kernels: the eight TPU kernels'
 and the two backward kernels, from phase 18b), the card's
 ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 {...}}``.
@@ -6244,6 +6261,262 @@ def check_train_launches(got: dict, attn_layers: int, steps: int,
              f"{got['rmsnorm']} rmsnorm")
 
 
+COST_NS = (1, 2, 4, 8, 16, 32)     # phase 19a's chunk lengths
+COST_WARM = 2                      # rounds not timed
+COST_REPS = 7                      # timed rounds: a median of 7 a length
+COST_PLENS = (48, 160, 300, 544)
+COST_SLO_S = 0.5
+SYNC_STEPS = 5                     # phase 19d's steady-state steps
+
+
+def cost_engine(model, params, **kw):
+    """A 4-row qwen3 engine (phase 4's EngineConfig unless ``kw`` says
+    otherwise) with four requests admitted and its step graph captured:
+    budgets long enough that no row finishes in what follows."""
+    from repro_torch.serving.engine import (EngineConfig, Request,
+                                            ServingEngine)
+    conf = dict(n_slots=4, max_len=2048, dtype=torch.bfloat16)
+    engine = ServingEngine(model, params, EngineConfig(**{**conf, **kw}),
+                           device=model.device)
+    rng = np.random.default_rng(19)
+    budget = 64 + (COST_WARM + COST_REPS) * sum(COST_NS)
+    engine.submit_many([Request(3000 + i, rng.integers(
+        0, model.cfg.vocab_size, (n,), dtype=np.int32), budget)
+        for i, n in enumerate(COST_PLENS)])
+    engine.step()
+    torch.cuda.synchronize()
+    if engine.queue or (engine.graph_capture_s is None
+                        and engine.device.type == "cuda"):
+        fail("cost engine: requests left queued or no step graph")
+    return engine
+
+
+def chunk_cost_fit(model, params, card: str) -> dict:
+    """19a: the wall of one steady-state ``ServingEngine.step`` (a chunk
+    of n steps: the slot state's copy in, the replays, the read-back that
+    drains the stream, the host bookkeeping) at each n of COST_NS, in
+    rounds over the lengths, the median of COST_REPS rounds after
+    COST_WARM; fit wall = a + b n. Fails if ``roofline.DISPATCH_OVERHEAD_S``
+    is not within 2x of this run's a."""
+    from repro_torch.core import roofline
+    engine = cost_engine(model, params, chunk_tokens=max(COST_NS))
+    walls = {n: [] for n in COST_NS}
+    for rnd in range(COST_WARM + COST_REPS):
+        for n in COST_NS:
+            engine.chunk_tokens = n        # the engine's resolved chunk
+            replays, chunks = engine.graph_replays, engine.chunks
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.step()
+            wall = time.perf_counter() - t0
+            if (engine.graph_replays - replays, engine.chunks - chunks) \
+                    != (n, 1):
+                fail(f"19a: a {n}-step chunk made "
+                     f"{engine.graph_replays - replays} replays in "
+                     f"{engine.chunks - chunks} chunks")
+            if rnd >= COST_WARM:
+                walls[n].append(wall)
+    ns = np.array(COST_NS, float)
+    med = np.array([float(np.median(walls[n])) for n in COST_NS])
+    b, a = np.polyfit(ns, med, 1)
+    resid = float(np.sqrt(np.mean((med - (a + b * ns)) ** 2)))
+    del engine
+    torch.cuda.empty_cache()
+    ratio = roofline.DISPATCH_OVERHEAD_S / a if a > 0 else float("inf")
+    print(f"phase 19a, a chunk's wall through ServingEngine.step (qwen3-0.6b "
+          f"bf16, 4 rows live from {list(COST_PLENS)}, max_len 2048), median "
+          f"of {COST_REPS} after {COST_WARM} rounds, ms by steps: "
+          f"{ {n: round(m * 1e3, 4) for n, m in zip(COST_NS, med)} }; fit "
+          f"wall = a + b*n: a_ms={a * 1e3:.4f} b_ms={b * 1e3:.4f} "
+          f"residual_ms={resid * 1e3:.4f}; roofline.DISPATCH_OVERHEAD_S_ms="
+          f"{roofline.DISPATCH_OVERHEAD_S * 1e3:.4f} ({ratio:.3f}x a) "
+          f"[card: {card}]", flush=True)
+    if not 0.5 <= ratio <= 2.0:
+        fail(f"19a: DISPATCH_OVERHEAD_S {roofline.DISPATCH_OVERHEAD_S} s is "
+             f"not within 2x of this run's per-chunk cost a = {a} s")
+    return {"a_s": float(a), "b_s": float(b), "residual_s": resid,
+            "median_s": dict(zip(COST_NS, med.tolist()))}
+
+
+def cost_model_table(a_s: float, card: str) -> None:
+    """19b: the cost model's chunk for every registry config at 4 rows,
+    dense and paged over 2048 positions (the constant's, and this run's
+    a's), and ``chunk_for`` at n = 1, 2, 4 for 8 requests in flight, dense
+    and over 2048 positions, without and with a 0.5 s ttfc SLO."""
+    from repro_torch.configs.registry import ARCH_NAMES, get_config
+    from repro_torch.core import roofline
+    from repro_torch.core.scheduler import DivideAndSaveScheduler
+    plain = DivideAndSaveScheduler([1, 2, 4])
+    slo = DivideAndSaveScheduler([1, 2, 4], objective="energy_under_slo",
+                                 slo_ttfc_p95_s=COST_SLO_S)
+    table = {}
+    for name in ARCH_NAMES:
+        cfg = get_config(name)
+        row = {
+            "t_tok_ms": [round(roofline.decode_step_seconds(
+                cfg, 4, context_tokens=c) * 1e3, 4) for c in (0, 2048)],
+            "dense": roofline.decode_chunk_tokens(cfg, 4),
+            "paged": roofline.decode_chunk_tokens(cfg, 4,
+                                                  context_tokens=2048),
+            "dense_at_a": roofline.decode_chunk_tokens(cfg, 4,
+                                                       overhead_s=a_s),
+            "paged_at_a": roofline.decode_chunk_tokens(
+                cfg, 4, overhead_s=a_s, context_tokens=2048),
+            "chunk_for": [plain.chunk_for(cfg, n, batch=8, context_tokens=c)
+                          for c in (0, 2048) for n in (1, 2, 4)],
+            "chunk_for_slo": [slo.chunk_for(cfg, n, batch=8,
+                                            context_tokens=c)
+                              for c in (0, 2048) for n in (1, 2, 4)]}
+        table[name] = row
+        print(f"phase 19b, {name}: {row} [card: {card}]", flush=True)
+    if not all(1 <= r[k] <= 32 for r in table.values()
+               for k in ("dense", "paged")):
+        fail(f"19b: a chunk outside [1, 32]: {table}")
+
+
+def default_chunk_router(model, params, card: str) -> dict:
+    """19c: phase 4's 8 requests through Router(ThreadBackend(2)) with the
+    default EngineConfig (the cost model's chunk), then with chunk 32:
+    identical greedy completions; wall, ttfc p50, tok/s, host reads and
+    chunks of each (a reading, not a claim)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.backend import ThreadBackend
+    from repro_torch.serving.engine import EngineConfig, Request
+    from repro_torch.serving.router import Router
+    cfg = model.cfg
+    out, launches = {}, None
+    for label, kw in (("default", {}), ("chunk32", {"chunk_tokens": 32})):
+        rng = np.random.default_rng(1)
+        config = EngineConfig(n_slots=4, max_len=2048, dtype=torch.bfloat16,
+                              **kw)
+        backend = ThreadBackend(model, params, 2, config=config,
+                                device=model.device)
+        with Router(backend, device=model.device) as router:
+            warm_up(router, cfg, rng)
+            reqs = [Request(i, rng.integers(0, cfg.vocab_size, (n,),
+                                            dtype=np.int32), 32)
+                    for i, n in enumerate(MAIN_PLENS)]
+            before = [(e.host_reads, e.chunks) for e in backend.engines]
+            ops.reset_launch_counts()
+            tokens, (wall, tps, ttfc), _ = serve_timed(router, reqs)
+            if label == "default":
+                launches = ops.launch_counts()
+            reads = sum(e.host_reads - r for e, (r, _) in
+                        zip(backend.engines, before))
+            chunks = sum(e.chunks - c for e, (_, c) in
+                         zip(backend.engines, before))
+            chunk = backend.engines[0].chunk_tokens
+        out[label] = tokens
+        print(f"phase 19c, Router(ThreadBackend(2)) over qwen3-0.6b bf16, "
+              f"phase 4's 8 requests, {label} EngineConfig (chunk_tokens="
+              f"{config.chunk_tokens} -> {chunk}): wall_s={wall:.4f} "
+              f"ttfc_p50_s={ttfc:.4f} tok_per_s={tps:.2f} host_reads={reads} "
+              f"chunks={chunks} [card: {card}]", flush=True)
+        del backend
+        torch.cuda.empty_cache()
+    if out["default"] != out["chunk32"]:
+        fail("19c: the default chunk's completions differ from chunk 32's")
+    for name in ("flash_attention", "decode_attention", "rmsnorm"):
+        if launches[name] <= 0:
+            fail(f"19c: kernel {name} was never launched")
+    print("phase 19c: greedy completions identical at the default chunk and "
+          f"at 32 [card: {card}]", flush=True)
+    return launches
+
+
+def sync_count(fn) -> tuple[int, dict]:
+    """The synchronizing CUDA calls ``fn()`` makes, by
+    ``torch.cuda.set_sync_debug_mode("warn")``'s warnings, and where each
+    was made (the Python file:line that called into torch)."""
+    import collections
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # only the per-call warning: the first switch into the mode also warns
+    # once that the mode is a prototype
+    syncs = [w for w in seen
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    where = collections.Counter(
+        f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in syncs)
+    return len(syncs), dict(where)
+
+
+def host_sync_phase(model, params, card: str) -> None:
+    """19d: steady-state steps of a dense greedy, a dense sampling and a
+    paged engine (default chunk) under the sync debug mode: each step's
+    synchronizing calls must equal the static host-sync allowance, one
+    device-to-host read a chunk (the slot state goes in from a pinned
+    buffer, queued on the stream); a copy in from pageable memory is
+    counted beside them."""
+    from repro_torch.analysis import host_sync
+    allow = host_sync.CHUNK_ALLOWANCES["_run_chunk"]["d2h"]
+    for label, kw in (("dense greedy", {}),
+                      ("dense sampling", {"greedy": False, "seed": 7}),
+                      ("paged greedy", {"cache": "paged", "max_seqs": 4})):
+        engine = cost_engine(model, params, **kw)
+        engine.step()                       # one steady chunk, untimed
+        chunks = engine.chunks
+        n, where = sync_count(
+            lambda: [engine.step() for _ in range(SYNC_STEPS)])
+        steps = engine.chunks - chunks
+        print(f"phase 19d, {label} engine (chunk {engine.chunk_tokens}): "
+              f"{n} synchronizing calls in {SYNC_STEPS} steady-state steps "
+              f"({steps} chunks), at {where}; allowance {allow} a chunk "
+              f"[card: {card}]", flush=True)
+        if steps != SYNC_STEPS or n != allow * steps:
+            fail(f"19d ({label}): {n} synchronizing calls in {steps} chunks; "
+                 f"the contract allows {allow} a chunk")
+        del engine
+        torch.cuda.empty_cache()
+    dst = torch.zeros(64, dtype=torch.int32, device="cuda")
+    src = torch.zeros(64, dtype=torch.int32)
+    pinned = src.pin_memory()
+    pageable, _ = sync_count(lambda: dst.copy_(src))
+    queued, _ = sync_count(lambda: dst.copy_(pinned, non_blocking=True))
+    print(f"phase 19d, one host-to-device copy_: from pageable memory "
+          f"{pageable} synchronizing call(s), from pinned memory with "
+          f"non_blocking {queued} [card: {card}]", flush=True)
+
+
+def serving_example_phase(card: str) -> dict:
+    """19e: examples/torch_serve_requests.py at full width (qwen3-0.6b,
+    bf16, random weights from seed 0): its completions identical at 1, 2
+    and 4 containers, its walls and EnergyProxy joules."""
+    import importlib.util
+    path = ROOT / "examples" / "torch_serve_requests.py"
+    spec = importlib.util.spec_from_file_location("torch_serve_requests",
+                                                  path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    res = example.main(["--device", "cuda"])
+    if [r["n"] for r in res["rows"]] != [1, 2, 4] or not all(
+            r["identical"] for r in res["rows"]):
+        fail(f"19e: the serving example's rows {res['rows']}")
+    print(f"phase 19e, examples/torch_serve_requests.py full width: "
+          f"{json.dumps(res['rows'])} [card: {card}]", flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def cost_model_phase(model, params, card: str) -> dict:
+    """Phase 19 on phase 4's model and weights: 19a-19e."""
+    t0 = time.perf_counter()
+    fit = chunk_cost_fit(model, params, card)
+    cost_model_table(fit["a_s"], card)
+    launches = default_chunk_router(model, params, card)
+    host_sync_phase(model, params, card)
+    serving_example_phase(card)
+    print(f"phase 19 done in {time.perf_counter() - t0:.1f} s "
+          f"[card: {card}]", flush=True)
+    return {"fit": fit, "launches": launches}
+
+
 def full_width_model(dtype):
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import Model
@@ -6343,6 +6616,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     slo_launches = slo_trace_phase(model, params, card)
 
+    # the H100 cost model on the same weights: the per-chunk cost, the
+    # chunk per config, the default chunk, the host-sync contract at run
+    # time and the serving example
+    torch.cuda.empty_cache()
+    cost = cost_model_phase(model, params, card)
+
     # the SSM family, once the qwen3 weights and caches are released, on
     # the dense and on the paged cache
     del model, model8, params
@@ -6431,7 +6710,8 @@ def main() -> int:
                 "phase16a_whisper-large-v3": audio["router"],
                 "phase16a_whisper-large-v3_dense": audio["dense"],
                 "phase16a_whisper-large-v3_paged": audio["paged"],
-                "phase18b": training["launches"]}
+                "phase18b": training["launches"],
+                "phase19c": cost["launches"]}
     main_phase = {"flash_attention": "phase4", "decode_attention": "phase4",
                   "paged_decode_attention": "phase6",
                   "decode_attention_int8": "phase7a",

@@ -152,6 +152,17 @@ class ArchConfig:
             n += self.vision_embed_dim * d + d * d    # projector (2 layer)
         return n + d                                  # final norm
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: shared + top-k routed only)."""
+        if not self.is_moe:
+            return self.param_count()
+        d = self.d_model
+        routed_all = self.n_experts * 3 * d * self.moe_d_ff
+        routed_active = self.n_experts_per_tok * 3 * d * self.moe_d_ff
+        return self.param_count() - (routed_all - routed_active) * (
+            self.n_layers - self.n_dense_layers
+        )
+
     def _attn_params(self) -> int:
         d = self.d_model
         if self.mla:
@@ -195,6 +206,21 @@ class ArchConfig:
         leading layers, a shared block, an encoder layer)."""
         return (self._attn_params() + self._mlp_params(self.d_ff)
                 + 2 * self.d_model)
+
+    def _encoder_layer_params(self) -> int:
+        # encoder layer: self-attn + mlp; decoder cross-attn params are part
+        # of decoder layer count via cross_attention flag
+        return self._attn_params() + self._mlp_params(self.d_ff) + 2 * self.d_model
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One workload input shape (``core/roofline.model_flops`` prices it)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
 
 
 def reduce_config(cfg: ArchConfig, **overrides) -> ArchConfig:

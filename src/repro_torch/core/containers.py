@@ -214,19 +214,20 @@ def engine_cache_bytes(cfg: ArchConfig, engine_config) -> int:
             * per_pos + table)
 
 
-def chunk_buffer_bytes(engine_config) -> int:
+def chunk_buffer_bytes(cfg: ArchConfig, engine_config) -> int:
     """Bytes of an engine's chunk state on the card
     (``Model.chunk_buffers``: one int32 tensor of ``5 B + 6 + chunk B``
-    elements over ``B`` rows)."""
+    elements over ``B`` rows, the chunk as the engine resolves it)."""
+    from repro_torch.core.roofline import engine_chunk_tokens
     B = engine_config.n_rows
-    return (5 * B + 6 + engine_config.chunk_tokens * B) * 4
+    return (5 * B + 6 + engine_chunk_tokens(cfg, engine_config) * B) * 4
 
 
 def container_bytes(cfg: ArchConfig, engine_config) -> int:
     """What one container adds on the card: its engine's cache and chunk
     buffers, the graph-pool reserve and one cuBLAS workspace."""
     return (engine_cache_bytes(cfg, engine_config)
-            + chunk_buffer_bytes(engine_config)
+            + chunk_buffer_bytes(cfg, engine_config)
             + GRAPH_POOL_RESERVE_BYTES + CUBLAS_WORKSPACE_BYTES)
 
 

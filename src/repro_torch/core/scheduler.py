@@ -22,12 +22,16 @@ the two mean models the scheduler therefore keeps a **quantile model**:
 per-window ttfc-p95 samples fitted over the container count with the
 same convex machinery (``fit_best``) and the same RMSE trust check, and
 ``pick()`` then minimises energy over the counts whose *predicted* p95
-meets ``slo_ttfc_p95_s``.
+meets ``slo_ttfc_p95_s``. ``chunk_for()`` co-optimises the decode chunk
+length with the count: the H100 cost model's amortisation optimum
+(``core/roofline.decode_chunk_tokens``), capped so one chunk's device
+time cannot eat more than a fraction of the ttfc budget — a queued
+arrival waits up to a full chunk before admission.
 
 The port's own copy of ``repro.core.scheduler``: the same fits, trust
 check, exploration and ``random.Random(seed)`` stream, so the same
-observations give the same picks. It leaves out ``chunk_for``, which
-sizes the decode chunk from a TPU roofline.
+observations give the same picks, and JAX's chunk rule over the card's
+cost model (``core/roofline.py``).
 """
 from __future__ import annotations
 
@@ -51,6 +55,10 @@ class Observation:
 
 
 class DivideAndSaveScheduler:
+    # fraction of the ttfc budget one fused decode chunk may occupy
+    # before chunk_for caps it below the amortisation optimum
+    CHUNK_SLO_FRAC = 0.25
+
     def __init__(self, feasible_counts: list[int],
                  objective: Objective = "energy",
                  deadline_s: float | None = None,
@@ -242,6 +250,31 @@ class DivideAndSaveScheduler:
         if means:
             return min(means, key=means.get)
         return self.feasible[0]
+
+    def chunk_for(self, cfg, n: int, *, batch: int = 1,
+                  context_tokens: int = 0, max_chunk: int = 32) -> int:
+        """Decode chunk length co-optimised with the container count:
+        start from the cost model's amortisation optimum
+        (``core/roofline.decode_chunk_tokens``) and, under an SLO, cap it
+        so one fused chunk's device time stays under ``CHUNK_SLO_FRAC`` of
+        the ttfc budget — a request admitted mid-stream waits up to one
+        whole chunk of the slots ahead of it. ``n`` scales the
+        per-container batch: splitting the same in-flight population over
+        more containers shrinks each container's decode batch (and with
+        it the optimal chunk)."""
+        from repro_torch.core.roofline import (decode_chunk_tokens,
+                                               decode_step_seconds)
+        per_container = max(1, -(-batch // max(n, 1)))   # ceil div
+        base = decode_chunk_tokens(cfg, per_container,
+                                   context_tokens=context_tokens,
+                                   max_chunk=max_chunk)
+        if self.slo_ttfc_p95_s is None:
+            return base
+        t_tok = decode_step_seconds(cfg, per_container,
+                                    context_tokens=context_tokens)
+        budget = self.slo_ttfc_p95_s * self.CHUNK_SLO_FRAC
+        cap = max(1, int(budget / max(t_tok, 1e-12)))
+        return max(1, min(base, cap))
 
     @property
     def n_observations(self) -> int:

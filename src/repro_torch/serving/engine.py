@@ -37,7 +37,9 @@ admits queued requests and then runs one fused decode chunk (or, with
   block hashes over its extras and tokens) and only the residual suffix
   is prefilled, behind the gathered prefix.
 * **Decode** runs one fused chunk for every active slot in lockstep. The
-  chunk length is ``EngineConfig.chunk_tokens``, clamped by the shortest
+  chunk length is ``EngineConfig.chunk_tokens`` (None, the default: the
+  H100 cost model's, ``core/roofline.engine_chunk_tokens``, at the
+  engine's rows and, paged, its horizon), clamped by the shortest
   remaining budget and ``max_len`` headroom among active slots and
   rounded down to a power of two, so no step is wasted on a finished
   slot. The chunk's tokens and emitted counts come to the host in
@@ -65,7 +67,8 @@ On the CPU a chunk is ``Model.decode_chunk``. On a CUDA device it is the
 counterpart of JAX's jitted, cache-donated chunk: the engine owns its
 chunk state on the card (``Model.chunk_buffers``), writes the host's
 slot state and the random stream's state into it in ONE host-to-device
-copy, and replays a CUDA graph of one chunk step
+copy (from a pinned buffer, so the copy does not wait on the stream),
+and replays a CUDA graph of one chunk step
 (``Model.decode_chunk_step``) ``n_tokens`` times, as XLA loops the scan
 body, before the one device-to-host copy. The graph is captured on the
 engine's first chunk, after that chunk's first step ran eagerly, and
@@ -99,6 +102,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core.roofline import engine_chunk_tokens
 from repro_torch.device import resolve_device
 from repro_torch.kernels.build import add_launches, capture_tally
 from repro_torch.models.cache import PagedLayout
@@ -177,7 +181,8 @@ def _bucket(n: int, buckets=PROMPT_BUCKETS) -> int:
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Configuration of one ServingEngine; decode chunks of up to
-    ``chunk_tokens`` steps, caches in ``dtype``.
+    ``chunk_tokens`` steps (None: the cost model's length,
+    ``core/roofline.engine_chunk_tokens``), caches in ``dtype``.
 
     ``greedy=False`` samples (Gumbel-max over the full vocabulary) from
     one random stream seeded by ``seed``; ``batch_admit=False`` admits one
@@ -204,10 +209,11 @@ class EngineConfig:
     seed: int = 0
     batch_admit: bool = True
     chunked: bool = True
-    chunk_tokens: int = 32
+    chunk_tokens: int | None = None
 
     def __post_init__(self):
-        if self.n_slots < 1 or self.max_len < 2 or self.chunk_tokens < 1:
+        if (self.n_slots < 1 or self.max_len < 2
+                or (self.chunk_tokens is not None and self.chunk_tokens < 1)):
             raise ValueError(f"invalid EngineConfig {self}")
         if self.cache not in ("dense", "paged"):
             raise ValueError(f"cache must be 'dense' or 'paged', "
@@ -277,7 +283,7 @@ class ServingEngine:
         self.params = params
         self.n_slots = config.n_slots
         self.max_len = config.max_len
-        self.chunk_tokens = config.chunk_tokens
+        self.chunk_tokens = engine_chunk_tokens(model.cfg, config)
         self.paged = config.cache == "paged"
         self.layout = (PagedLayout(config.block_size,
                                    config.resolved_max_blocks)
@@ -330,6 +336,7 @@ class ServingEngine:
         # kernel launches (counted at each replay) and the addresses the
         # graph was captured over
         self._buf = None
+        self._head = None             # the chunk state's host side
         self._graph = None
         self._tally: dict = {}
         self._addresses: list[int] = []
@@ -338,7 +345,7 @@ class ServingEngine:
         self.graph_replays = 0
         if self.device.type == "cuda" and self.chunked:
             with self._on_stream():
-                self._buf = model.chunk_buffers(n_rows, config.chunk_tokens)
+                self._buf = model.chunk_buffers(n_rows, self.chunk_tokens)
 
     def _on_stream(self):
         if self.stream is None:
@@ -770,12 +777,19 @@ class ServingEngine:
             host = torch.cat([block, emitted[:, None]], dim=1).cpu().numpy()
             return host[:, :-1], host[:, -1]
         B = state.shape[1]
+        if self._head is None:
+            # pinned on the card: the copy below is queued on the stream,
+            # not waited for. Rewriting the buffer at the next chunk is
+            # safe: this chunk's read-back below drains the stream first
+            self._head = torch.zeros(5 * B + 6, dtype=torch.int32,
+                                     pin_memory=self.device.type == "cuda")
         # tokens, pos, remaining, active | col (0) | key | emitted (0)
-        head = np.zeros(5 * B + 6, np.int32)
+        head = self._head.numpy()
+        head[:] = 0
         head[:4 * B] = state.reshape(-1)
         head[4 * B + 2:4 * B + 6].view(np.int64)[:] = new_key(
             self.config.seed, self._draw).numpy()
-        self._buf["head"].copy_(torch.from_numpy(head))
+        self._buf["head"].copy_(self._head, non_blocking=True)
         if not self.greedy:
             self._draw += n_tokens
         replays = n_tokens

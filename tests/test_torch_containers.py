@@ -155,7 +155,7 @@ def test_engine_cache_bytes_are_the_engines_own(case, dtype):
         eng.cache_backend.tree)
     buf = model.chunk_buffers(config.n_rows, config.chunk_tokens)
     # every buffer is a view of one int32 tensor
-    assert tcont.chunk_buffer_bytes(config) == (
+    assert tcont.chunk_buffer_bytes(cfg, config) == (
         buf["head"].untyped_storage().nbytes())
 
 
@@ -166,7 +166,7 @@ def test_card_feasible_counts_fit_one_weight_copy_and_n_engines():
     weights = cfg.param_count() * 2
     per = tcont.container_bytes(cfg, config)
     assert per == (tcont.engine_cache_bytes(cfg, config)
-                   + tcont.chunk_buffer_bytes(config) + 96 * 2 ** 20)
+                   + tcont.chunk_buffer_bytes(cfg, config) + 96 * 2 ** 20)
     # 80 GB: every power of two up to 4
     assert tcont.card_feasible_counts(
         cfg, config, card_bytes=80 * 10 ** 9, max_containers=4) == [1, 2, 4]

@@ -259,6 +259,63 @@ def test_training_launcher_and_example_run_with_jax_and_repro_blocked():
     assert "training imports ok" in out.stdout
 
 
+NEW_EXAMPLES = ("torch_serve_requests.py", "torch_long_context.py",
+                "torch_quickstart.py")
+
+
+def test_analysis_roofline_and_examples_run_with_jax_and_repro_blocked():
+    """``repro_torch.analysis`` and ``core.roofline`` import, and the
+    serving, long-context and quickstart examples run reduced on the CPU
+    (completions identical at 1, 2 and 4 containers; a constant SSM state;
+    a falling loss, then four requests served), without JAX or the
+    reference package."""
+    examples = [REPO / "examples" / name for name in NEW_EXAMPLES]
+    for example in examples:
+        for line in example.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                assert words[1].split(".")[0] not in ("jax", "jaxlib",
+                                                      "repro")
+    script = textwrap.dedent(f"""
+        import importlib.abc, importlib.util, sys
+        class Blk(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    raise ImportError(f"blocked import of {{name}}")
+        sys.meta_path.insert(0, Blk())
+        from repro_torch.analysis import run_analyzers, host_sync, wire
+        from repro_torch.core import roofline
+
+        def load(path):
+            spec = importlib.util.spec_from_file_location("example", path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            return mod
+        serve, long_ctx, quick = [load(p) for p in {[str(e) for e in
+                                                     examples]!r}]
+        cpu = ["--reduced", "--device", "cpu"]
+        res = serve.main(cpu + ["--requests", "6", "--max-new", "4"])
+        assert [r["n"] for r in res["rows"]] == [1, 2, 4]
+        assert all(r["identical"] and r["chunk_tokens"] == 32
+                   for r in res["rows"])
+        res = long_ctx.main(cpu + ["--tokens", "6"])
+        assert res["rows"]["mamba2-2.7b-reduced"]["per_token"] == 0
+        assert res["rows"]["qwen3-0.6b-reduced"]["per_token"] > 0
+        res = quick.main(cpu + ["--steps", "6"])
+        assert res["chunk_tokens"] == 32
+        assert [len(t) for t in res["completions"]] == [8] * 4
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+        print("analysis, roofline and examples ok")
+    """)
+    out = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+             "OMP_NUM_THREADS": "1"}, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "analysis, roofline and examples ok" in out.stdout
+
+
 def test_training_entry_points_default_to_cuda_and_refuse_without_a_card(
         cpu_only):
     from repro_torch.launch import train

@@ -214,7 +214,6 @@ def test_persistent_exploration_revisits_known_counts(side):
 
 def test_the_port_leaves_out_the_tpu_chunk_model():
     assert hasattr(jsched.DivideAndSaveScheduler, "chunk_for")
-    assert not hasattr(tsched.DivideAndSaveScheduler, "chunk_for")
     assert not hasattr(tem, "TpuSplitPoint")
 
 
