@@ -392,11 +392,18 @@ Phases, each raising on failure (any failure exits nonzero):
     10: a finite, falling loss, 28 forward and 28 backward flash launches
     a step and as many ``rmsnorm_bwd`` as ``rmsnorm`` launches, step ms,
     tokens/s, the model's share of the f32 peak and the peak memory; 18c
-    reduced deepseek-v2-lite (MLA + MoE + aux loss), gemma3-27b (window)
-    and whisper-large-v3, 3 steps at lr 1e-3 on the card against the CPU
-    (first gradients within 1e-4 of max|CPU leaf|, each parameter leaf's
-    difference within 3e-2 of its own move, L2 over the leaf); 18d the card's refusals (mamba2: no
-    ``ssd_scan`` backward; bfloat16 parameters). Phase 2 holds the two
+    reduced deepseek-v2-lite (MLA + MoE + aux loss), gemma3-27b (window),
+    whisper-large-v3, mamba2-2.7b and zamba2-7b (the SSD scan forward
+    and backward a kernel each a layer, zamba's attention at each
+    application of its shared block), 3 steps at lr 1e-3 on the card
+    against the CPU (first gradients within 1e-4 of max|CPU leaf|, each
+    parameter leaf's difference within 3e-2 of its own move, L2 over the
+    leaf); 18d ``make_train_step`` accepts float32 mamba2 and zamba and
+    refuses bfloat16 parameters; 18e ``launch.train`` over full-width
+    mamba2-2.7b in float32, 10 steps at batch 2, seq 512, lr 1e-3: a
+    finite, falling loss, 64 ``ssd_scan`` and 64 ``ssd_scan_bwd``
+    launches a step, step ms, tokens/s, the model's share of the f32
+    peak and the peak memory. Phase 2 holds the three
     backward kernels against their plain versions at qwen3's training
     batch (B 8, S 512), gemma's local window (S 1300, window 1024),
     MLA's K 192 / Kv 128, whisper's encoder (S 1500, not causal) and a
@@ -406,7 +413,17 @@ Phases, each raising on failure (any failure exits nonzero):
     bit for bit with its lse pointer set and null, the pair's dx and
     dscale bit for bit those of each tensor's own call; timed beside
     their bounds, plain versions and sdpa / ``F.rms_norm`` backward
-    through autograd (``F.rms_norm``'s also replayed from a graph).
+    through autograd (``F.rms_norm``'s also replayed from a graph); and
+    ``ssd_scan_bwd`` at mamba2-2.7b's training widths (B 2, S 512, nh
+    80, hd 64, ds 128), zamba2-7b's (nh 112, ds 64) and a ragged S 96
+    (ng 2, hd 16, ds 24, chunk 32, its last 64-position cut padded), each
+    with and without a gradient of the final state: within 5e-5 abs +
+    rel of max|plain| element by element at the kernel's own 64-position
+    cut, within 1e-4 of max|plain| at the caller's chunk (256, 32), bit
+    for bit from run to run, and once against torch autograd through the
+    plain forward; timed at 18e's call beside its bound and the plain
+    version (no PyTorch call computes the scan), with the float32
+    forward at the same shape.
 
 19. The H100 cost model (``cost_model_phase``), on phase 4's model and
     weights (qwen3-0.6b, bf16, n_slots 4, max_len 2048): 19a the wall of
@@ -427,8 +444,8 @@ Phases, each raising on failure (any failure exits nonzero):
 
 Then a JSON line with each kernel's launches (from the phase of the path
 it serves, and by phase, phase 13's three parts and phases 14's, 15's,
-16's and 19c among them), error and times (ten kernels: the eight TPU kernels'
-and the two backward kernels, from phase 18b), the card's
+16's and 19c among them), error and times (eleven kernels: the eight TPU
+kernels' and the three backward kernels, from phases 18b and 18e), the card's
 ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 {...}}``.
 
@@ -2345,6 +2362,170 @@ def backward_checks(gen) -> dict:
     return results
 
 
+# the SSD scan's backward (float32): (name, B, S, nh, hd, ng, ds, chunk) at
+# mamba2-2.7b's training widths (the line's shape: phase 18e's batch, the
+# caller's chunk 256), zamba2-7b's, and a ragged case whose last 64-position
+# cut is padded (S 96) with two groups, 16 head rows and ds 24
+SSD_BWD = [("mamba2_train", 2, 512, 80, 64, 1, 128, 256),
+           ("zamba2", 1, 512, 112, 64, 1, 64, 256),
+           ("ragged", 2, 96, 4, 16, 2, 24, 32)]
+# each gradient within this share of its max|plain| at the caller's chunk
+# (the cut moves where the decays' running sums round, as the forward's
+# SSD_TOL notes); element by element, BWD_TOL abs + rel, at the kernel's
+# own 64-position cut
+SSD_BWD_CUT_TOL = 1e-4
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD")
+
+
+def ssd_bwd_bound(B, S, nh, hd, ng, ds, with_state: bool):
+    """x, dy, dt, B and C (and dstate) read once, dx, ddt, dB and dC
+    written once (A, D, dA, dD: nh each); the operations of the backward
+    at the kernel's 64-position cut: per batch row and cut, C.B^T on the
+    lower triangle once per group; per head, dy.x^T and the three
+    quadratic products (dx, dB, dC) on it, and five (hd x ds) products a
+    position (the state recomputed, dS.B, x^T.dS, dy^T.S_c, the dS
+    update). float32 at 67 TFLOP/s."""
+    nc = -(-S // SSD_TILE)
+    pairs = SSD_TILE * (SSD_TILE + 1) // 2
+    per_head = 4 * pairs * hd + 4 * pairs * ds + 10 * SSD_TILE * hd * ds
+    flops = B * nc * (nh * per_head + ng * 2 * pairs * ds)
+    nbytes = 4 * (3 * B * S * nh * hd + 2 * B * S * nh + 4 * B * S * ng * ds
+                  + 4 * nh + (B * nh * hd * ds if with_state else 0))
+    return bound_ms(flops, nbytes, "float32")
+
+
+def ssd_bwd_checks(gen) -> dict:
+    """``ssd_scan_bwd`` against ``ref.ssd_scan_bwd`` on the card at
+    SSD_BWD, each with and without a gradient of the final state: every
+    gradient element by element within BWD_TOL abs + rel of max|plain| at
+    the kernel's own 64-position cut (where 64 divides S), within
+    SSD_BWD_CUT_TOL of max|plain| at the caller's chunk, finite, and bit
+    for bit from run to run; once against torch autograd through
+    ``ref.ssd_scan`` (what the plain path would train through), at the
+    same tolerance. Timed at the line's shape (no dstate, as training
+    calls it) launched one by one and replayed from a CUDA graph, beside
+    its bound and the plain version (no library: no PyTorch call computes
+    the scan); the float32 forward it trains beside, at the same shape,
+    the same way. Returns the line's row, the forward's under
+    "ssd_scan_train_forward"."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    worst = {"cut": 0.0, "chunk": 0.0}
+    row = forward = None
+    for name, B, S, nh, hd, ng, ds, chunk in SSD_BWD:
+        args = ssd_inputs(gen, B, S, nh, hd, ng, ds, f32)
+        dy = torch.randn(B, S, nh, hd, generator=gen, device=dev)
+        dstate = torch.randn(B, nh, hd, ds, generator=gen, device=dev)
+        for st in (dstate, None):
+            what = (f"ssd_scan_bwd {name} B={B} S={S} nh={nh} hd={hd} "
+                    f"ng={ng} ds={ds} chunk={chunk} "
+                    f"{'with' if st is not None else 'without'} dstate")
+            got = ssd.ssd_scan_bwd(*args, dy, st, chunk=chunk)
+            torch.cuda.synchronize()
+            again = ssd.ssd_scan_bwd(*args, dy, st, chunk=chunk)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"{what}: two calls gave other bits")
+            del again
+            cut = ""
+            if S % SSD_TILE == 0:
+                want = ref.ssd_scan_bwd(*args, dy, st, chunk=SSD_TILE)
+                err = max(check_bwd(g, w, f"{what} {n} at chunk {SSD_TILE}")
+                          / max(float(w.abs().max()), 1e-30)
+                          for g, w, n in zip(got, want, SSD_GRADS))
+                worst["cut"] = max(worst["cut"], err)
+                cut = (f"element by element at chunk {SSD_TILE}: max abs "
+                       f"error / max|plain| {err:.3e} (within {BWD_TOL} abs "
+                       "+ rel); ")
+            want = ref.ssd_scan_bwd(*args, dy, st, chunk=chunk)
+            rel = {}
+            for g, w, n in zip(got, want, SSD_GRADS):
+                if not bool(torch.isfinite(g).all()):
+                    fail(f"{what}: {n} is not finite")
+                rel[n] = float((g - w).abs().max()) / max(
+                    float(w.abs().max()), 1e-30)
+                if rel[n] > SSD_BWD_CUT_TOL:
+                    fail(f"{what}: {n} differs from the plain version at "
+                         f"chunk {chunk} by {rel[n]:.3e} of max|plain|, "
+                         f"over {SSD_BWD_CUT_TOL}")
+            worst["chunk"] = max(worst["chunk"], *rel.values())
+            print(f"{what}: {cut}at chunk {chunk} max|err| / max|plain| "
+                  + " ".join(f"{n} {e:.3e}" for n, e in rel.items())
+                  + "; bit for bit run to run", flush=True)
+            if name == "mamba2_train" and st is None:
+                bound, by = ssd_bwd_bound(B, S, nh, hd, ng, ds, False)
+
+                def kernel():
+                    return ssd.ssd_scan_bwd(*args, dy, None, chunk=chunk)
+                row = {"max_abs_err": max(float((g - w).abs().max())
+                                          for g, w in zip(got, want)),
+                       "ms": time_ms(kernel, reps=10),
+                       "graph_ms": time_graph_ms(kernel, reps=10),
+                       "plain_ms": time_ms(lambda: ref.ssd_scan_bwd(
+                           *args, dy, None, chunk=chunk), reps=2),
+                       "bound_ms": bound, "bound_by": by,
+                       "library_ms": None}
+                f_bound, f_by = ssd_bound(B, S, nh, hd, ng, ds, chunk,
+                                          "float32", 4)
+                fwd = ref.ssd_scan(*args, chunk=chunk)
+                forward = {
+                    "max_abs_err": max(
+                        float((g - w).abs().max()) for g, w in
+                        zip(ssd.ssd_scan(*args, chunk=chunk), fwd)),
+                    "ms": time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk),
+                                  reps=10),
+                    "graph_ms": time_graph_ms(
+                        lambda: ssd.ssd_scan(*args, chunk=chunk), reps=10),
+                    "plain_ms": time_ms(lambda: ref.ssd_scan(
+                        *args, chunk=chunk), reps=2),
+                    "bound_ms": f_bound, "bound_by": f_by,
+                    "shape": f"B={B} S={S} nh={nh} hd={hd} ng={ng} ds={ds} "
+                             f"chunk={chunk} f32 (model-like dt, A): the "
+                             "forward phase 18e trains through; ms launched "
+                             "one by one, graph_ms replayed from a CUDA "
+                             "graph"}
+                del fwd
+            del got, want
+        del args, dy, dstate
+        torch.cuda.empty_cache()
+
+    # once against torch autograd through the plain forward
+    B, S, nh, hd, ng, ds, chunk = 2, 256, 16, 64, 1, 128, 128
+    args = ssd_inputs(gen, B, S, nh, hd, ng, ds, f32)
+    dy = torch.randn(B, S, nh, hd, generator=gen, device=dev)
+    dstate = torch.randn(B, nh, hd, ds, generator=gen, device=dev)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    y, state = ref.ssd_scan(*leaves, chunk=chunk)
+    want = torch.autograd.grad([y, state], leaves, [dy, dstate])
+    got = ssd.ssd_scan_bwd(*args, dy, dstate, chunk=chunk)
+    err = 0.0
+    for g, w, n in zip(got, want, SSD_GRADS):
+        rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if not bool(torch.isfinite(g).all()) or rel > SSD_BWD_CUT_TOL:
+            fail(f"ssd_scan_bwd against autograd of ref.ssd_scan: {n} "
+                 f"differs by {rel:.3e} of max|autograd| (over "
+                 f"{SSD_BWD_CUT_TOL}?)")
+        err = max(err, rel)
+    print(f"ssd_scan_bwd B={B} S={S} nh={nh} hd={hd} ds={ds} chunk={chunk} "
+          f"against torch autograd of ref.ssd_scan: max|err| / "
+          f"max|autograd| {err:.3e}", flush=True)
+    m = SSD_BWD[0]
+    row["shape"] = (f"B={m[1]} S={m[2]} nh={m[3]} hd={m[4]} ng={m[5]} "
+                    f"ds={m[6]} chunk={m[7]} f32, no dstate (phase 18e's "
+                    "call; model-like dt, A); worst over the phase-2 cases: "
+                    f"element by element at chunk 64 {worst['cut']:.3e}, at "
+                    f"the caller's chunk {worst['chunk']:.3e} of max|plain|, "
+                    f"against autograd {err:.3e}; ms launched one by one "
+                    "(CUDA events), graph_ms replayed from a CUDA graph; "
+                    "bound by ssd_bwd_bound; library_ms null: no PyTorch "
+                    "call computes the SSD scan")
+    print(f"ssd_scan_bwd: {row}", flush=True)
+    print(f"ssd_scan train forward: {forward}", flush=True)
+    return {"ssd_scan_bwd": row, "ssd_scan_train_forward": forward}
+
+
 def kernel_phase():
     import torch.nn.functional as F
 
@@ -2576,6 +2757,10 @@ def kernel_phase():
     results["flash_attention"]["family_shapes"].update(
         backward.pop("flash_attention_train_forward"))
     results.update(backward)
+    ssd_backward = ssd_bwd_checks(gen)
+    results["ssd_scan"]["train_forward_f32"] = ssd_backward.pop(
+        "ssd_scan_train_forward")
+    results.update(ssd_backward)
     return results
 
 
@@ -6050,7 +6235,11 @@ TRAIN_ARGS = ["--steps", "20", "--batch", "8", "--seq", "512", "--lr",
               "1e-3"]
 TRAIN_FLOPS_F32 = 67e12      # H100 SXM f32 outside the tensor cores
 TRAIN_REDUCED = ("deepseek-v2-lite-16b-reduced", "gemma3-27b-reduced",
-                 "whisper-large-v3-reduced")
+                 "whisper-large-v3-reduced", "mamba2-2.7b-reduced",
+                 "zamba2-7b-reduced")
+# 18e: full-width mamba2-2.7b through launch.train, float32
+SSM_TRAIN_ARGS = ["--arch", "mamba2-2.7b", "--steps", "10", "--batch", "2",
+                  "--seq", "512", "--lr", "1e-3"]
 # 18c's schedule: lr 1e-3 from the first step, so every parameter moves
 # about lr a step and a wrong or skipped update shows in every leaf
 TRAIN_REDUCED_OPT = {"lr": 1e-3, "warmup_steps": 1, "total_steps": 3}
@@ -6096,9 +6285,11 @@ def training_phase(card: str) -> dict:
     share 6·N·tokens / step / 67 TFLOP/s and the peak
     ``memory_allocated``. 18c: ``train_reduced_check`` of each
     TRAIN_REDUCED model (MLA + MoE with its aux loss, a window, whisper's
-    encoder-decoder).
-    18d: ``make_train_step`` on the card refuses mamba2 (no ssd_scan
-    backward) and bfloat16 parameters. Returns 18b's launches."""
+    encoder-decoder, and mamba2-2.7b and zamba2-7b through the SSD
+    scan's backward kernel).
+    18d: ``make_train_step`` on the card accepts float32 mamba2 and zamba
+    and refuses bfloat16 parameters. 18e: ``ssm_training``. Returns 18b's
+    report, with 18e's under "ssm"."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch
@@ -6159,21 +6350,72 @@ def training_phase(card: str) -> dict:
     for name in TRAIN_REDUCED:
         train_reduced_check(name, card)
 
-    for name, dtype, missing in (("mamba2-2.7b-reduced", torch.float32,
-                                  "ssd_scan"),
-                                 ("qwen3-0.6b-reduced", torch.bfloat16,
-                                  "bfloat16")):
+    # 18d: float32 ssm and zamba models train on the card; bfloat16
+    # parameters are refused, naming what is missing
+    for name in ("mamba2-2.7b-reduced", "zamba2-7b-reduced"):
         m = Model(get_config(name))
-        try:
-            make_train_step(m, TrainConfig(), m.init(seed=0, dtype=dtype))
-        except NotImplementedError as e:
-            if missing not in str(e):
-                fail(f"18d {name}: the refusal does not name {missing}: {e}")
-            print(f"18d {name} {dtype}: refused: {e}", flush=True)
-        else:
-            fail(f"18d {name} {dtype}: make_train_step did not refuse")
+        make_train_step(m, TrainConfig(), m.init(seed=0, dtype=torch.float32))
+        print(f"18d {name} float32: make_train_step accepts it", flush=True)
+    m = Model(get_config("qwen3-0.6b-reduced"))
+    try:
+        make_train_step(m, TrainConfig(), m.init(seed=0,
+                                                 dtype=torch.bfloat16))
+    except NotImplementedError as e:
+        if "bfloat16" not in str(e):
+            fail(f"18d qwen3-0.6b-reduced: the refusal does not name "
+                 f"bfloat16: {e}")
+        print(f"18d qwen3-0.6b-reduced bfloat16: refused: {e}", flush=True)
+    else:
+        fail("18d qwen3-0.6b-reduced bfloat16: make_train_step did not "
+             "refuse")
+    del m
+    torch.cuda.empty_cache()
+    ssm = ssm_training(card)
     print(f"18 training: {time.perf_counter() - t_phase:.1f} s "
           f"[card: {card}]", flush=True)
+    return {"launches": launches, "step_ms": step_s * 1e3,
+            "tokens_s": tokens / step_s, "model_share": share,
+            "peak_bytes": report["peak_bytes"], "losses": losses,
+            "ssm": ssm}
+
+
+def ssm_training(card: str) -> dict:
+    """18e: ``launch.train`` at SSM_TRAIN_ARGS, full-width mamba2-2.7b in
+    float32 (random weights from seed 0, warmup 10): a finite loss whose
+    last value is below its first, 64 ``ssd_scan`` and 64
+    ``ssd_scan_bwd`` launches a step (one of each a layer), no attention,
+    the norms' backward launches equal to their forward ones; step ms
+    (median of steps 3-10), tokens/s, the model share 6·N·tokens / step
+    / 67 TFLOP/s and the peak ``memory_allocated``. Returns its report."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+
+    t0 = time.perf_counter()
+    layers = get_config("mamba2-2.7b").n_layers
+    ops.reset_launch_counts()
+    report = launch.main(SSM_TRAIN_ARGS)
+    launches = ops.launch_counts()
+    losses = report["loss"]
+    steps = len(losses)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"18e: losses {losses} are not finite or do not fall")
+    check_train_launches(launches, 0, steps, "18e", layers)
+    step_s = float(np.median(report["step_s"][2:]))
+    B, S = (int(SSM_TRAIN_ARGS[SSM_TRAIN_ARGS.index(f) + 1])
+            for f in ("--batch", "--seq"))
+    tokens = B * S
+    share = 6 * report["params"] * tokens / step_s / TRAIN_FLOPS_F32
+    print(f"18e launch.train {' '.join(SSM_TRAIN_ARGS)} (mamba2-2.7b f32 "
+          f"full width, {report['params']:,} params): loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} ({losses}); step_ms "
+          f"median(steps 3-{steps})={step_s * 1e3:.2f} (first "
+          f"{report['step_s'][0] * 1e3:.1f}); tokens/s="
+          f"{tokens / step_s:.1f}; model share 6*N*tokens/step/67 TFLOP/s="
+          f"{share:.4f}; peak memory_allocated={report['peak_bytes']:,} B; "
+          f"launches {launches}; {time.perf_counter() - t0:.1f} s "
+          f"[card: {card}]", flush=True)
+    torch.cuda.empty_cache()
     return {"launches": launches, "step_ms": step_s * 1e3,
             "tokens_s": tokens / step_s, "model_share": share,
             "peak_bytes": report["peak_bytes"], "losses": losses}
@@ -6230,8 +6472,11 @@ def train_reduced_check(name: str, card: str) -> None:
                for a, b, mv in zip(p_gpu, p_cpu, moves))
     of_leaf = max(ratio((a - b).abs().max(), b.abs().max())
                   for a, b in zip(p_gpu, p_cpu))
+    kinds = Model(rcfg, device="cpu").kinds
+    n_ssm = kinds.count("ssm")
+    # zamba's attention runs at each application of its shared block
     n_attn = (rcfg.n_layers * 2 + rcfg.n_encoder_layers
-              if rcfg.arch_type == "audio" else rcfg.n_layers)
+              if rcfg.arch_type == "audio" else len(kinds) - n_ssm)
     print(f"18c {name}: 3 steps at {TRAIN_REDUCED_OPT} card vs CPU, "
           f"losses {l_gpu} / {l_cpu}; first gradients: worst |diff| / "
           f"max|CPU leaf| {g_rel:.3e}, {n_flip} elements of another "
@@ -6244,18 +6489,24 @@ def train_reduced_check(name: str, card: str) -> None:
         fail(f"18c {name}: gradients differ by {g_rel:.3e} of max|leaf| "
              f"(> 1e-4?) or parameters by {drift:.3e} of their move "
              f"(> {TRAIN_DRIFT_TOL}?)")
-    check_train_launches(n_gpu, n_attn, 4, f"18c {name}")
+    check_train_launches(n_gpu, n_attn, 4, f"18c {name}", n_ssm)
 
 
 def check_train_launches(got: dict, attn_layers: int, steps: int,
-                         what: str) -> None:
+                         what: str, ssm_layers: int = 0) -> None:
     """Every attention ran forward and backward as a kernel
-    (``attn_layers`` flash launches each a step) and every norm's
-    backward as one (as many rmsnorm_bwd launches as rmsnorm ones)."""
+    (``attn_layers`` flash launches each a step), every SSD scan too
+    (``ssm_layers`` ssd_scan and ssd_scan_bwd launches each a step) and
+    every norm's backward as one (as many rmsnorm_bwd launches as rmsnorm
+    ones)."""
     want = attn_layers * steps
     if got["flash_attention"] != want or got["flash_attention_bwd"] != want:
         fail(f"{what}: flash launches {got['flash_attention']} forward, "
              f"{got['flash_attention_bwd']} backward; expected {want} each")
+    want = ssm_layers * steps
+    if got["ssd_scan"] != want or got["ssd_scan_bwd"] != want:
+        fail(f"{what}: SSD scan launches {got['ssd_scan']} forward, "
+             f"{got['ssd_scan_bwd']} backward; expected {want} each")
     if got["rmsnorm_bwd"] != got["rmsnorm"]:
         fail(f"{what}: {got['rmsnorm_bwd']} rmsnorm_bwd launches against "
              f"{got['rmsnorm']} rmsnorm")
@@ -6711,6 +6962,7 @@ def main() -> int:
                 "phase16a_whisper-large-v3_dense": audio["dense"],
                 "phase16a_whisper-large-v3_paged": audio["paged"],
                 "phase18b": training["launches"],
+                "phase18e": training["ssm"]["launches"],
                 "phase19c": cost["launches"]}
     main_phase = {"flash_attention": "phase4", "decode_attention": "phase4",
                   "paged_decode_attention": "phase6",
@@ -6718,7 +6970,7 @@ def main() -> int:
                   "paged_decode_attention_int8": "phase7b",
                   "ssd_scan": "phase8", "mla_decode_ctx": "phase9",
                   "rmsnorm": "phase4", "flash_attention_bwd": "phase18b",
-                  "rmsnorm_bwd": "phase18b"}
+                  "rmsnorm_bwd": "phase18b", "ssd_scan_bwd": "phase18e"}
     replaces = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:98"),
@@ -6746,6 +6998,9 @@ def main() -> int:
             "src/repro/kernels/flash_ref.py:126"),
         "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                         "src/repro/models/layers.py:59"),
+        # no Pallas kernel: jax.grad through the jnp oracle of the scan
+        "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                         "src/repro/kernels/ref.py:291"),
     }
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": replaces[k][0],

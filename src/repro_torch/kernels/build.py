@@ -17,7 +17,7 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("binding.cpp", "flash_attention.cu", "flash_attention_bwd.cu",
            "decode_attention.cu", "paged_attention.cu", "ssd_scan.cu",
-           "mla_decode.cu", "rmsnorm.cu", "rmsnorm_bwd.cu")
+           "ssd_scan_bwd.cu", "mla_decode.cu", "rmsnorm.cu", "rmsnorm_bwd.cu")
 
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 

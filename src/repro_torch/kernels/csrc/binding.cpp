@@ -1,7 +1,7 @@
 // Python binding of the kernels for torch.utils.cpp_extension.
 // The Python wrappers (kernels/flash_attention.py, with the backward,
 // kernels/decode_attention.py, kernels/paged_attention.py, each of the
-// last two with an int8 entry point, kernels/ssd_scan.py,
+// last two with an int8 entry point, kernels/ssd_scan.py, with the backward,
 // kernels/mla_decode.py and kernels/rmsnorm.py, with the backward) check devices,
 // types, shapes and layout, allocate the outputs and pass raw device
 // pointers, sizes and the CUDA stream as integers; these functions only
@@ -61,6 +61,14 @@ int ssd_scan_launch(const void* x, const void* dt, const void* A,
                     int ng, int ds, int is_bf16, void* stream);
 long long ssd_scan_work_floats(int B, int S, int nh, int hd, int ng, int ds,
                                int is_bf16);
+int ssd_scan_bwd_launch(const void* x, const void* dt, const void* A,
+                        const void* Bm, const void* Cm, const void* D,
+                        const void* dy, const void* dstate, void* dx,
+                        void* ddt, void* dA, void* dB, void* dC, void* dD,
+                        void* work, int B, int S, int nh, int hd, int ng,
+                        int ds, void* stream);
+long long ssd_scan_bwd_work_floats(int B, int S, int nh, int hd, int ng,
+                                   int ds);
 int mla_decode_launch(const void* q_lat, const void* q_rope, const void* ckv,
                       const void* k_rope, const void* valid, void* out,
                       void* work, int B, int S, int H, int r, int dr,
@@ -179,6 +187,20 @@ int ssd_scan(std::uintptr_t x, std::uintptr_t dt, std::uintptr_t A,
                          is_bf16 ? 1 : 0, ptr(stream));
 }
 
+// dstate = 0: no gradient of the final state
+int ssd_scan_bwd(std::uintptr_t x, std::uintptr_t dt, std::uintptr_t A,
+                 std::uintptr_t Bm, std::uintptr_t Cm, std::uintptr_t D,
+                 std::uintptr_t dy, std::uintptr_t dstate, std::uintptr_t dx,
+                 std::uintptr_t ddt, std::uintptr_t dA, std::uintptr_t dB,
+                 std::uintptr_t dC, std::uintptr_t dD, std::uintptr_t work,
+                 int B, int S, int nh, int hd, int ng, int ds,
+                 std::uintptr_t stream) {
+  return ssd_scan_bwd_launch(ptr(x), ptr(dt), ptr(A), ptr(Bm), ptr(Cm),
+                             ptr(D), ptr(dy), ptr(dstate), ptr(dx), ptr(ddt),
+                             ptr(dA), ptr(dB), ptr(dC), ptr(dD), ptr(work), B,
+                             S, nh, hd, ng, ds, ptr(stream));
+}
+
 int mla_decode_ctx(std::uintptr_t q_lat, std::uintptr_t q_rope,
                    std::uintptr_t ckv, std::uintptr_t k_rope,
                    std::uintptr_t valid, std::uintptr_t out,
@@ -217,6 +239,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         [](int B, int S, int nh, int hd, int ng, int ds, bool is_bf16) {
           return ssd_scan_work_floats(B, S, nh, hd, ng, ds, is_bf16 ? 1 : 0);
         });
+  m.def("ssd_scan_bwd", &ssd_scan_bwd);
+  m.def("ssd_scan_bwd_work_floats", &ssd_scan_bwd_work_floats);
   m.def("mla_decode_ctx", &mla_decode_ctx);
   m.def("rmsnorm", &rmsnorm);
   m.def("rmsnorm_bwd", &rmsnorm_bwd);

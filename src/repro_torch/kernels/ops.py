@@ -7,14 +7,14 @@ wrapper raises on anything the kernel does not take. There is no other
 switch and no fallback.
 
 Where autograd records (grad enabled and an input that requires grad),
-``flash_attention``, ``rmsnorm`` and ``rmsnorm_pair`` run through a
-``torch.autograd.Function`` whose forward keeps what the backward reads
-and whose backward is the gradient kernel on the card
-(``flash_attention_bwd``, ``rmsnorm_bwd``: float32) and its plain version
-on the CPU, so the CPU trains through the same wiring the card does.
-Without grad the serving calls are unchanged, bit for bit. ``ssd_scan``
-has no backward kernel: on the card it refuses to run where autograd
-records rather than return an output with no gradient.
+``flash_attention``, ``rmsnorm``, ``rmsnorm_pair`` and ``ssd_scan`` run
+through a ``torch.autograd.Function`` whose forward keeps what the
+backward reads and whose backward is the gradient kernel on the card
+(``flash_attention_bwd``, ``rmsnorm_bwd``, ``ssd_scan_bwd``: float32) and
+its plain version on the CPU, so the CPU trains through the same wiring
+the card does. Without grad the serving calls are unchanged, bit for
+bit. On the card a bfloat16 ``ssd_scan`` refuses to run where autograd
+records rather than return an output with no gradient kernel behind it.
 """
 from __future__ import annotations
 
@@ -37,7 +37,8 @@ COUNTERS = {"flash_attention": _fa.launches,
             "mla_decode_ctx": _mla.launches,
             "rmsnorm": _rn.launches,
             "flash_attention_bwd": _fa.bwd_launches,
-            "rmsnorm_bwd": _rn.bwd_launches}
+            "rmsnorm_bwd": _rn.bwd_launches,
+            "ssd_scan_bwd": _ssd.bwd_launches}
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -142,14 +143,43 @@ def decode_cross_attention(q, k, v, valid, *, softcap: float = 0.0):
     return decode_attention(q, k, v, valid, softcap=softcap)
 
 
+class _SsdScan(torch.autograd.Function):
+    """The SSD scan with its gradient: the forward keeps its six inputs,
+    the backward recomputes the chunk states from them. The final state's
+    gradient reaches the backward as None where nothing reads the state
+    (training drops it), and stays None down to the kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C_, D, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B_, C_, D)
+        ctx.chunk = chunk
+        if _on_cpu(x, dt, A, B_, C_, D):
+            return ref.ssd_scan(x, dt, A, B_, C_, D, chunk=chunk)
+        return _ssd.ssd_scan(x, dt, A, B_, C_, D, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, B_, C_, D = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dstate is not None:
+            dstate = dstate.contiguous()
+        bwd = ref.ssd_scan_bwd if x.device.type == "cpu" else _ssd.ssd_scan_bwd
+        return (*bwd(x, dt, A, B_, C_, D, dy, dstate, chunk=ctx.chunk),
+                None)
+
+
 def ssd_scan(x, dt, A, B_, C_, D, *, chunk: int = 64):
     """Mamba2 SSD chunked scan; see ``kernels.ref.ssd_scan``."""
+    if _records(x, dt, A, B_, C_, D):
+        if not _on_cpu(x, dt, A, B_, C_, D) and x.dtype != torch.float32:
+            raise NotImplementedError(
+                f"ssd_scan: no backward kernel on the card for {x.dtype} "
+                "(ssd_scan_bwd is float32 only; bfloat16 trains on the "
+                "CPU)")
+        return _SsdScan.apply(x, dt, A, B_, C_, D, chunk)
     if _on_cpu(x, dt, A, B_, C_, D):
         return ref.ssd_scan(x, dt, A, B_, C_, D, chunk=chunk)
-    if _records(x, dt, A, B_, C_, D):
-        raise NotImplementedError(
-            "ssd_scan: no backward kernel on the card yet (ssm and zamba "
-            "train on the CPU only)")
     return _ssd.ssd_scan(x, dt, A, B_, C_, D, chunk=chunk)
 
 

@@ -268,6 +268,115 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return torch.cat(ys, dim=1), state.to(x.dtype)
 
 
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B_: torch.Tensor, C_: torch.Tensor, D: torch.Tensor,
+                 dy: torch.Tensor, dstate: torch.Tensor | None = None, *,
+                 chunk: int = 64) -> tuple[torch.Tensor, ...]:
+    """The gradients ``(dx, ddt, dA, dB_, dC_, dD)`` of ``ssd_scan`` at
+    (x, dt, A, B_, C_, D) given ``dy`` (B, S, nh, hd) and the final
+    state's gradient ``dstate`` (B, nh, hd, ds; None counts as 0), derived
+    by hand, in float32, each returned in its input's dtype.
+
+    A first walk over the chunks recomputes the state S_c entering each;
+    a second walks them in reverse carrying dS, the gradient of the state
+    leaving the chunk (``dstate`` after the last). In a chunk, with
+    ``cum`` the inclusive running sum of dt·A, ``w[t, k] = exp(cum_t -
+    cum_k)`` for k <= t (else 0), ``e_k = exp(cum_last - cum_k)``, ``G =
+    C·Bᵀ`` and ``R = dy·xᵀ`` (over hd):
+
+    * dx_k = Σ_t G w dt_k dy_t + e_k dt_k (dS·B_k) + D dy_k;
+    * dG = w dt_k R, dB_k = Σ_t dG[t, k] C_t + e_k dt_k (x_kᵀ·dS),
+      dC_t = Σ_k dG[t, k] B_k + exp(cum_t) (dy_tᵀ·S_c);
+    * dcum_t = Σ_k P[t, k] - Σ_t' P[t', t] + exp(cum_t) dy_t·(S_c C_t)
+      - U_t, plus exp(cum_last) <dS, S_c> + Σ_k U_k at the last
+      position, with P = G w dt_k R and U_k = e_k dt_k x_kᵀ·dS·B_k;
+    * the reverse running sum rc of dcum gives ddt_k = Σ_t G w R + e_k
+      x_kᵀ·dS·B_k + A rc_k and dA = Σ dt·rc; dD = Σ dy·x;
+    * the state entering the chunk takes dS <- exp(cum_last) dS + Σ_t
+      exp(cum_t) dy_t ⊗ C_t.
+
+    dB_ and dC_ sum over the heads of a group. Raises unless ``chunk``
+    divides S, as ``ssd_scan`` does."""
+    Bb, S, nh, hd = x.shape
+    ng, ds = B_.shape[2], B_.shape[3]
+    if chunk < 1 or S % chunk:
+        raise ValueError(f"ssd_scan_bwd: S={S} is not a multiple of "
+                         f"chunk={chunk}")
+    rep = nh // ng
+    f32 = torch.float32
+    Af, Df = A.to(f32), D.to(f32)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()
+
+    def cut(c0):
+        sl = slice(c0, c0 + chunk)
+        return (x[:, sl].to(f32), dt[:, sl].to(f32),
+                B_[:, sl].to(f32).repeat_interleave(rep, dim=2),
+                C_[:, sl].to(f32).repeat_interleave(rep, dim=2))
+
+    starts = list(range(0, S, chunk))
+    state = torch.zeros((Bb, nh, hd, ds), dtype=f32, device=x.device)
+    entering = []
+    for c0 in starts:
+        entering.append(state)
+        xc, dtc, Bh, _ = cut(c0)
+        cum = torch.cumsum(dtc * Af, dim=1)
+        wk = dtc * torch.exp(cum[:, -1:] - cum)
+        state = state * torch.exp(cum[:, -1])[..., None, None] + \
+            torch.einsum("bqhd,bqhp->bhpd", Bh, wk[..., None] * xc)
+
+    dS = (torch.zeros((Bb, nh, hd, ds), dtype=f32, device=x.device)
+          if dstate is None else dstate.to(f32))
+    dx = torch.empty((Bb, S, nh, hd), dtype=f32, device=x.device)
+    ddt = torch.empty((Bb, S, nh), dtype=f32, device=x.device)
+    dBh = torch.empty((Bb, S, nh, ds), dtype=f32, device=x.device)
+    dCh = torch.empty((Bb, S, nh, ds), dtype=f32, device=x.device)
+    dA = torch.zeros((nh,), dtype=f32, device=x.device)
+    dD = torch.zeros((nh,), dtype=f32, device=x.device)
+    for c0, Sc in zip(reversed(starts), reversed(entering)):
+        sl = slice(c0, c0 + chunk)
+        xc, dtc, Bh, Ch = cut(c0)
+        dyc = dy[:, sl].to(f32)
+        cum = torch.cumsum(dtc * Af, dim=1)                  # (B, Q, nh)
+        last = cum[:, -1]                                    # (B, nh)
+        cs = cum.transpose(1, 2)                             # (B, nh, Q)
+        w = torch.exp((cs[..., :, None] - cs[..., None, :]).masked_fill(
+            ~tri, float("-inf")))                            # [t, k]
+        dtk = dtc.transpose(1, 2)[:, :, None, :]             # dt_k
+        G = torch.einsum("bqhd,bkhd->bhqk", Ch, Bh)
+        R = torch.einsum("bqhp,bkhp->bhqk", dyc, xc)
+        Q = G * w * R
+        dG = w * dtk * R
+        e = torch.exp(last[:, None] - cum)                   # (B, Q, nh)
+        ecum = torch.exp(cum)
+        E = torch.einsum("bkhd,bhpd->bkhp", Bh, dS)          # dS·B_k
+        dx[:, sl] = (torch.einsum("bhqk,bqhp->bkhp", G * w * dtk, dyc)
+                     + (e * dtc)[..., None] * E + dyc * Df[:, None])
+        V = (xc * E).sum(-1)                                 # x_kᵀ·dS·B_k
+        F = torch.einsum("bkhp,bhpd->bkhd", xc, dS)
+        H = torch.einsum("bqhp,bhpd->bqhd", dyc, Sc)
+        dBh[:, sl] = (torch.einsum("bhqk,bqhd->bkhd", dG, Ch)
+                      + (e * dtc)[..., None] * F)
+        dCh[:, sl] = (torch.einsum("bhqk,bkhd->bqhd", dG, Bh)
+                      + ecum[..., None] * H)
+        U = e * dtc * V
+        dcum = ((Q * dtk).sum(-1).transpose(1, 2)
+                - dtc * Q.sum(-2).transpose(1, 2)
+                + ecum * (H * Ch).sum(-1) - U)
+        dcum[:, -1] += (torch.exp(last) * (dS * Sc).sum((-2, -1))
+                        + U.sum(1))
+        rc = dcum.flip(1).cumsum(1).flip(1)
+        ddt[:, sl] = Q.sum(-2).transpose(1, 2) + e * V + Af * rc
+        dA += (dtc * rc).sum((0, 1))
+        dD += (dyc * xc).sum((0, 1, 3))
+        dS = dS * torch.exp(last)[..., None, None] + torch.einsum(
+            "bqhp,bqhd->bhpd", dyc * ecum[..., None], Ch)
+    dB = dBh.reshape(Bb, S, ng, rep, ds).sum(3)
+    dC = dCh.reshape(Bb, S, ng, rep, ds).sum(3)
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+            dB.to(B_.dtype), dC.to(C_.dtype), dD.to(D.dtype))
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x (..., D), scale (D,) → x * rsqrt(mean(x²) + eps) * scale over the

@@ -14,6 +14,9 @@ Router is written for::
     drain() -> [...]               # run every container to idle
     close()
 
+``ContainerBackend`` is that protocol, JAX's, as a runtime-checkable
+``Protocol``; both backends satisfy it.
+
 ``ThreadBackend.poll`` advances every engine that has work by one
 macro-step — in worker threads when more than one has work and
 ``concurrent`` is set (each engine issues on its own CUDA stream; the
@@ -44,7 +47,7 @@ import time
 import traceback
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Sequence
+from typing import Any, Protocol, Sequence, runtime_checkable
 
 import torch
 
@@ -65,6 +68,37 @@ _IDLE_POLL_S = 0.05
 # exit, so only a child that hangs on its way out costs the whole bound
 # (a loaded host can take over a second to tear a torch process down)
 _ERROR_EXIT_WAIT_S = 10.0
+
+
+@runtime_checkable
+class ContainerBackend(Protocol):
+    """The request-level serving protocol (see module docstring).
+
+    Supervising backends additionally expose an *optional* fault-
+    tolerance surface the Router discovers with ``getattr`` (so minimal
+    structural backends — test substrates — keep satisfying the
+    protocol): ``alive(cid) -> bool`` (dispatchable right now — dead and
+    respawning containers are excluded), ``cancel(cid, rid)`` (remove a
+    request wherever it is and free its cache reservation), and a
+    ``failures`` list of every ``ContainerFailure`` surfaced so far.
+    ``poll()`` may interleave ``ContainerFailure`` records with the
+    request events — it must NOT raise for a container-scoped failure,
+    only for backend-wide invariant violations."""
+
+    capacity: int
+
+    def submit(self, cid: int, req: Request) -> None: ...
+
+    def poll(self) -> list[Event]: ...
+
+    def load(self, cid: int) -> int: ...
+
+    def stats(self, cid: int) -> tuple[float, int]: ...
+
+    def drain(self, concurrent: bool = True
+              ) -> list[tuple[list[Completion], float, float, int]]: ...
+
+    def close(self) -> None: ...
 
 
 class ThreadBackend:

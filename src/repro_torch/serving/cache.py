@@ -4,9 +4,13 @@ A port of ``repro.serving.cache``: the attention page pairs and, for an
 int8 cache, their scale pages, or an MLA layer's latent and rope-key
 pages.
 
+Both satisfy ``CacheBackend``, JAX's protocol of what the engine needs
+from a cache.
+
 * ``DenseCache`` — one private ``(max_len, ...)`` row per slot. A row is
-  the reservation, so there is nothing to allocate; ``insert`` copies
-  prefill rows into their slots in place.
+  the reservation, so there is nothing to allocate (its block accounting
+  is always true); ``insert`` copies prefill rows into their slots in
+  place.
 * ``PagedCache`` — a shared pool of ``max_blocks`` physical pages plus a
   per-row block table (``models/cache.py``). Admission reserves
   ``ceil(tokens / block_size)`` blocks per request, so in-flight
@@ -38,6 +42,7 @@ refcount > 1 forks it copy-on-write (``append``/``_cow_fork``).
 from __future__ import annotations
 
 from collections import OrderedDict
+from typing import Any, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -104,6 +109,49 @@ class BlockAllocator:
         self.release(blocks)
 
 
+@runtime_checkable
+class CacheBackend(Protocol):
+    """What the serving engine needs from a KV-cache implementation."""
+    n_rows: int
+    tree: Any
+
+    def can_admit(self, n_tokens: int) -> bool:
+        """Could a ``n_tokens``-position reservation be satisfied once
+        every reclaimable block (deferred frees awaiting ``flush``,
+        evictable prefix-cache residents) is counted? A True here means
+        the engine should flush/evict and retry rather than stall."""
+        ...
+
+    def alloc(self, row: int, n_tokens: int) -> bool:
+        """Reserve cache space covering ``n_tokens`` positions for
+        ``row``. False when the budget is short (the only side effect
+        permitted on failure is evicting unreferenced cached blocks)."""
+        ...
+
+    def append(self, row: int, n_tokens: int = 1) -> bool:
+        """Extend ``row``'s reservation by ``n_tokens`` positions."""
+        ...
+
+    def free(self, row: int) -> None:
+        """Release ``row``'s reservation (may defer until ``flush``)."""
+        ...
+
+    def flush(self) -> None:
+        """Make deferred frees effective (device table scrub included)."""
+        ...
+
+    def insert(self, src_cache: Any, rows: list[int],
+               offset: int = 0) -> None:
+        """Scatter a prefill mini-cache (dense layout, one row per admitted
+        request) into the engine cache at ``rows``, starting at position
+        ``offset`` (nonzero when a shared prefix already owns [0, offset))."""
+        ...
+
+    def view(self) -> Any:
+        """The device cache tree the model consumes."""
+        ...
+
+
 class DenseCache:
     """Row-per-slot cache over a model's per-layer ``{"k", "v"}`` tensors
     of shape (n_rows, max_len, Hkv, hd), plus ``{"k_scale", "v_scale"}``
@@ -116,8 +164,25 @@ class DenseCache:
         self.tree = tree
         self.n_rows = n_rows
 
+    # a row is its own reservation: the block accounting of the protocol
+    # is always true and nothing is released or deferred
+    def can_admit(self, n_tokens: int) -> bool:
+        return True
+
+    def alloc(self, row: int, n_tokens: int) -> bool:
+        return True
+
+    def append(self, row: int, n_tokens: int = 1) -> bool:
+        return True
+
     def free(self, row: int) -> None:
         """A row is its own reservation: nothing to release."""
+
+    def flush(self) -> None:
+        return
+
+    def view(self) -> list:
+        return self.tree
 
     def insert(self, src_cache: list, rows: list[int],
                offset: int = 0) -> None:
@@ -349,6 +414,10 @@ class PagedCache:
             self._tokens[row] = 0
 
     # -- device tensors ----------------------------------------------------
+    def view(self) -> list:
+        """The device cache tree the model consumes (pages and table)."""
+        return self.tree
+
     @property
     def _table(self) -> torch.Tensor:
         """The (n_rows, nblk) block table every layer shares."""

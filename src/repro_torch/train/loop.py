@@ -4,11 +4,11 @@ over microbatches, the global-norm clip and AdamW.
 
 The step runs on the model's device (``Model(cfg)`` is ``"cuda"`` unless
 told ``"cpu"``, and raises without a card). On the card every forward
-and backward of the path runs as a hand-written kernel, and float32 is
-the only dtype with backward kernels, so ``make_train_step`` refuses
-what the card cannot train: the ssm and zamba families (``ssd_scan`` has
-no backward kernel yet) and bfloat16 parameters. The CPU trains every
-family and dtype through the plain versions.
+and backward of the path runs as a hand-written kernel (the SSD scan's
+through ``ssd_scan_bwd``, so the ssm and zamba families train there
+too), and float32 is the only dtype with backward kernels, so
+``make_train_step`` refuses bfloat16 parameters on the card. The CPU
+trains every family and dtype through the plain versions.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.models.model import Model
 from repro_torch.train.optimizer import (AdamWConfig, apply_update,
                                          init_opt_state, map_tree,
@@ -33,20 +34,26 @@ class TrainConfig:
 
 
 def check_card_training(model: Model, params=None) -> None:
-    """Refuse, naming the missing kernel, what the card cannot train."""
+    """Refuse, naming the missing kernels, what the card cannot train:
+    bfloat16 parameters (``flash_attention_bwd``, ``rmsnorm_bwd`` and
+    ``ssd_scan_bwd`` exist in float32 only). Every family trains there in
+    float32, the ssm and zamba families through ``ssd_scan_bwd``, whose
+    state width (``ssd_scan.BWD_MAX_STATE``) every registry config fits;
+    a wider one is refused here, never inside a step."""
     if model.device.type != "cuda":
         return
-    if model.fam in ("ssm", "zamba"):
+    if model.fam in ("ssm", "zamba") and \
+            model.cfg.ssm_state > _ssd.BWD_MAX_STATE:
         raise NotImplementedError(
-            f"{model.cfg.name}: no train step on the card for the "
-            f"{model.fam} family: ssd_scan has no backward kernel yet "
-            "(train it with device='cpu')")
+            f"{model.cfg.name}: no train step on the card for ssm_state="
+            f"{model.cfg.ssm_state}: ssd_scan_bwd takes ds up to "
+            f"{_ssd.BWD_MAX_STATE} (train it with device='cpu')")
     dtypes = {t.dtype for t in unique_leaves(params or {})}
     if torch.bfloat16 in dtypes:
         raise NotImplementedError(
             f"{model.cfg.name}: no train step on the card for bfloat16 "
-            "parameters: flash_attention_bwd and rmsnorm_bwd exist in "
-            "float32 only")
+            "parameters: flash_attention_bwd, rmsnorm_bwd and ssd_scan_bwd "
+            "exist in float32 only")
 
 
 def loss_and_grads(model: Model, params, batch, remat: bool = False):

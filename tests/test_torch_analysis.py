@@ -196,11 +196,12 @@ def test_host_sync_tells_a_host_block_from_a_tensor(tmp_path):
 def test_host_sync_follows_the_cache_backend(tmp_path):
     cache = CACHE.read_text()
     old = "    def free(self, row: int) -> None:\n"
-    assert cache.count(old) == 2
+    # the CacheBackend protocol's, DenseCache's and PagedCache's
+    assert cache.count(old) == 3
+    at = cache.index(old, cache.index("class DenseCache")) + len(old)
     cp = tmp_path / "cache.py"
-    cp.write_text(cache.replace(
-        old, old + "        seen = self.tree[0]['k'].sum().item()\n",
-        1))
+    seed = "        seen = self.tree[0]['k'].sum().item()\n"
+    cp.write_text(cache[:at] + seed + cache[at:])
     findings = host_sync.run(SERVING / "engine.py", cp)
     assert _codes(findings) == ["SYN001"]
     assert "DenseCache.free" in findings[0].message

@@ -806,6 +806,63 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         ssd_scan(*big, chunk=8)
 
 
+# the SSD scan's backward: chip_smoke.py phase 2's shapes (mamba2-2.7b's
+# training widths, zamba2-7b's, a ragged padded cut with two groups)
+SSD_BWD_SHAPES = [(2, 512, 80, 64, 1, 128, 256), (1, 512, 112, 64, 1, 64, 256),
+                  (2, 96, 4, 16, 2, 24, 32)]
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("B,S,nh,hd,ng,ds,chunk", SSD_BWD_SHAPES)
+def test_ssd_bwd_kernel_matches_plain(cuda, B, S, nh, hd, ng, ds, chunk,
+                                      with_state):
+    """``ssd_scan_bwd`` against ``ref.ssd_scan_bwd``: every gradient within
+    5e-5 abs + rel of max|plain| at the kernel's 64-position cut (where 64
+    divides S) and within 1e-4 of max|plain| at the caller's chunk; one
+    counted launch a call; the same bits from run to run."""
+    from repro_torch.kernels import ssd_scan as ssd
+    args = _ssd_args(cuda, B, S, nh, hd, ng, ds, torch.float32)
+    dy = _randn(cuda, B, S, nh, hd, dtype=torch.float32)
+    st = _randn(cuda, B, nh, hd, ds, dtype=torch.float32) \
+        if with_state else None
+    before = ops.launch_counts()["ssd_scan_bwd"]
+    got = ssd.ssd_scan_bwd(*args, dy, st, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan_bwd"] == before + 1
+    again = ssd.ssd_scan_bwd(*args, dy, st, chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for g, w in zip(got, ref.ssd_scan_bwd(*args, dy, st, chunk=chunk)):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    if S % 64 == 0:
+        for g, w in zip(got, ref.ssd_scan_bwd(*args, dy, st, chunk=64)):
+            assert float((g - w).abs().max()) <= 5e-5 + 5e-5 * float(
+                w.abs().max())
+
+
+def test_ssd_bwd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import ssd_scan as ssd
+    args = _ssd_args(cuda, 1, 40, 4, 16, 2, 16, torch.float32)
+    x, dt, A, B_, C_, D = args
+    dy = torch.randn_like(x)
+    with pytest.raises(ValueError, match="not a multiple of chunk"):
+        ssd.ssd_scan_bwd(*args, dy, chunk=32)
+    with pytest.raises(TypeError, match="float32"):
+        ssd.ssd_scan_bwd(x.bfloat16(), dt.bfloat16(), A, B_.bfloat16(),
+                         C_.bfloat16(), D, dy.bfloat16(), chunk=40)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_scan_bwd(*args, dy.transpose(2, 3), chunk=40)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd.ssd_scan_bwd(*args, dy.cpu(), chunk=40)
+    with pytest.raises(ValueError, match="shapes"):
+        ssd.ssd_scan_bwd(*args, dy, torch.zeros(1, 4, 16, 8, device="cuda"),
+                         chunk=40)
+    wide = _ssd_args(cuda, 1, 8, 2, 8, 1, ssd.BWD_MAX_STATE + 1,
+                     torch.float32)
+    with pytest.raises(ValueError, match="out of the kernel's range"):
+        ssd.ssd_scan_bwd(*wide, torch.randn_like(wide[0]), chunk=8)
+
+
 def test_ssm_router_on_the_card_matches_the_cpu_path(cuda):
     """Two threaded containers on the card serving reduced mamba2 in f32
     (the SSD kernel, no attention kernel) give the CPU path's greedy
@@ -2583,11 +2640,13 @@ def test_rmsnorm_pair_bwd_equals_each_solo_launch(cuda, D, stride):
 @pytest.mark.parametrize("name", ["qwen3-0.6b-reduced",
                                   "deepseek-v2-lite-16b-reduced",
                                   "gemma3-27b-reduced",
-                                  "whisper-large-v3-reduced"])
+                                  "whisper-large-v3-reduced",
+                                  "mamba2-2.7b-reduced",
+                                  "zamba2-7b-reduced"])
 def test_reduced_train_step_card_matches_cpu(cuda, name):
     """One step's loss and gradients on the card against the CPU from the
-    same weights, and every attention and norm a kernel launch forward and
-    backward."""
+    same weights, and every attention, SSD scan and norm a kernel launch
+    forward and backward."""
     import numpy as np
 
     from repro_torch.configs.registry import get_config
@@ -2616,5 +2675,8 @@ def test_reduced_train_step_card_matches_cpu(cuda, name):
         assert float((a - b).abs().max()) <= 1e-4 * max(
             float(b.abs().max()), 1e-30)
     n = out["cuda"][2]
-    assert n["flash_attention"] == n["flash_attention_bwd"] > 0
+    kinds = Model(cfg, device="cpu").kinds
+    assert n["flash_attention"] == n["flash_attention_bwd"]
+    assert (n["flash_attention"] > 0) == (name != "mamba2-2.7b-reduced")
+    assert n["ssd_scan"] == n["ssd_scan_bwd"] == kinds.count("ssm")
     assert n["rmsnorm"] == n["rmsnorm_bwd"]

@@ -67,7 +67,8 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
         ops = sys.modules["repro_torch.kernels.ops"]
         assert {{"decode_attention_int8", "paged_decode_attention_int8",
                  "ssd_scan", "mla_decode_ctx", "rmsnorm",
-                 "flash_attention_bwd", "rmsnorm_bwd"}} <= set(ops.COUNTERS)
+                 "flash_attention_bwd", "rmsnorm_bwd",
+                 "ssd_scan_bwd"}} <= set(ops.COUNTERS)
         assert not [m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         print("port imports ok")

@@ -196,7 +196,8 @@ def test_ops_sends_cpu_tensors_to_the_plain_version():
                                    "mla_decode_ctx": 0,
                                    "rmsnorm": 0,
                                    "flash_attention_bwd": 0,
-                                   "rmsnorm_bwd": 0}
+                                   "rmsnorm_bwd": 0,
+                                   "ssd_scan_bwd": 0}
 
 
 def _ssd_args(seed, B=1, S=32, nh=4, hd=8, ng=1, ds=8):

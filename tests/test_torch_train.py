@@ -8,8 +8,8 @@ leaf through ``params.to_numpy`` (5e-5 of max|leaf|); AdamW's update and
 schedule against JAX's; microbatching, rematerialisation, 60 steps of
 falling loss, 3 steps of ``train`` against JAX's ``train``;
 ``LmTokenStream`` bit for bit; checkpoints in JAX's format both ways; the
-launcher; the card's refusals. JAX runs on the CPU as its own tests run
-it (jitted), and its results are computed once per module. Inputs come from a
+launcher; what the card trains and refuses. JAX runs on the CPU as its own
+tests run it (jitted), and its results are computed once per module. Inputs come from a
 seeded numpy generator and weights from JAX's init through
 ``params.from_numpy``.
 """
@@ -45,7 +45,7 @@ FAMILIES = {"dense": "qwen3-0.6b-reduced", "gemma": "gemma3-27b-reduced",
             "ssm": "mamba2-2.7b-reduced", "zamba": "zamba2-7b-reduced",
             "whisper": "whisper-large-v3-reduced",
             "vision": "internvl2-26b-reduced"}
-GRAD_FAMILIES = ("dense", "moe", "gemma", "whisper", "ssm")
+GRAD_FAMILIES = ("dense", "moe", "gemma", "whisper", "ssm", "zamba")
 B, S = 2, 16
 
 
@@ -401,16 +401,25 @@ def test_train_launcher_runs_on_the_cpu(tmp_path, capsys):
 
 
 def test_card_refuses_what_it_cannot_train():
-    """On the card, make_train_step refuses the SSM and hybrid families
-    (no ssd_scan backward) and bfloat16 parameters (float32 backward
-    kernels only), naming what is missing; the CPU trains them."""
+    """On the card, make_train_step accepts the SSM and hybrid families in
+    float32 (their scan trains through ssd_scan_bwd), refuses a state
+    wider than that kernel takes and bfloat16 parameters (float32
+    backward kernels only), naming what is missing; the CPU trains
+    them."""
     for name in ("mamba2-2.7b-reduced", "zamba2-7b-reduced"):
         cfg = ArchConfig(**dataclasses.asdict(jax_config(name)))
         model = Model(cfg, device="cpu")
-        loop.make_train_step(model, loop.TrainConfig())
+        params = model.init(seed=0)
+        bf16 = model.init(seed=0, dtype=torch.bfloat16)
+        loop.make_train_step(model, loop.TrainConfig(), params)
         model.device = torch.device("cuda", 0)
-        with pytest.raises(NotImplementedError, match="ssd_scan"):
-            loop.make_train_step(model, loop.TrainConfig())
+        loop.make_train_step(model, loop.TrainConfig(), params)
+        with pytest.raises(NotImplementedError, match="bfloat16"):
+            loop.make_train_step(model, loop.TrainConfig(), bf16)
+        wide = Model(dataclasses.replace(cfg, ssm_state=256), device="cpu")
+        wide.device = torch.device("cuda", 0)
+        with pytest.raises(NotImplementedError, match="ssd_scan_bwd"):
+            loop.make_train_step(wide, loop.TrainConfig())
     cfg = ArchConfig(**dataclasses.asdict(jax_config("qwen3-0.6b-reduced")))
     model = Model(cfg, device="cpu")
     params = model.init(seed=0, dtype=torch.bfloat16)
