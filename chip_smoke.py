@@ -423,7 +423,10 @@ Phases, each raising on failure (any failure exits nonzero):
     for bit from run to run, and once against torch autograd through the
     plain forward; timed at 18e's call beside its bound and the plain
     version (no PyTorch call computes the scan), with the float32
-    forward at the same shape.
+    forward at the same shape; both with the CUDA kernels one call
+    launches (3 forward, 5 backward, else the phase fails) and the
+    scratch it allocates, read with ``torch.profiler`` and the peak of
+    ``memory_allocated``, as the bfloat16 main shape's.
 
 19. The H100 cost model (``cost_model_phase``), on phase 4's model and
     weights (qwen3-0.6b, bf16, n_slots 4, max_len 2048): 19a the wall of
@@ -865,17 +868,22 @@ def ssd_inputs(gen, B, S, nh, hd, ng, ds, dtype, *, model_like=True):
             torch.ones(nh, device=dev))
 
 
-def ssd_bound(B, S, nh, hd, ng, ds, chunk, dtype_name, itemsize):
+def ssd_bound(B, S, nh, hd, ng, ds, dtype_name, itemsize):
     """Inputs and outputs once each; operations of the chunked form on its
     lower triangles (C.B^T once per group, the quadratic term per head),
-    the carried-state term and the state update."""
+    the carried-state term and the state update, at the kernel's own
+    64-position cut (both bodies cut there whatever the caller's chunk,
+    and a shorter cut has fewer pairs). float32 at the split-TF32 rate its
+    body runs (``f32_split_bound``). Returns (ms, what bounds it,
+    float32's ms at the CUDA cores' rate, else ms)."""
     nbytes = ((2 * B * S * nh * hd + B * S * nh + 2 * B * S * ng * ds
                + B * nh * hd * ds) * itemsize + 2 * nh * 4)
-    pairs = (S // chunk) * chunk * (chunk + 1) // 2
+    pairs = -(-S // SSD_TILE) * SSD_TILE * (SSD_TILE + 1) // 2
     flops = 2 * B * pairs * (ng * ds + nh * hd) + 2 * 2 * B * S * nh * hd * ds
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    if dtype_name == "float32":
+        return f32_split_bound(flops, nbytes)
+    ms, by = bound_ms(flops, nbytes, dtype_name)
+    return ms, by, ms
 
 
 def ssd_checks(gen):
@@ -924,6 +932,14 @@ def ssd_checks(gen):
                 cut = (f"; element by element at chunk {SSD_TILE}: max "
                        f"abs error {err:.3e} within {tol} abs + rel")
             ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk), reps=5)
+            if dtype == torch.float32 and (B, S, chunk) == (
+                    m["B"], m["S"], m["chunk"]) and model_like and ng == 1:
+                launched, scratch = ssd_call_footprint(
+                    lambda: ssd.ssd_scan(*args, chunk=chunk))
+                check_kernels_per_call("ssd_scan float32", launched,
+                                       SSD_KERNELS_PER_CALL)
+                cut += (f"; one call: {launched} CUDA kernels, {scratch} "
+                        "bytes of scratch")
             plain = ""
             if S >= 512:
                 plain = " plain_ms={:.4f}".format(time_ms(
@@ -961,16 +977,20 @@ def ssd_close(got, want, dtype_name: str, what: str) -> float:
     return rel
 
 
-# the bf16 scan's CUDA kernels a call: chunk states, the pass over them,
-# the outputs
+# the scan's CUDA kernels a call (both bodies): chunk states, the pass
+# over them, the outputs
 SSD_KERNELS_PER_CALL = 3
+# the backward's: chunk states with the gradient's own parts, the passes
+# (forward and reverse), dx / ddt, dB / dC over runs of heads, the sums
+SSD_BWD_KERNELS_PER_CALL = 5
 
 
 def ssd_call_footprint(call) -> tuple[list, int]:
-    """What one ``ssd_scan`` call does on the card, read in this run: the
-    CUDA kernels it launches (name, count), from ``torch.profiler``, and
-    the scratch it allocates beyond its outputs, the peak of
-    ``memory_allocated`` during the call less what stays after it."""
+    """What one ``ssd_scan`` (or ``ssd_scan_bwd``) call does on the card,
+    read in this run: the CUDA kernels it launches (name, count), from
+    ``torch.profiler``, and the scratch it allocates beyond its outputs,
+    the peak of ``memory_allocated`` during the call less what stays after
+    it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -978,16 +998,29 @@ def ssd_call_footprint(call) -> tuple[list, int]:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the profiler can miss the first kernel of its window: one of
+        # PyTorch's own goes first and is not counted
+        torch.cuda._sleep(1000)
         call()
         torch.cuda.synchronize()
     kernels = [(e.key, e.count) for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and "spin_kernel" not in e.key]
     torch.cuda.reset_peak_memory_stats()
     out = call()
     torch.cuda.synchronize()
     scratch = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
     del out
     return kernels, scratch
+
+
+def check_kernels_per_call(what: str, launched: list, want: int) -> int:
+    """Fail unless one call launched ``want`` CUDA kernels; returns it."""
+    n = sum(c for _, c in launched)
+    if n != want:
+        fail(f"{what}: one call launched {n} CUDA kernels ({launched}), "
+             f"not {want}")
+    return n
 
 
 # absorbed-MLA decode at deepseek-v2-lite's widths: a 4-slot decode step
@@ -1539,8 +1572,9 @@ def bound_ms(flops, nbytes, dn) -> tuple[float, str]:
                                        else "bytes")
 
 
-def f32_flash_bound(flops, nbytes) -> tuple[float, str, float]:
-    """A float32 flash kernel's bound: the smaller of its CUDA-core bound
+def f32_split_bound(flops, nbytes) -> tuple[float, str, float]:
+    """A float32 kernel's bound where its body runs split TF32 (the flash
+    bodies, the scan and its backward): the smaller of its CUDA-core bound
     (operations at 67 TFLOP/s) and its split-TF32 bound (3 x operations at
     494.7 TFLOP/s), each the larger of its operations' and its bytes'
     time, so that no row reads faster than its bound; then the CUDA-core
@@ -1890,8 +1924,8 @@ def later_shape_checks(gen) -> dict:
                    for n, a, b in zip(("y", "state"), got, want))
     dn = "bfloat16"
     row("ssd_scan", "zamba", ssd_calls,
-        ssd_bound(*(m[k] for k in ("B", "S", "nh", "hd", "ng", "ds",
-                                   "chunk")), dn, 2),
+        ssd_bound(*(m[k] for k in ("B", "S", "nh", "hd", "ng", "ds")),
+                  dn, 2),
         f"B={m['B']} S={m['S']} nh={m['nh']} hd={m['hd']} ng={m['ng']} "
         f"ds={m['ds']} chunk={m['chunk']} (max_abs_err: max |kernel - "
         "plain| / max|plain| over y and the state)", close=ssd_both,
@@ -2011,7 +2045,7 @@ def whisper_shape_checks(gen) -> dict:
             flops = 4 * B * h * pairs * k_
             nbytes = 2 * B * (Sq * h + Skv * hkv) * k_ * isz
             if dn == "float32":
-                return f32_flash_bound(flops, nbytes)
+                return f32_split_bound(flops, nbytes)
             return bound_ms(flops, nbytes, dn)
         row("flash_attention", label, flash_calls, flash_bound,
             f"B={B} Sq={Sq} Skv={Skv} H={h} Hkv={hkv} K=Kv={k_} "
@@ -2234,12 +2268,12 @@ def backward_checks(gen) -> dict:
                                                 device=dev).sum())
         nbytes = 4 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
                       + 2 * out.numel() + lse.numel())
-        bound, by, cores = f32_flash_bound(2 * pairs * (3 * K_ + 2 * Kv),
+        bound, by, cores = f32_split_bound(2 * pairs * (3 * K_ + 2 * Kv),
                                            nbytes)
         del want, again, ro, rl
 
         # the forward with its lse: q, k, v read, out and lse written
-        f_bound, f_by, f_cores = f32_flash_bound(
+        f_bound, f_by, f_cores = f32_split_bound(
             2 * pairs * (K_ + Kv),
             4 * (q.numel() + k.numel() + v.numel() + out.numel()
                  + lse.numel()))
@@ -2384,14 +2418,16 @@ def ssd_bwd_bound(B, S, nh, hd, ng, ds, with_state: bool):
     lower triangle once per group; per head, dy.x^T and the three
     quadratic products (dx, dB, dC) on it, and five (hd x ds) products a
     position (the state recomputed, dS.B, x^T.dS, dy^T.S_c, the dS
-    update). float32 at 67 TFLOP/s."""
+    update). Operations at the split-TF32 rate the kernels run them
+    (``f32_split_bound``); returns (ms, what bounds it, ms at the CUDA
+    cores' 67 TFLOP/s)."""
     nc = -(-S // SSD_TILE)
     pairs = SSD_TILE * (SSD_TILE + 1) // 2
     per_head = 4 * pairs * hd + 4 * pairs * ds + 10 * SSD_TILE * hd * ds
     flops = B * nc * (nh * per_head + ng * 2 * pairs * ds)
     nbytes = 4 * (3 * B * S * nh * hd + 2 * B * S * nh + 4 * B * S * ng * ds
                   + 4 * nh + (B * nh * hd * ds if with_state else 0))
-    return bound_ms(flops, nbytes, "float32")
+    return f32_split_bound(flops, nbytes)
 
 
 def ssd_bwd_checks(gen) -> dict:
@@ -2455,20 +2491,29 @@ def ssd_bwd_checks(gen) -> dict:
                   + " ".join(f"{n} {e:.3e}" for n, e in rel.items())
                   + "; bit for bit run to run", flush=True)
             if name == "mamba2_train" and st is None:
-                bound, by = ssd_bwd_bound(B, S, nh, hd, ng, ds, False)
+                bound, by, cores = ssd_bwd_bound(B, S, nh, hd, ng, ds,
+                                                 False)
 
                 def kernel():
                     return ssd.ssd_scan_bwd(*args, dy, None, chunk=chunk)
+                launched, scratch = ssd_call_footprint(kernel)
+                check_kernels_per_call("ssd_scan_bwd", launched,
+                                       SSD_BWD_KERNELS_PER_CALL)
+                f_launched, f_scratch = ssd_call_footprint(
+                    lambda: ssd.ssd_scan(*args, chunk=chunk))
+                check_kernels_per_call("ssd_scan float32", f_launched,
+                                       SSD_KERNELS_PER_CALL)
                 row = {"max_abs_err": max(float((g - w).abs().max())
                                           for g, w in zip(got, want)),
+                       "cuda_kernels": launched, "scratch_bytes": scratch,
                        "ms": time_ms(kernel, reps=10),
                        "graph_ms": time_graph_ms(kernel, reps=10),
                        "plain_ms": time_ms(lambda: ref.ssd_scan_bwd(
                            *args, dy, None, chunk=chunk), reps=2),
                        "bound_ms": bound, "bound_by": by,
-                       "library_ms": None}
-                f_bound, f_by = ssd_bound(B, S, nh, hd, ng, ds, chunk,
-                                          "float32", 4)
+                       "bound_cuda_cores_ms": cores, "library_ms": None}
+                f_bound, f_by, f_cores = ssd_bound(B, S, nh, hd, ng, ds,
+                                                   "float32", 4)
                 fwd = ref.ssd_scan(*args, chunk=chunk)
                 forward = {
                     "max_abs_err": max(
@@ -2481,6 +2526,8 @@ def ssd_bwd_checks(gen) -> dict:
                     "plain_ms": time_ms(lambda: ref.ssd_scan(
                         *args, chunk=chunk), reps=2),
                     "bound_ms": f_bound, "bound_by": f_by,
+                    "bound_cuda_cores_ms": f_cores,
+                    "cuda_kernels": f_launched, "scratch_bytes": f_scratch,
                     "shape": f"B={B} S={S} nh={nh} hd={hd} ng={ng} ds={ds} "
                              f"chunk={chunk} f32 (model-like dt, A): the "
                              "forward phase 18e trains through; ms launched "
@@ -2519,7 +2566,10 @@ def ssd_bwd_checks(gen) -> dict:
                     f"the caller's chunk {worst['chunk']:.3e} of max|plain|, "
                     f"against autograd {err:.3e}; ms launched one by one "
                     "(CUDA events), graph_ms replayed from a CUDA graph; "
-                    "bound by ssd_bwd_bound; library_ms null: no PyTorch "
+                    "bound by ssd_bwd_bound (split TF32; "
+                    "bound_cuda_cores_ms at 67 TFLOP/s); cuda_kernels and "
+                    "scratch_bytes: one call's, read on the card; "
+                    "library_ms null: no PyTorch "
                     "call computes the SSD scan")
     print(f"ssd_scan_bwd: {row}", flush=True)
     print(f"ssd_scan train forward: {forward}", flush=True)
@@ -2655,14 +2705,12 @@ def kernel_phase():
               for g, w in zip(got, want))
     rel = max(ssd_close(g, w, dn, "ssd main shape")
               for g, w in zip(got, want))
-    bound, by = ssd_bound(*(m[k] for k in ("B", "S", "nh", "hd", "ng", "ds",
-                                           "chunk")), dn, isz)
+    bound, by, _ = ssd_bound(*(m[k] for k in ("B", "S", "nh", "hd", "ng",
+                                              "ds")), dn, isz)
     launched, scratch = ssd_call_footprint(
         lambda: ssd.ssd_scan(*args, chunk=m["chunk"]))
-    n_launched = sum(c for _, c in launched)
-    if n_launched != SSD_KERNELS_PER_CALL:
-        fail(f"ssd_scan: one bf16 call launched {n_launched} CUDA kernels "
-             f"({launched}), not {SSD_KERNELS_PER_CALL}")
+    n_launched = check_kernels_per_call("ssd_scan bfloat16", launched,
+                                        SSD_KERNELS_PER_CALL)
     results["ssd_scan"] = {
         "max_abs_err": err,
         "ms": time_ms(lambda: ssd.ssd_scan(*args, chunk=m["chunk"])),
@@ -2683,8 +2731,8 @@ def kernel_phase():
                  "PyTorch call computes the SSD scan"}
     args = ssd_inputs(gen, 1, 2048, m["nh"], m["hd"], m["ng"], m["ds"],
                       dtype)
-    bound, by = ssd_bound(1, 2048, *(m[k] for k in ("nh", "hd", "ng", "ds",
-                                                   "chunk")), dn, isz)
+    bound, by, _ = ssd_bound(1, 2048, *(m[k] for k in ("nh", "hd", "ng",
+                                                      "ds")), dn, isz)
     results["ssd_scan"]["s2048"] = {
         "ms": time_ms(lambda: ssd.ssd_scan(*args, chunk=m["chunk"])),
         "graph_ms": time_graph_ms(lambda: ssd.ssd_scan(*args,

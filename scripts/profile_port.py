@@ -7,6 +7,7 @@
     python3 scripts/profile_port.py --chunk [--src DIR] [--out FILE]
     python3 scripts/profile_port.py --flash [--src DIR] [--out FILE]
     python3 scripts/profile_port.py --norm-bwd [--src DIR] [--out FILE]
+    python3 scripts/profile_port.py --ssd [--src DIR] [--out FILE]
 
 Serves the ``chip_smoke.py`` phase-4 request set (qwen3-0.6b at full
 width, 28 layers, bf16, random weights from seed 0; n_slots=4,
@@ -81,6 +82,18 @@ and the bytes bound, each CUDA kernel's device ms by name and digests of
 dx and dscale; then one training step of phase 18b (qwen3-0.6b, float32,
 B 8 x S 512) split by CUDA kernel, with the norm backward's share. Read
 against ``--src`` of a parent in turns (parent, change, change, parent).
+
+``--ssd`` reads the float32 ``ssd_scan`` and ``ssd_scan_bwd`` at phase
+18e's call (mamba2-2.7b's training widths: B 2, S 512, nh 80, hd 64, ng
+1, ds 128, chunk 256, no dstate, ``chip_smoke.py``'s model-like inputs
+from seed 0) and at zamba2-7b's (B 1, nh 112, ds 64): device ms from a
+graph of 20 calls, each CUDA kernel's device ms by name, the scratch a
+call allocates and digests of the outputs; the bfloat16 ``ssd_scan`` at
+phase 2's main shape (B 1, S 512) the same way, as a control whose code
+the float32 work does not touch; then one phase-18e training step
+(full-width mamba2-2.7b, float32, B 2 x S 512, after two steps) split by
+CUDA kernel, with the scan kernels' share. Read against ``--src`` of a
+parent in turns (parent, change, change, parent).
 
 ``--src`` imports the port from another checkout's ``src`` (for example
 a parent commit unpacked beside this one), so two versions can be read
@@ -584,15 +597,32 @@ def train_step_split(norm_names) -> dict:
     longest by name), its total, and the part and share of the kernels
     named in ``norm_names`` (the norm backward's)."""
     import chip_smoke as cs
+
+    args = dict(zip(cs.TRAIN_ARGS[::2], cs.TRAIN_ARGS[1::2]))
+    B, S = int(args["--batch"]), int(args["--seq"])
+    by = _step_by_kernel("qwen3-0.6b", B, S)
+    total = sum(by.values())
+    norm = sum(v for k, v in by.items() if k in norm_names)
+    top = dict(sorted(by.items(), key=lambda kv: -kv[1])[:25])
+    out = {"shape": f"qwen3-0.6b f32, B {B} x S {S}, one step after two",
+           "device_ms": total, "norm_bwd_ms": norm,
+           "norm_bwd_share": norm / total, "kernels": len(by),
+           "top_kernel_ms": top}
+    print("train step", {k: v for k, v in out.items()
+                         if k != "top_kernel_ms"}, flush=True)
+    return out
+
+
+def _step_by_kernel(arch: str, B: int, S: int) -> dict:
+    """One float32 training step of ``arch`` at full width (seed 0, B x S
+    tokens, after two steps): device ms by CUDA kernel name."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import LmTokenStream
     from repro_torch.models.model import Model
     from repro_torch.train.loop import TrainConfig, make_train_step
     from repro_torch.train.optimizer import init_opt_state
 
-    args = dict(zip(cs.TRAIN_ARGS[::2], cs.TRAIN_ARGS[1::2]))
-    B, S = int(args["--batch"]), int(args["--seq"])
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(arch)
     model = Model(cfg)
     params = model.init(seed=0)
     step = make_train_step(model, TrainConfig(), params)
@@ -606,18 +636,81 @@ def train_step_split(norm_names) -> dict:
         nonlocal params, opt
         params, opt, _ = step(params, opt, stream.batch(2))
     by = _by_kernel(one, reps=1)
-    total = sum(by.values())
-    norm = sum(v for k, v in by.items() if k in norm_names)
-    top = dict(sorted(by.items(), key=lambda kv: -kv[1])[:25])
-    del params, opt
+    del params, opt, step
     torch.cuda.empty_cache()
-    out = {"shape": f"qwen3-0.6b f32, B {B} x S {S}, one step after two",
-           "device_ms": total, "norm_bwd_ms": norm,
-           "norm_bwd_share": norm / total, "kernels": len(by),
-           "top_kernel_ms": top}
-    print("train step", {k: v for k, v in out.items()
-                         if k != "top_kernel_ms"}, flush=True)
-    return out
+    return by
+
+
+# the float32 scan's calls read by --ssd: phase 18e's (mamba2-2.7b's
+# training batch) and zamba2-7b's widths
+SSD_CALLS = {"mamba2_train": (2, 512, 80, 64, 1, 128, 256),
+             "zamba2": (1, 512, 112, 64, 1, 64, 256)}
+
+
+def profile_ssd() -> dict:
+    """The float32 scan and its backward at SSD_CALLS, the bfloat16 scan
+    at phase 2's main shape: graph-replayed device ms, device ms by CUDA
+    kernel, scratch bytes, digests; then phase 18e's step by kernel."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    cs.np, cs.torch = np, torch      # its main() binds these
+    from repro_torch.kernels import ssd_scan as ssd
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().float().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    rows = {}
+    calls = [(name, *dims, torch.float32) for name, dims in SSD_CALLS.items()]
+    m = cs.SSD_MAIN
+    calls.append(("bf16_main", *(m[k] for k in ("B", "S", "nh", "hd", "ng",
+                                                "ds", "chunk")),
+                  torch.bfloat16))
+    for name, B, S, nh, hd, ng, ds, chunk, dtype in calls:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        args = cs.ssd_inputs(gen, B, S, nh, hd, ng, ds, dtype)
+
+        def fwd():
+            return ssd.ssd_scan(*args, chunk=chunk)
+        row = {"shape": f"B={B} S={S} nh={nh} hd={hd} ng={ng} ds={ds} "
+                        f"chunk={chunk} {str(dtype).split('.')[1]}",
+               "forward_ms": cs.time_graph_ms(fwd, reps=20),
+               "forward_kernel_ms": _by_kernel(fwd),
+               "forward_scratch_bytes": cs.ssd_call_footprint(fwd)[1],
+               "forward_digest": digest(*fwd())}
+        if dtype == torch.float32:
+            dy = torch.randn(B, S, nh, hd, generator=gen, device="cuda")
+
+            def bwd():
+                return ssd.ssd_scan_bwd(*args, dy, None, chunk=chunk)
+            row.update(backward_ms=cs.time_graph_ms(bwd, reps=20),
+                       backward_kernel_ms=_by_kernel(bwd),
+                       backward_scratch_bytes=cs.ssd_call_footprint(bwd)[1],
+                       backward_digest=digest(*bwd()))
+            del dy
+        rows[name] = row
+        print(name, {k: v for k, v in row.items() if k.endswith("_ms")},
+              flush=True)
+        del args
+        torch.cuda.empty_cache()
+    args = dict(zip(cs.SSM_TRAIN_ARGS[::2], cs.SSM_TRAIN_ARGS[1::2]))
+    B, S = int(args["--batch"]), int(args["--seq"])
+    by = _step_by_kernel(args["--arch"], B, S)
+    total = sum(by.values())
+    scan = {k: v for k, v in by.items() if "ssd" in k or "chunk_" in k
+            or "state_pass" in k}
+    rows["train_step"] = {
+        "shape": f"{args['--arch']} f32, B {B} x S {S}, one step after two",
+        "device_ms": total, "scan_ms": sum(scan.values()),
+        "scan_share": sum(scan.values()) / total, "kernels": len(by),
+        "scan_kernel_ms": scan,
+        "top_kernel_ms": dict(sorted(by.items(), key=lambda kv: -kv[1])[:25])}
+    print("train step", {k: v for k, v in rows["train_step"].items()
+                         if k not in ("top_kernel_ms", "scan_kernel_ms")},
+          flush=True)
+    return {"ssd": rows}
 
 
 def profile_flash() -> dict:
@@ -686,6 +779,7 @@ def main() -> int:
     ap.add_argument("--chunk", action="store_true")
     ap.add_argument("--flash", action="store_true")
     ap.add_argument("--norm-bwd", action="store_true")
+    ap.add_argument("--ssd", action="store_true")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -722,6 +816,9 @@ def main() -> int:
     if args.norm_bwd:
         return _report({"src": args.src, "card": card, **profile_norm_bwd()},
                        args.out or ROOT / "build" / "profile_norm_bwd.json")
+    if args.ssd:
+        return _report({"src": args.src, "card": card, **profile_ssd()},
+                       args.out or ROOT / "build" / "profile_ssd.json")
     cfg = get_config("qwen3-0.6b")
     model = Model(cfg)
     params = model.init(seed=0, dtype=torch.bfloat16)

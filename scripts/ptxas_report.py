@@ -34,7 +34,12 @@ tiles 64 / 64, 128 / 128 and 192 / 128) spills. The RMSNorm backward's
 16 instantiations (its rows pass at 7 layouts with 16-byte loads and one
 element at a time, the looping body past 8 vectors a lane, the dscale
 pass) are listed one by one; it exits 1 unless all 16 are there and none
-spills.
+spills. The float32 SSD scan's and its backward's 8 (ssd_f32.cuh's
+chunk-state and pass kernels, one copy in each of ssd_scan.cu and
+ssd_scan_bwd.cu; the forward's output kernel; the backward's dx / ddt,
+dB / dC and sums kernels) are listed one by one; it exits 1 unless all 8
+are there, none spills, and the 5 that run products (chunk states,
+outputs, dx / ddt, dB / dC) have tensor-core instructions.
 """
 from __future__ import annotations
 
@@ -214,11 +219,28 @@ def main() -> int:
     print(f"rmsnorm_bwd: {len(nbwd)} instantiations, most registers "
           f"{max((table[n][0] for n in nbwd), default=0)}, "
           f"{len(nbwd_spill)} spill")
+    # the float32 SSD scan and its backward, split TF32 on the tensor cores
+    ssd = sorted((n for n in table if re.search(
+        r"ssd32::(chunk_state|state_pass)_kernel|f32::chunk_out_kernel|"
+        r"ssd_(grads|dbc|reduce)_kernel", names[n])), key=lambda n: names[n])
+    ssd_spill = [n for n in ssd if table[n][1] or table[n][2]]
+    ssd_mma = [n for n in ssd if re.search(
+        r"chunk_state_kernel|chunk_out_kernel|ssd_grads_kernel|ssd_dbc_kernel",
+        names[n])]
+    ssd_bare = [n for n in ssd_mma if not ops.get(n, 0)]
+    for n in ssd:
+        regs, st, ld = table[n]
+        print(f"ssd f32: regs={regs} spill_stores={st} spill_loads={ld} "
+              f"tensor_core_instructions={ops.get(n, 0)} {names[n]}")
+    print(f"ssd f32: {len(ssd)} instantiations, {len(ssd_mma) - len(ssd_bare)}"
+          f" of {len(ssd_mma)} product kernels with tensor-core instructions, "
+          f"{len(ssd_spill)} spill")
     return 1 if (bare or spill or not tc_partial or not int8
                  or int8_spill or not norm or norm_spill or len(new) != 12
                  or new_spill or len(new8) != 8 or new8_spill or not f32
                  or f32_bare or len(reached) < 9 or f32_spill
-                 or len(nbwd) != 16 or nbwd_spill) else 0
+                 or len(nbwd) != 16 or nbwd_spill or len(ssd) != 8
+                 or len(ssd_mma) != 5 or ssd_bare or ssd_spill) else 0
 
 
 if __name__ == "__main__":

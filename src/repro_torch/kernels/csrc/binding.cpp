@@ -59,8 +59,7 @@ int ssd_scan_launch(const void* x, const void* dt, const void* A,
                     const void* Bm, const void* Cm, const void* D, void* y,
                     void* state, void* work, int B, int S, int nh, int hd,
                     int ng, int ds, int is_bf16, void* stream);
-long long ssd_scan_work_floats(int B, int S, int nh, int hd, int ng, int ds,
-                               int is_bf16);
+long long ssd_scan_work_floats(int B, int S, int nh, int hd, int ng, int ds);
 int ssd_scan_bwd_launch(const void* x, const void* dt, const void* A,
                         const void* Bm, const void* Cm, const void* D,
                         const void* dy, const void* dstate, void* dx,
@@ -235,10 +234,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("decode_attention_int8", &decode_attention_int8);
   m.def("paged_decode_attention_int8", &paged_decode_attention_int8);
   m.def("ssd_scan", &ssd_scan);
-  m.def("ssd_scan_work_floats",
-        [](int B, int S, int nh, int hd, int ng, int ds, bool is_bf16) {
-          return ssd_scan_work_floats(B, S, nh, hd, ng, ds, is_bf16 ? 1 : 0);
-        });
+  m.def("ssd_scan_work_floats", &ssd_scan_work_floats);
   m.def("ssd_scan_bwd", &ssd_scan_bwd);
   m.def("ssd_scan_bwd_work_floats", &ssd_scan_bwd_work_floats);
   m.def("mla_decode_ctx", &mla_decode_ctx);

@@ -1,6 +1,7 @@
 // Tensor-core building blocks shared by the bfloat16 bodies of
 // flash_attention.cu, ssd_scan.cu and mla_decode.cu and the float32 bodies
-// of flash_attention.cu and flash_attention_bwd.cu (sm_90a): asynchronous
+// of flash_attention.cu, flash_attention_bwd.cu, ssd_scan.cu and
+// ssd_scan_bwd.cu (through ssd_f32.cuh) (sm_90a): asynchronous
 // 16-byte copies into shared memory (cp.async), ldmatrix loads of 8 x 8
 // bf16 tiles into mma fragments, the warp-level mma.sync.m16n8k16 bf16 x
 // bf16 -> f32 product, and the split TF32 product m16n8k8 below.

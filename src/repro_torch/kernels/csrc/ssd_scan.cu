@@ -54,234 +54,35 @@
 // (the output kernel reads them, so they are summed once) and one (hd,
 // ds) state (~2.6 MB a chunk at the main shape).
 //
-// float32 body (unchanged since the first port). ONE block owns the
-// carried state of its slice and a loop inside it walks the sequence: a
-// block is (TP = 32 rows of hd, head h, batch row b), the state's rows p
-// being independent (y[:, p] and state[p, :] read only x[:, p]). The block
-// keeps its TP x ds f32 state in shared memory and walks the sequence in
-// tiles of TL = 64 positions; per tile it loads B, C and x rows as f32,
-// forms the running sum of dt * A, M = (C.B^T) * exp(cum[q] - cum[k]) *
-// dt[k] on the lower triangle (16 x 16 threads, 4 x 4 entries each), y =
-// M.x + exp(cum) * (C.state) + D x, then the state update. All its
-// products run on the f32 CUDA cores, on purpose: TF32 tensor cores keep
-// 10 mantissa bits and would miss the 5e-5 float32 gate.
+// float32 body (f32::): the same decomposition in float32
+// on the tensor cores, as split TF32 (hi = tf32(v), lo = tf32(v - hi),
+// three m16n8k8 a product, ~22 significant bits; x, B and C are float32,
+// so both operands split). (a) and (b) are ssd_f32.cuh's chunk_state_kernel
+// and state_pass_kernel, which the backward (ssd_scan_bwd.cu) runs too, so
+// its chunk states are these bits; (c) f32::chunk_out_kernel, one block of
+// 8 warps per (chunk, head, 64 rows of hd, batch row), computes y =
+// exp(cum) * (C . state_in) + (G o L o dt) . x + D x, M = G o L o dt built
+// in registers and split there. One TF32 product (11 bits) would miss the
+// 5e-5 float32 gate; the split keeps it, with each k8 step's three terms
+// summed apart and added into float32 rounded to nearest (the tensor
+// cores' own accumulation truncates; ssd_f32.cuh's mma_tf32x3_rn). The
+// carried state stays float32 and the running sum of dt * A stays on one
+// thread. tests/test_torch_ssd_tf32.py emulates this arithmetic on the
+// CPU. Scratch, float32, from the wrapper, in the bfloat16 body's layout
+// (G, the decays, the running sums and one (hd, ds) state a chunk and
+// head): 42,537,984 B at phase 18e's training call (B 2, S 512, nh 80,
+// hd 64, ng 1, ds 128). Shared memory 86.0 KB (a), 85.8 KB (c).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "ssd_f32.cuh"
 
 namespace {
 
-constexpr int TL = 64;       // sequence positions per tile
-constexpr int TP = 32;       // rows of the head dim per block
-constexpr int NT = 256;      // 16 x 16 threads
 constexpr int MAX_DS = 256;  // state width the shared memory holds
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-size_t smem_bytes(int ds) {
-  const size_t ldn = ds + 1;
-  return sizeof(float) * ((2 * TL + TP) * ldn + size_t(TL) * (TP + 1) +
-                          size_t(TL) * (TL + 1) + 3 * TL);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-    ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
-                    const float* __restrict__ A, const T* __restrict__ Bm,
-                    const T* __restrict__ Cm, const float* __restrict__ D,
-                    T* __restrict__ y, T* __restrict__ state_out, int S,
-                    int nh, int hd, int ng, int ds) {
-  extern __shared__ float smem[];
-  const int p0 = blockIdx.x * TP, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (nh / ng);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int ldn = ds + 1, ldx = TP + 1, ldm = TL + 1;
-  float* Bs = smem;             // TL x ldn: B rows of the tile
-  float* Cs = Bs + TL * ldn;    // TL x ldn: C rows
-  float* st = Cs + TL * ldn;    // TP x ldn: the carried state
-  float* xs = st + TP * ldn;    // TL x ldx: x rows, this block's p
-  float* Ms = xs + TL * ldx;    // TL x ldm: (C.B^T) * decay * dt, k <= q
-  float* cum = Ms + TL * ldm;   // TL: running sum of dt * A
-  float* dts = cum + TL;        // TL: dt
-  float* wk = dts + TL;         // TL: dt * exp(cum[last] - cum)
-  const float a = A[h], dh = D[h];
-  for (int i = tid; i < TP * ldn; i += NT) st[i] = 0.f;
-
-  for (int t0 = 0; t0 < S; t0 += TL) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < TL; i += NT) {
-      const int t = t0 + i;
-      dts[i] = t < S ? to_float(dt[(size_t(b) * S + t) * nh + h]) : 0.f;
-    }
-    for (int i = tid; i < TL * ds; i += NT) {
-      const int r = i / ds, d = i - r * ds, t = t0 + r;
-      float bv = 0.f, cv = 0.f;
-      if (t < S) {
-        const size_t off = ((size_t(b) * S + t) * ng + g) * ds + d;
-        bv = to_float(Bm[off]);
-        cv = to_float(Cm[off]);
-      }
-      Bs[r * ldn + d] = bv;
-      Cs[r * ldn + d] = cv;
-    }
-    for (int i = tid; i < TL * TP; i += NT) {
-      const int r = i / TP, p = i - r * TP, t = t0 + r;
-      xs[r * ldx + p] =
-          (t < S && p0 + p < hd)
-              ? to_float(x[((size_t(b) * S + t) * nh + h) * hd + p0 + p])
-              : 0.f;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      float c = 0.f;
-      for (int i = 0; i < TL; ++i) {
-        c = __fadd_rn(c, __fmul_rn(dts[i], a));
-        cum[i] = c;
-      }
-    }
-    __syncthreads();
-    const float last = cum[TL - 1];
-    if (tid < TL) wk[tid] = dts[tid] * expf(last - cum[tid]);
-
-    // M = (C.B^T) * exp(cum[q] - cum[k]) * dt[k] for k <= q, else 0
-    {
-      float acc[4][4] = {};
-      for (int d = 0; d < ds; ++d) {
-        float cv[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = Cs[(ty + 16 * i) * ldn + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[(tx + 16 * j) * ldn + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += cv[i] * bv[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int q = ty + 16 * i, k = tx + 16 * j;
-          Ms[q * ldm + k] =
-              k <= q ? acc[i][j] * expf(cum[q] - cum[k]) * dts[k] : 0.f;
-        }
-    }
-    __syncthreads();
-
-    // y = M.x + exp(cum) * (C.state) + D x, with the state entering the tile
-    {
-      float acc[4][2] = {}, off[4][2] = {};
-      const int kend = ty + 16 * 3 + 1;  // M is 0 past this thread's rows
-      for (int k = 0; k < kend; ++k) {
-        float m[4], xv[2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) m[i] = Ms[(ty + 16 * i) * ldm + k];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) xv[j] = xs[k * ldx + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) acc[i][j] += m[i] * xv[j];
-      }
-      for (int d = 0; d < ds; ++d) {
-        float cv[4], sv[2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = Cs[(ty + 16 * i) * ldn + d];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) sv[j] = st[(tx + 16 * j) * ldn + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) off[i][j] += cv[i] * sv[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q = ty + 16 * i, t = t0 + q;
-        if (t >= S) continue;
-        const float decay = expf(cum[q]);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int p = tx + 16 * j;
-          if (p0 + p >= hd) continue;
-          y[((size_t(b) * S + t) * nh + h) * hd + p0 + p] = from_float<T>(
-              acc[i][j] + off[i][j] * decay + xs[q * ldx + p] * dh);
-        }
-      }
-    }
-    __syncthreads();  // every read of the entering state is done
-
-    // state = exp(cum[last]) * state + sum_k wk[k] x[k] (x) B[k]
-    {
-      const float chunk_decay = expf(last);
-      for (int d0 = 0; d0 < ds; d0 += 128) {
-        float acc[2][8] = {};
-        for (int k = 0; k < TL; ++k) {
-          const float w = wk[k];
-          float xv[2], bv[8];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) xv[i] = xs[k * ldx + ty + 16 * i] * w;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int d = d0 + tx + 16 * j;
-            bv[j] = d < ds ? Bs[k * ldn + d] : 0.f;
-          }
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] += xv[i] * bv[j];
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int p = ty + 16 * i, d = d0 + tx + 16 * j;
-            if (d < ds)
-              st[p * ldn + d] = st[p * ldn + d] * chunk_decay + acc[i][j];
-          }
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < TP * ds; i += NT) {
-    const int p = i / ds, d = i - p * ds;
-    if (p0 + p < hd)
-      state_out[((size_t(b) * nh + h) * hd + p0 + p) * ds + d] =
-          from_float<T>(st[p * ldn + d]);
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* x, const void* dt, const void* A,
-                   const void* Bm, const void* Cm, const void* D, void* y,
-                   void* state, int B, int S, int nh, int hd, int ng, int ds,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes(ds);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((hd + TP - 1) / TP, nh, B);
-  ssd_scan_kernel<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), static_cast<const float*>(D),
-      static_cast<T*>(y), static_cast<T*>(state), S, nh, hd, ng, ds);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16 body: the chunked SSD in parallel over chunks, on tensor cores
@@ -718,12 +519,185 @@ cudaError_t launch_bf16(const void* x, const void* dt, const void* A,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// float32 body: the chunked SSD in parallel over chunks, split TF32
+// ---------------------------------------------------------------------------
+namespace f32 {
+
+using ssd32::CL;
+using ssd32::LDT;
+using ssd32::NT;
+using ssd32::PT;
+
+size_t smem_out(int ds) {
+  return sizeof(float) * (size_t(CL) * LDT + (size_t(CL) + PT) *
+                          (ssd32::padded_ds(ds) + 4) + 3 * size_t(CL));
+}
+
+// (c) Per (chunk, head, 64-row slice of hd, batch row): y = exp(cum) *
+// (C.state_in) + (G o L o dt).x + D x, with L[q][k] = exp(cum[q] - cum[k])
+// for k <= q, else 0. Warp (rs, cs) = (warp & 3, warp >> 2) owns rows
+// q = 16 rs + gr (+ 8) of the chunk and columns p = 32 cs + 8 n + 2 tq (+ 1)
+// of the slice.
+__global__ void __launch_bounds__(NT)
+    chunk_out_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ Cm, const float* __restrict__ D,
+                     const float* __restrict__ work, float* __restrict__ y,
+                     int S, int nh, int hd, int ng, int ds, int nc, int npt,
+                     int vec_x, int vec_bc, int vec_st) {
+  const int DSP = ssd32::padded_ds(ds), LDN = DSP + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;            // CL x LDT: x[k][p]
+  float* cs = xs + CL * LDT;   // CL x LDN: C[q][d]
+  float* ss = cs + CL * LDN;   // PT x LDN: the state entering the chunk
+  float* dts = ss + PT * LDN;  // CL: dt
+  float* cum = dts + CL;       // CL: running sums of dt * A
+  float* ec = cum + CL;        // CL: exp(cum)
+
+  const int c = blockIdx.x / npt, p0 = (blockIdx.x % npt) * PT;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (nh / ng);
+  const int t0 = c * CL;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gr = lane / 4, tq = lane % 4, rs = warp & 3, cs0 = 32 * (warp >> 2);
+  const ssd32::Scratch w =
+      ssd32::carve(const_cast<float*>(work), gridDim.z, nc, nh, ng);
+  const size_t bch = (size_t(b) * nc + c) * nh + h;
+
+  mma::load_tile_f32<CL, NT>(xs, LDT, x + ((size_t(b) * S + t0) * nh + h) * hd + p0,
+                             size_t(nh) * hd, S - t0, hd - p0, PT, vec_x, tid);
+  if (c > 0) {
+    mma::load_tile_f32<CL, NT>(cs, LDN, Cm + ((size_t(b) * S + t0) * ng + g) * ds,
+                               size_t(ng) * ds, S - t0, ds, DSP, vec_bc, tid);
+    mma::load_tile_f32<PT, NT>(ss, LDN, w.st + bch * hd * ds + size_t(p0) * ds,
+                               size_t(ds), hd - p0, ds, DSP, vec_st, tid);
+  }
+  mma::cp_async_commit();
+  // this lane's entries of G for the key steps at or below the warp's rows
+  // (k permuted: columns 2tq and 2tq + 1 of each step), in flight with the
+  // loads
+  const float* G = w.G + ((size_t(b) * nc + c) * ng + g) * CL * CL;
+  float2 gv[CL / 8][2];
+#pragma unroll
+  for (int ks = 0; ks < CL / 8; ++ks)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      gv[ks][r] = ks <= 2 * rs + 1
+                      ? *reinterpret_cast<const float2*>(
+                            G + (rs * 16 + gr + 8 * r) * CL + ks * 8 + 2 * tq)
+                      : make_float2(0.f, 0.f);
+  if (tid < CL) {  // dt and the running sums the chunk-state kernel left
+    const int t = t0 + tid;
+    dts[tid] = t < S ? dt[(size_t(b) * S + t) * nh + h] : 0.f;
+    cum[tid] = w.cum[bch * CL + tid];
+    ec[tid] = expf(cum[tid]);
+  }
+  mma::cp_async_wait<0>();
+  __syncthreads();
+
+  float acc[4][4] = {};
+  if (c > 0) {  // exp(cum[q]) * C[q] . state_in[p]
+#pragma unroll 2
+    for (int kk = 0; kk < DSP; kk += 8) {
+      const mma::FragA a =
+          mma::load_a_tf32(cs + (rs * 16 + gr) * LDN + kk + tq, LDN);
+      mma::FragB bf[4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        bf[n] = mma::load_b_tf32(ss + (cs0 + n * 8 + gr) * LDN + kk + tq);
+      ssd32::mma_tf32x3_rn(acc, a, bf);
+    }
+    const float e0 = ec[rs * 16 + gr], e1 = ec[rs * 16 + gr + 8];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      acc[n][0] *= e0;
+      acc[n][1] *= e0;
+      acc[n][2] *= e1;
+      acc[n][3] *= e1;
+    }
+  }
+
+  // + (G o L o dt).x over the key steps at or below this warp's rows; M's
+  // A fragments are built and split in registers
+#pragma unroll
+  for (int ks = 0; ks < CL / 8; ++ks) {
+    if (ks > 2 * rs + 1) break;
+    mma::FragA m;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int q = rs * 16 + gr + (i & 1) * 8;
+      const int k = ks * 8 + 2 * tq + (i >> 1);
+      const float gq = (i >> 1) ? gv[ks][i & 1].y : gv[ks][i & 1].x;
+      const float v = k <= q ? gq * expf(cum[q] - cum[k]) * dts[k] : 0.f;
+      mma::split_tf32(v, m.hi[i], m.lo[i]);
+    }
+    mma::FragB bf[4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      bf[n] = mma::load_bk_tf32(xs + (ks * 8 + 2 * tq) * LDT + cs0 + n * 8 + gr,
+                                LDT);
+    ssd32::mma_tf32x3_rn(acc, m, bf);
+  }
+
+  const float dh = D[h];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = rs * 16 + gr + r * 8, t = t0 + q;
+    if (t >= S) continue;
+    float* yrow = y + ((size_t(b) * S + t) * nh + h) * hd + p0;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int p = cs0 + n * 8 + 2 * tq;
+      const float y0 = acc[n][2 * r] + xs[q * LDT + p] * dh;
+      const float y1 = acc[n][2 * r + 1] + xs[q * LDT + p + 1] * dh;
+      if (p0 + p + 1 < hd && hd % 2 == 0) {
+        *reinterpret_cast<float2*>(yrow + p) = make_float2(y0, y1);
+      } else {
+        if (p0 + p < hd) yrow[p] = y0;
+        if (p0 + p + 1 < hd) yrow[p + 1] = y1;
+      }
+    }
+  }
+}
+
+cudaError_t launch_f32(const void* x, const void* dt, const void* A,
+                       const void* Bm, const void* Cm, const void* D, void* y,
+                       void* state, void* work, int B, int S, int nh, int hd,
+                       int ng, int ds, cudaStream_t stream) {
+  const int nc = (S + CL - 1) / CL, npt = (hd + PT - 1) / PT;
+  const int vec_x = hd % 4 == 0 && ssd32::aligned16(x);
+  const int vec_bc = ds % 4 == 0 && ssd32::aligned16(Bm) && ssd32::aligned16(Cm);
+  const int vec_st = ds % 4 == 0;  // the scratch is 16-byte aligned
+  float* wk = static_cast<float*>(work);
+  const float* xf = static_cast<const float*>(x);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* Cf = static_cast<const float*>(Cm);
+  cudaError_t err = ssd32::launch_chunk_states(
+      xf, dtf, static_cast<const float*>(A), static_cast<const float*>(Bm), Cf,
+      nullptr, wk, nullptr, ssd32::ChunkVecs{}, B, S, nh, hd, ng, ds, vec_x,
+      vec_bc, stream);
+  if (err != cudaSuccess) return err;
+  err = ssd32::launch_state_pass(wk, static_cast<float*>(state), nullptr,
+                                 nullptr, B, S, nh, hd, ng, ds, stream);
+  if (err != cudaSuccess) return err;
+  const size_t sm = smem_out(ds);
+  err = cudaFuncSetAttribute(chunk_out_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(sm));
+  if (err != cudaSuccess) return err;
+  chunk_out_kernel<<<dim3(nc * npt, nh, B), NT, sm, stream>>>(
+      xf, dtf, Cf, static_cast<const float*>(D), wk, static_cast<float*>(y), S,
+      nh, hd, ng, ds, nc, npt, vec_x, vec_bc, vec_st);
+  return cudaGetLastError();
+}
+
+}  // namespace f32
+
 }  // namespace
 
 // Plain C++ entry point for the binding; returns the cudaError_t of the
 // launch (0 on success). The caller has checked shapes, types and layout
-// (nh % ng == 0, 1 <= ds <= 256); for bfloat16 it passes ``work``, float32
-// scratch of ssd_scan_work_floats(B, S, nh, hd, ng, ds) elements.
+// (nh % ng == 0, 1 <= ds <= 256) and passes ``work``, float32 scratch of
+// ssd_scan_work_floats(B, S, nh, hd, ng, ds) elements.
 int ssd_scan_launch(const void* x, const void* dt, const void* A,
                     const void* Bm, const void* Cm, const void* D, void* y,
                     void* state, void* work, int B, int S, int nh, int hd,
@@ -731,19 +705,26 @@ int ssd_scan_launch(const void* x, const void* dt, const void* A,
   if (ds < 1 || ds > MAX_DS || ng < 1 || nh % ng) return cudaErrorInvalidValue;
   if (B == 0 || nh == 0 || hd == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
+  if (is_bf16) {
+    // the scratch is sized by ssd32::scratch_floats; the bf16 body carves it
+    // with its own tc::carve, which must give ssd32::carve's regions
+    static_assert(tc::CL == ssd32::CL, "both bodies cut at one chunk");
+    const int nc = (S + tc::CL - 1) / tc::CL;
+    float* wf = static_cast<float*>(work);
+    const tc::Scratch a = tc::carve(wf, B, nc, nh, ng);
+    const ssd32::Scratch b = ssd32::carve(wf, B, nc, nh, ng);
+    if (a.G != b.G || a.decay != b.decay || a.cum != b.cum || a.st != b.st)
+      return cudaErrorInvalidValue;
     return tc::launch_bf16(x, dt, A, Bm, Cm, D, y, state, work, B, S, nh, hd,
                            ng, ds, s);
-  return launch<float>(x, dt, A, Bm, Cm, D, y, state, B, S, nh, hd, ng, ds,
-                       s);
+  }
+  return f32::launch_f32(x, dt, A, Bm, Cm, D, y, state, work, B, S, nh, hd,
+                         ng, ds, s);
 }
 
-// Floats of scratch the bfloat16 body needs (0 for float32).
-long long ssd_scan_work_floats(int B, int S, int nh, int hd, int ng, int ds,
-                               int is_bf16) {
-  if (!is_bf16) return 0;
-  const long long nc = (S + tc::CL - 1) / tc::CL;
-  return nc * B * (ng * tc::CL * tc::CL + (long long)nh * tc::CL +
-                   (long long)nh * hd * ds) +
-         (nc * B * nh + 3) / 4 * 4;
+// Floats of scratch a call needs, either body: tc::carve and ssd32::carve
+// read the same layout (ssd_scan_launch refuses a bf16 call otherwise).
+long long ssd_scan_work_floats(int B, int S, int nh, int hd, int ng, int ds) {
+  const int nc = (S + ssd32::CL - 1) / ssd32::CL;
+  return (long long)ssd32::scratch_floats(B, nc, nh, hd, ng, ds);
 }

@@ -88,9 +88,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (nh,) contiguous float32 on the same device. Returns (y (B, S, nh,
     hd), final state (B, nh, hd, ds)) in x's dtype. ``chunk`` is clamped
     to S and must divide it, as the Pallas kernel asserts; the kernel's
-    own tiling does not depend on it. In bfloat16 one call runs three CUDA
-    kernels (chunk states, the pass over them, the outputs) and counts as
-    one launch; float32 runs one."""
+    own tiling does not depend on it. One call runs three CUDA kernels
+    (chunk states, the pass over them, the outputs; bfloat16 on its
+    tensor-core body, float32 as split TF32) over float32 scratch from
+    here, and counts as one launch."""
     _check_args("ssd_scan", {"x": x, "dt": dt, "A": A, "B_": B_, "C_": C_,
                              "D": D}, DTYPES, MAX_STATE, chunk)
     Bb, S, nh, hd = x.shape
@@ -98,10 +99,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ext, bf16 = extension(), x.dtype == torch.bfloat16
     y = torch.empty_like(x)
     state = torch.empty((Bb, nh, hd, ds), dtype=x.dtype, device=x.device)
-    # the bfloat16 body's float32 scratch: C.B^T per chunk and group; a
-    # decay, the running sums and an (hd, ds) state per chunk and head
-    work = torch.empty((ext.ssd_scan_work_floats(Bb, S, nh, hd, ng, ds,
-                                                 bf16),),
+    # float32 scratch (both bodies): C.B^T per chunk and group; a decay,
+    # the running sums and an (hd, ds) state per chunk and head
+    work = torch.empty((ext.ssd_scan_work_floats(Bb, S, nh, hd, ng, ds),),
                        dtype=torch.float32, device=x.device)
     err = ext.ssd_scan(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
@@ -123,10 +123,12 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     reads a null pointer as 0). Every tensor a contiguous float32 CUDA
     tensor on one device, ds at most BWD_MAX_STATE; ``chunk`` clamped to S
     must divide it, as in the forward, whose 64-position cut the kernel
-    keeps. One call runs two CUDA kernels (the walks over the chunks, one
-    block per 32 head rows, head and batch row; then the fixed-order sums
-    of the blocks' partials) over float32 scratch from here, and counts as
-    one launch."""
+    keeps. One call runs five CUDA kernels (the forward's chunk states
+    with each chunk's own part of the state's gradient; the passes over
+    them, forward and in reverse; dx, ddt and the chunks' dA, dD a block
+    per (chunk, head, batch row); dB and dC over runs of a group's heads;
+    the fixed-order sums of the runs' and chunks' partials) over float32
+    scratch from here, and counts as one launch."""
     tensors = {"x": x, "dt": dt, "A": A, "B_": B_, "C_": C_, "D": D,
                "dy": dy}
     if dstate is not None:
@@ -137,7 +139,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ng, ds = B_.shape[2], B_.shape[3]
     ext = extension()
     grads = [torch.empty_like(t) for t in (x, dt, A, B_, C_, D)]
-    # the chunk states of the first walk and the blocks' partial sums
+    # the chunk states, the state's gradient a chunk, per-chunk vectors
+    # and the partial sums
     work = torch.empty((ext.ssd_scan_bwd_work_floats(Bb, S, nh, hd, ng, ds),),
                        dtype=torch.float32, device=x.device)
     err = ext.ssd_scan_bwd(

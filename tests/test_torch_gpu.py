@@ -761,6 +761,8 @@ def _ssd_args(gen, B, S, nh, hd, ng, ds, dtype):
     (1, 100, 6, 40, 3, 200, 100),     # ragged tile, hd not a tile multiple
     (1, 2048, 80, 64, 1, 128, 256),   # 32 chunks of the kernel's cut
     (1, 512, 80, 64, 2, 128, 256),    # two groups of 40 heads
+    (1, 256, 4, 128, 1, 128, 128),    # hd in two 64-row pieces
+    (2, 160, 6, 80, 2, 96, 32),       # hd 80: a full and a ragged piece
 ])
 def test_ssd_kernel_matches_plain(cuda, dtype, B, S, nh, hd, ng, ds, chunk):
     """|kernel - plain| <= tol * max|plain| (5e-5 f32, 2e-2 bf16): the
@@ -807,9 +809,12 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 # the SSD scan's backward: chip_smoke.py phase 2's shapes (mamba2-2.7b's
-# training widths, zamba2-7b's, a ragged padded cut with two groups)
+# training widths, zamba2-7b's, a ragged padded cut with two groups), and
+# head dims past one 64-row piece (128: two pieces; 80: a full and a
+# ragged piece, with a ragged cut)
 SSD_BWD_SHAPES = [(2, 512, 80, 64, 1, 128, 256), (1, 512, 112, 64, 1, 64, 256),
-                  (2, 96, 4, 16, 2, 24, 32)]
+                  (2, 96, 4, 16, 2, 24, 32), (1, 256, 4, 128, 1, 128, 128),
+                  (2, 160, 6, 80, 2, 64, 32)]
 
 
 @pytest.mark.parametrize("with_state", [True, False])

@@ -8,8 +8,15 @@ distributed as tests/test_kernels.py ``_ssd_inputs`` draws them.
 Tolerances: float32 within 5e-5 abs and rel, the JAX suite's own for its
 Pallas kernel; bfloat16 inputs compared in float32 within 2e-2 of the
 largest |reference| (both sides round their outputs to bfloat16 once,
-after float32 math)."""
+after float32 math).
+
+The forward wrapper runs here with its CUDA check and the extension
+replaced by stand-ins, which shows what it passes the kernel in both
+dtypes (float32 scratch sized by the extension, the dtype flag) and that
+a call counts one launch."""
 from __future__ import annotations
+
+import types
 
 import numpy as np
 import pytest
@@ -20,7 +27,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.ssd_scan import ssd_scan as pallas_ssd_scan  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models.ssm import ssd_decode_step  # noqa: E402
 
@@ -159,3 +167,61 @@ def test_s_not_a_multiple_of_chunk_raises_in_both_packages():
         tref.ssd_scan(*map(_t, args), chunk=32)
     with pytest.raises(ValueError, match="not a multiple of chunk"):
         ops.ssd_scan(*map(_t, args), chunk=32)
+
+
+class _Extension:
+    """Records the calls a wrapper makes; scratch of 11 floats."""
+
+    def __init__(self):
+        self.calls = []
+
+    def ssd_scan_work_floats(self, *args):
+        self.calls.append(("ssd_scan_work_floats", args))
+        return 11
+
+    def __getattr__(self, name):
+        def record(*args):
+            self.calls.append((name, args))
+            return 0
+        return record
+
+
+def test_forward_wrapper_passes_scratch_in_both_dtypes_and_counts_one_launch(
+        monkeypatch):
+    """float32 and bfloat16 alike: the scratch is asked of the extension for
+    the call's shapes, allocated as float32 and passed beside fresh outputs
+    with the dtype's flag; one call is one counted launch; S that chunk
+    does not divide and ds past MAX_STATE are refused before any launch."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a wrapper reached the kernel build")
+    monkeypatch.setattr(build, "load_kernels", refuse)
+    monkeypatch.setattr(build, "extension", refuse)
+    ext = _Extension()
+    monkeypatch.setattr(ssd, "extension", lambda: ext)
+    monkeypatch.setattr(ssd, "check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    B, S, nh, hd, ng, ds = 2, 96, 4, 16, 2, 24
+    base = list(map(_t, _ssd_inputs(8, B, S, nh, hd, ng, ds)))
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [a if i in (2, 5) else a.to(dtype) for i, a in enumerate(base)]
+        before = ops.launch_counts()["ssd_scan"]
+        y, state = ssd.ssd_scan(*args, chunk=32)
+        (asked, sizes), (name, call) = ext.calls[-2:]
+        assert asked == "ssd_scan_work_floats" and name == "ssd_scan"
+        bf16 = dtype == torch.bfloat16
+        assert sizes == (B, S, nh, hd, ng, ds)
+        assert ops.launch_counts()["ssd_scan"] == before + 1
+        assert call[:6] == tuple(t.data_ptr() for t in args)
+        assert call[6:8] == (y.data_ptr(), state.data_ptr())
+        assert call[8] not in {t.data_ptr() for t in (*args, y, state)}
+        assert call[9:] == (B, S, nh, hd, ng, ds, bf16, 0)
+        assert y.shape == args[0].shape and y.dtype == dtype
+        assert state.shape == (B, nh, hd, ds) and state.dtype == dtype
+    n = len(ext.calls)
+    with pytest.raises(ValueError, match="not a multiple of chunk"):
+        ssd.ssd_scan(*base, chunk=40)
+    wide = list(map(_t, _ssd_inputs(9, 1, 8, 2, 8, 1, ssd.MAX_STATE + 8)))
+    with pytest.raises(ValueError, match="out of the kernel's range"):
+        ssd.ssd_scan(*wide, chunk=8)
+    assert len(ext.calls) == n

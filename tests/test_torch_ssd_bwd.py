@@ -233,8 +233,10 @@ def test_plain_backward_refuses_a_chunk_that_does_not_divide_s():
 class _Extension:
     def __init__(self):
         self.calls = []
+        self.work_asked = []
 
     def ssd_scan_bwd_work_floats(self, *args):
+        self.work_asked.append(args)
         return 7
 
     def __getattr__(self, name):
@@ -262,8 +264,10 @@ def no_card(monkeypatch):
 
 def test_backward_wrapper_passes_a_null_state_and_counts_one_launch(no_card):
     """One call is one counted launch; no dstate is a null pointer (no
-    zeros made); the gradients are fresh tensors shaped as the inputs;
-    float32 only, and ds past the shared memory's reach is refused."""
+    zeros made); the gradients are fresh tensors shaped as the inputs; the
+    scratch is sized by the extension from the call's shapes and passed
+    beside them; float32 only, and ds past the shared memory's reach is
+    refused."""
     ext = no_card
     B, S, nh, hd, ng, ds = 2, 96, 4, 16, 2, 24
     args, dy, dstate = _inputs(5, B, S, nh, hd, ng, ds)
@@ -278,6 +282,8 @@ def test_backward_wrapper_passes_a_null_state_and_counts_one_launch(no_card):
                             0 if st is None else st.data_ptr())
         assert call[8:14] == tuple(g.data_ptr() for g in grads)
         assert call[15:21] == (B, S, nh, hd, ng, ds)
+        assert ext.work_asked[-1] == (B, S, nh, hd, ng, ds)
+        assert call[14] not in {t.data_ptr() for t in (*args, dy, *grads)}
         for g, a in zip(grads, args):
             assert g.shape == a.shape and g.dtype == a.dtype
     with pytest.raises(TypeError, match="float32"):

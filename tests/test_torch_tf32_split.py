@@ -65,24 +65,47 @@ def split(x: torch.Tensor):
     return hi, tf32(x - hi)
 
 
-def mm3(a: torch.Tensor, b: torch.Tensor, *, single: bool = False):
+def _toward_zero(v: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32 rounded toward zero."""
+    r = v.to(torch.float32)
+    return torch.where(r.double().abs() > v.abs(),
+                       torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def mm3(a: torch.Tensor, b: torch.Tensor, *, single: bool = False,
+        step_sum: bool = False, truncate: bool = False):
     """a @ b (float32, ..., m, k) x (..., k, n) as the kernels take it: for
     each k8 step in order, lo_a.hi_b, then hi_a.lo_b, then hi_a.hi_b added
-    to one float32 accumulator (``single``: hi_a.hi_b alone, one TF32
-    product). k is zero-padded to a multiple of 8."""
+    to one float32 accumulator, as ``mma.cuh``'s ``mma_tf32x3`` does
+    (``single``: hi_a.hi_b alone, one TF32 product). ``step_sum``: each
+    step's three products go into an accumulator of their own, started at
+    zero, which one float32 addition rounded to nearest then adds into the
+    running sum (``ssd_f32.cuh``'s ``mma_tf32x3_rn``). ``truncate``: each
+    m16n8k8 adds its 8 exact products to its accumulator and rounds the
+    sum toward zero, as the tensor cores round; how they align the
+    addends before that is not modelled. k is zero-padded to a multiple
+    of 8."""
     k = a.shape[-1]
     pad = -k % 8
     if pad:
         a = torch.nn.functional.pad(a, (0, pad))
         b = torch.nn.functional.pad(b, (0, 0, 0, pad))
     (ah, al), (bh, bl) = split(a), split(b)
+
+    def mma(c, x, y):
+        if truncate:
+            return _toward_zero(c.double() + x.double() @ y.double())
+        return c + x @ y
+
     acc = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32)
     for k0 in range(0, a.shape[-1], 8):
         s = slice(k0, k0 + 8)
+        t = torch.zeros_like(acc) if step_sum else acc
         if not single:
-            acc = acc + al[..., s] @ bh[..., s, :]
-            acc = acc + ah[..., s] @ bl[..., s, :]
-        acc = acc + ah[..., s] @ bh[..., s, :]
+            t = mma(t, al[..., s], bh[..., s, :])
+            t = mma(t, ah[..., s], bl[..., s, :])
+        t = mma(t, ah[..., s], bh[..., s, :])
+        acc = acc + t if step_sum else t
     return acc
 
 
