@@ -383,7 +383,8 @@ Phases, each raising on failure (any failure exits nonzero):
     pick; n = 1's first 16 outputs against the detector on the CPU
     within 1e-3; no child left.
 
-18. Training, float32 (``training_phase``): 18a full-width qwen3-0.6b
+18. Training (``training_phase``), float32 in 18a-18e, bfloat16 in 18f
+    and 18g: 18a full-width qwen3-0.6b
     (random weights from seed 0), one forward and backward at batch 1,
     seq 64 on the card and on this machine's CPU: loss within 1e-5
     relative, global grad norm within 1e-4, every attention's forward and
@@ -399,12 +400,23 @@ Phases, each raising on failure (any failure exits nonzero):
     against the CPU (first gradients within 1e-4 of max|CPU leaf|, each
     parameter leaf's difference within 3e-2 of its own move, L2 over the
     leaf); 18d ``make_train_step`` accepts float32 mamba2 and zamba and
-    refuses bfloat16 parameters; 18e ``launch.train`` over full-width
+    refuses them in bfloat16, naming ``ssd_scan_bwd``, and accepts
+    bfloat16 qwen3, gemma3, deepseek, whisper and internvl2 (reduced);
+    18e ``launch.train`` over full-width
     mamba2-2.7b in float32, 10 steps at batch 2, seq 512, lr 1e-3: a
     finite, falling loss, 64 ``ssd_scan`` and 64 ``ssd_scan_bwd``
     launches a step, step ms, tokens/s, the model's share of the f32
-    peak and the peak memory. Phase 2 holds the three
-    backward kernels against their plain versions at qwen3's training
+    peak and the peak memory; 18f full-width qwen3-0.6b in bfloat16
+    (``Model.init(seed=0, dtype=torch.bfloat16)``) through
+    ``train.loop.train``, 20 steps at batch 8, seq 512, lr 1e-3, warmup
+    10: a finite, falling loss, 28 forward and 28 backward flash launches
+    a step and as many ``rmsnorm_bwd`` as ``rmsnorm`` launches, step ms
+    beside 18b's, tokens/s, the model's share of the bf16 peak (989
+    TFLOP/s) and the peak memory; 18g reduced deepseek, gemma3, whisper
+    and internvl2 in bfloat16 as 18c, card against CPU: first gradients
+    within 5e-2 of max|CPU leaf|, the 3 steps' losses within 1e-3
+    relative, the parameters' drift printed, not held. Phase 2 holds the
+    three backward kernels against their plain versions at qwen3's training
     batch (B 8, S 512), gemma's local window (S 1300, window 1024),
     MLA's K 192 / Kv 128, whisper's encoder (S 1500, not causal) and a
     ragged S 40 with softcap 5, and ``rmsnorm_bwd`` at (4096, 1024) and
@@ -413,7 +425,13 @@ Phases, each raising on failure (any failure exits nonzero):
     bit for bit with its lse pointer set and null, the pair's dx and
     dscale bit for bit those of each tensor's own call; timed beside
     their bounds, plain versions and sdpa / ``F.rms_norm`` backward
-    through autograd (``F.rms_norm``'s also replayed from a graph); and
+    through autograd (``F.rms_norm``'s also replayed from a graph); the
+    bfloat16 bodies of ``flash_attention_bwd`` and ``rmsnorm_bwd`` at the
+    same shapes (the bf16 forward's out bit for bit with its lse pointer
+    set and null, its lse within 5e-5; the gradients within 2e-2 of
+    max|plain|, bit for bit from run to run, the pair's bit for bit each
+    tensor's own call), timed likewise beside their bf16 bounds and the
+    library's bf16 backward (with the bf16 forward with its lse); and
     ``ssd_scan_bwd`` at mamba2-2.7b's training widths (B 2, S 512, nh
     80, hd 64, ds 128), zamba2-7b's (nh 112, ds 64) and a ragged S 96
     (ng 2, hd 16, ds 24, chunk 32, its last 64-position cut padded), each
@@ -447,8 +465,9 @@ Phases, each raising on failure (any failure exits nonzero):
 
 Then a JSON line with each kernel's launches (from the phase of the path
 it serves, and by phase, phase 13's three parts and phases 14's, 15's,
-16's and 19c among them), error and times (eleven kernels: the eight TPU
-kernels' and the three backward kernels, from phases 18b and 18e), the card's
+16's, 18f's and 19c among them), error and times (eleven kernels: the
+eight TPU kernels' and the three backward kernels, from phases 18b and
+18e; the bf16 bodies' under "bf16" in their rows), the card's
 ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 {...}}``.
 
@@ -458,6 +477,7 @@ exits nonzero before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import multiprocessing
 import os
@@ -985,12 +1005,16 @@ SSD_KERNELS_PER_CALL = 3
 SSD_BWD_KERNELS_PER_CALL = 5
 
 
+FOOTPRINT_CALLS = 3     # calls a profiler window of ssd_call_footprint
+
+
 def ssd_call_footprint(call) -> tuple[list, int]:
     """What one ``ssd_scan`` (or ``ssd_scan_bwd``) call does on the card,
-    read in this run: the CUDA kernels it launches (name, count), from
-    ``torch.profiler``, and the scratch it allocates beyond its outputs,
-    the peak of ``memory_allocated`` during the call less what stays after
-    it."""
+    read in this run: the CUDA kernels it launches (name, launches a call:
+    its count over FOOTPRINT_CALLS calls in one profiler window, rounded),
+    from ``torch.profiler``, and the scratch it allocates beyond its
+    outputs, the peak of ``memory_allocated`` during the call less what
+    stays after it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -998,12 +1022,16 @@ def ssd_call_footprint(call) -> tuple[list, int]:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        # the profiler can miss the first kernel of its window: one of
-        # PyTorch's own goes first and is not counted
+        # the profiler can miss the first kernel of its window (one of
+        # PyTorch's own goes first and is not counted; a call's first
+        # kernel was missed behind it too): a kernel missed once still
+        # rounds to its launches a call
         torch.cuda._sleep(1000)
-        call()
+        for _ in range(FOOTPRINT_CALLS):
+            call()
         torch.cuda.synchronize()
-    kernels = [(e.key, e.count) for e in prof.key_averages()
+    kernels = [(e.key, round(e.count / FOOTPRINT_CALLS))
+               for e in prof.key_averages()
                if getattr(e, "device_type", None) == DeviceType.CUDA
                and "spin_kernel" not in e.key]
     torch.cuda.reset_peak_memory_stats()
@@ -2127,14 +2155,18 @@ RMS_BWD_MAIN = (4096, 1024)
 RMS_BWD_PAIR = ((4096 * 16, 128), (4096 * 8, 128))
 
 
-def check_bwd(got, want, what: str) -> float:
-    """|got - want| <= tol + tol * max|want| (a gradient's scale is its
-    tensor's, so the relative part is against the largest element)."""
+def check_bwd(got, want, what: str, dtype_name: str = "float32") -> float:
+    """float32: |got - want| <= tol + tol * max|want| with tol BWD_TOL (a
+    gradient's scale is its tensor's, so the relative part is against
+    the largest element); bfloat16: |got - want| <= TOL * max|want| (the
+    outputs' bf16 rounding, every sum float32)."""
     g, w = got.float(), want.float()
     if not bool(torch.isfinite(g).all()):
         fail(f"{what}: kernel output is not finite")
     err = float((g - w).abs().max())
-    bound = BWD_TOL + BWD_TOL * float(w.abs().max())
+    scale = float(w.abs().max())
+    bound = (BWD_TOL + BWD_TOL * scale if dtype_name == "float32"
+             else TOL[dtype_name] * scale)
     if err > bound:
         fail(f"{what}: max abs error {err:.3e} over {bound:.3e}")
     return err
@@ -2173,7 +2205,7 @@ def sdpa_forward(q, k, v, causal, window, softcap):
         call()
     except RuntimeError as e:
         return None, f"sdpa refused: {str(e).splitlines()[0][:120]}"
-    return call, "sdpa forward (f32)"
+    return call, f"sdpa forward ({str(q.dtype).split('.')[1]})"
 
 
 def sdpa_backward(q, k, v, dout, causal, window, softcap):
@@ -2217,28 +2249,42 @@ def rms_norm_backward(xs, scales, grads):
     return call, stream
 
 
-def backward_checks(gen) -> dict:
+def backward_checks(gen, dtype=None) -> dict:
     """The two backward kernels against their plain versions on the card,
-    float32: ``flash_attention_bwd`` at FLASH_BWD (with the forward's lse;
+    in ``dtype`` (float32 by default; bfloat16 takes the bf16 bodies):
+    ``flash_attention_bwd`` at FLASH_BWD (with the forward's lse;
     the forward's out bit for bit with its lse pointer set and null) and
     ``rmsnorm_bwd`` at RMS_BWD_MAIN and the RMS_BWD_PAIR pair (one
-    call; each tensor's dx and dscale bit for bit its own call's). Each
+    call; each tensor's dx and dscale bit for bit its own call's), at
+    ``check_bwd``'s tolerance. Each
     timed launched one by one (card ms) and replayed from a CUDA graph
     (device ms), beside its bound, its plain version and the library's
     backward through autograd (for the norm also from a graph, captured
-    on its forward's stream). The float32 forward with its lse
+    on its forward's stream). The forward with its lse
     (what training runs) is timed at each FLASH_BWD shape too, as device
-    ms beside its bound and sdpa's float32 forward. Returns the line's
+    ms beside its bound and sdpa's forward. Returns the line's
     rows, the forward's under "flash_attention_train_forward"."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
 
     dev = torch.device("cuda")
-    f32 = torch.float32
+    dtype = dtype or torch.float32
+    dn = str(dtype).split(".")[1]
+    isz = dtype.itemsize
+    tag = "f32" if dn == "float32" else "bf16"
 
     def randn(*shape):
-        return torch.randn(*shape, generator=gen, device=dev, dtype=f32)
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    def bounds(flops, nbytes):
+        """(bound_ms, bound_by, the CUDA cores' bound or None): float32
+        runs its products as split TF32, bfloat16 on the tensor cores at
+        the bf16 peak"""
+        if dn == "float32":
+            return f32_split_bound(flops, nbytes)
+        return (*bound_ms(flops, nbytes, dn), None)
 
     rows, forward = {}, {}
     for name, B, S, H_, Hkv, K_, Kv, causal, window, cap in FLASH_BWD:
@@ -2253,32 +2299,32 @@ def backward_checks(gen) -> dict:
                  "set")
         ro, rl = ref.flash_attention_lse(q, k, v, **kw)
         what = f"flash_attention_bwd {name}"
-        fwd_err = check_close(out, ro, "float32", f"{what} forward")
-        check_bwd(lse, rl, f"{what} lse")
+        fwd_err = check_close(out, ro, dn, f"{what} {tag} forward")
+        check_bwd(lse, rl, f"{what} {tag} lse")
         got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
         torch.cuda.synchronize()
         want = ref.flash_attention_bwd(q, k, v, ro, rl, dout, **kw)
-        err = max(check_bwd(g, w, f"{what} {n}")
+        err = max(check_bwd(g, w, f"{what} {tag} {n}", dn)
                   for g, w, n in zip(got, want, ("dq", "dk", "dv")))
         again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            fail(f"{what}: two calls gave other bits")
+            fail(f"{what} {tag}: two calls gave other bits")
         pairs = B * H_ * int(ref.attention_mask(S, S, causal=causal,
                                                 window=window,
                                                 device=dev).sum())
-        nbytes = 4 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
-                      + 2 * out.numel() + lse.numel())
-        bound, by, cores = f32_split_bound(2 * pairs * (3 * K_ + 2 * Kv),
-                                           nbytes)
+        nbytes = (isz * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                         + 2 * out.numel()) + 4 * lse.numel())
+        bound, by, cores = bounds(2 * pairs * (3 * K_ + 2 * Kv), nbytes)
         del want, again, ro, rl
 
         # the forward with its lse: q, k, v read, out and lse written
-        f_bound, f_by, f_cores = f32_split_bound(
+        f_bound, f_by, f_cores = bounds(
             2 * pairs * (K_ + Kv),
-            4 * (q.numel() + k.numel() + v.numel() + out.numel()
-                 + lse.numel()))
+            isz * (q.numel() + k.numel() + v.numel() + out.numel())
+            + 4 * lse.numel())
         lib_f, lib_f_note = sdpa_forward(q, k, v, **kw)
-        forward[f"train_{name}"] = {
+        fkey = f"train_{name}" if dn == "float32" else f"train_bf16_{name}"
+        forward[fkey] = {
             "max_abs_err": fwd_err,
             "ms": time_graph_ms(lambda: fa.flash_attention(
                 q, k, v, return_lse=True, **kw), reps=20),
@@ -2288,11 +2334,11 @@ def backward_checks(gen) -> dict:
                 lib_f, reps=20),
             "library": lib_f_note,
             "shape": f"B={B} S={S} H={H_} Hkv={Hkv} K={K_} Kv={Kv} "
-                     f"causal={causal} window={window} softcap={cap} f32 "
+                     f"causal={causal} window={window} softcap={cap} {tag} "
                      "with its lse (training's forward); ms and library_ms "
                      "device time (replayed from a CUDA graph)"}
-        print(f"flash_attention train forward {name}: "
-              f"{forward[f'train_{name}']}", flush=True)
+        print(f"flash_attention train forward {name} {tag}: "
+              f"{forward[fkey]}", flush=True)
 
         def kernel():
             return fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
@@ -2308,18 +2354,24 @@ def backward_checks(gen) -> dict:
                "library_ms": None if lib is None else time_ms(lib, reps=10),
                "library": lib_note,
                "shape": f"B={B} S={S} H={H_} Hkv={Hkv} K={K_} Kv={Kv} "
-                        f"causal={causal} window={window} softcap={cap} f32"}
+                        f"causal={causal} window={window} softcap={cap} "
+                        f"{tag}"}
         rows[name] = row
-        print(f"{what}: {row}", flush=True)
+        print(f"{what} {tag}: {row}", flush=True)
         del q, k, v, dout, out, lse, got, served
         torch.cuda.empty_cache()
     flash = dict(rows.pop("qwen3_train"))
     flash["shapes"] = rows
-    flash["shape"] += ("; ms and library_ms launched one by one (CUDA "
-                       "events), graph_ms replayed from a CUDA graph; bound "
-                       "2 * visible pairs * (3K + 2Kv) operations at the "
-                       "split-TF32 rate (3 x operations at 494.7 TFLOP/s), "
-                       "bound_cuda_cores_ms at 67 TFLOP/s f32")
+    flash["shape"] += (
+        "; ms and library_ms launched one by one (CUDA events), graph_ms "
+        "replayed from a CUDA graph; bound 2 * visible pairs * (3K + 2Kv) "
+        "operations at the split-TF32 rate (3 x operations at 494.7 "
+        "TFLOP/s), bound_cuda_cores_ms at 67 TFLOP/s f32"
+        if dn == "float32" else
+        "; ms and library_ms launched one by one (CUDA events), graph_ms "
+        "replayed from a CUDA graph; bound the larger of 2 * visible pairs "
+        "* (3K + 2Kv) operations at 989 TFLOP/s and the bytes (q, k, v, "
+        "out, dout, lse read, dq, dk, dv written) at 3.35 TB/s")
 
     def rms_case(shapes):
         xs = [randn(r, D) for r, D in shapes]
@@ -2332,18 +2384,17 @@ def backward_checks(gen) -> dict:
     dx, ds = rn.rmsnorm_bwd(x, sc, g, RMS_EPS)
     torch.cuda.synchronize()
     rx, rs = ref.rmsnorm_bwd(x, sc, g, RMS_EPS)
-    err = max(check_bwd(dx, rx, "rmsnorm_bwd dx"),
-              check_bwd(ds, rs, "rmsnorm_bwd dscale"))
+    err = max(check_bwd(dx, rx, f"rmsnorm_bwd {tag} dx", dn),
+              check_bwd(ds, rs, f"rmsnorm_bwd {tag} dscale", dn))
     again = rn.rmsnorm_bwd(x, sc, g, RMS_EPS)
     if not (torch.equal(dx, again[0]) and torch.equal(ds, again[1])):
-        fail("rmsnorm_bwd: two calls gave other bits")
+        fail(f"rmsnorm_bwd {tag}: two calls gave other bits")
 
     def kernel():
         return rn.rmsnorm_bwd(x, sc, g, RMS_EPS)
     library, lib_stream = rms_norm_backward([x], [sc], [g])
     rows_, D = RMS_BWD_MAIN
-    bound, by = bound_ms(6 * rows_ * D, 4 * (3 * rows_ * D + 2 * D),
-                         "float32")
+    bound, by = bound_ms(6 * rows_ * D, isz * (3 * rows_ * D + 2 * D), dn)
     results["rmsnorm_bwd"] = {
         "max_abs_err": err, "ms": time_ms(kernel, reps=20),
         "graph_ms": time_graph_ms(kernel, reps=20),
@@ -2353,8 +2404,8 @@ def backward_checks(gen) -> dict:
         "library_ms": time_ms(library, reps=20),
         "library_graph_ms": time_graph_ms(library, reps=20,
                                           stream=lib_stream),
-        "shape": f"x=({rows_}, {D}) f32, scale ({D},): qwen3-0.6b's block "
-                 "norm over a 4096-token batch; library is "
+        "shape": f"x=({rows_}, {D}) {tag}, scale ({D},) {tag}: "
+                 "qwen3-0.6b's block norm over a 4096-token batch; library is "
                  "torch.nn.functional.rms_norm's backward (autograd, "
                  "forward excluded); graph_ms and library_graph_ms "
                  "replayed from a CUDA graph"}
@@ -2367,32 +2418,36 @@ def backward_checks(gen) -> dict:
                                  ((dk, dsk), (xs[1], ss[1], gs[1]), "k")):
         want = ref.rmsnorm_bwd(x_, s_, g_, RMS_EPS)
         solo = rn.rmsnorm_bwd(x_, s_, g_, RMS_EPS)
-        err = max(err, check_bwd(got[0], want[0], f"rmsnorm_bwd pair d{n}"),
-                  check_bwd(got[1], want[1], f"rmsnorm_bwd pair ds{n}"))
+        err = max(err,
+                  check_bwd(got[0], want[0], f"rmsnorm_bwd {tag} pair d{n}",
+                            dn),
+                  check_bwd(got[1], want[1],
+                            f"rmsnorm_bwd {tag} pair ds{n}", dn))
         if not torch.equal(got[0], solo[0]):
-            fail(f"rmsnorm_bwd pair: {n}'s dx differs from its own launch")
-        if not torch.equal(got[1], solo[1]):
-            fail(f"rmsnorm_bwd pair: {n}'s dscale differs from its own "
+            fail(f"rmsnorm_bwd {tag} pair: {n}'s dx differs from its own "
                  "launch")
+        if not torch.equal(got[1], solo[1]):
+            fail(f"rmsnorm_bwd {tag} pair: {n}'s dscale differs from its "
+                 "own launch")
     n_el = sum(r * D_ for r, D_ in RMS_BWD_PAIR)
 
     def pair():
         return rn.rmsnorm_pair_bwd(xs[0], ss[0], gs[0], xs[1], ss[1], gs[1],
                                    RMS_EPS)
     library, lib_stream = rms_norm_backward(xs, ss, gs)
-    bound, by = bound_ms(6 * n_el, 4 * (3 * n_el + 4 * 128), "float32")
+    bound, by = bound_ms(6 * n_el, isz * (3 * n_el + 4 * 128), dn)
     results["rmsnorm_bwd"]["pair"] = {
         "max_abs_err": err, "ms": time_ms(pair, reps=20),
         "graph_ms": time_graph_ms(pair, reps=20), "bound_ms": bound,
         "bound_by": by, "library_ms": time_ms(library, reps=20),
         "library_graph_ms": time_graph_ms(library, reps=20,
                                           stream=lib_stream),
-        "shape": f"q {RMS_BWD_PAIR[0]} and k {RMS_BWD_PAIR[1]} f32, one "
+        "shape": f"q {RMS_BWD_PAIR[0]} and k {RMS_BWD_PAIR[1]} {tag}, one "
                  "call (qwen3-0.6b's q/k norms over a 4096-token batch); "
                  "the library backward once for each tensor"}
     results["flash_attention_bwd"] = flash
     results["flash_attention_train_forward"] = forward
-    print(f"rmsnorm_bwd: {results['rmsnorm_bwd']}", flush=True)
+    print(f"rmsnorm_bwd {tag}: {results['rmsnorm_bwd']}", flush=True)
     return results
 
 
@@ -2805,6 +2860,16 @@ def kernel_phase():
     results["flash_attention"]["family_shapes"].update(
         backward.pop("flash_attention_train_forward"))
     results.update(backward)
+    # the bf16 bodies at the same shapes (bf16 training), under "bf16" in
+    # their kernels' rows
+    t_bf16 = time.perf_counter()
+    backward = backward_checks(gen, torch.bfloat16)
+    results["flash_attention"]["family_shapes"].update(
+        backward.pop("flash_attention_train_forward"))
+    for name, row in backward.items():
+        results[name]["bf16"] = row
+    print(f"phase 2 bf16 backward bodies: "
+          f"{time.perf_counter() - t_bf16:.1f} s", flush=True)
     ssd_backward = ssd_bwd_checks(gen)
     results["ssd_scan"]["train_forward_f32"] = ssd_backward.pop(
         "ssd_scan_train_forward")
@@ -6285,6 +6350,22 @@ TRAIN_FLOPS_F32 = 67e12      # H100 SXM f32 outside the tensor cores
 TRAIN_REDUCED = ("deepseek-v2-lite-16b-reduced", "gemma3-27b-reduced",
                  "whisper-large-v3-reduced", "mamba2-2.7b-reduced",
                  "zamba2-7b-reduced")
+# 18f: full-width qwen3-0.6b in bfloat16 through train.loop.train, 18b's
+# batch, steps and schedule
+BF16_TRAIN = dict(steps=20, batch=8, seq=512, lr=1e-3, warmup=10)
+# 18g: the attention families in bfloat16, card against CPU: each first
+# gradient leaf within BF16_GRAD_TOL of max|CPU leaf|, the 3 steps' losses
+# within BF16_LOSS_TOL relative (bfloat16 rounds at other places on the
+# two; tests/test_torch_train_bf16.py holds the port's CPU path to JAX's
+# at the same bounds)
+BF16_REDUCED = ("deepseek-v2-lite-16b-reduced", "gemma3-27b-reduced",
+                "whisper-large-v3-reduced", "internvl2-26b-reduced")
+BF16_GRAD_TOL = 5e-2
+BF16_LOSS_TOL = 1e-3
+# 18d: what make_train_step must accept on the card in bfloat16
+BF16_FAMILIES = ("qwen3-0.6b-reduced", "gemma3-27b-reduced",
+                 "deepseek-v2-lite-16b-reduced", "whisper-large-v3-reduced",
+                 "internvl2-26b-reduced")
 # 18e: full-width mamba2-2.7b through launch.train, float32
 SSM_TRAIN_ARGS = ["--arch", "mamba2-2.7b", "--steps", "10", "--batch", "2",
                   "--seq", "512", "--lr", "1e-3"]
@@ -6306,10 +6387,14 @@ TRAIN_DRIFT_TOL = 3e-2
 def _train_batch(cfg, seed: int, B: int, S: int) -> dict:
     from repro_torch.data.pipeline import LmTokenStream
     batch = LmTokenStream(cfg.vocab_size, S, B, seed).batch(0)
+    rng = np.random.default_rng(seed)
     if cfg.arch_type == "audio":
-        rng = np.random.default_rng(seed)
         batch["audio_frames"] = rng.standard_normal(
             (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.n_vision_tokens:
+        batch["vision_embeds"] = rng.standard_normal(
+            (B, cfg.n_vision_tokens, cfg.vision_embed_dim)).astype(
+                np.float32)
     return batch
 
 
@@ -6336,8 +6421,11 @@ def training_phase(card: str) -> dict:
     encoder-decoder, and mamba2-2.7b and zamba2-7b through the SSD
     scan's backward kernel).
     18d: ``make_train_step`` on the card accepts float32 mamba2 and zamba
-    and refuses bfloat16 parameters. 18e: ``ssm_training``. Returns 18b's
-    report, with 18e's under "ssm"."""
+    and refuses them in bfloat16, naming ``ssd_scan_bwd``, and accepts
+    BF16_FAMILIES in bfloat16. 18e: ``ssm_training``. 18f:
+    ``bf16_training``. 18g: ``train_reduced_check`` of each BF16_REDUCED
+    model in bfloat16. Returns 18b's report, with 18e's under "ssm" and
+    18f's under "bf16"."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch
@@ -6398,33 +6486,112 @@ def training_phase(card: str) -> dict:
     for name in TRAIN_REDUCED:
         train_reduced_check(name, card)
 
-    # 18d: float32 ssm and zamba models train on the card; bfloat16
-    # parameters are refused, naming what is missing
+    # 18d: float32 ssm and zamba models train on the card; bfloat16 ones
+    # are refused, naming the float32-only scan backward; the attention
+    # families train in bfloat16
     for name in ("mamba2-2.7b-reduced", "zamba2-7b-reduced"):
         m = Model(get_config(name))
         make_train_step(m, TrainConfig(), m.init(seed=0, dtype=torch.float32))
         print(f"18d {name} float32: make_train_step accepts it", flush=True)
-    m = Model(get_config("qwen3-0.6b-reduced"))
-    try:
-        make_train_step(m, TrainConfig(), m.init(seed=0,
-                                                 dtype=torch.bfloat16))
-    except NotImplementedError as e:
-        if "bfloat16" not in str(e):
-            fail(f"18d qwen3-0.6b-reduced: the refusal does not name "
-                 f"bfloat16: {e}")
-        print(f"18d qwen3-0.6b-reduced bfloat16: refused: {e}", flush=True)
-    else:
-        fail("18d qwen3-0.6b-reduced bfloat16: make_train_step did not "
-             "refuse")
+        try:
+            make_train_step(m, TrainConfig(),
+                            m.init(seed=0, dtype=torch.bfloat16))
+        except NotImplementedError as e:
+            if "ssd_scan_bwd" not in str(e):
+                fail(f"18d {name}: the bfloat16 refusal does not name "
+                     f"ssd_scan_bwd: {e}")
+            print(f"18d {name} bfloat16: refused: {e}", flush=True)
+        else:
+            fail(f"18d {name} bfloat16: make_train_step did not refuse")
+    for name in BF16_FAMILIES:
+        m = Model(get_config(name))
+        make_train_step(m, TrainConfig(),
+                        m.init(seed=0, dtype=torch.bfloat16))
+        print(f"18d {name} bfloat16: make_train_step accepts it", flush=True)
     del m
     torch.cuda.empty_cache()
     ssm = ssm_training(card)
+    torch.cuda.empty_cache()
+    bf16 = bf16_training(card, step_s * 1e3)
+    t_g = time.perf_counter()
+    for name in BF16_REDUCED:
+        train_reduced_check(name, card, torch.bfloat16)
+    print(f"18g: {time.perf_counter() - t_g:.1f} s [card: {card}]",
+          flush=True)
     print(f"18 training: {time.perf_counter() - t_phase:.1f} s "
           f"[card: {card}]", flush=True)
     return {"launches": launches, "step_ms": step_s * 1e3,
             "tokens_s": tokens / step_s, "model_share": share,
             "peak_bytes": report["peak_bytes"], "losses": losses,
-            "ssm": ssm}
+            "ssm": ssm, "bf16": bf16}
+
+
+def bf16_training(card: str, f32_step_ms: float) -> dict:
+    """18f: full-width qwen3-0.6b in bfloat16 (``Model.init(seed=0,
+    dtype=torch.bfloat16)``, random weights) through ``train.loop.train``
+    at BF16_TRAIN (``LmTokenStream`` batches, AdamW with float32 moments,
+    warmup 10): a finite loss whose last value is below its first, 28
+    forward and 28 backward flash launches a step and as many
+    ``rmsnorm_bwd`` as ``rmsnorm`` launches; step ms (median of steps
+    5-20, each step's wall ending in a read of its loss) beside 18b's
+    float32 step, tokens/s, the model share 6·N·tokens / step / 989
+    TFLOP/s and the peak ``memory_allocated``. Returns its report."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import LmTokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import TrainConfig, train
+    from repro_torch.train.optimizer import AdamWConfig
+
+    t0 = time.perf_counter()
+    gc.collect()
+    before = torch.cuda.memory_allocated()   # what earlier phases left
+    a = BF16_TRAIN
+    cfg = get_config("qwen3-0.6b")
+    model = Model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    tcfg = TrainConfig(opt=AdamWConfig(lr=a["lr"], warmup_steps=a["warmup"],
+                                       total_steps=a["steps"]))
+    stream = LmTokenStream(cfg.vocab_size, seq_len=a["seq"],
+                           batch_size=a["batch"])
+    walls, mark = [], [0.0]
+
+    def logger(step, metrics):
+        now = time.perf_counter()
+        walls.append(now - mark[0])
+        mark[0] = now
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    mark[0] = time.perf_counter()
+    params, _, hist = train(model, tcfg, stream.batches(), a["steps"],
+                            params=params, log_every=1, logger=logger)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    if params["embed"]["table"].dtype != torch.bfloat16:
+        fail("18f: the parameters left bfloat16")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"18f: losses {losses} are not finite or do not fall")
+    check_train_launches(launches, cfg.n_layers, a["steps"], "18f")
+    step_s = float(np.median(walls[4:]))
+    tokens = a["batch"] * a["seq"]
+    share = 6 * cfg.param_count() * tokens / step_s / PEAK_FLOPS["bfloat16"]
+    print(f"18f train.loop.train qwen3-0.6b bf16 full width "
+          f"({cfg.param_count():,} params), {a}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} ({losses}); step_ms median(steps 5-"
+          f"{a['steps']})={step_s * 1e3:.2f} (first {walls[0] * 1e3:.1f}; "
+          f"18b's float32 step {f32_step_ms:.2f}); tokens/s="
+          f"{tokens / step_s:.1f}; model share 6*N*tokens/step/989 TFLOP/s="
+          f"{share:.4f}; peak memory_allocated={peak:,} B ({before:,} B "
+          f"allocated before the model was built); launches "
+          f"{launches}; {time.perf_counter() - t0:.1f} s [card: {card}]",
+          flush=True)
+    del params, model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_s * 1e3,
+            "tokens_s": tokens / step_s, "model_share": share,
+            "peak_bytes": peak, "bytes_before": before, "losses": losses}
 
 
 def ssm_training(card: str) -> dict:
@@ -6469,15 +6636,20 @@ def ssm_training(card: str) -> dict:
             "peak_bytes": report["peak_bytes"], "losses": losses}
 
 
-def train_reduced_check(name: str, card: str) -> None:
-    """18c for one reduced config: the first batch's gradients and then 3
-    steps of ``train`` at TRAIN_REDUCED_OPT on the card and on the CPU
-    from the same weights (seed 0): every gradient leaf within 1e-4 of
-    its max|CPU leaf|, and every parameter leaf's difference within
-    TRAIN_DRIFT_TOL of the leaf's own move (L2 norms over the leaf).
-    Prints beside them the first gradients' sign disagreements and the
-    largest |g| among them, and the largest |difference| against the
-    leaf's largest move and against max|leaf|."""
+def train_reduced_check(name: str, card: str, dtype=None) -> None:
+    """18c (float32, the default ``dtype``) or 18g (bfloat16) for one
+    reduced config: the first batch's gradients and then 3 steps of
+    ``train`` at TRAIN_REDUCED_OPT on the card and on the CPU from the
+    same weights (seed 0, in ``dtype``). float32: every gradient leaf
+    within 1e-4 of its max|CPU leaf|, and every parameter leaf's
+    difference within TRAIN_DRIFT_TOL of the leaf's own move (L2 norms
+    over the leaf). bfloat16: every gradient leaf within BF16_GRAD_TOL of
+    its max|CPU leaf| and each step's loss within BF16_LOSS_TOL relative;
+    the parameters' drift is printed, not held (bfloat16's rounding of
+    each update moves a leaf by a share of its own step). Prints beside
+    them the first gradients' sign disagreements and the largest |g|
+    among them, and the largest |difference| against the leaf's largest
+    move and against max|leaf|."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.model import Model
@@ -6485,11 +6657,14 @@ def train_reduced_check(name: str, card: str) -> None:
     from repro_torch.train.optimizer import (AdamWConfig, map_tree,
                                              unique_leaves)
 
+    dtype = dtype or torch.float32
+    f32 = dtype == torch.float32
+    what = "18c" if f32 else "18g"
     tcfg = TrainConfig(opt=AdamWConfig(**TRAIN_REDUCED_OPT))
     rcfg = get_config(name)
     if rcfg.is_moe and not rcfg.router_aux_loss_coef:
         rcfg = dataclasses.replace(rcfg, router_aux_loss_coef=0.003)
-    init = Model(rcfg, device="cpu").init(seed=0)
+    init = Model(rcfg, device="cpu").init(seed=0, dtype=dtype)
     out = {}
     for dev in ("cuda", "cpu"):
         m = Model(rcfg, device=dev)
@@ -6498,9 +6673,9 @@ def train_reduced_check(name: str, card: str) -> None:
         _, g1 = _grads(m, p, _train_batch(rcfg, 0, 4, 64))
         batches = (_train_batch(rcfg, i, 4, 64) for i in range(3))
         p, _, hist = train(m, tcfg, batches, 3, params=p, log_every=1)
-        out[dev] = ([t.detach().cpu() for t in unique_leaves(p)],
-                    [g.cpu() for g in g1], [h["loss"] for h in hist],
-                    ops.launch_counts())
+        out[dev] = ([t.detach().cpu().float() for t in unique_leaves(p)],
+                    [g.cpu().float() for g in g1],
+                    [h["loss"] for h in hist], ops.launch_counts())
     (p_gpu, g_gpu, l_gpu, n_gpu), (p_cpu, g_cpu, l_cpu, _) = \
         out["cuda"], out["cpu"]
 
@@ -6513,31 +6688,39 @@ def train_reduced_check(name: str, card: str) -> None:
     n_flip = sum(int(f.sum()) for f, _ in flips)
     flip_g = max([ratio(b[f].abs().max(), b.abs().max())
                   for f, b in flips if f.any()], default=0.0)
-    moves = [b - z for b, z in zip(p_cpu, unique_leaves(init))]
+    moves = [b - z.float() for b, z in zip(p_cpu, unique_leaves(init))]
     drift = max(ratio((a - b).norm(), mv.norm())
                 for a, b, mv in zip(p_gpu, p_cpu, moves))
     peak = max(ratio((a - b).abs().max(), mv.abs().max())
                for a, b, mv in zip(p_gpu, p_cpu, moves))
     of_leaf = max(ratio((a - b).abs().max(), b.abs().max())
                   for a, b in zip(p_gpu, p_cpu))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
     kinds = Model(rcfg, device="cpu").kinds
     n_ssm = kinds.count("ssm")
     # zamba's attention runs at each application of its shared block
     n_attn = (rcfg.n_layers * 2 + rcfg.n_encoder_layers
               if rcfg.arch_type == "audio" else len(kinds) - n_ssm)
-    print(f"18c {name}: 3 steps at {TRAIN_REDUCED_OPT} card vs CPU, "
-          f"losses {l_gpu} / {l_cpu}; first gradients: worst |diff| / "
+    print(f"{what} {name} {str(dtype).split('.')[1]}: 3 steps at "
+          f"{TRAIN_REDUCED_OPT} card vs CPU, losses {l_gpu} / {l_cpu} "
+          f"(worst rel {loss_rel:.3e}); first gradients: worst |diff| / "
           f"max|CPU leaf| {g_rel:.3e}, {n_flip} elements of another "
           f"sign, the largest of them {flip_g:.3e} of max|g|; "
-          f"parameters: worst ||diff|| / ||move|| {drift:.3e} (bound "
-          f"{TRAIN_DRIFT_TOL}), max|diff| / max|move| {peak:.3e}, "
+          f"parameters: worst ||diff|| / ||move|| {drift:.3e}"
+          f"{f' (bound {TRAIN_DRIFT_TOL})' if f32 else ' (not held)'}, "
+          f"max|diff| / max|move| {peak:.3e}, "
           f"max|diff| / max|CPU leaf| {of_leaf:.3e}; card launches "
           f"{n_gpu} [card: {card}]", flush=True)
-    if not g_rel <= 1e-4 or not drift <= TRAIN_DRIFT_TOL:
+    if f32 and (not g_rel <= 1e-4 or not drift <= TRAIN_DRIFT_TOL):
         fail(f"18c {name}: gradients differ by {g_rel:.3e} of max|leaf| "
              f"(> 1e-4?) or parameters by {drift:.3e} of their move "
              f"(> {TRAIN_DRIFT_TOL}?)")
-    check_train_launches(n_gpu, n_attn, 4, f"18c {name}", n_ssm)
+    if not f32 and (not g_rel <= BF16_GRAD_TOL
+                    or not loss_rel <= BF16_LOSS_TOL):
+        fail(f"18g {name}: gradients differ by {g_rel:.3e} of max|leaf| "
+             f"(> {BF16_GRAD_TOL}?) or losses by {loss_rel:.3e} relative "
+             f"(> {BF16_LOSS_TOL}?)")
+    check_train_launches(n_gpu, n_attn, 4, f"{what} {name}", n_ssm)
 
 
 def check_train_launches(got: dict, attn_layers: int, steps: int,
@@ -7011,6 +7194,7 @@ def main() -> int:
                 "phase16a_whisper-large-v3_paged": audio["paged"],
                 "phase18b": training["launches"],
                 "phase18e": training["ssm"]["launches"],
+                "phase18f": training["bf16"]["launches"],
                 "phase19c": cost["launches"]}
     main_phase = {"flash_attention": "phase4", "decode_attention": "phase4",
                   "paged_decode_attention": "phase6",

@@ -8,6 +8,7 @@
     python3 scripts/profile_port.py --flash [--src DIR] [--out FILE]
     python3 scripts/profile_port.py --norm-bwd [--src DIR] [--out FILE]
     python3 scripts/profile_port.py --ssd [--src DIR] [--out FILE]
+    python3 scripts/profile_port.py --train-bf16 [--src DIR] [--out FILE]
 
 Serves the ``chip_smoke.py`` phase-4 request set (qwen3-0.6b at full
 width, 28 layers, bf16, random weights from seed 0; n_slots=4,
@@ -94,6 +95,17 @@ the float32 work does not touch; then one phase-18e training step
 (full-width mamba2-2.7b, float32, B 2 x S 512, after two steps) split by
 CUDA kernel, with the scan kernels' share. Read against ``--src`` of a
 parent in turns (parent, change, change, parent).
+
+``--train-bf16`` reads one training step of ``chip_smoke.py`` phase 18f
+(full-width qwen3-0.6b in bfloat16, B 8 x S 512, random weights from
+seed 0) beside the same step in float32 (phase 18b's), in turns (float32,
+bfloat16, bfloat16, float32): the wall of 5 steps after two (host clock,
+each ending in a read of its loss; the median), then one step split by
+CUDA kernel (``torch.profiler``): its device ms, grouped as GEMMs
+(cuBLAS, its ``nvjet`` kernels included, and CUTLASS), the port's
+attention kernels (forward and backward), its norm kernels and the rest
+(PyTorch's elementwise, reduce and copy kernels, the optimizer's among
+them), and the 25 longest kernels.
 
 ``--src`` imports the port from another checkout's ``src`` (for example
 a parent commit unpacked beside this one), so two versions can be read
@@ -613,9 +625,12 @@ def train_step_split(norm_names) -> dict:
     return out
 
 
-def _step_by_kernel(arch: str, B: int, S: int) -> dict:
-    """One float32 training step of ``arch`` at full width (seed 0, B x S
-    tokens, after two steps): device ms by CUDA kernel name."""
+def _step_by_kernel(arch: str, B: int, S: int, dtype=torch.float32,
+                    walls: list | None = None) -> dict:
+    """One training step of ``arch`` at full width in ``dtype`` (seed 0,
+    B x S tokens, after two steps): device ms by CUDA kernel name. With
+    ``walls``, 5 steps' walls (host clock, each ending in a read of its
+    loss) are appended to it first."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import LmTokenStream
     from repro_torch.models.model import Model
@@ -624,13 +639,18 @@ def _step_by_kernel(arch: str, B: int, S: int) -> dict:
 
     cfg = get_config(arch)
     model = Model(cfg)
-    params = model.init(seed=0)
+    params = model.init(seed=0, dtype=dtype)
     step = make_train_step(model, TrainConfig(), params)
     opt = init_opt_state(params)
     stream = LmTokenStream(cfg.vocab_size, seq_len=S, batch_size=B)
     for i in range(2):
         params, opt, _ = step(params, opt, stream.batch(i))
     torch.cuda.synchronize()
+    for i in range(5 if walls is not None else 0):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, stream.batch(2 + i))
+        float(m["loss"])
+        walls.append(time.perf_counter() - t0)
 
     def one():
         nonlocal params, opt
@@ -639,6 +659,51 @@ def _step_by_kernel(arch: str, B: int, S: int) -> dict:
     del params, opt, step
     torch.cuda.empty_cache()
     return by
+
+
+# --train-bf16's kernel groups, by the CUDA kernel's name
+TRAIN_GROUPS = (("gemm", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
+                ("attention", ("flash_attention", "dq_kernel", "dkdv_kernel",
+                               "dq_bf16_kernel", "dkdv_bf16_kernel",
+                               "delta_kernel")),
+                ("norms", ("rmsnorm_kernel", "rows_kernel", "wide_kernel",
+                           "dscale_kernel")))
+
+
+def profile_train_bf16() -> dict:
+    """Phase 18f's bf16 training step beside phase 18b's f32 one, in
+    turns (float32, bfloat16, bfloat16, float32): each turn's 5 walls
+    (median) and one step's device ms by kernel group and the 25 longest
+    kernels."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    a = cs.BF16_TRAIN
+    turns = []
+    for dtype in (torch.float32, torch.bfloat16, torch.bfloat16,
+                  torch.float32):
+        walls = []
+        by = _step_by_kernel("qwen3-0.6b", a["batch"], a["seq"], dtype,
+                             walls)
+        groups = dict.fromkeys([g for g, _ in TRAIN_GROUPS] + ["other"],
+                               0.0)
+        for name, ms in by.items():
+            group = next((g for g, keys in TRAIN_GROUPS
+                          if any(k in name for k in keys)), "other")
+            groups[group] += ms
+        turn = {"dtype": str(dtype).split(".")[1],
+                "step_ms_median": float(np.median(walls)) * 1e3,
+                "step_ms": [w * 1e3 for w in walls],
+                "device_ms": sum(by.values()), "by_group_ms": groups,
+                "kernels": len(by),
+                "top_kernel_ms": dict(sorted(by.items(),
+                                             key=lambda kv: -kv[1])[:25])}
+        print("train step", {k: v for k, v in turn.items()
+                             if k != "top_kernel_ms"}, flush=True)
+        turns.append(turn)
+    return {"train_step": {
+        "shape": f"qwen3-0.6b, B {a['batch']} x S {a['seq']}, seed 0, "
+                 "5 steps after two (walls), then one step by kernel",
+        "turns": turns}}
 
 
 # the float32 scan's calls read by --ssd: phase 18e's (mamba2-2.7b's
@@ -780,6 +845,7 @@ def main() -> int:
     ap.add_argument("--flash", action="store_true")
     ap.add_argument("--norm-bwd", action="store_true")
     ap.add_argument("--ssd", action="store_true")
+    ap.add_argument("--train-bf16", action="store_true")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -819,6 +885,10 @@ def main() -> int:
     if args.ssd:
         return _report({"src": args.src, "card": card, **profile_ssd()},
                        args.out or ROOT / "build" / "profile_ssd.json")
+    if args.train_bf16:
+        return _report({"src": args.src, "card": card,
+                        **profile_train_bf16()},
+                       args.out or ROOT / "build" / "profile_train.json")
     cfg = get_config("qwen3-0.6b")
     model = Model(cfg)
     params = model.init(seed=0, dtype=torch.bfloat16)

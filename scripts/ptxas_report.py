@@ -30,11 +30,15 @@ float32 flash bodies (the forward's split-TF32 body and the backward's
 dq and dk/dv passes) are listed one by one too; it exits 1 unless every
 one of them has tensor-core instructions and none that the registry's
 head shapes reach (K / Kv 64 / 64, 112 / 112, 128 / 128 and 192 / 128:
-tiles 64 / 64, 128 / 128 and 192 / 128) spills. The RMSNorm backward's
-16 instantiations (its rows pass at 7 layouts with 16-byte loads and one
-element at a time, the looping body past 8 vectors a lane, the dscale
-pass) are listed one by one; it exits 1 unless all 16 are there and none
-spills. The float32 SSD scan's and its backward's 8 (ssd_f32.cuh's
+tiles 64 / 64, 128 / 128 and 192 / 128) spills. The bfloat16 backward's
+dq and dk/dv passes (flash_attention_bwd_bf16.cu, 12 tile pairs each)
+are listed one by one the same way; it exits 1 unless all 24 are there,
+each has tensor-core instructions and none the registry reaches spills.
+The RMSNorm backward's 62 instantiations (its rows pass at 7 layouts
+with 16-byte loads and one element at a time for each of the 4 pairs of
+row and scale dtypes, the looping body for each pair, the dscale pass
+for each scale dtype) are listed one by one; it exits 1 unless all 62
+are there and none spills. The float32 SSD scan's and its backward's 8 (ssd_f32.cuh's
 chunk-state and pass kernels, one copy in each of ssd_scan.cu and
 ssd_scan_bwd.cu; the forward's output kernel; the backward's dx / ddt,
 dB / dC and sums kernels) are listed one by one; it exits 1 unless all 8
@@ -205,11 +209,30 @@ def main() -> int:
     print(f"flash f32: {len(f32)} instantiations, {len(f32) - len(f32_bare)} "
           f"with tensor-core instructions, {len(reached)} the registry "
           f"reaches of which {len(f32_spill)} spill")
+    # the bf16 backward's passes: every tile pair, on the tensor cores;
+    # those the registry's heads reach may not spill
+    bf16 = sorted((n for n in table if re.search(
+        r"dq_bf16_kernel<|dkdv_bf16_kernel<", names[n])),
+        key=lambda n: names[n])
+    bf16_bare = [n for n in bf16 if not ops.get(n, 0)]
+    bf16_reached = [n for n in bf16 if re.search(
+        r"<(64, 64|128, 128|192, 128)\b", names[n])]
+    bf16_spill = [n for n in bf16_reached if table[n][1] or table[n][2]]
+    for n in bf16:
+        regs, st, ld = table[n]
+        print(f"flash bwd bf16: regs={regs} spill_stores={st} "
+              f"spill_loads={ld} tensor_core_instructions={ops.get(n, 0)} "
+              f"registry={'yes' if n in bf16_reached else 'no'} {names[n]}")
+    print(f"flash bwd bf16: {len(bf16)} instantiations, "
+          f"{len(bf16) - len(bf16_bare)} with tensor-core instructions, "
+          f"{len(bf16_reached)} the registry reaches of which "
+          f"{len(bf16_spill)} spill")
     # the norm backward: 14 rows passes (7 layouts, 16-byte and one
-    # element), the looping body and the dscale pass; every width reaches
+    # element) and the looping body for each pair of row and scale
+    # dtypes, the dscale pass for each scale dtype; every width reaches
     # one, so none may spill
     nbwd = sorted((n for n in table if re.search(
-        r"::(rows_kernel<|wide_kernel\(|dscale_kernel\()", names[n])),
+        r"::(rows_kernel|wide_kernel|dscale_kernel)<", names[n])),
         key=lambda n: names[n])
     nbwd_spill = [n for n in nbwd if table[n][1] or table[n][2]]
     for n in nbwd:
@@ -239,7 +262,9 @@ def main() -> int:
                  or int8_spill or not norm or norm_spill or len(new) != 12
                  or new_spill or len(new8) != 8 or new8_spill or not f32
                  or f32_bare or len(reached) < 9 or f32_spill
-                 or len(nbwd) != 16 or nbwd_spill or len(ssd) != 8
+                 or len(bf16) != 24 or bf16_bare or len(bf16_reached) != 6
+                 or bf16_spill
+                 or len(nbwd) != 62 or nbwd_spill or len(ssd) != 8
                  or len(ssd_mma) != 5 or ssd_bare or ssd_spill) else 0
 
 

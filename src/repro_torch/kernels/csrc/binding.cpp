@@ -23,7 +23,8 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* dout, void* dq, void* dk, void* dv,
                                void* delta, int B, int Sq, int Skv, int H,
                                int Hkv, int K, int Kv, int causal, int window,
-                               float scale, float softcap, void* stream);
+                               float scale, float softcap, int is_bf16,
+                               void* stream);
 int rmsnorm_bwd_launch(const void* x0, const void* scale0, const void* g0,
                        void* dx0, long long rows0, long long row_stride0,
                        long long per0, int blocks0, const void* x1,
@@ -31,7 +32,8 @@ int rmsnorm_bwd_launch(const void* x0, const void* scale0, const void* g0,
                        long long rows1, long long row_stride1,
                        long long per1, int blocks1, int D, float eps,
                        int warps, int slots, int vec, void* partial,
-                       void* dscale, int segments, void* stream);
+                       void* dscale, int segments, int x_bf16, int scale_bf16,
+                       void* stream);
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* valid, void* out, void* work, int B,
                             int W, int H, int Hkv, int K, int split,
@@ -101,11 +103,12 @@ int flash_attention_bwd(std::uintptr_t q, std::uintptr_t k, std::uintptr_t v,
                         std::uintptr_t dk, std::uintptr_t dv,
                         std::uintptr_t delta, int B, int Sq, int Skv, int H,
                         int Hkv, int K, int Kv, bool causal, int window,
-                        float scale, float softcap, std::uintptr_t stream) {
+                        float scale, float softcap, bool is_bf16,
+                        std::uintptr_t stream) {
   return flash_attention_bwd_launch(
       ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), ptr(dout), ptr(dq),
       ptr(dk), ptr(dv), ptr(delta), B, Sq, Skv, H, Hkv, K, Kv,
-      causal ? 1 : 0, window, scale, softcap, ptr(stream));
+      causal ? 1 : 0, window, scale, softcap, is_bf16 ? 1 : 0, ptr(stream));
 }
 
 // rows1 = 0 and blocks1 = 0: one tensor; otherwise both in one call
@@ -116,12 +119,14 @@ int rmsnorm_bwd(std::uintptr_t x0, std::uintptr_t scale0, std::uintptr_t g0,
                 long long rows1, long long row_stride1, long long per1,
                 int blocks1, int D, float eps, int warps, int slots,
                 bool vec, std::uintptr_t partial, std::uintptr_t dscale,
-                int segments, std::uintptr_t stream) {
+                int segments, bool x_bf16, bool scale_bf16,
+                std::uintptr_t stream) {
   return rmsnorm_bwd_launch(ptr(x0), ptr(scale0), ptr(g0), ptr(dx0), rows0,
                             row_stride0, per0, blocks0, ptr(x1), ptr(scale1),
                             ptr(g1), ptr(dx1), rows1, row_stride1, per1,
                             blocks1, D, eps, warps, slots, vec ? 1 : 0,
                             ptr(partial), ptr(dscale), segments,
+                            x_bf16 ? 1 : 0, scale_bf16 ? 1 : 0,
                             ptr(stream));
 }
 

@@ -82,10 +82,11 @@
 // their tiles fit (all but Kv = 256 with K > 64, and K > 192), one block
 // an SM: two blocks at K = Kv = 64 (128 registers a thread) spilled.
 // Given an `lse` pointer (training: the backward in flash_attention_bwd.cu
-// reads it) it also writes each row's log-sum-exp (m + log2(max(l,
+// reads it) either body also writes each row's log-sum-exp (m + log2(max(l,
 // 1e-30))) * ln 2, (B, H, Sq) float32, after the row's output, which it
-// leaves bit for bit as it is with a null pointer (serving). The bf16
-// body takes no lse: no bf16 backward exists.
+// leaves bit for bit as it is with a null pointer (serving). m and l are
+// the row's state after the warp groups' merge, written from one lane of
+// the row's quad.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -458,12 +459,14 @@ __global__ void __launch_bounds__(GT * groups(KP, KV))
     flash_attention_tc_kernel(const bf16* __restrict__ q,
                               const bf16* __restrict__ k,
                               const bf16* __restrict__ v, bf16* __restrict__ out,
-                              int Sq, int Skv, int H, int Hkv, int K, int causal,
+                              float* __restrict__ lse, int Sq, int Skv, int H,
+                              int Hkv, int K, int causal,
                               int window, float scale, float softcap, int vec) {
   constexpr int NG = groups(KP, KV);
   constexpr int LDK = KP + PAD, LDV = KV + PAD;
   constexpr int KSTEPS = KP / 16;  // depth steps of Q.K^T
   constexpr int NO = KV / 8;       // n8 tiles of the output
+  constexpr float LN2 = 0.6931471805599453f;
   // Q's fragments stay in registers unless they and the output
   // accumulator together would crowd the 255 a thread may hold (Kv = 256,
   // or K > 128 with Kv = 128): then they are reloaded from shared memory
@@ -668,6 +671,7 @@ __global__ void __launch_bounds__(GT * groups(KP, KV))
       const float a0 = m_run[r] == -INFINITY ? 0.f : exp2f(m_run[r] - m);
       const float a1 = m1 == -INFINITY ? 0.f : exp2f(m1 - m);
       l_run[r] = l_run[r] * a0 + l1 * a1;
+      m_run[r] = m;
 #pragma unroll
       for (int n = 0; n < NO; ++n)
 #pragma unroll
@@ -687,14 +691,18 @@ __global__ void __launch_bounds__(GT * groups(KP, KV))
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8) =
           mma::pack_bf16(o[n][2 * r] / denom, o[n][2 * r + 1] / denom);
+    // the row's log-sum-exp (natural units) after its output, which it
+    // leaves as it is with a null pointer
+    if (lse != nullptr && tq == 0)
+      lse[(size_t(b) * H + h) * Sq + row] = (m_run[r] + log2f(denom)) * LN2;
   }
 }
 
 template <int KP, int KV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Skv, int H, int Hkv, int K, int causal,
-                   int window, float scale, float softcap, int vec,
-                   cudaStream_t stream) {
+                   float* lse, int B, int Sq, int Skv, int H, int Hkv, int K,
+                   int causal, int window, float scale, float softcap,
+                   int vec, cudaStream_t stream) {
   constexpr int NG = groups(KP, KV);
   constexpr size_t smem = smem_bytes(KP, KV, NG);
   cudaError_t err = cudaFuncSetAttribute(
@@ -704,44 +712,44 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_attention_tc_kernel<KP, KV><<<grid, GT * NG, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Skv, H, Hkv,
-      K, causal, window, scale, softcap, vec);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, Sq, Skv, H,
+      Hkv, K, causal, window, scale, softcap, vec);
   return cudaGetLastError();
 }
 
 template <int KP>
 cudaError_t launch_kv(int Kv, const void* q, const void* k, const void* v,
-                      void* out, int B, int Sq, int Skv, int H, int Hkv, int K,
-                      int causal, int window, float scale, float softcap,
-                      int vec, cudaStream_t stream) {
+                      void* out, float* lse, int B, int Sq, int Skv, int H,
+                      int Hkv, int K, int causal, int window, float scale,
+                      float softcap, int vec, cudaStream_t stream) {
   switch (Kv) {
-    case 16: return launch<KP, 16>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
-    case 32: return launch<KP, 32>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
-    case 64: return launch<KP, 64>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
-    case 112: return launch<KP, 112>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
-    case 128: return launch<KP, 128>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
-    case 256: return launch<KP, 256>(q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
+    case 16: return launch<KP, 16>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
+    case 32: return launch<KP, 32>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
+    case 64: return launch<KP, 64>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
+    case 112: return launch<KP, 112>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
+    case 128: return launch<KP, 128>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
+    case 256: return launch<KP, 256>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* out, int B, int Sq, int Skv, int H, int Hkv,
-                        int K, int Kv, int causal, int window, float scale,
-                        float softcap, cudaStream_t stream) {
+                        void* out, float* lse, int B, int Sq, int Skv, int H,
+                        int Hkv, int K, int Kv, int causal, int window,
+                        float scale, float softcap, cudaStream_t stream) {
   // whole 16-byte chunks by cp.async where every row starts on 16 bytes
   const int vec =
       K % 8 == 0 &&
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v)) & 15) == 0;
   if (K <= 64)
-    return launch_kv<64>(Kv, q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
+    return launch_kv<64>(Kv, q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
   if (K <= 128)
-    return launch_kv<128>(Kv, q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
+    return launch_kv<128>(Kv, q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
   if (K <= 192)
-    return launch_kv<192>(Kv, q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
+    return launch_kv<192>(Kv, q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
   if (K <= 256)
-    return launch_kv<256>(Kv, q, k, v, out, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
+    return launch_kv<256>(Kv, q, k, v, out, lse, B, Sq, Skv, H, Hkv, K, causal, window, scale, softcap, vec, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -751,8 +759,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
 // Plain C++ entry point for the binding; returns the cudaError_t of the
 // launch (0 on success). The caller has checked shapes, types and layout.
-// `lse` is null in serving; the float32 body writes it where given, and
-// the bf16 body refuses one.
+// `lse` is null in serving; either body writes it where given.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, void* lse, int B, int Sq, int Skv,
                            int H, int Hkv, int K, int Kv, int causal,
@@ -760,11 +767,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            int is_bf16, void* stream) {
   if (B == 0 || Sq == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (lse != nullptr) return cudaErrorInvalidValue;
-    return tc::launch_bf16(q, k, v, out, B, Sq, Skv, H, Hkv, K, Kv, causal,
-                           window, scale, softcap, s);
-  }
+  if (is_bf16)
+    return tc::launch_bf16(q, k, v, out, static_cast<float*>(lse), B, Sq,
+                           Skv, H, Hkv, K, Kv, causal, window, scale,
+                           softcap, s);
   return f32tc::launch_f32(q, k, v, out, static_cast<float*>(lse), B, Sq,
                            Skv, H, Hkv, K, Kv, causal, window, scale, softcap,
                            s);

@@ -1,4 +1,5 @@
-// The gradient of prefill attention for Hopper (sm_90a), float32.
+// The gradient of prefill attention for Hopper (sm_90a), float32; the
+// bfloat16 body is flash_attention_bwd_bf16.cu, behind the same entry point.
 //
 // Replaces no Pallas kernel: JAX trains through the custom VJP of its jnp
 // flash path, src/repro/kernels/flash_ref.py::_bwd_impl, and the port's
@@ -64,44 +65,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_bwd.cuh"
 #include "mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // query rows a tile
-constexpr int BK = 64;   // keys a tile
-constexpr int GT = 128;  // threads of a warp group: four warps
-constexpr int NT = 256;  // the delta and dk/dv passes' threads
-constexpr int MAX_SMEM = 232448;   // bytes of shared memory a block may use
 constexpr int LDP = BK + 4;        // the dk/dv pass's P / dS tile row
-constexpr float LOG2E = 1.4426950408889634f;
-
-// sum over the 32 lanes of a warp
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// delta[b, h, i] = sum_c dout[b, i, h, c] * out[b, i, h, c]: one warp a row
-__global__ void __launch_bounds__(NT)
-    delta_kernel(const float* __restrict__ out, const float* __restrict__ dout,
-                 float* __restrict__ delta, long long rows, int Sq, int H,
-                 int Kv) {
-  const long long r = (long long)blockIdx.x * (NT / 32) + threadIdx.x / 32;
-  if (r >= rows) return;
-  const int lane = threadIdx.x % 32;
-  const float* o = out + r * Kv;
-  const float* d = dout + r * Kv;
-  float acc = 0.f;
-  for (int c = lane; c < Kv; c += 32) acc = fmaf(o[c], d[c], acc);
-  acc = warp_sum(acc);
-  if (lane == 0) {
-    // r = (b * Sq + i) * H + h
-    const long long h = r % H, bi = r / H, i = bi % Sq, b = bi / Sq;
-    delta[(b * H + h) * Sq + i] = acc;
-  }
-}
 
 // Shared memory of the dq pass: Q and dO tiles, then each warp group's K
 // and V tiles; of the dk/dv pass: K, V, Q and dO tiles and the P / dS
@@ -124,58 +93,6 @@ constexpr int dq_groups(int KP, int KVP) {
 // 1024 reserved a block): registers are then held to 128 a thread
 constexpr int dkdv_min_blocks(int KP, int KVP) {
   return 2 * (dkdv_smem_bytes(KP, KVP) + 1024) <= 233472 ? 2 : 1;
-}
-
-__device__ __forceinline__ void group_sync(int grp) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "n"(GT) : "memory");
-}
-
-// p and ds in place of s and dp, on C fragments of 16 query rows (rows
-// row0 + gr, row0 + gr + 8) against NN n8 tiles of keys from key0:
-// p = exp2(x - lse2) where visible (0 elsewhere), x the scaled (capped)
-// score in log2 units as the forward computes it; ds = p (dp - delta)
-// (* (1 - t^2) under a cap t)
-template <int NN>
-__device__ __forceinline__ void p_and_ds(float (&s)[NN][4], float (&dp)[NN][4],
-                                         const float (&lse2)[2],
-                                         const float (&dl)[2], int row0,
-                                         int key0, int Sq, int Skv, int off,
-                                         int causal, int window, float scale,
-                                         float softcap, int gr, int tq) {
-  const float scale2 = scale * LOG2E;
-#pragma unroll
-  for (int n = 0; n < NN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = row0 + gr + (e >> 1) * 8;
-      const int qpos = row + off;
-      const int kp = key0 + n * 8 + 2 * tq + (e & 1);
-      const bool ok = row < Sq && kp < Skv && (!causal || kp <= qpos) &&
-                      (window <= 0 || kp > qpos - window);
-      float x, dcap = 1.f;
-      if (softcap > 0.f) {
-        const float t = tanhf(s[n][e] * scale / softcap);
-        x = t * softcap * LOG2E;
-        dcap = 1.f - t * t;
-      } else {
-        x = s[n][e] * scale2;
-      }
-      const float p = ok ? exp2f(x - lse2[e >> 1]) : 0.f;
-      s[n][e] = p;
-      dp[n][e] = p * (dp[n][e] - dl[e >> 1]) * dcap;
-    }
-}
-
-// the rows' lse (in log2 units) and delta
-__device__ __forceinline__ void row_stats(const float* lse, const float* delta,
-                                          size_t base, int row0, int Sq,
-                                          float (&lse2)[2], float (&dl)[2]) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + r * 8;
-    lse2[r] = row < Sq ? lse[base + row] * LOG2E : 0.f;
-    dl[r] = row < Sq ? delta[base + row] : 0.f;
-  }
 }
 
 // dq: KP, KVP the tiles' widths (K rounded up to 64, 128, 192 or 256, Kv
@@ -544,17 +461,36 @@ cudaError_t launch_kp(const Args& a) {
 
 }  // namespace
 
+// The bfloat16 body (flash_attention_bwd_bf16.cu), delta pass included.
+int flash_attention_bwd_bf16_launch(const void* q, const void* k,
+                                    const void* v, const void* out,
+                                    const float* lse, const void* dout,
+                                    void* dq, void* dk, void* dv,
+                                    float* delta, int B, int Sq, int Skv,
+                                    int H, int Hkv, int K, int Kv, int causal,
+                                    int window, float scale, float softcap,
+                                    cudaStream_t stream);
+
 // Plain C++ entry point for the binding; returns the cudaError_t of the
 // launches (0 on success). The caller has checked shapes, types, layout and
 // that the tiles fit in shared memory (kernels/flash_attention.py,
 // bwd_smem_bytes), and allocated the outputs and the delta workspace
-// (B, H, Sq).
+// (B, H, Sq). q, k, v, out, dout, dq, dk and dv are float32, or bfloat16
+// with is_bf16; lse and delta are float32.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* out, const void* lse,
                                const void* dout, void* dq, void* dk, void* dv,
                                void* delta, int B, int Sq, int Skv, int H,
                                int Hkv, int K, int Kv, int causal, int window,
-                               float scale, float softcap, void* stream) {
+                               float scale, float softcap, int is_bf16,
+                               void* stream) {
+  if (B == 0 || H == 0) return cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return flash_attention_bwd_bf16_launch(
+        q, k, v, out, static_cast<const float*>(lse), dout, dq, dk, dv,
+        static_cast<float*>(delta), B, Sq, Skv, H, Hkv, K, Kv, causal, window,
+        scale, softcap, st);
   // whole 16-byte chunks by cp.async where every staged row starts on 16
   // bytes
   const int vec =
@@ -568,15 +504,10 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                static_cast<const float*>(dout), static_cast<float*>(dq),
                static_cast<float*>(dk), static_cast<float*>(dv),
                static_cast<float*>(delta), B, Sq, Skv, H, Hkv, K, Kv, causal,
-               window, scale, softcap, vec,
-               static_cast<cudaStream_t>(stream)};
-  if (B == 0 || H == 0) return cudaSuccess;
+               window, scale, softcap, vec, st};
   if (Sq > 0) {
-    const long long rows = (long long)B * Sq * H;
-    const int per = NT / 32;
-    delta_kernel<<<unsigned((rows + per - 1) / per), NT, 0, a.stream>>>(
-        a.out, a.dout, a.delta, rows, Sq, H, Kv);
-    const cudaError_t err = cudaGetLastError();
+    const cudaError_t err =
+        launch_delta<float>(out, dout, a.delta, B, Sq, H, Kv, st);
     if (err != cudaSuccess) return err;
   }
   // with no query row dq is empty, and dk / dv come out 0 (no item runs)

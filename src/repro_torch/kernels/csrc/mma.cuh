@@ -1,5 +1,6 @@
 // Tensor-core building blocks shared by the bfloat16 bodies of
-// flash_attention.cu, ssd_scan.cu and mla_decode.cu and the float32 bodies
+// flash_attention.cu, flash_attention_bwd_bf16.cu, ssd_scan.cu and
+// mla_decode.cu and the float32 bodies
 // of flash_attention.cu, flash_attention_bwd.cu, ssd_scan.cu and
 // ssd_scan_bwd.cu (through ssd_f32.cuh) (sm_90a): asynchronous
 // 16-byte copies into shared memory (cp.async), ldmatrix loads of 8 x 8
@@ -223,6 +224,77 @@ __device__ __forceinline__ void rows_dot_tf32(float (&acc)[NN][4],
     for (int n = 0; n < NN; ++n) fb[n] = load_b_tf32(bt + n * 8 * ldb + kk);
     mma_tf32x3(acc, fa, fb);
   }
+}
+
+// acc[NN] = A . B^T over DEPTH (a multiple of 16) in bf16 for the 16 rows
+// of A at a (row-major, lda elements a row) and NN (even) n8 tiles of B's
+// rows at bt (ldb), both in shared memory, k16 steps in order: the bf16
+// flash forward's score product, so the bf16 backward's s is the
+// forward's bit for bit
+template <int NN, int DEPTH>
+__device__ __forceinline__ void rows_dot_bf16(float (&acc)[NN][4],
+                                              const __nv_bfloat16* a, int lda,
+                                              const __nv_bfloat16* bt,
+                                              int ldb) {
+  const int lane = threadIdx.x % 32;
+  const __nv_bfloat16* ar = a + (lane & 15) * lda + (lane >> 4) * 8;
+  const __nv_bfloat16* br =
+      bt + ((lane >> 4) * 8 + (lane & 7)) * ldb + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int n = 0; n < NN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DEPTH / 16; ++kk) {
+    uint32_t fa[4];
+    ldsm_x4(fa, ar + kk * 16);
+#pragma unroll
+    for (int np = 0; np < NN / 2; ++np) {
+      uint32_t fb[4];
+      ldsm_x4(fb, br + np * 16 * ldb + kk * 16);
+      mma_bf16(acc[2 * np], fa, fb[0], fb[1]);
+      mma_bf16(acc[2 * np + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+
+// acc[n] += a . B[k0 : k0 + 16, 8 n : 8 n + 8] for NN (even) n8 tiles of B
+// stored k-major (row k, column n; V in P.V, K in dS.K) at b = &B[k0][n0]
+// in shared memory: B's fragments by transposed ldmatrix
+template <int NN>
+__device__ __forceinline__ void mma_bf16_kmajor(float (&acc)[NN][4],
+                                                const uint32_t (&a)[4],
+                                                const __nv_bfloat16* b,
+                                                int ldb) {
+  const int lane = threadIdx.x % 32;
+  const __nv_bfloat16* p =
+      b + (((lane >> 3) & 1) * 8 + (lane & 7)) * ldb + (lane >> 4) * 8;
+#pragma unroll
+  for (int np = 0; np < NN / 2; ++np) {
+    uint32_t f[4];
+    ldsm_x4_t(f, p + np * 16);
+    mma_bf16(acc[2 * np], a, f[0], f[1]);
+    mma_bf16(acc[2 * np + 1], a, f[2], f[3]);
+  }
+}
+
+// the A fragment of one k16 step from two C fragments (its keys 0-7 and
+// 8-15), rounded to bf16: P or dS into P.V or dS.K
+__device__ __forceinline__ void c_to_a_bf16(const float (&c0)[4],
+                                            const float (&c1)[4],
+                                            uint32_t (&a)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// the A fragment (16 x 16) of the transpose of a tile stored k-major in
+// shared memory (tile[k][m]: P^T from P stored [query][key]) at p =
+// &tile[k0][m0], by transposed ldmatrix
+__device__ __forceinline__ void ldsm_at(uint32_t (&a)[4],
+                                        const __nv_bfloat16* p, int ld) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4_t(a, p + (((lane >> 4) & 1) * 8 + (lane & 7)) * ld +
+                   ((lane >> 3) & 1) * 8);
 }
 
 // ROWS x cols_pad float32 (cols_pad a multiple of 4) from global (row

@@ -22,21 +22,34 @@ MAX_HEAD_DIM = 256
 
 launches = LaunchCounter()
 bwd_launches = LaunchCounter()
-# the backward's tiles of 64 query rows and 64 keys in shared memory, as
-# float32 rows width + 4 floats apart, K's width rounded up to 64, 128, 192
-# or 256 and Kv's to 64, 128 or 256 (csrc/flash_attention_bwd.cu): the dq
-# pass holds Q, dO and at least one K and V tile, the dk/dv pass those and
-# one 64 x 64 tile of P, then dS, so it is the larger
+# the backward's tiles of 64 query rows and 64 keys in shared memory, K's
+# width rounded up to 64, 128, 192 or 256 and Kv's to 64, 128 or 256, rows
+# padded by 16 bytes (4 float32, csrc/flash_attention_bwd.cu; 8 bfloat16,
+# csrc/flash_attention_bwd_bf16.cu): the dq pass holds Q, dO and at least
+# one K and V tile, the dk/dv pass those and one 64 x 64 tile of P, then
+# dS, so it is the larger
 BWD_TILE = 64
 MAX_SMEM = 232448
 
 
-def bwd_smem_bytes(K: int, Kv: int) -> int:
-    """Shared memory a backward dk/dv block takes."""
+def bwd_smem_bytes(K: int, Kv: int, itemsize: int = 4) -> int:
+    """Shared memory a backward dk/dv block takes for elements of
+    ``itemsize`` bytes (4: float32, 2: bfloat16)."""
     KP = next(w for w in (64, 128, 192, 256) if K <= w)
     KVP = next(w for w in (64, 128, 256) if Kv <= w)
-    return 4 * (2 * BWD_TILE * (KP + 4 + KVP + 4)
-                + BWD_TILE * (BWD_TILE + 4))
+    pad = 16 // itemsize
+    return itemsize * (2 * BWD_TILE * (KP + pad + KVP + pad)
+                       + BWD_TILE * (BWD_TILE + pad))
+
+
+def check_bwd_fits(K: int, Kv: int, dtype: torch.dtype, what: str) -> None:
+    """Raise ValueError unless the backward's tiles at (K, Kv) in ``dtype``
+    fit in a block's shared memory."""
+    need = bwd_smem_bytes(K, Kv, dtype.itemsize)
+    if need > MAX_SMEM:
+        raise ValueError(f"{what}: K={K} with Kv={Kv} in {dtype} needs "
+                         f"{need} bytes of shared memory a block, more "
+                         f"than {MAX_SMEM}")
 
 
 def _check(name: str, t: torch.Tensor, like: torch.Tensor, dtypes,
@@ -74,14 +87,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, K); k: (B, Skv, Hkv, K); v: (B, Skv, Hkv, Kv), all
     contiguous CUDA tensors of one dtype (float32 or bfloat16) on one
     device. Returns (B, Sq, H, Kv) in that dtype. Any Sq and Skv: ragged
-    tails are masked in the kernel. With ``return_lse`` (float32 only: the
-    backward's input) also each row's log-sum-exp, (B, H, Sq) float32,
-    which the float32 body writes beside ``out`` without changing a bit
-    of it."""
+    tails are masked in the kernel. With ``return_lse`` (the backward's
+    input) also each row's log-sum-exp, (B, H, Sq) float32, which either
+    body writes beside ``out`` without changing a bit of it."""
     B, Sq, Skv, H, Hkv, K, Kv = _shapes(q, k, v, "flash_attention", DTYPES)
-    if return_lse and q.dtype != torch.float32:
-        raise TypeError(f"flash_attention: no {q.dtype} backward kernel "
-                        "(float32 only), so no log-sum-exp for it")
     out = torch.empty((B, Sq, H, Kv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -104,24 +113,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of ``flash_attention`` at (q, k, v), given its
     ``out`` and ``lse`` (``return_lse``) and the output's gradient
-    ``dout`` (B, Sq, H, Kv): float32 contiguous CUDA tensors, the masks as
-    the forward's. Three CUDA kernels a call (a row pass for ``delta``,
-    dq over KV tiles, dk and dv over query tiles with the G query heads of
-    a kv head summed in one block), counted as one launch."""
+    ``dout`` (B, Sq, H, Kv): contiguous CUDA tensors of q's dtype (float32
+    or bfloat16) but ``lse``, float32; the masks as the forward's. The
+    gradients come back in q's dtype, summed in float32 and rounded once.
+    Three CUDA kernels a call (a row pass for ``delta``, dq over KV tiles,
+    dk and dv over query tiles with the G query heads of a kv head summed
+    in one block), counted as one launch."""
     B, Sq, Skv, H, Hkv, K, Kv = _shapes(q, k, v, "flash_attention_bwd",
-                                        (torch.float32,))
-    for name, t, shape in (("out", out, (B, Sq, H, Kv)),
-                           ("dout", dout, (B, Sq, H, Kv)),
-                           ("lse", lse, (B, H, Sq))):
-        _check(f"flash_attention_bwd: {name}", t, q, (torch.float32,),
-               len(shape))
+                                        DTYPES)
+    if lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: lse on {lse.device}, q on "
+                         f"{q.device}")
+    for name, t, like, shape in (("out", out, q, (B, Sq, H, Kv)),
+                                 ("dout", dout, q, (B, Sq, H, Kv)),
+                                 ("lse", lse, lse, (B, H, Sq))):
+        _check(f"flash_attention_bwd: {name}", t, like,
+               (torch.float32,) if t is lse else DTYPES, len(shape))
         if tuple(t.shape) != shape:
             raise ValueError(f"flash_attention_bwd: {name} of shape "
                              f"{tuple(t.shape)}, expected {shape}")
-    if bwd_smem_bytes(K, Kv) > MAX_SMEM:
-        raise ValueError(f"flash_attention_bwd: K={K} with Kv={Kv} needs "
-                         f"{bwd_smem_bytes(K, Kv)} bytes of shared memory "
-                         f"a block, more than {MAX_SMEM}")
+    check_bwd_fits(K, Kv, q.dtype, "flash_attention_bwd")
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -132,6 +143,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(), B, Sq, Skv, H, Hkv, K, Kv,
             bool(causal), int(window), K ** -0.5, float(softcap),
+            q.dtype == torch.bfloat16,
             torch.cuda.current_stream(q.device).cuda_stream)
         check_launch(err, "flash_attention_bwd")
         bwd_launches.add()

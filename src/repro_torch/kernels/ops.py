@@ -10,9 +10,9 @@ Where autograd records (grad enabled and an input that requires grad),
 ``flash_attention``, ``rmsnorm``, ``rmsnorm_pair`` and ``ssd_scan`` run
 through a ``torch.autograd.Function`` whose forward keeps what the
 backward reads and whose backward is the gradient kernel on the card
-(``flash_attention_bwd``, ``rmsnorm_bwd``, ``ssd_scan_bwd``: float32) and
-its plain version on the CPU, so the CPU trains through the same wiring
-the card does. Without grad the serving calls are unchanged, bit for
+(``flash_attention_bwd`` and ``rmsnorm_bwd``: float32 and bfloat16;
+``ssd_scan_bwd``: float32) and its plain version on the CPU, so the CPU
+trains through the same wiring the card does. Without grad the serving calls are unchanged, bit for
 bit. On the card a bfloat16 ``ssd_scan`` refuses to run where autograd
 records rather than return an output with no gradient kernel behind it.
 """

@@ -1,7 +1,8 @@
 """RMSNorm on the card: the wrapper of ``csrc/rmsnorm.cu``, which replaces
 the Pallas TPU kernel ``repro/kernels/rmsnorm.py::rmsnorm``, and of
-``csrc/rmsnorm_bwd.cu``, its float32 gradient (JAX differentiates the
-plain ``repro.models.layers.rmsnorm_fwd``; no Pallas kernel).
+``csrc/rmsnorm_bwd.cu``, its gradient (JAX differentiates the plain
+``repro.models.layers.rmsnorm_fwd``; no Pallas kernel), for every dtype
+pair the forward takes.
 
 ``rmsnorm`` and ``rmsnorm_pair`` take CUDA tensors only and launch the
 kernel or raise; ``kernels.ops`` sends CPU tensors to the plain version
@@ -158,13 +159,14 @@ def rmsnorm_pair(x: torch.Tensor, x_scale: torch.Tensor, y: torch.Tensor,
     return outs
 
 
-def bwd_groups(D: int) -> tuple[int, int, int, int]:
-    """(W, N, R, U) of the backward's rows pass at width ``D`` (float32):
-    the forward's lane layout (W warps a row, N vectors a lane), R =
-    ``BWD_BLOCK_WARPS`` / W groups a block and U rows a group holds in
-    flight (4 / N at N <= 2, else 1). Rows past ``MAX_SLOTS`` vectors a
-    lane take the looping body: one 8-warp group, one row at a time."""
-    W, N = layout(D, 4)
+def bwd_groups(D: int, itemsize: int = 4) -> tuple[int, int, int, int]:
+    """(W, N, R, U) of the backward's rows pass at width ``D`` for rows of
+    ``itemsize``-byte elements: the forward's lane layout (W warps a row,
+    N vectors a lane), R = ``BWD_BLOCK_WARPS`` / W groups a block and U
+    rows a group holds in flight (4 / N at N <= 2, else 1). Rows past
+    ``MAX_SLOTS`` vectors a lane take the looping body: one 8-warp group,
+    one row at a time."""
+    W, N = layout(D, itemsize)
     return W, N, BWD_BLOCK_WARPS // W, 4 // N if N <= 2 else 1
 
 
@@ -172,9 +174,11 @@ def bwd_groups(D: int) -> tuple[int, int, int, int]:
 def bwd_partition(rows: int, D: int) -> tuple[int, int]:
     """(per, blocks): the backward's blocks of one tensor of ``rows`` rows
     of width ``D``. Block b owns rows [b·per, (b + 1)·per), walked R·U rows
-    at a time (``bwd_groups``); per is the fewest multiple of R·U that
-    needs at most ``BWD_MAX_BLOCKS`` blocks. A function of (rows, D)
-    alone, so a tensor's dscale has the same bits alone and in a pair."""
+    at a time (``bwd_groups``); per is the fewest multiple of the float32
+    layout's R·U that needs at most ``BWD_MAX_BLOCKS`` blocks (a bfloat16
+    block walks its own R·U, its last step maybe partial). A function of
+    (rows, D) alone, so a tensor's dscale has the same bits alone and in
+    a pair."""
     _, _, R, U = bwd_groups(D)
     step = R * U
     if rows == 0:
@@ -186,13 +190,10 @@ def bwd_partition(rows: int, D: int) -> tuple[int, int]:
 def _bwd_segment(name: str, x: torch.Tensor, scale: torch.Tensor,
                  g: torch.Tensor):
     """(x2, row_stride, scale, g2, dx) of one tensor of the backward: x
-    as ``rmsnorm`` takes it, float32 with a float32 scale, and its
-    output's gradient ``g`` of x's shape (made contiguous)."""
+    and its scale as ``rmsnorm`` takes them (float32 or bfloat16 each),
+    and its output's gradient ``g`` of x's shape and dtype (made
+    contiguous)."""
     x2, row_stride = _rows(name, x, scale)
-    if x.dtype != torch.float32 or scale.dtype != torch.float32:
-        raise TypeError(f"rmsnorm_bwd: {name} {x.dtype} with scale "
-                        f"{scale.dtype}; the backward kernel is float32 "
-                        "only")
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"rmsnorm_bwd: {name}'s gradient "
                          f"{tuple(g.shape)} {g.dtype} on {g.device}, "
@@ -204,14 +205,15 @@ def _bwd_segment(name: str, x: torch.Tensor, scale: torch.Tensor,
 
 def _bwd_launch(segments, eps: float) -> torch.Tensor:
     """One call of the backward (two launches: rows, then dscale) over one
-    or two segments of one width: writes each segment's dx and returns
-    the (n_segments, D) dscale rows the kernel writes whole (0 for a
-    segment without rows). The rows take 16-byte loads where every base
-    and row stride lies on 16 bytes and 4 divides D."""
-    D = segments[0][0].shape[1]
-    dev = segments[0][0].device
-    W, N, _, _ = bwd_groups(D)
-    args, blocks, addresses = [], 0, D * 4
+    or two segments of one width, dtype and scale dtype: writes each
+    segment's dx and returns the (n_segments, D) dscale rows, in the
+    scale's dtype, that the kernel writes whole (0 for a segment without
+    rows). The rows take 16-byte loads where every base and row stride
+    lies on 16 bytes and a vector's V elements divide D."""
+    x0, scale0 = segments[0][0], segments[0][2]
+    D, isz, dev = x0.shape[1], x0.element_size(), x0.device
+    W, N, _, _ = bwd_groups(D, isz)
+    args, blocks, addresses = [], 0, D * isz
     for x2, row_stride, scale, g2, dx in segments:
         rows = x2.shape[0]
         per, n = bwd_partition(rows, D)
@@ -220,17 +222,17 @@ def _bwd_launch(segments, eps: float) -> torch.Tensor:
         if rows:
             for q in ptrs:
                 addresses |= q
-            addresses |= row_stride * 4
+            addresses |= row_stride * isz
         args += (*ptrs, rows, row_stride, per, n)
         blocks += n
     args += (0,) * (16 - len(args))       # no second tensor: rows1 = 0
     partial = torch.empty((blocks, D), dtype=torch.float32, device=dev)
-    dscale = torch.empty((len(segments), D), dtype=torch.float32,
-                         device=dev)
+    dscale = torch.empty((len(segments), D), dtype=scale0.dtype, device=dev)
     vec = N <= MAX_SLOTS and addresses % VEC_BYTES == 0
     err = extension().rmsnorm_bwd(
         *args, D, float(eps), W, N, vec, partial.data_ptr(),
-        dscale.data_ptr(), len(segments),
+        dscale.data_ptr(), len(segments), x0.dtype == torch.bfloat16,
+        scale0.dtype == torch.bfloat16,
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "rmsnorm_bwd")
     bwd_launches.add()
@@ -240,10 +242,12 @@ def _bwd_launch(segments, eps: float) -> torch.Tensor:
 def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
                 eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
     """``(dx, dscale)`` of ``rmsnorm(x, scale, eps)`` given the output's
-    gradient ``g``: float32 CUDA tensors, x's rows as ``rmsnorm`` takes
-    them (a strided slice too). dx is contiguous, of x's shape; dscale
-    sums every row in a fixed order (per-block partial rows, then the
-    blocks in order; no atomics, the same bits every run)."""
+    gradient ``g`` (x's dtype): CUDA tensors, x and scale as ``rmsnorm``
+    takes them (a strided slice too; float32 or bfloat16 each). dx is
+    contiguous, of x's shape and dtype; dscale, in scale's dtype, sums
+    every row in float32 in a fixed order (per-block partial rows, then
+    the blocks in order; no atomics, the same bits every run), each
+    rounded once."""
     seg = _bwd_segment("x", x, scale, g)
     return seg[4], _bwd_launch([seg], eps)[0]
 
@@ -254,13 +258,18 @@ def rmsnorm_pair_bwd(x: torch.Tensor, x_scale: torch.Tensor,
                      eps: float = 1e-6) -> tuple:
     """The gradients of ``rmsnorm_pair`` in one call: ``((dx, dx_scale),
     (dy, dy_scale))`` given the gradients ``gx`` and ``gy`` of its two
-    outputs; x and y of one width, float32. Each tensor's dx and dscale
-    have the bits of its own ``rmsnorm_bwd``."""
+    outputs; x and y of one width, dtype and scale dtype, as the pair's
+    forward takes them. Each tensor's dx and dscale have the bits of its
+    own ``rmsnorm_bwd``."""
     sx = _bwd_segment("x", x, x_scale, gx)
     sy = _bwd_segment("y", y, y_scale, gy)
-    if y.device != x.device or sy[0].shape[1] != sx[0].shape[1]:
-        raise ValueError(f"rmsnorm_bwd: a pair needs one width and device; "
-                         f"got D={sx[0].shape[1]} on {x.device} and "
-                         f"D={sy[0].shape[1]} on {y.device}")
+    if (y.device != x.device
+            or (sy[0].shape[1], y.dtype, y_scale.dtype)
+            != (sx[0].shape[1], x.dtype, x_scale.dtype)):
+        raise ValueError(
+            f"rmsnorm_bwd: a pair needs one width, device, dtype and scale "
+            f"dtype; got D={sx[0].shape[1]} {x.dtype} scale "
+            f"{x_scale.dtype} on {x.device} and D={sy[0].shape[1]} "
+            f"{y.dtype} scale {y_scale.dtype} on {y.device}")
     dscale = _bwd_launch([sx, sy], eps)
     return (sx[4], dscale[0]), (sy[4], dscale[1])

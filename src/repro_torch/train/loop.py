@@ -6,8 +6,9 @@ The step runs on the model's device (``Model(cfg)`` is ``"cuda"`` unless
 told ``"cpu"``, and raises without a card). On the card every forward
 and backward of the path runs as a hand-written kernel (the SSD scan's
 through ``ssd_scan_bwd``, so the ssm and zamba families train there
-too), and float32 is the only dtype with backward kernels, so
-``make_train_step`` refuses bfloat16 parameters on the card. The CPU
+too). Attention's and RMSNorm's backward kernels take float32 and
+bfloat16, the SSD scan's float32 only, so ``make_train_step`` refuses
+bfloat16 parameters of the ssm and zamba families on the card. The CPU
 trains every family and dtype through the plain versions.
 """
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.models.model import Model
 from repro_torch.train.optimizer import (AdamWConfig, apply_update,
@@ -34,26 +36,37 @@ class TrainConfig:
 
 
 def check_card_training(model: Model, params=None) -> None:
-    """Refuse, naming the missing kernels, what the card cannot train:
-    bfloat16 parameters (``flash_attention_bwd``, ``rmsnorm_bwd`` and
-    ``ssd_scan_bwd`` exist in float32 only). Every family trains there in
-    float32, the ssm and zamba families through ``ssd_scan_bwd``, whose
-    state width (``ssd_scan.BWD_MAX_STATE``) every registry config fits;
-    a wider one is refused here, never inside a step."""
+    """Refuse, naming the missing kernel, what the card cannot train:
+    bfloat16 parameters of the ssm and zamba families (``ssd_scan_bwd``
+    is float32 only), a state wider than ``ssd_scan_bwd`` takes
+    (``ssd_scan.BWD_MAX_STATE``, which every registry config fits) and
+    attention heads whose backward tiles do not fit in shared memory
+    (``flash_attention.check_bwd_fits``; every registry config fits):
+    here, never inside a step. Every family trains there in float32,
+    and in bfloat16 all but ssm and zamba."""
     if model.device.type != "cuda":
         return
-    if model.fam in ("ssm", "zamba") and \
-            model.cfg.ssm_state > _ssd.BWD_MAX_STATE:
-        raise NotImplementedError(
-            f"{model.cfg.name}: no train step on the card for ssm_state="
-            f"{model.cfg.ssm_state}: ssd_scan_bwd takes ds up to "
-            f"{_ssd.BWD_MAX_STATE} (train it with device='cpu')")
+    cfg = model.cfg
     dtypes = {t.dtype for t in unique_leaves(params or {})}
-    if torch.bfloat16 in dtypes:
-        raise NotImplementedError(
-            f"{model.cfg.name}: no train step on the card for bfloat16 "
-            "parameters: flash_attention_bwd, rmsnorm_bwd and ssd_scan_bwd "
-            "exist in float32 only")
+    if model.fam in ("ssm", "zamba"):
+        if cfg.ssm_state > _ssd.BWD_MAX_STATE:
+            raise NotImplementedError(
+                f"{cfg.name}: no train step on the card for ssm_state="
+                f"{cfg.ssm_state}: ssd_scan_bwd takes ds up to "
+                f"{_ssd.BWD_MAX_STATE} (train it with device='cpu')")
+        if torch.bfloat16 in dtypes:
+            raise NotImplementedError(
+                f"{cfg.name}: no train step on the card for bfloat16 "
+                "parameters: ssd_scan_bwd is float32 only (train it in "
+                "float32, or with device='cpu')")
+    if cfg.n_heads:
+        K, Kv = ((cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+                  cfg.v_head_dim) if cfg.kv_lora_rank
+                 else (cfg.head_dim, cfg.head_dim))
+        # whisper's encoder and cross attention run in the frames' float32
+        audio = {torch.float32} if cfg.arch_type == "audio" else set()
+        for dtype in (dtypes or {torch.float32}) | audio:
+            _fa.check_bwd_fits(K, Kv, dtype, f"{cfg.name}: attention")
 
 
 def loss_and_grads(model: Model, params, batch, remat: bool = False):

@@ -13,8 +13,11 @@ flash_ref test plus K != Kv (MLA's shape), within 5e-5 abs + rel (that
 test's grad tolerance); the lse against ``_fwd_impl``'s. RMSNorm's
 gradients (``ops.rmsnorm``, ``ops.rmsnorm_pair`` and the plain
 ``ref.rmsnorm_bwd``) are held to ``jax.grad`` of JAX's ``rmsnorm_fwd``.
-Without grad the serving calls keep their bits. Inputs come from a
-seeded numpy generator.
+Each case runs in float32 and again in bfloat16 (inputs rounded to
+bfloat16 on both sides): there the lse within 1e-5 abs + rel, and out
+and every gradient within 2e-2 of max|JAX| (bfloat16's rounding of the
+outputs; the sums are float32 on both sides). Without grad the serving
+calls keep their bits. Inputs come from a seeded numpy generator.
 
 The kernel wrappers run here with their CUDA checks and the extension
 replaced by stand-ins, which shows what they pass the kernels and that
@@ -42,6 +45,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 
 TOL = 5e-5
+BF16_TOL = 2e-2     # of max|JAX|: bfloat16 outputs, float32 sums
 EPS = 1e-6
 CASES = [  # B, Sq, Skv, H, Hkv, K, Kv, causal, window, cap
     (2, 64, 64, 4, 2, 16, 16, True, 0, 0.0),
@@ -75,52 +79,85 @@ def _close(got, want, tol=TOL):
                                rtol=tol)
 
 
-@pytest.fixture(scope="module", params=CASES, ids=lambda c: "-".join(
-    map(str, c)))
+def _f32(x):
+    """A tensor or array (bfloat16 too) as a float32 numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _held(got, want, dtype, tol=TOL):
+    """float32: within ``tol`` abs + rel; bfloat16: every element within
+    ``BF16_TOL`` of max|want|."""
+    if dtype == "float32":
+        _close(got, want, tol)
+        return
+    g, w = _f32(got), _f32(want)
+    assert g.shape == w.shape
+    np.testing.assert_array_less(np.abs(g - w).max(),
+                                 BF16_TOL * max(np.abs(w).max(), 1e-30))
+
+
+def _as(a: np.ndarray, dtype: str) -> torch.Tensor:
+    t = torch.from_numpy(a)
+    return t if dtype == "float32" else t.bfloat16()
+
+
+def _jnp(a: np.ndarray, dtype: str):
+    return jnp.asarray(a, jnp.float32 if dtype == "float32" else jnp.bfloat16)
+
+
+@pytest.fixture(scope="module", params=[(c, dt) for dt in ("float32",
+                                                           "bfloat16")
+                                        for c in CASES],
+                ids=lambda p: "-".join(map(str, p[0])) + f"-{p[1]}")
 def case(request):
-    """The case's inputs, JAX's out, lse and grads of sum(sin(out))."""
-    B, Sq, Skv, H, Hkv, K, Kv, causal, window, cap = request.param
+    """The case's inputs (numpy float32, rounded to bfloat16 on both sides
+    in the bfloat16 cases), JAX's out, lse and grads of sum(sin(out))."""
+    (B, Sq, Skv, H, Hkv, K, Kv, causal, window, cap), dtype = request.param
     q, k, v = _inputs(0, B, Sq, Skv, H, Hkv, K, Kv)
+    jq, jk, jv = (_jnp(a, dtype) for a in (q, k, v))
     kw = dict(causal=causal, window=window, softcap=cap)
 
     def f(q, k, v):
         return flash_ref.flash_attention(q, k, v, block_q=16, block_k=16,
                                          **kw)
-    out, lse = flash_ref._fwd_impl(jnp.asarray(q), jnp.asarray(k),
-                                   jnp.asarray(v), block_q=16, block_k=16,
-                                   **kw)
+    out, lse = flash_ref._fwd_impl(jq, jk, jv, block_q=16, block_k=16, **kw)
     grads = jax.jit(jax.grad(lambda *a: jnp.sum(jnp.sin(f(*a))),
-                             argnums=(0, 1, 2)))(q, k, v)
-    return dict(q=q, k=k, v=v, kw=kw, out=np.asarray(out),
-                lse=np.asarray(lse).reshape(B, H, Sq),
-                grads=[np.asarray(g) for g in grads])
+                             argnums=(0, 1, 2)))(jq, jk, jv)
+    return dict(q=q, k=k, v=v, kw=kw, dtype=dtype, out=out,
+                lse=np.asarray(lse).reshape(B, H, Sq), grads=grads)
 
 
 def test_plain_lse_and_out_match_jax(case):
-    t = [torch.from_numpy(a) for a in (case["q"], case["k"], case["v"])]
+    dt = case["dtype"]
+    t = [_as(a, dt) for a in (case["q"], case["k"], case["v"])]
     out, lse = ref.flash_attention_lse(*t, **case["kw"])
-    _close(out, case["out"], 2e-5)
-    _close(lse, case["lse"], 2e-5)
+    _held(out, case["out"], dt, 2e-5)
+    _close(lse, case["lse"], 2e-5 if dt == "float32" else 1e-5)
     assert torch.equal(out, ref.flash_attention(*t, **case["kw"]))
 
 
 def test_plain_backward_matches_jax_grad(case):
-    t = [torch.from_numpy(a) for a in (case["q"], case["k"], case["v"])]
+    dt = case["dtype"]
+    t = [_as(a, dt) for a in (case["q"], case["k"], case["v"])]
     out, lse = ref.flash_attention_lse(*t, **case["kw"])
     got = ref.flash_attention_bwd(*t, out, lse, torch.cos(out),
                                   **case["kw"])
-    for g, want in zip(got, case["grads"]):
-        _close(g, want)
+    for g, x, want in zip(got, t, case["grads"]):
+        assert g.dtype == x.dtype
+        _held(g, want, dt)
 
 
 def test_function_cpu_path_matches_jax_grad_and_serving_bits(case):
-    t = [torch.from_numpy(a).requires_grad_(True)
+    dt = case["dtype"]
+    t = [_as(a, dt).requires_grad_(True)
          for a in (case["q"], case["k"], case["v"])]
     out = ops.flash_attention(*t, **case["kw"])
     assert out.grad_fn is not None
     torch.sin(out).sum().backward()
     for x, want in zip(t, case["grads"]):
-        _close(x.grad, want)
+        _held(x.grad, want, dt)
     with torch.no_grad():
         served = ops.flash_attention(*t, **case["kw"])
     assert served.grad_fn is None
@@ -134,26 +171,33 @@ def _rms_inputs(seed, shape):
             rng.standard_normal(shape).astype(np.float32))
 
 
-def _jax_rms_grads(x, s, g):
+def _jax_rms_grads(x, s, g, dtype="float32"):
+    """JAX's gradients of sum(rmsnorm_fwd(x, s) * g), the three in
+    ``dtype`` (float32 numpy, or bfloat16 jax arrays)."""
+    gj = _jnp(g, dtype)
+
     def f(x, s):
-        return jnp.sum(jlayers.rmsnorm_fwd({"scale": s}, x, EPS) * g)
-    return [np.asarray(a) for a in jax.grad(f, argnums=(0, 1))(x, s)]
+        return jnp.sum(jlayers.rmsnorm_fwd({"scale": s}, x, EPS) * gj)
+    grads = jax.grad(f, argnums=(0, 1))(_jnp(x, dtype), _jnp(s, dtype))
+    return [np.asarray(a) if dtype == "float32" else a for a in grads]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(37, 128), (2, 9, 1024), (3, 5, 4, 512)])
-def test_rmsnorm_grads_match_jax(shape):
+def test_rmsnorm_grads_match_jax(shape, dtype):
     x, s, g = _rms_inputs(1, shape)
-    want = _jax_rms_grads(x, s, g)
-    for got in (ref.rmsnorm_bwd(torch.from_numpy(x), torch.from_numpy(s),
-                                torch.from_numpy(g), EPS),):
-        _close(got[0], want[0])
-        _close(got[1], want[1])
-    tx = torch.from_numpy(x).requires_grad_(True)
-    ts = torch.from_numpy(s).requires_grad_(True)
+    want = _jax_rms_grads(x, s, g, dtype)
+    tx, ts, tg = (_as(a, dtype) for a in (x, s, g))
+    got = ref.rmsnorm_bwd(tx, ts, tg, EPS)
+    assert got[0].dtype == got[1].dtype == tx.dtype
+    _held(got[0], want[0], dtype)
+    _held(got[1], want[1], dtype)
+    tx.requires_grad_(True)
+    ts.requires_grad_(True)
     y = ops.rmsnorm(tx, ts, EPS)
-    (y * torch.from_numpy(g)).sum().backward()
-    _close(tx.grad, want[0])
-    _close(ts.grad, want[1])
+    (y * tg).sum().backward()
+    _held(tx.grad, want[0], dtype)
+    _held(ts.grad, want[1], dtype)
     with torch.no_grad():
         assert torch.equal(ops.rmsnorm(tx, ts, EPS), y.detach())
 
@@ -238,9 +282,19 @@ def test_flash_wrappers_pass_lse_and_count_one_backward_launch(no_card):
     assert ext.calls[-1][1][4] == 0                  # serving: no lse
     out, lse = fa.flash_attention(q, k, v, causal=False, return_lse=True)
     assert lse.shape == (B, H, Sq) and ext.calls[-1][1][4] == lse.data_ptr()
-    with pytest.raises(TypeError, match="backward"):
-        fa.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
-                           return_lse=True)
+    # the bf16 body writes an lse too, and its backward takes bf16
+    bq, bk, bv = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    bout, blse = fa.flash_attention(bq, bk, bv, causal=False,
+                                    return_lse=True)
+    assert blse.dtype == torch.float32 and blse.shape == (B, H, Sq)
+    assert ext.calls[-1][1][4] == blse.data_ptr() and ext.calls[-1][1][16]
+    grads = fa.flash_attention_bwd(bq, bk, bv, bout, blse, bout,
+                                   causal=False)
+    assert ext.calls[-1][0] == "flash_attention_bwd"
+    assert ext.calls[-1][1][21] is True               # the bf16 body
+    assert [g.dtype for g in grads] == [torch.bfloat16] * 3
+    with pytest.raises(TypeError, match="lse"):
+        fa.flash_attention_bwd(bq, bk, bv, bout, blse.bfloat16(), bout)
     before = ops.launch_counts()["flash_attention_bwd"]
     dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, out, causal=False,
                                         window=0, softcap=0.0)
@@ -250,11 +304,15 @@ def test_flash_wrappers_pass_lse_and_count_one_backward_launch(no_card):
                                                     dq, dk, dv))
     assert args[10:17] == (B, Sq, Skv, H, Hkv, K, Kv)
     assert args[17] is False and args[19] == pytest.approx(K ** -0.5)
+    assert args[21] is False                          # the float32 body
     assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
     assert ops.launch_counts()["flash_attention_bwd"] == before + 1
+    big = torch.zeros(1, 8, 2, 256)
     with pytest.raises(ValueError, match="shared memory"):
-        big = torch.zeros(1, 8, 2, 256)
         fa.flash_attention_bwd(big, big, big, big, torch.zeros(1, 2, 8), big)
+    # bf16 tiles are half as wide: the same heads fit
+    fa.flash_attention_bwd(*(big.bfloat16(),) * 4, torch.zeros(1, 2, 8),
+                           big.bfloat16())
 
 
 class _AtenOps(TorchDispatchMode):
@@ -329,5 +387,16 @@ def test_rmsnorm_bwd_wrappers_pass_segments_and_count_one_launch(no_card):
     _, args = _bwd_call(ext, rn.rmsnorm_bwd, off, s, g, EPS)
     assert args[4:8] == (6, 512, *rn.bwd_partition(6, 512))
     assert args[18:21] == (*rn.layout(512, 4), False)
-    with pytest.raises(TypeError, match="float32 only"):
-        rn.rmsnorm_bwd(x.bfloat16(), s.bfloat16(), g.bfloat16())
+    assert args[24:26] == (False, False)          # float32 rows and scale
+    # bf16 rows: the forward's bf16 layout and flags, dx in bf16 and
+    # dscale in the scale's dtype, the same partition
+    for sd in (torch.bfloat16, torch.float32):
+        (bdx, bds), args = _bwd_call(ext, rn.rmsnorm_bwd, x.bfloat16(),
+                                     s.to(sd), g.bfloat16(), EPS)
+        assert args[4:8] == (6, 512, *rn.bwd_partition(6, 512))
+        assert args[18:21] == (*rn.layout(512, 2), True)
+        assert args[24:26] == (True, sd == torch.bfloat16)
+        assert bdx.dtype == torch.bfloat16 and bds.dtype == sd
+    # a pair takes one dtype and scale dtype
+    with pytest.raises(ValueError, match="pair"):
+        rn.rmsnorm_pair_bwd(q, sq, q, k.bfloat16(), sk, k.bfloat16(), EPS)

@@ -2685,3 +2685,220 @@ def test_reduced_train_step_card_matches_cpu(cuda, name):
     assert (n["flash_attention"] > 0) == (name != "mamba2-2.7b-reduced")
     assert n["ssd_scan"] == n["ssd_scan_bwd"] == kinds.count("ssm")
     assert n["rmsnorm"] == n["rmsnorm_bwd"]
+
+
+# ---------------------------------------------------------------------------
+# training in bfloat16: the backward kernels' bf16 bodies, the bf16
+# forward's lse and a reduced bf16 train step
+# ---------------------------------------------------------------------------
+BF16_BWD_TOL = 2e-2     # of max|plain|: bf16 outputs, float32 sums
+
+
+def _assert_bf16_close(got, want):
+    assert got.dtype == want.dtype
+    tol = BF16_BWD_TOL * max(float(want.float().abs().max()), 1e-30)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def _bf16_flash_both_ways(q, k, v, dout, **kw):
+    """The bf16 forward (out with and without its lse: the same bits; the
+    lse against the plain one on rows that see a key, -inf on a row that
+    sees none, where the plain version's masked max gives -1e30) and
+    backward against their plain versions on the kernel's own out and
+    lse, two calls bit for bit; returns the kernels' (out, lse, dq, dk,
+    dv)."""
+    from repro_torch.kernels import flash_attention as fa
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, fa.flash_attention(q, k, v, **kw))
+    ro, rl = ref.flash_attention_lse(q, k, v, **kw)
+    _assert_bf16_close(out, ro)
+    seen = rl > -1e29
+    _assert_bwd_close(lse[seen], rl[seen])
+    assert bool((lse[~seen] == float("-inf")).all())
+    before = ops.launch_counts()["flash_attention_bwd"]
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert ops.launch_counts()["flash_attention_bwd"] == before + 1
+    for g, w in zip(grads, ref.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                   **kw)):
+        _assert_bf16_close(g, w)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    return (out, lse, *grads)
+
+
+# chip_smoke.py's phase-2 shapes of the backward (qwen3-0.6b's training
+# batch, gemma3's local window, MLA's K 192 / Kv 128, whisper's encoder, a
+# ragged softcapped tail), zamba2's K = Kv = 112 and the widest tiles
+@pytest.mark.parametrize("B,S,H,Hkv,K,Kv,causal,window,softcap", [
+    (8, 512, 16, 8, 128, 128, True, 0, 0.0),
+    (1, 1300, 32, 16, 128, 128, True, 1024, 0.0),
+    (1, 512, 16, 16, 192, 128, True, 0, 0.0),
+    (1, 1500, 20, 20, 64, 64, False, 0, 0.0),
+    (2, 40, 16, 8, 128, 128, True, 0, 5.0),
+    (1, 200, 32, 32, 112, 112, True, 0, 0.0),
+    (1, 130, 4, 2, 256, 256, True, 40, 0.0),
+])
+def test_bf16_flash_backward_kernel_matches_plain(cuda, B, S, H, Hkv, K, Kv,
+                                                  causal, window, softcap):
+    bf = torch.bfloat16
+    q = _randn(cuda, B, S, H, K, dtype=bf)
+    k = _randn(cuda, B, S, Hkv, K, dtype=bf)
+    v = _randn(cuda, B, S, Hkv, Kv, dtype=bf)
+    dout = _randn(cuda, B, S, H, Kv, dtype=bf)
+    _bf16_flash_both_ways(q, k, v, dout, causal=causal, window=window,
+                          softcap=softcap)
+
+
+@pytest.mark.parametrize("Sq,Skv", [(63, 63), (65, 65), (129, 129),
+                                    (63, 129), (129, 65), (1, 50)])
+@pytest.mark.parametrize("K,Kv", [(64, 64), (100, 112), (36, 16),
+                                  (72, 32)])
+def test_bf16_flash_bodies_at_their_tile_edges(cuda, Sq, Skv, K, Kv):
+    """The bf16 forward's lse and the backward around the 64-row and
+    64-key tile edges, queries right-aligned against longer and shorter
+    key runs, K not a multiple of 16 (padded columns) and Kv padded to
+    the tiles' width."""
+    bf = torch.bfloat16
+    q = _randn(cuda, 1, Sq, 4, K, dtype=bf)
+    k = _randn(cuda, 1, Skv, 2, K, dtype=bf)
+    v = _randn(cuda, 1, Skv, 2, Kv, dtype=bf)
+    dout = _randn(cuda, 1, Sq, 4, Kv, dtype=bf)
+    _bf16_flash_both_ways(q, k, v, dout)
+
+
+@pytest.mark.parametrize("K", [128, 72, 5])
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, 0, 0.0), (False, 0, 0.0), (True, 33, 0.0), (True, 0, 30.0)])
+def test_bf16_flash_bodies_on_rows_off_16_bytes(cuda, K, causal, window,
+                                                softcap):
+    """bf16 rows that do not start on 16 bytes take the element-by-element
+    staging path, and give the bits of the 16-byte (cp.async) path."""
+    bf = torch.bfloat16
+    q = _randn(cuda, 2, 90, 4, K, dtype=bf)
+    k = _randn(cuda, 2, 90, 2, K, dtype=bf)
+    v = _randn(cuda, 2, 90, 2, 64, dtype=bf)
+    dout = _randn(cuda, 2, 90, 4, 64, dtype=bf)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    aligned = _bf16_flash_both_ways(q, k, v, dout, **kw)
+    off = _bf16_flash_both_ways(*(_off_16_bytes(t) for t in (q, k, v, dout)),
+                                **kw)
+    assert all(torch.equal(a, b) for a, b in zip(aligned, off))
+
+
+RMS_BF16_PAIRS = ((torch.bfloat16, torch.bfloat16),
+                  (torch.bfloat16, torch.float32),
+                  (torch.float32, torch.bfloat16))
+
+
+def _rms_case_of(gen, rows, D, dtypes, stride=0):
+    x, s, g = _rms_bwd_case(gen, rows, D, stride)
+    return x.to(dtypes[0]), s.to(dtypes[1]), g.to(dtypes[0])
+
+
+@pytest.mark.parametrize("dtypes", RMS_BF16_PAIRS, ids=str)
+@pytest.mark.parametrize("D", [1024, 128, 512, 2048, 5376, 3584, 6144, 32])
+@pytest.mark.parametrize("rows", [1, 37, 4099])
+def test_bf16_rmsnorm_bwd_at_every_training_width(cuda, dtypes, D, rows):
+    """dx in x's dtype and dscale in the scale's against the plain
+    version; one counted launch a call; two calls give the same bits."""
+    from repro_torch.kernels import rmsnorm as rn
+    x, s, g = _rms_case_of(cuda, rows, D, dtypes)
+    before = ops.launch_counts()["rmsnorm_bwd"]
+    dx, ds = rn.rmsnorm_bwd(x, s, g)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rmsnorm_bwd"] == before + 1
+    rx, rs = ref.rmsnorm_bwd(x, s, g)
+    _assert_bf16_close(dx, rx)
+    _assert_bf16_close(ds, rs)
+    again = rn.rmsnorm_bwd(x, s, g)
+    assert torch.equal(dx, again[0]) and torch.equal(ds, again[1])
+
+
+@pytest.mark.parametrize("dtypes", RMS_BF16_PAIRS, ids=str)
+@pytest.mark.parametrize("D", [1024, 512, 1000, 5, 20000, 40000])
+def test_bf16_rmsnorm_bwd_off_16_bytes_gives_the_aligned_bits(cuda, dtypes,
+                                                              D):
+    """bf16 rows one element off 16 bytes, a row stride of D + 1 and a
+    scale off 16 bytes take the one-element path with the 16-byte path's
+    bits; D = 1000 and 5 (8 does not divide them), 20000 and 40000
+    (past 8 vectors a lane of bf16 or of float32: the looping body)
+    against the plain version."""
+    from repro_torch.kernels import rmsnorm as rn
+    x, s, g = _rms_case_of(cuda, 37, D, dtypes)
+    dx, ds = rn.rmsnorm_bwd(x, s, g)
+    rx, rs = ref.rmsnorm_bwd(x, s, g)
+    _assert_bf16_close(dx, rx)
+    _assert_bf16_close(ds, rs)
+    off_s = _copy_at(s[None], offset=1)[0]
+    for args in ((_copy_at(x, offset=1), s, _copy_at(g, offset=1)),
+                 (_copy_at(x, pad=1), s, g), (x, off_s, g)):
+        got = rn.rmsnorm_bwd(*args)
+        assert torch.equal(got[0], dx) and torch.equal(got[1], ds)
+
+
+@pytest.mark.parametrize("dtypes", RMS_BF16_PAIRS, ids=str)
+@pytest.mark.parametrize("D,stride", [(128, 0), (1024, 0), (512, 576)])
+def test_bf16_rmsnorm_pair_bwd_equals_each_solo_launch(cuda, dtypes, D,
+                                                       stride):
+    """A bf16 pair's dx and dscale equal each tensor's own launch bit for
+    bit, in either order."""
+    from repro_torch.kernels import rmsnorm as rn
+    x, sx, gx = _rms_case_of(cuda, 4099, D, dtypes, stride)
+    y, sy, gy = _rms_case_of(cuda, 37, D, dtypes)
+    solo_x, solo_y = rn.rmsnorm_bwd(x, sx, gx), rn.rmsnorm_bwd(y, sy, gy)
+    a, b = rn.rmsnorm_pair_bwd(x, sx, gx, y, sy, gy)
+    c, d = rn.rmsnorm_pair_bwd(y, sy, gy, x, sx, gx)
+    for got, want in ((a, solo_x), (b, solo_y), (c, solo_y), (d, solo_x)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("name", ["qwen3-0.6b-reduced",
+                                  "gemma3-27b-reduced",
+                                  "whisper-large-v3-reduced",
+                                  "internvl2-26b-reduced"])
+def test_reduced_bf16_train_step_card_matches_cpu(cuda, name):
+    """One bf16 step's loss (within 1e-3 relative) and gradients (each
+    leaf within 5e-2 of max|CPU leaf|) on the card against the CPU from
+    the same bf16 weights, and every attention and norm a kernel launch
+    forward and backward. Not the MoE family: its top-k routing with
+    capacity drops makes its bf16 gradients ill-conditioned (on the CPU
+    alone, nudging 2 % of reduced deepseek's bf16 weights by one ulp moves
+    its router's gradient by 8.8e-2 of max|leaf| at this batch), so a
+    card-vs-CPU gate there reads routing flips, not the kernels; reduced
+    deepseek is held in float32 by test_reduced_train_step_card_matches_cpu
+    and in bf16 by chip_smoke.py's 18g at its own batch."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import map_tree, unique_leaves
+    cfg = get_config(name)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 64))}
+    if cfg.arch_type == "audio":
+        batch["audio_frames"] = rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.n_vision_tokens:
+        batch["vision_embeds"] = rng.standard_normal(
+            (2, cfg.n_vision_tokens, cfg.vision_embed_dim)).astype(
+                np.float32)
+    cpu_params = Model(cfg, device="cpu").init(seed=0, dtype=torch.bfloat16)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = Model(cfg, device=dev)
+        params = map_tree(lambda t: t.to(dev).requires_grad_(True),
+                          cpu_params)
+        leaves = unique_leaves(params)
+        ops.reset_launch_counts()
+        loss, _ = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        out[dev] = (float(loss), [g.cpu() for g in grads],
+                    ops.launch_counts())
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-3)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert a.dtype == b.dtype
+        assert float((a.float() - b.float()).abs().max()) <= 5e-2 * max(
+            float(b.float().abs().max()), 1e-30)
+    n = out["cuda"][2]
+    assert n["flash_attention"] == n["flash_attention_bwd"] > 0
+    assert n["rmsnorm"] == n["rmsnorm_bwd"]

@@ -402,10 +402,11 @@ def test_train_launcher_runs_on_the_cpu(tmp_path, capsys):
 
 def test_card_refuses_what_it_cannot_train():
     """On the card, make_train_step accepts the SSM and hybrid families in
-    float32 (their scan trains through ssd_scan_bwd), refuses a state
-    wider than that kernel takes and bfloat16 parameters (float32
-    backward kernels only), naming what is missing; the CPU trains
-    them."""
+    float32 (their scan trains through ssd_scan_bwd) and refuses them in
+    bfloat16 (ssd_scan_bwd is float32 only) and a state wider than that
+    kernel takes, naming the kernel; it accepts bfloat16 parameters of
+    the attention families (flash_attention_bwd and rmsnorm_bwd take
+    bfloat16). The CPU trains them all."""
     for name in ("mamba2-2.7b-reduced", "zamba2-7b-reduced"):
         cfg = ArchConfig(**dataclasses.asdict(jax_config(name)))
         model = Model(cfg, device="cpu")
@@ -414,18 +415,27 @@ def test_card_refuses_what_it_cannot_train():
         loop.make_train_step(model, loop.TrainConfig(), params)
         model.device = torch.device("cuda", 0)
         loop.make_train_step(model, loop.TrainConfig(), params)
-        with pytest.raises(NotImplementedError, match="bfloat16"):
+        with pytest.raises(NotImplementedError,
+                           match="bfloat16.*ssd_scan_bwd"):
             loop.make_train_step(model, loop.TrainConfig(), bf16)
         wide = Model(dataclasses.replace(cfg, ssm_state=256), device="cpu")
         wide.device = torch.device("cuda", 0)
         with pytest.raises(NotImplementedError, match="ssd_scan_bwd"):
             loop.make_train_step(wide, loop.TrainConfig())
-    cfg = ArchConfig(**dataclasses.asdict(jax_config("qwen3-0.6b-reduced")))
-    model = Model(cfg, device="cpu")
-    params = model.init(seed=0, dtype=torch.bfloat16)
-    step = loop.make_train_step(model, loop.TrainConfig(), params)
-    step(params, opt.init_opt_state(params),
-         {"tokens": np.zeros((2, 8), np.int32)})
-    model.device = torch.device("cuda", 0)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
+    for name in ("qwen3-0.6b-reduced", "gemma3-27b-reduced"):
+        cfg = ArchConfig(**dataclasses.asdict(jax_config(name)))
+        model = Model(cfg, device="cpu")
+        params = model.init(seed=0, dtype=torch.bfloat16)
+        step = loop.make_train_step(model, loop.TrainConfig(), params)
+        step(params, opt.init_opt_state(params),
+             {"tokens": np.zeros((2, 8), np.int32)})
+        model.device = torch.device("cuda", 0)
         loop.make_train_step(model, loop.TrainConfig(), params)
+    # heads whose backward tiles do not fit are refused before any step:
+    # K = Kv = 256 in float32 (bfloat16's half-width tiles fit)
+    wide = Model(dataclasses.replace(cfg, head_dim=256), device="cpu")
+    wide.device = torch.device("cuda", 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        loop.make_train_step(wide, loop.TrainConfig())
+    loop.make_train_step(wide, loop.TrainConfig(),
+                         {"w": torch.zeros(1, dtype=torch.bfloat16)})
