@@ -2210,21 +2210,38 @@ def sdpa_forward(q, k, v, causal, window, softcap):
 
 def sdpa_backward(q, k, v, dout, causal, window, softcap):
     """One ``scaled_dot_product_attention`` backward through autograd on
-    the same inputs (the forward run once before timing), or None with
+    the same inputs (the forward run once before timing, on a stream of
+    its own, where the backward then runs and is captured), or None with
     the reason where sdpa cannot compute the same function (a softcap).
-    A yardstick only: the port never calls sdpa."""
+    A yardstick only: the port never calls sdpa. Returns (call, note,
+    stream)."""
     call, leaves = _sdpa_call(q, k, v, causal, window, softcap, True)
     if call is None:
-        return None, "sdpa has no softcap"
+        return None, "sdpa has no softcap", None
     dt = dout.transpose(1, 2).contiguous()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
     try:
-        out = call()
+        with torch.cuda.stream(stream):
+            out = call()
         fn = lambda: torch.autograd.grad(out, leaves, dt,  # noqa: E731
                                          retain_graph=True)
         fn()
     except RuntimeError as e:
-        return None, f"sdpa refused: {str(e).splitlines()[0][:120]}"
-    return fn, "sdpa backward (autograd, forward excluded)"
+        return None, f"sdpa refused: {str(e).splitlines()[0][:120]}", None
+    return fn, "sdpa backward (autograd, forward excluded)", stream
+
+
+def library_graph_ms(fn, stream, reps=10):
+    """``time_graph_ms`` of a library yardstick captured on ``stream``, or
+    None with the reason where the capture fails."""
+    if fn is None:
+        return None, None
+    try:
+        return time_graph_ms(fn, reps=reps, stream=stream), None
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return None, f"capture refused: {str(e).splitlines()[0][:120]}"
 
 
 def rms_norm_backward(xs, scales, grads):
@@ -2345,14 +2362,17 @@ def backward_checks(gen, dtype=None) -> dict:
 
         def plain():
             return ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-        lib, lib_note = sdpa_backward(q, k, v, dout, **kw)
+        lib, lib_note, lib_stream = sdpa_backward(q, k, v, dout, **kw)
+        lib_graph, lib_graph_note = library_graph_ms(lib, lib_stream)
         row = {"max_abs_err": err, "ms": time_ms(kernel, reps=10),
                "graph_ms": time_graph_ms(kernel, reps=10),
                "plain_ms": time_ms(plain, reps=2),
                "bound_ms": bound, "bound_by": by,
                "bound_cuda_cores_ms": cores,
                "library_ms": None if lib is None else time_ms(lib, reps=10),
-               "library": lib_note,
+               "library_graph_ms": lib_graph,
+               "library": lib_note if lib_graph_note is None
+               else f"{lib_note}; {lib_graph_note}",
                "shape": f"B={B} S={S} H={H_} Hkv={Hkv} K={K_} Kv={Kv} "
                         f"causal={causal} window={window} softcap={cap} "
                         f"{tag}"}
@@ -2364,12 +2384,14 @@ def backward_checks(gen, dtype=None) -> dict:
     flash["shapes"] = rows
     flash["shape"] += (
         "; ms and library_ms launched one by one (CUDA events), graph_ms "
-        "replayed from a CUDA graph; bound 2 * visible pairs * (3K + 2Kv) "
+        "and library_graph_ms replayed from a CUDA graph (sdpa's backward "
+        "captured on its forward's stream); bound 2 * visible pairs * (3K + 2Kv) "
         "operations at the split-TF32 rate (3 x operations at 494.7 "
         "TFLOP/s), bound_cuda_cores_ms at 67 TFLOP/s f32"
         if dn == "float32" else
         "; ms and library_ms launched one by one (CUDA events), graph_ms "
-        "replayed from a CUDA graph; bound the larger of 2 * visible pairs "
+        "and library_graph_ms replayed from a CUDA graph (sdpa's backward "
+        "captured on its forward's stream); bound the larger of 2 * visible pairs "
         "* (3K + 2Kv) operations at 989 TFLOP/s and the bytes (q, k, v, "
         "out, dout, lse read, dq, dk, dv written) at 3.35 TB/s")
 

@@ -70,9 +70,15 @@ for the backward, replayed from a CUDA graph) at ``chip_smoke.py``'s
 FLASH_BWD shapes (the forward with its lse, as training runs it, and
 ``flash_attention_bwd``) and its float32 WHISPER_FLASH shapes (the
 forward), with each CUDA kernel's device ms a call by name
-(``torch.profiler``) and digests of the outputs on fixed inputs. Read
-against ``--src`` of a parent in turns, it compares two bodies of the
-same kernels on one card.
+(``torch.profiler``) and digests of the outputs on fixed inputs; then the
+bfloat16 ``flash_attention_bwd`` at the FLASH_BWD shapes the same way
+(device ms from a graph of 20 calls, device ms by CUDA kernel: the delta
+pass, the walk over key tiles, the dq pass), the scratch a call allocates
+beyond its outputs, digests of dq, dk and dv, and ``scaled_dot_product_attention``'s
+bf16 backward through autograd from a graph (captured on its forward's
+stream; none under a softcap). Read against ``--src`` of a parent in
+turns, it compares two bodies of the same kernels on one card; the float32
+digests are the control of a body neither side changed.
 
 ``--norm-bwd`` reads ``rmsnorm_bwd`` (float32) at ``chip_smoke.py``'s
 RMS_BWD_MAIN (qwen3-0.6b's block norm over a 4096-token batch) and its
@@ -664,8 +670,8 @@ def _step_by_kernel(arch: str, B: int, S: int, dtype=torch.float32,
 # --train-bf16's kernel groups, by the CUDA kernel's name
 TRAIN_GROUPS = (("gemm", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
                 ("attention", ("flash_attention", "dq_kernel", "dkdv_kernel",
-                               "dq_bf16_kernel", "dkdv_bf16_kernel",
-                               "delta_kernel")),
+                               "bwd_bf16_walk_kernel",
+                               "bwd_bf16_dq_pass_kernel", "delta_kernel")),
                 ("norms", ("rmsnorm_kernel", "rows_kernel", "wide_kernel",
                            "dscale_kernel")))
 
@@ -833,7 +839,44 @@ def profile_flash() -> dict:
               flush=True)
         del q, k, v, out, lse
         torch.cuda.empty_cache()
+    rows["bf16_backward"] = flash_bf16_backward(cs, fa)
     return {"flash": rows}
+
+
+def flash_bf16_backward(cs, fa) -> dict:
+    """The bfloat16 ``flash_attention_bwd`` at FLASH_BWD's shapes: graph ms,
+    ms by CUDA kernel, scratch bytes, digests of dq, dk and dv, and sdpa's
+    bf16 backward from a graph."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+    for name, B, S, H_, Hkv, K_, Kv, causal, window, cap in cs.FLASH_BWD:
+        q, k, v, dout = (torch.randn(*shape, generator=gen, device="cuda")
+                         .bfloat16() for shape in
+                         ((B, S, H_, K_), (B, S, Hkv, K_), (B, S, Hkv, Kv),
+                          (B, S, H_, Kv)))
+        kw = dict(causal=causal, window=window, softcap=cap)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+
+        def bwd():
+            return fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        grads = bwd()
+        lib, note, stream = cs.sdpa_backward(q, k, v, dout, **kw)
+        lib_ms, lib_note = cs.library_graph_ms(lib, stream, reps=20)
+        rows[name] = {
+            "shape": f"B={B} S={S} H={H_} Hkv={Hkv} K={K_} Kv={Kv} "
+                     f"causal={causal} window={window} softcap={cap} bf16",
+            "backward_ms": cs.time_graph_ms(bwd, reps=20),
+            "backward_kernel_ms": _by_kernel(bwd),
+            "backward_scratch_bytes": cs.ssd_call_footprint(bwd)[1],
+            "digests": {n: _digest(g) for n, g in
+                        zip(("dq", "dk", "dv"), grads)},
+            "sdpa_backward_graph_ms": lib_ms,
+            "sdpa": note if lib_note is None else f"{note}; {lib_note}"}
+        print("bf16 backward", name, {k_: v_ for k_, v_ in rows[name].items()
+                                      if k_.endswith("_ms")}, flush=True)
+        del q, k, v, dout, out, lse, grads, lib
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:

@@ -31,9 +31,11 @@ dq and dk/dv passes) are listed one by one too; it exits 1 unless every
 one of them has tensor-core instructions and none that the registry's
 head shapes reach (K / Kv 64 / 64, 112 / 112, 128 / 128 and 192 / 128:
 tiles 64 / 64, 128 / 128 and 192 / 128) spills. The bfloat16 backward's
-dq and dk/dv passes (flash_attention_bwd_bf16.cu, 12 tile pairs each)
-are listed one by one the same way; it exits 1 unless all 24 are there,
-each has tensor-core instructions and none the registry reaches spills.
+two wgmma kernels (flash_attention_bwd_bf16.cu: the walk over key tiles
+and the dq pass, 12 tile pairs each, with and without a softcap) are
+listed one by one the same way; it exits 1 unless all 48 are there, each
+has wgmma (HGMMA) instructions and none of the 12 the registry reaches
+spills.
 The RMSNorm backward's 62 instantiations (its rows pass at 7 layouts
 with 16-byte loads and one element at a time for each of the 4 pairs of
 row and scale dtypes, the looping body for each pair, the dscale pass
@@ -80,8 +82,9 @@ def ptxas_table(text: str) -> dict:
     return table
 
 
-def tensor_ops(library: pathlib.Path) -> dict:
-    """{mangled name: HMMA + HGMMA instructions} from cuobjdump -sass."""
+def tensor_ops(library: pathlib.Path, op: str = r"H(G)?MMA") -> dict:
+    """{mangled name: instructions matching ``op`` (HMMA + HGMMA by
+    default)} from cuobjdump -sass."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
                           text=True, check=True).stdout
@@ -91,7 +94,7 @@ def tensor_ops(library: pathlib.Path) -> dict:
         if m:
             name = m.group(1)
             counts[name] = 0
-        elif name and re.search(r"\bH(G)?MMA\b", line):
+        elif name and re.search(rf"\b{op}\b", line):
             counts[name] += 1
     return counts
 
@@ -209,22 +212,25 @@ def main() -> int:
     print(f"flash f32: {len(f32)} instantiations, {len(f32) - len(f32_bare)} "
           f"with tensor-core instructions, {len(reached)} the registry "
           f"reaches of which {len(f32_spill)} spill")
-    # the bf16 backward's passes: every tile pair, on the tensor cores;
-    # those the registry's heads reach may not spill
+    # the bf16 backward's wgmma kernels (flash_attention_bwd_bf16.cu): the
+    # walk over key tiles and the dq pass, at every tile pair and with and
+    # without a softcap, each on the tensor cores as wgmma (HGMMA); those
+    # the registry's heads reach may not spill
     bf16 = sorted((n for n in table if re.search(
-        r"dq_bf16_kernel<|dkdv_bf16_kernel<", names[n])),
+        r"bwd_bf16_(walk|dq_pass)_kernel<", names[n])),
         key=lambda n: names[n])
-    bf16_bare = [n for n in bf16 if not ops.get(n, 0)]
+    hgmma = tensor_ops(pathlib.Path(ext.__file__), "HGMMA")
+    bf16_bare = [n for n in bf16 if not hgmma.get(n, 0)]
     bf16_reached = [n for n in bf16 if re.search(
-        r"<(64, 64|128, 128|192, 128)\b", names[n])]
+        r"<(64, 64|128, 128|192, 128), (true|false)>", names[n])]
     bf16_spill = [n for n in bf16_reached if table[n][1] or table[n][2]]
     for n in bf16:
         regs, st, ld = table[n]
         print(f"flash bwd bf16: regs={regs} spill_stores={st} "
-              f"spill_loads={ld} tensor_core_instructions={ops.get(n, 0)} "
+              f"spill_loads={ld} wgmma_instructions={hgmma.get(n, 0)} "
               f"registry={'yes' if n in bf16_reached else 'no'} {names[n]}")
     print(f"flash bwd bf16: {len(bf16)} instantiations, "
-          f"{len(bf16) - len(bf16_bare)} with tensor-core instructions, "
+          f"{len(bf16) - len(bf16_bare)} with wgmma instructions, "
           f"{len(bf16_reached)} the registry reaches of which "
           f"{len(bf16_spill)} spill")
     # the norm backward: 14 rows passes (7 layouts, 16-byte and one
@@ -262,7 +268,7 @@ def main() -> int:
                  or int8_spill or not norm or norm_spill or len(new) != 12
                  or new_spill or len(new8) != 8 or new8_spill or not f32
                  or f32_bare or len(reached) < 9 or f32_spill
-                 or len(bf16) != 24 or bf16_bare or len(bf16_reached) != 6
+                 or len(bf16) != 48 or bf16_bare or len(bf16_reached) != 12
                  or bf16_spill
                  or len(nbwd) != 62 or nbwd_spill or len(ssd) != 8
                  or len(ssd_mma) != 5 or ssd_bare or ssd_spill) else 0

@@ -24,7 +24,7 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                void* delta, int B, int Sq, int Skv, int H,
                                int Hkv, int K, int Kv, int causal, int window,
                                float scale, float softcap, int is_bf16,
-                               void* stream);
+                               void* items, void* stream);
 int rmsnorm_bwd_launch(const void* x0, const void* scale0, const void* g0,
                        void* dx0, long long rows0, long long row_stride0,
                        long long per0, int blocks0, const void* x1,
@@ -104,11 +104,12 @@ int flash_attention_bwd(std::uintptr_t q, std::uintptr_t k, std::uintptr_t v,
                         std::uintptr_t delta, int B, int Sq, int Skv, int H,
                         int Hkv, int K, int Kv, bool causal, int window,
                         float scale, float softcap, bool is_bf16,
-                        std::uintptr_t stream) {
+                        std::uintptr_t items, std::uintptr_t stream) {
   return flash_attention_bwd_launch(
       ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), ptr(dout), ptr(dq),
       ptr(dk), ptr(dv), ptr(delta), B, Sq, Skv, H, Hkv, K, Kv,
-      causal ? 1 : 0, window, scale, softcap, is_bf16 ? 1 : 0, ptr(stream));
+      causal ? 1 : 0, window, scale, softcap, is_bf16 ? 1 : 0, ptr(items),
+      ptr(stream));
 }
 
 // rows1 = 0 and blocks1 = 0: one tensor; otherwise both in one call

@@ -466,31 +466,33 @@ int flash_attention_bwd_bf16_launch(const void* q, const void* k,
                                     const void* v, const void* out,
                                     const float* lse, const void* dout,
                                     void* dq, void* dk, void* dv,
-                                    float* delta, int B, int Sq, int Skv,
-                                    int H, int Hkv, int K, int Kv, int causal,
-                                    int window, float scale, float softcap,
-                                    cudaStream_t stream);
+                                    float* delta, int* items, int B, int Sq,
+                                    int Skv, int H, int Hkv, int K, int Kv,
+                                    int causal, int window, float scale,
+                                    float softcap, cudaStream_t stream);
 
 // Plain C++ entry point for the binding; returns the cudaError_t of the
 // launches (0 on success). The caller has checked shapes, types, layout and
 // that the tiles fit in shared memory (kernels/flash_attention.py,
 // bwd_smem_bytes), and allocated the outputs and the delta workspace
 // (B, H, Sq). q, k, v, out, dout, dq, dk and dv are float32, or bfloat16
-// with is_bf16; lse and delta are float32.
+// with is_bf16; lse and delta are float32. The bfloat16 body also takes
+// `items`, one int32 zeroed for the call (its walk's count of work items
+// taken); the float32 body ignores it.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* out, const void* lse,
                                const void* dout, void* dq, void* dk, void* dv,
                                void* delta, int B, int Sq, int Skv, int H,
                                int Hkv, int K, int Kv, int causal, int window,
                                float scale, float softcap, int is_bf16,
-                               void* stream) {
+                               void* items, void* stream) {
   if (B == 0 || H == 0) return cudaSuccess;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return flash_attention_bwd_bf16_launch(
         q, k, v, out, static_cast<const float*>(lse), dout, dq, dk, dv,
-        static_cast<float*>(delta), B, Sq, Skv, H, Hkv, K, Kv, causal, window,
-        scale, softcap, st);
+        static_cast<float*>(delta), static_cast<int*>(items), B, Sq, Skv, H,
+        Hkv, K, Kv, causal, window, scale, softcap, st);
   // whole 16-byte chunks by cp.async where every staged row starts on 16
   // bytes
   const int vec =

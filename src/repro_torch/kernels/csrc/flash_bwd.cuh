@@ -1,9 +1,9 @@
 // What the float32 and bfloat16 bodies of the attention gradient share
-// (flash_attention_bwd.cu, flash_attention_bwd_bf16.cu): the tile sizes,
-// the delta row pass, and p and ds from the recomputed scores on mma C
-// fragments (whose layout m16n8k16 and m16n8k8 share, mma.cuh). Each source
-// compiles its own copy (an unnamed namespace), so the two build in
-// parallel.
+// (flash_attention_bwd.cu, flash_attention_bwd_bf16.cu): the tile sizes and
+// the delta row pass; and the float32 body's p and ds from the recomputed
+// scores on mma C fragments (whose layout m16n8k16 and m16n8k8 share,
+// mma.cuh) with its rows' statistics. Each source compiles its own copy (an
+// unnamed namespace), so the two build in parallel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -116,44 +116,6 @@ __device__ __forceinline__ void row_stats(const float* lse, const float* delta,
     lse2[r] = row < Sq ? lse[base + row] * LOG2E : 0.f;
     dl[r] = row < Sq ? delta[base + row] : 0.f;
   }
-}
-
-// The KV tiles a query tile's rows can see, split by parity among NG warp
-// groups as the forward walks them: group grp takes `count` tiles from
-// t_first, NG apart. KV tiles sit on absolute 64-key boundaries. (The
-// bf16 body's; the float32 body keeps the same lines inline, where
-// ptxas allocates its registers without a spill.)
-struct KvTiles {
-  int t_first, count;
-};
-__device__ __forceinline__ KvTiles kv_tiles(int q0, int Sq, int Skv,
-                                            int causal, int window, int grp,
-                                            int NG) {
-  const int off = Skv - Sq;
-  const int last_row = min(q0 + BQ, Sq) - 1;
-  const int kv_end = causal ? min(Skv, last_row + off + 1) : Skv;
-  int kv_begin = window > 0 ? max(0, q0 + off - window + 1) : 0;
-  kv_begin = (kv_begin / BK) * BK;
-  const bool any = kv_end > kv_begin;
-  const int t_begin = kv_begin / BK, t_end = (kv_end + BK - 1) / BK;
-  const int t_first = t_begin + ((grp - t_begin % NG) + NG) % NG;
-  return {t_first,
-          any && t_first < t_end ? (t_end - t_first + NG - 1) / NG : 0};
-}
-
-// The query tiles whose rows can see some key of the tile at k0: [q_begin,
-// q_begin + n_q * BQ) for each of the G heads of a kv head
-struct QTiles {
-  int q_begin, n_q;
-};
-__device__ __forceinline__ QTiles q_tiles(int k0, int Sq, int Skv, int causal,
-                                          int window) {
-  const int off = Skv - Sq;
-  const int k_last = min(k0 + BK, Skv) - 1;
-  int q_begin = causal ? max(0, k0 - off) : 0;
-  q_begin = (q_begin / BQ) * BQ;
-  const int q_end = window > 0 ? min(Sq, k_last + window - off) : Sq;
-  return {q_begin, q_end > q_begin ? (q_end - q_begin + BQ - 1) / BQ : 0};
 }
 
 }  // namespace

@@ -22,21 +22,49 @@ MAX_HEAD_DIM = 256
 
 launches = LaunchCounter()
 bwd_launches = LaunchCounter()
-# the backward's tiles of 64 query rows and 64 keys in shared memory, K's
-# width rounded up to 64, 128, 192 or 256 and Kv's to 64, 128 or 256, rows
-# padded by 16 bytes (4 float32, csrc/flash_attention_bwd.cu; 8 bfloat16,
-# csrc/flash_attention_bwd_bf16.cu): the dq pass holds Q, dO and at least
-# one K and V tile, the dk/dv pass those and one 64 x 64 tile of P, then
-# dS, so it is the larger
+# The backward's tiles in shared memory. float32 (csrc/flash_attention_bwd.cu):
+# 64 query rows and 64 keys, K's width rounded up to 64, 128, 192 or 256 and
+# Kv's to 64, 128 or 256, rows padded by 16 bytes; the dq pass holds Q, dO
+# and at least one K and V tile, the dk/dv pass those and one 64 x 64 tile
+# of P, then dS, so it is the larger. bfloat16
+# (csrc/flash_attention_bwd_bf16.cu), the larger of its two kernels: the
+# walk over key tiles holds K and V of 64 keys, a ring of 3 stages of a
+# 64-row Q and dO tile and their rows' lse and delta and two pairs of P^T
+# and dS^T tiles (64 x 64 bf16), giving way to 2 stages, then one pair,
+# where the widest heads do not fit; the dq pass two 64-row Q and dO tiles
+# and their rows (one for the widest heads and for K = 192) and a ring of 4,
+# 3 or 2 K and V tiles; each 1152 bytes besides for the base's alignment
+# and the barriers
 BWD_TILE = 64
 MAX_SMEM = 232448
 
 
+def _bf16_bwd_smem(KP: int, KVP: int) -> int:
+    tail = 1024 + 128
+    kv = 2 * 64 * (KP + KVP)                  # K and V of 64 keys
+    q_do = 2 * BWD_TILE * (KP + KVP) + 2 * BWD_TILE * 4   # and the rows
+    pair = 2 * 2 * 64 * BWD_TILE              # a P^T and a dS^T tile
+
+    def walk(stages, pairs):
+        return kv + stages * q_do + pairs * pair + tail
+    stages = 3 if walk(3, 2) <= MAX_SMEM else 2
+    walk_bytes = walk(stages, 2 if walk(stages, 2) <= MAX_SMEM else 1)
+
+    def dq_pass(tiles, stages):
+        return tiles * q_do + stages * kv + tail
+    tiles = 2 if KP != 192 and dq_pass(2, 2) <= MAX_SMEM else 1
+    dq_bytes = next(dq_pass(tiles, n) for n in (4, 3, 2)
+                    if dq_pass(tiles, n) <= MAX_SMEM or n == 2)
+    return max(walk_bytes, dq_bytes)
+
+
 def bwd_smem_bytes(K: int, Kv: int, itemsize: int = 4) -> int:
-    """Shared memory a backward dk/dv block takes for elements of
-    ``itemsize`` bytes (4: float32, 2: bfloat16)."""
+    """Shared memory a backward block takes for elements of ``itemsize``
+    bytes (4: float32's dk/dv pass, 2: bfloat16's walk)."""
     KP = next(w for w in (64, 128, 192, 256) if K <= w)
     KVP = next(w for w in (64, 128, 256) if Kv <= w)
+    if itemsize == 2:
+        return _bf16_bwd_smem(KP, KVP)
     pad = 16 // itemsize
     return itemsize * (2 * BWD_TILE * (KP + pad + KVP + pad)
                        + BWD_TILE * (BWD_TILE + pad))
@@ -116,9 +144,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``dout`` (B, Sq, H, Kv): contiguous CUDA tensors of q's dtype (float32
     or bfloat16) but ``lse``, float32; the masks as the forward's. The
     gradients come back in q's dtype, summed in float32 and rounded once.
-    Three CUDA kernels a call (a row pass for ``delta``, dq over KV tiles,
-    dk and dv over query tiles with the G query heads of a kv head summed
-    in one block), counted as one launch."""
+    Three CUDA kernels a call, counted as one launch: a row pass for
+    ``delta``, then in float32 dq over KV tiles and dk and dv over query
+    tiles with the G query heads of a kv head summed in one block; in
+    bfloat16 a walk over key tiles for dk and dv and a pass over query
+    tiles for dq."""
     B, Sq, Skv, H, Hkv, K, Kv = _shapes(q, k, v, "flash_attention_bwd",
                                         DTYPES)
     if lse.device != q.device:
@@ -138,12 +168,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(v)
     if B * H and (Sq or Skv):
         delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        bf16 = q.dtype == torch.bfloat16
+        # the bf16 walk's count of work items taken: this call's own, so
+        # two calls on two streams never share it
+        items = (torch.zeros(1, dtype=torch.int32, device=q.device)
+                 if bf16 else None)
         err = extension().flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(), B, Sq, Skv, H, Hkv, K, Kv,
-            bool(causal), int(window), K ** -0.5, float(softcap),
-            q.dtype == torch.bfloat16,
+            bool(causal), int(window), K ** -0.5, float(softcap), bf16,
+            0 if items is None else items.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
         check_launch(err, "flash_attention_bwd")
         bwd_launches.add()

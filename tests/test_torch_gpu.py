@@ -2785,6 +2785,83 @@ def test_bf16_flash_bodies_on_rows_off_16_bytes(cuda, K, causal, window,
     assert all(torch.equal(a, b) for a, b in zip(aligned, off))
 
 
+def _bf16_bwd_case(gen, B, Sq, Skv, H, Hkv, K, Kv, **kw):
+    """bf16 inputs, the bf16 forward's out and lse, and a backward call."""
+    from repro_torch.kernels import flash_attention as fa
+    bf = torch.bfloat16
+    q = _randn(gen, B, Sq, H, K, dtype=bf)
+    k = _randn(gen, B, Skv, Hkv, K, dtype=bf)
+    v = _randn(gen, B, Skv, Hkv, Kv, dtype=bf)
+    dout = _randn(gen, B, Sq, H, Kv, dtype=bf)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+
+    def call():
+        return fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    return q, k, v, dout, call
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,causal,window", [
+    (1, 1024, 1024, 8, 2, True, 0),      # G = 4, 16 key tiles a kv head
+    (1, 1024, 1024, 16, 2, True, 0),     # G = 8
+    (1, 1024, 1024, 16, 2, True, 300),   # G = 8 under a window
+    (2, 100, 300, 8, 4, False, 0),       # not causal, Sq < Skv
+    (1, 70, 1000, 4, 1, False, 200),     # not causal, a window, Sq << Skv
+])
+def test_bf16_flash_backward_over_many_key_tiles(cuda, B, Sq, Skv, H, Hkv,
+                                                 causal, window):
+    """The bf16 body's walk over key tiles (dk, dv summed over the G heads'
+    query tiles) and its dq pass (dq summed over every key tile a query
+    tile sees, in order) at many key tiles a head and queries right-aligned
+    against more keys, against the plain version; two calls bit for bit."""
+    q, k, v, dout, call = _bf16_bwd_case(cuda, B, Sq, Skv, H, Hkv, 128, 128,
+                                         causal=causal, window=window)
+    _bf16_flash_both_ways(q, k, v, dout, causal=causal, window=window)
+    assert all(torch.equal(a, b) for a, b in zip(call(), call()))
+
+
+def test_bf16_flash_backward_on_two_streams_at_once(cuda):
+    """Two backward calls enqueued together on two streams (as two engines
+    sharing a card run them) give each its own call's bits alone: each call
+    has its own work counter."""
+    cases = [_bf16_bwd_case(cuda, 2, 512, 512, 16, 8, 128, 128),
+             _bf16_bwd_case(cuda, 1, 700, 700, 8, 2, 64, 64, window=256)]
+    solo = [case[-1]() for case in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in cases]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    together = []
+    for s, case in zip(streams, cases):
+        with torch.cuda.stream(s):
+            together.append(case[-1]())
+    torch.cuda.synchronize()
+    for got, want in zip(together, solo):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_bf16_flash_backward_replayed_from_a_graph(cuda):
+    """Two backward calls captured in one CUDA graph and replayed give the
+    eager calls' bits: the wrapper allocates each call's work counter, so
+    the second call in the graph does not start from the first's count."""
+    calls = [_bf16_bwd_case(cuda, 2, 256, 256, 16, 8, 128, 128)[-1],
+             _bf16_bwd_case(cuda, 1, 300, 300, 4, 4, 192, 128)[-1]]
+    eager = [c() for c in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in calls:
+            c()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [c() for c in calls]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 RMS_BF16_PAIRS = ((torch.bfloat16, torch.bfloat16),
                   (torch.bfloat16, torch.float32),
                   (torch.float32, torch.bfloat16))
